@@ -1,0 +1,40 @@
+"""Architecture configs of the port (``repro/configs/`` counterpart).
+
+Each arch lives in ``configs/<id>.py`` and registers itself here;
+``get_config(name)`` is the lookup used by the launcher (``--arch <id>``).
+Only the archs the port serves so far are registered; the others follow in
+``ROADMAP.md`` order.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.models.common import ModelConfig
+
+_ARCH_MODULES = ["qwen3_4b"]
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    key = name.replace("_", "-")
+    if key not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[key]
+
+
+def list_archs() -> List[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def _ensure_loaded() -> None:
+    for m in _ARCH_MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")

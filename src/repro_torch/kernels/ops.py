@@ -1,0 +1,46 @@
+"""Public kernel entry points, dispatched on the tensors' device.
+
+A CUDA tensor goes to the hand-written Hopper kernel, which either launches
+or raises; a CPU tensor goes to the kernel's plain version in
+``kernels/ref.py``.  There is no other route and no fallback: a kernel that
+fails to build or launch is an error, never a silent detour through the
+plain version.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .flash_attention import _validate_attn_shapes, flash_attention_cuda
+from .ref import flash_attention_ref, rmsnorm_ref
+from .rmsnorm import rmsnorm_cuda
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel route for device {x.device}")
+    return x.device.type == "cuda"
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: Optional[torch.Tensor] = None,
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B,S,H,dh); k/v (B,T,KV,dh) -> (B,S,H,dh).  See
+    :func:`~repro_torch.kernels.ref.flash_attention_ref` for the masks."""
+    if _on_cuda(q):
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, kv_len=kv_len)
+    _validate_attn_shapes(q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                          window)
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, kv_len=kv_len)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x (..., d), w (d,) -> RMS-normalised x, in x's dtype."""
+    if _on_cuda(x):
+        return rmsnorm_cuda(x, w, eps)
+    return rmsnorm_ref(x, w, eps)

@@ -1,0 +1,184 @@
+"""Grouped-query attention with RoPE and optional QK-norm / QKV-bias over a
+paged KV cache; the inner attention runs the flash-attention kernel
+(``kernels/ops.py``).
+
+The JAX package's pools are functional (``pool.at[...].set``).  Here the
+paged functions write K/V into the per-layer pools **in place**
+(``index_put_``) and return only the attention output.  Each pool has one
+row more than the page table hands out: row ``N = pool.shape[0] - 1`` is a
+sink that receives the writes the JAX package drops (``mode="drop"``:
+inactive lanes, padding positions, unassigned pages), so no write needs a
+host-side filter.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import flash_attention_ref
+
+from .common import ModelConfig
+from .layers import apply_rope, init_dense, rms_norm
+
+Pool = Dict[str, torch.Tensor]
+
+
+class Attention(nn.Module):
+    """wq (d, q_dim), wk/wv (d, kv_dim), wo (q_dim, d); optional biases and
+    per-head QK-norm weights (dh,)."""
+
+    def __init__(self, wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
+                 wo: torch.Tensor, *, bq: Optional[torch.Tensor] = None,
+                 bk: Optional[torch.Tensor] = None,
+                 bv: Optional[torch.Tensor] = None,
+                 q_norm: Optional[torch.Tensor] = None,
+                 k_norm: Optional[torch.Tensor] = None):
+        super().__init__()
+        for name, t in dict(wq=wq, wk=wk, wv=wv, wo=wo, bq=bq, bk=bk, bv=bv,
+                            q_norm=q_norm, k_norm=k_norm).items():
+            self.register_parameter(
+                name, None if t is None else nn.Parameter(t, requires_grad=False))
+
+
+def init_attention(cfg: ModelConfig, *, generator: torch.Generator,
+                   device: torch.device) -> Attention:
+    d, dt = cfg.d_model, cfg.dtype
+    kw = dict(generator=generator, device=device)
+    extra = {}
+    if cfg.qkv_bias:
+        extra.update(bq=torch.zeros(cfg.q_dim, dtype=dt, device=device),
+                     bk=torch.zeros(cfg.kv_dim, dtype=dt, device=device),
+                     bv=torch.zeros(cfg.kv_dim, dtype=dt, device=device))
+    if cfg.qk_norm:
+        extra.update(q_norm=torch.ones(cfg.dh, dtype=dt, device=device),
+                     k_norm=torch.ones(cfg.dh, dtype=dt, device=device))
+    return Attention(init_dense(d, cfg.q_dim, dt, **kw),
+                     init_dense(d, cfg.kv_dim, dt, **kw),
+                     init_dense(d, cfg.kv_dim, dt, **kw),
+                     init_dense(cfg.q_dim, d, dt, **kw), **extra)
+
+
+def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if p.bq is not None:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(B, S, cfg.n_heads, cfg.dh)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.dh)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool, window: Optional[int] = None,
+             q_offset: Union[int, torch.Tensor] = 0,
+             kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain grouped-query attention with the JAX ``sdpa_ref`` signature:
+    ``q_offset`` is the absolute position of q[0] (an int, or one per
+    lane), ``kv_len`` (B,) masks cache positions >= it.
+
+    Unlike the JAX function, a query row with no admissible key gives
+    zeros (the flash kernel's semantics), not a uniform average over V;
+    such rows occur only in padding and inactive lanes."""
+    B = q.shape[0]
+    off = torch.as_tensor(q_offset, device=q.device).expand(B)
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               q_offset=off, kv_len=kv_len)
+
+
+def _gather_lanes(pool: Pool, page_rows: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each lane's pages as a linear (B, P*psz, KV, dh) view; unassigned
+    rows gather page 0 and are masked by the caller's lengths."""
+    B, P = page_rows.shape
+    _, psz, KV, dh = pool["k"].shape
+    rows = page_rows.clamp(min=0)
+    return (pool["k"][rows].reshape(B, P * psz, KV, dh),
+            pool["v"][rows].reshape(B, P * psz, KV, dh))
+
+
+def attention_decode_paged(p: Attention, x: torch.Tensor, pool: Pool,
+                           page_rows: torch.Tensor, lengths: torch.Tensor,
+                           cfg: ModelConfig, *,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """One-token decode against a paged KV cache; writes the new token's
+    K/V into ``pool`` in place and returns the attention output (B,1,d).
+
+    x (B,1,d).  ``page_rows`` (B, P) int32 maps each lane's logical page to
+    a pool row (-1 = unassigned); ``lengths`` (B,) is each lane's context
+    length, the write position of the new token.  A negative length marks
+    an inactive lane: its write goes to the sink row."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"decode takes one token per lane, got S={S}")
+    N, psz = pool["k"].shape[0] - 1, pool["k"].shape[1]
+    P = page_rows.shape[1]
+    L = lengths.to(torch.int32)
+    q, k, v = _project_qkv(p, x, cfg, L.clamp(min=0).reshape(B, 1))
+    # the new token lands at (page_rows[lane, L // psz], L % psz)
+    pi = (L // psz).clamp(0, P - 1).long()
+    page = page_rows.gather(1, pi[:, None])[:, 0]
+    page = torch.where((page < 0) | (L < 0) | (L // psz >= P),
+                       N, page).long()
+    off = (L % psz).clamp(0, psz - 1).long()
+    pool["k"][page, off] = k[:, 0]
+    pool["v"][page, off] = v[:, 0]
+    gk, gv = _gather_lanes(pool, page_rows)
+    # query at position L sees keys 0..L (and the window): causal with
+    # q_offset = L; an inactive lane (L < 0) sees none and gives zeros
+    out = ops.flash_attention(q, gk, gv, causal=True, window=window,
+                              q_offset=L)
+    return out.reshape(B, 1, cfg.q_dim) @ p.wo
+
+
+def attention_prefill_paged(p: Attention, x: torch.Tensor, pool: Pool,
+                            page_rows: torch.Tensor, base: int,
+                            prompt_len: torch.Tensor, cfg: ModelConfig, *,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """Chunked-prefill attention that captures K/V into the page pools.
+
+    x (B,S,d): one prompt chunk covering absolute positions
+    [base, base + S) for every lane.  ``prompt_len`` (B,) clips per-lane
+    writes and masks shorter prompts; padding lanes use ``prompt_len = 0``.
+    Writes the chunk's K/V into ``pool`` in place *first*, then attends
+    over the gathered pool view, so earlier chunks of the same prompt are
+    visible."""
+    B, S, _ = x.shape
+    N, psz = pool["k"].shape[0] - 1, pool["k"].shape[1]
+    P = page_rows.shape[1]
+    dev = x.device
+    ap = base + torch.arange(S, dtype=torch.int32, device=dev)  # abs pos
+    q, k, v = _project_qkv(p, x, cfg, ap.expand(B, S))
+    page = page_rows[:, (ap // psz).clamp(0, P - 1).long()]     # (B,S)
+    in_prompt = ap[None, :] < prompt_len[:, None]
+    page = torch.where((page < 0) | ~in_prompt | (ap[None, :] // psz >= P),
+                       N, page).long()
+    off = (ap % psz).long().expand(B, S)
+    pool["k"][page, off] = k
+    pool["v"][page, off] = v
+    gk, gv = _gather_lanes(pool, page_rows)
+    q_offset = torch.full((B,), base, dtype=torch.int32, device=dev)
+    kv_len = prompt_len.clamp(max=base + S).to(torch.int32)
+    out = ops.flash_attention(q, gk, gv, causal=True, window=window,
+                              q_offset=q_offset, kv_len=kv_len)
+    return out.reshape(B, S, cfg.q_dim) @ p.wo
+
+
+def init_page_pool(cfg: ModelConfig, n_pages: int, page_size: int, *,
+                   device: torch.device) -> Pool:
+    """K/V page pool for one layer: (n_pages + 1, page_size, KV, dh) in the
+    model's dtype; the last row is the sink for dropped writes (see the
+    module docstring)."""
+    shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.dh)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}

@@ -1,0 +1,17 @@
+"""Token embeddings."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def init_embedding(vocab: int, d: int, dtype: torch.dtype = torch.bfloat16, *,
+                   generator: torch.Generator,
+                   device: torch.device) -> torch.Tensor:
+    w = torch.randn(vocab, d, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * 0.02).to(dtype)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, table)

@@ -1,0 +1,48 @@
+"""Primitive layers: initializers, RMSNorm, rotary embeddings, SwiGLU."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def init_dense(d_in: int, d_out: int, dtype: torch.dtype = torch.bfloat16, *,
+               generator: torch.Generator, device: torch.device,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """(d_in, d_out) weight, applied as ``x @ w`` (the JAX layout)."""
+    s = scale if scale is not None else d_in ** -0.5
+    w = torch.randn(d_in, d_out, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * s).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """Through the RMSNorm kernel on a CUDA tensor, its plain version on a
+    CPU tensor (``kernels/ops.py``)."""
+    return ops.rmsnorm(x, weight, eps)
+
+
+def rope_freqs(dh: int, theta: float, device: torch.device) -> torch.Tensor:
+    exps = torch.arange(0, dh, 2, dtype=torch.float32, device=device) / dh
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, dh); positions: (..., seq) int.  Split-halves
+    rotation in fp32, cast back to x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (dh/2,)
+    ang = positions[..., :, None].float() * freqs              # (..., seq, dh/2)
+    cos = torch.cos(ang)[..., :, None, :]                      # (..., seq, 1, dh/2)
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate.float()).to(gate.dtype) * up

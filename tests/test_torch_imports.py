@@ -1,0 +1,54 @@
+"""The port stands alone: ``repro_torch`` imports neither ``jax`` nor
+anything of ``repro``, loads ``triton`` only when a Triton kernel launches,
+and keeps the JAX package's source linter green."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import torch
+
+from repro.analysis.jax_lint import lint_paths
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+
+
+def test_import_loads_no_jax_triton_or_repro():
+    code = ("import sys, repro_torch, repro_torch.launch.serve, "
+            "repro_torch.serving, repro_torch.bridge; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} "
+            "& {'jax', 'jaxlib', 'triton', 'repro'}))")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def _imports(tree: ast.Module):
+    """(root module name, whether the import is at module level)."""
+    top = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module.split(".")[0], id(node) in top
+
+
+def test_no_port_file_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 15
+    for f in files:
+        for name, at_top in _imports(ast.parse(f.read_text())):
+            assert name not in ("jax", "jaxlib", "repro"), f"{f}: {name}"
+            assert not (name == "triton" and at_top), f"{f}: top-level triton"
+
+
+def test_port_lints_clean_under_the_jax_linter():
+    assert lint_paths([str(PORT)]) == []
