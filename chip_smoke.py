@@ -6,20 +6,34 @@
 Phases (any failure exits non-zero before the final line is printed):
 
 1. print the card's name and power limit (``nvidia-smi``), turn TF32 off,
-   build the kernels from the sources in this checkout (``nvcc`` for the
-   CUDA C++ flash attention, Triton's compiler for RMSNorm) and print the
+   build the kernels from the sources in this checkout (one ``nvcc`` per
+   CUDA C++ source, all started together: flash attention and the SSD
+   scan; Triton's compiler for RMSNorm forward and backward) and print the
    build seconds;
 2. hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, with the stated tolerances;
+   serving and training paths' shapes, with the stated tolerances (the
+   backward kernels against ``torch.autograd`` of the plain versions; the
+   fp32 SSD cases against the plain version in float64, beside the fp32
+   plain version's own distance from it);
 3. serve full-width qwen3-4b (random bf16 weights from seed 0) through the
    paged continuous-batching engine: 12 requests, prompts of 33-400
    tokens, 16-32 new tokens each; every request must complete and both
    kernels must have launched on this path;
 4. serve a reduced fp32 qwen3-4b on the card and on the CPU: the greedy
    tokens must be identical;
-5. time each kernel, its plain version and the PyTorch library call for
-   the same function at the serving shapes, with the least time the card
-   could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s).
+5. train full-width mamba2-370m (random bf16 weights from seed 0) through
+   ``repro_torch.launch.train`` for 6 steps of 8 x 2048 synthetic tokens:
+   finite losses, lower at the end, and the SSD scan and RMSNorm kernels,
+   forward and backward, launched on this path; then time and profile the
+   training step;
+6. train a reduced fp32 mamba2-370m for three steps on the card and on the
+   CPU: the losses must agree;
+7. time each kernel, its plain version and the PyTorch library call for
+   the same function at the paths' shapes (device time with the launches
+   queued behind a spin kernel, and the time per call of back-to-back
+   launches from Python),
+   with the least time the card could take (bytes over 3.35 TB/s or
+   operations over the peak rate of the inputs' type).
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the rest of
@@ -31,6 +45,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -42,6 +57,19 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, tensor / vector
 PAGE_SIZE, MAX_CONTEXT, DECODE_SLOTS = 16, 512, 8
 PREFILL_BATCH, PREFILL_CHUNK = 4, 128
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the training geometry of phase 5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
+# backward kernels and the SSD scan against torch.autograd of the plain
+# versions, relative to each reference's largest magnitude: fp32 sums of up
+# to chunk x state x head-dim products in another order; bf16 rounding of
+# inputs and outputs with fp32 inside.  The fp32 SSD cases are held against
+# the plain version in float64 (the fp32 plain version is itself off by up
+# to ~1e-4 in the gradients of dt and A, sums of differences of sums): the
+# kernel passes within 1e-4 of float64, or no further from it than twice
+# the fp32 plain version is
+REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# reduced fp32 training, card vs CPU: relative difference of each loss
+TRAIN_LOSS_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -71,6 +99,43 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10):
+    """Device time per call, without the host's launch path: the calls are
+    queued behind a spin kernel (``torch.cuda._sleep``) and timed by CUDA
+    events once the spin ends, so they run back to back.  A call that
+    launches more kernels than the stream's queue holds blocks the host
+    until the spin ends; then fewer calls are queued, and if even one
+    call does not fit, its time from back-to-back launches is returned.
+    Returns (ms, whether the calls ran queued)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0       # bounds one call's queueing
+    for n in sorted({iters, max(1, iters // 4), 1}, reverse=True):
+        spun, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        torch.cuda._sleep(int((2 * n * host_s + 1e-3) * 2e9))
+        spun.record()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued = not spun.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / n, True
+    return cuda_ms(fn, iters=iters, warmup=1), False
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
 # ---------------------------------------------------------------------------
 # phase 1: card, build
 # ---------------------------------------------------------------------------
@@ -78,7 +143,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def phase_build():
     import torch
     from repro_torch.kernels import _build
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -87,22 +152,30 @@ def phase_build():
     log(smi.stdout.strip().splitlines()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    def nvcc(name):
+        t0 = time.perf_counter()
+        return name, _build.build(name), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    lib = _build.build("flash_attention")
-    nvcc_s = time.perf_counter() - t0
-    log(f"[build] nvcc flash_attention.cu: {nvcc_s:.1f} s -> "
-        f"{lib.relative_to(ROOT)}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
+        built = list(pool.map(nvcc, ["flash_attention", "ssd_scan"]))
+    log(f"[build] nvcc, in parallel: {time.perf_counter() - t0:.1f} s")
+    for name, lib, secs in built:
+        log(f"[build] nvcc {name}.cu: {secs:.1f} s -> "
+            f"{lib.relative_to(ROOT)}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
     t0 = time.perf_counter()
     for dt in (torch.bfloat16, torch.float32):
-        for d in (2560, 128):
-            rmsnorm_cuda(torch.ones(4, d, device="cuda", dtype=dt),
-                         torch.ones(d, device="cuda", dtype=dt))
+        for d in (2560, 2048, 1024, 128):
+            x = torch.ones(4, d, device="cuda", dtype=dt)
+            w = torch.ones(d, device="cuda", dtype=dt)
+            rmsnorm_cuda(x, w)
+            rmsnorm_bwd_cuda(x, x, w)
     torch.cuda.synchronize()
-    log(f"[build] triton rmsnorm (4 specialisations): "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[build] triton rmsnorm forward and backward (16 "
+        f"specialisations): {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +229,13 @@ def phase_kernels():
                 check(bool((out[:, 64:] == 0).all()),
                       "rows with no admissible key are not exact zeros")
             errs["flash_attention"] = max(errs["flash_attention"], err)
+        # serving: prefill and decode rows at d_model and head_dim;
+        # training: ln1 / final_norm at d_model, the gated norm at d_inner
         for shape in [(PREFILL_BATCH * PREFILL_CHUNK, 2560),
                       (PREFILL_BATCH * PREFILL_CHUNK * 32, 128),
-                      (DECODE_SLOTS, 2560), (DECODE_SLOTS * 32, 128)]:
+                      (DECODE_SLOTS, 2560), (DECODE_SLOTS * 32, 128),
+                      (TRAIN_BATCH * TRAIN_SEQ, 1024),
+                      (TRAIN_BATCH * TRAIN_SEQ, 2048)]:
             x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dt)
             w = torch.randn(shape[-1], generator=g, device="cuda").to(dt)
             out = rmsnorm_cuda(x, w, 1e-6).float()
@@ -176,6 +253,123 @@ def phase_kernels():
             check(ok, f"rmsnorm {shape} {dtype}: {err}")
             errs["rmsnorm"] = max(errs["rmsnorm"], err)
     return errs
+
+
+def ssd_inputs(B, S, H, P, N, dtype, seed=0):
+    """SSD scan inputs as ``models/ssm.py`` makes them: leaves that need
+    gradients, and a function of the leaves giving what the scan takes (dt
+    = softplus, A = -exp(A_log), Bm/Cm one (B,S,1,N) group for all heads)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(shape, dt=dtype, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dt).requires_grad_()
+
+    x, dt_raw = rand((B, S, H, P)), rand((B, S, H), torch.float32)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device="cuda"))
+    a_log.requires_grad_()
+    bg, cg = rand((B, S, 1, N), scale=0.5), rand((B, S, 1, N), scale=0.5)
+    leaves = (x, dt_raw, a_log, bg, cg)
+
+    def views(x, dt_raw, a_log, bg, cg):
+        return x, F.softplus(dt_raw), -torch.exp(a_log), bg, cg
+
+    return leaves, views
+
+
+def ssd_cases():
+    """(name, B, S, H, P, N, chunk, dtypes): the reduced and full widths,
+    ragged S, S below a chunk, three heads of A from 1 to 16, and one layer
+    at the training shape."""
+    return [
+        ("reduced width", 2, 64, 8, 64, 16, 16, ("float32", "bfloat16")),
+        ("ragged S=333", 2, 333, 8, 64, 128, 64, ("float32", "bfloat16")),
+        ("S=40 < chunk", 1, 40, 4, 64, 128, 64, ("float32", "bfloat16")),
+        ("S=100 H=3", 1, 100, 3, 64, 128, 64, ("float32",)),
+        ("training layer", TRAIN_BATCH, TRAIN_SEQ, 32, 64, 128, 64,
+         ("bfloat16",)),
+    ]
+
+
+def phase_train_kernels(errs):
+    """The training path's kernels against torch.autograd of their plain
+    versions: the SSD scan forward and backward, the RMSNorm backward."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import RMSNorm
+    from repro_torch.kernels.ssd_scan import SSDScan
+
+    errs.update(ssd_scan=0.0, ssd_scan_bwd=0.0, rmsnorm_bwd=0.0)
+    for name, B, S, H, P, N, chunk, dtypes in ssd_cases():
+        for dtype in dtypes:
+            dt = getattr(torch, dtype)
+            leaves, views = ssd_inputs(B, S, H, P, N, dt)
+            dy = torch.randn(B, S, H, P, device="cuda").to(dt)
+            y = SSDScan.apply(*views(*leaves), chunk)
+            grads = torch.autograd.grad(y, leaves, dy)
+            torch.cuda.synchronize()
+            check(all(g.shape == t.shape for g, t in zip(grads, leaves)),
+                  f"ssd_scan_bwd {name} {dtype}: gradient shapes")
+            y_ref = ref.ssd_scan_ref(*views(*leaves), chunk)
+            grads_ref = torch.autograd.grad(y_ref, leaves, dy)
+            outs, plain = (y, *grads), (y_ref, *grads_ref)
+            if dtype == "float32":      # the float64 plain version decides
+                leaves64 = tuple(t.detach().double().requires_grad_()
+                                 for t in leaves)
+                y64 = ref.ssd_scan_ref(*views(*leaves64), chunk)
+                wit = (y64, *torch.autograd.grad(y64, leaves64, dy.double()))
+                del leaves64, y64
+            msg = []
+            for gname, gk, gr, i in zip(("y", "dx", "ddt", "dA", "dB", "dC"),
+                                        outs, plain, range(6)):
+                kernel = "ssd_scan" if gname == "y" else "ssd_scan_bwd"
+                if dtype == "float32":
+                    err, err_plain = rel_err(gk, wit[i]), rel_err(gr, wit[i])
+                    tol = max(REL_TOL[dtype], 2 * err_plain)
+                    msg.append(f"{gname} {err:.2e} (fp32 plain "
+                               f"{err_plain:.2e})")
+                    errs[kernel] = max(errs[kernel], (
+                        gk.double() - wit[i]).abs().max().item())
+                else:
+                    err, tol = rel_err(gk, gr), REL_TOL[dtype]
+                    msg.append(f"{gname} {err:.2e}")
+                    errs[kernel] = max(errs[kernel], (
+                        gk.float() - gr.float()).abs().max().item())
+                check(err <= tol, f"{kernel} {name} {dtype}: {gname} "
+                      f"{err} > {tol}")
+            oracle = ("float64 plain" if dtype == "float32"
+                      else "fp32 plain")
+            log(f"[ssd] {dtype:8s} {name:15s} B={B} S={S} H={H} P={P} N={N} "
+                f"Q={chunk}: max|diff|/max|ref| vs the {oracle} version: "
+                + ", ".join(msg) + f" (tol {REL_TOL[dtype]:.0e})")
+            del leaves, views, y, grads, y_ref, grads_ref, outs, plain
+            if dtype == "float32":
+                del wit
+    for dtype, shape in (("bfloat16", (TRAIN_BATCH * TRAIN_SEQ, 1024)),
+                         ("bfloat16", (TRAIN_BATCH * TRAIN_SEQ, 2048)),
+                         ("bfloat16", (3, 5, 2560)),
+                         ("float32", (777, 2048)), ("float32", (5, 100))):
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        x = (torch.randn(shape, generator=g, device="cuda") * 2).to(dt)
+        w = torch.randn(shape[-1], generator=g, device="cuda").to(dt)
+        dy = torch.randn(shape, generator=g, device="cuda").to(dt)
+        x.requires_grad_()
+        w.requires_grad_()
+        got = torch.autograd.grad(RMSNorm.apply(x, w, 1e-5), (x, w), dy)
+        torch.cuda.synchronize()
+        want = torch.autograd.grad(ref.rmsnorm_ref(x, w, 1e-5), (x, w), dy)
+        e_dx, e_dw = rel_err(got[0], want[0]), rel_err(got[1], want[1])
+        log(f"[rmsnorm_bwd] {dtype:8s} {str(shape):14s} max|diff|/max|ref| "
+            f"dx {e_dx:.2e}, dw {e_dw:.2e} (tol {REL_TOL[dtype]:.0e})")
+        check(max(e_dx, e_dw) <= REL_TOL[dtype],
+              f"rmsnorm_bwd {shape} {dtype}: dx {e_dx}, dw {e_dw}")
+        errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], *(
+            (a.float() - b.float()).abs().max().item()
+            for a, b in zip(got, want)))
 
 
 # ---------------------------------------------------------------------------
@@ -218,11 +412,10 @@ def phase_serve():
             for i in range(12)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_cuda.launches = rmsnorm_cuda.launches = 0
+    counts = _zero_counts()
     metrics = engine.run(reqs)
     torch.cuda.synchronize()
-    launches = {"flash_attention": flash_attention_cuda.launches,
-                "rmsnorm": rmsnorm_cuda.launches}
+    launches = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     summ = metrics.summary()
     for r in reqs:
@@ -231,8 +424,9 @@ def phase_serve():
         check(all(0 <= t < cfg.vocab_size for t in r.tokens),
               f"request {r.rid}: token out of range")
     check(summ["completed"] == len(reqs), f"completed {summ['completed']}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was never launched on the serving path")
+    for name in ("flash_attention", "rmsnorm"):
+        check(launches[name] > 0,
+              f"{name} was never launched on the serving path")
 
     # one decode step and one prefill chunk, timed on the engine's pools
     P = ecfg.pages_per_slot
@@ -342,7 +536,186 @@ def phase_cpu_vs_card():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timings and bounds
+# phase 5: full-width mamba2-370m training
+# ---------------------------------------------------------------------------
+
+def _ssd_ops(B, S, H, P, N, Q):
+    """fp32 operations of the chunked SSD scan (forward, backward) as the
+    kernels compute it: per chunk the products C B^T, M x, C S^T and the
+    state update forward; C B^T, dy x^T, the two products each of dx, dB
+    and dC, the dS update and the recomputed state update backward."""
+    per_chunk_fwd = 2 * (Q * Q * N + Q * Q * P + 2 * Q * N * P)
+    per_chunk_bwd = 2 * (3 * Q * Q * N + 2 * Q * Q * P + 5 * Q * N * P)
+    chunks = B * H * -(-S // Q)
+    return per_chunk_fwd * chunks, per_chunk_bwd * chunks
+
+
+def _zero_counts():
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
+    fns = {"flash_attention": flash_attention_cuda, "rmsnorm": rmsnorm_cuda,
+           "rmsnorm_bwd": rmsnorm_bwd_cuda, "ssd_scan": ssd_scan_cuda,
+           "ssd_scan_bwd": ssd_scan_bwd_cuda}
+    for fn in fns.values():
+        fn.launches = 0
+    return lambda: {name: fn.launches for name, fn in fns.items()}
+
+
+def phase_train():
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime.executor import init_train_state, make_train_step
+
+    cfg = get_config("mamba2-370m")
+    argv = ["--arch", "mamba2-370m", "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1"]
+    log(f"[train] python -m repro_torch.launch.train {' '.join(argv)}")
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    history = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    losses = [h["loss"] for h in history]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"training losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name in ("rmsnorm", "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd"):
+        check(launches[name] > 0, f"{name} was never launched on the "
+              "training path")
+    log(f"[train] {TRAIN_STEPS} steps in {wall:.1f} s (first step "
+        f"included); losses {losses}; launches {launches}")
+    del history
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same step, timed and profiled after a warm-up step
+    params, opt = init_train_state(cfg, seed=0, device="cuda")
+    step = make_train_step(cfg)
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = synthetic_lm_batches(DataConfig(seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH,
+                                          vocab_size=cfg.vocab_size))
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                next(gen).items()} for _ in range(4)]
+    step(params, opt, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    step_ms = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        metrics = step(params, opt, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(metrics["loss"])), "loss not finite")
+    per_step = {k: (v - before[k]) // len(step_ms)
+                for k, v in counts().items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batches[0])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def share(key):
+        return sum(e.self_device_time_total for e in kernels
+                   if key in e.key) / 1e3
+
+    categories = {"ssd_scan": ("ssd_fwd_kernel", "ssd_bwd_kernel"),
+                  "rmsnorm": ("rmsnorm_fwd", "rmsnorm_bwd", "column_sum"),
+                  "gemm": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
+                  "elementwise": ("elementwise",), "reduce": ("reduce",)}
+    by_category = {c: 0.0 for c in [*categories, "other"]}
+    for e in kernels:
+        cat = next((c for c, keys in categories.items()
+                    if any(k in e.key for k in keys)), "other")
+        by_category[cat] += e.self_device_time_total / 1e3
+
+    mean_ms = sum(step_ms) / len(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fwd_ops, bwd_ops = _ssd_ops(TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_heads,
+                                cfg.ssm_head_dim, cfg.ssm_state,
+                                cfg.ssm_chunk)
+    model_flop = 6 * n_params * tokens + cfg.n_layers * (fwd_ops + bwd_ops)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    result = {
+        "params": n_params, "tokens_per_step": tokens,
+        "losses": losses, "train_wall_s": wall,
+        "step_ms": step_ms, "step_ms_mean": mean_ms,
+        "tok_per_s": tokens / mean_ms * 1e3, "peak_mem_gb": peak_gb,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / mean_ms,
+        "ssd_fwd_ms": share("ssd_fwd_kernel"),
+        "ssd_bwd_ms": share("ssd_bwd_kernel"),
+        "rmsnorm_fwd_ms": share("rmsnorm_fwd"),
+        "rmsnorm_bwd_ms": share("rmsnorm_bwd") + share("column_sum"),
+        "device_ms_by_category": by_category,
+        "kernels_per_step": sum(e.count for e in kernels),
+        "launches_per_step": per_step,
+        "model_tflop_per_step": model_flop / 1e12,
+        "model_flop_share_of_989_tflops": model_flop / (mean_ms / 1e3)
+        / 989e12,
+    }
+    log("[train] " + json.dumps(result))
+    log("[profile] train step: top device kernels: " + "; ".join(
+        f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+        for e in top))
+    del params, opt, step, batches, metrics, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: reduced fp32 mamba2 training, card vs CPU
+# ---------------------------------------------------------------------------
+
+def phase_train_cpu_vs_card():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.executor import init_train_state, make_train_step
+
+    cfg = get_config("mamba2-370m").reduced().with_(dtype=torch.float32)
+    params_cpu, opt_cpu = init_train_state(cfg, seed=0, device="cpu")
+    params_gpu = copy.deepcopy(params_cpu).to("cuda")
+    opt_gpu = adamw_init(list(params_gpu.parameters()))
+    step = make_train_step(cfg)
+    gen = synthetic_lm_batches(DataConfig(seq_len=100, global_batch=2,
+                                          vocab_size=cfg.vocab_size))
+    launches = ssd_scan_bwd_cuda.launches
+    losses = {"cpu": [], "cuda": []}
+    for _ in range(3):
+        batch = next(gen)
+        for dev, params, opt in (("cpu", params_cpu, opt_cpu),
+                                 ("cuda", params_gpu, opt_gpu)):
+            m = step(params, opt, {k: torch.from_numpy(v).to(dev)
+                                   for k, v in batch.items()})
+            losses[dev].append(float(m["loss"]))
+    check(ssd_scan_bwd_cuda.launches > launches,
+          "the card's steps did not run the SSD backward kernel")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                    losses["cpu"]))
+    log(f"[train-cpu-vs-card] reduced fp32 mamba2-370m, 3 steps of 2 x 100: "
+        f"card {losses['cuda']} cpu {losses['cpu']}; max relative diff "
+        f"{worst:.2e} (tol {TRAIN_LOSS_RTOL:.0e})")
+    check(worst <= TRAIN_LOSS_RTOL, f"losses differ by {worst}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: timings and bounds
 # ---------------------------------------------------------------------------
 
 def _bound_ms(n_bytes: float, n_ops: float, dtype: str):
@@ -351,9 +724,26 @@ def _bound_ms(n_bytes: float, n_ops: float, dtype: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _times(kernel, plain, library, *, iters=20, plain_iters=None):
+    """Device ms per call (:func:`device_ms`) and ms per call of
+    back-to-back launches from Python (CUDA events) of the kernel, its plain
+    version and the library call (None: there is none)."""
+    pi = plain_iters or iters
+    out, queued = {}, {}
+    for key, fn, n in (("", kernel, iters), ("plain_", plain, pi),
+                       ("library_", library, iters)):
+        if fn is None:
+            out.update({f"{key}ms": None, f"{key}launch_ms": None})
+            continue
+        out[f"{key}ms"], queued[key or "kernel"] = device_ms(fn, n)
+        out[f"{key}launch_ms"] = cuda_ms(fn, iters=n, warmup=1)
+    out["device_timed"] = {k.rstrip("_"): v for k, v in queued.items()}
+    return out
+
+
 def _flash_timing(B, S, T, q_offset, kv_len):
-    """ms of the kernel, its plain version and SDPA, and the bound, at one
-    serving shape in bf16 (H=32, KV=8, dh=128)."""
+    """Times of the kernel, its plain version and SDPA, and the bound, at
+    one serving shape in bf16 (H=32, KV=8, dh=128)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -377,13 +767,11 @@ def _flash_timing(B, S, T, q_offset, kv_len):
     bound, by = _bound_ms(n_bytes, n_ops, "bfloat16")
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
     sdpa_mask = mask[:, None]
-
-    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw))
-    plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw))
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=sdpa_mask, enable_gqa=True))
-    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=lib,
+    t = _times(lambda: flash_attention_cuda(q, k, v, **kw),
+               lambda: ref.flash_attention_ref(q, k, v, **kw),
+               lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, attn_mask=sdpa_mask, enable_gqa=True))
+    return dict(t, bound_ms=bound, bound_by=by,
                 shape=f"B={B} S={S} T={T} H={H} KV={KV} dh={dh} bf16")
 
 
@@ -397,48 +785,128 @@ def _rmsnorm_timing(rows, d):
     x = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
     w = torch.randn(d, generator=g, device="cuda").bfloat16()
     bound, by = _bound_ms(2 * (2 * rows * d + d), 4 * rows * d, "bfloat16")
-    ms = cuda_ms(lambda: rmsnorm_cuda(x, w, 1e-6))
-    plain = cuda_ms(lambda: ref.rmsnorm_ref(x, w, 1e-6))
-    lib = cuda_ms(lambda: F.rms_norm(x, (d,), w, 1e-6))
-    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=lib, shape=f"rows={rows} d={d} bf16")
+    t = _times(lambda: rmsnorm_cuda(x, w, 1e-6),
+               lambda: ref.rmsnorm_ref(x, w, 1e-6),
+               lambda: F.rms_norm(x, (d,), w, 1e-6))
+    return dict(t, bound_ms=bound, bound_by=by,
+                shape=f"rows={rows} d={d} bf16")
+
+
+def _rmsnorm_bwd_timing(rows, d):
+    """The backward alone: the kernel on (dy, x, w); the plain version and
+    the library as the autograd backward of rmsnorm_ref / F.rms_norm."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
+    w = torch.randn(d, generator=g, device="cuda").bfloat16()
+    dy = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y_plain = ref.rmsnorm_ref(xg, wg, 1e-5)
+    y_lib = F.rms_norm(xg, (d,), wg, 1e-5)
+    # x and dy read, dx written, w read, dw written; about 10 operations an
+    # element (x^2, x*rstd, w*dy, the two sums, dx, dw)
+    bound, by = _bound_ms(2 * (3 * rows * d + 2 * d), 10 * rows * d,
+                          "bfloat16")
+    t = _times(lambda: rmsnorm_bwd_cuda(dy, x, w, 1e-5),
+               lambda: torch.autograd.grad(y_plain, (xg, wg), dy,
+                                           retain_graph=True),
+               lambda: torch.autograd.grad(y_lib, (xg, wg), dy,
+                                           retain_graph=True))
+    return dict(t, bound_ms=bound, bound_by=by,
+                shape=f"rows={rows} d={d} bf16")
+
+
+def _ssd_timing(B, S, H, P, N, Q):
+    """Forward and backward at one shape in bf16; the plain backward is the
+    autograd backward of ssd_scan_ref.  No single PyTorch call computes the
+    scan, so there is no library time."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
+
+    leaves, views = ssd_inputs(B, S, H, P, N, torch.bfloat16, seed=5)
+    with torch.no_grad():
+        args = [t.detach() for t in views(*leaves)]
+    dy = torch.randn(B, S, H, P, device="cuda").bfloat16()
+    y_plain = ref.ssd_scan_ref(*views(*leaves), Q)
+    fwd_ops, bwd_ops = _ssd_ops(B, S, H, P, N, Q)
+    # bytes of the distinct elements: x, y (dx), dt (ddt); B and C (dB,
+    # dC) once per batch and position: one group for all heads
+    seq = 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * N + 4 * H
+    shape = f"B={B} S={S} H={H} P={P} N={N} chunk={Q} bf16"
+    fwd_bound, fwd_by = _bound_ms(seq + 2 * B * S * H * P, fwd_ops,
+                                  "bfloat16")
+    bwd_bound, bwd_by = _bound_ms(2 * seq + 2 * B * S * H * P, bwd_ops,
+                                  "bfloat16")
+    fwd = _times(lambda: ssd_scan_cuda(*args, Q),
+                 lambda: ref.ssd_scan_ref(*args, Q), None, iters=10,
+                 plain_iters=3)
+    bwd = _times(lambda: ssd_scan_bwd_cuda(dy, *args, Q),
+                 lambda: torch.autograd.grad(y_plain, leaves, dy,
+                                             retain_graph=True), None,
+                 iters=5, plain_iters=3)
+    return (dict(fwd, bound_ms=fwd_bound, bound_by=fwd_by, shape=shape,
+                 gflop=fwd_ops / 1e9),
+            dict(bwd, bound_ms=bwd_bound, bound_by=bwd_by, shape=shape,
+                 gflop=bwd_ops / 1e9))
 
 
 def phase_timings(errs, launches):
+    """launches: {path: {kernel: count}} read after each path's run."""
     decode_L = [300] * DECODE_SLOTS
-    flash = {
-        "decode": _flash_timing(DECODE_SLOTS, 1, MAX_CONTEXT, decode_L,
-                                [MAX_CONTEXT] * DECODE_SLOTS),
-        "prefill": _flash_timing(PREFILL_BATCH, PREFILL_CHUNK, MAX_CONTEXT,
-                                 [256] * PREFILL_BATCH,
-                                 [384] * PREFILL_BATCH),
-    }
-    rms = {
-        "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
-        "prefill": _rmsnorm_timing(PREFILL_BATCH * PREFILL_CHUNK, 2560),
-        "prefill_qk": _rmsnorm_timing(PREFILL_BATCH * PREFILL_CHUNK * 32, 128),
-    }
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ssd_fwd, ssd_bwd = _ssd_timing(TRAIN_BATCH, TRAIN_SEQ, 32, 64, 128, 64)
+    table = [
+        ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:143", "decode", {
+             "decode": _flash_timing(DECODE_SLOTS, 1, MAX_CONTEXT, decode_L,
+                                     [MAX_CONTEXT] * DECODE_SLOTS),
+             "prefill": _flash_timing(PREFILL_BATCH, PREFILL_CHUNK,
+                                      MAX_CONTEXT, [256] * PREFILL_BATCH,
+                                      [384] * PREFILL_BATCH)}),
+        ("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
+         "src/repro/kernels/rmsnorm.py:33", "decode", {
+             "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
+             "prefill": _rmsnorm_timing(PREFILL_BATCH * PREFILL_CHUNK, 2560),
+             "prefill_qk": _rmsnorm_timing(
+                 PREFILL_BATCH * PREFILL_CHUNK * 32, 128),
+             "train": _rmsnorm_timing(tokens, 1024),
+             "train_gated": _rmsnorm_timing(tokens, 2048)}),
+        ("rmsnorm_bwd", "triton", "src/repro_torch/kernels/rmsnorm.py",
+         "src/repro/kernels/rmsnorm.py:33", "train", {
+             "train": _rmsnorm_bwd_timing(tokens, 1024),
+             "train_gated": _rmsnorm_bwd_timing(tokens, 2048)}),
+        ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
+         "src/repro/kernels/ssd_scan.py:72", "train", {"train": ssd_fwd}),
+        ("ssd_scan_bwd", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
+         "src/repro/kernels/ssd_scan.py:72", "train", {"train": ssd_bwd}),
+    ]
     kernels = []
-    for name, route, source, replaces, by_shape in (
-            ("flash_attention", "cuda",
-             "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:143", flash),
-            ("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
-             "src/repro/kernels/rmsnorm.py:33", rms)):
-        main = by_shape["decode"]       # the shape of every decode step
+    for name, route, source, replaces, main_shape, by_shape in table:
+        by_path = {path: counts[name] for path, counts in launches.items()}
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name],
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": errs[name],
+            **{k: by_shape[main_shape][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shapes": by_shape,
         })
         for shape, t in by_shape.items():
-            log(f"[time] {name:15s} {shape:10s} {t['shape']:36s} "
-                f"kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
-                f"library {t['library_ms']:.4f} ms  bound {t['bound_ms']:.5f}"
-                f" ms ({t['bound_by']})")
+            lib = ("-" if t["library_ms"] is None else
+                   f"{t['library_ms']:.4f} ({t['library_launch_ms']:.4f})")
+            untimed = [k for k, v in t["device_timed"].items() if not v]
+            log(f"[time] {name:15s} {shape:11s} {t['shape']:40s} device ms "
+                f"(per launch): kernel {t['ms']:.4f} ({t['launch_ms']:.4f})"
+                f"  plain {t['plain_ms']:.4f} ({t['plain_launch_ms']:.4f})"
+                f"  library {lib}  bound {t['bound_ms']:.5f} "
+                f"({t['bound_by']})" + (f"; not queued, timed per launch: "
+                                        f"{', '.join(untimed)}"
+                                        if untimed else ""))
     return kernels
 
 
@@ -461,8 +929,11 @@ def main() -> int:
     try:
         phase_build()
         errs = phase_kernels()
-        launches = phase_serve()
+        phase_train_kernels(errs)
+        launches = {"serve": phase_serve()}
         phase_cpu_vs_card()
+        launches["train"] = phase_train()
+        phase_train_cpu_vs_card()
         kernels = phase_timings(errs, launches)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -21,7 +21,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.mlp import SwiGLU
-from repro_torch.models.transformer import LM, DenseBlock, _check_dense
+from repro_torch.models.ssm import SSM
+from repro_torch.models.transformer import (LM, DenseBlock, SSMBlock,
+                                            build_stacks)
 
 
 def tensor_from_numpy(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -36,15 +38,19 @@ def tensor_from_numpy(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, *,
                     device: torch.device = "cuda") -> LM:
     """The port's model holding the weights of a JAX ``init_lm`` pytree."""
-    _check_dense(cfg)
+    ((kind, n),) = build_stacks(cfg)
     dev = resolve_device(device)
 
     def t(a: np.ndarray) -> torch.Tensor:
         return tensor_from_numpy(a, dev)
 
-    (stack,) = tree["stacks"]           # dense: one segment of L blocks
+    (stack,) = tree["stacks"]           # one segment of L blocks
     blocks = []
-    for i in range(cfg.n_layers):
+    for i in range(n):
+        if kind == "ssm":
+            blocks.append(SSMBlock(t(stack["ln1"][i]), SSM(
+                **{k: t(v[i]) for k, v in stack["ssm"].items()})))
+            continue
         attn: Dict[str, torch.Tensor] = {k: t(v[i])
                                          for k, v in stack["attn"].items()}
         mlp = stack["mlp"]

@@ -2,8 +2,8 @@
 
 Each arch lives in ``configs/<id>.py`` and registers itself here;
 ``get_config(name)`` is the lookup used by the launcher (``--arch <id>``).
-Only the archs the port serves so far are registered; the others follow in
-``ROADMAP.md`` order.
+Only the archs the port serves or trains so far are registered; the others
+follow in ``ROADMAP.md`` order.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from typing import Dict, List
 
 from repro_torch.models.common import ModelConfig
 
-_ARCH_MODULES = ["qwen3_4b"]
+_ARCH_MODULES = ["mamba2_370m", "qwen3_4b"]
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 

@@ -13,8 +13,9 @@ from typing import Optional
 import torch
 
 from .flash_attention import _validate_attn_shapes, flash_attention_cuda
-from .ref import flash_attention_ref, rmsnorm_ref
-from .rmsnorm import rmsnorm_cuda
+from .ref import flash_attention_ref, rmsnorm_ref, ssd_scan_ref
+from .rmsnorm import RMSNorm
+from .ssd_scan import SSDScan
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -40,7 +41,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """x (..., d), w (d,) -> RMS-normalised x, in x's dtype."""
+    """x (..., d), w (d,) -> RMS-normalised x, in x's dtype.  On CUDA both
+    directions run in the Triton kernels."""
     if _on_cuda(x):
-        return rmsnorm_cuda(x, w, eps)
+        return RMSNorm.apply(x, w, eps)
     return rmsnorm_ref(x, w, eps)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor,
+             chunk: int = 64) -> torch.Tensor:
+    """Mamba2 SSD scan: x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,G,N)
+    in G groups, G dividing H (views are read in place) -> y (B,S,H,P).  See
+    :func:`~repro_torch.kernels.ref.ssd_scan_ref`.  On CUDA both directions
+    run in the CUDA kernels."""
+    if _on_cuda(x):
+        return SSDScan.apply(x, dt, A, Bm, Cm, chunk)
+    return ssd_scan_ref(x, dt, A, Bm, Cm, chunk)

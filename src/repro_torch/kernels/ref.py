@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -60,3 +61,75 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def _to_heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    """(B,S,G,N) groups -> (B,S,H,N), each group repeated for its heads."""
+    G = t.shape[2]
+    if G == H:
+        return t
+    if G == 0 or H % G:
+        raise ValueError(f"{G} groups do not divide {H} heads")
+    return t.repeat_interleave(H // G, dim=2)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor,
+                 chunk: int = 64) -> torch.Tensor:
+    """Chunked Mamba2 SSD scan with a zero initial state, in fp32 (the JAX
+    package's ``models/ssm.py::ssd_chunked``).
+
+    x (B,S,H,P) inputs per head; dt (B,S,H) positive step sizes; A (H,)
+    negative decay rates; Bm/Cm (B,S,G,N) input/output projections in G
+    groups, G dividing H (head h reads group h // (H // G)).  The groups
+    are widened to the heads after the cast to fp32, so their gradients
+    are summed over the heads in fp32.
+    Returns y (B,S,H,P) in x's dtype.  A ragged tail is zero-padded to a
+    whole chunk, which leaves the first S outputs unchanged (causal).
+    float64 inputs are computed in float64: the oracle of the fp32 oracle."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        pad = Q - S % Q
+        padded = ssd_scan_ref(F.pad(x, (0, 0, 0, 0, 0, pad)),
+                              F.pad(dt, (0, 0, 0, pad)), A,
+                              F.pad(Bm, (0, 0, 0, 0, 0, pad)),
+                              F.pad(Cm, (0, 0, 0, 0, 0, pad)), Q)
+        return padded[:, :S]
+    nc = S // Q
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(acc).reshape(Bsz, nc, Q, H, P)
+    dtc = dt.to(acc).reshape(Bsz, nc, Q, H)
+    Bc = _to_heads(Bm.to(acc), H).reshape(Bsz, nc, Q, H, N)
+    Cc = _to_heads(Cm.to(acc), H).reshape(Bsz, nc, Q, H, N)
+
+    dA = dtc * A.to(acc)                            # (B,nc,Q,H), negative
+    cum = torch.cumsum(dA, dim=2)                   # inclusive
+    # intra-chunk (attention-like) part; the exponent is masked, not the
+    # product, so exp never sees a positive argument
+    CB = torch.einsum("bnqhr,bnkhr->bnqkh", Cc, Bc)
+    iq = torch.arange(Q, device=x.device)
+    causal = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
+    delta = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,Q,K,H)
+    decay = torch.exp(torch.where(causal, delta,
+                                  torch.full_like(delta, -1e30)))
+    M = CB * decay * dtc[:, :, None, :, :]
+    y_diag = torch.einsum("bnqkh,bnkhp->bnqhp", M, xf)
+
+    # chunk-boundary states, then the recurrence across chunks
+    last = cum[:, :, -1:, :]                                 # (B,nc,1,H)
+    decay_to_end = torch.exp(last - cum)                     # (B,nc,Q,H)
+    s_chunk = torch.einsum("bnkhr,bnkhp->bnhpr",
+                           Bc * (decay_to_end * dtc)[..., None], xf)
+    chunk_decay = torch.exp(last[:, :, 0, :])                # (B,nc,H)
+    state = torch.zeros(Bsz, H, P, N, dtype=acc, device=x.device)
+    before = []
+    for c in range(nc):
+        before.append(state)                                 # state BEFORE c
+        state = state * chunk_decay[:, c, :, None, None] + s_chunk[:, c]
+    s_before = torch.stack(before, dim=1)                    # (B,nc,H,P,N)
+
+    y_off = torch.einsum("bnqhr,bnhpr->bnqhp",
+                         Cc * torch.exp(cum)[..., None], s_before)
+    return (y_diag + y_off).reshape(Bsz, S, H, P).to(x.dtype)

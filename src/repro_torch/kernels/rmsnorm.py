@@ -1,4 +1,5 @@
-"""RMSNorm on Hopper: a Triton kernel and its wrapper.
+"""RMSNorm on Hopper: Triton kernels for both directions, their wrappers
+and the autograd Function around them.
 
 Replaces the TPU kernel ``repro/kernels/rmsnorm.py::rmsnorm``
 (``_rmsnorm_kernel``): ``y = x * rsqrt(mean(x^2) + eps) * w`` over the last
@@ -14,16 +15,27 @@ per-head QK-norm), the sum of squares in fp32 with ``tl.sum``, and as many
 rows per program as keep a block near 4096 elements.  No shared-memory
 staging and no tensor cores are needed.
 
-:func:`rmsnorm_cuda` only launches the kernel; ``kernels/ops.py`` picks it
-for CUDA tensors and ``kernels/ref.py::rmsnorm_ref`` for CPU tensors.
-``triton`` is imported when the kernel is first launched, never when this
-module is imported.
+The backward has no TPU counterpart (the JAX package differentiates the
+plain version): ``dx = rstd * (w*dy - xhat * mean(xhat*w*dy))`` and
+``dw = sum over rows of dy*xhat``, in fp32, with ``xhat = x*rstd`` and rstd
+recomputed from x.  It is bound by memory too (x and dy read once, dx
+written once).  Each of at most ``_BWD_PROGRAMS`` programs walks a
+contiguous range of rows one row at a time, keeping its share of dw in
+fp32 registers, and writes it as one row of an fp32 partials buffer; a
+second kernel sums the partials over the programs, column block by column
+block, in a fixed order, so dw is the same on every run.
+
+:func:`rmsnorm_cuda` and :func:`rmsnorm_bwd_cuda` only launch kernels;
+``kernels/ops.py`` routes CUDA tensors through :class:`RMSNorm` and CPU
+tensors to ``kernels/ref.py::rmsnorm_ref``.  ``triton`` is imported when a
+kernel is first launched, never when this module is imported.
 """
 import functools
 
 import torch
 
 _BLOCK_ELEMS = 4096
+_BWD_PROGRAMS = 512
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,3 +87,102 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor,
 
 
 rmsnorm_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernels():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def rmsnorm_bwd(x_ptr, w_ptr, dy_ptr, dx_ptr, dw_part_ptr, n_rows, d,
+                    eps, rows_per_prog, BLOCK_D: tl.constexpr):
+        pid = tl.program_id(0)
+        cols = tl.arange(0, BLOCK_D)
+        cmask = cols < d
+        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+        dw = tl.zeros([BLOCK_D], dtype=tl.float32)
+        row0 = pid * rows_per_prog
+        for r in range(row0, tl.minimum(row0 + rows_per_prog, n_rows)):
+            offs = r.to(tl.int64) * d + cols
+            x = tl.load(x_ptr + offs, mask=cmask, other=0.0).to(tl.float32)
+            dy = tl.load(dy_ptr + offs, mask=cmask, other=0.0).to(tl.float32)
+            rstd = tl.rsqrt(tl.sum(x * x, axis=0) / d + eps)
+            xhat = x * rstd
+            wdy = w * dy
+            c = tl.sum(xhat * wdy, axis=0) / d
+            dx = (wdy - xhat * c) * rstd
+            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty),
+                     mask=cmask)
+            dw += dy * xhat
+        tl.store(dw_part_ptr + pid * d + cols, dw, mask=cmask)
+
+    @triton.jit
+    def column_sum(part_ptr, out_ptr, n_parts, d, BLOCK_P: tl.constexpr,
+                   BLOCK_C: tl.constexpr):
+        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+        acc = tl.zeros([BLOCK_C], dtype=tl.float32)
+        for p0 in range(0, n_parts, BLOCK_P):
+            rows = p0 + tl.arange(0, BLOCK_P)
+            mask = (rows[:, None] < n_parts) & (cols[None, :] < d)
+            acc += tl.sum(tl.load(part_ptr + rows[:, None] * d
+                                  + cols[None, :], mask=mask, other=0.0),
+                          axis=0)
+        tl.store(out_ptr + cols, acc.to(out_ptr.dtype.element_ty),
+                 mask=cols < d)
+
+    return rmsnorm_bwd, column_sum
+
+
+def rmsnorm_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                     eps: float = 1e-6):
+    """Launch the backward kernels: the gradients (dx, dw) of
+    ``sum(rmsnorm(x, w) * dy)``, dx in x's dtype and dw in w's.  Raises for
+    CPU tensors or mismatched shapes."""
+    d = x.shape[-1]
+    if not (x.is_cuda and w.device == x.device and dy.device == x.device):
+        raise ValueError("rmsnorm_bwd_cuda needs dy, x and w on one CUDA "
+                         f"device; got {dy.device}, {x.device}, {w.device}")
+    if w.shape != (d,) or dy.shape != x.shape:
+        raise ValueError(f"shapes dy={tuple(dy.shape)} x={tuple(x.shape)} "
+                         f"w={tuple(w.shape)} do not fit (..., d), (d,)")
+    x2 = x.reshape(-1, d).contiguous()
+    dy2 = dy.reshape(-1, d).contiguous()
+    dx = torch.empty_like(x2)
+    dw = torch.zeros_like(w)
+    n_rows = x2.shape[0]
+    if n_rows:
+        rows_per_prog = -(-n_rows // _BWD_PROGRAMS)
+        n_prog = -(-n_rows // rows_per_prog)
+        part = torch.empty(n_prog, d, dtype=torch.float32, device=x.device)
+        block_d = 1 << (d - 1).bit_length()
+        block_c = min(block_d, 256)
+        bwd, colsum = _bwd_kernels()
+        with torch.cuda.device(x.device):
+            bwd[(n_prog,)](x2, w.contiguous(), dy2, dx, part, n_rows, d, eps,
+                           rows_per_prog, BLOCK_D=block_d,
+                           num_warps=4 if block_d <= 1024 else 8)
+            colsum[(-(-d // block_c),)](part, dw, n_prog, d, BLOCK_P=16,
+                                        BLOCK_C=block_c, num_warps=4)
+        rmsnorm_bwd_cuda.launches += 1
+    return dx.reshape(x.shape), dw
+
+
+rmsnorm_bwd_cuda.launches = 0
+
+
+class RMSNorm(torch.autograd.Function):
+    """rmsnorm(x, w, eps) with both directions in Triton.  Saves x and w;
+    the backward recomputes rstd."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm_cuda(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd_cuda(dy, x, w, ctx.eps)
+        return dx, dw, None

@@ -40,7 +40,7 @@ class Attention(nn.Module):
         for name, t in dict(wq=wq, wk=wk, wv=wv, wo=wo, bq=bq, bk=bk, bv=bv,
                             q_norm=q_norm, k_norm=k_norm).items():
             self.register_parameter(
-                name, None if t is None else nn.Parameter(t, requires_grad=False))
+                name, None if t is None else nn.Parameter(t))
 
 
 def init_attention(cfg: ModelConfig, *, generator: torch.Generator,

@@ -1,4 +1,5 @@
-"""Primitive layers: initializers, RMSNorm, rotary embeddings, SwiGLU."""
+"""Primitive layers: initializers, RMSNorm, rotary embeddings, SwiGLU, the
+cross-entropy loss."""
 from __future__ import annotations
 
 from typing import Optional
@@ -46,3 +47,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.float()).to(gate.dtype) * up
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -100) -> torch.Tensor:
+    """Mean token cross entropy in fp32 over the labels that are not
+    ``ignore_id``; 0 when every label is ignored.  logits (..., V),
+    labels (...)."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)

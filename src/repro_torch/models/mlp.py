@@ -13,9 +13,9 @@ class SwiGLU(nn.Module):
     def __init__(self, w_gate: torch.Tensor, w_up: torch.Tensor,
                  w_down: torch.Tensor):
         super().__init__()
-        self.w_gate = nn.Parameter(w_gate, requires_grad=False)
-        self.w_up = nn.Parameter(w_up, requires_grad=False)
-        self.w_down = nn.Parameter(w_down, requires_grad=False)
+        self.w_gate = nn.Parameter(w_gate)
+        self.w_up = nn.Parameter(w_up)
+        self.w_down = nn.Parameter(w_down)
 
 
 def init_swiglu(d: int, d_ff: int, dtype: torch.dtype = torch.bfloat16, *,

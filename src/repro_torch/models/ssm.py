@@ -1,0 +1,99 @@
+"""Mamba2 block via SSD (state-space duality, arXiv:2405.21060): the
+full-sequence block that training runs.
+
+The sequence transform is the chunked SSD scan (``kernels/ops.py``): the
+CUDA kernels on a CUDA tensor, ``kernels/ref.py::ssd_scan_ref`` on a CPU
+tensor.  The single-token decode (``ssd_step``, ``ssm_block_decode``) waits
+for the SSM serving slice.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+
+from .common import ModelConfig
+from .layers import init_dense, rms_norm
+
+
+class SSM(nn.Module):
+    """Weights in the JAX layout: in_proj (d, 2*di + 2*N + H), conv_w
+    (K, di + 2*N), conv_b (di + 2*N,), A_log/D/dt_bias (H,) in fp32,
+    norm_w (di,), out_proj (di, d)."""
+
+    def __init__(self, in_proj: torch.Tensor, conv_w: torch.Tensor,
+                 conv_b: torch.Tensor, A_log: torch.Tensor, D: torch.Tensor,
+                 dt_bias: torch.Tensor, norm_w: torch.Tensor,
+                 out_proj: torch.Tensor):
+        super().__init__()
+        for name, t in dict(in_proj=in_proj, conv_w=conv_w, conv_b=conv_b,
+                            A_log=A_log, D=D, dt_bias=dt_bias, norm_w=norm_w,
+                            out_proj=out_proj).items():
+            self.register_parameter(name, nn.Parameter(t))
+
+
+def init_ssm(cfg: ModelConfig, *, generator: torch.Generator,
+             device: torch.device) -> SSM:
+    """The JAX package's distributions (not its numbers): one group of B/C
+    shared by every head."""
+    dt = cfg.dtype
+    d, di = cfg.d_model, cfg.d_inner
+    H, N = cfg.ssm_heads, cfg.ssm_state
+    conv_dim = di + 2 * N
+    kw = dict(generator=generator, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    conv_w = torch.randn(cfg.ssm_conv, conv_dim, generator=generator, **f32)
+    return SSM(
+        in_proj=init_dense(d, 2 * di + 2 * N + H, dt, **kw),
+        conv_w=(conv_w / math.sqrt(cfg.ssm_conv)).to(dt),
+        conv_b=torch.zeros(conv_dim, dtype=dt, device=device),
+        A_log=torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+        D=torch.ones(H, **f32),
+        dt_bias=torch.zeros(H, **f32),
+        norm_w=torch.ones(di, dtype=dt, device=device),
+        out_proj=init_dense(di, d, dt, **kw))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv then SiLU, in fp32.  x (B,S,C), w (K,C).
+
+    Tap i reads x shifted by K-1-i.  The taps are slices of one padded fp32
+    copy of x, so autograd keeps that copy once rather than once per tap."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x.float(), (0, 0, K - 1, 0))
+    wf = w.float()
+    out = xp[:, :S] * wf[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S] * wf[i]
+    return F.silu(out + b.float()).to(x.dtype)
+
+
+def _split_proj(p: SSM, x: torch.Tensor, cfg: ModelConfig):
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return torch.split(x @ p.in_proj, [di, di + 2 * N, H], dim=-1)
+
+
+def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence Mamba2 block. x (B,S,d) -> (B,S,d).
+
+    Bm/Cm go to the scan as one group for all heads, (B,S,1,N) views of
+    the projection, never as copies."""
+    Bsz, S, _ = x.shape
+    di, H, N, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    z, xBC, dt = _split_proj(p, x, cfg)
+    xBC = _causal_conv(xBC, p.conv_w, p.conv_b)
+    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    xs = xs.reshape(Bsz, S, H, P)
+    Bm, Cm = Bm[:, :, None, :], Cm[:, :, None, :]
+    dtp = F.softplus(dt.float() + p.dt_bias)
+    A = -torch.exp(p.A_log)
+    y = ops.ssd_scan(xs, dtp, A, Bm, Cm, cfg.ssm_chunk)
+    y = y + (p.D.float()[:, None] * xs.float()).to(y.dtype)
+    y = y.reshape(Bsz, S, di)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p.norm_w, cfg.norm_eps)
+    return y @ p.out_proj

@@ -1,4 +1,5 @@
-"""Decoder-only language model (dense) and its paged serving steps.
+"""Decoder-only language models (dense and SSM): training forward and loss,
+and the dense model's paged serving steps.
 
 The JAX package stacks the L blocks' weights with a leading layer axis and
 runs them with ``lax.scan``; here the model is an ``nn.Module`` holding a
@@ -8,12 +9,19 @@ layout (``x @ w``, ``w`` of shape (d_in, d_out)) and names::
   LM
     embed       (V, d)
     blocks[i]   DenseBlock: ln1 (d,), attn (Attention), ln2 (d,), mlp (SwiGLU)
+                or SSMBlock: ln1 (d,), ssm (SSM)
     final_norm  (d,)
     head        (d, V), or None when the embeddings are tied
+
+Parameters are trainable; the serving steps run under
+``torch.inference_mode()``.  Training (:func:`lm_forward`,
+:func:`lm_loss`) covers ``arch_type="ssm"`` only so far: an attention layer
+would need a backward of the flash-attention kernel, which the port does
+not have yet.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,12 +33,13 @@ from .attention import (Attention, Pool, attention_decode_paged,
                         init_page_pool)
 from .common import ModelConfig
 from .embedding import embed, init_embedding
-from .layers import init_dense, rms_norm
+from .layers import cross_entropy_loss, init_dense, rms_norm
 from .mlp import SwiGLU, init_swiglu, swiglu_mlp
+from .ssm import SSM, init_ssm, ssm_block
 
 
 def _param(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
-    return None if t is None else nn.Parameter(t, requires_grad=False)
+    return None if t is None else nn.Parameter(t)
 
 
 class DenseBlock(nn.Module):
@@ -43,8 +52,15 @@ class DenseBlock(nn.Module):
         self.mlp = mlp
 
 
+class SSMBlock(nn.Module):
+    def __init__(self, ln1: torch.Tensor, ssm: SSM):
+        super().__init__()
+        self.ln1 = _param(ln1)
+        self.ssm = ssm
+
+
 class LM(nn.Module):
-    def __init__(self, embed: torch.Tensor, blocks: List[DenseBlock],
+    def __init__(self, embed: torch.Tensor, blocks: List[nn.Module],
                  final_norm: torch.Tensor, head: Optional[torch.Tensor]):
         super().__init__()
         self.embed = _param(embed)
@@ -53,18 +69,34 @@ class LM(nn.Module):
         self.register_parameter("head", _param(head))
 
 
-def _check_dense(cfg: ModelConfig) -> None:
+def build_stacks(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """Sequence of (kind, n_layers) segments for the architectures the port
+    builds: one segment of dense or of SSM blocks."""
+    if cfg.arch_type == "ssm":
+        return [("ssm", cfg.n_layers)]
     if cfg.arch_type != "dense" or cfg.n_experts > 1:
         raise NotImplementedError(
-            f"the port builds dense decoders only so far; {cfg.name!r} has "
-            f"arch_type={cfg.arch_type!r}, n_experts={cfg.n_experts}")
+            f"the port builds dense and SSM decoders only so far; "
+            f"{cfg.name!r} has arch_type={cfg.arch_type!r}, "
+            f"n_experts={cfg.n_experts}")
+    return [("dense", cfg.n_layers)]
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Training needs a backward for every kernel on the path; raise for an
+    arch whose layers run one that has none in the port yet."""
+    if any(kind != "ssm" for kind, _ in build_stacks(cfg)):
+        raise NotImplementedError(
+            f"training {cfg.name!r} (arch_type={cfg.arch_type!r}) needs the "
+            "backward of the flash_attention kernel, which the port does not "
+            "have yet; only arch_type='ssm' trains so far")
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device: torch.device = "cuda") -> LM:
     """Random weights drawn on ``device`` from ``torch.Generator(seed)``,
     with the JAX package's distributions (not its numbers)."""
-    _check_dense(cfg)
+    ((kind, n),) = build_stacks(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     kw = dict(generator=g, device=dev)
@@ -73,9 +105,12 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
     def ones():
         return torch.ones(d, dtype=dt, device=dev)
 
-    blocks = [DenseBlock(ones(), init_attention(cfg, **kw), ones(),
-                         init_swiglu(d, cfg.d_ff, dt, **kw))
-              for _ in range(cfg.n_layers)]
+    if kind == "ssm":
+        blocks = [SSMBlock(ones(), init_ssm(cfg, **kw)) for _ in range(n)]
+    else:
+        blocks = [DenseBlock(ones(), init_attention(cfg, **kw), ones(),
+                             init_swiglu(d, cfg.d_ff, dt, **kw))
+                  for _ in range(n)]
     head = (None if cfg.tie_embeddings
             else init_dense(d, cfg.vocab_size, dt, **kw))
     return LM(init_embedding(cfg.vocab_size, d, dt, **kw), blocks, ones(),
@@ -87,6 +122,28 @@ def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if params.head is not None:
         return x @ params.head
     return x @ params.embed.T
+
+
+def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B,S) -> logits (B,S,V) and the auxiliary loss (zero: SSM
+    blocks have none).  SSM models only (:func:`check_trainable`)."""
+    check_trainable(cfg)
+    x = embed(params.embed, tokens)
+    for blk in params.blocks:
+        h = rms_norm(x, blk.ln1, cfg.norm_eps)
+        x = x + ssm_block(blk.ssm, h, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, x, cfg), aux
+
+
+def lm_loss(params: LM, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (``-100`` ignored), plus the weighted aux loss."""
+    logits, aux = lm_forward(params, batch["tokens"], cfg)
+    loss = cross_entropy_loss(logits, batch["labels"])
+    return loss + cfg.router_aux_coef * aux
 
 
 def supports_paged_decode(cfg: ModelConfig) -> bool:

@@ -1,1 +1,2 @@
-"""The paged serving steps of the port (``runtime/executor.py``)."""
+"""Device steps of the port (``runtime/executor.py``): training and the
+paged serving steps."""

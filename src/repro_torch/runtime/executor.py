@@ -1,19 +1,56 @@
-"""The serving engine's device steps (``runtime/executor.py`` counterpart).
+"""Device steps: training and the serving engine's (``runtime/executor.py``
+counterpart), on one device.
 
-The JAX package jit-compiles each step with shardings and donated pools.
-PyTorch runs eagerly on one device, so a built step is the model function
-under ``torch.inference_mode()``; the pools are updated in place.
+The JAX package jit-compiles each step with shardings and donated buffers.
+PyTorch runs eagerly, so a built step is the model function itself: the
+training step runs value-and-grad of ``lm_loss`` and the AdamW update, which
+writes the parameters and optimizer state in place; the serving steps run
+under ``torch.inference_mode()`` and update the pools in place.
 """
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.attention import Pool
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import (LM, paged_decode_step,
+from repro_torch.models.transformer import (LM, check_trainable, init_lm,
+                                            lm_loss, paged_decode_step,
                                             paged_prefill_step)
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+
+def init_train_state(cfg: ModelConfig, *, seed: int = 0,
+                     opt_cfg: Optional[AdamWConfig] = None,
+                     device: torch.device = "cuda"
+                     ) -> Tuple[LM, Dict[str, Any]]:
+    """Random weights from ``seed`` on ``device`` and their AdamW state."""
+    check_trainable(cfg)
+    params = init_lm(cfg, seed=seed, device=resolve_device(device))
+    return params, adamw_init(list(params.parameters()), opt_cfg)
+
+
+def make_train_step(cfg: ModelConfig,
+                    opt_cfg: Optional[AdamWConfig] = None
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``(params, opt_state, batch)`` -> ``{"loss", "grad_norm", "lr"}``
+    (0-d tensors on the params' device); params and opt_state are updated
+    in place.  ``batch`` holds int ``tokens`` and ``labels`` (B, S)."""
+    check_trainable(cfg)
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def step(params: LM, opt_state: Dict[str, Any],
+             batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        leaves = list(params.parameters())
+        loss = lm_loss(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        metrics = adamw_update(leaves, grads, opt_state, opt_cfg)
+        metrics["loss"] = loss.detach()
+        return metrics
+
+    return step
 
 
 def make_paged_decode_step(cfg: ModelConfig) -> Callable[..., torch.Tensor]:

@@ -8,7 +8,15 @@ run where only the port is installed:
 
 Tolerances: fp32 1e-5 (the same fp32 arithmetic in another order); bf16
 attention 2e-2 (bf16 rounding of outputs of size ~1); bf16 RMSNorm one
-bf16 ulp (fp32 math, one rounding at the end).
+bf16 ulp (fp32 math, one rounding at the end).  Backward kernels and the
+SSD scan are held against ``torch.autograd`` of the plain versions, with
+the error taken relative to the largest magnitude of each reference:
+fp32 1e-4 (sums of up to chunk x state x head-dim products in another
+order); bf16 2e-2 (inputs and outputs rounded to bf16, fp32 inside).  The
+fp32 SSD cases are held against the plain version in float64, since the
+fp32 plain version is itself off by up to ~1e-4 in the gradients of dt and
+A (sums over a chunk of differences of sums): the kernel passes within
+1e-4 of float64, or no further from it than twice the fp32 plain version.
 """
 import numpy as np
 import pytest
@@ -16,7 +24,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_cuda
+from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan_cuda
 
 torch.set_num_threads(1)
 
@@ -74,3 +83,107 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda_device, dtype, shape):
         tol = torch.exp2(torch.floor(torch.log2(
             want.abs().clamp_min(1e-30))) - 7)
     assert bool(((out - want).abs() <= tol).all())
+
+
+REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def ssd_inputs(B, S, H, P, N, device, dtype, *, broadcast=True, seed=0):
+    """SSD scan inputs as ``models/ssm.py`` makes them: dt = softplus of a
+    normal draw, A = -exp(log linspace(1, 16)); Bm/Cm one group for every
+    head, (B,S,1,N), unless ``broadcast`` is False.  Returns the leaf
+    tensors and a function of leaves giving the (x, dt, A, Bm, Cm) the scan
+    takes."""
+    rng = np.random.default_rng(seed)
+    G = 1 if broadcast else H
+
+    def leaf(shape, dt=dtype, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(device, dt).requires_grad_()
+
+    x = leaf((B, S, H, P))
+    dt_raw = leaf((B, S, H), torch.float32)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H)).to(device)
+    a_log.requires_grad_()
+    bg, cg = leaf((B, S, G, N), scale=0.5), leaf((B, S, G, N), scale=0.5)
+    leaves = (x, dt_raw, a_log, bg, cg)
+
+    def views(x, dt_raw, a_log, bg, cg):
+        return (x, torch.nn.functional.softplus(dt_raw), -torch.exp(a_log),
+                bg, cg)
+
+    return leaves, views
+
+
+def float64_leaves(leaves):
+    return tuple(t.detach().double().requires_grad_() for t in leaves)
+
+
+# (B, S, H, P, N, chunk): the reduced and full model widths, ragged S,
+# S shorter than a chunk, odd widths
+SSD_CASES = [(2, 64, 4, 64, 16, 16), (1, 100, 3, 64, 128, 64),
+             (2, 37, 2, 32, 24, 16), (1, 50, 2, 64, 128, 64),
+             (1, 130, 2, 48, 40, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("broadcast", [True, False],
+                         ids=["bc-broadcast", "bc-per-head"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
+def test_ssd_scan_kernels_match_plain_on_card(cuda_device, dtype, broadcast,
+                                              B, S, H, P, N, chunk):
+    leaves, views = ssd_inputs(B, S, H, P, N, cuda_device, dtype,
+                               broadcast=broadcast)
+    dy = torch.randn(B, S, H, P, device=cuda_device).to(dtype)
+    launches = ssd_scan_cuda.launches
+    y = SSDScan.apply(*views(*leaves), chunk)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == launches + 1
+    y_ref = ref.ssd_scan_ref(*views(*leaves), chunk)
+    grads_ref = torch.autograd.grad(y_ref, leaves, dy)
+    assert y.dtype == dtype and y.shape == (B, S, H, P)
+    assert all(g.shape == t.shape for g, t in zip(grads, leaves))
+    if dtype == torch.bfloat16:
+        assert _rel_err(y, y_ref) <= REL_TOL[dtype]
+        for name, g, gr in zip(("dx", "ddt", "dA", "dB", "dC"), grads,
+                               grads_ref):
+            assert _rel_err(g, gr) <= REL_TOL[dtype], name
+        return
+    leaves64 = float64_leaves(leaves)
+    y64 = ref.ssd_scan_ref(*views(*leaves64), chunk)
+    grads64 = torch.autograd.grad(y64, leaves64, dy.double())
+    for name, g, gr, g64 in zip(("y", "dx", "ddt", "dA", "dB", "dC"),
+                                (y, *grads), (y_ref, *grads_ref),
+                                (y64, *grads64)):
+        tol = max(REL_TOL[dtype], 2 * _rel_err(gr, g64))
+        assert _rel_err(g, g64) <= tol, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 2560), (3, 7, 128), (1, 100),
+                                   (700, 1024), (33, 2048)])
+def test_rmsnorm_backward_kernel_matches_plain_on_card(cuda_device, dtype,
+                                                       shape):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2).to(dtype)
+    w = torch.randn(shape[-1], generator=g, device=cuda_device).to(dtype)
+    dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    x.requires_grad_()
+    w.requires_grad_()
+    dx, dw = torch.autograd.grad(RMSNorm.apply(x, w, 1e-6), (x, w), dy)
+    torch.cuda.synchronize()
+    dx_ref, dw_ref = torch.autograd.grad(ref.rmsnorm_ref(x, w, 1e-6),
+                                         (x, w), dy)
+    assert dx.dtype == dtype and dw.dtype == dtype
+    assert _rel_err(dx, dx_ref) <= REL_TOL[dtype]
+    assert _rel_err(dw, dw_ref) <= REL_TOL[dtype]

@@ -19,7 +19,11 @@ PORT = REPO / "src" / "repro_torch"
 
 def test_import_loads_no_jax_triton_or_repro():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
-            "repro_torch.serving, repro_torch.bridge; "
+            "repro_torch.launch.train, repro_torch.serving, "
+            "repro_torch.bridge, repro_torch.models.ssm, "
+            "repro_torch.kernels.ssd_scan, repro_torch.kernels.ops, "
+            "repro_torch.optim, repro_torch.data, "
+            "repro_torch.runtime.executor; "
             "print(sorted({m.split('.')[0] for m in sys.modules} "
             "& {'jax', 'jaxlib', 'triton', 'repro'}))")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
