@@ -7,14 +7,16 @@ Phases (any failure exits non-zero before the final line is printed):
 
 1. print the card's name and power limit (``nvidia-smi``), turn TF32 off,
    build the kernels from the sources in this checkout (one ``nvcc`` per
-   CUDA C++ source, all started together: flash attention and the SSD
-   scan; Triton's compiler for RMSNorm forward and backward) and print the
-   build seconds;
+   CUDA C++ source, all started together: flash attention with ring
+   attention's panel visit, and the SSD scan; Triton's compiler for RMSNorm
+   forward and backward) and print the build seconds;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes, with the stated tolerances (the
    backward kernels against ``torch.autograd`` of the plain versions; the
    fp32 SSD cases against the plain version in float64, beside the fp32
-   plain version's own distance from it);
+   plain version's own distance from it; ring attention's panel visit at
+   qwen3-4b width with 8192 local queries and keys, for panels behind, on,
+   ahead of and far from the q shard);
 3. serve full-width qwen3-4b (random bf16 weights from seed 0) through the
    paged continuous-batching engine: 12 requests, prompts of 33-400
    tokens, 16-32 new tokens each; every request must complete and both
@@ -33,15 +35,26 @@ Phases (any failure exits non-zero before the final line is printed):
    queued behind a spin kernel, and the time per call of back-to-back
    launches from Python),
    with the least time the card could take (bytes over 3.35 TB/s or
-   operations over the peak rate of the inputs' type).
+   operations over the peak rate of the inputs' type);
+8. sequence-parallel attention at full qwen3-4b width (run before phase 7,
+   whose table reads its launches): 4 ranks on the one card, joined by a
+   gloo process group, each holding 8192 tokens of a 32768-token input,
+   run one attention layer (random bf16 weights from seed 0, QK-norm) with
+   ``impl="ring"``; the gathered output must lie within 2 bf16 ulps of the
+   largest magnitude of single-process ``impl="flash"`` on the whole
+   sequence, and the ring kernel must have launched 4 times on every rank.
+   The 4 ranks share the card, so their kernels take turns on it.
 
-The last two lines of standard output are the ``kernels`` JSON line and
+The last three lines of standard output are the card's ``nvidia-smi``
+name and power limit (also printed first), the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the rest of
 the checkout; without either it exits non-zero and prints no result.
 """
 import copy
 import json
+import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -70,6 +83,16 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
 REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # reduced fp32 training, card vs CPU: relative difference of each loss
 TRAIN_LOSS_RTOL = 1e-4
+# the sequence-parallel geometry of phase 8: qwen3-4b's native context
+# split over 4 ranks on the one card
+SP_RANKS, SP_SEQ = 4, 32768
+SP_LOCAL = SP_SEQ // SP_RANKS
+SP_TIMEOUT_S = 600
+# ring attention's panel visit writes fp32 state whatever its input type:
+# fp32 inputs within 1e-5 of the plain version relative to each output's
+# largest magnitude; bf16 inputs within 2e-3 (the same bf16 values read by
+# both, fp32 sums of 8192 terms in another order)
+PARTIAL_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 
 
 def log(msg: str) -> None:
@@ -149,7 +172,8 @@ def phase_build():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     def nvcc(name):
@@ -176,6 +200,7 @@ def phase_build():
     torch.cuda.synchronize()
     log(f"[build] triton rmsnorm forward and backward (16 "
         f"specialisations): {time.perf_counter() - t0:.1f} s")
+    return card
 
 
 # ---------------------------------------------------------------------------
@@ -230,12 +255,14 @@ def phase_kernels():
                       "rows with no admissible key are not exact zeros")
             errs["flash_attention"] = max(errs["flash_attention"], err)
         # serving: prefill and decode rows at d_model and head_dim;
-        # training: ln1 / final_norm at d_model, the gated norm at d_inner
+        # training: ln1 / final_norm at d_model, the gated norm at d_inner;
+        # sequence parallel: the QK-norm of one rank's q and k
         for shape in [(PREFILL_BATCH * PREFILL_CHUNK, 2560),
                       (PREFILL_BATCH * PREFILL_CHUNK * 32, 128),
                       (DECODE_SLOTS, 2560), (DECODE_SLOTS * 32, 128),
                       (TRAIN_BATCH * TRAIN_SEQ, 1024),
-                      (TRAIN_BATCH * TRAIN_SEQ, 2048)]:
+                      (TRAIN_BATCH * TRAIN_SEQ, 2048),
+                      (SP_LOCAL * 32, 128), (SP_LOCAL * 8, 128)]:
             x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dt)
             w = torch.randn(shape[-1], generator=g, device="cuda").to(dt)
             out = rmsnorm_cuda(x, w, 1e-6).float()
@@ -253,6 +280,68 @@ def phase_kernels():
             check(ok, f"rmsnorm {shape} {dtype}: {err}")
             errs["rmsnorm"] = max(errs["rmsnorm"], err)
     return errs
+
+
+def partial_cases():
+    """(delta, window) of the panel visits at S_loc = T_loc = 8192, causal:
+    the diagonal visit, a panel wholly behind the q shard (fully visible),
+    one just ahead and one far ahead (causally dead), and an offset off the
+    64-row tiles; each also with a 4096-token window."""
+    return [(delta, window) for delta in (0, SP_LOCAL, -SP_LOCAL,
+                                          -3 * SP_LOCAL, 1000)
+            for window in (None, 4096)]
+
+
+def phase_partial(errs):
+    """Ring attention's panel-visit kernel against its plain version at
+    qwen3-4b width (H 32, KV 8, dh 128), B 1, S_loc = T_loc = 8192."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ring_attention import flash_partial_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    errs["flash_partial"] = 0.0
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q = torch.randn(1, SP_LOCAL, 32, 128, generator=g,
+                        device="cuda").to(dt)
+        k = torch.randn(1, SP_LOCAL, 8, 128, generator=g,
+                        device="cuda").to(dt)
+        v = torch.randn(1, SP_LOCAL, 8, 128, generator=g,
+                        device="cuda").to(dt)
+        for delta, window in partial_cases():
+            got = flash_partial_cuda(q, k, v, delta, causal=True,
+                                     window=window)
+            torch.cuda.synchronize()
+            want = ref.flash_partial_ref(q, k, v, delta, causal=True,
+                                         window=window)
+            seen = want[2][..., 0] > 0
+            check(torch.equal(got[2][..., 0] > 0, seen),
+                  f"flash_partial {dtype} delta {delta} window {window}: "
+                  "rows with keys differ")
+            empty = ~seen
+            check(bool((got[0][empty] == 0).all()
+                       and (got[1][empty] == -1e30).all()
+                       and (got[2][empty] == 0).all()),
+                  f"flash_partial {dtype} delta {delta}: empty rows are not "
+                  "exactly (0, -1e30, 0)")
+            rel = [rel_err(a[seen], b[seen]) if seen.any() else 0.0
+                   for a, b in zip(got, want)]
+            log(f"[flash_partial] {dtype:8s} delta {delta:6d} window "
+                f"{str(window):4s}: rows with keys {seen.sum().item():7d} of "
+                f"{seen.numel()}; max|diff|/max|ref| acc {rel[0]:.2e}, "
+                f"m {rel[1]:.2e}, l {rel[2]:.2e} (tol "
+                f"{PARTIAL_TOL[dtype]:.0e}); empty rows exact")
+            check(max(rel) <= PARTIAL_TOL[dtype],
+                  f"flash_partial {dtype} delta {delta} window {window}: "
+                  f"{rel}")
+            if seen.any():
+                errs["flash_partial"] = max(errs["flash_partial"], *(
+                    (a[seen] - b[seen]).abs().max().item()
+                    for a, b in zip(got, want)))
+            del got, want
+        del q, k, v
+    torch.cuda.empty_cache()
 
 
 def ssd_inputs(B, S, H, P, N, dtype, seed=0):
@@ -552,11 +641,13 @@ def _ssd_ops(B, S, H, P, N, Q):
 
 def _zero_counts():
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ring_attention import flash_partial_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
     fns = {"flash_attention": flash_attention_cuda, "rmsnorm": rmsnorm_cuda,
            "rmsnorm_bwd": rmsnorm_bwd_cuda, "ssd_scan": ssd_scan_cuda,
-           "ssd_scan_bwd": ssd_scan_bwd_cuda}
+           "ssd_scan_bwd": ssd_scan_bwd_cuda,
+           "flash_partial": flash_partial_cuda}
     for fn in fns.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in fns.items()}
@@ -715,6 +806,140 @@ def phase_train_cpu_vs_card():
 
 
 # ---------------------------------------------------------------------------
+# phase 8: sequence-parallel attention, 4 ranks on the card
+# ---------------------------------------------------------------------------
+
+def sp_inputs(cfg):
+    """One full-width attention layer (random bf16 weights from seed 0,
+    QK-norm) and the (1, 32768, d) bf16 input, the same in every process."""
+    import torch
+    from repro_torch.models.attention import init_attention
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    layer = init_attention(cfg, generator=g, device="cuda")
+    x = torch.randn(1, SP_SEQ, cfg.d_model, generator=g,
+                    device="cuda").to(cfg.dtype)
+    pos = torch.arange(SP_SEQ, dtype=torch.int32, device="cuda")[None]
+    return layer, x, pos
+
+
+def sp_rank(rank, world, run_dir):
+    """One rank of phase 8: its 8192-token slice through
+    ``attention(impl="ring")`` over the mesh's ``seq`` group.  Saves its
+    output, the launches of the timed call and the call's wall time."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_ring_mesh
+    from repro_torch.models.attention import attention
+    from repro_torch.runtime.sequence import shard_sequence
+
+    torch.cuda.set_device(0)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous",
+                     timeout_s=SP_TIMEOUT_S)
+    try:
+        mesh = make_ring_mesh(world)
+        cfg = get_config("qwen3-4b")
+        layer, x, pos = sp_inputs(cfg)
+        xs, ps = shard_sequence(x, mesh), shard_sequence(pos, mesh)
+        group = mesh.get_group("seq")
+
+        def run():
+            with torch.no_grad():
+                return attention(layer, xs, ps, cfg, impl="ring",
+                                 sp_group=group)
+
+        run()                               # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        counts = _zero_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = counts()
+        torch.save({"out": out.cpu(), "launches": launches,
+                    "wall_ms": wall_ms, "backend": dist.get_backend(group),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9},
+                   f"{run_dir}/rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sp():
+    import torch
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import attention
+
+    cfg = get_config("qwen3-4b")
+    run_dir = ROOT / "build" / "sp"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    log(f"[sp] qwen3-4b attention layer, {SP_SEQ} tokens over {SP_RANKS} "
+        f"gloo ranks on one card ({SP_LOCAL} each), impl='ring'")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(sp_rank, args=(SP_RANKS, str(run_dir)),
+                             nprocs=SP_RANKS, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() - t0 < SP_TIMEOUT_S,
+                  f"sp ranks still running after {SP_TIMEOUT_S} s")
+    except ProcessException as e:
+        raise Failed(f"sp rank failed: {e}") from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in ctx.processes]
+    check(codes == [0] * SP_RANKS, f"sp ranks' exit codes {codes}")
+    wall_s = time.perf_counter() - t0
+    ranks = [torch.load(run_dir / f"rank{r}.pt") for r in range(SP_RANKS)]
+    for r, res in enumerate(ranks):
+        check(res["backend"] == "gloo", f"rank {r}: {res['backend']}")
+        check(res["launches"]["flash_partial"] == SP_RANKS,
+              f"rank {r}: flash_partial launched "
+              f"{res['launches']['flash_partial']} times, not {SP_RANKS}")
+        check(res["launches"]["flash_attention"] == 0,
+              f"rank {r}: flash_attention ran on the ring path")
+    got = torch.cat([res["out"] for res in ranks], dim=1).to("cuda")
+
+    layer, x, pos = sp_inputs(cfg)
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        want = attention(layer, x, pos, cfg, impl="flash")
+        torch.cuda.synchronize()
+        flash_ms = (time.perf_counter() - t1) * 1e3
+    check(got.shape == want.shape == (1, SP_SEQ, cfg.d_model)
+          and bool(torch.isfinite(got).all()), "ring output not finite")
+    diff = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)     # bf16 at max|ref|
+    log(f"[sp] ring vs single-process flash over {SP_SEQ} tokens: max|diff| "
+        f"{diff:.4e}, max|ref| {top:.4e}, tol 2 bf16 ulps = {2 * ulp:.4e}")
+    check(diff <= 2 * ulp, f"ring differs from flash by {diff}")
+    launches = {k: sum(res["launches"][k] for res in ranks)
+                for k in ranks[0]["launches"]}
+    result = {
+        "tokens": SP_SEQ, "ranks": SP_RANKS, "tokens_per_rank": SP_LOCAL,
+        "backend": "gloo",
+        "ring_call_wall_ms_by_rank": [res["wall_ms"] for res in ranks],
+        "peak_mem_gb_by_rank": [res["peak_gb"] for res in ranks],
+        "flash_reference_wall_ms": flash_ms, "phase_wall_s": wall_s,
+        "max_abs_diff": diff, "launches": launches,
+    }
+    log("[sp] " + json.dumps(result) + " (the 4 ranks share one card)")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timings and bounds
 # ---------------------------------------------------------------------------
 
@@ -773,6 +998,46 @@ def _flash_timing(B, S, T, q_offset, kv_len):
                    qs, ks, vs, attn_mask=sdpa_mask, enable_gqa=True))
     return dict(t, bound_ms=bound, bound_by=by,
                 shape=f"B={B} S={S} T={T} H={H} KV={KV} dh={dh} bf16")
+
+
+def _partial_timing(delta):
+    """Ring attention's panel visit at the phase-8 shape (S_loc = T_loc =
+    8192, H 32, KV 8, dh 128, bf16, causal) for one ``delta``: the kernel,
+    its plain version and, as the library yardstick, SDPA over the same
+    admissible pairs; SDPA writes the normalised output, not the state.  The
+    bound counts q read, the K/V rows some query admits read, and the fp32
+    state written; operations 4 x pairs x H x dh."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ring_attention import flash_partial_cuda
+
+    S, H, KV, dh = SP_LOCAL, 32, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn(1, S, H, dh, generator=g, device="cuda").bfloat16()
+    k = torch.randn(1, S, KV, dh, generator=g, device="cuda").bfloat16()
+    v = torch.randn(1, S, KV, dh, generator=g, device="cuda").bfloat16()
+    mask = ref.attn_mask(1, S, S, q.device, causal=True, window=None,
+                          q_offset=_i32([delta]), kv_len=None)
+    pairs = mask.sum().item()
+    keys = mask.any(1).sum().item()
+    n_bytes = 2 * S * H * dh + 2 * 2 * keys * KV * dh + 4 * S * H * (dh + 2)
+    bound, by = _bound_ms(n_bytes, 4 * pairs * H * dh, "bfloat16")
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    if pairs == mask.numel():
+        sdpa_kw, lib_mask = {}, "none (every pair admissible)"
+    elif delta == 0:
+        sdpa_kw, lib_mask = dict(is_causal=True), "is_causal"
+    else:
+        sdpa_kw, lib_mask = dict(attn_mask=mask[:, None]), "boolean mask"
+    t = _times(lambda: flash_partial_cuda(q, k, v, delta, causal=True),
+               lambda: ref.flash_partial_ref(q, k, v, delta, causal=True),
+               lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, enable_gqa=True, **sdpa_kw),
+               iters=3, plain_iters=2)
+    return dict(t, bound_ms=bound, bound_by=by, delta=delta, pairs=pairs,
+                library_mask=lib_mask,
+                shape=f"S=T={S} H={H} KV={KV} dh={dh} delta={delta} bf16")
 
 
 def _rmsnorm_timing(rows, d):
@@ -874,6 +1139,7 @@ def phase_timings(errs, launches):
              "prefill": _rmsnorm_timing(PREFILL_BATCH * PREFILL_CHUNK, 2560),
              "prefill_qk": _rmsnorm_timing(
                  PREFILL_BATCH * PREFILL_CHUNK * 32, 128),
+             "sp_q_norm": _rmsnorm_timing(SP_LOCAL * 32, 128),
              "train": _rmsnorm_timing(tokens, 1024),
              "train_gated": _rmsnorm_timing(tokens, 2048)}),
         ("rmsnorm_bwd", "triton", "src/repro_torch/kernels/rmsnorm.py",
@@ -884,6 +1150,11 @@ def phase_timings(errs, launches):
          "src/repro/kernels/ssd_scan.py:72", "train", {"train": ssd_fwd}),
         ("ssd_scan_bwd", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd_scan.py:72", "train", {"train": ssd_bwd}),
+        ("flash_partial", "cuda", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/ring_attention.py:110", "visible", {
+             "diagonal": _partial_timing(0),
+             "visible": _partial_timing(SP_LOCAL),
+             "dead": _partial_timing(-SP_LOCAL)}),
     ]
     kernels = []
     for name, route, source, replaces, main_shape, by_shape in table:
@@ -927,18 +1198,21 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
     try:
-        phase_build()
+        card = phase_build()
         errs = phase_kernels()
+        phase_partial(errs)
         phase_train_kernels(errs)
         launches = {"serve": phase_serve()}
         phase_cpu_vs_card()
         launches["train"] = phase_train()
         phase_train_cpu_vs_card()
+        launches["sp"] = phase_sp()
         kernels = phase_timings(errs, launches)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(card)       # again, so that the end of the output names the card
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,23 @@
 // query rows past S are never computed, so one decode row costs one row.
 // Products are plain FMA loops; wgmma, TMA and putting the G query heads of
 // one KV head into one CTA are later work.
+//
+// The same body, compiled with PARTIAL = true, is ring attention's panel
+// visit (flash_partial_fwd below).  It replaces the TPU kernel
+// src/repro/kernels/ring_attention.py::_flash_partial (_partial_kernel): local
+// q (B,S,H,dh) against one K/V panel (B,T,KV,dh), placed by the per-lane
+// offset delta = q_start - k_start (the q_offset of the full kernel), and it
+// writes the un-normalised online-softmax state instead of the output: acc
+// (B,S,H,dh) fp32 not divided by l, the row max m and the row sum l (B,S,H)
+// fp32.  A row the panel rejects whole is written as the JAX state (acc, m,
+// l) = (0, -1e30, 0), so that merging two empty states never takes
+// exp(-inf - -inf).  delta ranges over [-(P-1) T, (P-1) T]: a panel wholly
+// ahead of the q shard (causally dead) makes the tile range empty, and with
+// a window a panel far behind it starts past the panel's end; neither loads
+// a tile, and the launch costs only the write of the empty state.  Bounded
+// like the full kernel: at the ring's shapes (S = T = 8192 per rank) a fully
+// visible visit is 1.1 TFLOP, bound by operations, and these FMA loops run
+// far below the tensor cores' rate.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,6 +50,7 @@ namespace {
 constexpr int BLOCK_Q = 64;
 constexpr int BLOCK_K = 64;
 constexpr int THREADS = 128;
+constexpr float NEG_INF = -1e30f;  // the ring state's "no key" row max
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -74,10 +92,13 @@ constexpr size_t smem_floats() {
          BLOCK_Q * (BLOCK_K + 1) + 3 * BLOCK_Q;
 }
 
-template <typename T, int DH>
+// PARTIAL = false: o is the (B,S,H,dh) output in T.  PARTIAL = true: o is
+// acc (B,S,H,dh) fp32, m_out and l_out are (B,S,H) fp32.
+template <typename T, int DH, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v, void* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out,
                  const int* __restrict__ q_offset,
                  const int* __restrict__ kv_len, int S, int T_len, int H,
                  int KV, int causal, int window, float scale) {
@@ -105,10 +126,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int off = q_offset ? q_offset[b] : 0;
   const int klen = max(0, min(kv_len ? kv_len[b] : T_len, T_len));
 
-  // keys admissible to at least one row of this block: [k_lo, k_hi)
+  // keys admissible to at least one row of this block: [k_lo, k_hi).  With
+  // a negative offset k_hi may be negative, and with a window k_lo may pass
+  // T_len; both leave the range empty.  k_lo >= 0, so k_lo / BLOCK_K below
+  // never divides a negative number.
   int k_hi = klen;
   if (causal) k_hi = min(k_hi, off + q0 + rows);
   const int k_lo = window > 0 ? max(0, off + q0 - window + 1) : 0;
+  const int kt_first = k_lo < k_hi ? (k_lo / BLOCK_K) * BLOCK_K : k_hi;
 
   for (int i = tid; i < rows * DH; i += THREADS) {
     const int r = i / DH, d = i % DH;
@@ -125,7 +150,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
 
-  for (int kt = (k_lo / BLOCK_K) * BLOCK_K; kt < k_hi; kt += BLOCK_K) {
+  for (int kt = kt_first; kt < k_hi; kt += BLOCK_K) {
     __syncthreads();  // the previous tile is no longer read
     // stage the K/V tile: 16-byte loads, all of a thread's in flight at once
     const int kn = min(BLOCK_K, T_len - kt);
@@ -215,29 +240,69 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int r = r_own + i;
     if (r < rows) {
-      const float l = s_l[r];
-      o[((size_t)(b * S + q0 + r) * H + h) * DH + d_own] =
-          from_float<T>(l > 0.f ? acc[i] / l : 0.f);
+      const size_t at = ((size_t)(b * S + q0 + r) * H + h) * DH + d_own;
+      if constexpr (PARTIAL) {
+        static_cast<float*>(o)[at] = acc[i];  // 0 on a rejected row
+      } else {
+        const float l = s_l[r];
+        static_cast<T*>(o)[at] = from_float<T>(l > 0.f ? acc[i] / l : 0.f);
+      }
+    }
+  }
+  if constexpr (PARTIAL) {
+    for (int r = tid; r < rows; r += THREADS) {
+      const size_t at = (size_t)(b * S + q0 + r) * H + h;
+      const float m = s_m[r];
+      m_out[at] = m == -INFINITY ? NEG_INF : m;
+      l_out[at] = s_l[r];
     }
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PARTIAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* q_offset, const int* kv_len, int B, int S,
-                   int T_len, int H, int KV, int causal, int window,
-                   float scale, cudaStream_t stream) {
+                   float* m_out, float* l_out, const int* q_offset,
+                   const int* kv_len, int B, int S, int T_len, int H, int KV,
+                   int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<DH>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, DH, PARTIAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BLOCK_Q - 1) / BLOCK_Q, H, B);
-  flash_fwd_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, DH, PARTIAL><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), q_offset, kv_len, S,
-      T_len, H, KV, causal, window, scale);
+      static_cast<const T*>(v), o, m_out, l_out, q_offset, kv_len, S, T_len,
+      H, KV, causal, window, scale);
   return cudaGetLastError();
+}
+
+template <bool PARTIAL>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* m_out, float* l_out, const void* q_offset,
+             const void* kv_len, int B, int S, int T_len, int H, int KV,
+             int dh, int dtype, int causal, int window, float scale,
+             void* stream) {
+  const int* qo = static_cast<const int*>(q_offset);
+  const int* kl = static_cast<const int*>(kv_len);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && dh == 128)
+    return launch<__nv_bfloat16, 128, PARTIAL>(q, k, v, o, m_out, l_out, qo,
+                                                kl, B, S, T_len, H, KV,
+                                                causal, window, scale, st);
+  if (dtype == 1 && dh == 64)
+    return launch<__nv_bfloat16, 64, PARTIAL>(q, k, v, o, m_out, l_out, qo,
+                                               kl, B, S, T_len, H, KV, causal,
+                                               window, scale, st);
+  if (dtype == 0 && dh == 128)
+    return launch<float, 128, PARTIAL>(q, k, v, o, m_out, l_out, qo, kl, B,
+                                       S, T_len, H, KV, causal, window,
+                                       scale, st);
+  if (dtype == 0 && dh == 64)
+    return launch<float, 64, PARTIAL>(q, k, v, o, m_out, l_out, qo, kl, B, S,
+                                      T_len, H, KV, causal, window, scale,
+                                      st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -251,20 +316,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int B, int S, int T_len, int H, int KV,
                                    int dh, int dtype, int causal, int window,
                                    float scale, void* stream) {
-  const int* qo = static_cast<const int*>(q_offset);
-  const int* kl = static_cast<const int*>(kv_len);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, qo, kl, B, S, T_len, H, KV,
-                                      causal, window, scale, st);
-  if (dtype == 1 && dh == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, qo, kl, B, S, T_len, H, KV,
-                                     causal, window, scale, st);
-  if (dtype == 0 && dh == 128)
-    return launch<float, 128>(q, k, v, o, qo, kl, B, S, T_len, H, KV, causal,
-                              window, scale, st);
-  if (dtype == 0 && dh == 64)
-    return launch<float, 64>(q, k, v, o, qo, kl, B, S, T_len, H, KV, causal,
-                             window, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, o, nullptr, nullptr, q_offset, kv_len, B, S,
+                         T_len, H, KV, dh, dtype, causal, window, scale,
+                         stream);
+}
+
+// Ring attention's panel visit: acc (B,S,H,dh), m and l (B,S,H) fp32
+// outputs; delta: int32 (B,) device pointer, q_start - k_start for every
+// lane.  Other arguments as above; the panel has no length mask.
+extern "C" int flash_partial_fwd(const void* q, const void* k, const void* v,
+                                 void* acc, void* m, void* l,
+                                 const void* delta, int B, int S, int T_len,
+                                 int H, int KV, int dh, int dtype, int causal,
+                                 int window, float scale, void* stream) {
+  return dispatch<true>(q, k, v, acc, static_cast<float*>(m),
+                        static_cast<float*>(l), delta, nullptr, B, S, T_len,
+                        H, KV, dh, dtype, causal, window, scale, stream);
 }

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,14 +50,22 @@ def _validate_attn_shapes(S: int, T: int, H: int, KV: int,
 #                     dtype, causal, window, scale, stream)
 ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_void_p])
+# flash_partial_fwd(q, k, v, acc, m, l, delta, B, S, T, H, KV, dh, dtype,
+#                   causal, window, scale, stream)
+PARTIAL_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                    + [ctypes.c_float, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+def _lib() -> ctypes.CDLL:
+    """``csrc/flash_attention.cu`` built and loaded, with both entries:
+    the full kernel and ring attention's panel visit."""
+    lib = _build.load("flash_attention")
+    for fn, argtypes in ((lib.flash_attention_fwd, ARGTYPES),
+                         (lib.flash_partial_fwd, PARTIAL_ARGTYPES)):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _lane_arg(x: Optional[torch.Tensor], B: int, device: torch.device,
@@ -71,6 +79,31 @@ def _lane_arg(x: Optional[torch.Tensor], B: int, device: torch.device,
     return x.contiguous()
 
 
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 fn: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Raise on what the kernel does not take: q (B,S,H,dh), k/v
+    (B,T,KV,dh) on one CUDA device, one dtype (float32 or bfloat16), dh in
+    {64, 128}.  Return q, k, v laid out for the kernel.  The caller checks
+    the GQA grouping and the window."""
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"{fn} needs q, k and v on one CUDA device; got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes must all be float32 or bfloat16; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if dh not in _HEAD_DIMS or k.shape != (B, T, KV, dh) \
+            or v.shape != k.shape:
+        raise ValueError(f"unsupported shapes q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)} v={tuple(v.shape)} "
+                         f"(head dim must be one of {_HEAD_DIMS})")
+    # the kernel reads K/V rows with 16-byte loads
+    k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone()
+            for x in (k, v))
+    return q.contiguous(), k, v
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: Optional[int] = None,
                          q_offset: Optional[torch.Tensor] = None,
@@ -81,32 +114,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Tensors must lie on one CUDA device, share a dtype (float32 or
     bfloat16) and have dh in {64, 128}.  Raises otherwise, and raises if the
     launch fails; it never computes on another path."""
+    _validate_attn_shapes(q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                          window)
+    q, k, v = check_inputs(q, k, v, "flash_attention_cuda")
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
-    _validate_attn_shapes(S, T, H, KV, window)
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_cuda needs q, k and v on one CUDA "
-                         f"device; got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"dtypes must all be float32 or bfloat16; got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if dh not in _HEAD_DIMS or k.shape != (B, T, KV, dh) \
-            or v.shape != k.shape:
-        raise ValueError(f"unsupported shapes q={tuple(q.shape)} "
-                         f"k={tuple(k.shape)} v={tuple(v.shape)} "
-                         f"(head dim must be one of {_HEAD_DIMS})")
     q_offset = _lane_arg(q_offset, B, q.device, "q_offset")
     kv_len = _lane_arg(kv_len, B, q.device, "kv_len")
-    # the kernel reads K/V rows with 16-byte loads
-    k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone()
-            for x in (k, v))
-    q = q.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(
+        err = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if q_offset is None else q_offset.data_ptr(),
             None if kv_len is None else kv_len.data_ptr(),

@@ -13,9 +13,15 @@ from typing import Optional
 import torch
 
 from .flash_attention import _validate_attn_shapes, flash_attention_cuda
-from .ref import flash_attention_ref, rmsnorm_ref, ssd_scan_ref
+from .ref import (State, flash_attention_ref, flash_partial_ref, rmsnorm_ref,
+                  ssd_scan_ref)
+from .ring_attention import (check_panel, flash_partial_cuda,
+                             ring_flash_attention)
 from .rmsnorm import RMSNorm
 from .ssd_scan import SSDScan
+
+__all__ = ["flash_attention", "flash_partial", "ring_flash_attention",
+           "rmsnorm", "ssd_scan"]
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -37,6 +43,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           window)
     return flash_attention_ref(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, kv_len=kv_len)
+
+
+def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  delta: int, *, causal: bool = True,
+                  window: Optional[int] = None) -> State:
+    """One K/V panel visit of ring attention -> (acc, m, l) in fp32.  See
+    :func:`~repro_torch.kernels.ref.flash_partial_ref`."""
+    if _on_cuda(q):
+        return flash_partial_cuda(q, k, v, delta, causal=causal,
+                                  window=window)
+    check_panel(q.shape[2], k.shape[2], window)
+    return flash_partial_ref(q, k, v, delta, causal=causal, window=window)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,

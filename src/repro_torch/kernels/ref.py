@@ -7,10 +7,34 @@ when the tensors lie on a CUDA device.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+NEG_INF = -1e30     # the finite "no key yet" row max of the ring's state
+State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]     # (acc, m, l)
+
+
+def attn_mask(B: int, S: int, T: int, device: torch.device, *,
+              causal: bool, window: Optional[int],
+              q_offset: Optional[torch.Tensor],
+              kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B,S,T) bool: key ``t`` is admissible for query row ``s`` of lane
+    ``b``, with the rules of :func:`flash_attention_ref`."""
+    off = (torch.zeros(B, dtype=torch.int64, device=device)
+           if q_offset is None else q_offset.to(torch.int64))
+    qpos = off[:, None] + torch.arange(S, device=device)[None, :]  # (B,S)
+    kpos = torch.arange(T, device=device)
+    mask = torch.ones(B, S, T, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None, None, :] <= qpos[:, :, None]
+    if window is not None:
+        mask &= kpos[None, None, :] > qpos[:, :, None] - window
+    if kv_len is not None:
+        mask &= kpos[None, None, :] < kv_len.to(torch.int64)[:, None, None]
+    return mask
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -29,21 +53,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
-    dev = q.device
     qg = q.reshape(B, S, KV, G, dh).float()
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / (dh ** 0.5)
-    off = (torch.zeros(B, dtype=torch.int64, device=dev) if q_offset is None
-           else q_offset.to(torch.int64))
-    qpos = off[:, None] + torch.arange(S, device=dev)[None, :]     # (B,S)
-    kpos = torch.arange(T, device=dev)
-    mask = torch.ones(B, S, T, dtype=torch.bool, device=dev)
-    if causal:
-        mask &= kpos[None, None, :] <= qpos[:, :, None]
-    if window is not None:
-        mask &= kpos[None, None, :] > qpos[:, :, None] - window
-    if kv_len is not None:
-        mask &= kpos[None, None, :] < kv_len.to(torch.int64)[:, None, None]
-    m5 = mask[:, None, None]                                       # (B,1,1,S,T)
+    m5 = attn_mask(B, S, T, q.device, causal=causal, window=window,
+                   q_offset=q_offset, kv_len=kv_len)[:, None, None]
     scores = scores.masked_fill(~m5, float("-inf"))
     # rows with no admissible key: softmax over all -inf is NaN; they are
     # exact zeros, matching the kernel
@@ -52,6 +65,66 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = probs * m5.any(-1, keepdim=True)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     return out.reshape(B, S, H, dh).to(q.dtype)
+
+
+def flash_partial_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      delta: int, *, causal: bool = True,
+                      window: Optional[int] = None) -> State:
+    """One K/V panel visit of ring attention: the un-normalised
+    online-softmax state of local q (B,S,H,dh) against a panel k/v
+    (B,T,KV,dh) -> (acc (B,S,H,dh), m (B,S,H,1), l (B,S,H,1)), all fp32.
+
+    ``delta = q_start - k_start`` places the q shard against the panel's
+    global origin: the masks of :func:`flash_attention_ref` with
+    ``q_offset = delta``, so key ``t`` is admissible for row ``s`` when
+    ``t <= s + delta`` (causal) and ``t > s + delta - window``.  ``m`` is
+    the row max of the scaled admissible scores, ``l = sum exp(s - m)`` and
+    ``acc = sum exp(s - m) v``.  A row the panel rejects whole keeps
+    ``(acc, m, l) = (0, NEG_INF, 0)``, which :func:`merge_partials` treats
+    as an empty state.  Computed in place on the score tensor, so the
+    largest temporary is one (B,H,S,T) fp32 tensor."""
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, dh).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()).mul_(dh ** -0.5)
+    off = torch.full((B,), int(delta), dtype=torch.int64, device=q.device)
+    mask = attn_mask(B, S, T, q.device, causal=causal, window=window,
+                     q_offset=off, kv_len=None)[:, None, None]
+    s.masked_fill_(~mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)                       # (B,KV,G,S,1)
+    # exp(s - m), zero where masked (a rejected row has s == m == NEG_INF)
+    p = s.sub_(m).exp_().masked_fill_(~mask, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+
+    def rows(t):                    # (B,KV,G,S,1) -> (B,S,H,1)
+        return t.permute(0, 3, 1, 2, 4).reshape(B, S, H, 1)
+
+    return acc.reshape(B, S, H, dh), rows(m), rows(l)
+
+
+def merge_partials(state: State, part: State) -> State:
+    """Log-sum-exp combine of two (acc, m, l) states (the JAX package's
+    ``ring_attention.py::_merge``).  An empty state (m == NEG_INF, acc == 0,
+    l == 0) merges as the identity: its coefficient is exp of a gap of
+    about -1e30, an exact 0, and two empty states give exp(0) times zeros.
+    Plain PyTorch on every device, as the JAX package computes it outside
+    its kernel."""
+    acc_a, m_a, l_a = state
+    acc_b, m_b, l_b = part
+    m_new = torch.maximum(m_a, m_b)
+    ca = torch.exp(m_a - m_new)
+    cb = torch.exp(m_b - m_new)
+    return acc_a * ca + acc_b * cb, m_new, l_a * ca + l_b * cb
+
+
+def finalize_partial(state: State, dtype: torch.dtype) -> torch.Tensor:
+    """``acc / l`` where ``l > 0``, else 0, cast to ``dtype``: the attention
+    output of a merged state."""
+    acc, _, l = state
+    pos = l > 0.0
+    return torch.where(pos, acc / torch.where(pos, l, 1.0), 0.0).to(dtype)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,

@@ -1,5 +1,7 @@
-"""Grouped-query attention with RoPE and optional QK-norm / QKV-bias over a
-paged KV cache; the inner attention runs the flash-attention kernel
+"""Grouped-query attention with RoPE and optional QK-norm / QKV-bias: the
+full-sequence layer (:func:`attention`, whose ``impl="ring"`` is
+sequence-parallel ring attention) and the paged-cache layers of the serving
+path.  On the card the inner attention runs the flash-attention kernels
 (``kernels/ops.py``).
 
 The JAX package's pools are functional (``pool.at[...].set``).  Here the
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.kernels import ops
@@ -94,6 +97,70 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     off = torch.as_tensor(q_offset, device=q.device).expand(B)
     return flash_attention_ref(q, k, v, causal=causal, window=window,
                                q_offset=off, kv_len=kv_len)
+
+
+def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window: Optional[int] = None,
+                 block_q: int = 512) -> torch.Tensor:
+    """Plain attention with q in blocks over all of T, so the largest score
+    tensor is (B, H, block_q, T) instead of (B, H, S, T) (the JAX package's
+    ``sdpa_chunked``, with its block rule: ``block_q`` halved until it
+    divides S).  Query ``i`` sits at position ``i``.  The JAX function is
+    its pure-jnp analogue of the flash kernel for backends without Pallas;
+    here it serves CPU tensors, and the card runs the kernel."""
+    B, S = q.shape[:2]
+    bq = min(block_q, S)
+    while S % bq:
+        bq //= 2
+    return torch.cat([
+        flash_attention_ref(q[:, i:i + bq], k, v, causal=causal,
+                            window=window,
+                            q_offset=torch.full((B,), i, device=q.device))
+        for i in range(0, S, bq)], dim=1)
+
+
+ATTN_IMPLS = ("ring", "flash", "chunked", "ref", "auto")
+
+
+def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig, *, causal: bool = True,
+              window: Optional[int] = None, impl: str = "auto",
+              sp_group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Full-sequence (train / prefill) self-attention: x (B,S,d) ->
+    (B,S,d).
+
+    ``impl`` is one of ``ATTN_IMPLS``.  ``"auto"`` is ``"flash"`` on a CUDA
+    tensor; on a CPU tensor it is the JAX rule, ``"chunked"`` for S >= 1024
+    and ``"ref"`` below.  ``"chunked"`` and ``"ref"`` are plain versions and
+    take only CPU tensors; ``"flash"`` and ``"ring"`` dispatch by device
+    (``kernels/ops.py``).
+
+    ``impl="ring"`` runs sequence-parallel ring attention over the ranks of
+    ``sp_group`` (the JAX package's ``sp_axis``/``sp_size``; None is a ring
+    of one rank): x and ``positions`` are this rank's slice of a sequence
+    split in rank order over the group.  ``positions`` (B,S) must be the
+    shard's absolute token positions, so that RoPE agrees with the
+    unsharded layer."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"impl must be one of {ATTN_IMPLS}; got {impl!r}")
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    if impl == "auto":
+        impl = ("flash" if x.is_cuda else
+                "chunked" if S >= 1024 else "ref")
+    if impl in ("chunked", "ref") and x.is_cuda:
+        raise ValueError(f"impl={impl!r} is a plain version for CPU tensors; "
+                         "on the card use 'flash' or 'ring'")
+    if impl == "ring":
+        out = ops.ring_flash_attention(q, k, v, group=sp_group,
+                                       causal=causal, window=window)
+    elif impl == "flash":
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    elif impl == "chunked":
+        out = sdpa_chunked(q, k, v, causal=causal, window=window)
+    else:
+        out = sdpa_ref(q, k, v, causal=causal, window=window)
+    return out.reshape(B, S, cfg.q_dim) @ p.wo
 
 
 def _gather_lanes(pool: Pool, page_rows: torch.Tensor

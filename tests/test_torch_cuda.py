@@ -17,6 +17,11 @@ fp32 SSD cases are held against the plain version in float64, since the
 fp32 plain version is itself off by up to ~1e-4 in the gradients of dt and
 A (sums over a chunk of differences of sums): the kernel passes within
 1e-4 of float64, or no further from it than twice the fp32 plain version.
+Ring attention's panel-visit kernel writes fp32 (acc, m, l) whatever its
+input type: fp32 inputs within 1e-5 of the plain version relative to each
+output's largest magnitude, bf16 inputs within 2e-3 (the same bf16 values
+read by both, fp32 sums in another order); rows the panel rejects whole
+exactly (0, -1e30, 0).
 """
 import numpy as np
 import pytest
@@ -25,6 +30,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_cuda
+from repro_torch.kernels.ring_attention import flash_partial_cuda
 from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan_cuda
 
 torch.set_num_threads(1)
@@ -187,3 +193,46 @@ def test_rmsnorm_backward_kernel_matches_plain_on_card(cuda_device, dtype,
     assert dx.dtype == dtype and dw.dtype == dtype
     assert _rel_err(dx, dx_ref) <= REL_TOL[dtype]
     assert _rel_err(dw, dw_ref) <= REL_TOL[dtype]
+
+
+# (S, T, delta, causal, window): ragged S and T off the 64-row tiles; the
+# panel behind, on and ahead of the q shard (ahead: causally dead); deltas
+# that kill the first q tile's keys but not the second's, and a window that
+# starts past the panel's end
+PARTIAL_CASES = [(77, 77, 0, True, None), (77, 77, 77, True, None),
+                 (77, 77, -77, True, None), (64, 64, -192, True, None),
+                 (130, 130, -70, True, None), (130, 100, 37, True, 50),
+                 (130, 130, 390, True, 50), (100, 130, 1000, False, None),
+                 (100, 130, -1000, False, 60)]
+PARTIAL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("S,T,delta,causal,window", PARTIAL_CASES)
+def test_flash_partial_kernel_matches_plain_on_card(cuda_device, dtype, dh,
+                                                    S, T, delta, causal,
+                                                    window):
+    rng = np.random.default_rng(S + T + dh + abs(delta))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(cuda_device, dtype)
+               for shape in ((2, S, 8, dh), (2, T, 2, dh), (2, T, 2, dh)))
+    launches = flash_partial_cuda.launches
+    acc, m, l = flash_partial_cuda(q, k, v, delta, causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert flash_partial_cuda.launches == launches + 1
+    acc_r, m_r, l_r = ref.flash_partial_ref(q, k, v, delta, causal=causal,
+                                            window=window)
+    assert all(t.dtype == torch.float32 for t in (acc, m, l))
+    seen = l_r[..., 0] > 0
+    assert torch.equal(l[..., 0] > 0, seen)
+    if seen.any():
+        for got, want in ((acc[seen], acc_r[seen]), (m[seen], m_r[seen]),
+                          (l[seen], l_r[seen])):
+            assert _rel_err(got, want) <= PARTIAL_TOL[dtype]
+    empty = ~seen
+    assert bool((acc[empty] == 0).all() and (l[empty] == 0).all())
+    assert bool((m[empty] == -1e30).all())

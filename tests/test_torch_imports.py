@@ -23,7 +23,8 @@ def test_import_loads_no_jax_triton_or_repro():
             "repro_torch.bridge, repro_torch.models.ssm, "
             "repro_torch.kernels.ssd_scan, repro_torch.kernels.ops, "
             "repro_torch.optim, repro_torch.data, "
-            "repro_torch.runtime.executor; "
+            "repro_torch.runtime.executor, repro_torch.runtime.sequence, "
+            "repro_torch.launch.mesh, repro_torch.kernels.ring_attention; "
             "print(sorted({m.split('.')[0] for m in sys.modules} "
             "& {'jax', 'jaxlib', 'triton', 'repro'}))")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
