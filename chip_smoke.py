@@ -9,14 +9,20 @@ Phases (any failure exits non-zero before the final line is printed):
    build the kernels from the sources in this checkout (one ``nvcc`` per
    CUDA C++ source, all started together: flash attention with ring
    attention's panel visit, and the SSD scan; Triton's compiler for RMSNorm
-   forward and backward) and print the build seconds;
+   forward and backward) and print the build seconds; print each CUDA
+   kernel's registers and spill bytes (``-Xptxas -v``) and its HGMMA count
+   (``cuobjdump -sass``), and fail unless the four bf16 flash
+   instantiations (both entries, dh 64 and 128) contain HGMMA;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes, with the stated tolerances (the
    backward kernels against ``torch.autograd`` of the plain versions; the
    fp32 SSD cases against the plain version in float64, beside the fp32
    plain version's own distance from it; ring attention's panel visit at
    qwen3-4b width with 8192 local queries and keys, for panels behind, on,
-   ahead of and far from the q shard);
+   ahead of and far from the q shard; both attention entries also at small
+   sizes with GQA groups of 1, 5 and 8 and with dh 64); and log why the
+   bf16 panel visit splits P into two bf16 terms: the plain arithmetic's
+   acc error at the visible visit with P rounded to bf16 and with P split;
 3. serve full-width qwen3-4b (random bf16 weights from seed 0) through the
    paged continuous-batching engine: 12 requests, prompts of 33-400
    tokens, 16-32 new tokens each; every request must complete and both
@@ -35,7 +41,8 @@ Phases (any failure exits non-zero before the final line is printed):
    queued behind a spin kernel, and the time per call of back-to-back
    launches from Python),
    with the least time the card could take (bytes over 3.35 TB/s or
-   operations over the peak rate of the inputs' type);
+   operations over the peak rate of the inputs' type), and the achieved
+   TFLOP/s of the attention kernels and SDPA;
 8. sequence-parallel attention at full qwen3-4b width (run before phase 7,
    whose table reads its launches): 4 ranks on the one card, joined by a
    gloo process group, each holding 8192 tokens of a 32768-token input,
@@ -43,7 +50,9 @@ Phases (any failure exits non-zero before the final line is printed):
    ``impl="ring"``; the gathered output must lie within 2 bf16 ulps of the
    largest magnitude of single-process ``impl="flash"`` on the whole
    sequence, and the ring kernel must have launched 4 times on every rank.
-   The 4 ranks share the card, so their kernels take turns on it.
+   Each rank also times its 4 panel visits with CUDA events around each
+   round's launch, apart from the rest of the call.  The 4 ranks share the
+   card, so their kernels take turns on it.
 
 The last three lines of standard output are the card's ``nvidia-smi``
 name and power limit (also printed first), the ``kernels`` JSON line and
@@ -53,7 +62,9 @@ the checkout; without either it exits non-zero and prints no result.
 import copy
 import json
 import math
+import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -163,6 +174,61 @@ def rel_err(got, want) -> float:
 # phase 1: card, build
 # ---------------------------------------------------------------------------
 
+def ptxas_report(text):
+    """[(mangled kernel, registers, (spill store bytes, spill load bytes))]
+    from an ``nvcc -Xptxas -v`` log."""
+    out, fn, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1)), spill))
+            fn = None
+    return out
+
+
+def hgmma_counts(lib):
+    """{mangled kernel: number of HGMMA (wgmma) instructions} in the
+    library's SASS (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed on {lib}: {res.stderr}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def _kernel_name(mangled):
+    """flash_fwd_wgmma_kernel<128,true> from its mangled name."""
+    for m in re.finditer(r"(?=(\d{1,2})([a-z_]+kernel))", mangled):
+        if int(m.group(1)) != len(m.group(2)):
+            continue            # digits of a hash, not the name's length
+        rest = mangled[m.start() + len(m.group(1)) + len(m.group(2)):]
+        t = re.match(r"I(.*?)EEv", rest)
+        if not t:
+            return m.group(2)
+        args = re.sub(r"Li(\d+)E", r"\1,", t.group(1))
+        args = args.replace("Lb1E", "true,").replace("Lb0E", "false,")
+        args = re.sub(r"^f", "float,", args).replace("13__nv_bfloat16",
+                                                       "bf16,")
+        return f"{m.group(2)}<{args.rstrip(',')}>"
+    return mangled[:36]
+
+
 def phase_build():
     import torch
     from repro_torch.kernels import _build
@@ -187,9 +253,19 @@ def phase_build():
     for name, lib, secs in built:
         log(f"[build] nvcc {name}.cu: {secs:.1f} s -> "
             f"{lib.relative_to(ROOT)}")
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+        hgmma = hgmma_counts(lib)
+        for fn, regs, spill in ptxas_report(
+                lib.with_suffix(".log").read_text()):
+            log(f"[build]   {_kernel_name(fn):36s} {regs:3d} registers, "
+                f"spill stores/loads {spill[0]}/{spill[1]} bytes, "
+                f"{hgmma.get(fn, 0)} HGMMA in SASS")
+        if name == "flash_attention":
+            # the bf16 instantiations (both entries, dh 64 and 128) must
+            # run their products on wgmma
+            wgmma = {fn: n for fn, n in hgmma.items()
+                     if "flash_fwd_wgmma_kernel" in fn}
+            check(len(wgmma) == 4 and all(wgmma.values()),
+                  f"bf16 flash kernels without HGMMA in their SASS: {wgmma}")
     t0 = time.perf_counter()
     for dt in (torch.bfloat16, torch.float32):
         for d in (2560, 2048, 1024, 128):
@@ -229,6 +305,24 @@ def flash_cases():
     ]
 
 
+# (H, KV, dh) beside qwen3-4b's (32, 8, 128): GQA groups of 1, 5
+# (qwen2.5-14b) and 8, which the bf16 kernel packs into one CTA's rows, and
+# dh 64
+GQA_SHAPES = [(8, 8, 128), (40, 8, 128), (16, 2, 128), (32, 8, 64),
+              (10, 2, 64)]
+
+
+def gqa_flash_cases():
+    """(name, B, S, T, kwargs) at small sizes for every GQA_SHAPES entry:
+    ragged S and T, a window, and decode at positions from -1 to T - 1."""
+    return [("ragged S=77 T=333", 2, 77, 333, {}),
+            ("window 50, lanes", 2, 130, 200,
+             dict(window=50, q_offset=_i32([0, 3]), kv_len=_i32([200, 150]))),
+            ("decode", 6, 1, 300,
+             dict(q_offset=_i32([-1, 0, 5, 64, 200, 299]),
+                  kv_len=_i32([300, 300, 3, 65, 150, 300])))]
+
+
 def phase_kernels():
     import torch
     from repro_torch.kernels import ref
@@ -239,20 +333,29 @@ def phase_kernels():
     errs = {"flash_attention": 0.0, "rmsnorm": 0.0}
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for name, B, S, T, kw in flash_cases():
-            q = torch.randn(B, S, 32, 128, generator=g, device="cuda").to(dt)
-            k = torch.randn(B, T, 8, 128, generator=g, device="cuda").to(dt)
-            v = torch.randn(B, T, 8, 128, generator=g, device="cuda").to(dt)
+        cases = [(name, B, S, T, 32, 8, 128, kw)
+                 for name, B, S, T, kw in flash_cases()]
+        cases += [(name, B, S, T, H, KV, dh, kw)
+                  for H, KV, dh in GQA_SHAPES
+                  for name, B, S, T, kw in gqa_flash_cases()]
+        for name, B, S, T, H, KV, dh, kw in cases:
+            q = torch.randn(B, S, H, dh, generator=g, device="cuda").to(dt)
+            k = torch.randn(B, T, KV, dh, generator=g, device="cuda").to(dt)
+            v = torch.randn(B, T, KV, dh, generator=g, device="cuda").to(dt)
             out = flash_attention_cuda(q, k, v, **kw)
             torch.cuda.synchronize()
             want = ref.flash_attention_ref(q, k, v, **kw)
             err = (out.float() - want.float()).abs().max().item()
-            log(f"[flash] {dtype:8s} {name:20s} max|diff| {err:.3e} "
-                f"(tol {TOL[dtype]:.0e})")
-            check(err <= TOL[dtype], f"flash {name} {dtype}: {err}")
+            log(f"[flash] {dtype:8s} H {H:2d} KV {KV} dh {dh:3d} {name:20s} "
+                f"max|diff| {err:.3e} (tol {TOL[dtype]:.0e})")
+            check(err <= TOL[dtype], f"flash {name} H {H} KV {KV} dh {dh} "
+                  f"{dtype}: {err}")
             if name == "all-masked rows":
                 check(bool((out[:, 64:] == 0).all()),
                       "rows with no admissible key are not exact zeros")
+            if name == "decode":
+                check(bool((out[0] == 0).all()),
+                      "a decode row with no admissible key is not zeros")
             errs["flash_attention"] = max(errs["flash_attention"], err)
         # serving: prefill and decode rows at d_model and head_dim;
         # training: ln1 / final_norm at d_model, the gated norm at d_inner;
@@ -294,53 +397,96 @@ def partial_cases():
 
 def phase_partial(errs):
     """Ring attention's panel-visit kernel against its plain version at
-    qwen3-4b width (H 32, KV 8, dh 128), B 1, S_loc = T_loc = 8192."""
+    qwen3-4b width (H 32, KV 8, dh 128), B 1, S_loc = T_loc = 8192, and at
+    300 local queries and keys for every GQA_SHAPES entry."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.ring_attention import flash_partial_cuda
+
+    def visit(q, k, v, delta, window, dtype, what):
+        got = flash_partial_cuda(q, k, v, delta, causal=True, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_partial_ref(q, k, v, delta, causal=True,
+                                     window=window)
+        label = f"flash_partial {dtype} {what} delta {delta} window {window}"
+        seen = want[2][..., 0] > 0
+        check(torch.equal(got[2][..., 0] > 0, seen),
+              f"{label}: rows with keys differ")
+        empty = ~seen
+        check(bool((got[0][empty] == 0).all()
+                   and (got[1][empty] == -1e30).all()
+                   and (got[2][empty] == 0).all()),
+              f"{label}: empty rows are not exactly (0, -1e30, 0)")
+        rel = [rel_err(a[seen], b[seen]) if seen.any() else 0.0
+               for a, b in zip(got, want)]
+        log(f"[flash_partial] {dtype:8s} {what:20s} delta {delta:6d} window "
+            f"{str(window):4s}: rows with keys {seen.sum().item():7d} of "
+            f"{seen.numel()}; max|diff|/max|ref| acc {rel[0]:.2e}, "
+            f"m {rel[1]:.2e}, l {rel[2]:.2e} (tol "
+            f"{PARTIAL_TOL[dtype]:.0e}); empty rows exact")
+        check(max(rel) <= PARTIAL_TOL[dtype], f"{label}: {rel}")
+        if seen.any():
+            errs["flash_partial"] = max(errs["flash_partial"], *(
+                (a[seen] - b[seen]).abs().max().item()
+                for a, b in zip(got, want)))
 
     g = torch.Generator(device="cuda").manual_seed(7)
     errs["flash_partial"] = 0.0
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        q = torch.randn(1, SP_LOCAL, 32, 128, generator=g,
-                        device="cuda").to(dt)
-        k = torch.randn(1, SP_LOCAL, 8, 128, generator=g,
-                        device="cuda").to(dt)
-        v = torch.randn(1, SP_LOCAL, 8, 128, generator=g,
-                        device="cuda").to(dt)
-        for delta, window in partial_cases():
-            got = flash_partial_cuda(q, k, v, delta, causal=True,
-                                     window=window)
-            torch.cuda.synchronize()
-            want = ref.flash_partial_ref(q, k, v, delta, causal=True,
-                                         window=window)
-            seen = want[2][..., 0] > 0
-            check(torch.equal(got[2][..., 0] > 0, seen),
-                  f"flash_partial {dtype} delta {delta} window {window}: "
-                  "rows with keys differ")
-            empty = ~seen
-            check(bool((got[0][empty] == 0).all()
-                       and (got[1][empty] == -1e30).all()
-                       and (got[2][empty] == 0).all()),
-                  f"flash_partial {dtype} delta {delta}: empty rows are not "
-                  "exactly (0, -1e30, 0)")
-            rel = [rel_err(a[seen], b[seen]) if seen.any() else 0.0
-                   for a, b in zip(got, want)]
-            log(f"[flash_partial] {dtype:8s} delta {delta:6d} window "
-                f"{str(window):4s}: rows with keys {seen.sum().item():7d} of "
-                f"{seen.numel()}; max|diff|/max|ref| acc {rel[0]:.2e}, "
-                f"m {rel[1]:.2e}, l {rel[2]:.2e} (tol "
-                f"{PARTIAL_TOL[dtype]:.0e}); empty rows exact")
-            check(max(rel) <= PARTIAL_TOL[dtype],
-                  f"flash_partial {dtype} delta {delta} window {window}: "
-                  f"{rel}")
-            if seen.any():
-                errs["flash_partial"] = max(errs["flash_partial"], *(
-                    (a[seen] - b[seen]).abs().max().item()
-                    for a, b in zip(got, want)))
-            del got, want
-        del q, k, v
+        shapes = [(SP_LOCAL, 32, 8, 128, partial_cases())]
+        shapes += [(300, H, KV, dh, [(d, w) for d in (0, 300, -300, 37)
+                                     for w in (None, 100)])
+                   for H, KV, dh in GQA_SHAPES]
+        for n, H, KV, dh, cases in shapes:
+            q = torch.randn(1, n, H, dh, generator=g, device="cuda").to(dt)
+            k = torch.randn(1, n, KV, dh, generator=g, device="cuda").to(dt)
+            v = torch.randn(1, n, KV, dh, generator=g, device="cuda").to(dt)
+            for delta, window in cases:
+                visit(q, k, v, delta, window, dtype,
+                      f"S=T={n} H {H} KV {KV} dh {dh}")
+            del q, k, v
+    torch.cuda.empty_cache()
+
+
+def phase_bf16_p():
+    """Why the bf16 panel-visit kernel splits P: the plain version's
+    arithmetic on the visible 8192 x 8192 visit at qwen3-4b width, with P
+    V taken from P rounded to bf16 (the usual tensor-core step) and from P
+    split into bf16 P_hi + P_lo (the kernel's step), against fp32 P.  Logs
+    each acc's error relative to its largest magnitude; the split must hold
+    the bf16 panel tolerance."""
+    import torch
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    S, H, KV, dh, delta = SP_LOCAL, 32, 8, 128, SP_LOCAL
+    q = torch.randn(1, S, KV, H // KV, dh, generator=g, device="cuda")
+    k = torch.randn(1, S, KV, dh, generator=g, device="cuda")
+    v = torch.randn(1, S, KV, dh, generator=g, device="cuda")
+    q, k, v = (x.bfloat16().float() for x in (q, k, v))
+    s = torch.einsum("bskgd,btkd->bkgst", q, k).mul_(dh ** -0.5)
+    mask = ref.attn_mask(1, S, S, q.device, causal=True, window=None,
+                         q_offset=_i32([delta]), kv_len=None)[:, None, None]
+    p = s.masked_fill_(~mask, ref.NEG_INF)
+    p = p.sub_(p.amax(-1, keepdim=True)).exp_().masked_fill_(~mask, 0.0)
+    del s, mask
+    acc = torch.einsum("bkgst,btkd->bkgsd", p, v)
+    hi = p.bfloat16().float()
+    p.sub_(hi)                                  # p is now P - P_hi
+    acc_hi = torch.einsum("bkgst,btkd->bkgsd", hi, v)
+    del hi
+    acc_split = acc_hi + torch.einsum("bkgst,btkd->bkgsd",
+                                      p.bfloat16().float(), v)
+    del p
+    err_hi, err_split = rel_err(acc_hi, acc), rel_err(acc_split, acc)
+    log(f"[bf16-P] visible visit S=T={S} H={H} KV={KV} dh={dh}: acc "
+        f"max|diff|/max|ref| with P rounded to bf16 {err_hi:.2e}, with P "
+        f"split into two bf16 terms {err_split:.2e} (panel tol "
+        f"{PARTIAL_TOL['bfloat16']:.0e})")
+    check(err_split <= PARTIAL_TOL["bfloat16"],
+          f"split P misses the panel tolerance: {err_split}")
+    del acc, acc_hi, acc_split
     torch.cuda.empty_cache()
 
 
@@ -826,13 +972,29 @@ def sp_inputs(cfg):
 def sp_rank(rank, world, run_dir):
     """One rank of phase 8: its 8192-token slice through
     ``attention(impl="ring")`` over the mesh's ``seq`` group.  Saves its
-    output, the launches of the timed call and the call's wall time."""
+    output, the launches of the timed call, the call's wall time and each
+    round's panel-visit time."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import init_distributed, make_ring_mesh
     from repro_torch.models.attention import attention
     from repro_torch.runtime.sequence import shard_sequence
+
+    # CUDA events around each round's panel visit: the ring looks the kernel
+    # up as ops.flash_partial at every round
+    visits, panel_visit = [], ops.flash_partial
+
+    def timed_visit(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = panel_visit(*args, **kwargs)
+        end.record()
+        visits.append((start, end))
+        return out
+
+    ops.flash_partial = timed_visit
 
     torch.cuda.set_device(0)
     init_distributed(rank, world, backend="gloo",
@@ -853,14 +1015,17 @@ def sp_rank(rank, world, run_dir):
         run()                               # warm-up
         torch.cuda.synchronize()
         dist.barrier()
+        visits.clear()
         counts = _zero_counts()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = counts()
+        visit_ms = [a.elapsed_time(b) for a, b in visits]
         torch.save({"out": out.cpu(), "launches": launches,
-                    "wall_ms": wall_ms, "backend": dist.get_backend(group),
+                    "wall_ms": wall_ms, "visit_ms": visit_ms,
+                    "backend": dist.get_backend(group),
                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9},
                    f"{run_dir}/rank{rank}.pt")
         dist.barrier()
@@ -926,10 +1091,21 @@ def phase_sp():
     check(diff <= 2 * ulp, f"ring differs from flash by {diff}")
     launches = {k: sum(res["launches"][k] for res in ranks)
                 for k in ranks[0]["launches"]}
+    for r, res in enumerate(ranks):
+        check(len(res["visit_ms"]) == SP_RANKS,
+              f"rank {r}: {len(res['visit_ms'])} timed panel visits")
+        log(f"[sp] rank {r}: ring call {res['wall_ms']:.2f} ms; panel visits "
+            f"(CUDA events around each round's launch) "
+            + ", ".join(f"{t:.3f}" for t in res["visit_ms"])
+            + f" ms, sum {sum(res['visit_ms']):.2f} ms; the rest of the call "
+            f"{res['wall_ms'] - sum(res['visit_ms']):.2f} ms")
     result = {
         "tokens": SP_SEQ, "ranks": SP_RANKS, "tokens_per_rank": SP_LOCAL,
         "backend": "gloo",
         "ring_call_wall_ms_by_rank": [res["wall_ms"] for res in ranks],
+        "panel_visit_ms_by_rank": [res["visit_ms"] for res in ranks],
+        "rest_of_call_ms_by_rank": [res["wall_ms"] - sum(res["visit_ms"])
+                                    for res in ranks],
         "peak_mem_gb_by_rank": [res["peak_gb"] for res in ranks],
         "flash_reference_wall_ms": flash_ms, "phase_wall_s": wall_s,
         "max_abs_diff": diff, "launches": launches,
@@ -980,14 +1156,17 @@ def _flash_timing(B, S, T, q_offset, kv_len):
     k = torch.randn(B, T, KV, dh, generator=g, device="cuda").bfloat16()
     v = torch.randn(B, T, KV, dh, generator=g, device="cuda").bfloat16()
     kw = dict(q_offset=_i32(q_offset), kv_len=_i32(kv_len))
-    # admissible (query, key) pairs of these inputs, and the keys read
+    # admissible (query, key) pairs of these inputs, the keys read, and the
+    # query rows read (those that admit a key); every output row written
     qpos = kw["q_offset"][:, None].long() + torch.arange(S, device="cuda")
     kpos = torch.arange(T, device="cuda")
     mask = ((kpos[None, None, :] <= qpos[:, :, None])
             & (kpos[None, None, :] < kw["kv_len"].long()[:, None, None]))
     pairs = mask.sum().item()
     keys = mask.any(1).sum().item()
-    n_bytes = 2 * (2 * B * S * H * dh + 2 * keys * KV * dh) + 8 * B
+    rows = mask.any(2).sum().item()     # query rows that admit a key
+    n_bytes = (2 * (rows * H * dh + B * S * H * dh + 2 * keys * KV * dh)
+               + 8 * B)
     n_ops = 4 * pairs * H * dh
     bound, by = _bound_ms(n_bytes, n_ops, "bfloat16")
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
@@ -996,7 +1175,7 @@ def _flash_timing(B, S, T, q_offset, kv_len):
                lambda: ref.flash_attention_ref(q, k, v, **kw),
                lambda: F.scaled_dot_product_attention(
                    qs, ks, vs, attn_mask=sdpa_mask, enable_gqa=True))
-    return dict(t, bound_ms=bound, bound_by=by,
+    return dict(t, bound_ms=bound, bound_by=by, gflop=n_ops / 1e9,
                 shape=f"B={B} S={S} T={T} H={H} KV={KV} dh={dh} bf16")
 
 
@@ -1005,8 +1184,9 @@ def _partial_timing(delta):
     8192, H 32, KV 8, dh 128, bf16, causal) for one ``delta``: the kernel,
     its plain version and, as the library yardstick, SDPA over the same
     admissible pairs; SDPA writes the normalised output, not the state.  The
-    bound counts q read, the K/V rows some query admits read, and the fp32
-    state written; operations 4 x pairs x H x dh."""
+    bound counts the q rows that admit some key read (a dead visit needs no
+    q), the K/V rows some query admits read, and the fp32 state written;
+    operations 4 x pairs x H x dh."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -1021,8 +1201,11 @@ def _partial_timing(delta):
                           q_offset=_i32([delta]), kv_len=None)
     pairs = mask.sum().item()
     keys = mask.any(1).sum().item()
-    n_bytes = 2 * S * H * dh + 2 * 2 * keys * KV * dh + 4 * S * H * (dh + 2)
-    bound, by = _bound_ms(n_bytes, 4 * pairs * H * dh, "bfloat16")
+    rows = mask.any(2).sum().item()     # query rows that admit a key
+    n_bytes = (2 * rows * H * dh + 2 * 2 * keys * KV * dh
+               + 4 * S * H * (dh + 2))
+    n_ops = 4 * pairs * H * dh
+    bound, by = _bound_ms(n_bytes, n_ops, "bfloat16")
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
     if pairs == mask.numel():
         sdpa_kw, lib_mask = {}, "none (every pair admissible)"
@@ -1034,9 +1217,9 @@ def _partial_timing(delta):
                lambda: ref.flash_partial_ref(q, k, v, delta, causal=True),
                lambda: F.scaled_dot_product_attention(
                    qs, ks, vs, enable_gqa=True, **sdpa_kw),
-               iters=3, plain_iters=2)
+               iters=10, plain_iters=2)
     return dict(t, bound_ms=bound, bound_by=by, delta=delta, pairs=pairs,
-                library_mask=lib_mask,
+                library_mask=lib_mask, gflop=n_ops / 1e9,
                 shape=f"S=T={S} H={H} KV={KV} dh={dh} delta={delta} bf16")
 
 
@@ -1171,13 +1354,18 @@ def phase_timings(errs, launches):
             lib = ("-" if t["library_ms"] is None else
                    f"{t['library_ms']:.4f} ({t['library_launch_ms']:.4f})")
             untimed = [k for k, v in t["device_timed"].items() if not v]
+            # achieved TFLOP/s of the operations the bound counts
+            rate = "" if "gflop" not in t else (
+                f"  achieved TFLOP/s: kernel {t['gflop'] / t['ms']:.2f}" + (
+                    "" if t["library_ms"] is None else
+                    f", library {t['gflop'] / t['library_ms']:.2f}"))
             log(f"[time] {name:15s} {shape:11s} {t['shape']:40s} device ms "
                 f"(per launch): kernel {t['ms']:.4f} ({t['launch_ms']:.4f})"
                 f"  plain {t['plain_ms']:.4f} ({t['plain_launch_ms']:.4f})"
                 f"  library {lib}  bound {t['bound_ms']:.5f} "
-                f"({t['bound_by']})" + (f"; not queued, timed per launch: "
-                                        f"{', '.join(untimed)}"
-                                        if untimed else ""))
+                f"({t['bound_by']})" + rate
+                + (f"; not queued, timed per launch: {', '.join(untimed)}"
+                   if untimed else ""))
     return kernels
 
 
@@ -1201,6 +1389,7 @@ def main() -> int:
         card = phase_build()
         errs = phase_kernels()
         phase_partial(errs)
+        phase_bf16_p()
         phase_train_kernels(errs)
         launches = {"serve": phase_serve()}
         phase_cpu_vs_card()

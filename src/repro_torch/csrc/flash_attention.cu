@@ -10,40 +10,77 @@
 // lets the paged serving path run chunked prefill (q_offset = chunk base) and
 // one-token decode (S = 1, q_offset = cached length) through this kernel.
 //
-// What bounds it on the H100: at the serving shapes (prefill S=128 over
-// T<=512, decode S=1) attention is a small share of the FLOPs and reads each
-// K/V byte once per query head, so it is bound by memory traffic and by the
-// fp32 FMA rate of this first version, far from the bf16 tensor-core peak.
-// The design keeps everything per tile on chip: one CTA per (64 query rows,
-// head, lane); 64 x dh K and V tiles read with 16-byte loads, all of a
-// thread's loads of a tile in flight at once, and staged in shared memory (as
-// fp32, rows padded by one word so column reads are free of bank conflicts);
-// the score tile, running max and running sum never leave shared memory; the
-// output accumulator lives in registers (thread t owns column t % dh).  Tiles
-// wholly outside the causal / window / length bounds are never loaded, and
-// query rows past S are never computed, so one decode row costs one row.
-// Products are plain FMA loops; wgmma, TMA and putting the G query heads of
-// one KV head into one CTA are later work.
-//
 // The same body, compiled with PARTIAL = true, is ring attention's panel
 // visit (flash_partial_fwd below).  It replaces the TPU kernel
 // src/repro/kernels/ring_attention.py::_flash_partial (_partial_kernel): local
 // q (B,S,H,dh) against one K/V panel (B,T,KV,dh), placed by the per-lane
 // offset delta = q_start - k_start (the q_offset of the full kernel), and it
 // writes the un-normalised online-softmax state instead of the output: acc
-// (B,S,H,dh) fp32 not divided by l, the row max m and the row sum l (B,S,H)
-// fp32.  A row the panel rejects whole is written as the JAX state (acc, m,
-// l) = (0, -1e30, 0), so that merging two empty states never takes
-// exp(-inf - -inf).  delta ranges over [-(P-1) T, (P-1) T]: a panel wholly
-// ahead of the q shard (causally dead) makes the tile range empty, and with
-// a window a panel far behind it starts past the panel's end; neither loads
-// a tile, and the launch costs only the write of the empty state.  Bounded
-// like the full kernel: at the ring's shapes (S = T = 8192 per rank) a fully
-// visible visit is 1.1 TFLOP, bound by operations, and these FMA loops run
-// far below the tensor cores' rate.
+// (B,S,H,dh) fp32 not divided by l, the row max m (natural-log units of the
+// scaled scores) and the row sum l (B,S,H) fp32.  A row the panel rejects
+// whole is written as the JAX state (acc, m, l) = (0, -1e30, 0), so that
+// merging two empty states never takes exp(-inf - -inf).  delta ranges over
+// [-(P-1) T, (P-1) T]: a panel wholly ahead of the q shard (causally dead)
+// makes the tile range empty, and with a window a panel far behind it starts
+// past the panel's end; neither loads a tile, and the launch costs only the
+// write of the empty state.
+//
+// Two bodies, chosen by dtype; both are hand-written and a failed launch
+// raises in the wrapper.
+//
+// bf16 (flash_fwd_wgmma_kernel): tensor cores.  What bounds it on the H100:
+// a fully visible ring visit (S = T = 8192, H 32, KV 8, dh 128) is 1.1 TFLOP
+// of products, bound by operations; serving's prefill chunk and decode step
+// are bound by bytes (each K/V byte should be read once) and by latency.
+// The design:
+//  - Packed GQA rows.  One CTA (one warpgroup, 128 threads) owns one (lane b,
+//    KV head) and 64 packed rows: row m is query position s = m / G of head
+//    kvh * G + m % G, G = H / KV.  Each K/V tile is read once for its G heads,
+//    and a decode CTA (S = 1) holds G real rows instead of 1.  Grid
+//    ceil(S G / 64) x KV x B; any G works.  The masks use s, and the tile
+//    range [k_lo, k_hi) is cut from the CTA's first and last s.
+//  - Q is staged once in shared memory in the 128-byte-swizzled K-major
+//    layout that the wgmma descriptor names (rows of 64 bf16, 16-byte chunk
+//    c of row r at chunk c ^ (r % 8); dh 128 is two such column blocks).
+//  - K/V tiles of 64 keys arrive by TMA (a 4-D tensor map over the
+//    contiguous (dh, KV, T, B) array, boxes of 64 dh x 64 keys, 128-byte
+//    swizzle, rows past T zero-filled) into a ring of two stages with
+//    mbarrier completion; the loads of tile j + 1 are in flight while tile j
+//    is computed.
+//  - S = Q K^T by wgmma m64n64k16 (bf16 in, fp32 accumulate; both operands
+//    from shared memory, K K-major).  bf16 x bf16 products are exact in
+//    fp32, so S is the reference's fp32 q k^T up to summation order.
+//  - Online softmax on the accumulator fragment: a thread holds 2 rows x 16
+//    keys; row max by two quad shuffles; exp2 with the scale folded in (m is
+//    written back in natural-log units); masks only on tiles that cross a
+//    bound; l summed per thread in fp32 and over the quad at the end.
+//  - acc += P V by wgmma m64n{dh}k16 with P from registers (the S fragment
+//    repacked to bf16 pairs is exactly the A fragment) and V from shared
+//    memory, dh-contiguous (MN-major, transpose bit set).  The reference
+//    multiplies V by fp32 P; rounding P to bf16 moves acc by about 1.5e-3
+//    of its largest magnitude at the ring's 8192-key visible visit
+//    (chip_smoke.py phase 2 measures it), against a 2e-3 tolerance.  So P
+//    is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), two wgmma into
+//    the same fp32 accumulator: V is exact in bf16, so the error falls to
+//    about 2^-16 of P, for 1.5x the MMA work.
+//  - The epilogue divides by l and writes bf16 (rows with l = 0 as exact
+//    zeros), or with PARTIAL writes acc undivided with m and l, each at
+//    (b, s, kvh * G + g).
+// Left for later: warp specialisation (a producer warp and setmaxnreg),
+// overlapping one tile's softmax with the next tile's Q K^T, persistent CTAs.
+//
+// fp32 (flash_fwd_kernel): the first version's FMA body, unchanged.  Its job
+// is exactness (the fp32 cases within 1e-5, fp32 greedy tokens identical card
+// against CPU); TF32 tensor cores would break both.  One CTA per (64 query
+// rows, head, lane); 64 x dh K and V tiles read with 16-byte loads and staged
+// in shared memory as fp32 (rows padded by one word), scores and the running
+// max / sum in shared memory, the output accumulator in registers.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -52,37 +89,24 @@ constexpr int BLOCK_K = 64;
 constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;  // the ring state's "no key" row max
 
+// ---------------------------------------------------------------------------
+// fp32: the FMA body
+// ---------------------------------------------------------------------------
+
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
-// 16 bytes of T from global memory (4 floats or 8 bf16) as floats
+// 16 bytes of T from global memory (4 floats) as floats
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   out[0] = x.x;
   out[1] = x.y;
   out[2] = x.z;
   out[3] = x.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    out[2 * j] = f.x;
-    out[2 * j + 1] = f.y;
-  }
 }
 
 template <int DH>
@@ -277,6 +301,488 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+constexpr int ROWS = 64;     // packed rows per CTA: one warpgroup's wgmma M
+constexpr int KEYS = 64;     // keys per K/V tile: the wgmma N of S = Q K^T
+constexpr int STAGES = 2;    // K/V tiles in flight
+constexpr int SW_BYTES = 128;          // one swizzled row: 64 bf16
+constexpr int SW_COLS = SW_BYTES / 2;
+
+template <int DH>
+struct Layout {
+  // offsets from the 1024-byte-aligned base: every tile starts on a
+  // swizzle atom (8 rows x 128 bytes)
+  static constexpr int Q_BYTES = ROWS * DH * 2;
+  static constexpr int TILE_BYTES = KEYS * DH * 2;  // one K or V tile
+  static constexpr int KV_OFF = Q_BYTES;             // + stage * 2 tiles
+  static constexpr int BAR_OFF = KV_OFF + STAGES * 2 * TILE_BYTES;
+  static constexpr int BYTES = BAR_OFF + STAGES * 8 + 1024;  // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait for a stage's phase; a tile that has not arrived after 10 s traps
+// (the launch then fails) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  while (!mbar_try_wait(bar, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (t - t0 > 10000000000ull) __trap();
+  }
+}
+
+// one box of the 4-D tensor map {dh, KV, T, B} into shared memory,
+// completing on the mbarrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int h, int t,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h), "r"(t),
+      "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of a wgmma's registers
+// across the volatile wgmma asm around it
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define WG_D32                                \
+  "{"                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "          \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "  \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_D64                                \
+  "{"                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "          \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "  \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "  \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "  \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "  \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define WG_F8(d, i)                                                 \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32(d) WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
+#define WG_F64(d) WG_F32(d), WG_F8(d, 32), WG_F8(d, 40), WG_F8(d, 48), \
+                  WG_F8(d, 56)
+
+// d (64 x 64 fp32) = (accumulate ? d : 0) + A B, A (64 x 16) and B (16 x 64)
+// bf16 from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_F32(d)
+      : "l"(a), "l"(b), "r"(accumulate)
+      : "memory");
+}
+
+// d (64 x N fp32) += A B, A (64 x 16) bf16 from registers, B (16 x N) bf16
+// from shared memory, MN-major (transpose bit set)
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tn(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs_tn<64>(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_F32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tn<128>(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Tensor maps of k and v, encoded on the host for each call.  PARTIAL as in
+// flash_fwd_kernel.
+template <int DH, bool PARTIAL>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __nv_bfloat16* __restrict__ q,
+                       void* __restrict__ o, float* __restrict__ m_out,
+                       float* __restrict__ l_out,
+                       const int* __restrict__ q_offset,
+                       const int* __restrict__ kv_len, int S, int T_len,
+                       int H, int KV, int causal, int window, float scale) {
+  using L = Layout<DH>;
+  constexpr int CB = DH / SW_COLS;  // 128-byte column blocks of a row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bar0 = base + L::BAR_OFF;  // stage st: bar0 + 8 st
+
+  const int tid = threadIdx.x;
+  const int G = H / KV;
+  const int m0 = blockIdx.x * ROWS;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_rows = S * G;                 // packed rows of (b, kvh)
+  const int s_first = m0 / G;
+  const int s_last = (min(m0 + ROWS, n_rows) - 1) / G;
+  const int off = q_offset ? q_offset[b] : 0;
+  const int klen = max(0, min(kv_len ? kv_len[b] : T_len, T_len));
+
+  // keys admissible to at least one row of this CTA: [k_lo, k_hi), cut as
+  // in flash_fwd_kernel from the first and last query position
+  int k_hi = klen;
+  if (causal) k_hi = min(k_hi, off + s_last + 1);
+  const int k_lo = window > 0 ? max(0, off + s_first - window + 1) : 0;
+  const int kt_first = (k_lo / KEYS) * KEYS;
+  const int n_tiles = k_lo < k_hi ? (k_hi - kt_first + KEYS - 1) / KEYS : 0;
+
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) mbar_init(bar0 + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // thread 0 only: tile j into stage j % STAGES, K then V, one box per
+  // 64-wide column block
+  auto load_tile = [&](int j) {
+    const int st = j % STAGES;
+    const uint32_t bar = bar0 + 8 * st;
+    const uint32_t kdst = base + L::KV_OFF + st * 2 * L::TILE_BYTES;
+    const int kt = kt_first + j * KEYS;
+    mbar_expect_tx(bar, 2 * L::TILE_BYTES);
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      tma_load(kdst + c * KEYS * SW_BYTES, &tm_k, bar, c * SW_COLS, kvh, kt,
+               b);
+      tma_load(kdst + L::TILE_BYTES + c * KEYS * SW_BYTES, &tm_v, bar,
+               c * SW_COLS, kvh, kt, b);
+    }
+  };
+  if (tid == 0)
+    for (int j = 0; j < min(n_tiles, STAGES); ++j) load_tile(j);
+
+  // stage Q: packed row r at (s, h) = ((m0 + r) / G, kvh G + (m0 + r) % G);
+  // rows past S G are zeros.  A dead CTA skips it.
+  if (n_tiles > 0) {
+    for (int i = tid; i < ROWS * DH / 8; i += THREADS) {
+      const int r = i / (DH / 8), c = i % (DH / 8);
+      const int m = m0 + r;
+      uint4 x = make_uint4(0, 0, 0, 0);
+      if (m < n_rows)
+        x = *reinterpret_cast<const uint4*>(
+            q + (((size_t)b * S + m / G) * H + kvh * G + m % G) * DH + c * 8);
+      *reinterpret_cast<uint4*>(smem + (c / 8) * ROWS * SW_BYTES +
+                                r * SW_BYTES + (((c % 8) ^ (r % 8)) << 4)) = x;
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  // accumulator fragment: warp w, lane = 4 g + tq holds rows r0 = 16 w + g
+  // and r1 = r0 + 8; element i is row (i >> 1) & 1, column
+  // 8 (i / 4) + 2 tq + (i & 1)
+  const int warp = tid / 32, lane = tid % 32, tq = lane % 4;
+  const int r0 = 16 * warp + lane / 4;
+  const int qpos[2] = {off + (m0 + r0) / G, off + (m0 + r0 + 8) / G};
+  const float c2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  float acc[DH / 2];
+  float s[KEYS / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < KEYS / 2; ++i) s[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // raw q.k units
+  float l_run[2] = {0.f, 0.f};              // this thread's columns only
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % STAGES;
+    const int kt = kt_first + j * KEYS;
+    const uint32_t kbase = base + L::KV_OFF + st * 2 * L::TILE_BYTES;
+    const uint32_t vbase = kbase + L::TILE_BYTES;
+    mbar_wait(bar0 + 8 * st, (j / STAGES) & 1);
+
+    // S = Q K^T over dh in steps of 16: 32 bytes along a swizzled row
+    reg_fence(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t col = (kk / 4) * SW_BYTES, step = (kk % 4) * 32;
+      wgmma_ss_n64(s,
+                   sw128_desc(base + col * ROWS + step, 16, 8 * SW_BYTES),
+                   sw128_desc(kbase + col * KEYS + step, 16, 8 * SW_BYTES),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+
+    const bool masked = kt + KEYS > klen ||
+                        (causal && kt + KEYS - 1 > off + s_first) ||
+                        (window > 0 && kt <= off + s_last - window);
+    if (masked) {
+#pragma unroll
+      for (int i = 0; i < KEYS / 2; ++i) {
+        const int kpos = kt + 8 * (i / 4) + 2 * tq + (i & 1);
+        const int qp = qpos[(i >> 1) & 1];
+        bool ok = kpos < klen;
+        if (causal) ok = ok && kpos <= qp;
+        if (window > 0) ok = ok && kpos > qp - window;
+        if (!ok) s[i] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float ms[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      // no admissible key yet: p = exp2(-inf) = 0, never -inf - -inf
+      ms[r] = m_new == -INFINITY ? 0.f : m_new * c2;
+      alpha[r] = fast_exp2(m_run[r] * c2 - ms[r]);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i) {
+      s[i] = fast_exp2(fmaf(s[i], c2, -ms[(i >> 1) & 1]));
+      l_run[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // P as A fragments, split into bf16 high and low parts: for keys
+    // 16 kk .. 16 kk + 15, register e holds elements 8 kk + 2 e, + 1
+    uint32_t p_hi[KEYS / 16][4], p_lo[KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x0 = s[8 * kk + 2 * e], x1 = s[8 * kk + 2 * e + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(hi);
+        p_hi[kk][e] = bf16x2_bits(hi);
+        p_lo[kk][e] = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+      }
+    }
+    // acc += P_hi V + P_lo V; keys 16 kk.. are rows 16 kk.. of the V tile
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk) {
+      const uint64_t dv = sw128_desc(vbase + kk * 16 * SW_BYTES,
+                                     KEYS * SW_BYTES, 8 * SW_BYTES);
+      wgmma_rs_tn<DH>(acc, p_hi[kk], dv);
+      wgmma_rs_tn<DH>(acc, p_lo[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(acc);
+
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && j + STAGES < n_tiles) load_tile(j + STAGES);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int m = m0 + r0 + 8 * r;
+    if (m >= n_rows) continue;
+    const size_t row = ((size_t)b * S + m / G) * H + kvh * G + m % G;
+    if constexpr (PARTIAL) {
+      float* out = static_cast<float*>(o) + row * DH + 2 * tq;
+#pragma unroll
+      for (int jn = 0; jn < DH / 8; ++jn)  // 0 on a rejected row
+        *reinterpret_cast<float2*>(out + 8 * jn) =
+            make_float2(acc[4 * jn + 2 * r], acc[4 * jn + 2 * r + 1]);
+      if (tq == 0) {
+        m_out[row] = m_run[r] == -INFINITY ? NEG_INF : m_run[r] * scale;
+        l_out[row] = l_run[r];
+      }
+    } else {
+      const float inv = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o) + row * DH + 2 * tq;
+#pragma unroll
+      for (int jn = 0; jn < DH / 8; ++jn)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * jn) =
+            __floats2bfloat162_rn(acc[4 * jn + 2 * r] * inv,
+                                  acc[4 * jn + 2 * r + 1] * inv);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// the library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// the contiguous (B,T,KV,dh) bf16 array as a 4-D map {dh, KV, T, B}, boxes
+// of 64 dh x 1 x KEYS x 1, 128-byte swizzle, rows past T read as zeros.
+// T = 0 gives a zeroed map that the kernel never reads (no tiles).
+cudaError_t kv_map(CUtensorMap* map, const void* ptr, int B, int T_len,
+                   int KV, int dh) {
+  memset(map, 0, sizeof(*map));
+  if (T_len == 0) return cudaSuccess;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t row = (cuuint64_t)dh * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)KV,
+                              (cuuint64_t)T_len, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {row, row * KV, row * KV * T_len};
+  const cuuint32_t box[4] = {SW_COLS, 1, KEYS, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DH, bool PARTIAL>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, float* m_out, float* l_out,
+                         const int* q_offset, const int* kv_len, int B, int S,
+                         int T_len, int H, int KV, int causal, int window,
+                         float scale, cudaStream_t stream) {
+  CUtensorMap tm_k, tm_v;
+  cudaError_t err = kv_map(&tm_k, k, B, T_len, KV, DH);
+  if (err == cudaSuccess) err = kv_map(&tm_v, v, B, T_len, KV, DH);
+  if (err != cudaSuccess) return err;
+  const int smem = Layout<DH>::BYTES;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DH, PARTIAL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S * (H / KV) + ROWS - 1) / ROWS, KV, B);
+  flash_fwd_wgmma_kernel<DH, PARTIAL><<<grid, THREADS, smem, stream>>>(
+      tm_k, tm_v, static_cast<const __nv_bfloat16*>(q), o, m_out, l_out,
+      q_offset, kv_len, S, T_len, H, KV, causal, window, scale);
+  return cudaGetLastError();
+}
+
 template <bool PARTIAL>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              float* m_out, float* l_out, const void* q_offset,
@@ -287,13 +793,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   const int* kl = static_cast<const int*>(kv_len);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && dh == 128)
-    return launch<__nv_bfloat16, 128, PARTIAL>(q, k, v, o, m_out, l_out, qo,
-                                                kl, B, S, T_len, H, KV,
-                                                causal, window, scale, st);
+    return launch_wgmma<128, PARTIAL>(q, k, v, o, m_out, l_out, qo, kl, B, S,
+                                      T_len, H, KV, causal, window, scale,
+                                      st);
   if (dtype == 1 && dh == 64)
-    return launch<__nv_bfloat16, 64, PARTIAL>(q, k, v, o, m_out, l_out, qo,
-                                               kl, B, S, T_len, H, KV, causal,
-                                               window, scale, st);
+    return launch_wgmma<64, PARTIAL>(q, k, v, o, m_out, l_out, qo, kl, B, S,
+                                     T_len, H, KV, causal, window, scale, st);
   if (dtype == 0 && dh == 128)
     return launch<float, 128, PARTIAL>(q, k, v, o, m_out, l_out, qo, kl, B,
                                        S, T_len, H, KV, causal, window,
@@ -308,8 +813,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q_offset / kv_len: int32 (B,) device
-// pointers or null.  window <= 0 means no window.  Returns the CUDA error
-// of the launch (0 on success).
+// pointers or null.  window <= 0 means no window.  bf16 k and v must be
+// contiguous with 16-byte-aligned bases (the tensor maps' rule).  Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o,
                                    const void* q_offset, const void* kv_len,

@@ -3,10 +3,16 @@
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
 (``_flash_kernel``): blocked GQA attention with an online softmax, causal and
 sliding-window masks, ragged lengths, rows with no admissible key as exact
-zeros.  The CUDA source says what bounds it on the H100 and how the design
-answers that.  Beyond the TPU kernel it takes per-lane ``q_offset`` and
-``kv_len`` (int32, one per lane), so the paged serving path runs chunked
-prefill and one-token decode through it.
+zeros.  Beyond the TPU kernel it takes per-lane ``q_offset`` and ``kv_len``
+(int32, one per lane), so the paged serving path runs chunked prefill and
+one-token decode through it.
+
+The source holds two hand-written bodies, chosen by dtype.  bf16 runs on
+Hopper's tensor cores: the G query heads of one KV head packed into the
+rows of one CTA, K/V tiles by TMA, Q K^T and P V by ``wgmma``, with P split
+into two bf16 terms so that P V keeps the reference's fp32 P.  fp32 keeps
+the first version's exact FMA loops.  The CUDA source says what bounds each
+on the H100 and how the design answers that.
 
 :func:`flash_attention_cuda` only launches the kernel; ``kernels/ops.py``
 picks it for CUDA tensors and ``kernels/ref.py::flash_attention_ref`` for
@@ -98,10 +104,11 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unsupported shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)} "
                          f"(head dim must be one of {_HEAD_DIMS})")
-    # the kernel reads K/V rows with 16-byte loads
-    k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone()
-            for x in (k, v))
-    return q.contiguous(), k, v
+    # contiguous, 16-byte-aligned bases: the kernels read rows with 16-byte
+    # loads, and the bf16 kernel's tensor maps need aligned bases
+    return tuple(x.contiguous() if x.data_ptr() % 16 == 0
+                 else x.clone(memory_format=torch.contiguous_format)
+                 for x in (q, k, v))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -12,8 +12,9 @@ attention on the gathered sequence.
 
 The kernel replaces the TPU kernel
 ``repro/kernels/ring_attention.py::_flash_partial`` (``_partial_kernel``).
-It is a compile-time variant of the flash kernel's body in
-``csrc/flash_attention.cu``, where the source says what bounds it on the
+It is a compile-time variant of the flash kernel's bodies in
+``csrc/flash_attention.cu`` (bf16 on ``wgmma`` tensor cores with K/V by
+TMA, fp32 on exact FMA loops), where the source says what bounds it on the
 H100.  Masks are expressed through ``delta = q_start - k_start``, the offset
 of the local q shard against the visiting panel's global origin:
 ``k_global <= q_global`` is exactly ``k_local <= q_local + delta``.  The

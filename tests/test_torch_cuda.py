@@ -20,8 +20,10 @@ A (sums over a chunk of differences of sums): the kernel passes within
 Ring attention's panel-visit kernel writes fp32 (acc, m, l) whatever its
 input type: fp32 inputs within 1e-5 of the plain version relative to each
 output's largest magnitude, bf16 inputs within 2e-3 (the same bf16 values
-read by both, fp32 sums in another order); rows the panel rejects whole
-exactly (0, -1e30, 0).
+read by both, fp32 sums in another order; the bf16 kernel multiplies V by
+P split into two bf16 terms, about 2^-16 of P from the fp32 P); rows the
+panel rejects whole exactly (0, -1e30, 0).  The attention cases run GQA
+groups of 1, 4, 5 and 8, which the bf16 kernel packs into one CTA's rows.
 """
 import numpy as np
 import pytest
@@ -48,17 +50,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# query heads over KV 2: GQA groups of 1, 4, 5 (qwen2.5-14b) and 8, which
+# the bf16 kernel packs into the rows of one CTA
+GQA_HEADS = [2, 8, 10, 16]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("H", GQA_HEADS)
 @pytest.mark.parametrize("S,T,causal,window", FLASH_CASES)
-def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, dh, S, T,
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, dh, H, S, T,
                                             causal, window):
-    rng = np.random.default_rng(S + T + dh)
+    rng = np.random.default_rng(S + T + dh + H)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
                .to(cuda_device, dtype)
-               for shape in ((2, S, 8, dh), (2, T, 2, dh), (2, T, 2, dh)))
+               for shape in ((2, S, H, dh), (2, T, 2, dh), (2, T, 2, dh)))
     lanes = dict(q_offset=torch.tensor([0, 3], dtype=torch.int32,
                                        device=cuda_device),
                  kv_len=torch.tensor([T, T - 2], dtype=torch.int32,
@@ -70,6 +78,32 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, dh, S, T,
         want = ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window, **kw)
         assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("H", GQA_HEADS)
+def test_flash_kernel_decode_matches_plain_on_card(cuda_device, dtype, dh,
+                                                   H):
+    """One query row a lane (S = 1) at per-lane positions from -1 (no
+    admissible key: exact zeros) to T - 1, full and cut kv_len."""
+    T = 300
+    rng = np.random.default_rng(dh + H)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(cuda_device, dtype)
+               for shape in ((6, 1, H, dh), (6, T, 2, dh), (6, T, 2, dh)))
+    q_offset = torch.tensor([-1, 0, 5, 64, 200, T - 1], dtype=torch.int32,
+                            device=cuda_device)
+    for kv_len in (None, torch.tensor([T, T, 3, 65, 150, T],
+                                      dtype=torch.int32, device=cuda_device)):
+        out = flash_attention_cuda(q, k, v, q_offset=q_offset, kv_len=kv_len)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, q_offset=q_offset,
+                                       kv_len=kv_len)
+        assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+        assert bool((out[0] == 0).all())
 
 
 @pytest.mark.gpu
@@ -211,14 +245,15 @@ PARTIAL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("H", GQA_HEADS)
 @pytest.mark.parametrize("S,T,delta,causal,window", PARTIAL_CASES)
 def test_flash_partial_kernel_matches_plain_on_card(cuda_device, dtype, dh,
-                                                    S, T, delta, causal,
+                                                    H, S, T, delta, causal,
                                                     window):
-    rng = np.random.default_rng(S + T + dh + abs(delta))
+    rng = np.random.default_rng(S + T + dh + H + abs(delta))
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
                .to(cuda_device, dtype)
-               for shape in ((2, S, 8, dh), (2, T, 2, dh), (2, T, 2, dh)))
+               for shape in ((2, S, H, dh), (2, T, 2, dh), (2, T, 2, dh)))
     launches = flash_partial_cuda.launches
     acc, m, l = flash_partial_cuda(q, k, v, delta, causal=causal,
                                    window=window)
