@@ -10,9 +10,14 @@ Phases (any failure exits non-zero before the final line is printed):
    CUDA C++ source, all started together: flash attention with ring
    attention's panel visit, and the SSD scan; Triton's compiler for RMSNorm
    forward and backward) and print the build seconds; print each CUDA
-   kernel's registers and spill bytes (``-Xptxas -v``) and its HGMMA count
-   (``cuobjdump -sass``), and fail unless the four bf16 flash
-   instantiations (both entries, dh 64 and 128) contain HGMMA;
+   kernel's registers and spill bytes (``-Xptxas -v``) and its HGMMA
+   (``wgmma``) and HMMA (``mma.sync``) counts (``cuobjdump -sass``), and
+   fail unless the four bf16 flash instantiations (both entries, dh 64 and
+   128) contain HGMMA, the two product kernels of the bf16 SSD backward
+   (``ssd_bwd_chunk_state_kernel``, ``ssd_bwd_chunk_grad_kernel``)
+   contain HMMA, and the three ``ssd_bwd_`` kernels of the bf16 backward
+   spill nothing; a third ``nvcc`` builds the SSD scan without the bf16
+   backward's dB/dC atomics, which phase 7 times;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes, with the stated tolerances (the
    backward kernels against ``torch.autograd`` of the plain versions; the
@@ -33,13 +38,14 @@ Phases (any failure exits non-zero before the final line is printed):
    ``repro_torch.launch.train`` for 6 steps of 8 x 2048 synthetic tokens:
    finite losses, lower at the end, and the SSD scan and RMSNorm kernels,
    forward and backward, launched on this path; then time and profile the
-   training step;
+   training step, with the device ms of each ``ssd_bwd_`` kernel;
 6. train a reduced fp32 mamba2-370m for three steps on the card and on the
    CPU: the losses must agree;
 7. time each kernel, its plain version and the PyTorch library call for
    the same function at the paths' shapes (device time with the launches
    queued behind a spin kernel, and the time per call of back-to-back
-   launches from Python),
+   launches from Python), the bf16 SSD backward's three kernels apart
+   (profiler) and its chunk-grad kernel without its dB/dC atomics,
    with the least time the card could take (bytes over 3.35 TB/s or
    operations over the peak rate of the inputs' type), and the achieved
    TFLOP/s of the attention kernels and SDPA;
@@ -60,6 +66,7 @@ name and power limit (also printed first), the ``kernels`` JSON line and
 the checkout; without either it exits non-zero and prints no result.
 """
 import copy
+import ctypes
 import json
 import math
 import os
@@ -193,9 +200,9 @@ def ptxas_report(text):
     return out
 
 
-def hgmma_counts(lib):
-    """{mangled kernel: number of HGMMA (wgmma) instructions} in the
-    library's SASS (``cuobjdump -sass``)."""
+def mma_counts(lib):
+    """{mangled kernel: (number of HGMMA (wgmma), number of HMMA
+    (mma.sync) instructions)} in the library's SASS (``cuobjdump -sass``)."""
     from repro_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -206,10 +213,19 @@ def hgmma_counts(lib):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = 0
+            counts[fn] = [0, 0]
         elif fn and "HGMMA" in line:
-            counts[fn] += 1
-    return counts
+            counts[fn][0] += 1
+        elif fn and "HMMA" in line:
+            counts[fn][1] += 1
+    return {fn: tuple(n) for fn, n in counts.items()}
+
+
+# the bf16 SSD backward's kernels, in launch order
+SSD_BWD_KERNELS = ("ssd_bwd_chunk_state_kernel", "ssd_bwd_state_pass_kernel",
+                   "ssd_bwd_chunk_grad_kernel")
+# built with it defined, the SSD scan skips the bf16 backward's atomics
+NO_ADDS = ("SSD_BWD_NO_ADDS",)
 
 
 def _kernel_name(mangled):
@@ -242,30 +258,53 @@ def phase_build():
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    def nvcc(name):
+    def nvcc(job):
+        name, defines = job
         t0 = time.perf_counter()
-        return name, _build.build(name), time.perf_counter() - t0
+        return name, _build.build(name, defines), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
-        built = list(pool.map(nvcc, ["flash_attention", "ssd_scan"]))
+    jobs = [("flash_attention", ()), ("ssd_scan", ()), ("ssd_scan", NO_ADDS)]
+    with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc each, together
+        built = list(pool.map(nvcc, jobs))
     log(f"[build] nvcc, in parallel: {time.perf_counter() - t0:.1f} s")
-    for name, lib, secs in built:
-        log(f"[build] nvcc {name}.cu: {secs:.1f} s -> "
-            f"{lib.relative_to(ROOT)}")
-        hgmma = hgmma_counts(lib)
+    for (name, lib, secs), (_, defines) in zip(built, jobs):
+        log(f"[build] nvcc {name}.cu{''.join(' -D' + d for d in defines)}: "
+            f"{secs:.1f} s -> {lib.relative_to(ROOT)}")
+        if defines:
+            continue
+        mma = mma_counts(lib)
+        report = {}
         for fn, regs, spill in ptxas_report(
                 lib.with_suffix(".log").read_text()):
+            hg, hm = mma.get(fn, (0, 0))
+            report[_kernel_name(fn)] = (regs, spill, hg, hm)
             log(f"[build]   {_kernel_name(fn):36s} {regs:3d} registers, "
                 f"spill stores/loads {spill[0]}/{spill[1]} bytes, "
-                f"{hgmma.get(fn, 0)} HGMMA in SASS")
+                f"{hg} HGMMA, {hm} HMMA in SASS")
         if name == "flash_attention":
             # the bf16 instantiations (both entries, dh 64 and 128) must
             # run their products on wgmma
-            wgmma = {fn: n for fn, n in hgmma.items()
+            wgmma = {fn: n[0] for fn, n in mma.items()
                      if "flash_fwd_wgmma_kernel" in fn}
             check(len(wgmma) == 4 and all(wgmma.values()),
                   f"bf16 flash kernels without HGMMA in their SASS: {wgmma}")
+        else:
+            # the bf16 backward: products on mma.sync, no spills
+            bwd = {k: v for k, v in report.items()
+                   if any(k.startswith(n) for n in SSD_BWD_KERNELS)}
+            check(len(bwd) >= 3 and all(
+                v[1] == (0, 0) for v in bwd.values()),
+                  f"bf16 SSD backward kernels missing or spilling: {bwd}")
+            check(all(bwd.get(n, (0, 0, 0, 0))[3] > 0
+                      for n in SSD_BWD_KERNELS if n != SSD_BWD_KERNELS[1]),
+                  f"bf16 SSD backward product kernels without HMMA: {bwd}")
+            occ = (ctypes.c_int * 3)()
+            check(ctypes.CDLL(str(lib)).ssd_scan_bwd_occupancy(occ) == 0,
+                  "ssd_scan_bwd_occupancy failed")
+            log("[build]   bf16 SSD backward, CTAs of 256 threads per SM: "
+                + ", ".join(f"{k} {n}" for k, n in zip(SSD_BWD_KERNELS,
+                                                       occ)))
     t0 = time.perf_counter()
     for dt in (torch.bfloat16, torch.float32):
         for d in (2560, 2048, 1024, 128):
@@ -868,7 +907,7 @@ def phase_train():
         return sum(e.self_device_time_total for e in kernels
                    if key in e.key) / 1e3
 
-    categories = {"ssd_scan": ("ssd_fwd_kernel", "ssd_bwd_kernel"),
+    categories = {"ssd_scan": ("ssd_fwd_kernel", "ssd_bwd_"),
                   "rmsnorm": ("rmsnorm_fwd", "rmsnorm_bwd", "column_sum"),
                   "gemm": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
                   "elementwise": ("elementwise",), "reduce": ("reduce",)}
@@ -893,7 +932,8 @@ def phase_train():
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / mean_ms,
         "ssd_fwd_ms": share("ssd_fwd_kernel"),
-        "ssd_bwd_ms": share("ssd_bwd_kernel"),
+        "ssd_bwd_ms": share("ssd_bwd_"),
+        "ssd_bwd_ms_by_kernel": {k: share(k) for k in SSD_BWD_KERNELS},
         "rmsnorm_fwd_ms": share("rmsnorm_fwd"),
         "rmsnorm_bwd_ms": share("rmsnorm_bwd") + share("column_sum"),
         "device_ms_by_category": by_category,
@@ -1297,10 +1337,51 @@ def _ssd_timing(B, S, H, P, N, Q):
                  lambda: torch.autograd.grad(y_plain, leaves, dy,
                                              retain_graph=True), None,
                  iters=5, plain_iters=3)
+    parts = _ssd_bwd_parts(lambda: ssd_scan_bwd_cuda(dy, *args, Q))
+    log(f"[time] ssd_scan_bwd    {shape}: device ms by kernel (profiler, "
+        "mean of 5 calls): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts.items()))
     return (dict(fwd, bound_ms=fwd_bound, bound_by=fwd_by, shape=shape,
                  gflop=fwd_ops / 1e9),
             dict(bwd, bound_ms=bwd_bound, bound_by=bwd_by, shape=shape,
-                 gflop=bwd_ops / 1e9))
+                 gflop=bwd_ops / 1e9, ms_by_kernel=parts))
+
+
+def _ssd_bwd_parts(call, n=5):
+    """Device ms per call of each bf16 SSD backward kernel (profiler), and
+    of the chunk-grad kernel built without its dB/dC atomics; their
+    difference is what the atomics cost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as mod
+
+    def per_kernel():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return {k: sum(e.self_device_time_total for e in events
+                       if k in e.key) / 1e3 / n for k in SSD_BWD_KERNELS}
+
+    parts = per_kernel()
+    lib, variant = mod._lib, _build.load("ssd_scan", NO_ADDS)
+    for fn, argtypes in ((variant.ssd_scan_fwd, mod.FWD_ARGTYPES),
+                         (variant.ssd_scan_bwd, mod.BWD_ARGTYPES)):
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    mod._lib = lambda: variant
+    try:
+        grad = per_kernel()[SSD_BWD_KERNELS[2]]
+    finally:
+        mod._lib = lib
+    parts["chunk_grad_without_atomics"] = grad
+    parts["atomics"] = parts[SSD_BWD_KERNELS[2]] - grad
+    return parts
 
 
 def phase_timings(errs, launches):

@@ -32,18 +32,19 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built;
-    return the library's path, or raise with the compiler's output if
-    ``nvcc`` fails."""
+def build(name: str, defines: tuple = ()) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` of each of ``defines``)
+    unless its library is already built; return the library's path, or
+    raise with the compiler's output if ``nvcc`` fails."""
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                            + " ".join(flags).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+    res = subprocess.run([_nvcc(), *flags, "-o", str(tmp),
                           str(CSRC / f"{name}.cu")],
                          capture_output=True, text=True)
     out.with_suffix(".log").write_text(res.stdout + res.stderr)
@@ -54,6 +55,6 @@ def build(name: str) -> pathlib.Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Build if needed and load ``csrc/<name>.cu`` as a ctypes library."""
-    return ctypes.CDLL(str(build(name)))
+    return ctypes.CDLL(str(build(name, defines)))

@@ -39,8 +39,8 @@ _STRIDES = ctypes.c_longlong * 19
 FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
 # ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dx, ddt, da_part, dB, dC, states,
-#              B, S, H, G, P, N, Q, dtype, strides, stream)
-BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+#              work, B, S, H, G, P, N, Q, dtype, strides, stream)
+BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
 
 
@@ -129,11 +129,13 @@ ssd_scan_cuda.launches = 0
 def ssd_scan_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
                       A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                       chunk: int = 64) -> Tuple[torch.Tensor, ...]:
-    """Launch the backward kernel: the gradients (dx, ddt, dA, dB, dC) of
+    """Launch the backward kernels: the gradients (dx, ddt, dA, dB, dC) of
     ``sum(y * dy)``.  dB and dC have Bm's shape (B,S,G,N) and x's dtype:
-    the kernel sums each group's heads into fp32 accumulators, rounded once
-    here.  dA is the batch sum of the kernel's per-(batch, head) fp32
-    partials."""
+    the kernels sum each group's heads into fp32 accumulators, rounded once
+    here.  fp32 inputs run one kernel, whose fp32 dA partials are per
+    (batch, head); bf16 inputs run three, chunk-parallel on tensor cores,
+    whose partials are per (batch, head, chunk).  dA is their sum over the
+    batch (and the chunks) in a fixed order."""
     Q = _check(x, dt, A, Bm, Cm, chunk)
     B, S, H, P = x.shape
     G, N = Bm.shape[-2:]
@@ -142,28 +144,35 @@ def ssd_scan_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
                          f"does not match x {tuple(x.shape)} {x.dtype}")
     A = A.contiguous()
     dev = x.device
+    nc = -(-S // Q)
+    bf16 = x.dtype == torch.bfloat16
     dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
     ddt = torch.empty(B, S, H, dtype=torch.float32, device=dev)
-    da_part = torch.empty(B, H, dtype=torch.float32, device=dev)
+    da_part = torch.empty((B, H, nc) if bf16 else (B, H),
+                          dtype=torch.float32, device=dev)
     dB = torch.zeros(B, S, G, N, dtype=torch.float32, device=dev)
     dC = torch.zeros(B, S, G, N, dtype=torch.float32, device=dev)
     if x.numel() == 0:
         return (dx, ddt, torch.zeros_like(A), dB.to(x.dtype),
                 dC.to(x.dtype))
-    nc = -(-S // Q)
-    # the chunk-start states, recomputed by the kernel's forward walk
+    # the chunk-start states; for bf16 also the end-state gradients and
+    # the chunk decays
     states = torch.empty(B * H * nc * P * N, dtype=torch.float32, device=dev)
+    work = (torch.empty(B * H * nc * (P * N + 1), dtype=torch.float32,
+                        device=dev) if bf16 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ssd_scan_bwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
             da_part.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            states.data_ptr(), B, S, H, G, P, N, Q, _DTYPES[x.dtype],
+            states.data_ptr(), None if work is None else work.data_ptr(),
+            B, S, H, G, P, N, Q, _DTYPES[x.dtype],
             _strides(x, dt, Bm, Cm, dy), stream)
     _raise_on(err, "ssd_scan backward")
     ssd_scan_bwd_cuda.launches += 1
-    return dx, ddt, da_part.sum(0), dB.to(x.dtype), dC.to(x.dtype)
+    dA = da_part.sum(2).sum(0) if bf16 else da_part.sum(0)
+    return dx, ddt, dA, dB.to(x.dtype), dC.to(x.dtype)
 
 
 ssd_scan_bwd_cuda.launches = 0
@@ -171,8 +180,8 @@ ssd_scan_bwd_cuda.launches = 0
 
 class SSDScan(torch.autograd.Function):
     """y = ssd_scan(x, dt, A, Bm, Cm, chunk) with both directions on the
-    card.  Saves its inputs (views included, uncopied); the backward kernel
-    recomputes the chunk-start states."""
+    card.  Saves its inputs (views included, uncopied); the backward
+    kernels recompute the chunk-start states."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk):

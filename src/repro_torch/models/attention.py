@@ -174,6 +174,17 @@ def _gather_lanes(pool: Pool, page_rows: torch.Tensor
             pool["v"][rows].reshape(B, P * psz, KV, dh))
 
 
+def _paged_window(window: Optional[int], T: int) -> Optional[int]:
+    """The window for the flash kernel over a gathered view of T keys.
+
+    A window of at least T masks nothing that the causal mask keeps for a
+    query below T, and the engine steps only such queries (a lane with no
+    room left is stepped as inactive), so it becomes full attention: the
+    kernel refuses a window longer than its keys, while the JAX paged path
+    builds its mask in jnp and takes any window."""
+    return None if window is not None and window >= T else window
+
+
 def attention_decode_paged(p: Attention, x: torch.Tensor, pool: Pool,
                            page_rows: torch.Tensor, lengths: torch.Tensor,
                            cfg: ModelConfig, *,
@@ -203,7 +214,8 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, pool: Pool,
     gk, gv = _gather_lanes(pool, page_rows)
     # query at position L sees keys 0..L (and the window): causal with
     # q_offset = L; an inactive lane (L < 0) sees none and gives zeros
-    out = ops.flash_attention(q, gk, gv, causal=True, window=window,
+    out = ops.flash_attention(q, gk, gv, causal=True,
+                              window=_paged_window(window, gk.shape[1]),
                               q_offset=L)
     return out.reshape(B, 1, cfg.q_dim) @ p.wo
 
@@ -236,7 +248,8 @@ def attention_prefill_paged(p: Attention, x: torch.Tensor, pool: Pool,
     gk, gv = _gather_lanes(pool, page_rows)
     q_offset = torch.full((B,), base, dtype=torch.int32, device=dev)
     kv_len = prompt_len.clamp(max=base + S).to(torch.int32)
-    out = ops.flash_attention(q, gk, gv, causal=True, window=window,
+    out = ops.flash_attention(q, gk, gv, causal=True,
+                              window=_paged_window(window, gk.shape[1]),
                               q_offset=q_offset, kv_len=kv_len)
     return out.reshape(B, S, cfg.q_dim) @ p.wo
 

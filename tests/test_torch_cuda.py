@@ -133,14 +133,15 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
-def ssd_inputs(B, S, H, P, N, device, dtype, *, broadcast=True, seed=0):
+def ssd_inputs(B, S, H, P, N, device, dtype, *, broadcast=True, seed=0,
+               groups=None):
     """SSD scan inputs as ``models/ssm.py`` makes them: dt = softplus of a
     normal draw, A = -exp(log linspace(1, 16)); Bm/Cm one group for every
-    head, (B,S,1,N), unless ``broadcast`` is False.  Returns the leaf
-    tensors and a function of leaves giving the (x, dt, A, Bm, Cm) the scan
-    takes."""
+    head, (B,S,1,N), unless ``broadcast`` is False (one per head) or
+    ``groups`` is given.  Returns the leaf tensors and a function of leaves
+    giving the (x, dt, A, Bm, Cm) the scan takes."""
     rng = np.random.default_rng(seed)
-    G = 1 if broadcast else H
+    G = groups or (1 if broadcast else H)
 
     def leaf(shape, dt=dtype, scale=1.0):
         a = rng.standard_normal(shape).astype(np.float32) * scale
@@ -205,6 +206,34 @@ def test_ssd_scan_kernels_match_plain_on_card(cuda_device, dtype, broadcast,
                                 (y64, *grads64)):
         tol = max(REL_TOL[dtype], 2 * _rel_err(gr, g64))
         assert _rel_err(g, g64) <= tol, name
+
+
+# bf16 runs the chunk-parallel backward (three kernels, one CTA per chunk
+# in two of them): 16 or more chunks, ragged, narrow and odd widths, and G
+# groups of heads.  (B, S, H, P, N, chunk, G)
+SSD_BF16_CASES = [(2, 1024, 4, 64, 128, 64, 1), (2, 1024, 4, 64, 128, 64, 2),
+                  (1, 1100, 4, 64, 128, 64, 2), (2, 600, 6, 48, 40, 32, 3),
+                  (1, 333, 2, 32, 24, 16, 2), (1, 300, 3, 33, 37, 32, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk,G", SSD_BF16_CASES)
+def test_ssd_scan_bf16_chunk_parallel_backward_on_card(cuda_device, B, S, H,
+                                                       P, N, chunk, G):
+    leaves, views = ssd_inputs(B, S, H, P, N, cuda_device, torch.bfloat16,
+                               groups=G, seed=1)
+    dy = torch.randn(B, S, H, P, device=cuda_device).to(torch.bfloat16)
+    y = SSDScan.apply(*views(*leaves), chunk)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    y_ref = ref.ssd_scan_ref(*views(*leaves), chunk)
+    grads_ref = torch.autograd.grad(y_ref, leaves, dy)
+    assert leaves[3].shape == (B, S, G, N)
+    for name, g, gr in zip(("dx", "ddt", "dA", "dB", "dC"), grads,
+                           grads_ref):
+        assert g.shape == gr.shape and g.dtype == gr.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel_err(g, gr) <= REL_TOL[torch.bfloat16], name
 
 
 @pytest.mark.gpu
