@@ -13,11 +13,13 @@ Phases (any failure exits non-zero before the final line is printed):
    kernel's registers and spill bytes (``-Xptxas -v``) and its HGMMA
    (``wgmma``) and HMMA (``mma.sync``) counts (``cuobjdump -sass``), and
    fail unless the four bf16 flash instantiations (both entries, dh 64 and
-   128) contain HGMMA, the two product kernels of the bf16 SSD backward
-   (``ssd_bwd_chunk_state_kernel``, ``ssd_bwd_chunk_grad_kernel``)
-   contain HMMA, and the three ``ssd_bwd_`` kernels of the bf16 backward
-   spill nothing; a third ``nvcc`` builds the SSD scan without the bf16
-   backward's dB/dC atomics, which phase 7 times;
+   128) contain HGMMA, the product kernels of the bf16 SSD forward
+   (``ssd_fwd_chunk_state_kernel``, ``ssd_fwd_chunk_scan_kernel``) and
+   backward (``ssd_bwd_chunk_state_kernel``, ``ssd_bwd_chunk_grad_kernel``)
+   contain HMMA, and the three ``ssd_fwd_`` and three ``ssd_bwd_`` kernels
+   of the bf16 forward and backward spill nothing; print the CTAs per SM
+   those six kernels reach; a third ``nvcc`` builds the SSD scan without
+   the bf16 backward's dB/dC atomics, which phase 7 times;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes, with the stated tolerances (the
    backward kernels against ``torch.autograd`` of the plain versions; the
@@ -38,14 +40,18 @@ Phases (any failure exits non-zero before the final line is printed):
    ``repro_torch.launch.train`` for 6 steps of 8 x 2048 synthetic tokens:
    finite losses, lower at the end, and the SSD scan and RMSNorm kernels,
    forward and backward, launched on this path; then time and profile the
-   training step, with the device ms of each ``ssd_bwd_`` kernel;
+   training step, with the device ms of each ``ssd_fwd_`` and ``ssd_bwd_``
+   kernel, all six of which must show device time (the prefixes sort the
+   SSD scan's time into forward and backward);
 6. train a reduced fp32 mamba2-370m for three steps on the card and on the
    CPU: the losses must agree;
 7. time each kernel, its plain version and the PyTorch library call for
    the same function at the paths' shapes (device time with the launches
    queued behind a spin kernel, and the time per call of back-to-back
-   launches from Python), the bf16 SSD backward's three kernels apart
-   (profiler) and its chunk-grad kernel without its dB/dC atomics,
+   launches from Python), the bf16 SSD forward's and backward's three
+   kernels apart (profiler; the forward must launch its three ``ssd_fwd_``
+   kernels and no ``ssd_bwd_`` kernel) and the backward's chunk-grad
+   kernel without its dB/dC atomics,
    with the least time the card could take (bytes over 3.35 TB/s or
    operations over the peak rate of the inputs' type), and the achieved
    TFLOP/s of the attention kernels and SDPA;
@@ -221,7 +227,10 @@ def mma_counts(lib):
     return {fn: tuple(n) for fn, n in counts.items()}
 
 
-# the bf16 SSD backward's kernels, in launch order
+# the bf16 SSD forward's and backward's kernels, in launch order; the
+# state passes are the bandwidth-bound ones without products
+SSD_FWD_KERNELS = ("ssd_fwd_chunk_state_kernel", "ssd_fwd_state_pass_kernel",
+                   "ssd_fwd_chunk_scan_kernel")
 SSD_BWD_KERNELS = ("ssd_bwd_chunk_state_kernel", "ssd_bwd_state_pass_kernel",
                    "ssd_bwd_chunk_grad_kernel")
 # built with it defined, the SSD scan skips the bf16 backward's atomics
@@ -290,21 +299,26 @@ def phase_build():
             check(len(wgmma) == 4 and all(wgmma.values()),
                   f"bf16 flash kernels without HGMMA in their SASS: {wgmma}")
         else:
-            # the bf16 backward: products on mma.sync, no spills
-            bwd = {k: v for k, v in report.items()
-                   if any(k.startswith(n) for n in SSD_BWD_KERNELS)}
-            check(len(bwd) >= 3 and all(
-                v[1] == (0, 0) for v in bwd.values()),
-                  f"bf16 SSD backward kernels missing or spilling: {bwd}")
-            check(all(bwd.get(n, (0, 0, 0, 0))[3] > 0
-                      for n in SSD_BWD_KERNELS if n != SSD_BWD_KERNELS[1]),
-                  f"bf16 SSD backward product kernels without HMMA: {bwd}")
-            occ = (ctypes.c_int * 3)()
-            check(ctypes.CDLL(str(lib)).ssd_scan_bwd_occupancy(occ) == 0,
-                  "ssd_scan_bwd_occupancy failed")
-            log("[build]   bf16 SSD backward, CTAs of 256 threads per SM: "
-                + ", ".join(f"{k} {n}" for k, n in zip(SSD_BWD_KERNELS,
-                                                       occ)))
+            # the bf16 forward and backward: products on mma.sync, no
+            # spills
+            for what, short, names in (
+                    ("forward", "fwd", SSD_FWD_KERNELS),
+                    ("backward", "bwd", SSD_BWD_KERNELS)):
+                found = {k: v for k, v in report.items()
+                         if any(k.startswith(n) for n in names)}
+                check(len(found) >= 3 and all(
+                    v[1] == (0, 0) for v in found.values()),
+                      f"bf16 SSD {what} kernels missing or spilling: {found}")
+                check(all(found.get(n, (0, 0, 0, 0))[3] > 0
+                          for n in names if n != names[1]),
+                      f"bf16 SSD {what} product kernels without HMMA: "
+                      f"{found}")
+                occ = (ctypes.c_int * 3)()
+                entry = f"ssd_scan_{short}_occupancy"
+                check(getattr(ctypes.CDLL(str(lib)), entry)(occ) == 0,
+                      f"{entry} failed")
+                log(f"[build]   bf16 SSD {what}, CTAs of 256 threads per SM: "
+                    + ", ".join(f"{k} {n}" for k, n in zip(names, occ)))
     t0 = time.perf_counter()
     for dt in (torch.bfloat16, torch.float32):
         for d in (2560, 2048, 1024, 128):
@@ -907,7 +921,7 @@ def phase_train():
         return sum(e.self_device_time_total for e in kernels
                    if key in e.key) / 1e3
 
-    categories = {"ssd_scan": ("ssd_fwd_kernel", "ssd_bwd_"),
+    categories = {"ssd_scan": ("ssd_fwd_", "ssd_bwd_"),
                   "rmsnorm": ("rmsnorm_fwd", "rmsnorm_bwd", "column_sum"),
                   "gemm": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
                   "elementwise": ("elementwise",), "reduce": ("reduce",)}
@@ -931,7 +945,8 @@ def phase_train():
         "tok_per_s": tokens / mean_ms * 1e3, "peak_mem_gb": peak_gb,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / mean_ms,
-        "ssd_fwd_ms": share("ssd_fwd_kernel"),
+        "ssd_fwd_ms": share("ssd_fwd_"),
+        "ssd_fwd_ms_by_kernel": {k: share(k) for k in SSD_FWD_KERNELS},
         "ssd_bwd_ms": share("ssd_bwd_"),
         "ssd_bwd_ms_by_kernel": {k: share(k) for k in SSD_BWD_KERNELS},
         "rmsnorm_fwd_ms": share("rmsnorm_fwd"),
@@ -944,6 +959,10 @@ def phase_train():
         / 989e12,
     }
     log("[train] " + json.dumps(result))
+    check(all(result["ssd_fwd_ms_by_kernel"].values())
+          and all(result["ssd_bwd_ms_by_kernel"].values()),
+          "the profiled training step missed a bf16 SSD kernel: "
+          f"{result['ssd_fwd_ms_by_kernel']} {result['ssd_bwd_ms_by_kernel']}")
     log("[profile] train step: top device kernels: " + "; ".join(
         f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
         for e in top))
@@ -1337,46 +1356,61 @@ def _ssd_timing(B, S, H, P, N, Q):
                  lambda: torch.autograd.grad(y_plain, leaves, dy,
                                              retain_graph=True), None,
                  iters=5, plain_iters=3)
+    fwd_parts, names = _kernel_ms(lambda: ssd_scan_cuda(*args, Q),
+                                  SSD_FWD_KERNELS)
+    check(all(fwd_parts[k] > 0 for k in SSD_FWD_KERNELS)
+          and not any("ssd_bwd_" in k for k in names),
+          f"the bf16 SSD forward launched {names}, not the three "
+          f"{SSD_FWD_KERNELS} alone")
+    log(f"[time] ssd_scan        {shape}: device ms by kernel (profiler, "
+        "mean of 5 calls): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in fwd_parts.items()))
     parts = _ssd_bwd_parts(lambda: ssd_scan_bwd_cuda(dy, *args, Q))
     log(f"[time] ssd_scan_bwd    {shape}: device ms by kernel (profiler, "
         "mean of 5 calls): " + ", ".join(
             f"{k} {v:.4f}" for k, v in parts.items()))
     return (dict(fwd, bound_ms=fwd_bound, bound_by=fwd_by, shape=shape,
-                 gflop=fwd_ops / 1e9),
+                 gflop=fwd_ops / 1e9, ms_by_kernel=fwd_parts),
             dict(bwd, bound_ms=bwd_bound, bound_by=bwd_by, shape=shape,
                  gflop=bwd_ops / 1e9, ms_by_kernel=parts))
 
 
-def _ssd_bwd_parts(call, n=5):
+def _kernel_ms(call, names, n=5):
+    """Device ms per call of each kernel whose name holds one of ``names``
+    (profiler, mean of ``n`` calls), and the names of every kernel the
+    calls launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return ({k: sum(e.self_device_time_total for e in events
+                    if k in e.key) / 1e3 / n for k in names},
+            [e.key for e in events])
+
+
+def _ssd_bwd_parts(call):
     """Device ms per call of each bf16 SSD backward kernel (profiler), and
     of the chunk-grad kernel built without its dB/dC atomics; their
     difference is what the atomics cost."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as mod
 
-    def per_kernel():
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                call()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        return {k: sum(e.self_device_time_total for e in events
-                       if k in e.key) / 1e3 / n for k in SSD_BWD_KERNELS}
-
-    parts = per_kernel()
+    parts = _kernel_ms(call, SSD_BWD_KERNELS)[0]
     lib, variant = mod._lib, _build.load("ssd_scan", NO_ADDS)
     for fn, argtypes in ((variant.ssd_scan_fwd, mod.FWD_ARGTYPES),
                          (variant.ssd_scan_bwd, mod.BWD_ARGTYPES)):
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     mod._lib = lambda: variant
     try:
-        grad = per_kernel()[SSD_BWD_KERNELS[2]]
+        grad = _kernel_ms(call, SSD_BWD_KERNELS)[0][SSD_BWD_KERNELS[2]]
     finally:
         mod._lib = lib
     parts["chunk_grad_without_atomics"] = grad

@@ -41,17 +41,26 @@
 // the last chunk); (c) per (batch, head, chunk) the gradients above from
 // S_c and dS_c, with one da partial per chunk.
 //
+// The bf16 forward shares (a) and (b), in three kernels of its own
+// (ssd_fwd_*, below): (a') per (batch, head, chunk) the decays and U_c
+// alone; (b') the forward pass of (b) alone, U -> S in place; (c') per
+// (batch, head, chunk) y_t = sum_s M_ts x_s + exp(g_t) S_c C_t for the
+// chunk's rows, written once (no atomics).  fp32 inputs run the exact FMA
+// kernel ssd_fwd_kernel, one CTA per (batch, head) walking its chunks.
+//
 // What bounds it on the H100: at the training shape (B 8, S 2048, H 32,
 // P 64, N 128, Q 64) the forward moves about 144 MB (bf16 x, y, B, C, fp32
 // dt): 43 us by bytes.  Its 30 GFLOP would take 30 us at the bf16
-// tensor-core peak but 0.45 ms at the fp32 FMA peak that the forward runs
-// at, so there the operations bound it.  The forward (and the fp32
-// backward) keep every operand of a chunk in shared memory (fp32, rows
-// padded to an odd stride so that row and column reads are free of bank
-// conflicts) and run the chunk's products as register-tiled FMA loops: 256
-// threads in a 16 x 16 layout, each owning up to 4 x 8 outputs, loading 12
-// operands for 32 FMAs.  One CTA per (batch, head) walks its chunks in
-// order, the (P,N) state in shared memory, so the grid is B*H CTAs.
+// tensor-core peak but 0.45 ms at the fp32 FMA peak.  The fp32 forward (and
+// the fp32 backward) keep every operand of a chunk in shared memory (fp32,
+// rows padded to an odd stride so that row and column reads are free of
+// bank conflicts) and run the chunk's products as register-tiled FMA loops:
+// 256 threads in a 16 x 16 layout, each owning up to 4 x 8 outputs, loading
+// 12 operands for 32 FMAs; the grid is B*H CTAs.  The bf16 forward runs its
+// products on tensor cores, B*H*nc CTAs in (a') and (c'); its fp32 states,
+// written by (a'), read and written by (b'), read by (c'), move about
+// 1.1 GB beside the 0.14 GB of the function's own bytes, so the state
+// traffic bounds it (about 0.37 ms at 3.35 TB/s).
 // The bf16 backward's 77 GFLOP would take 78 us on bf16 tensor cores; its
 // fp32 states, written by (a), passed over twice by (b) and read by (c),
 // move about 2 GB, so bytes bound it (about 0.6 ms).  Its design answers
@@ -78,19 +87,6 @@ constexpr int THREADS = 256;  // a 16 x 16 layout of output micro-tiles
 constexpr int MAX_Q = 64;     // rows of a micro-tiled product: <= 4 * 16
 constexpr int MAX_P = 64;
 constexpr int MAX_N = 128;    // columns: <= 8 * 16
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 struct Dims {
   int B, S, H, G, P, N, Q, nc;
@@ -149,15 +145,14 @@ __device__ __forceinline__ float row_sum(float v) {
 
 // rows [s0, s0 + Q) of a (B,S,H,W) tensor at (b, h) into dst (Q x W, row
 // stride W + 1) as fp32; rows past S are zeros
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           const long long* st, int b, int h,
                                           int s0, int Q, int W, int S) {
-  const T* base = src + b * st[0] + h * st[2];
+  const float* base = src + b * st[0] + h * st[2];
   for (int i = threadIdx.x; i < Q * W; i += THREADS) {
     const int t = i / W, w = i % W;
     const int s = s0 + t;
-    dst[t * (W + 1) + w] = s < S ? to_float(base[s * st[1] + w * st[3]]) : 0.f;
+    dst[t * (W + 1) + w] = s < S ? base[s * st[1] + w * st[3]] : 0.f;
   }
 }
 
@@ -207,14 +202,13 @@ size_t bwd_smem_floats(const Dims& d) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: one CTA per (batch, head)
+// fp32 forward: one CTA per (batch, head)
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const T* __restrict__ bm,
-               const T* __restrict__ cm, T* __restrict__ y, Dims d,
+ssd_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ A, const float* __restrict__ bm,
+               const float* __restrict__ cm, float* __restrict__ y, Dims d,
                Strides st) {
   extern __shared__ float smem[];
   const Smem m(d);
@@ -268,7 +262,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       zero(yo);
       mm_acc(yd, sM, Q + 1, 1, sx, P + 1, 1, Q, P, Q, nullptr);
       mm_acc(yo, sC, N + 1, 1, sS, 1, N + 1, Q, P, N, nullptr);
-      T* yb = y + ((size_t)b * d.S * d.H + h) * P;
+      float* yb = y + ((size_t)b * d.S * d.H + h) * P;
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
@@ -276,7 +270,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           const int t = ty + 16 * ii, p = tx + 16 * jj;
           if (t < Q && p < P && s0 + t < d.S)
             yb[(size_t)(s0 + t) * d.H * P + p] =
-                from_float<T>(yd[ii][jj] + seg[t] * yo[ii][jj]);
+                yd[ii][jj] + seg[t] * yo[ii][jj];
         }
     }
     __syncthreads();  // S is no longer read
@@ -305,12 +299,11 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 // dB and dC are zeroed (B,S,G,N) fp32 accumulators
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const T* __restrict__ bm,
-               const T* __restrict__ cm, const T* __restrict__ dy,
-               T* __restrict__ dx, float* __restrict__ ddt,
+ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ A, const float* __restrict__ bm,
+               const float* __restrict__ cm, const float* __restrict__ dy,
+               float* __restrict__ dx, float* __restrict__ ddt,
                float* __restrict__ da_part, float* __restrict__ dB,
                float* __restrict__ dC, float* __restrict__ states, Dims d,
                Strides st) {
@@ -450,7 +443,7 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       zero(a2);
       mm_acc(a1, sM, 1, Q + 1, sdy, P + 1, 1, Q, P, Q, nullptr);
       mm_acc(a2, sB, N + 1, 1, sdS, 1, N + 1, Q, P, N, nullptr);
-      T* out = dx + ((size_t)b * d.S * d.H + h) * P;
+      float* out = dx + ((size_t)b * d.S * d.H + h) * P;
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii) {
         const int s = ty + 16 * ii;
@@ -462,7 +455,7 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
             up += sx[s * (P + 1) + p] * a2[ii][jj];
             if (s0 + s < d.S)
               out[(size_t)(s0 + s) * row * P + p] =
-                  from_float<T>(a1[ii][jj] + sw[s] * a2[ii][jj]);
+                  a1[ii][jj] + sw[s] * a2[ii][jj];
           }
         }
         up = row_sum(up);
@@ -567,8 +560,10 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward, chunk-parallel on tensor cores: (a) ssd_bwd_chunk_state_
+// bf16, chunk-parallel on tensor cores.  Backward: (a) ssd_bwd_chunk_state_
 // kernel, (b) ssd_bwd_state_pass_kernel, (c) ssd_bwd_chunk_grad_kernel.
+// Forward: (a') ssd_fwd_chunk_state_kernel and (b') ssd_fwd_state_pass_
+// kernel, the U halves of (a) and (b), then (c') ssd_fwd_chunk_scan_kernel.
 // A chunk is a 64-row tile: rows past Q or S are zeros with dt = 0, so g
 // stays at the chunk's last value there and they add nothing; P and N are
 // zero-padded to 64 and 128.  states and dstates are B*H*nc*P*N fp32
@@ -587,7 +582,7 @@ enum { VEC_X = 1, VEC_DY = 2, VEC_B = 4, VEC_C = 8 };
 struct MmaArgs {
   const __nv_bfloat16 *x, *bm, *cm, *dy;
   const float *dt, *A;
-  __nv_bfloat16* dx;
+  __nv_bfloat16 *y, *dx;
   float *ddt, *da_part, *dB, *dC, *states, *dstates, *chunk_decay;
   Dims d;
   Strides st;
@@ -750,6 +745,23 @@ __device__ __forceinline__ void load_scaled_split(
   }
 }
 
+// a 64 x 64 bf16 tile (row stride LD64) in lo, each row t scaled by
+// scale[t] in fp32, split in place into hi + lo
+__device__ __forceinline__ void scale_split_tile(__nv_bfloat16* hi,
+                                                 __nv_bfloat16* lo,
+                                                 const float* scale) {
+  for (int i = threadIdx.x; i < TQ * 8; i += THREADS) {
+    const int t = i / 8, k = (i % 8) * 8;
+    const uint4 raw = *reinterpret_cast<const uint4*>(lo + t * LD64 + k);
+    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float sc = scale[t];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      store_split2(hi, lo, t * LD64 + k + 2 * e, __low2float(p2[e]) * sc,
+                   __high2float(p2[e]) * sc);
+  }
+}
+
 // dt of the chunk (zeros past Q and S) and, by a warp scan on warp 0, its
 // inclusive cumsum g of dt * a, exp(g), exp(g_Q - g) and w = exp(g_Q - g) dt
 // over the 64-row tile; lane l owns rows 2l and 2l + 1.  Returns g_Q on
@@ -788,21 +800,24 @@ __device__ __forceinline__ float tile_decays(float* sdt, float* sg, float* se,
   return gq;
 }
 
-// (a) one CTA per (chunk, head, batch): U_c and V_c into states and
-// dstates, exp(g_Q) into chunk_decay
+// (a) and (a'): one CTA per (chunk, head, batch); U_c into states, exp(g_Q)
+// into chunk_decay and, for the backward (WITH_V), V_c into dstates.  Shared
+// memory: the U operands, then V's (WITH_V only), then the decays
+constexpr size_t STATE_SMEM_FWD =
+    (2 * TILE64 + TILE128) * sizeof(__nv_bfloat16) + 5 * TQ * sizeof(float);
 constexpr size_t STATE_SMEM =
-    (4 * TILE64 + 2 * TILE128) * sizeof(__nv_bfloat16) + 5 * TQ * sizeof(float);
+    STATE_SMEM_FWD + (2 * TILE64 + TILE128) * sizeof(__nv_bfloat16);
 
-__global__ void __launch_bounds__(THREADS, 2)
-ssd_bwd_chunk_state_kernel(MmaArgs g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+template <bool WITH_V>
+__device__ __forceinline__ void chunk_state(const MmaArgs& g,
+                                            unsigned char* smem_raw) {
   __nv_bfloat16* swx_hi = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* swx_lo = swx_hi + TILE64;    // w_s x_s, rows s
-  __nv_bfloat16* sedy_hi = swx_lo + TILE64;
+  __nv_bfloat16* sB = swx_lo + TILE64;
+  __nv_bfloat16* sedy_hi = sB + TILE128;
   __nv_bfloat16* sedy_lo = sedy_hi + TILE64;  // exp(g_t) dy_t, rows t
-  __nv_bfloat16* sB = sedy_lo + TILE64;
-  __nv_bfloat16* sC = sB + TILE128;
-  float* sdt = reinterpret_cast<float*>(sC + TILE128);
+  __nv_bfloat16* sC = sedy_lo + TILE64;
+  float* sdt = reinterpret_cast<float*>(WITH_V ? sC + TILE128 : sedy_hi);
   float* sg = sdt + TQ;
   float* se = sg + TQ;
   float* sdec = se + TQ;
@@ -816,18 +831,27 @@ ssd_bwd_chunk_state_kernel(MmaArgs g) {
 
   load_tile(sB, LD128, 128, g.bm, g.st.bm, b, grp, s0, d.Q, d.N, d.S,
             g.vec & VEC_B);
-  load_tile(sC, LD128, 128, g.cm, g.st.cm, b, grp, s0, d.Q, d.N, d.S,
-            g.vec & VEC_C);
+  if (WITH_V)
+    load_tile(sC, LD128, 128, g.cm, g.st.cm, b, grp, s0, d.Q, d.N, d.S,
+              g.vec & VEC_C);
+  else  // x as it is, in flight while warp 0 computes the decays
+    load_tile(swx_lo, LD64, 64, g.x, g.st.x, b, h, s0, d.Q, d.P, d.S,
+              g.vec & VEC_X);
   if (warp == 0) {
     const float gq = tile_decays(sdt, sg, se, sdec, sw, g.dt, g.st.dt, b, h,
                                  s0, d.Q, d.S, g.A[h]);
     if (lane == 0) g.chunk_decay[bhc] = expf(gq);
   }
+  if (!WITH_V) cp_async_wait_all();
   __syncthreads();
-  load_scaled_split(swx_hi, swx_lo, g.x, g.st.x, b, h, s0, d.Q, d.P, d.S,
-                    g.vec & VEC_X, sw);
-  load_scaled_split(sedy_hi, sedy_lo, g.dy, g.st.dy, b, h, s0, d.Q, d.P, d.S,
-                    g.vec & VEC_DY, se);
+  if (WITH_V) {
+    load_scaled_split(swx_hi, swx_lo, g.x, g.st.x, b, h, s0, d.Q, d.P, d.S,
+                      g.vec & VEC_X, sw);
+    load_scaled_split(sedy_hi, sedy_lo, g.dy, g.st.dy, b, h, s0, d.Q, d.P,
+                      d.S, g.vec & VEC_DY, se);
+  } else {
+    scale_split_tile(swx_hi, swx_lo, sw);
+  }
   cp_async_wait_all();
   __syncthreads();
 
@@ -835,7 +859,7 @@ ssd_bwd_chunk_state_kernel(MmaArgs g) {
   const int m0 = (warp & 3) * 16, kq = up16(d.Q);
   const int gr = lane >> 2, gc = lane & 3;
   const size_t base = bhc * d.P * d.N;
-  for (int which = 0; which < 2; ++which) {
+  for (int which = 0; which < (WITH_V ? 2 : 1); ++which) {
     const __nv_bfloat16* ahi = which ? sedy_hi : swx_hi;
     const __nv_bfloat16* alo = which ? sedy_lo : swx_lo;
     const __nv_bfloat16* bb = which ? sC : sB;
@@ -865,6 +889,18 @@ ssd_bwd_chunk_state_kernel(MmaArgs g) {
   }
 }
 
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_bwd_chunk_state_kernel(MmaArgs g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  chunk_state<true>(g, smem_raw);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_fwd_chunk_state_kernel(MmaArgs g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  chunk_state<false>(g, smem_raw);
+}
+
 // *p <- run, run <- q run + (old *p), for the VEC entries of one V
 template <int VEC, typename V>
 __device__ __forceinline__ void pass_step(V* p, const V& t, float (&run)[VEC],
@@ -880,24 +916,25 @@ __device__ __forceinline__ void pass_step(V* p, const V& t, float (&run)[VEC],
   *p = o;
 }
 
-// (b) per state entry (VEC consecutive entries a thread): U -> S forward
-// (S_c = exp(g_Q,c-1) S_c-1 + U_c-1, S_0 = 0) and V -> dS in reverse
-// (dS_c = exp(g_Q,c+1) dS_c+1 + V_c+1, 0 for the last chunk), both walks
-// in one loop; each thread loads AHEAD chunks of both before it stores, so
-// that enough loads are in flight to fill the memory's bandwidth
-template <int VEC>
-__global__ void __launch_bounds__(THREADS, 2)
-ssd_bwd_state_pass_kernel(float* __restrict__ states,
-                          float* __restrict__ dstates,
-                          const float* __restrict__ chunk_decay, Dims d) {
+// (b) and (b'), per state entry (VEC consecutive entries a thread): U -> S
+// forward (S_c = exp(g_Q,c-1) S_c-1 + U_c-1, S_0 = 0) and, for the
+// backward (DS), V -> dS in reverse (dS_c = exp(g_Q,c+1) dS_c+1 + V_c+1, 0
+// for the last chunk), both walks in one loop; each thread loads AHEAD
+// chunks (of both walks) before it stores, so that enough loads are in
+// flight to fill the memory's bandwidth (16 a thread spill in the forward)
+template <int VEC, bool DS>
+__device__ __forceinline__ void state_pass(
+    float* __restrict__ states, float* __restrict__ dstates,
+    const float* __restrict__ chunk_decay, const Dims& d) {
   using V = typename std::conditional<VEC == 4, float4, float>::type;
-  constexpr int AHEAD = 8;
+  constexpr int AHEAD = DS ? 8 : 12;
   const long long per_bh = (long long)d.P * d.N / VEC;
   const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (idx >= (long long)d.B * d.H * per_bh) return;
   const long long bh = idx / per_bh, j = idx % per_bh;
   V* u = reinterpret_cast<V*>(states) + bh * d.nc * per_bh + j;
-  V* v = reinterpret_cast<V*>(dstates) + bh * d.nc * per_bh + j;
+  V* v = DS ? reinterpret_cast<V*>(dstates) + bh * d.nc * per_bh + j
+            : nullptr;
   const float* dec = chunk_decay + bh * d.nc;
   float s[VEC], r[VEC];
 #pragma unroll
@@ -908,21 +945,37 @@ ssd_bwd_state_pass_kernel(float* __restrict__ states,
     for (int k = 0; k < AHEAD; ++k)
       if (c0 + k < d.nc) {
         tu[k] = u[(c0 + k) * per_bh];
-        tv[k] = v[(d.nc - 1 - c0 - k) * per_bh];
+        if (DS) tv[k] = v[(d.nc - 1 - c0 - k) * per_bh];
       }
 #pragma unroll
     for (int k = 0; k < AHEAD; ++k)
       if (c0 + k < d.nc) {
         const int cf = c0 + k, cr = d.nc - 1 - cf;
         pass_step<VEC>(u + cf * per_bh, tu[k], s, dec[cf]);
-        pass_step<VEC>(v + cr * per_bh, tv[k], r, dec[cr]);
+        if (DS) pass_step<VEC>(v + cr * per_bh, tv[k], r, dec[cr]);
       }
   }
 }
 
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_bwd_state_pass_kernel(float* __restrict__ states,
+                          float* __restrict__ dstates,
+                          const float* __restrict__ chunk_decay, Dims d) {
+  state_pass<VEC, true>(states, dstates, chunk_decay, d);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_fwd_state_pass_kernel(float* __restrict__ states,
+                          const float* __restrict__ chunk_decay, Dims d) {
+  state_pass<VEC, false>(states, nullptr, chunk_decay, d);
+}
+
 // fp32 (P,N) rows [0, 64) x columns [n0, n0 + 64) of a state into hi + lo
-// tiles (zeros past P and N); returns this thread's share of
-// sum S * dS over them
+// tiles (zeros past P and N) and, for the backward (DS), of its gradient;
+// returns this thread's share of sum S * dS over them (0 without DS)
+template <bool DS>
 __device__ __forceinline__ float load_state_halves(
     __nv_bfloat16* s_hi, __nv_bfloat16* s_lo, __nv_bfloat16* ds_hi,
     __nv_bfloat16* ds_lo, const float* S, const float* dS, int P, int N,
@@ -931,25 +984,29 @@ __device__ __forceinline__ float load_state_halves(
   const bool vec = (N & 3) == 0;
   for (int i = threadIdx.x; i < 64 * 16; i += THREADS) {
     const int p = i / 16, j = (i % 16) * 4, n = n0 + j;
-    float sv[4], dv[4];
+    float sv[4], dv[4] = {0.f, 0.f, 0.f, 0.f};
     if (vec && p < P && n + 4 <= N) {
       const float4 a = *reinterpret_cast<const float4*>(S + p * N + n);
-      const float4 b = *reinterpret_cast<const float4*>(dS + p * N + n);
       sv[0] = a.x; sv[1] = a.y; sv[2] = a.z; sv[3] = a.w;
-      dv[0] = b.x; dv[1] = b.y; dv[2] = b.z; dv[3] = b.w;
+      if (DS) {
+        const float4 b = *reinterpret_cast<const float4*>(dS + p * N + n);
+        dv[0] = b.x; dv[1] = b.y; dv[2] = b.z; dv[3] = b.w;
+      }
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool in = p < P && n + e < N;
         sv[e] = in ? S[p * N + n + e] : 0.f;
-        dv[e] = in ? dS[p * N + n + e] : 0.f;
+        if (DS) dv[e] = in ? dS[p * N + n + e] : 0.f;
       }
     }
 #pragma unroll
     for (int e = 0; e < 4; e += 2) {
-      dot += sv[e] * dv[e] + sv[e + 1] * dv[e + 1];
       store_split2(s_hi, s_lo, p * LD64 + j + e, sv[e], sv[e + 1]);
-      store_split2(ds_hi, ds_lo, p * LD64 + j + e, dv[e], dv[e + 1]);
+      if (DS) {
+        dot += sv[e] * dv[e] + sv[e + 1] * dv[e + 1];
+        store_split2(ds_hi, ds_lo, p * LD64 + j + e, dv[e], dv[e + 1]);
+      }
     }
   }
   return dot;
@@ -1147,8 +1204,9 @@ ssd_bwd_chunk_grad_kernel(MmaArgs g) {
   for (int half = 0; half < halves; ++half) {
     const int nh = half * 64;
     if (half) __syncthreads();  // the previous half is no longer read
-    dss += load_state_halves(sS_hi, sS_lo, sdS_hi, sdS_lo, g.states + state,
-                             g.dstates + state, d.P, d.N, nh);
+    dss += load_state_halves<true>(sS_hi, sS_lo, sdS_hi, sdS_lo,
+                                   g.states + state, g.dstates + state, d.P,
+                                   d.N, nh);
     __syncthreads();
     const int kh = min(64, kn - nh);     // depth of this half
     const bool n_tile = n0 < kh;
@@ -1297,6 +1355,137 @@ ssd_bwd_chunk_grad_kernel(MmaArgs g) {
   }
 }
 
+// a chunk-start state (count fp32, contiguous) into shared memory as it
+// is: 16-byte cp.async where count allows it (call cp_async_wait_all before
+// reading)
+__device__ __forceinline__ void load_state_raw(float* dst, const float* src,
+                                               int count) {
+  if ((count & 3) == 0) {
+    for (int i = 4 * threadIdx.x; i < count; i += 4 * THREADS)
+      cp_async16(dst + i, src + i);
+  } else {
+    for (int i = threadIdx.x; i < count; i += THREADS) dst[i] = src[i];
+  }
+}
+
+// (c') one CTA per (chunk, head, batch): y of the chunk's rows from the
+// chunk's inputs and its start state S_c, which is copied into shared
+// memory with the inputs and split into hi + lo there, by halves of N, in
+// the buffer of M once M is read
+constexpr size_t SCAN_SMEM =
+    (3 * TILE64 + 2 * TILE128) * sizeof(__nv_bfloat16) +
+    (MAX_P * MAX_N + 5 * TQ) * sizeof(float);
+
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_fwd_chunk_scan_kernel(MmaArgs g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sB = sx + TILE64;
+  __nv_bfloat16* sC = sB + TILE128;
+  __nv_bfloat16* sM_hi = sC + TILE128;  // M: rows t, columns s; then S_c:
+  __nv_bfloat16* sM_lo = sM_hi + TILE64;  // rows p, 64 columns of N
+  float* sS = reinterpret_cast<float*>(sM_lo + TILE64);  // S_c, (P,N) fp32
+  float* sdt = sS + MAX_P * MAX_N;
+  float* sg = sdt + TQ;
+  float* se = sg + TQ;
+  float* sdec = se + TQ;
+  float* sw = sdec + TQ;
+
+  const Dims& d = g.d;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int grp = h / (d.H / d.G), s0 = c * d.Q;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, gc = lane & 3;
+  const int m0 = (warp & 3) * 16, n0 = (warp >> 2) * 32;
+  const int kq = up16(d.Q), kp = up16(d.P), kn = up16(d.N);
+
+  if (c > 0)  // S_0 = 0: chunk 0 has no state term
+    load_state_raw(sS, g.states + (((size_t)b * d.H + h) * d.nc + c) * d.P *
+                                      d.N, d.P * d.N);
+  load_tile(sx, LD64, 64, g.x, g.st.x, b, h, s0, d.Q, d.P, d.S,
+            g.vec & VEC_X);
+  load_tile(sB, LD128, 128, g.bm, g.st.bm, b, grp, s0, d.Q, d.N, d.S,
+            g.vec & VEC_B);
+  load_tile(sC, LD128, 128, g.cm, g.st.cm, b, grp, s0, d.Q, d.N, d.S,
+            g.vec & VEC_C);
+  if (warp == 0)
+    tile_decays(sdt, sg, se, sdec, sw, g.dt, g.st.dt, b, h, s0, d.Q, d.S,
+                g.A[h]);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 1. G = C B^T on this warp's tile (rows t, columns s), skipped above the
+  // diagonal; M = G L dt_s into shared memory as hi + lo
+  {
+    float G[4][4];
+    zero(G);
+    if (n0 <= m0 + 15)
+      warp_mma<false, false>(G, sC, LD128, sB, LD128, m0, n0, 0, kn);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float mv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = m0 + gr + 8 * (i >> 1), s = n0 + 8 * j + 2 * gc + (i & 1);
+        mv[i] = t >= s ? G[j][i] * expf(sg[t] - sg[s]) * sdt[s] : 0.f;
+      }
+      store_split2(sM_hi, sM_lo, (m0 + gr) * LD64 + n0 + 8 * j + 2 * gc,
+                   mv[0], mv[1]);
+      store_split2(sM_hi, sM_lo, (m0 + gr + 8) * LD64 + n0 + 8 * j + 2 * gc,
+                   mv[2], mv[3]);
+    }
+  }
+  __syncthreads();
+
+  // 2. y = M x (rows t, columns p; depth up to the warp's diagonal block)
+  // + exp(g_t) C S_c^T, S_c by halves of N
+  float y1[4][4], y2[4][4];
+  zero(y1);
+  zero(y2);
+  const bool p_tile = n0 < kp;
+  if (p_tile) {
+    const int ks = min(m0 + 16, kq);
+    warp_mma<false, true>(y1, sM_hi, LD64, sx, LD64, m0, n0, 0, ks);
+    warp_mma<false, true>(y1, sM_lo, LD64, sx, LD64, m0, n0, 0, ks);
+  }
+  if (c > 0) {
+    const int halves = d.N > 64 ? 2 : 1;
+    for (int half = 0; half < halves; ++half) {
+      const int nh = half * 64;
+      __syncthreads();  // M, then the previous half, is no longer read
+      load_state_halves<false>(sM_hi, sM_lo, nullptr, nullptr, sS, nullptr,
+                               d.P, d.N, nh);
+      __syncthreads();
+      const int kh = min(64, kn - nh);     // depth of this half
+      if (p_tile) {
+        warp_mma<false, false>(y2, sC + nh, LD128, sM_hi, LD64, m0, n0, 0,
+                               kh);
+        warp_mma<false, false>(y2, sC + nh, LD128, sM_lo, LD64, m0, n0, 0,
+                               kh);
+      }
+    }
+  }
+
+  // 3. the chunk's rows of y, each written once
+  __nv_bfloat16* out = g.y + ((size_t)b * d.S * d.H + h) * d.P;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int t = m0 + gr + 8 * (i >> 1), p = n0 + 8 * j + 2 * gc;
+      if (t >= d.Q || s0 + t >= d.S || p >= d.P) continue;
+      const float v0 = y1[j][i] + se[t] * y2[j][i];
+      const float v1 = y1[j][i + 1] + se[t] * y2[j][i + 1];
+      __nv_bfloat16* o = out + (size_t)(s0 + t) * d.H * d.P + p;
+      if ((d.P & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        o[0] = __float2bfloat16(v0);
+        if (p + 1 < d.P) o[1] = __float2bfloat16(v1);
+      }
+    }
+}
+
 bool dims_ok(const Dims& d) {
   return d.B > 0 && d.S > 0 && d.H > 0 && d.G > 0 && d.H % d.G == 0 &&
          d.Q > 0 && d.Q <= MAX_Q &&
@@ -1314,19 +1503,18 @@ Strides unpack(const long long* s) {
   return st;
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const void* dt, const void* A,
-                       const void* bm, const void* cm, void* y, Dims d,
-                       Strides st, cudaStream_t stream) {
+cudaError_t launch_fwd_fp32(const void* x, const void* dt, const void* A,
+                            const void* bm, const void* cm, void* y, Dims d,
+                            Strides st, cudaStream_t stream) {
   const size_t smem = fwd_smem_floats(d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  ssd_fwd_kernel<T><<<d.B * d.H, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(bm),
-      static_cast<const T*>(cm), static_cast<T*>(y), d, st);
+  ssd_fwd_kernel<<<d.B * d.H, THREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(bm),
+      static_cast<const float*>(cm), static_cast<float*>(y), d, st);
   return cudaGetLastError();
 }
 
@@ -1337,10 +1525,10 @@ cudaError_t launch_bwd_fp32(const void* x, const void* dt, const void* A,
                             cudaStream_t stream) {
   const size_t smem = bwd_smem_floats(d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  ssd_bwd_kernel<float><<<d.B * d.H, THREADS, smem, stream>>>(
+  ssd_bwd_kernel<<<d.B * d.H, THREADS, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(bm),
       static_cast<const float*>(cm), static_cast<const float*>(dy),
@@ -1367,6 +1555,63 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// launch the bf16 state pass on states (and, with dstates, the backward's
+// reverse pass on dstates): VEC 4 entries a thread where P*N allows it
+cudaError_t launch_state_pass(float* states, float* dstates,
+                              const float* chunk_decay, const Dims& d,
+                              cudaStream_t stream) {
+  const int vec = (d.P * d.N) % 4 == 0 ? 4 : 1;
+  const long long threads = (long long)d.B * d.H * d.P * d.N / vec;
+  const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
+  if (dstates && vec == 4)
+    ssd_bwd_state_pass_kernel<4><<<blocks, THREADS, 0, stream>>>(
+        states, dstates, chunk_decay, d);
+  else if (dstates)
+    ssd_bwd_state_pass_kernel<1><<<blocks, THREADS, 0, stream>>>(
+        states, dstates, chunk_decay, d);
+  else if (vec == 4)
+    ssd_fwd_state_pass_kernel<4><<<blocks, THREADS, 0, stream>>>(
+        states, chunk_decay, d);
+  else
+    ssd_fwd_state_pass_kernel<1><<<blocks, THREADS, 0, stream>>>(
+        states, chunk_decay, d);
+  return cudaGetLastError();
+}
+
+// the bf16 forward: (a'), (b'), (c') in turn on `stream`; work holds the
+// states (B*H*nc*P*N fp32) and then the chunk decays (B*H*nc fp32)
+cudaError_t launch_fwd_bf16(const void* x, const void* dt, const void* A,
+                            const void* bm, const void* cm, void* y,
+                            void* work, Dims d, Strides st,
+                            cudaStream_t stream) {
+  const long long entries = (long long)d.B * d.H * d.nc * d.P * d.N;
+  MmaArgs g = {};
+  g.x = static_cast<const __nv_bfloat16*>(x);
+  g.bm = static_cast<const __nv_bfloat16*>(bm);
+  g.cm = static_cast<const __nv_bfloat16*>(cm);
+  g.dt = static_cast<const float*>(dt);
+  g.A = static_cast<const float*>(A);
+  g.y = static_cast<__nv_bfloat16*>(y);
+  g.states = static_cast<float*>(work);
+  g.chunk_decay = g.states + entries;
+  g.d = d;
+  g.st = st;
+  g.vec = (rows_16b(x, st.x, d.B, d.S, d.H) ? VEC_X : 0) |
+          (rows_16b(bm, st.bm, d.B, d.S, d.G) ? VEC_B : 0) |
+          (rows_16b(cm, st.cm, d.B, d.S, d.G) ? VEC_C : 0);
+  cudaError_t err = allow_smem(ssd_fwd_chunk_state_kernel, STATE_SMEM_FWD);
+  if (err == cudaSuccess)
+    err = allow_smem(ssd_fwd_chunk_scan_kernel, SCAN_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(d.nc, d.H, d.B);
+  ssd_fwd_chunk_state_kernel<<<grid, THREADS, STATE_SMEM_FWD, stream>>>(g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_state_pass(g.states, nullptr, g.chunk_decay, d, stream);
+  if (err != cudaSuccess) return err;
+  ssd_fwd_chunk_scan_kernel<<<grid, THREADS, SCAN_SMEM, stream>>>(g);
+  return cudaGetLastError();
 }
 
 // the bf16 backward: (a), (b), (c) in turn on `stream`; work holds dS
@@ -1405,16 +1650,8 @@ cudaError_t launch_bwd_bf16(const void* x, const void* dt, const void* A,
   const dim3 grid(d.nc, d.H, d.B);
   ssd_bwd_chunk_state_kernel<<<grid, THREADS, STATE_SMEM, stream>>>(g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int vec = (d.P * d.N) % 4 == 0 ? 4 : 1;
-  const long long threads = (long long)d.B * d.H * d.P * d.N / vec;
-  const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-  if (vec == 4)
-    ssd_bwd_state_pass_kernel<4><<<blocks, THREADS, 0, stream>>>(
-        g.states, g.dstates, g.chunk_decay, d);
-  else
-    ssd_bwd_state_pass_kernel<1><<<blocks, THREADS, 0, stream>>>(
-        g.states, g.dstates, g.chunk_decay, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_state_pass(g.states, g.dstates, g.chunk_decay, d, stream);
+  if (err != cudaSuccess) return err;
   ssd_bwd_chunk_grad_kernel<<<grid, THREADS, GRAD_SMEM, stream>>>(g);
   return cudaGetLastError();
 }
@@ -1428,18 +1665,20 @@ cudaError_t launch_bwd_bf16(const void* x, const void* dt, const void* A,
 // Outputs are contiguous: y, dx (B,S,H,P); ddt (B,S,H); da_part (B,H); dB
 // and dC (B,S,G,N), zeroed by the caller.  Returns the CUDA error of the
 // launch (0 on success).
+// work: for bf16, B*H*nc*P*N + B*H*nc fp32 of scratch (the chunk-start
+// states and the chunk decays); for float32 it is unused.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
-                            const void* bm, const void* cm, void* y, int B,
-                            int S, int H, int G, int P, int N, int Q,
-                            int dtype, const long long* strides,
+                            const void* bm, const void* cm, void* y,
+                            void* work, int B, int S, int H, int G, int P,
+                            int N, int Q, int dtype, const long long* strides,
                             void* stream) {
   const Dims d{B, S, H, G, P, N, Q, (S + Q - 1) / Q};
   if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
   const Strides st = unpack(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(x, dt, A, bm, cm, y, d, st, s);
-  if (dtype == 0) return launch_fwd<float>(x, dt, A, bm, cm, y, d, st, s);
+  if (dtype == 1 && work != nullptr)
+    return launch_fwd_bf16(x, dt, A, bm, cm, y, work, d, st, s);
+  if (dtype == 0) return launch_fwd_fp32(x, dt, A, bm, cm, y, d, st, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1481,5 +1720,24 @@ extern "C" int ssd_scan_bwd_occupancy(int* blocks) {
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks + 2, ssd_bwd_chunk_grad_kernel, THREADS, GRAD_SMEM);
+  return (int)err;
+}
+
+// CTAs per SM that the bf16 forward's three kernels reach (chunk state,
+// state pass with 4 entries a thread, chunk scan) into blocks[0..2].
+// Returns the CUDA error (0 on success).
+extern "C" int ssd_scan_fwd_occupancy(int* blocks) {
+  cudaError_t err = allow_smem(ssd_fwd_chunk_state_kernel, STATE_SMEM_FWD);
+  if (err == cudaSuccess)
+    err = allow_smem(ssd_fwd_chunk_scan_kernel, SCAN_SMEM);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, ssd_fwd_chunk_state_kernel, THREADS, STATE_SMEM_FWD);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks + 1, ssd_fwd_state_pass_kernel<4>, THREADS, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks + 2, ssd_fwd_chunk_scan_kernel, THREADS, SCAN_SMEM);
   return (int)err;
 }

@@ -34,9 +34,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 64, 64, 128
 _STRIDES = ctypes.c_longlong * 19
 
-# ssd_scan_fwd(x, dt, A, Bm, Cm, y, B, S, H, G, P, N, Q, dtype, strides,
-#              stream)
-FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+# ssd_scan_fwd(x, dt, A, Bm, Cm, y, work, B, S, H, G, P, N, Q, dtype,
+#              strides, stream)
+FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
 # ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dx, ddt, da_part, dB, dC, states,
 #              work, B, S, H, G, P, N, Q, dtype, strides, stream)
@@ -101,9 +101,12 @@ def _raise_on(err: int, what: str) -> None:
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   Bm: torch.Tensor, Cm: torch.Tensor,
                   chunk: int = 64) -> torch.Tensor:
-    """Launch the forward kernel: x (B,S,H,P), dt (B,S,H) fp32, A (H,)
-    fp32, Bm/Cm (B,S,G,N) in x's dtype (any strides) -> y (B,S,H,P) in x's
-    dtype.  Raises on other inputs or a failed launch."""
+    """Launch the forward: x (B,S,H,P), dt (B,S,H) fp32, A (H,) fp32,
+    Bm/Cm (B,S,G,N) in x's dtype (any strides) -> y (B,S,H,P) in x's
+    dtype.  fp32 inputs run one kernel; bf16 inputs run three,
+    chunk-parallel on tensor cores, with fp32 scratch for the chunk-start
+    states and the chunk decays (B*H*nc*(P*N + 1) floats, freed on return).
+    Raises on other inputs or a failed launch."""
     Q = _check(x, dt, A, Bm, Cm, chunk)
     B, S, H, P = x.shape
     G, N = Bm.shape[-2:]
@@ -111,13 +114,17 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    nc = -(-S // Q)
+    work = (torch.empty(B * H * nc * (P * N + 1), dtype=torch.float32,
+                        device=x.device)
+            if x.dtype == torch.bfloat16 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), B, S, H, G, P, N, Q,
-            _DTYPES[x.dtype],
-            _strides(x, dt, Bm, Cm), stream)
+            Cm.data_ptr(), y.data_ptr(),
+            None if work is None else work.data_ptr(), B, S, H, G, P, N, Q,
+            _DTYPES[x.dtype], _strides(x, dt, Bm, Cm), stream)
     _raise_on(err, "ssd_scan forward")
     ssd_scan_cuda.launches += 1
     return y
@@ -180,8 +187,8 @@ ssd_scan_bwd_cuda.launches = 0
 
 class SSDScan(torch.autograd.Function):
     """y = ssd_scan(x, dt, A, Bm, Cm, chunk) with both directions on the
-    card.  Saves its inputs (views included, uncopied); the backward
-    kernels recompute the chunk-start states."""
+    card.  Saves its inputs (views included, uncopied), not the forward's
+    chunk-start states: the backward kernels recompute them."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk):

@@ -237,6 +237,33 @@ def test_ssd_scan_bf16_chunk_parallel_backward_on_card(cuda_device, B, S, H,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True],
+                         ids=["contiguous", "bc-views"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,G", SSD_BF16_CASES)
+def test_ssd_scan_bf16_chunk_parallel_forward_on_card(cuda_device, B, S, H,
+                                                      P, N, chunk, G,
+                                                      strided):
+    """The bf16 forward (three chunk-parallel kernels) against the plain
+    version in fp32 on the same bf16 values; with ``strided``, Bm and Cm
+    are views of one (B,S,G,2N+8) tensor, as models/ssm.py slices them."""
+    leaves, views = ssd_inputs(B, S, H, P, N, cuda_device, torch.bfloat16,
+                               groups=G, seed=2)
+    x, dt, A, Bm, Cm = (t.detach() for t in views(*leaves))
+    if strided:
+        bc = torch.cat([Bm, Cm, torch.zeros_like(Bm[..., :8])], -1)
+        Bm, Cm = bc[..., :N], bc[..., N:2 * N]
+        assert not Bm.is_contiguous()
+    launches = ssd_scan_cuda.launches
+    y = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == launches + 1
+    y_ref = ref.ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float(), chunk)
+    assert y.dtype == torch.bfloat16 and y.shape == (B, S, H, P)
+    assert bool(torch.isfinite(y).all())
+    assert _rel_err(y, y_ref) <= REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(5, 2560), (3, 7, 128), (1, 100),

@@ -37,39 +37,65 @@ torch.set_num_threads(1)
 NAMES = ("dx", "ddt", "dA", "dB", "dC")
 
 
+def chunked(S, chunk):
+    """(Q, nc, chunks): the chunk length, the number of chunks, and a
+    function that zero-pads the tail of a (B,S,...) tensor (dt = 0 there)
+    and cuts it into (B, nc, Q, ...)."""
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+
+    def chunks(t):
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
+                                    + (0, nc * Q - S))
+        return t.reshape(t.shape[0], nc, Q, *t.shape[2:])
+
+    return Q, nc, chunks
+
+
+def chunk_decays(dtc, A):
+    """Phase (a)'s decays of (B,nc,Q,H) chunked dt: g (the cumsum of dt a
+    inside each chunk), exp(g), exp(g_Q - g), w = exp(g_Q - g) dt and the
+    chunk decay exp(g_Q) (B,nc,H)."""
+    g = torch.cumsum(dtc * A, dim=2)
+    dec = torch.exp(g[:, :, -1:] - g)
+    return g, torch.exp(g), dec, dec * dtc, torch.exp(g[:, :, -1])
+
+
+def chunk_state_u(w, xc, Bc):
+    """Phase (a)'s U_c = sum_s w_s x_s B_s^T, (B,nc,H,P,N)."""
+    return torch.einsum("bcsh,bcshp,bcshn->bchpn", w, xc, Bc)
+
+
+def pass_states(U, decay):
+    """Phase (b)'s forward pass, in place: U_c -> S_c, the state at chunk
+    c's start (S_0 = 0, S_{c+1} = exp(g_Q,c) S_c + U_c)."""
+    state = torch.zeros_like(U[:, 0])
+    for c in range(U.shape[1]):
+        u_c = U[:, c].clone()
+        U[:, c] = state
+        state = decay[:, c, :, None, None] * state + u_c
+    return U
+
+
 def chunk_parallel_bwd(x, dt, A, Bm, Cm, dy, chunk):
     """(dx, ddt, dA, dB, dC) of sum(ssd_scan(x, dt, A, Bm, Cm) * dy) in the
     dtype of x, by the three phases of the card's bf16 backward.  Bm/Cm are
     (B,S,G,N), G dividing H."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[-2:]
-    Q = min(chunk, S)
-    nc = -(-S // Q)
-    pad = nc * Q - S
-
-    def chunks(t):  # zero-pad the tail (dt = 0 there), (B, nc, Q, ...)
-        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-        return t.reshape(Bsz, nc, Q, *t.shape[2:])
+    Q, nc, chunks = chunked(S, chunk)
 
     xc, dyc, dtc = chunks(x), chunks(dy), chunks(dt)
     Bc = chunks(Bm.repeat_interleave(H // G, dim=2))
     Cc = chunks(Cm.repeat_interleave(H // G, dim=2))
 
     # (a) per chunk: decays, U and V
-    g = torch.cumsum(dtc * A, dim=2)                      # (B,nc,Q,H)
-    e = torch.exp(g)
-    dec = torch.exp(g[:, :, -1:] - g)                     # exp(g_Q - g_s)
-    w = dec * dtc
-    decay = torch.exp(g[:, :, -1])                        # (B,nc,H)
-    U = torch.einsum("bcsh,bcshp,bcshn->bchpn", w, xc, Bc)
+    g, e, dec, w, decay = chunk_decays(dtc, A)            # (B,nc,Q,H)
+    U = chunk_state_u(w, xc, Bc)
     V = torch.einsum("bcth,bcthp,bcthn->bchpn", e, dyc, Cc)
 
     # (b) per entry: U -> chunk-start states, V -> end-state gradients
-    state = torch.zeros_like(U[:, 0])
-    for c in range(nc):
-        u_c = U[:, c].clone()
-        U[:, c] = state
-        state = decay[:, c, :, None, None] * state + u_c
+    pass_states(U, decay)
     dstate = torch.zeros_like(V[:, 0])
     for c in reversed(range(nc)):
         v_c = V[:, c].clone()
