@@ -8,9 +8,9 @@ Phases (any failure exits non-zero before the final line is printed):
 1. print the card's name and power limit (``nvidia-smi``), turn TF32 off,
    build the kernels from the sources in this checkout (one ``nvcc`` per
    CUDA C++ source, all started together: flash attention with ring
-   attention's panel visit, and the SSD scan; Triton's compiler for RMSNorm
-   forward and backward) and print the build seconds; print each CUDA
-   kernel's registers and spill bytes (``-Xptxas -v``) and its HGMMA
+   attention's panel visit, the SSD scan, and RMSNorm forward and
+   backward) and print the build seconds; print each CUDA kernel's
+   registers and spill bytes (``-Xptxas -v``) and its HGMMA
    (``wgmma``) and HMMA (``mma.sync``) counts (``cuobjdump -sass``), and
    fail unless the four bf16 flash instantiations (both entries, dh 64 and
    128) contain HGMMA, the product kernels of the bf16 SSD forward
@@ -18,8 +18,10 @@ Phases (any failure exits non-zero before the final line is printed):
    backward (``ssd_bwd_chunk_state_kernel``, ``ssd_bwd_chunk_grad_kernel``)
    contain HMMA, and the three ``ssd_fwd_`` and three ``ssd_bwd_`` kernels
    of the bf16 forward and backward spill nothing; print the CTAs per SM
-   those six kernels reach; a third ``nvcc`` builds the SSD scan without
-   the bf16 backward's dB/dC atomics, which phase 7 times;
+   those six kernels reach; fail if any RMSNorm kernel spills, and print
+   the RMSNorm backward's warps a CTA and CTAs per SM at the training
+   widths; a fourth ``nvcc`` builds the SSD scan without the bf16
+   backward's dB/dC atomics, which phase 7 times;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes, with the stated tolerances (the
    backward kernels against ``torch.autograd`` of the plain versions; the
@@ -30,6 +32,9 @@ Phases (any failure exits non-zero before the final line is printed):
    sizes with GQA groups of 1, 5 and 8 and with dh 64); and log why the
    bf16 panel visit splits P into two bf16 terms: the plain arithmetic's
    acc error at the visible visit with P rounded to bf16 and with P split;
+   RMSNorm also on a bf16 view at storage offset 1 (the kernels' unaligned
+   body), and its backward twice at 16384 x 2048, where dw must be the same
+   bits both times;
 3. serve full-width qwen3-4b (random bf16 weights from seed 0) through the
    paged continuous-batching engine: 12 requests, prompts of 33-400
    tokens, 16-32 new tokens each; every request must complete and both
@@ -54,7 +59,9 @@ Phases (any failure exits non-zero before the final line is printed):
    kernel without its dB/dC atomics,
    with the least time the card could take (bytes over 3.35 TB/s or
    operations over the peak rate of the inputs' type), and the achieved
-   TFLOP/s of the attention kernels and SDPA;
+   TFLOP/s of the attention kernels and SDPA; and what one RMSNorm call at
+   the decode shape costs the host, by piece, beside the device time of an
+   empty kernel;
 8. sequence-parallel attention at full qwen3-4b width (run before phase 7,
    whose table reads its launches): 4 ranks on the one card, joined by a
    gloo process group, each holding 8192 tokens of a 32768-token input,
@@ -233,6 +240,11 @@ SSD_FWD_KERNELS = ("ssd_fwd_chunk_state_kernel", "ssd_fwd_state_pass_kernel",
                    "ssd_fwd_chunk_scan_kernel")
 SSD_BWD_KERNELS = ("ssd_bwd_chunk_state_kernel", "ssd_bwd_state_pass_kernel",
                    "ssd_bwd_chunk_grad_kernel")
+# the RMSNorm kernels of csrc/rmsnorm.cu; phase 5 sorts their time into
+# forward and backward by the prefixes rmsnorm_fwd and rmsnorm_bwd
+RMSNORM_KERNELS = ("rmsnorm_fwd_kernel", "rmsnorm_fwd_row_kernel",
+                   "rmsnorm_fwd_wide_kernel", "rmsnorm_bwd_kernel",
+                   "rmsnorm_bwd_wide_kernel", "rmsnorm_bwd_dw_sum_kernel")
 # built with it defined, the SSD scan skips the bf16 backward's atomics
 NO_ADDS = ("SSD_BWD_NO_ADDS",)
 
@@ -257,7 +269,7 @@ def _kernel_name(mangled):
 def phase_build():
     import torch
     from repro_torch.kernels import _build
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
+    from repro_torch.kernels import rmsnorm
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -273,7 +285,8 @@ def phase_build():
         return name, _build.build(name, defines), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    jobs = [("flash_attention", ()), ("ssd_scan", ()), ("ssd_scan", NO_ADDS)]
+    jobs = [("flash_attention", ()), ("ssd_scan", ()), ("rmsnorm", ()),
+            ("ssd_scan", NO_ADDS)]
     with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc each, together
         built = list(pool.map(nvcc, jobs))
     log(f"[build] nvcc, in parallel: {time.perf_counter() - t0:.1f} s")
@@ -298,6 +311,17 @@ def phase_build():
                      if "flash_fwd_wgmma_kernel" in fn}
             check(len(wgmma) == 4 and all(wgmma.values()),
                   f"bf16 flash kernels without HGMMA in their SASS: {wgmma}")
+        elif name == "rmsnorm":
+            spilled = {k: v[1] for k, v in report.items() if v[1] != (0, 0)}
+            check(len(report) >= len(RMSNORM_KERNELS) and not spilled,
+                  f"RMSNorm kernels missing or spilling: {spilled}")
+            for d in (1024, 2048):
+                warps, per_sm, sms = rmsnorm._bwd_config(0, d, 1)
+                n = rmsnorm.bwd_grid(TRAIN_BATCH * TRAIN_SEQ, warps, per_sm,
+                                     sms)
+                log(f"[build]   RMSNorm backward, bf16 d {d}: {warps} warps "
+                    f"a CTA, {per_sm} CTAs per SM, {n} CTAs (partials rows) "
+                    f"at {TRAIN_BATCH * TRAIN_SEQ} rows")
         else:
             # the bf16 forward and backward: products on mma.sync, no
             # spills
@@ -319,16 +343,6 @@ def phase_build():
                       f"{entry} failed")
                 log(f"[build]   bf16 SSD {what}, CTAs of 256 threads per SM: "
                     + ", ".join(f"{k} {n}" for k, n in zip(names, occ)))
-    t0 = time.perf_counter()
-    for dt in (torch.bfloat16, torch.float32):
-        for d in (2560, 2048, 1024, 128):
-            x = torch.ones(4, d, device="cuda", dtype=dt)
-            w = torch.ones(d, device="cuda", dtype=dt)
-            rmsnorm_cuda(x, w)
-            rmsnorm_bwd_cuda(x, x, w)
-    torch.cuda.synchronize()
-    log(f"[build] triton rmsnorm forward and backward (16 "
-        f"specialisations): {time.perf_counter() - t0:.1f} s")
     return card
 
 
@@ -380,7 +394,6 @@ def phase_kernels():
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
     g = torch.Generator(device="cuda").manual_seed(0)
     errs = {"flash_attention": 0.0, "rmsnorm": 0.0}
@@ -421,21 +434,44 @@ def phase_kernels():
                       (SP_LOCAL * 32, 128), (SP_LOCAL * 8, 128)]:
             x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dt)
             w = torch.randn(shape[-1], generator=g, device="cuda").to(dt)
-            out = rmsnorm_cuda(x, w, 1e-6).float()
-            torch.cuda.synchronize()
-            want = ref.rmsnorm_ref(x, w, 1e-6).float()
-            err = (out - want).abs().max().item()
-            if dtype == "float32":
-                ok, tol = err <= TOL[dtype], f"{TOL[dtype]:.0e}"
-            else:       # fp32 math, one bf16 rounding: at most one ulp
-                ulp = torch.exp2(torch.floor(torch.log2(
-                    want.abs().clamp_min(1e-30))) - 7)
-                ok, tol = bool(((out - want).abs() <= ulp).all()), "1 ulp"
-            log(f"[rmsnorm] {dtype:8s} {str(shape):14s} max|diff| "
-                f"{err:.3e} (tol {tol})")
-            check(ok, f"rmsnorm {shape} {dtype}: {err}")
-            errs["rmsnorm"] = max(errs["rmsnorm"], err)
+            check_rmsnorm(x, w, dtype, str(shape), errs)
+    # the unaligned body: rows of a bf16 view at storage offset 1
+    x, w = unaligned_rows(g, 777, 2560, 3.0)
+    check_rmsnorm(x, w, "bfloat16", "(777, 2560) at offset 1", errs)
     return errs
+
+
+def unaligned_rows(g, rows, d, scale):
+    """x (rows, d) bf16, a view at storage offset 1 (its base and rows off
+    the 16-byte grid), and w (d,) bf16."""
+    import torch
+    flat = (torch.randn(rows * d + 1, generator=g, device="cuda")
+            * scale).bfloat16()
+    x = flat[1:].view(rows, d)
+    check(x.data_ptr() % 16 != 0, "the unaligned case is aligned")
+    return x, torch.randn(d, generator=g, device="cuda").bfloat16()
+
+
+def check_rmsnorm(x, w, dtype, what, errs):
+    """The forward kernel against rmsnorm_ref: fp32 within TOL, bf16 within
+    one ulp (fp32 math, one bf16 rounding)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    out = rmsnorm_cuda(x, w, 1e-6).float()
+    torch.cuda.synchronize()
+    want = ref.rmsnorm_ref(x, w, 1e-6).float()
+    err = (out - want).abs().max().item()
+    if dtype == "float32":
+        ok, tol = err <= TOL[dtype], f"{TOL[dtype]:.0e}"
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(1e-30))) - 7)
+        ok, tol = bool(((out - want).abs() <= ulp).all()), "1 ulp"
+    log(f"[rmsnorm] {dtype:8s} {what:14s} max|diff| {err:.3e} (tol {tol})")
+    check(ok, f"rmsnorm {what} {dtype}: {err}")
+    errs["rmsnorm"] = max(errs["rmsnorm"], err)
 
 
 def partial_cases():
@@ -584,10 +620,11 @@ def ssd_cases():
 
 def phase_train_kernels(errs):
     """The training path's kernels against torch.autograd of their plain
-    versions: the SSD scan forward and backward, the RMSNorm backward."""
+    versions: the SSD scan forward and backward, the RMSNorm backward (also
+    on an unaligned view, and dw bitwise-stable across two calls)."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import RMSNorm
+    from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_bwd_cuda
     from repro_torch.kernels.ssd_scan import SSDScan
 
     errs.update(ssd_scan=0.0, ssd_scan_bwd=0.0, rmsnorm_bwd=0.0)
@@ -636,28 +673,42 @@ def phase_train_kernels(errs):
             del leaves, views, y, grads, y_ref, grads_ref, outs, plain
             if dtype == "float32":
                 del wit
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = []
     for dtype, shape in (("bfloat16", (TRAIN_BATCH * TRAIN_SEQ, 1024)),
                          ("bfloat16", (TRAIN_BATCH * TRAIN_SEQ, 2048)),
                          ("bfloat16", (3, 5, 2560)),
                          ("float32", (777, 2048)), ("float32", (5, 100))):
         dt = getattr(torch, dtype)
-        g = torch.Generator(device="cuda").manual_seed(3)
         x = (torch.randn(shape, generator=g, device="cuda") * 2).to(dt)
-        w = torch.randn(shape[-1], generator=g, device="cuda").to(dt)
-        dy = torch.randn(shape, generator=g, device="cuda").to(dt)
+        cases.append((dtype, str(shape), x,
+                      torch.randn(shape[-1], generator=g,
+                                  device="cuda").to(dt)))
+    # the unaligned body: rows of a bf16 view at storage offset 1
+    cases.append(("bfloat16", "(777, 2560) at offset 1",
+                  *unaligned_rows(g, 777, 2560, 2.0)))
+    for dtype, what, x, w in cases:
+        dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
         x.requires_grad_()
         w.requires_grad_()
         got = torch.autograd.grad(RMSNorm.apply(x, w, 1e-5), (x, w), dy)
         torch.cuda.synchronize()
         want = torch.autograd.grad(ref.rmsnorm_ref(x, w, 1e-5), (x, w), dy)
         e_dx, e_dw = rel_err(got[0], want[0]), rel_err(got[1], want[1])
-        log(f"[rmsnorm_bwd] {dtype:8s} {str(shape):14s} max|diff|/max|ref| "
+        log(f"[rmsnorm_bwd] {dtype:8s} {what:14s} max|diff|/max|ref| "
             f"dx {e_dx:.2e}, dw {e_dw:.2e} (tol {REL_TOL[dtype]:.0e})")
         check(max(e_dx, e_dw) <= REL_TOL[dtype],
-              f"rmsnorm_bwd {shape} {dtype}: dx {e_dx}, dw {e_dw}")
+              f"rmsnorm_bwd {what} {dtype}: dx {e_dx}, dw {e_dw}")
         errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], *(
             (a.float() - b.float()).abs().max().item()
             for a, b in zip(got, want)))
+        if what == str((TRAIN_BATCH * TRAIN_SEQ, 2048)):
+            # a fixed partition and fixed-order sums: the same dw bits
+            again = rmsnorm_bwd_cuda(dy, x.detach(), w.detach(), 1e-5)[1]
+            same = torch.equal(again, got[1])
+            log(f"[rmsnorm_bwd] {dtype:8s} {what:14s} dw of a second call "
+                f"bitwise equal: {same}")
+            check(same, f"rmsnorm_bwd {what}: dw differs between two calls")
 
 
 # ---------------------------------------------------------------------------
@@ -686,8 +737,8 @@ def phase_serve():
                         decode_slots=DECODE_SLOTS, max_context=MAX_CONTEXT,
                         prefill_batch=PREFILL_BATCH,
                         prefill_chunk=PREFILL_CHUNK)
-    # warm-up: Triton compiles its kernel for the serving shapes here, not
-    # inside the measured run
+    # warm-up: the allocator's pools and the backward's cached geometry are
+    # set up here, not inside the measured run
     ServingEngine(cfg, params, ecfg, device="cuda").run(
         [ServeRequest(rid="warmup", prompt=list(range(1, 150)), max_new=3)])
     engine = ServingEngine(cfg, params, ecfg, device="cuda")
@@ -922,7 +973,7 @@ def phase_train():
                    if key in e.key) / 1e3
 
     categories = {"ssd_scan": ("ssd_fwd_", "ssd_bwd_"),
-                  "rmsnorm": ("rmsnorm_fwd", "rmsnorm_bwd", "column_sum"),
+                  "rmsnorm": ("rmsnorm_",),
                   "gemm": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
                   "elementwise": ("elementwise",), "reduce": ("reduce",)}
     by_category = {c: 0.0 for c in [*categories, "other"]}
@@ -950,7 +1001,8 @@ def phase_train():
         "ssd_bwd_ms": share("ssd_bwd_"),
         "ssd_bwd_ms_by_kernel": {k: share(k) for k in SSD_BWD_KERNELS},
         "rmsnorm_fwd_ms": share("rmsnorm_fwd"),
-        "rmsnorm_bwd_ms": share("rmsnorm_bwd") + share("column_sum"),
+        "rmsnorm_bwd_ms": share("rmsnorm_bwd"),
+        "rmsnorm_ms_by_kernel": {k: share(k) for k in RMSNORM_KERNELS},
         "device_ms_by_category": by_category,
         "kernels_per_step": sum(e.count for e in kernels),
         "launches_per_step": per_step,
@@ -1299,6 +1351,52 @@ def _rmsnorm_timing(rows, d):
                 shape=f"rows={rows} d={d} bf16")
 
 
+def _host_us(fn, n=2000):
+    """Host microseconds per call of ``fn`` over n back-to-back calls, the
+    device drained before and after (host clock)."""
+    import torch
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _rmsnorm_host_costs():
+    """What one decode-shape call costs the host, by piece, under
+    inference mode as in serving, and the device time of an empty kernel
+    (``torch.cuda._sleep(0)``) queued back to back: the floor under the
+    decode shape's device ms."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm
+
+    x = torch.randn(DECODE_SLOTS, 1, 2560, device="cuda").bfloat16()
+    w = torch.randn(2560, device="cuda").bfloat16()
+    dev = x.device
+    pieces = {
+        "rmsnorm_cuda": lambda: rmsnorm.rmsnorm_cuda(x, w, 1e-6),
+        "RMSNorm.apply": lambda: rmsnorm.RMSNorm.apply(x, w, 1e-6),
+        "F.rms_norm": lambda: F.rms_norm(x, (2560,), w, 1e-6),
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw stream getter": lambda: rmsnorm._stream(0),
+        "torch.empty_like(x)": lambda: torch.empty_like(x),
+        "argument checks": lambda: rmsnorm._check("f", x, w),
+    }
+    with torch.inference_mode():
+        out = {k: _host_us(fn) for k, fn in pieces.items()}
+    out["empty kernel device ms"] = device_ms(lambda: torch.cuda._sleep(0),
+                                              20)[0]
+    log("[time] rmsnorm host us per call at 8 x 2560: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out.items() if "device" not in k)
+        + f"; empty kernel device ms {out['empty kernel device ms']:.5f}")
+    return out
+
+
 def _rmsnorm_bwd_timing(rows, d):
     """The backward alone: the kernel on (dy, x, w); the plain version and
     the library as the autograd backward of rmsnorm_ref / F.rms_norm."""
@@ -1431,7 +1529,7 @@ def phase_timings(errs, launches):
              "prefill": _flash_timing(PREFILL_BATCH, PREFILL_CHUNK,
                                       MAX_CONTEXT, [256] * PREFILL_BATCH,
                                       [384] * PREFILL_BATCH)}),
-        ("rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
+        ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "decode", {
              "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
              "prefill": _rmsnorm_timing(PREFILL_BATCH * PREFILL_CHUNK, 2560),
@@ -1440,7 +1538,7 @@ def phase_timings(errs, launches):
              "sp_q_norm": _rmsnorm_timing(SP_LOCAL * 32, 128),
              "train": _rmsnorm_timing(tokens, 1024),
              "train_gated": _rmsnorm_timing(tokens, 2048)}),
-        ("rmsnorm_bwd", "triton", "src/repro_torch/kernels/rmsnorm.py",
+        ("rmsnorm_bwd", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "train", {
              "train": _rmsnorm_bwd_timing(tokens, 1024),
              "train_gated": _rmsnorm_bwd_timing(tokens, 2048)}),
@@ -1454,6 +1552,7 @@ def phase_timings(errs, launches):
              "visible": _partial_timing(SP_LOCAL),
              "dead": _partial_timing(-SP_LOCAL)}),
     ]
+    host = _rmsnorm_host_costs()
     kernels = []
     for name, route, source, replaces, main_shape, by_shape in table:
         by_path = {path: counts[name] for path, counts in launches.items()}
@@ -1464,6 +1563,7 @@ def phase_timings(errs, launches):
             **{k: by_shape[main_shape][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shapes": by_shape,
+            **({"host_us_decode": host} if name == "rmsnorm" else {}),
         })
         for shape, t in by_shape.items():
             lib = ("-" if t["library_ms"] is None else

@@ -1,2 +1,2 @@
-"""Hand-written Hopper kernels (CUDA C++ and Triton) with their plain
+"""Hand-written Hopper kernels (CUDA C++) with their plain
 PyTorch versions; ``ops`` dispatches between them by device."""

@@ -60,7 +60,7 @@ def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x (..., d), w (d,) -> RMS-normalised x, in x's dtype.  On CUDA both
-    directions run in the Triton kernels."""
+    directions run in the CUDA kernels."""
     if _on_cuda(x):
         return RMSNorm.apply(x, w, eps)
     return rmsnorm_ref(x, w, eps)

@@ -1,170 +1,176 @@
-"""RMSNorm on Hopper: Triton kernels for both directions, their wrappers
-and the autograd Function around them.
+"""RMSNorm on Hopper: the ctypes wrappers of ``csrc/rmsnorm.cu`` and the
+autograd Function around them.
 
 Replaces the TPU kernel ``repro/kernels/rmsnorm.py::rmsnorm``
 (``_rmsnorm_kernel``): ``y = x * rsqrt(mean(x^2) + eps) * w`` over the last
 dim with fp32 accumulation, cast back to x's dtype, over rows = the product
-of the leading dims.
+of the leading dims.  The backward has no TPU counterpart (the JAX package
+differentiates the plain version): ``dx = rstd * (w*dy - xhat *
+mean(xhat*w*dy))`` and ``dw = sum over rows of dy*xhat``, in fp32, with
+``xhat = x*rstd`` and rstd recomputed from x.  x and w are each float32 or
+bfloat16; dx takes x's dtype and dw w's.
 
-What bounds it on the H100: memory.  It reads each element once and writes
-it once and does a handful of operations per element, far below the card's
-ratio of operations to bytes.  So the design moves each byte once,
-coalesced: one program per block of rows, the row padded to the next power
-of two (``BLOCK_D``, masked: 2560 -> 4096 for the hidden norm, 128 for the
-per-head QK-norm), the sum of squares in fp32 with ``tl.sum``, and as many
-rows per program as keep a block near 4096 elements.  No shared-memory
-staging and no tensor cores are needed.
-
-The backward has no TPU counterpart (the JAX package differentiates the
-plain version): ``dx = rstd * (w*dy - xhat * mean(xhat*w*dy))`` and
-``dw = sum over rows of dy*xhat``, in fp32, with ``xhat = x*rstd`` and rstd
-recomputed from x.  It is bound by memory too (x and dy read once, dx
-written once).  Each of at most ``_BWD_PROGRAMS`` programs walks a
-contiguous range of rows one row at a time, keeping its share of dw in
-fp32 registers, and writes it as one row of an fp32 partials buffer; a
-second kernel sums the partials over the programs, column block by column
-block, in a fixed order, so dw is the same on every run.
+The backward runs on a persistent grid whose size :func:`bwd_grid` gives;
+each CTA writes one row of an fp32 partials buffer and a second kernel sums
+the rows in a fixed order, so dw is the same on every run.  The CUDA source
+says what bounds each kernel on the H100 and how the design answers that.
 
 :func:`rmsnorm_cuda` and :func:`rmsnorm_bwd_cuda` only launch kernels;
 ``kernels/ops.py`` routes CUDA tensors through :class:`RMSNorm` and CPU
-tensors to ``kernels/ref.py::rmsnorm_ref``.  ``triton`` is imported when a
-kernel is first launched, never when this module is imported.
+tensors to ``kernels/ref.py::rmsnorm_ref``.  The forward's wrapper is kept
+lean, since the decode step calls it 145 times and is bound by the host.
 """
+from __future__ import annotations
+
+import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 
-_BLOCK_ELEMS = 4096
-_BWD_PROGRAMS = 512
+from . import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# rmsnorm_fwd(x, w, y, n_rows, d, x_dtype, w_dtype, eps, device, stream)
+FWD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# rmsnorm_bwd_config(d, x_dtype, device, out)
+CONFIG_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+# rmsnorm_bwd(x, w, dy, dx, part, dw, n_rows, d, x_dtype, w_dtype, eps,
+#             n_ctas, device, stream)
+BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    import triton
-    import triton.language as tl
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("rmsnorm")
+    for fn, argtypes in ((lib.rmsnorm_fwd, FWD_ARGTYPES),
+                         (lib.rmsnorm_bwd_config, CONFIG_ARGTYPES),
+                         (lib.rmsnorm_bwd, BWD_ARGTYPES)):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
-    @triton.jit
-    def rmsnorm_fwd(x_ptr, w_ptr, y_ptr, n_rows, d, eps,
-                    BLOCK_ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_ROWS + tl.arange(0, BLOCK_ROWS)
-        cols = tl.arange(0, BLOCK_D)
-        mask = (rows[:, None] < n_rows) & (cols[None, :] < d)
-        offs = rows[:, None].to(tl.int64) * d + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        w = tl.load(w_ptr + cols, mask=cols < d, other=0.0).to(tl.float32)
-        var = tl.sum(x * x, axis=1) / d
-        y = x * tl.rsqrt(var + eps)[:, None] * w[None, :]
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    return rmsnorm_fwd
+def _check(fn: str, x: torch.Tensor, w: torch.Tensor,
+           dy: Optional[torch.Tensor] = None) -> None:
+    """Raise ValueError on what the kernels do not take: w not (d,), dy not
+    x's shape or dtype, a dtype other than float32 or bfloat16, or tensors
+    not on one CUDA device.  One cheap test first: the decode step calls
+    this 145 times."""
+    i = x.get_device()          # -1 on the CPU
+    if (i >= 0 and w.get_device() == i and x.dtype in _DTYPES
+            and w.dtype in _DTYPES and w.dim() == 1
+            and w.shape[0] == x.shape[-1]
+            and (dy is None or (dy.get_device() == i and dy.dtype == x.dtype
+                                and dy.shape == x.shape))):
+        return
+    d = x.shape[-1]
+    if w.shape != (d,) or (dy is not None and dy.shape != x.shape):
+        raise ValueError(f"{fn}: shapes x={tuple(x.shape)} w="
+                         f"{tuple(w.shape)} dy="
+                         f"{None if dy is None else tuple(dy.shape)} do not "
+                         "fit (..., d), (d,), x's")
+    if x.dtype not in _DTYPES or w.dtype not in _DTYPES \
+            or (dy is not None and dy.dtype != x.dtype):
+        raise ValueError(f"{fn}: x and w must be float32 or bfloat16 and dy "
+                         f"x's dtype; got x {x.dtype}, w {w.dtype}, dy "
+                         f"{None if dy is None else dy.dtype}")
+    raise ValueError(f"{fn} needs its tensors on one CUDA device; got x on "
+                     f"{x.device}, w on {w.device}"
+                     + ("" if dy is None else f", dy on {dy.device}"))
+
+
+# PyTorch's raw getter of the current stream (the one Triton's launcher
+# uses) takes about 0.1 us a call on an H100 host, where
+# torch.cuda.current_stream(device).cuda_stream takes 4-6 us; a build
+# without it (the CPU build) gets the public path
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(device: int) -> int:
+    """The current CUDA stream of ``device`` as a raw handle."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
-    """Launch the Triton kernel: x (..., d), w (d,) on one CUDA device.
+    """Launch the forward kernel: x (..., d), w (d,) on one CUDA device.
 
-    Raises for CPU tensors or mismatched shapes; never computes on another
-    path."""
+    Raises ValueError for CPU tensors, mismatched shapes or other dtypes,
+    and RuntimeError if the launch fails; never computes on another path."""
+    _check("rmsnorm_cuda", x, w)
+    x = x.contiguous()
+    y = torch.empty_like(x)         # contiguous, x's shape: no reshapes
+    n = y.numel()
+    if not n:
+        return y
     d = x.shape[-1]
-    if not (x.is_cuda and w.device == x.device):
-        raise ValueError("rmsnorm_cuda needs x and w on one CUDA device; got "
-                         f"{x.device}, {w.device}")
-    if w.shape != (d,):
-        raise ValueError(f"weight shape {tuple(w.shape)} != ({d},)")
-    x2 = x.reshape(-1, d).contiguous()
-    y = torch.empty_like(x2)
-    n_rows = x2.shape[0]
-    if n_rows:
-        block_d = 1 << (d - 1).bit_length()        # next power of two
-        block_rows = max(1, _BLOCK_ELEMS // block_d)
-        with torch.cuda.device(x.device):
-            _kernel()[(-(-n_rows // block_rows),)](
-                x2, w.contiguous(), y, n_rows, d, eps,
-                BLOCK_ROWS=block_rows, BLOCK_D=block_d,
-                num_warps=4 if block_d <= 1024 else 8)
-        rmsnorm_cuda.launches += 1
-    return y.reshape(x.shape)
+    err = _lib().rmsnorm_fwd(
+        x.data_ptr(), w.contiguous().data_ptr(), y.data_ptr(), n // d, d,
+        _DTYPES[x.dtype], _DTYPES[w.dtype], eps, x.get_device(),
+        _stream(x.get_device()))
+    if err:
+        raise RuntimeError(f"rmsnorm forward launch failed: CUDA error {err}")
+    rmsnorm_cuda.launches += 1
+    return y
 
 
 rmsnorm_cuda.launches = 0
 
 
+def bwd_grid(n_rows: int, warps: int, ctas_per_sm: int, n_sms: int) -> int:
+    """CTAs of the backward's persistent grid, and rows of its (CTAs, d)
+    fp32 partials buffer: as many as the card holds at once, but none whose
+    warps would all be idle.  Warp k of CTA b takes row ``b * warps + k``
+    and every ``CTAs * warps``-th row after it; CTA b writes partials row
+    b."""
+    return min(ctas_per_sm * n_sms, -(-n_rows // warps))
+
+
 @functools.lru_cache(maxsize=None)
-def _bwd_kernels():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def rmsnorm_bwd(x_ptr, w_ptr, dy_ptr, dx_ptr, dw_part_ptr, n_rows, d,
-                    eps, rows_per_prog, BLOCK_D: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_D)
-        cmask = cols < d
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        dw = tl.zeros([BLOCK_D], dtype=tl.float32)
-        row0 = pid * rows_per_prog
-        for r in range(row0, tl.minimum(row0 + rows_per_prog, n_rows)):
-            offs = r.to(tl.int64) * d + cols
-            x = tl.load(x_ptr + offs, mask=cmask, other=0.0).to(tl.float32)
-            dy = tl.load(dy_ptr + offs, mask=cmask, other=0.0).to(tl.float32)
-            rstd = tl.rsqrt(tl.sum(x * x, axis=0) / d + eps)
-            xhat = x * rstd
-            wdy = w * dy
-            c = tl.sum(xhat * wdy, axis=0) / d
-            dx = (wdy - xhat * c) * rstd
-            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty),
-                     mask=cmask)
-            dw += dy * xhat
-        tl.store(dw_part_ptr + pid * d + cols, dw, mask=cmask)
-
-    @triton.jit
-    def column_sum(part_ptr, out_ptr, n_parts, d, BLOCK_P: tl.constexpr,
-                   BLOCK_C: tl.constexpr):
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        acc = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for p0 in range(0, n_parts, BLOCK_P):
-            rows = p0 + tl.arange(0, BLOCK_P)
-            mask = (rows[:, None] < n_parts) & (cols[None, :] < d)
-            acc += tl.sum(tl.load(part_ptr + rows[:, None] * d
-                                  + cols[None, :], mask=mask, other=0.0),
-                          axis=0)
-        tl.store(out_ptr + cols, acc.to(out_ptr.dtype.element_ty),
-                 mask=cols < d)
-
-    return rmsnorm_bwd, column_sum
+def _bwd_config(device: int, d: int, x_dtype: int) -> Tuple[int, int, int]:
+    """(warps a CTA, CTAs an SM, SMs) of the backward kernel for d."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().rmsnorm_bwd_config(d, x_dtype, device, out)
+    if err:
+        raise RuntimeError(f"rmsnorm backward configuration failed: CUDA "
+                           f"error {err}")
+    return out[0], out[1], out[2]
 
 
 def rmsnorm_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                      eps: float = 1e-6):
     """Launch the backward kernels: the gradients (dx, dw) of
-    ``sum(rmsnorm(x, w) * dy)``, dx in x's dtype and dw in w's.  Raises for
-    CPU tensors or mismatched shapes."""
+    ``sum(rmsnorm(x, w) * dy)``, dx in x's dtype and dw in w's.  Raises
+    like :func:`rmsnorm_cuda`."""
+    _check("rmsnorm_bwd_cuda", x, w, dy)
     d = x.shape[-1]
-    if not (x.is_cuda and w.device == x.device and dy.device == x.device):
-        raise ValueError("rmsnorm_bwd_cuda needs dy, x and w on one CUDA "
-                         f"device; got {dy.device}, {x.device}, {w.device}")
-    if w.shape != (d,) or dy.shape != x.shape:
-        raise ValueError(f"shapes dy={tuple(dy.shape)} x={tuple(x.shape)} "
-                         f"w={tuple(w.shape)} do not fit (..., d), (d,)")
+    if not x.numel():       # no rows, or no columns: dw is an empty sum
+        return torch.empty_like(x), torch.zeros(d, dtype=w.dtype,
+                                                device=w.device)
     x2 = x.reshape(-1, d).contiguous()
     dy2 = dy.reshape(-1, d).contiguous()
     dx = torch.empty_like(x2)
-    dw = torch.zeros_like(w)
     n_rows = x2.shape[0]
-    if n_rows:
-        rows_per_prog = -(-n_rows // _BWD_PROGRAMS)
-        n_prog = -(-n_rows // rows_per_prog)
-        part = torch.empty(n_prog, d, dtype=torch.float32, device=x.device)
-        block_d = 1 << (d - 1).bit_length()
-        block_c = min(block_d, 256)
-        bwd, colsum = _bwd_kernels()
-        with torch.cuda.device(x.device):
-            bwd[(n_prog,)](x2, w.contiguous(), dy2, dx, part, n_rows, d, eps,
-                           rows_per_prog, BLOCK_D=block_d,
-                           num_warps=4 if block_d <= 1024 else 8)
-            colsum[(-(-d // block_c),)](part, dw, n_prog, d, BLOCK_P=16,
-                                        BLOCK_C=block_c, num_warps=4)
-        rmsnorm_bwd_cuda.launches += 1
+    dw = torch.empty(d, dtype=w.dtype, device=w.device)
+    n_ctas = bwd_grid(n_rows, *_bwd_config(x.get_device(), d,
+                                           _DTYPES[x.dtype]))
+    part = torch.empty(n_ctas, d, dtype=torch.float32, device=x.device)
+    err = _lib().rmsnorm_bwd(
+        x2.data_ptr(), w.contiguous().data_ptr(), dy2.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), dw.data_ptr(), n_rows, d,
+        _DTYPES[x.dtype], _DTYPES[w.dtype], eps, n_ctas, x.get_device(),
+        _stream(x.get_device()))
+    if err:
+        raise RuntimeError(f"rmsnorm backward launch failed: CUDA error "
+                           f"{err}")
+    rmsnorm_bwd_cuda.launches += 1
     return dx.reshape(x.shape), dw
 
 
@@ -172,8 +178,8 @@ rmsnorm_bwd_cuda.launches = 0
 
 
 class RMSNorm(torch.autograd.Function):
-    """rmsnorm(x, w, eps) with both directions in Triton.  Saves x and w;
-    the backward recomputes rstd."""
+    """rmsnorm(x, w, eps) with both directions in the CUDA kernels.  Saves
+    x and w; the backward recomputes rstd."""
 
     @staticmethod
     def forward(ctx, x, w, eps):

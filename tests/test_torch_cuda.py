@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import (RMSNorm, rmsnorm_bwd_cuda,
+                                         rmsnorm_cuda)
 from repro_torch.kernels.ring_attention import flash_partial_cuda
 from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan_cuda
 
@@ -283,6 +284,110 @@ def test_rmsnorm_backward_kernel_matches_plain_on_card(cuda_device, dtype,
     assert dx.dtype == dtype and dw.dtype == dtype
     assert _rel_err(dx, dx_ref) <= REL_TOL[dtype]
     assert _rel_err(dw, dw_ref) <= REL_TOL[dtype]
+
+
+def _assert_y_close(out, want):
+    """fp32 within TOL; bf16 within one ulp (fp32 math, one rounding)."""
+    out, dtype, want = out.float(), out.dtype, want.float()
+    if dtype == torch.float32:
+        tol = TOL[dtype]
+    else:
+        tol = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(1e-30))) - 7)
+    assert bool(((out - want).abs() <= tol).all())
+
+
+def _rmsnorm_both_ways(x, w, dy):
+    """(y, dx, dw) of the kernels and of the plain version, eps 1e-6."""
+    x, w = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y = RMSNorm.apply(x, w, 1e-6)
+    got = (y, *torch.autograd.grad(y, (x, w), dy))
+    torch.cuda.synchronize()
+    y_ref = ref.rmsnorm_ref(x, w, 1e-6)
+    return got, (y_ref, *torch.autograd.grad(y_ref, (x, w), dy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (4099, 2048)),
+                                         (torch.bfloat16, (16384, 1024)),
+                                         (torch.float32, (1000, 1024)),
+                                         (torch.bfloat16, (300, 4096))],
+                         ids=["bf16-2048", "bf16-1024", "fp32-1024",
+                              "bf16-4096-wide"])
+def test_rmsnorm_backward_dw_is_bitwise_stable_on_card(cuda_device, dtype,
+                                                       shape):
+    """A fixed partition of the rows and fixed-order sums: two calls give
+    the same dw bits (and dx bits)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x, dy = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+             for _ in range(2))
+    w = torch.randn(shape[-1], generator=g, device=cuda_device).to(dtype)
+    dx1, dw1 = rmsnorm_bwd_cuda(dy, x, w)
+    dx2, dw2 = rmsnorm_bwd_cuda(dy, x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(dw1, dw2) and torch.equal(dx1, dx2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 2560),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 1024)],
+                         ids=["bf16-2560", "bf16-128", "fp32-1024"])
+def test_rmsnorm_unaligned_base_on_card(cuda_device, dtype, d):
+    """Rows of a view at storage offset 1 (base and rows off the 16-byte
+    grid) take the kernels' scalar body, both ways."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    rows = 77
+    flat = torch.randn(rows * d + 1, generator=g, device=cuda_device)
+    x = flat.to(dtype)[1:].view(rows, d)
+    assert x.data_ptr() % 16 != 0
+    w = torch.randn(d, generator=g, device=cuda_device).to(dtype)
+    dy = torch.randn(rows, d, generator=g, device=cuda_device).to(dtype)
+    got, want = _rmsnorm_both_ways(x, w, dy)
+    _assert_y_close(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert _rel_err(a, b) <= REL_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(0, 2560), (2, 0, 128), (3, 0)],
+                         ids=["rows0-2560", "rows0-128", "d0"])
+def test_rmsnorm_zero_rows_on_card(cuda_device, shape):
+    """No rows (or no columns): empty outputs, dw zeros, no launch."""
+    x = torch.randn(shape, device=cuda_device).bfloat16()
+    w = torch.randn(shape[-1], device=cuda_device).bfloat16()
+    before = (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches)
+    y = rmsnorm_cuda(x, w)
+    dx, dw = rmsnorm_bwd_cuda(x, x, w)
+    assert y.shape == x.shape and dx.shape == x.shape
+    assert dw.shape == w.shape and not dw.any()
+    assert (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdt,wdt,shape", [
+    (torch.bfloat16, torch.bfloat16, (37, 4096)),
+    (torch.bfloat16, torch.bfloat16, (129, 777)),
+    (torch.bfloat16, torch.bfloat16, (5, 100)),
+    (torch.float32, torch.float32, (33, 5000)),
+    (torch.bfloat16, torch.float32, (65, 2560)),
+    (torch.float32, torch.bfloat16, (9, 1024))],
+    ids=["bf16-4096", "bf16-777", "bf16-100", "fp32-5000", "bf16-w-fp32",
+         "fp32-w-bf16"])
+def test_rmsnorm_wide_odd_and_mixed_on_card(cuda_device, xdt, wdt, shape):
+    """d past the register bodies (the looped kernels), odd d (the scalar
+    body) and w in another dtype than x, both ways; dx in x's dtype and dw
+    in w's."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2).to(xdt)
+    w = torch.randn(shape[-1], generator=g, device=cuda_device).to(wdt)
+    dy = torch.randn(shape, generator=g, device=cuda_device).to(xdt)
+    got, want = _rmsnorm_both_ways(x, w, dy)
+    assert got[1].dtype == xdt and got[2].dtype == wdt
+    _assert_y_close(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert _rel_err(a, b) <= REL_TOL[xdt if wdt == xdt else
+                                          torch.bfloat16]
 
 
 # (S, T, delta, causal, window): ragged S and T off the 64-row tiles; the
