@@ -21,7 +21,10 @@ Phases (any failure exits non-zero before the final line is printed):
    those six kernels reach; fail if any RMSNorm kernel spills, and print
    the RMSNorm backward's warps a CTA and CTAs per SM at the training
    widths; a fourth ``nvcc`` builds the SSD scan without the bf16
-   backward's dB/dC atomics, which phase 7 times;
+   backward's dB/dC atomics, which phase 7 times; print the flash
+   backward's kernels (``flash_bwd_``: D, dK/dV and dQ, fp32 and bf16, dh
+   64 and 128) with their registers, spills and HMMA count, and fail if one
+   is missing or a bf16 product kernel (``_mma_kernel``) has no HMMA;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes, with the stated tolerances (the
    backward kernels against ``torch.autograd`` of the plain versions; the
@@ -34,7 +37,13 @@ Phases (any failure exits non-zero before the final line is printed):
    acc error at the visible visit with P rounded to bf16 and with P split;
    RMSNorm also on a bf16 view at storage offset 1 (the kernels' unaligned
    body), and its backward twice at 16384 x 2048, where dw must be the same
-   bits both times;
+   bits both times, and at the QK-norm rows of the dense training shape (d
+   128, 65536 and 262144 rows); the flash backward against its plain
+   version and against ``torch.autograd`` of the plain forward, with the
+   forward's row log-sum-exp against its plain version, at S = 100 (GQA
+   groups of 1, 5 and 8, dh 64 and 128, causal or not, window 8 or none,
+   fp32 and bf16) and at the dense training shape (B 2, S 4096, H 32, KV 8,
+   dh 128, bf16, causal), run twice there: the same bits both times;
 3. serve full-width qwen3-4b (random bf16 weights from seed 0) through the
    paged continuous-batching engine: 12 requests, prompts of 33-400
    tokens, 16-32 new tokens each; every request must complete and both
@@ -71,13 +80,38 @@ Phases (any failure exits non-zero before the final line is printed):
    sequence, and the ring kernel must have launched 4 times on every rank.
    Each rank also times its 4 panel visits with CUDA events around each
    round's launch, apart from the rest of the call.  The 4 ranks share the
-   card, so their kernels take turns on it.
+   card, so their kernels take turns on it;
+9. train full-width qwen3-4b (random bf16 weights from seed 0, depth cut
+   to ``DENSE_LAYERS`` of 36 layers so that the fp32 AdamW state fits the
+   card) with remat on every layer through ``make_train_step`` for 6 steps
+   of 2 x 4096 synthetic tokens: finite losses, lower at the end, the flash
+   backward launched once a layer a step beside the flash forward (twice a
+   layer: remat recomputes it) and RMSNorm both ways, and no plain version
+   called; the step's ms, tokens/s, peak memory, model-FLOP share and
+   device ms by kernel category (flash forward and backward apart); then
+   two steps at 4 layers with and without remat, whose losses must agree
+   and whose peaks are printed; and, as a witness for phase 9's lr, four
+   steps at 4 layers and lr 3e-4 from the same weights through the flash
+   kernels and through the plain attention autodiffed by torch (a
+   check-only substitute; the losses are printed side by side);
+10. train a reduced fp32 qwen3-4b for three steps through
+   ``repro_torch.launch.train`` on the card and on the CPU, from the same
+   weights: the losses must agree (the card runs the fp32 flash forward and
+   the backward kernels, the CPU the plain attention).
+
+Phase 7 also times the flash forward and backward at the dense training
+shape as training launches them (causal, the forward writing its row
+log-sum-exp) beside their plain versions and
+``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
+autograd backward (the library yardsticks, never on the port's path).  The phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 8, 7;
+the total seconds are printed before the final lines.
 
 The last three lines of standard output are the card's ``nvidia-smi``
 name and power limit (also printed first), the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the rest of
 the checkout; without either it exits non-zero and prints no result.
 """
+import contextlib
 import copy
 import ctypes
 import json
@@ -124,6 +158,26 @@ SP_TIMEOUT_S = 600
 # largest magnitude; bf16 inputs within 2e-3 (the same bf16 values read by
 # both, fp32 sums of 8192 terms in another order)
 PARTIAL_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
+# the flash backward's small cases (phase 2): (H, KV) for GQA groups of 1,
+# 5 and 8, and the training path's masks (causal, window)
+FLASH_BWD_GROUPS = [(2, 2), (10, 2), (16, 2)]
+FLASH_BWD_MASKS = [(True, None), (False, None), (True, 8), (False, 8)]
+# the dense training geometry of phase 9: qwen3-4b at full width, 2 x 4096
+# tokens (4096 is Qwen3's general-stage pretraining length, Qwen3 Technical
+# Report, arXiv:2505.09388), remat on every layer; depth cut from 36 to the
+# most layers whose bf16 params and grads, fp32 AdamW master and moments
+# (16 B a parameter) and the fp32 loss over 8192 x 151936 logits fit one
+# 80 GB card
+DENSE_BATCH, DENSE_SEQ, DENSE_STEPS, DENSE_LAYERS = 2, 4096, 6, 28
+# AdamW's lr for phase 9, a tenth of the train CLI's default: the port's
+# make_train_step has no warmup (nor has the JAX executor's), and from
+# random weights at 28 layers the first step at 3e-4 raised the loss.
+# Phase 9's witness trains REMAT_LAYERS layers at WITNESS_LR for
+# WITNESS_STEPS steps twice from the same weights, once through the flash
+# kernels and once through the plain attention autodiffed by torch
+DENSE_LR = 3e-5
+REMAT_LAYERS = 4
+WITNESS_LR, WITNESS_STEPS = 3e-4, 4
 
 
 def log(msg: str) -> None:
@@ -311,6 +365,17 @@ def phase_build():
                      if "flash_fwd_wgmma_kernel" in fn}
             check(len(wgmma) == 4 and all(wgmma.values()),
                   f"bf16 flash kernels without HGMMA in their SASS: {wgmma}")
+            # the backward: D for both dtypes, dK/dV and dQ on FMA for fp32
+            # and on mma.sync (HMMA) for bf16, dh 64 and 128
+            bwd = {k: v for k, v in report.items()
+                   if k.startswith("flash_bwd_")}
+            log("[build]   flash backward: " + "; ".join(
+                f"{k} {v[0]} registers, spills {v[1][0]}/{v[1][1]}, "
+                f"{v[3]} HMMA" for k, v in sorted(bwd.items())))
+            mma = {k: v[3] for k, v in bwd.items() if "_mma_kernel" in k}
+            check(len(bwd) == 12 and len(mma) == 4 and all(mma.values()),
+                  f"flash backward kernels missing, or bf16 ones without "
+                  f"HMMA: {bwd}")
         elif name == "rmsnorm":
             spilled = {k: v[1] for k, v in report.items() if v[1] != (0, 0)}
             check(len(report) >= len(RMSNORM_KERNELS) and not spilled,
@@ -675,8 +740,11 @@ def phase_train_kernels(errs):
                 del wit
     g = torch.Generator(device="cuda").manual_seed(3)
     cases = []
+    qk_rows = DENSE_BATCH * DENSE_SEQ * 8        # the k-norm; q-norm x 4
     for dtype, shape in (("bfloat16", (TRAIN_BATCH * TRAIN_SEQ, 1024)),
                          ("bfloat16", (TRAIN_BATCH * TRAIN_SEQ, 2048)),
+                         ("bfloat16", (qk_rows, 128)),
+                         ("bfloat16", (4 * qk_rows, 128)),
                          ("bfloat16", (3, 5, 2560)),
                          ("float32", (777, 2048)), ("float32", (5, 100))):
         dt = getattr(torch, dtype)
@@ -709,6 +777,86 @@ def phase_train_kernels(errs):
             log(f"[rmsnorm_bwd] {dtype:8s} {what:14s} dw of a second call "
                 f"bitwise equal: {same}")
             check(same, f"rmsnorm_bwd {what}: dw differs between two calls")
+
+
+def flash_bwd_check(q, k, v, do, causal, window, what, errs):
+    """The forward with its row log-sum-exp and the backward kernels on one
+    case, held against the plain versions (``flash_attention_lse_ref``,
+    ``flash_attention_bwd_ref`` on the kernel's output and log-sum-exp)
+    and against ``torch.autograd`` of ``flash_attention_ref``.  Returns
+    (out, lse, (dq, dk, dv)) of the kernels."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+
+    dtype = str(q.dtype).split(".")[1]
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    e_lse = (lse - ref.flash_attention_lse_ref(q, k, v, **kw)).abs().max()
+    e_lse = e_lse.item()
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    e_plain = [rel_err(a, b) for a, b in zip(got, plain)]
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], *(
+        (a.float() - b.float()).abs().max().item()
+        for a, b in zip(got, plain)))
+    del plain
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(ref.flash_attention_ref(*leaves, **kw),
+                               leaves, do)
+    e_auto = [rel_err(a, b) for a, b in zip(got, auto)]
+    del auto, leaves
+    log(f"[flash_bwd] {dtype:8s} {what:40s} max|diff|/max|ref| of dq, dk, "
+        f"dv vs plain {', '.join(f'{e:.2e}' for e in e_plain)}; vs "
+        f"autograd {', '.join(f'{e:.2e}' for e in e_auto)} (tol "
+        f"{REL_TOL[dtype]:.0e}); lse max|diff| {e_lse:.2e} (tol "
+        f"{TOL[dtype]:.0e})")
+    check(max(e_plain + e_auto) <= REL_TOL[dtype],
+          f"flash backward {what} {dtype}: {e_plain} {e_auto}")
+    check(e_lse <= TOL[dtype], f"flash lse {what} {dtype}: {e_lse}")
+    return out, lse, got
+
+
+def phase_flash_bwd(errs):
+    """The flash backward at S = 100 over the small cases, then at the dense
+    training shape, run twice there: the same bits both times."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+
+    errs["flash_attention_bwd"] = 0.0
+    g = torch.Generator(device="cuda").manual_seed(9)
+
+    def rand(dt, *shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for H, KV in FLASH_BWD_GROUPS:
+            for dh in (64, 128):
+                q, do = rand(dt, 2, 100, H, dh), rand(dt, 2, 100, H, dh)
+                k, v = rand(dt, 2, 100, KV, dh), rand(dt, 2, 100, KV, dh)
+                for causal, window in FLASH_BWD_MASKS:
+                    flash_bwd_check(
+                        q, k, v, do, causal, window,
+                        f"S=100 H {H} KV {KV} dh {dh} "
+                        f"{'causal' if causal else 'bidir'} window {window}",
+                        errs)
+    B, S, H, KV, dh = DENSE_BATCH, DENSE_SEQ, 32, 8, 128
+    bf16 = torch.bfloat16
+    q, do = rand(bf16, B, S, H, dh), rand(bf16, B, S, H, dh)
+    k, v = rand(bf16, B, S, KV, dh), rand(bf16, B, S, KV, dh)
+    out, lse, got = flash_bwd_check(q, k, v, do, True, None,
+                                    f"B={B} S={S} H={H} KV={KV} dh={dh}", errs)
+    again = flash_attention_bwd_cuda(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[flash_bwd] bfloat16 B={B} S={S}: dq, dk, dv of a second call "
+        f"bitwise equal: {same}")
+    check(same, "flash backward: a second call gave other bits")
+    del q, do, k, v, out, lse, got, again
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -890,11 +1038,14 @@ def _ssd_ops(B, S, H, P, N, Q):
 
 
 def _zero_counts():
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
     from repro_torch.kernels.ring_attention import flash_partial_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
-    fns = {"flash_attention": flash_attention_cuda, "rmsnorm": rmsnorm_cuda,
+    fns = {"flash_attention": flash_attention_cuda,
+           "flash_attention_bwd": flash_attention_bwd_cuda,
+           "rmsnorm": rmsnorm_cuda,
            "rmsnorm_bwd": rmsnorm_bwd_cuda, "ssd_scan": ssd_scan_cuda,
            "ssd_scan_bwd": ssd_scan_bwd_cuda,
            "flash_partial": flash_partial_cuda}
@@ -1060,6 +1211,295 @@ def phase_train_cpu_vs_card():
         f"card {losses['cuda']} cpu {losses['cpu']}; max relative diff "
         f"{worst:.2e} (tol {TRAIN_LOSS_RTOL:.0e})")
     check(worst <= TRAIN_LOSS_RTOL, f"losses differ by {worst}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: full-width qwen3-4b training, depth cut
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of every plain version (``kernels/ref.py``'s
+    ``*_ref``, and ``models/attention.py::sdpa_ref``) through each module of
+    the port that holds one, while the block runs."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as attn_mod
+
+    calls, saved = {}, []
+    for mod in (ref, ops, attn_mod):
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if not (name.endswith("_ref") and callable(fn)):
+                continue
+
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*args, **kwargs)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _dense_batches(cfg, n):
+    import torch
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+
+    gen = synthetic_lm_batches(DataConfig(seq_len=DENSE_SEQ,
+                                          global_batch=DENSE_BATCH,
+                                          vocab_size=cfg.vocab_size))
+    return [{k: torch.from_numpy(v).to("cuda") for k, v in next(gen).items()}
+            for _ in range(n)]
+
+
+def _dense_remat_pair(cfg, batches):
+    """Two steps from the same weights at ``cfg``'s depth, with remat on
+    every layer and without: (losses, peak GB) of each."""
+    import gc
+
+    import torch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.executor import init_train_state, make_train_step
+
+    out = {}
+    opt_cfg = AdamWConfig(lr=DENSE_LR)
+    for remat in (True, False):
+        params, opt = init_train_state(cfg, seed=0, opt_cfg=opt_cfg,
+                                       device="cuda")
+        step = make_train_step(cfg, opt_cfg,
+                               remat_segments=[True] if remat else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(params, opt, b)["loss"]) for b in batches]
+        torch.cuda.synchronize()
+        out[remat] = (losses, torch.cuda.max_memory_allocated() / 1e9)
+        del params, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Check-only: ``ops.flash_attention`` becomes its plain version,
+    autodiffed by torch, while the block runs."""
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, **kw: ref.flash_attention_ref(
+        q, k, v, **kw)
+    try:
+        yield
+    finally:
+        ops.flash_attention = saved
+
+
+def _dense_lr_witness(cfg, batches):
+    """Losses of ``len(batches)`` steps at WITNESS_LR from the same weights
+    at ``cfg``'s depth with remat, through the flash kernels and through
+    the plain attention: whether the loss rises there with the kernels'
+    gradients and with torch's alike."""
+    import gc
+
+    import torch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.executor import init_train_state, make_train_step
+
+    out = {}
+    opt_cfg = AdamWConfig(lr=WITNESS_LR)
+    for name in ("kernels", "plain"):
+        params, opt = init_train_state(cfg, seed=0, opt_cfg=opt_cfg,
+                                       device="cuda")
+        step = make_train_step(cfg, opt_cfg, remat_segments=[True])
+        with (plain_attention() if name == "plain"
+              else contextlib.nullcontext()):
+            out[name] = [float(step(params, opt, b)["loss"])
+                         for b in batches]
+        del params, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense_train():
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.executor import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-4b").with_(n_layers=DENSE_LAYERS)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    opt_cfg = AdamWConfig(lr=DENSE_LR)
+    params, opt = init_train_state(cfg, seed=0, opt_cfg=opt_cfg,
+                                   device="cuda")
+    step = make_train_step(cfg, opt_cfg, remat_segments=[True])
+    batches = _dense_batches(cfg, DENSE_STEPS)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[dense] qwen3-4b, {L} of 36 layers (depth cut to fit the card), d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.dh}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n_params / 1e9:.4f} B "
+        f"params, bf16, remat on every layer; {DENSE_STEPS} steps of "
+        f"{DENSE_BATCH} x {DENSE_SEQ} tokens; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    counts = _zero_counts()
+    losses, step_ms, per_step = [], [], []
+    with plain_calls() as plain:
+        for b in batches:
+            before = counts()
+            t0 = time.perf_counter()
+            metrics = step(params, opt, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            after = counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"dense training losses {losses}")
+    check(losses[-1] < losses[0], f"dense loss did not fall: {losses}")
+    check(not plain, f"plain versions ran on the dense training path: {plain}")
+    for i, n in enumerate(per_step):
+        check(n["flash_attention_bwd"] == L and n["flash_attention"] == 2 * L,
+              f"step {i}: flash launches {n}, not {L} backward and {2 * L} "
+              "forward (remat recomputes it)")
+        # ln1, ln2, q- and k-norm a layer (twice forward under remat) and
+        # the final norm
+        check(n["rmsnorm"] == 8 * L + 1 and n["rmsnorm_bwd"] == 4 * L + 1,
+              f"step {i}: RMSNorm launches {n}, not {8 * L + 1} forward and "
+              f"{4 * L + 1} backward")
+    log(f"[dense] losses {losses}; step ms {step_ms}; launches a step "
+        f"{per_step[-1]}; peak {peak_gb:.4f} GB")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batches[0])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    categories = {"flash_fwd": ("flash_fwd_",), "flash_bwd": ("flash_bwd_",),
+                  "rmsnorm": ("rmsnorm_",),
+                  "gemm": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
+                  "elementwise": ("elementwise",), "reduce": ("reduce",)}
+    by_category = {c: 0.0 for c in [*categories, "other"]}
+    for e in kernels:
+        cat = next((c for c, keys in categories.items()
+                    if any(k in e.key for k in keys)), "other")
+        by_category[cat] += e.self_device_time_total / 1e3
+    bwd_by_kernel = {k: sum(e.self_device_time_total for e in kernels
+                            if k in e.key) / 1e3
+                     for k in ("flash_bwd_delta", "flash_bwd_dkdv",
+                               "flash_bwd_dq")}
+    mean_ms = sum(step_ms[1:]) / len(step_ms[1:])   # the first warms up
+    tokens = DENSE_BATCH * DENSE_SEQ
+    attn_flop = (L * 12 * DENSE_BATCH * cfg.n_heads * DENSE_SEQ ** 2 / 2
+                 * cfg.dh)
+    # the input embedding is a lookup, not a matmul: the untied head has
+    # its own matmul and stays in N
+    n_matmul = n_params - (params.embed.numel() if params.head is not None
+                           else 0)
+    model_flop = 6 * n_matmul * tokens + attn_flop
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    result = {
+        "layers": L, "layers_of": 36, "params": n_params,
+        "params_in_6nt": n_matmul,
+        "tokens_per_step": tokens, "losses": losses, "step_ms": step_ms,
+        "step_ms_mean_after_first": mean_ms,
+        "tok_per_s": tokens / mean_ms * 1e3, "peak_mem_gb": peak_gb,
+        "device_busy_ms": busy_ms, "device_busy_share": busy_ms / mean_ms,
+        "device_ms_by_category": by_category,
+        "flash_bwd_ms_by_kernel": bwd_by_kernel,
+        "kernels_per_step": sum(e.count for e in kernels),
+        "launches_per_step": per_step[-1],
+        "model_tflop_per_step": model_flop / 1e12,
+        "model_flop_share_of_989_tflops":
+            model_flop / (mean_ms / 1e3) / 989e12,
+    }
+    log("[dense] " + json.dumps(result))
+    log("[profile] dense train step: top device kernels: " + "; ".join(
+        f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+        for e in top))
+    check(by_category["flash_bwd"] > 0 and by_category["flash_fwd"] > 0,
+          f"the profiled dense step shows no flash kernel: {by_category}")
+    del params, opt, step, metrics, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pair = _dense_remat_pair(cfg.with_(n_layers=REMAT_LAYERS), batches[:2])
+    (l_r, p_r), (l_n, p_n) = pair[True], pair[False]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(l_r, l_n))
+    log(f"[dense] {REMAT_LAYERS} layers, 2 steps: losses with remat {l_r}, "
+        f"without {l_n}; max relative diff {worst:.2e} (tol "
+        f"{TOL['bfloat16']:.0e}); peak {p_r:.4f} GB with remat, {p_n:.4f} GB "
+        "without")
+    check(worst <= TOL["bfloat16"], f"remat changes the losses: {worst}")
+
+    witness = _dense_lr_witness(cfg.with_(n_layers=REMAT_LAYERS),
+                                batches[:WITNESS_STEPS])
+    check(all(np.isfinite(v).all() for v in witness.values()),
+          f"lr witness losses not finite: {witness}")
+    log(f"[dense] lr witness, {REMAT_LAYERS} layers, remat, lr "
+        f"{WITNESS_LR:g}, {WITNESS_STEPS} steps from the same weights: "
+        f"losses through the flash kernels {witness['kernels']}, through "
+        f"the plain attention autodiffed by torch {witness['plain']}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: reduced fp32 qwen3-4b training, card vs CPU
+# ---------------------------------------------------------------------------
+
+def phase_dense_cpu_vs_card():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.executor import init_train_state
+
+    cfg = get_config("qwen3-4b").reduced().with_(dtype=torch.float32)
+    argv = ["--reduced", "--arch", "qwen3-4b", "--steps", "3", "--batch",
+            "2", "--seq", "100", "--log-every", "1"]
+    params_cpu, _ = init_train_state(cfg, seed=0, device="cpu")
+
+    def same_weights(cfg, *, seed, opt_cfg, device):
+        """The CPU's random weights on either device (a CUDA generator draws
+        other numbers from the same seed)."""
+        params = copy.deepcopy(params_cpu).to(device)
+        return params, adamw_init(list(params.parameters()), opt_cfg)
+
+    launches = flash_attention_bwd_cuda.launches
+    init, train_cli.init_train_state = (train_cli.init_train_state,
+                                        same_weights)
+    try:
+        losses = {dev: [h["loss"] for h in train_cli.train(
+                      cfg, train_cli.parse_args(argv + ["--device", dev]))]
+                  for dev in ("cpu", "cuda")}
+    finally:
+        train_cli.init_train_state = init
+    n = flash_attention_bwd_cuda.launches - launches
+    check(n == 3 * cfg.n_layers, f"the card's steps launched the flash "
+          f"backward {n} times, not {3 * cfg.n_layers}")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                    losses["cpu"]))
+    log(f"[dense-cpu-vs-card] reduced fp32 qwen3-4b through "
+        f"repro_torch.launch.train, 3 steps of 2 x 100: card "
+        f"{losses['cuda']} cpu {losses['cpu']}; max relative diff "
+        f"{worst:.2e} (tol {TRAIN_LOSS_RTOL:.0e})")
+    check(worst <= TRAIN_LOSS_RTOL, f"dense losses differ by {worst}")
 
 
 # ---------------------------------------------------------------------------
@@ -1288,6 +1728,78 @@ def _flash_timing(B, S, T, q_offset, kv_len):
                    qs, ks, vs, attn_mask=sdpa_mask, enable_gqa=True))
     return dict(t, bound_ms=bound, bound_by=by, gflop=n_ops / 1e9,
                 shape=f"B={B} S={S} T={T} H={H} KV={KV} dh={dh} bf16")
+
+
+def _flash_train_timing():
+    """The forward as dense training launches it under autograd (B 2, S
+    4096, H 32, KV 8, dh 128, bf16, causal, no q_offset or kv_len, writing
+    the row log-sum-exp); its plain version is ``flash_attention_ref`` and
+    ``flash_attention_lse_ref`` on the same inputs, the library
+    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``.
+    The bound: q, k, v read and the output and lse written once, or 4 x
+    causal pairs x H x dh operations at 989 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    B, S, H, KV, dh = DENSE_BATCH, DENSE_SEQ, 32, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(B, S, H, dh, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(B, S, KV, dh, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    n_ops = 4 * B * S * (S + 1) // 2 * H * dh
+    n_bytes = 2 * (2 * B * S * H * dh + 2 * B * S * KV * dh) + 4 * B * S * H
+    bound, by = _bound_ms(n_bytes, n_ops, "bfloat16")
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    t = _times(lambda: flash_attention_cuda(q, k, v, with_lse=True),
+               lambda: (ref.flash_attention_ref(q, k, v),
+                        ref.flash_attention_lse_ref(q, k, v)),
+               lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, is_causal=True, enable_gqa=True),
+               iters=10, plain_iters=2)
+    return dict(t, bound_ms=bound, bound_by=by, gflop=n_ops / 1e9,
+                shape=f"B={B} S={S} H={H} KV={KV} dh={dh} causal lse bf16")
+
+
+def _flash_bwd_timing():
+    """The backward at the dense training shape (B 2, S 4096, H 32, KV 8, dh
+    128, bf16, causal): the kernels on the forward's output and
+    log-sum-exp, the plain version on the same, and the autograd backward
+    of ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    as the library yardstick.  The bound: the five products (dV, dP, dQ, dK
+    and the recomputed S) over the admissible pairs at 989 TFLOP/s, or each
+    of q, k, v, o, dO, lse read and dq, dk, dv written once at 3.35 TB/s.
+    Phase 9's profile splits the time by kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+
+    B, S, H, KV, dh = DENSE_BATCH, DENSE_SEQ, 32, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(10)
+    q, do = (torch.randn(B, S, H, dh, generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, S, KV, dh, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+    pairs = S * (S + 1) // 2                # causal pairs of one head
+    n_ops = 5 * 2 * B * H * pairs * dh
+    n_bytes = 2 * 4 * B * S * H * dh + 2 * 4 * B * S * KV * dh + 4 * B * S * H
+    bound, by = _bound_ms(n_bytes, n_ops, "bfloat16")
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    y = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                       enable_gqa=True)
+    dys = do.transpose(1, 2)
+    t = _times(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse),
+               lambda: ref.flash_attention_bwd_ref(q, k, v, out, do, lse),
+               lambda: torch.autograd.grad(y, (qs, ks, vs), dys,
+                                           retain_graph=True),
+               iters=5, plain_iters=2)
+    return dict(t, bound_ms=bound, bound_by=by, gflop=n_ops / 1e9,
+                shape=f"B={B} S={S} H={H} KV={KV} dh={dh} causal bf16")
 
 
 def _partial_timing(delta):
@@ -1528,7 +2040,8 @@ def phase_timings(errs, launches):
                                      [MAX_CONTEXT] * DECODE_SLOTS),
              "prefill": _flash_timing(PREFILL_BATCH, PREFILL_CHUNK,
                                       MAX_CONTEXT, [256] * PREFILL_BATCH,
-                                      [384] * PREFILL_BATCH)}),
+                                      [384] * PREFILL_BATCH),
+             "dense_train": _flash_train_timing()}),
         ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "decode", {
              "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
@@ -1541,11 +2054,19 @@ def phase_timings(errs, launches):
         ("rmsnorm_bwd", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "train", {
              "train": _rmsnorm_bwd_timing(tokens, 1024),
-             "train_gated": _rmsnorm_bwd_timing(tokens, 2048)}),
+             "train_gated": _rmsnorm_bwd_timing(tokens, 2048),
+             "dense_k_norm": _rmsnorm_bwd_timing(
+                 DENSE_BATCH * DENSE_SEQ * 8, 128),
+             "dense_q_norm": _rmsnorm_bwd_timing(
+                 DENSE_BATCH * DENSE_SEQ * 32, 128)}),
         ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd_scan.py:72", "train", {"train": ssd_fwd}),
         ("ssd_scan_bwd", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd_scan.py:72", "train", {"train": ssd_bwd}),
+        ("flash_attention_bwd", "cuda",
+         "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:143", "train",
+         {"train": _flash_bwd_timing()}),
         ("flash_partial", "cuda", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/ring_attention.py:110", "visible", {
              "diagonal": _partial_timing(0),
@@ -1606,16 +2127,19 @@ def main() -> int:
         phase_partial(errs)
         phase_bf16_p()
         phase_train_kernels(errs)
+        phase_flash_bwd(errs)
         launches = {"serve": phase_serve()}
         phase_cpu_vs_card()
         launches["train"] = phase_train()
         phase_train_cpu_vs_card()
+        launches["dense_train"] = phase_dense_train()
+        phase_dense_cpu_vs_card()
         launches["sp"] = phase_sp()
         kernels = phase_timings(errs, launches)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     log(card)       # again, so that the end of the output names the card
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

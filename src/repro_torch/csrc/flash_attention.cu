@@ -1,5 +1,6 @@
-// Flash attention forward for Hopper (sm_90a): grouped-query attention with
-// an online softmax, causal / sliding-window / per-lane length masks.
+// Flash attention for Hopper (sm_90a): grouped-query attention with an
+// online softmax, causal / sliding-window / per-lane length masks; forward,
+// and the training path's backward.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
 // (_flash_kernel).  Same function: q (B,S,H,dh), k/v (B,T,KV,dh), query head h
@@ -75,6 +76,50 @@
 // rows, head, lane); 64 x dh K and V tiles read with 16-byte loads and staged
 // in shared memory as fp32 (rows padded by one word), scores and the running
 // max / sum in shared memory, the output accumulator in registers.
+//
+// Both forward bodies also write the row log-sum-exp lse = m + log l of the
+// scaled scores (natural-log units; +inf on a row with no admissible key)
+// when given a buffer for it: the training path's forward does, for the
+// backward; serving passes none and writes nothing more.
+//
+// Backward (flash_attention_bwd below).  The TPU package has no backward
+// kernel (the JAX package trains through autodiffed jnp attention); this one
+// computes the gradients of the same function for the training path's masks
+// (S == T, causal or not, with or without a window, no offsets or lengths),
+// for both dtypes, with fp32 accumulators:
+//   P = exp(scale Q K^T - lse) on admissible pairs, D = rowsum(dO o O),
+//   dV = P^T dO, dP = dO V^T, dS = P o (dP - D),
+//   dQ = scale dS K, dK = scale dS^T Q,
+// dK and dV summed over the G query heads of each KV head.  What bounds it
+// on the H100: at qwen3-4b's training shape (B 2, S 4096, H 32, KV 8, dh
+// 128, causal) the five products are about 0.69 TFLOP, bound by operations
+// (0.69 ms at 989 TFLOP/s).  The design:
+//  - Three kernels, no atomics: D (one warp a row); dK/dV (a CTA per 64-key
+//    tile, KV head and lane loops over the G heads of its group and the
+//    query tiles the masks admit for its keys, then writes dK and dV once);
+//    dQ (a CTA per 64-row query tile, head and lane loops over the key tiles
+//    its rows admit).  Every output is written by one thread in a fixed
+//    order, so dq, dk and dv are the same bits on every run.  S and dP are
+//    recomputed in both kernels (seven products where five are needed).
+//  - bf16 (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel): the
+//    products on mma.sync m16n8k16 with fp32 accumulators, tiles in shared
+//    memory as bf16 (rows padded by 16 bytes, conflict-free ldmatrix); each
+//    of the 8 warps owns a 16 x 32 piece of every 64-wide product.  P and
+//    dS are split into bf16 hi + lo, two products into one accumulator, as
+//    the forward splits P: dV, dK and dQ see the fp32 P and dS to about
+//    2^-16 of them, for 1.6x the MMA work of rounding them to bf16.
+//  - fp32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): FMA loops, for
+//    exactness as in the forward.  Tiles staged in shared memory (rows
+//    padded by 4 words, float4 reads along dh); the score stage gives each
+//    thread a 4 x 4 register tile of S and dP; P and dS meet the other
+//    products through shared memory; dK/dV and dQ are register tiles of 4
+//    rows x dh / 16 columns.
+//  - Causal load balance: the dK/dV grid starts at the first key tile and
+//    the dQ grid at the last query tile, the CTAs with the most work.
+//  - Every tile takes the element mask; its cost is small beside the
+//    products.
+// Left for later (ROADMAP K9): loads overlapped with the products (cp.async
+// or TMA stages), wgmma, one kernel for dQ and dK/dV with dQ by atomics.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,13 +145,17 @@ __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
 
-// 16 bytes of T from global memory (4 floats) as floats
+// 16 bytes of fp32 from global memory (4 values) as floats
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   out[0] = x.x;
   out[1] = x.y;
   out[2] = x.z;
   out[3] = x.w;
+}
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
 template <int DH>
@@ -116,8 +165,10 @@ constexpr size_t smem_floats() {
          BLOCK_Q * (BLOCK_K + 1) + 3 * BLOCK_Q;
 }
 
-// PARTIAL = false: o is the (B,S,H,dh) output in T.  PARTIAL = true: o is
-// acc (B,S,H,dh) fp32, m_out and l_out are (B,S,H) fp32.
+// PARTIAL = false: o is the (B,S,H,dh) output in T, and m_out, if not
+// null, the (B,S,H) fp32 row log-sum-exp (+inf on a row with no admissible
+// key).  PARTIAL = true: o is acc (B,S,H,dh) fp32, m_out and l_out are
+// (B,S,H) fp32.
 template <typename T, int DH, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -273,12 +324,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  if constexpr (PARTIAL) {
+  if (PARTIAL || m_out != nullptr) {
     for (int r = tid; r < rows; r += THREADS) {
       const size_t at = (size_t)(b * S + q0 + r) * H + h;
-      const float m = s_m[r];
-      m_out[at] = m == -INFINITY ? NEG_INF : m;
-      l_out[at] = s_l[r];
+      const float m = s_m[r], l = s_l[r];
+      if constexpr (PARTIAL) {
+        m_out[at] = m == -INFINITY ? NEG_INF : m;
+        l_out[at] = l;
+      } else {  // sq is pre-scaled: m and l are in natural-log units
+        m_out[at] = l > 0.f ? m + logf(l) : INFINITY;
+      }
     }
   }
 }
@@ -491,7 +546,8 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// Tensor maps of k and v, encoded on the host for each call.  PARTIAL as in
+// Tensor maps of k and v, encoded on the host for each call.  PARTIAL, and
+// m_out as the row log-sum-exp when PARTIAL is false, as in
 // flash_fwd_kernel.
 template <int DH, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -700,6 +756,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
         l_out[row] = l_run[r];
       }
     } else {
+      // l is a sum of exp2((s - m) scale log2 e) = exp(scale (s - m)), so
+      // the natural-log row log-sum-exp is scale m + log l
+      if (m_out != nullptr && tq == 0)
+        m_out[row] = l_run[r] > 0.f ? m_run[r] * scale + logf(l_run[r])
+                                    : INFINITY;
       const float inv = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
       __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o) + row * DH + 2 * tq;
 #pragma unroll
@@ -810,21 +871,775 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// backward: D, then dK/dV and dQ in two kernels without atomics
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_TILE = 64;           // query rows and keys of a tile
+constexpr int BWD_PS = BWD_TILE + 16;  // row stride of the P and dS tiles
+
+template <int DH>
+struct BwdLayout {
+  static constexpr int RS = DH + 4;  // row stride of a (64, DH) tile
+  static constexpr int TILE = BWD_TILE * RS;
+  static constexpr int PT = BWD_TILE * BWD_PS;
+  // Q, dO, K and V tiles, the P and dS tiles, lse and D of the query rows
+  static constexpr size_t BYTES =
+      (4 * TILE + 2 * PT + 2 * BWD_TILE) * sizeof(float);
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+__device__ __forceinline__ float at4(float4 x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+// rows [r0, r0 + 64) of one head of a contiguous (B, n, heads, DH) fp32
+// array into shared memory with row stride RS; rows at or past n are
+// zeros.  Every 16-byte load of a thread is issued before its stores.
+template <int DH>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
+                                          int b, int r0, int n, int heads,
+                                          int head) {
+  constexpr int VEC = 4;
+  constexpr int RS = DH + 4;
+  constexpr int ITERS = BWD_TILE * DH / VEC / BWD_THREADS;
+  static_assert(BWD_TILE * DH % (VEC * BWD_THREADS) == 0, "tile layout");
+  float x[ITERS][VEC];
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int i = threadIdx.x + it * BWD_THREADS;
+    const int r = i / (DH / VEC), d = (i % (DH / VEC)) * VEC;
+    if (r0 + r < n) {
+      load16(src + (((size_t)b * n + r0 + r) * heads + head) * DH + d, x[it]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) x[it][j] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int i = threadIdx.x + it * BWD_THREADS;
+    const int r = i / (DH / VEC), d = (i % (DH / VEC)) * VEC;
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4)
+      *reinterpret_cast<float4*>(dst + r * RS + d + j) =
+          make_float4(x[it][j], x[it][j + 1], x[it][j + 2], x[it][j + 3]);
+  }
+}
+
+// lse and D of query rows [q0, q0 + 64) of head h; rows past S get 0 (the
+// masks zero their P)
+__device__ __forceinline__ void load_row_stats(float* slse, float* sdelta,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ delta,
+                                               int b, int q0, int S, int H,
+                                               int h) {
+  const int r = threadIdx.x;
+  if (r < BWD_TILE) {
+    const bool in = q0 + r < S;
+    const size_t at = ((size_t)b * S + q0 + r) * H + h;
+    slse[r] = in ? lse[at] : 0.f;
+    sdelta[r] = in ? delta[at] : 0.f;
+  }
+}
+
+// The thread's 4 x 4 entries (query row i = ty + 16 a, key j = tx + 16 c) of
+// one 64 x 64 tile pair: s = Q K^T and dp = dO V^T, dh-long fp32 dots read
+// from shared memory four columns at a time
+template <int DH>
+__device__ __forceinline__ void score_tiles(const float* sq, const float* sdo,
+                                            const float* sk, const float* sv,
+                                            int tx, int ty, float (&s)[4][4],
+                                            float (&dp)[4][4]) {
+  constexpr int RS = DH + 4;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < DH; d += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) x[a] = ld4(sq + (ty + 16 * a) * RS + d);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) y[c] = ld4(sk + (tx + 16 * c) * RS + d);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[a][c] = dot4(x[a], y[c], s[a][c]);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) x[a] = ld4(sdo + (ty + 16 * a) * RS + d);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) y[c] = ld4(sv + (tx + 16 * c) * RS + d);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dp[a][c] = dot4(x[a], y[c], dp[a][c]);
+  }
+}
+
+// P = exp(scale s - lse) on the admissible (query, key) pairs of the tile at
+// (q0, k0) and 0 elsewhere; dS = P (dp - D).  Writes dS, and P when sp is
+// not null, at [i][j] with row stride BWD_PS.  S == T: the mask is the
+// forward's with no offset or length.
+__device__ __forceinline__ void softmax_grad_tiles(
+    const float (&s)[4][4], const float (&dp)[4][4], const float* slse,
+    const float* sdelta, float* sp, float* sds, int tx, int ty, int q0,
+    int k0, int S, int causal, int window, float scale) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = ty + 16 * a, qpos = q0 + i;
+    const float lse = slse[i], dlt = sdelta[i];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = tx + 16 * c, kpos = k0 + j;
+      bool ok = qpos < S && kpos < S;
+      if (causal) ok = ok && kpos <= qpos;
+      if (window > 0) ok = ok && kpos > qpos - window;
+      const float p = ok ? expf(fmaf(s[a][c], scale, -lse)) : 0.f;
+      if (sp != nullptr) sp[i * BWD_PS + j] = p;
+      sds[i * BWD_PS + j] = p * (dp[a][c] - dlt);
+    }
+  }
+}
+
+// D = rowsum(dO o O) in fp32, one warp a (b, s, h) row
+template <typename T, int DH>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int rows) {
+  const int row = blockIdx.x * (BWD_THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const T* orow = o + (size_t)row * DH;
+  const T* drow = dout + (size_t)row * DH;
+  float acc = 0.f;
+#pragma unroll
+  for (int d = lane; d < DH; d += 32)
+    acc = fmaf(to_float(orow[d]), to_float(drow[d]), acc);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0) delta[row] = acc;
+}
+
+// fp32: dK and dV of one 64-key tile of KV head kvh, lane b: the G query
+// heads of the group and every query tile the masks admit for these keys,
+// summed in the CTA's registers and written once.  Thread (tj, td) owns
+// keys 4 tj + c and columns 64 u + 4 td + e.
+template <int DH>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int S, int H, int KV, int causal,
+                      int window, float scale) {
+  using L = BwdLayout<DH>;
+  constexpr int RS = L::RS, U = DH / 64;
+  extern __shared__ float smem[];
+  float* sk = smem;
+  float* sv = sk + L::TILE;
+  float* sq = sv + L::TILE;
+  float* sdo = sq + L::TILE;
+  float* sp = sdo + L::TILE;
+  float* sds = sp + L::PT;
+  float* slse = sds + L::PT;
+  float* sdelta = slse + BWD_TILE;
+
+  const int k0 = blockIdx.x * BWD_TILE;  // tile 0, the most work, first
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;  // score stage
+  const int td = tid % 16, tj = tid / 16;  // dK/dV stage
+
+  // query rows that admit a key of [k0, k0 + 64): causal q >= k0; window
+  // q < k + window for the tile's last key
+  const int q_first = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(S, k0 + BWD_TILE - 1 + window) : S;
+
+  load_tile<DH>(sk, k, b, k0, S, KV, kvh);
+  load_tile<DH>(sv, v, b, k0, S, KV, kvh);
+
+  float dk_acc[4][4 * U], dv_acc[4][4 * U];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int e = 0; e < 4 * U; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    for (int q0 = q_first; q0 < q_end; q0 += BWD_TILE) {
+      __syncthreads();  // the previous tile's Q, dO, P and dS are read
+      load_tile<DH>(sq, q, b, q0, S, H, h);
+      load_tile<DH>(sdo, dout, b, q0, S, H, h);
+      load_row_stats(slse, sdelta, lse, delta, b, q0, S, H, h);
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+      score_tiles<DH>(sq, sdo, sk, sv, tx, ty, s, dp);
+      softmax_grad_tiles(s, dp, slse, sdelta, sp, sds, tx, ty, q0, k0, S,
+                         causal, window, scale);
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q over the tile's 64 query rows
+#pragma unroll 2
+      for (int i = 0; i < BWD_TILE; ++i) {
+        const float4 p4 = ld4(sp + i * BWD_PS + 4 * tj);
+        const float4 ds4 = ld4(sds + i * BWD_PS + 4 * tj);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float4 o4 = ld4(sdo + i * RS + 64 * u + 4 * td);
+          const float4 q4 = ld4(sq + i * RS + 64 * u + 4 * td);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float pc = at4(p4, c), dsc = at4(ds4, c);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              dv_acc[c][4 * u + e] = fmaf(pc, at4(o4, e), dv_acc[c][4 * u + e]);
+              dk_acc[c][4 * u + e] = fmaf(dsc, at4(q4, e), dk_acc[c][4 * u + e]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int t = k0 + 4 * tj + c;
+    if (t >= S) continue;
+    const size_t row = ((size_t)b * S + t) * KV + kvh;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const size_t at = row * DH + 64 * u + 4 * td + e;
+        dk[at] = dk_acc[c][4 * u + e] * scale;
+        dv[at] = dv_acc[c][4 * u + e];
+      }
+  }
+}
+
+// fp32: dQ of one 64-row query tile of head h, lane b: every key tile the
+// masks admit, P and dP recomputed.  Thread (ti, td) owns rows ti + 16 a
+// and columns 64 u + 4 td + e.
+template <int DH>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int S, int H, int KV, int causal, int window,
+                    float scale) {
+  using L = BwdLayout<DH>;
+  constexpr int RS = L::RS, U = DH / 64;
+  extern __shared__ float smem[];
+  float* sk = smem;
+  float* sv = sk + L::TILE;
+  float* sq = sv + L::TILE;
+  float* sdo = sq + L::TILE;
+  float* sds = sdo + L::TILE;   // (the P tile's room is unused here)
+  float* slse = sds + 2 * L::PT;
+  float* sdelta = slse + BWD_TILE;
+
+  // causal: the last query tile has the most keys, so it runs first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_TILE;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;  // score stage
+  const int td = tid % 16, ti = tid / 16;  // dQ stage
+
+  // keys admissible to a row of [q0, q0 + 64): causal k <= q; window
+  // k > q - window for the tile's first row
+  const int k_end = causal ? min(S, q0 + BWD_TILE) : S;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_first = (k_lo / BWD_TILE) * BWD_TILE;
+
+  load_tile<DH>(sq, q, b, q0, S, H, h);
+  load_tile<DH>(sdo, dout, b, q0, S, H, h);
+  load_row_stats(slse, sdelta, lse, delta, b, q0, S, H, h);
+
+  float dq_acc[4][4 * U];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int e = 0; e < 4 * U; ++e) dq_acc[a][e] = 0.f;
+
+  for (int k0 = k_first; k0 < k_end; k0 += BWD_TILE) {
+    __syncthreads();  // the previous tile's K and dS are read
+    load_tile<DH>(sk, k, b, k0, S, KV, kvh);
+    load_tile<DH>(sv, v, b, k0, S, KV, kvh);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    score_tiles<DH>(sq, sdo, sk, sv, tx, ty, s, dp);
+    softmax_grad_tiles(s, dp, slse, sdelta, nullptr, sds, tx, ty, q0, k0, S,
+                       causal, window, scale);
+    __syncthreads();
+
+    // dQ += dS K over the tile's 64 keys, four at a time
+#pragma unroll 1
+    for (int j = 0; j < BWD_TILE; j += 4) {
+      float4 ds4[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) ds4[a] = ld4(sds + (ti + 16 * a) * BWD_PS + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float4 k4 = ld4(sk + (j + jj) * RS + 64 * u + 4 * td);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float dsa = at4(ds4[a], jj);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dq_acc[a][4 * u + e] = fmaf(dsa, at4(k4, e), dq_acc[a][4 * u + e]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int srow = q0 + ti + 16 * a;
+    if (srow >= S) continue;
+    const size_t row = ((size_t)b * S + srow) * H + h;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dq[row * DH + 64 * u + 4 * td + e] = dq_acc[a][4 * u + e] * scale;
+  }
+}
+
+// bf16: the products on mma.sync m16n8k16 (bf16 in, fp32 accumulate), the
+// tiles in shared memory as bf16 and read by ldmatrix.  P and dS are split
+// into bf16 hi + lo (two products into one fp32 accumulator), so that dV,
+// dK and dQ keep the fp32 P and dS of the FMA body to about 2^-16.
+
+constexpr int MMA_LDP = BWD_TILE + 8;  // row stride of P / dS (144 bytes)
+
+template <int DH>
+struct MmaLayout {
+  // row stride of a (64, DH) tile: 16 bytes of padding make each row start
+  // an odd number of 16-byte chunks after the one before, so ldmatrix's
+  // eight row addresses fall in distinct banks
+  static constexpr int LD = DH + 8;
+  static constexpr int TILE = BWD_TILE * LD;
+  static constexpr int PT = BWD_TILE * MMA_LDP;
+  // Q, dO, K and V; P hi and lo, dS hi and lo (bf16); lse and D (fp32)
+  static constexpr size_t BYTES =
+      (4 * TILE + 4 * PT) * sizeof(__nv_bfloat16) + 2 * BWD_TILE * sizeof(float);
+};
+
+// four 8 x 8 bf16 matrices from shared memory; lanes 8i..8i+7 address the
+// rows of matrix i; .trans delivers each matrix transposed
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+  if (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p))
+        : "memory");
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p))
+        : "memory");
+}
+
+// d += a (16 x 16, row) b (16 x 8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One warp's 16 x 32 output tile at rows m0, columns n0: acc[j] is the
+// m16n8 accumulator of columns n0 + 8j, and acc += A(m0.., k) B(k, n0..)
+// over k in [0, K) (a multiple of 16).  A(m, k) is a[m * lda + k], or
+// a[k * lda + m] if AT; B(k, n) is b[n * ldb + k], or b[k * ldb + n] if BT.
+// Accumulator element e of acc[j] is row m0 + g + 8 (e / 2), column
+// n0 + 8 j + 2 c + e % 2, with g = lane / 4 and c = lane % 4.
+template <bool AT, bool BT, int K>
+__device__ __forceinline__ void warp_mma(float (&acc)[4][4],
+                                         const __nv_bfloat16* a, int lda,
+                                         const __nv_bfloat16* b, int ldb,
+                                         int m0, int n0) {
+  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int k = 0; k < K; k += 16) {
+    uint32_t af[4];
+    if (AT)
+      ldsm_x4<true>(af, a + (k + (i >> 1) * 8 + r) * lda + m0 + (i & 1) * 8);
+    else
+      ldsm_x4<false>(af, a + (m0 + (i & 1) * 8 + r) * lda + k + (i >> 1) * 8);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int nb = n0 + 16 * jj;
+      uint32_t bf[4];
+      if (BT)
+        ldsm_x4<true>(bf, b + (k + (i & 1) * 8 + r) * ldb + nb + (i >> 1) * 8);
+      else
+        ldsm_x4<false>(bf, b + (nb + (i >> 1) * 8 + r) * ldb + k + (i & 1) * 8);
+      mma_bf16(acc[2 * jj], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * jj + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// v0, v1 as bf16 hi + lo pairs at hi[off], lo[off]: hi = bf16(v),
+// lo = bf16(v - hi)
+__device__ __forceinline__ void store_split2(__nv_bfloat16* hi,
+                                             __nv_bfloat16* lo, int off,
+                                             float v0, float v1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  *reinterpret_cast<__nv_bfloat162*>(hi + off) = h;
+  *reinterpret_cast<__nv_bfloat162*>(lo + off) =
+      __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+}
+
+// rows [r0, r0 + 64) of one head of a contiguous (B, n, heads, DH) bf16
+// array into shared memory with row stride DH + 8; rows past n are zeros
+template <int DH>
+__device__ __forceinline__ void load_tile_bf16(
+    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int b, int r0,
+    int n, int heads, int head) {
+  constexpr int LD = DH + 8, CPR = DH / 8;  // 16-byte chunks a row
+  constexpr int ITERS = BWD_TILE * CPR / BWD_THREADS;
+  uint4 x[ITERS];
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int i = threadIdx.x + it * BWD_THREADS;
+    const int r = i / CPR, c = (i % CPR) * 8;
+    x[it] = r0 + r < n ? *reinterpret_cast<const uint4*>(
+                             src + (((size_t)b * n + r0 + r) * heads + head) *
+                                       DH + c)
+                       : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int i = threadIdx.x + it * BWD_THREADS;
+    *reinterpret_cast<uint4*>(dst + (i / CPR) * LD + (i % CPR) * 8) = x[it];
+  }
+}
+
+// The warp's 16 x 32 of S = Q K^T and dP = dO V^T (rows m0, keys n0), then
+// P = exp(scale S - lse) on admissible pairs (0 elsewhere) and
+// dS = P (dP - D), stored split into bf16 hi + lo at [i][j] with row stride
+// MMA_LDP (P only when p_hi is not null).  S == T: the mask is the
+// forward's with no offset or length.
+template <int DH>
+__device__ __forceinline__ void softmax_grad_mma(
+    const __nv_bfloat16* sq, const __nv_bfloat16* sdo,
+    const __nv_bfloat16* sk, const __nv_bfloat16* sv, const float* slse,
+    const float* sdelta, __nv_bfloat16* p_hi, __nv_bfloat16* p_lo,
+    __nv_bfloat16* ds_hi, __nv_bfloat16* ds_lo, int m0, int n0, int q0,
+    int k0, int S, int causal, int window, float scale) {
+  constexpr int LD = DH + 8;
+  float s[4][4], dp[4][4];
+  zero_acc(s);
+  zero_acc(dp);
+  warp_mma<false, false, DH>(s, sq, LD, sk, LD, m0, n0);
+  warp_mma<false, false, DH>(dp, sdo, LD, sv, LD, m0, n0);
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = m0 + g + 8 * h, qpos = q0 + i;
+    const float lse = slse[i], dlt = sdelta[i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = k0 + n0 + 8 * j + 2 * c + e;
+        bool ok = qpos < S && kpos < S;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window > 0) ok = ok && kpos > qpos - window;
+        p[e] = ok ? expf(fmaf(s[j][2 * h + e], scale, -lse)) : 0.f;
+        ds[e] = p[e] * (dp[j][2 * h + e] - dlt);
+      }
+      const int off = i * MMA_LDP + n0 + 8 * j + 2 * c;
+      if (p_hi != nullptr) store_split2(p_hi, p_lo, off, p[0], p[1]);
+      store_split2(ds_hi, ds_lo, off, ds[0], ds[1]);
+    }
+  }
+}
+
+// the warp's accumulator tile (rows m0 of a 64-row tile at r0, columns n0)
+// times `scale` into rows r0 + m of a (B, S, heads, DH) bf16 array
+template <int DH>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst,
+                                          const float (&acc)[4][4],
+                                          float scale, int b, int r0, int S,
+                                          int heads, int head, int m0,
+                                          int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + m0 + g + 8 * h;
+    if (row >= S) continue;
+    __nv_bfloat16* out = dst + (((size_t)b * S + row) * heads + head) * DH;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + n0 + 8 * j + 2 * c) =
+          __floats2bfloat162_rn(acc[j][2 * h] * scale,
+                                acc[j][2 * h + 1] * scale);
+  }
+}
+
+// bf16: dK and dV of one 64-key tile as flash_bwd_dkdv_kernel, the products
+// on tensor cores.  Warp w owns rows (keys, or query rows in the score
+// stage) 16 (w % 4) and columns 32 (w / 4) + 64 u of each product.
+template <int DH>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int S, int H,
+                          int KV, int causal, int window, float scale) {
+  using L = MmaLayout<DH>;
+  constexpr int LD = L::LD, U = DH / 64;
+  extern __shared__ __align__(16) uint8_t smem_bytes[];
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_bytes);
+  __nv_bfloat16* sv = sk + L::TILE;
+  __nv_bfloat16* sq = sv + L::TILE;
+  __nv_bfloat16* sdo = sq + L::TILE;
+  __nv_bfloat16* sp_hi = sdo + L::TILE;
+  __nv_bfloat16* sp_lo = sp_hi + L::PT;
+  __nv_bfloat16* sds_hi = sp_lo + L::PT;
+  __nv_bfloat16* sds_lo = sds_hi + L::PT;
+  float* slse = reinterpret_cast<float*>(sds_lo + L::PT);
+  float* sdelta = slse + BWD_TILE;
+
+  const int k0 = blockIdx.x * BWD_TILE;  // tile 0, the most work, first
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  const int warp = threadIdx.x / 32;
+  const int m0 = 16 * (warp % 4), n0 = 32 * (warp / 4);
+  const int q_first = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(S, k0 + BWD_TILE - 1 + window) : S;
+
+  load_tile_bf16<DH>(sk, k, b, k0, S, KV, kvh);
+  load_tile_bf16<DH>(sv, v, b, k0, S, KV, kvh);
+  float dk_acc[U][4][4], dv_acc[U][4][4];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    zero_acc(dk_acc[u]);
+    zero_acc(dv_acc[u]);
+  }
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    for (int q0 = q_first; q0 < q_end; q0 += BWD_TILE) {
+      __syncthreads();  // the previous tile's Q, dO, P and dS are read
+      load_tile_bf16<DH>(sq, q, b, q0, S, H, h);
+      load_tile_bf16<DH>(sdo, dout, b, q0, S, H, h);
+      load_row_stats(slse, sdelta, lse, delta, b, q0, S, H, h);
+      __syncthreads();
+      softmax_grad_mma<DH>(sq, sdo, sk, sv, slse, sdelta, sp_hi, sp_lo,
+                           sds_hi, sds_lo, m0, n0, q0, k0, S, causal, window,
+                           scale);
+      __syncthreads();
+      // dV += P^T dO and dK += dS^T Q over the tile's 64 query rows
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int n = n0 + 64 * u;
+        warp_mma<true, true, BWD_TILE>(dv_acc[u], sp_hi, MMA_LDP, sdo, LD,
+                                       m0, n);
+        warp_mma<true, true, BWD_TILE>(dv_acc[u], sp_lo, MMA_LDP, sdo, LD,
+                                       m0, n);
+        warp_mma<true, true, BWD_TILE>(dk_acc[u], sds_hi, MMA_LDP, sq, LD,
+                                       m0, n);
+        warp_mma<true, true, BWD_TILE>(dk_acc[u], sds_lo, MMA_LDP, sq, LD,
+                                       m0, n);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    store_acc<DH>(dk, dk_acc[u], scale, b, k0, S, KV, kvh, m0, n0 + 64 * u);
+    store_acc<DH>(dv, dv_acc[u], 1.f, b, k0, S, KV, kvh, m0, n0 + 64 * u);
+  }
+}
+
+// bf16: dQ of one 64-row query tile as flash_bwd_dq_kernel, the products
+// on tensor cores; warps as in flash_bwd_dkdv_mma_kernel
+template <int DH>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int S, int H, int KV,
+                        int causal, int window, float scale) {
+  using L = MmaLayout<DH>;
+  constexpr int LD = L::LD, U = DH / 64;
+  extern __shared__ __align__(16) uint8_t smem_bytes[];
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_bytes);
+  __nv_bfloat16* sv = sk + L::TILE;
+  __nv_bfloat16* sq = sv + L::TILE;
+  __nv_bfloat16* sdo = sq + L::TILE;
+  __nv_bfloat16* sds_hi = sdo + L::TILE;  // (the P tiles' room is unused)
+  __nv_bfloat16* sds_lo = sds_hi + L::PT;
+  float* slse = reinterpret_cast<float*>(sds_lo + 3 * L::PT);
+  float* sdelta = slse + BWD_TILE;
+
+  // causal: the last query tile has the most keys, so it runs first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_TILE;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32;
+  const int m0 = 16 * (warp % 4), n0 = 32 * (warp / 4);
+  const int k_end = causal ? min(S, q0 + BWD_TILE) : S;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_first = (k_lo / BWD_TILE) * BWD_TILE;
+
+  load_tile_bf16<DH>(sq, q, b, q0, S, H, h);
+  load_tile_bf16<DH>(sdo, dout, b, q0, S, H, h);
+  load_row_stats(slse, sdelta, lse, delta, b, q0, S, H, h);
+  float dq_acc[U][4][4];
+#pragma unroll
+  for (int u = 0; u < U; ++u) zero_acc(dq_acc[u]);
+
+  for (int k0 = k_first; k0 < k_end; k0 += BWD_TILE) {
+    __syncthreads();  // the previous tile's K and dS are read
+    load_tile_bf16<DH>(sk, k, b, k0, S, KV, kvh);
+    load_tile_bf16<DH>(sv, v, b, k0, S, KV, kvh);
+    __syncthreads();
+    softmax_grad_mma<DH>(sq, sdo, sk, sv, slse, sdelta, nullptr, nullptr,
+                         sds_hi, sds_lo, m0, n0, q0, k0, S, causal, window,
+                         scale);
+    __syncthreads();
+    // dQ += dS K over the tile's 64 keys
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      warp_mma<false, true, BWD_TILE>(dq_acc[u], sds_hi, MMA_LDP, sk, LD, m0,
+                                      n0 + 64 * u);
+      warp_mma<false, true, BWD_TILE>(dq_acc[u], sds_lo, MMA_LDP, sk, LD, m0,
+                                      n0 + 64 * u);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    store_acc<DH>(dq, dq_acc[u], scale, b, q0, S, H, h, m0, n0 + 64 * u);
+}
+
+// D, then dK/dV and dQ: the FMA kernels for fp32, the mma.sync ones for
+// bf16
+template <typename T, int DH>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       void* dq, void* dk, void* dv, float* delta, int B,
+                       int S, int H, int KV, int causal, int window,
+                       float scale, cudaStream_t stream) {
+  constexpr bool MMA = sizeof(T) == 2;
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const int rows = B * S * H;
+  const int per_cta = BWD_THREADS / 32;
+  flash_bwd_delta_kernel<T, DH><<<(rows + per_cta - 1) / per_cta, BWD_THREADS,
+                                  0, stream>>>(static_cast<const T*>(o), tdo,
+                                               delta, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int smem = MMA ? (int)MmaLayout<DH>::BYTES : (int)BwdLayout<DH>::BYTES;
+  const int tiles = (S + BWD_TILE - 1) / BWD_TILE;
+  const dim3 kv_grid(tiles, KV, B), q_grid(tiles, H, B);
+  if constexpr (MMA) {
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_mma_kernel<DH><<<kv_grid, BWD_THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        S, H, KV, causal, window, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_mma_kernel<DH><<<q_grid, BWD_THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, KV, causal,
+        window, scale);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_kernel<DH><<<kv_grid, BWD_THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        S, H, KV, causal, window, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<DH><<<q_grid, BWD_THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, KV, causal,
+        window, scale);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q_offset / kv_len: int32 (B,) device
-// pointers or null.  window <= 0 means no window.  bf16 k and v must be
-// contiguous with 16-byte-aligned bases (the tensor maps' rule).  Returns the
-// CUDA error of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  lse: the (B,S,H) fp32 row log-sum-exp
+// of the scaled scores (+inf on a row with no admissible key), written only
+// when not null (the training path's forward; serving passes null).
+// q_offset / kv_len: int32 (B,) device pointers or null.  window <= 0 means
+// no window.  bf16 k and v must be contiguous with 16-byte-aligned bases
+// (the tensor maps' rule).  Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o,
+                                   const void* v, void* o, void* lse,
                                    const void* q_offset, const void* kv_len,
                                    int B, int S, int T_len, int H, int KV,
                                    int dh, int dtype, int causal, int window,
                                    float scale, void* stream) {
-  return dispatch<false>(q, k, v, o, nullptr, nullptr, q_offset, kv_len, B, S,
-                         T_len, H, KV, dh, dtype, causal, window, scale,
-                         stream);
+  return dispatch<false>(q, k, v, o, static_cast<float*>(lse), nullptr,
+                         q_offset, kv_len, B, S, T_len, H, KV, dh, dtype,
+                         causal, window, scale, stream);
 }
 
 // Ring attention's panel visit: acc (B,S,H,dh), m and l (B,S,H) fp32
@@ -838,4 +1653,42 @@ extern "C" int flash_partial_fwd(const void* q, const void* k, const void* v,
   return dispatch<true>(q, k, v, acc, static_cast<float*>(m),
                         static_cast<float*>(l), delta, nullptr, B, S, T_len,
                         H, KV, dh, dtype, causal, window, scale, stream);
+}
+
+// The gradients (dq, dk, dv) of flash_attention_fwd's output against dout,
+// for the training path's masks only: S == T, causal or not, window <= 0
+// (none) or a positive span, no q_offset or kv_len.  q, o, dout, dq are
+// (B,S,H,dh), k, v, dk, dv (B,T,KV,dh), all of dtype (0 = float32,
+// 1 = bfloat16), contiguous with 16-byte-aligned bases; lse is the
+// forward's (B,S,H) fp32 row log-sum-exp; delta (B,S,H) fp32 is scratch
+// for D = rowsum(dout o o).  Returns the CUDA error of the launches (0 on
+// success), cudaErrorInvalidValue for a shape it does not take.
+extern "C" int flash_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const void* lse,
+                                   void* dq, void* dk, void* dv, void* delta,
+                                   int B, int S, int T_len, int H, int KV,
+                                   int dh, int dtype, int causal, int window,
+                                   float scale, void* stream) {
+  if (S != T_len || KV <= 0 || H % KV != 0 || window < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B * S == 0) return 0;
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(delta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && dh == 128)
+    return launch_bwd<__nv_bfloat16, 128>(q, k, v, o, dout, l, dq, dk, dv, d,
+                                          B, S, H, KV, causal, window, scale,
+                                          st);
+  if (dtype == 1 && dh == 64)
+    return launch_bwd<__nv_bfloat16, 64>(q, k, v, o, dout, l, dq, dk, dv, d,
+                                         B, S, H, KV, causal, window, scale,
+                                         st);
+  if (dtype == 0 && dh == 128)
+    return launch_bwd<float, 128>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H,
+                                  KV, causal, window, scale, st);
+  if (dtype == 0 && dh == 64)
+    return launch_bwd<float, 64>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H,
+                                 KV, causal, window, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,7 +12,8 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import _validate_attn_shapes, flash_attention_cuda
+from .flash_attention import (FlashAttention, _validate_attn_shapes,
+                              check_bwd_scope, flash_attention_cuda)
 from .ref import (State, flash_attention_ref, flash_partial_ref, rmsnorm_ref,
                   ssd_scan_ref)
 from .ring_attention import (check_panel, flash_partial_cuda,
@@ -35,8 +36,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: Optional[torch.Tensor] = None,
                     kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B,S,H,dh); k/v (B,T,KV,dh) -> (B,S,H,dh).  See
-    :func:`~repro_torch.kernels.ref.flash_attention_ref` for the masks."""
+    :func:`~repro_torch.kernels.ref.flash_attention_ref` for the masks.
+
+    On CUDA, inputs that need gradients go through :class:`FlashAttention`
+    (the forward writes the row log-sum-exp, the backward kernels run in
+    ``backward``), which takes the training path's masks only and raises on
+    ``q_offset``, ``kv_len`` or S != T; otherwise the forward kernel alone
+    runs, writing nothing more (the serving path's lean launch)."""
     if _on_cuda(q):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            check_bwd_scope(q.shape[1], k.shape[1], q_offset=q_offset,
+                            kv_len=kv_len)
+            return FlashAttention.apply(q, k, v, causal, window)
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset, kv_len=kv_len)
     _validate_attn_shapes(q.shape[1], k.shape[1], q.shape[2], k.shape[2],

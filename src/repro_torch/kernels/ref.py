@@ -67,6 +67,66 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, S, H, dh).to(q.dtype)
 
 
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """The row log-sum-exp of :func:`flash_attention_ref`'s scaled scores
+    over its admissible keys -> (B,S,H) fp32, ``+inf`` on a row with no
+    admissible key (so that ``exp(s - lse)`` is exactly 0 there).  ``v``
+    is not read; it keeps the attention signature."""
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, dh).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()).mul_(dh ** -0.5)
+    mask = attn_mask(B, S, T, q.device, causal=causal, window=window,
+                     q_offset=None, kv_len=None)[:, None, None]
+    lse = torch.logsumexp(s.masked_fill_(~mask, float("-inf")), dim=-1)
+    lse = lse.masked_fill(~mask.any(-1), float("inf"))        # (B,KV,G,S)
+    return lse.permute(0, 3, 1, 2).reshape(B, S, H)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``sum(flash_attention_ref(q, k, v) *
+    do)`` in the backward kernel's formulation, fp32 plain torch, cast to
+    the inputs' dtypes: with ``P = exp(scale q k^T - lse)`` on admissible
+    pairs (0 elsewhere), ``D = rowsum(do * o)``, ``dv = P^T do``,
+    ``dS = P * (do v^T - D)``, ``dq = scale dS k``, ``dk = scale dS^T q``;
+    dk and dv summed over the G query heads of each KV head.  ``o`` and
+    ``lse`` (B,S,H) are the forward's output and row log-sum-exp.  The
+    masks are the self-attention ones of the training path (no offsets or
+    lengths).  Largest temporaries: two (B,H,S,T) fp32 tensors."""
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = dh ** -0.5
+    qg = q.reshape(B, S, KV, G, dh).float()
+    dog = do.reshape(B, S, KV, G, dh).float()
+    kf, vf = k.float(), v.float()
+    mask = attn_mask(B, S, T, q.device, causal=causal, window=window,
+                     q_offset=None, kv_len=None)[:, None, None]
+
+    def rows(t):                    # (B,S,H) -> (B,KV,G,S,1)
+        return t.float().reshape(B, S, KV, G).permute(0, 2, 3, 1)[..., None]
+
+    p = torch.einsum("bskgd,btkd->bkgst", qg, kf).mul_(scale)
+    p = p.sub_(rows(lse)).exp_().masked_fill_(~mask, 0.0)
+    delta = (dog * o.reshape(B, S, KV, G, dh).float()).sum(-1)
+    ds = torch.einsum("bskgd,btkd->bkgst", dog, vf)
+    ds = ds.sub_(delta.permute(0, 2, 3, 1)[..., None]).mul_(p)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    del p
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf).mul_(scale)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg).mul_(scale)
+    return (dq.reshape(B, S, H, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def flash_partial_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       delta: int, *, causal: bool = True,
                       window: Optional[int] = None) -> State:

@@ -1,16 +1,17 @@
-"""Training entry point of the port: single-device training of an SSM
-model on synthetic or byte-level text batches.
+"""Training entry point of the port: single-device training of a dense or
+SSM model on synthetic or byte-level text batches.
 
     python -m repro_torch.launch.train --arch mamba2-370m \\
         --steps 10 --batch 8 --seq 2048
     python -m repro_torch.launch.train --device cpu --reduced \\
-        --arch mamba2-370m --steps 5
+        --arch qwen3-4b --steps 5
 
 Runs on the CUDA device unless ``--device cpu`` is given.  The weights are
 random from seed 0.  The JAX driver's plan search, ``--plan``,
-``--pipeline``, checkpoints and remat are not ported yet (``ROADMAP.md``),
-and an arch with attention layers raises ``NotImplementedError`` (the
-flash-attention kernel has no backward in the port yet).
+``--pipeline`` and checkpoints are not ported yet (``ROADMAP.md``); remat
+comes from a plan there, so this driver trains without it
+(:func:`~repro_torch.runtime.executor.make_train_step` takes
+``remat_segments``).
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ def train(cfg: ModelConfig, args: argparse.Namespace) -> List[Dict[str, float]]:
     return history
 
 
-def main(argv=None) -> List[Dict[str, float]]:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="train.py",
         description="Train a model on one device (PyTorch port).")
@@ -90,7 +91,11 @@ def main(argv=None) -> List[Dict[str, float]]:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> List[Dict[str, float]]:
+    args = parse_args(argv)
     return train(config_from_args(args), args)
 
 

@@ -1,11 +1,11 @@
-"""Model zoo of the port: dense decoders (serving) and SSM decoders
-(training)."""
+"""Model zoo of the port: dense decoders (serving and training) and SSM
+decoders (training)."""
 from .common import ModelConfig
-from .transformer import (LM, build_stacks, check_trainable, init_lm,
+from .transformer import (LM, build_stacks, init_lm,
                           init_paged_state, lm_forward, lm_loss,
                           paged_decode_step, paged_prefill_step,
                           supports_paged_decode)
 
-__all__ = ["LM", "ModelConfig", "build_stacks", "check_trainable", "init_lm",
+__all__ = ["LM", "ModelConfig", "build_stacks", "init_lm",
            "init_paged_state", "lm_forward", "lm_loss", "paged_decode_step",
            "paged_prefill_step", "supports_paged_decode"]

@@ -119,6 +119,18 @@ def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for i in range(0, S, bq)], dim=1)
 
 
+def _kernel_window(window: Optional[int], T: int) -> Optional[int]:
+    """The window for the flash kernel over T keys.
+
+    A window of at least T masks nothing that the causal mask keeps for a
+    query below T, so it becomes full attention: the kernel refuses a
+    window longer than its keys, while the JAX package builds its masks in
+    jnp and takes any window.  The full-sequence layer's queries sit below
+    T = S; the paged engine steps only such queries over its gathered view
+    (a lane with no room left is stepped as inactive)."""
+    return None if window is not None and window >= T else window
+
+
 ATTN_IMPLS = ("ring", "flash", "chunked", "ref", "auto")
 
 
@@ -155,7 +167,8 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
         out = ops.ring_flash_attention(q, k, v, group=sp_group,
                                        causal=causal, window=window)
     elif impl == "flash":
-        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        out = ops.flash_attention(q, k, v, causal=causal,
+                                  window=_kernel_window(window, S))
     elif impl == "chunked":
         out = sdpa_chunked(q, k, v, causal=causal, window=window)
     else:
@@ -172,17 +185,6 @@ def _gather_lanes(pool: Pool, page_rows: torch.Tensor
     rows = page_rows.clamp(min=0)
     return (pool["k"][rows].reshape(B, P * psz, KV, dh),
             pool["v"][rows].reshape(B, P * psz, KV, dh))
-
-
-def _paged_window(window: Optional[int], T: int) -> Optional[int]:
-    """The window for the flash kernel over a gathered view of T keys.
-
-    A window of at least T masks nothing that the causal mask keeps for a
-    query below T, and the engine steps only such queries (a lane with no
-    room left is stepped as inactive), so it becomes full attention: the
-    kernel refuses a window longer than its keys, while the JAX paged path
-    builds its mask in jnp and takes any window."""
-    return None if window is not None and window >= T else window
 
 
 def attention_decode_paged(p: Attention, x: torch.Tensor, pool: Pool,
@@ -215,7 +217,7 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, pool: Pool,
     # query at position L sees keys 0..L (and the window): causal with
     # q_offset = L; an inactive lane (L < 0) sees none and gives zeros
     out = ops.flash_attention(q, gk, gv, causal=True,
-                              window=_paged_window(window, gk.shape[1]),
+                              window=_kernel_window(window, gk.shape[1]),
                               q_offset=L)
     return out.reshape(B, 1, cfg.q_dim) @ p.wo
 
@@ -249,7 +251,7 @@ def attention_prefill_paged(p: Attention, x: torch.Tensor, pool: Pool,
     q_offset = torch.full((B,), base, dtype=torch.int32, device=dev)
     kv_len = prompt_len.clamp(max=base + S).to(torch.int32)
     out = ops.flash_attention(q, gk, gv, causal=True,
-                              window=_paged_window(window, gk.shape[1]),
+                              window=_kernel_window(window, gk.shape[1]),
                               q_offset=q_offset, kv_len=kv_len)
     return out.reshape(B, S, cfg.q_dim) @ p.wo
 

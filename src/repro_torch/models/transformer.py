@@ -15,20 +15,24 @@ layout (``x @ w``, ``w`` of shape (d_in, d_out)) and names::
 
 Parameters are trainable; the serving steps run under
 ``torch.inference_mode()``.  Training (:func:`lm_forward`,
-:func:`lm_loss`) covers ``arch_type="ssm"`` only so far: an attention layer
-would need a backward of the flash-attention kernel, which the port does
-not have yet.
+:func:`lm_loss`) covers every arch that :func:`build_stacks` builds, dense
+and SSM; on the card an attention layer's gradients run through the
+flash-attention backward kernel.  ``remat_segments`` ports the JAX
+package's per-segment remat (``apply_stack(remat=...)``, ``jax.checkpoint``
+around each scanned block) as ``torch.utils.checkpoint`` around each block
+of the segment: its activations are recomputed in the backward.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
-from .attention import (Attention, Pool, attention_decode_paged,
+from .attention import (Attention, Pool, attention, attention_decode_paged,
                         attention_prefill_paged, init_attention,
                         init_page_pool)
 from .common import ModelConfig
@@ -82,16 +86,6 @@ def build_stacks(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return [("dense", cfg.n_layers)]
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Training needs a backward for every kernel on the path; raise for an
-    arch whose layers run one that has none in the port yet."""
-    if any(kind != "ssm" for kind, _ in build_stacks(cfg)):
-        raise NotImplementedError(
-            f"training {cfg.name!r} (arch_type={cfg.arch_type!r}) needs the "
-            "backward of the flash_attention kernel, which the port does not "
-            "have yet; only arch_type='ssm' trains so far")
-
-
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device: torch.device = "cuda") -> LM:
     """Random weights drawn on ``device`` from ``torch.Generator(seed)``,
@@ -124,24 +118,61 @@ def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ params.embed.T
 
 
-def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig
+def dense_block(p: DenseBlock, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig, *,
+                window: Optional[int] = None) -> torch.Tensor:
+    """Pre-norm causal attention and SwiGLU MLP, each with its residual."""
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    x = x + attention(p.attn, h, positions, cfg, window=window)
+    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    return x + swiglu_mlp(p.mlp, h)
+
+
+def ssm_block_outer(p: SSMBlock, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: ModelConfig, **_) -> torch.Tensor:
+    """Pre-norm SSM mixer with its residual (positions unused)."""
+    return x + ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg)
+
+
+_BLOCK_APPLY = {"dense": dense_block, "ssm": ssm_block_outer}
+
+
+def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
+               remat_segments: Optional[Sequence[bool]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) -> logits (B,S,V) and the auxiliary loss (zero: SSM
-    blocks have none).  SSM models only (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    """tokens (B,S) -> logits (B,S,V) and the auxiliary loss (zero: dense
+    and SSM blocks have none).
+
+    Query ``s`` sits at position ``s``; attention takes the config's
+    ``sliding_window``.  Segment ``i`` of :func:`build_stacks` is
+    rematerialised when ``remat_segments[min(i, len - 1)]`` is true (the
+    JAX rule: a one-entry list covers every segment)."""
     x = embed(params.embed, tokens)
-    for blk in params.blocks:
-        h = rms_norm(x, blk.ln1, cfg.norm_eps)
-        x = x + ssm_block(blk.ssm, h, cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    win = cfg.sliding_window
+    blocks = iter(params.blocks)
+    for si, (kind, n) in enumerate(build_stacks(cfg)):
+        fn = _BLOCK_APPLY[kind]
+        remat = (bool(remat_segments[min(si, len(remat_segments) - 1)])
+                 if remat_segments else False)
+        for _ in range(n):
+            blk = next(blocks)
+            if remat:
+                x = checkpoint(fn, blk, x, positions, cfg, window=win,
+                               use_reentrant=False)
+            else:
+                x = fn(blk, x, positions, cfg, window=win)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, x, cfg), aux
 
 
-def lm_loss(params: LM, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig) -> torch.Tensor:
+def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            remat_segments: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (``-100`` ignored), plus the weighted aux loss."""
-    logits, aux = lm_forward(params, batch["tokens"], cfg)
+    logits, aux = lm_forward(params, batch["tokens"], cfg,
+                             remat_segments=remat_segments)
     loss = cross_entropy_loss(logits, batch["labels"])
     return loss + cfg.router_aux_coef * aux
 

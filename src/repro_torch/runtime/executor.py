@@ -9,14 +9,14 @@ under ``torch.inference_mode()`` and update the pools in place.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Pool
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import (LM, check_trainable, init_lm,
+from repro_torch.models.transformer import (LM, build_stacks, init_lm,
                                             lm_loss, paged_decode_step,
                                             paged_prefill_step)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -26,25 +26,29 @@ def init_train_state(cfg: ModelConfig, *, seed: int = 0,
                      opt_cfg: Optional[AdamWConfig] = None,
                      device: torch.device = "cuda"
                      ) -> Tuple[LM, Dict[str, Any]]:
-    """Random weights from ``seed`` on ``device`` and their AdamW state."""
-    check_trainable(cfg)
+    """Random weights from ``seed`` on ``device`` and their AdamW state.
+    Raises NotImplementedError for an arch the port does not build."""
     params = init_lm(cfg, seed=seed, device=resolve_device(device))
     return params, adamw_init(list(params.parameters()), opt_cfg)
 
 
 def make_train_step(cfg: ModelConfig,
-                    opt_cfg: Optional[AdamWConfig] = None
+                    opt_cfg: Optional[AdamWConfig] = None, *,
+                    remat_segments: Optional[Sequence[bool]] = None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``(params, opt_state, batch)`` -> ``{"loss", "grad_norm", "lr"}``
     (0-d tensors on the params' device); params and opt_state are updated
-    in place.  ``batch`` holds int ``tokens`` and ``labels`` (B, S)."""
-    check_trainable(cfg)
+    in place.  ``batch`` holds int ``tokens`` and ``labels`` (B, S).
+    ``remat_segments`` goes to :func:`lm_loss` (the JAX executor takes it
+    from the plan's policy; the port reads no plans yet).  Raises
+    NotImplementedError for an arch the port does not build."""
+    build_stacks(cfg)
     opt_cfg = opt_cfg or AdamWConfig()
 
     def step(params: LM, opt_state: Dict[str, Any],
              batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         leaves = list(params.parameters())
-        loss = lm_loss(params, batch, cfg)
+        loss = lm_loss(params, batch, cfg, remat_segments=remat_segments)
         grads = torch.autograd.grad(loss, leaves)
         metrics = adamw_update(leaves, grads, opt_state, opt_cfg)
         metrics["loss"] = loss.detach()

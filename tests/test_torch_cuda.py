@@ -24,13 +24,20 @@ read by both, fp32 sums in another order; the bf16 kernel multiplies V by
 P split into two bf16 terms, about 2^-16 of P from the fp32 P); rows the
 panel rejects whole exactly (0, -1e30, 0).  The attention cases run GQA
 groups of 1, 4, 5 and 8, which the bf16 kernel packs into one CTA's rows.
+The flash backward is held against both its plain version (the kernel's
+formulation on the same output and log-sum-exp) and ``torch.autograd`` of
+``flash_attention_ref`` at the backward tolerances, the forward's row
+log-sum-exp against ``flash_attention_lse_ref`` at the forward's, and a
+second call must give the same bits (no atomics).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.rmsnorm import (RMSNorm, rmsnorm_bwd_cuda,
                                          rmsnorm_cuda)
 from repro_torch.kernels.ring_attention import flash_partial_cuda
@@ -432,3 +439,70 @@ def test_flash_partial_kernel_matches_plain_on_card(cuda_device, dtype, dh,
     empty = ~seen
     assert bool((acc[empty] == 0).all() and (l[empty] == 0).all())
     assert bool((m[empty] == -1e30).all())
+
+
+# (S, causal, window): S off the 64-row tiles, windows off them, one tile
+FLASH_BWD_CASES = [(5, True, None), (100, True, None), (100, False, None),
+                   (100, True, 8), (130, False, 9), (64, True, 70)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("H", GQA_HEADS)
+@pytest.mark.parametrize("S,causal,window", FLASH_BWD_CASES)
+def test_flash_backward_matches_plain_on_card(cuda_device, dtype, dh, H, S,
+                                              causal, window):
+    rng = np.random.default_rng(S + dh + H + 2 * causal + (window or 0))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                   .to(cuda_device, dtype)
+                   for shape in ((2, S, H, dh), (2, S, 2, dh), (2, S, 2, dh),
+                                 (2, S, H, dh)))
+    win = None if window is not None and window >= S else window
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, window=win,
+                                    with_lse=True)
+    got = flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=causal,
+                                   window=win)
+    again = flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=causal,
+                                     window=win)
+    torch.cuda.synchronize()
+    lse_ref = ref.flash_attention_lse_ref(q, k, v, causal=causal, window=win)
+    assert (lse - lse_ref).abs().max().item() <= TOL[dtype]
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=causal,
+                                        window=win)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(
+        ref.flash_attention_ref(*leaves, causal=causal, window=win), leaves,
+        do)
+    for g, g2, p, a in zip(got, again, plain, auto):
+        assert g.dtype == dtype and torch.equal(g, g2)
+        assert _rel_err(g, p) <= REL_TOL[dtype]
+        assert _rel_err(g, a) <= REL_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_autograd_runs_the_kernels_on_card(cuda_device, dtype):
+    """``ops.flash_attention`` on inputs that need gradients: one forward
+    launch with the log-sum-exp and one backward launch; without gradients
+    the forward alone."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device)
+               .to(dtype).requires_grad_()
+               for shape in ((2, 77, 8, 128), (2, 77, 2, 128),
+                             (2, 77, 2, 128)))
+    do = torch.randn(q.shape, generator=g, device=cuda_device).to(dtype)
+    fwd, bwd = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, window=20),
+                              (q, k, v), do)
+    assert (flash_attention_cuda.launches - fwd,
+            flash_attention_bwd_cuda.launches - bwd) == (1, 1)
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v, window=20),
+                               (q, k, v), do)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= REL_TOL[dtype]
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    assert flash_attention_bwd_cuda.launches - bwd == 1
