@@ -23,8 +23,10 @@ Phases (any failure exits non-zero before the final line is printed):
    widths; a fourth ``nvcc`` builds the SSD scan without the bf16
    backward's dB/dC atomics, which phase 7 times; print the flash
    backward's kernels (``flash_bwd_``: D, dK/dV and dQ, fp32 and bf16, dh
-   64 and 128) with their registers, spills and HMMA count, and fail if one
-   is missing or a bf16 product kernel (``_mma_kernel``) has no HMMA;
+   64 and 128) with their registers, spills and HGMMA count, fail if one
+   is missing or a bf16 product kernel (``_wgmma_kernel``) has no HGMMA or
+   spills, print those four kernels' CTAs per SM and any wgmma that ptxas
+   serialised;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes, with the stated tolerances (the
    backward kernels against ``torch.autograd`` of the plain versions; the
@@ -43,7 +45,11 @@ Phases (any failure exits non-zero before the final line is printed):
    forward's row log-sum-exp against its plain version, at S = 100 (GQA
    groups of 1, 5 and 8, dh 64 and 128, causal or not, window 8 or none,
    fp32 and bf16) and at the dense training shape (B 2, S 4096, H 32, KV 8,
-   dh 128, bf16, causal), run twice there: the same bits both times;
+   dh 128, bf16, causal), run twice there: the same bits both times; and
+   log why the bf16 backward rounds P and dS to bf16 for dV, dK and dQ:
+   the plain backward's error at that shape with P and dS rounded and with
+   them split into bf16 hi + lo, the rounding held within half the bf16
+   tolerance;
 3. serve full-width qwen3-4b (random bf16 weights from seed 0) through the
    paged continuous-batching engine: 12 requests, prompts of 33-400
    tokens, 16-32 new tokens each; every request must complete and both
@@ -65,7 +71,9 @@ Phases (any failure exits non-zero before the final line is printed):
    launches from Python), the bf16 SSD forward's and backward's three
    kernels apart (profiler; the forward must launch its three ``ssd_fwd_``
    kernels and no ``ssd_bwd_`` kernel) and the backward's chunk-grad
-   kernel without its dB/dC atomics,
+   kernel without its dB/dC atomics, the flash backward's three kernels
+   (``flash_bwd_delta``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) apart at the
+   dense training shape (profiler; each must show device time),
    with the least time the card could take (bytes over 3.35 TB/s or
    operations over the peak rate of the inputs' type), and the achieved
    TFLOP/s of the attention kernels and SDPA; and what one RMSNorm call at
@@ -105,6 +113,12 @@ log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).  The phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 8, 7;
 the total seconds are printed before the final lines.
+
+``python3 chip_smoke.py --compare-flash-bwd PARENT_DIR`` runs none of
+the phases: it times the bf16 flash backward at the dense training shape
+with ``_flash_bwd_timing`` of the checkout at PARENT_DIR and of this one,
+in turn parent, this, this, parent, each in its own process after that
+tree's build, and prints a JSON line per run.
 
 The last three lines of standard output are the card's ``nvidia-smi``
 name and power limit (also printed first), the ``kernels`` JSON line and
@@ -146,6 +160,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
 # kernel passes within 1e-4 of float64, or no further from it than twice
 # the fp32 plain version is
 REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the bf16 flash backward rounds P and dS to bf16 for its three products
+# if that moves dq, dk and dv by at most half the bf16 tolerance at the
+# dense training shape (phase 2 measures it), else it would split them
+BWD_ROUND_TOL = REL_TOL["bfloat16"] / 2
 # reduced fp32 training, card vs CPU: relative difference of each loss
 TRAIN_LOSS_RTOL = 1e-4
 # the sequence-parallel geometry of phase 8: qwen3-4b's native context
@@ -299,6 +317,8 @@ SSD_BWD_KERNELS = ("ssd_bwd_chunk_state_kernel", "ssd_bwd_state_pass_kernel",
 RMSNORM_KERNELS = ("rmsnorm_fwd_kernel", "rmsnorm_fwd_row_kernel",
                    "rmsnorm_fwd_wide_kernel", "rmsnorm_bwd_kernel",
                    "rmsnorm_bwd_wide_kernel", "rmsnorm_bwd_dw_sum_kernel")
+# the flash backward's three kernels by name prefix, in launch order
+FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 # built with it defined, the SSD scan skips the bf16 backward's atomics
 NO_ADDS = ("SSD_BWD_NO_ADDS",)
 
@@ -366,16 +386,30 @@ def phase_build():
             check(len(wgmma) == 4 and all(wgmma.values()),
                   f"bf16 flash kernels without HGMMA in their SASS: {wgmma}")
             # the backward: D for both dtypes, dK/dV and dQ on FMA for fp32
-            # and on mma.sync (HMMA) for bf16, dh 64 and 128
+            # and on wgmma (HGMMA) for bf16, dh 64 and 128; the bf16
+            # product kernels spill nothing
             bwd = {k: v for k, v in report.items()
                    if k.startswith("flash_bwd_")}
             log("[build]   flash backward: " + "; ".join(
                 f"{k} {v[0]} registers, spills {v[1][0]}/{v[1][1]}, "
-                f"{v[3]} HMMA" for k, v in sorted(bwd.items())))
-            mma = {k: v[3] for k, v in bwd.items() if "_mma_kernel" in k}
-            check(len(bwd) == 12 and len(mma) == 4 and all(mma.values()),
+                f"{v[2]} HGMMA" for k, v in sorted(bwd.items())))
+            wg = {k: v for k, v in bwd.items() if "_wgmma_kernel" in k}
+            check(len(bwd) == 12 and len(wg) == 4 and all(
+                v[2] > 0 and v[1] == (0, 0) for v in wg.values()),
                   f"flash backward kernels missing, or bf16 ones without "
-                  f"HMMA: {bwd}")
+                  f"HGMMA or spilling: {bwd}")
+            occ = (ctypes.c_int * 4)()
+            check(ctypes.CDLL(str(lib)).flash_attention_bwd_occupancy(occ)
+                  == 0, "flash_attention_bwd_occupancy failed")
+            log("[build]   bf16 flash backward, CTAs of 256 threads per SM: "
+                + ", ".join(f"{k} dh {dh} {n}" for (dh, k), n in zip(
+                    [(dh, k) for dh in (64, 128)
+                     for k in ("flash_bwd_dkdv_wgmma_kernel",
+                               "flash_bwd_dq_wgmma_kernel")], occ)))
+            # ptxas names a kernel whose wgmma it had to serialise
+            for line in lib.with_suffix(".log").read_text().splitlines():
+                if "serialized" in line:
+                    log(f"[build]   ptxas: {line.strip()}")
         elif name == "rmsnorm":
             spilled = {k: v[1] for k, v in report.items() if v[1] != (0, 0)}
             check(len(report) >= len(RMSNORM_KERNELS) and not spilled,
@@ -642,6 +676,66 @@ def phase_bf16_p():
           f"split P misses the panel tolerance: {err_split}")
     del acc, acc_hi, acc_split
     torch.cuda.empty_cache()
+
+
+def phase_bf16_pds():
+    """Whether the bf16 flash backward may round P and dS to bf16 before
+    dV = P^T dO, dQ = scale dS K and dK = scale dS^T Q: the plain
+    backward's arithmetic (``flash_attention_bwd_ref``) at the dense
+    training shape, with the three products taken from P and dS rounded to
+    bf16 (the kernels' step) and from P and dS split into bf16 hi + lo,
+    against fp32 P and dS.  Logs each gradient's error relative to its
+    largest magnitude; rounding must stay within BWD_ROUND_TOL."""
+    import torch
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    B, S, H, KV, dh = DENSE_BATCH, DENSE_SEQ, 32, 8, 128
+    G, scale = H // KV, dh ** -0.5
+    q, do = (torch.randn(B, S, H, dh, generator=g, device="cuda")
+             .bfloat16().float() for _ in range(2))
+    k, v = (torch.randn(B, S, KV, dh, generator=g, device="cuda")
+            .bfloat16().float() for _ in range(2))
+    o = ref.flash_attention_ref(q, k, v)
+    lse = ref.flash_attention_lse_ref(q, k, v)
+    qg, dog = (x.reshape(B, S, KV, G, dh) for x in (q, do))
+    rows = lse.reshape(B, S, KV, G).permute(0, 2, 3, 1)[..., None]
+    mask = ref.attn_mask(B, S, S, q.device, causal=True, window=None,
+                         q_offset=None, kv_len=None)[:, None, None]
+    p = torch.einsum("bskgd,btkd->bkgst", qg, k).mul_(scale)
+    p = p.sub_(rows).exp_().masked_fill_(~mask, 0.0)
+    del rows, mask
+    dlt = (dog * o.reshape(B, S, KV, G, dh)).sum(-1)
+    ds = torch.einsum("bskgd,btkd->bkgst", dog, v)
+    ds = ds.sub_(dlt.permute(0, 2, 3, 1)[..., None]).mul_(p)
+
+    def products(pp, dd):               # dq, dk, dv
+        return (torch.einsum("bkgst,btkd->bskgd", dd, k).mul_(scale),
+                torch.einsum("bkgst,bskgd->btkd", dd, qg).mul_(scale),
+                torch.einsum("bkgst,bskgd->btkd", pp, dog))
+
+    def bf16(x):
+        return x.bfloat16().float()
+
+    exact = products(p, ds)
+    rounded = products(bf16(p), bf16(ds))
+    e_round = [rel_err(a, b) for a, b in zip(rounded, exact)]
+    del rounded
+    p_hi, ds_hi = bf16(p), bf16(ds)
+    hi = products(p_hi, ds_hi)
+    p, ds = p.sub_(p_hi), ds.sub_(ds_hi)        # the low parts' exact values
+    del p_hi, ds_hi
+    lo = products(bf16(p), bf16(ds))
+    e_split = [rel_err(a + b, c) for a, b, c in zip(hi, lo, exact)]
+    del p, ds, hi, lo, exact
+    torch.cuda.empty_cache()
+    log(f"[bf16-PdS] flash backward B={B} S={S} H={H} KV={KV} dh={dh} "
+        f"causal: dq, dk, dv max|diff|/max|ref| with P and dS rounded to "
+        f"bf16 {', '.join(f'{e:.2e}' for e in e_round)}, split into two "
+        f"bf16 terms {', '.join(f'{e:.2e}' for e in e_split)} (rule: round "
+        f"within {BWD_ROUND_TOL:.0e}, half the bf16 tol); the kernels round")
+    check(max(e_round) <= BWD_ROUND_TOL,
+          f"P and dS rounded to bf16 miss {BWD_ROUND_TOL}: {e_round}")
 
 
 def ssd_inputs(B, S, H, P, N, dtype, seed=0):
@@ -1401,8 +1495,7 @@ def phase_dense_train():
         by_category[cat] += e.self_device_time_total / 1e3
     bwd_by_kernel = {k: sum(e.self_device_time_total for e in kernels
                             if k in e.key) / 1e3
-                     for k in ("flash_bwd_delta", "flash_bwd_dkdv",
-                               "flash_bwd_dq")}
+                     for k in FLASH_BWD_KERNELS}
     mean_ms = sum(step_ms[1:]) / len(step_ms[1:])   # the first warms up
     tokens = DENSE_BATCH * DENSE_SEQ
     attn_flop = (L * 12 * DENSE_BATCH * cfg.n_heads * DENSE_SEQ ** 2 / 2
@@ -1798,8 +1891,17 @@ def _flash_bwd_timing():
                lambda: torch.autograd.grad(y, (qs, ks, vs), dys,
                                            retain_graph=True),
                iters=5, plain_iters=2)
+    shape = f"B={B} S={S} H={H} KV={KV} dh={dh} causal bf16"
+    parts = _kernel_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, do,
+                                                        lse),
+                       FLASH_BWD_KERNELS)[0]
+    check(all(parts.values()), f"flash backward kernels without device "
+          f"time: {parts}")
+    log(f"[time] flash_attention_bwd {shape}: device ms by kernel "
+        "(profiler, 5 calls, mean a launch): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts.items()))
     return dict(t, bound_ms=bound, bound_by=by, gflop=n_ops / 1e9,
-                shape=f"B={B} S={S} H={H} KV={KV} dh={dh} causal bf16")
+                shape=shape, ms_by_kernel=parts)
 
 
 def _partial_timing(delta):
@@ -1973,11 +2075,11 @@ def _ssd_timing(B, S, H, P, N, Q):
           f"the bf16 SSD forward launched {names}, not the three "
           f"{SSD_FWD_KERNELS} alone")
     log(f"[time] ssd_scan        {shape}: device ms by kernel (profiler, "
-        "mean of 5 calls): " + ", ".join(
+        "5 calls, mean a launch): " + ", ".join(
             f"{k} {v:.4f}" for k, v in fwd_parts.items()))
     parts = _ssd_bwd_parts(lambda: ssd_scan_bwd_cuda(dy, *args, Q))
     log(f"[time] ssd_scan_bwd    {shape}: device ms by kernel (profiler, "
-        "mean of 5 calls): " + ", ".join(
+        "5 calls, mean a launch): " + ", ".join(
             f"{k} {v:.4f}" for k, v in parts.items()))
     return (dict(fwd, bound_ms=fwd_bound, bound_by=fwd_by, shape=shape,
                  gflop=fwd_ops / 1e9, ms_by_kernel=fwd_parts),
@@ -1987,7 +2089,8 @@ def _ssd_timing(B, S, H, P, N, Q):
 
 def _kernel_ms(call, names, n=5):
     """Device ms per call of each kernel whose name holds one of ``names``
-    (profiler, mean of ``n`` calls), and the names of every kernel the
+    (profiler over ``n`` calls, each launching it once: its device time over
+    the launches the profiler recorded), and the names of every kernel the
     calls launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2001,9 +2104,12 @@ def _kernel_ms(call, names, n=5):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    return ({k: sum(e.self_device_time_total for e in events
-                    if k in e.key) / 1e3 / n for k in names},
-            [e.key for e in events])
+    def mean_ms(k):
+        hits = [e for e in events if k in e.key]
+        count = sum(e.count for e in hits)
+        return (sum(e.self_device_time_total for e in hits) / 1e3
+                / max(count, 1))
+    return {k: mean_ms(k) for k in names}, [e.key for e in events]
 
 
 def _ssd_bwd_parts(call):
@@ -2105,6 +2211,32 @@ def phase_timings(errs, launches):
     return kernels
 
 
+def compare_flash_bwd(parent: str) -> int:
+    """The bf16 flash backward at the dense training shape timed by
+    ``_flash_bwd_timing`` of the parent checkout at ``parent`` and of this
+    one, in turn parent, this, this, parent, each in a process of its own
+    that first builds that tree's kernels (``phase_build``).  Prints one
+    JSON line per run."""
+    code = ("import json, sys; sys.path[:0] = ['.', 'src']; "
+            "import chip_smoke as cs; cs.phase_build(); "
+            "t = cs._flash_bwd_timing(); print('RESULT ' + json.dumps("
+            "{k: t.get(k) for k in ('ms', 'launch_ms', 'library_ms', "
+            "'bound_ms', 'ms_by_kernel')}))")
+    for name, tree in (("parent", parent), ("this", str(ROOT)),
+                       ("this", str(ROOT)), ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                             capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith("RESULT ")]
+        if res.returncode != 0 or not lines:
+            print(f"chip_smoke: {name} tree failed:\n{res.stdout[-3000:]}"
+                  f"\n{res.stderr[-3000:]}", file=sys.stderr)
+            return 1
+        log(json.dumps({"tree": name, "path": tree,
+                        **json.loads(lines[-1][len("RESULT "):])}))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2120,12 +2252,15 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--compare-flash-bwd"] and len(sys.argv) == 3:
+        return compare_flash_bwd(sys.argv[2])
     t_start = time.perf_counter()
     try:
         card = phase_build()
         errs = phase_kernels()
         phase_partial(errs)
         phase_bf16_p()
+        phase_bf16_pds()
         phase_train_kernels(errs)
         phase_flash_bwd(errs)
         launches = {"serve": phase_serve()}

@@ -92,34 +92,60 @@
 //   dQ = scale dS K, dK = scale dS^T Q,
 // dK and dV summed over the G query heads of each KV head.  What bounds it
 // on the H100: at qwen3-4b's training shape (B 2, S 4096, H 32, KV 8, dh
-// 128, causal) the five products are about 0.69 TFLOP, bound by operations
-// (0.69 ms at 989 TFLOP/s).  The design:
-//  - Three kernels, no atomics: D (one warp a row); dK/dV (a CTA per 64-key
+// 128, causal) the five products (S, dP, dV, dK, dQ) are about 0.69 TFLOP,
+// bound by operations: 0.695 ms at 989 TFLOP/s.  The design:
+//  - Three kernels, no atomics: D (one warp a row); dK/dV (a CTA per key
 //    tile, KV head and lane loops over the G heads of its group and the
 //    query tiles the masks admit for its keys, then writes dK and dV once);
-//    dQ (a CTA per 64-row query tile, head and lane loops over the key tiles
-//    its rows admit).  Every output is written by one thread in a fixed
-//    order, so dq, dk and dv are the same bits on every run.  S and dP are
-//    recomputed in both kernels (seven products where five are needed).
-//  - bf16 (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel): the
-//    products on mma.sync m16n8k16 with fp32 accumulators, tiles in shared
-//    memory as bf16 (rows padded by 16 bytes, conflict-free ldmatrix); each
-//    of the 8 warps owns a 16 x 32 piece of every 64-wide product.  P and
-//    dS are split into bf16 hi + lo, two products into one accumulator, as
-//    the forward splits P: dV, dK and dQ see the fp32 P and dS to about
-//    2^-16 of them, for 1.6x the MMA work of rounding them to bf16.
+//    dQ (a CTA per query tile, head and lane loops over the key tiles its
+//    rows admit).  Every output is written by one thread in a fixed order,
+//    so dq, dk and dv are the same bits on every run.  The price: S and dP
+//    are computed in both kernels, seven products where five are needed.
+//    One kernel could run five, but it would sum dQ over the key-tile CTAs
+//    by fp32 atomics, whose order, and so whose bits, change from run to
+//    run (ROADMAP K9 keeps it as a later option, with ordered dQ).
+//  - bf16 (flash_bwd_dkdv_wgmma_kernel, flash_bwd_dq_wgmma_kernel): warp
+//    specialised, the products on wgmma.  A CTA of 288 threads: a producer
+//    warp issues TMA loads into a ring of three stages with full / empty
+//    mbarriers, so the next tiles are in flight during the products; two
+//    consumer warpgroups compute.  Stationary operands are loaded once
+//    (dK/dV: the CTA's 64 keys of K and V; dQ: each consumer's 64 query
+//    rows of Q and dO); the other pair streams in 64-row tiles.  The
+//    register budget shapes the split: nine warps put three on one of the
+//    SM's four register partitions, which caps a thread at 168 registers,
+//    and ptxas keeps that cap whatever setmaxnreg asks (measured: a
+//    producer warpgroup at 24 with consumers at 240 compiled to 168 and
+//    spilled).  So no consumer holds more than one 64 x dh accumulator.
+//  - dK/dV computes the products transposed (FlashAttention-3's swap of A
+//    and B) and splits them between its consumers: warpgroup 0 computes
+//    S^T = K Q^T, P^T on the fragment (lse per column, staged per tile by
+//    the producer warp) and dV += P^T dO; warpgroup 1 computes
+//    dP^T = V dO^T, dS^T = P^T o (dP^T - D) with P^T handed over in shared
+//    memory (each thread's fragment to the same thread of warpgroup 1), and
+//    dK += dS^T Q.  P^T and dS^T are register A fragments of the two last
+//    products.  dQ: S = Q K^T and dP = dO V^T, dS on the fragment,
+//    dQ += dS K; P is formed while dP is computed.  A consumer skips a
+//    64 x 64 block the masks reject whole and masks per element only a
+//    block that crosses a bound.
+//  - P and dS enter dV, dK and dQ rounded to bf16 (the tensor cores' input
+//    type), where the forward splits P into bf16 hi + lo.  chip_smoke.py
+//    phase 2 measures why: at the training shape the plain arithmetic with
+//    P and dS rounded moves dq, dk and dv by 2.69e-03, 1.83e-03 and
+//    1.21e-03 of their largest magnitudes against fp32 P and dS (split:
+//    3.57e-06, 6.91e-06, 5.95e-06; NVIDIA H100 80GB HBM3, 700 W), within
+//    half the bf16 tolerance of 2e-2; splitting would double the three
+//    products (ten passes where rounding runs seven).
 //  - fp32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): FMA loops, for
-//    exactness as in the forward.  Tiles staged in shared memory (rows
-//    padded by 4 words, float4 reads along dh); the score stage gives each
-//    thread a 4 x 4 register tile of S and dP; P and dS meet the other
+//    exactness as in the forward.  Tiles of 64 staged in shared memory
+//    (rows padded by 4 words, float4 reads along dh); the score stage gives
+//    each thread a 4 x 4 register tile of S and dP; P and dS meet the other
 //    products through shared memory; dK/dV and dQ are register tiles of 4
 //    rows x dh / 16 columns.
 //  - Causal load balance: the dK/dV grid starts at the first key tile and
 //    the dQ grid at the last query tile, the CTAs with the most work.
-//  - Every tile takes the element mask; its cost is small beside the
-//    products.
-// Left for later (ROADMAP K9): loads overlapped with the products (cp.async
-// or TMA stages), wgmma, one kernel for dQ and dK/dV with dQ by atomics.
+// Left for later (ROADMAP K9): the fused five-product kernel with dQ summed
+// in a fixed order (a semaphore per query tile), persistent CTAs, and
+// overlapping a consumer's elementwise work with its own next product.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -449,8 +475,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+// wait until at most N committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 // keeps the compiler from moving reads or writes of a wgmma's registers
 // across the volatile wgmma asm around it
@@ -662,7 +690,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                    kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     reg_fence(s);
 
     const bool masked = kt + KEYS > klen ||
@@ -728,7 +756,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       wgmma_rs_tn<DH>(acc, p_lo[kk], dv);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     reg_fence(acc);
 
     __syncthreads();  // every warp is done with this stage
@@ -800,8 +828,9 @@ EncodeTiled encode_tiled() {
 }
 
 // the contiguous (B,T,KV,dh) bf16 array as a 4-D map {dh, KV, T, B}, boxes
-// of 64 dh x 1 x KEYS x 1, 128-byte swizzle, rows past T read as zeros.
-// T = 0 gives a zeroed map that the kernel never reads (no tiles).
+// of 64 dh x 1 x KEYS x 1, 128-byte swizzle, rows past T read as zeros (the
+// backward also maps q and dout, with H heads for KV).  T = 0 gives a
+// zeroed map that the kernel never reads (no tiles).
 cudaError_t kv_map(CUtensorMap* map, const void* ptr, int B, int T_len,
                    int KV, int dh) {
   memset(map, 0, sizeof(*map));
@@ -1227,352 +1256,566 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// bf16: the products on mma.sync m16n8k16 (bf16 in, fp32 accumulate), the
-// tiles in shared memory as bf16 and read by ldmatrix.  P and dS are split
-// into bf16 hi + lo (two products into one fp32 accumulator), so that dV,
-// dK and dQ keep the fp32 P and dS of the FMA body to about 2^-16.
+// bf16: two warp-specialised kernels on wgmma, their operands by TMA.  A
+// CTA is two consumer warpgroups and a producer warp, which issues the TMA
+// loads (one thread; in dK/dV its lanes also stage lse and D).  Stationary
+// 64-row operands are loaded once; the other operand pair streams in 64-row
+// tiles through a ring of BWD_STAGES stages with full / empty mbarriers.
+// Every tile lies in shared memory in the forward's 128-byte-swizzled
+// layout (a box of 64 dh x 64 rows per 64-wide column block, rows past S
+// zero-filled), which a wgmma descriptor reads K-major (dh along a row) or
+// MN-major (transpose bit).
 
-constexpr int MMA_LDP = BWD_TILE + 8;  // row stride of P / dS (144 bytes)
+constexpr int WG = 128;                      // threads of a warpgroup
+// two consumers and a producer: 168 registers a thread (the note at the top)
+constexpr int BWD_WG_THREADS = 2 * WG + 32;
+constexpr int BWD_STAGES = 3;                // streamed tile pairs
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DH>
-struct MmaLayout {
-  // row stride of a (64, DH) tile: 16 bytes of padding make each row start
-  // an odd number of 16-byte chunks after the one before, so ldmatrix's
-  // eight row addresses fall in distinct banks
-  static constexpr int LD = DH + 8;
-  static constexpr int TILE = BWD_TILE * LD;
-  static constexpr int PT = BWD_TILE * MMA_LDP;
-  // Q, dO, K and V; P hi and lo, dS hi and lo (bf16); lse and D (fp32)
-  static constexpr size_t BYTES =
-      (4 * TILE + 4 * PT) * sizeof(__nv_bfloat16) + 2 * BWD_TILE * sizeof(float);
+// shared memory, from the 1024-byte-aligned base: FIXED stationary 64-row
+// tiles, BWD_STAGES pairs of streamed tiles, with HANDOVER (dK/dV) each
+// stage's P^T hand-over (one fp32 fragment a thread) and lse (times log2 e)
+// and D of its 64 query rows, then the mbarriers: stationary, then full,
+// empty and P^T ready for each stage
+template <int DH, int FIXED, bool HANDOVER>
+struct BwdWgLayout {
+  static constexpr int TILE = 64 * DH * 2;
+  static constexpr int STAGE_OFF = FIXED * TILE;
+  static constexpr int PT_OFF = STAGE_OFF + BWD_STAGES * 2 * TILE;
+  static constexpr int PT_BYTES = HANDOVER ? WG * 32 * 4 : 0;
+  static constexpr int STAT_OFF = PT_OFF + BWD_STAGES * PT_BYTES;
+  static constexpr int STAT_BYTES = HANDOVER ? 2 * 64 * 4 : 0;
+  static constexpr int BAR_OFF = STAT_OFF + BWD_STAGES * STAT_BYTES;
+  static constexpr int BYTES = BAR_OFF + (1 + 3 * BWD_STAGES) * 8 + 1024;
 };
+template <int DH>
+using DkdvLayout = BwdWgLayout<DH, 2, true>;  // K and V of 64 keys
+template <int DH>
+using DqLayout = BwdWgLayout<DH, 4, false>;   // Q and dO of 2 x 64 rows
 
-// four 8 x 8 bf16 matrices from shared memory; lanes 8i..8i+7 address the
-// rows of matrix i; .trans delivers each matrix transposed
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                        const __nv_bfloat16* p) {
-  if (TRANS)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p))
-        : "memory");
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p))
-        : "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
 }
 
-// d += a (16 x 16, row) b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+#define WG_O8(d, i)                                                 \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),       \
+      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
+#define WG_O32(d) WG_O8(d, 0), WG_O8(d, 8), WG_O8(d, 16), WG_O8(d, 24)
+
+// d = A B as wgmma_ss_n64 with accumulate 0: d's old values are not read,
+// so they need not stay live
+__device__ __forceinline__ void wgmma_ss_n64_set(float (&d)[32], uint64_t a,
+                                                 uint64_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_O32(d)
+      : "l"(a), "l"(b), "r"(0)
+      : "memory");
 }
 
-// One warp's 16 x 32 output tile at rows m0, columns n0: acc[j] is the
-// m16n8 accumulator of columns n0 + 8j, and acc += A(m0.., k) B(k, n0..)
-// over k in [0, K) (a multiple of 16).  A(m, k) is a[m * lda + k], or
-// a[k * lda + m] if AT; B(k, n) is b[n * ldb + k], or b[k * ldb + n] if BT.
-// Accumulator element e of acc[j] is row m0 + g + 8 (e / 2), column
-// n0 + 8 j + 2 c + e % 2, with g = lane / 4 and c = lane % 4.
-template <bool AT, bool BT, int K>
-__device__ __forceinline__ void warp_mma(float (&acc)[4][4],
-                                         const __nv_bfloat16* a, int lda,
-                                         const __nv_bfloat16* b, int ldb,
-                                         int m0, int n0) {
-  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+// one 64-row tile of a {dh, heads, rows, B} tensor map into the swizzled
+// layout at dst, completing on bar: one box per 64-wide column block
+template <int DH>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int head, int row,
+                                         int b) {
 #pragma unroll
-  for (int k = 0; k < K; k += 16) {
-    uint32_t af[4];
-    if (AT)
-      ldsm_x4<true>(af, a + (k + (i >> 1) * 8 + r) * lda + m0 + (i & 1) * 8);
+  for (int c = 0; c < DH / SW_COLS; ++c)
+    tma_load(dst + c * 64 * SW_BYTES, map, bar, c * SW_COLS, head, row, b);
+}
+
+// d (64 x 64) = A B^T summed over dh: A and B 64-row tiles read K-major
+template <int DH>
+__device__ __forceinline__ void gemm_nt(float (&d)[32], uint32_t a,
+                                        uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t off = (kk / 4) * 64 * SW_BYTES + (kk % 4) * 32;
+    const uint64_t da = sw128_desc(a + off, 16, 8 * SW_BYTES);
+    const uint64_t db = sw128_desc(b + off, 16, 8 * SW_BYTES);
+    if (kk == 0)
+      wgmma_ss_n64_set(d, da, db);
     else
-      ldsm_x4<false>(af, a + (m0 + (i & 1) * 8 + r) * lda + k + (i >> 1) * 8);
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int nb = n0 + 16 * jj;
-      uint32_t bf[4];
-      if (BT)
-        ldsm_x4<true>(bf, b + (k + (i & 1) * 8 + r) * ldb + nb + (i >> 1) * 8);
-      else
-        ldsm_x4<false>(bf, b + (nb + (i >> 1) * 8 + r) * ldb + k + (i & 1) * 8);
-      mma_bf16(acc[2 * jj], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * jj + 1], af, bf[2], bf[3]);
-    }
+      wgmma_ss_n64(d, da, db, 1);
   }
 }
 
-__device__ __forceinline__ void zero_acc(float (&acc)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-}
-
-// v0, v1 as bf16 hi + lo pairs at hi[off], lo[off]: hi = bf16(v),
-// lo = bf16(v - hi)
-__device__ __forceinline__ void store_split2(__nv_bfloat16* hi,
-                                             __nv_bfloat16* lo, int off,
-                                             float v0, float v1) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  *reinterpret_cast<__nv_bfloat162*>(hi + off) = h;
-  *reinterpret_cast<__nv_bfloat162*>(lo + off) =
-      __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
-}
-
-// rows [r0, r0 + 64) of one head of a contiguous (B, n, heads, DH) bf16
-// array into shared memory with row stride DH + 8; rows past n are zeros
+// d (64 x DH) += A B: A (64 x 64) as bf16 fragments from registers, B a
+// 64-row tile whose rows are the 64 summed indices, read MN-major
 template <int DH>
-__device__ __forceinline__ void load_tile_bf16(
-    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int b, int r0,
-    int n, int heads, int head) {
-  constexpr int LD = DH + 8, CPR = DH / 8;  // 16-byte chunks a row
-  constexpr int ITERS = BWD_TILE * CPR / BWD_THREADS;
-  uint4 x[ITERS];
+__device__ __forceinline__ void gemm_rs(float (&d)[DH / 2],
+                                        const uint32_t (&a)[4][4],
+                                        uint32_t b) {
 #pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int i = threadIdx.x + it * BWD_THREADS;
-    const int r = i / CPR, c = (i % CPR) * 8;
-    x[it] = r0 + r < n ? *reinterpret_cast<const uint4*>(
-                             src + (((size_t)b * n + r0 + r) * heads + head) *
-                                       DH + c)
-                       : make_uint4(0, 0, 0, 0);
-  }
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int i = threadIdx.x + it * BWD_THREADS;
-    *reinterpret_cast<uint4*>(dst + (i / CPR) * LD + (i % CPR) * 8) = x[it];
-  }
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_tn<DH>(d, a[kk],
+                    sw128_desc(b + kk * 16 * SW_BYTES, 64 * SW_BYTES,
+                               8 * SW_BYTES));
 }
 
-// The warp's 16 x 32 of S = Q K^T and dP = dO V^T (rows m0, keys n0), then
-// P = exp(scale S - lse) on admissible pairs (0 elsewhere) and
-// dS = P (dP - D), stored split into bf16 hi + lo at [i][j] with row stride
-// MMA_LDP (P only when p_hi is not null).  S == T: the mask is the
-// forward's with no offset or length.
-template <int DH>
-__device__ __forceinline__ void softmax_grad_mma(
-    const __nv_bfloat16* sq, const __nv_bfloat16* sdo,
-    const __nv_bfloat16* sk, const __nv_bfloat16* sv, const float* slse,
-    const float* sdelta, __nv_bfloat16* p_hi, __nv_bfloat16* p_lo,
-    __nv_bfloat16* ds_hi, __nv_bfloat16* ds_lo, int m0, int n0, int q0,
-    int k0, int S, int causal, int window, float scale) {
-  constexpr int LD = DH + 8;
-  float s[4][4], dp[4][4];
-  zero_acc(s);
-  zero_acc(dp);
-  warp_mma<false, false, DH>(s, sq, LD, sk, LD, m0, n0);
-  warp_mma<false, false, DH>(dp, sdo, LD, sv, LD, m0, n0);
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+// a 64 x 64 accumulator fragment rounded to bf16 as the A fragments of a
+// product over its columns: for columns 16 kk .. 16 kk + 15, register e
+// holds elements 8 kk + 2 e and 8 kk + 2 e + 1
+__device__ __forceinline__ void to_a_frag(uint32_t (&a)[4][4],
+                                          const float (&x)[32]) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = m0 + g + 8 * h, qpos = q0 + i;
-    const float lse = slse[i], dlt = sdelta[i];
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float p[2], ds[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kpos = k0 + n0 + 8 * j + 2 * c + e;
-        bool ok = qpos < S && kpos < S;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        p[e] = ok ? expf(fmaf(s[j][2 * h + e], scale, -lse)) : 0.f;
-        ds[e] = p[e] * (dp[j][2 * h + e] - dlt);
-      }
-      const int off = i * MMA_LDP + n0 + 8 * j + 2 * c;
-      if (p_hi != nullptr) store_split2(p_hi, p_lo, off, p[0], p[1]);
-      store_split2(ds_hi, ds_lo, off, ds[0], ds[1]);
-    }
-  }
+    for (int e = 0; e < 4; ++e)
+      a[kk][e] = bf16x2_bits(
+          __floats2bfloat162_rn(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]));
 }
 
-// the warp's accumulator tile (rows m0 of a 64-row tile at r0, columns n0)
-// times `scale` into rows r0 + m of a (B, S, heads, DH) bf16 array
+// the training masks (S == T, no offsets or lengths)
+__device__ __forceinline__ bool admits(int qpos, int kpos, int S, int causal,
+                                       int window) {
+  bool ok = qpos < S && kpos < S;
+  if (causal) ok = ok && kpos <= qpos;
+  if (window > 0) ok = ok && kpos > qpos - window;
+  return ok;
+}
+
+// the 64 query rows from q0 against the 64 keys from k0: 0 if the masks
+// admit no pair, 1 if they admit every pair, 2 otherwise (masked per element)
+__device__ __forceinline__ int block_kind(int q0, int k0, int S, int causal,
+                                          int window) {
+  if (q0 >= S || k0 >= S || (causal && k0 > q0 + 63) ||
+      (window > 0 && k0 + 63 <= q0 - window))
+    return 0;
+  if (q0 + 64 > S || k0 + 64 > S || (causal && k0 + 63 > q0) ||
+      (window > 0 && k0 <= q0 + 63 - window))
+    return 2;
+  return 1;
+}
+
+// rows r0 and r0 + 8 of a (64 x DH) accumulator fragment, times scale, into
+// rows row0 + r of one head of a (B, S, heads, DH) bf16 array; rows at or
+// past S are not written
 template <int DH>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* dst,
-                                          const float (&acc)[4][4],
-                                          float scale, int b, int r0, int S,
-                                          int heads, int head, int m0,
-                                          int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
+                                           const float (&acc)[DH / 2],
+                                           float scale, int b, int row0,
+                                           int S, int heads, int head, int r0,
+                                           int tq) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + m0 + g + 8 * h;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r0 + 8 * r;
     if (row >= S) continue;
-    __nv_bfloat16* out = dst + (((size_t)b * S + row) * heads + head) * DH;
+    __nv_bfloat16* out =
+        dst + (((size_t)b * S + row) * heads + head) * DH + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + n0 + 8 * j + 2 * c) =
-          __floats2bfloat162_rn(acc[j][2 * h] * scale,
-                                acc[j][2 * h + 1] * scale);
+    for (int jn = 0; jn < DH / 8; ++jn)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * jn) =
+          __floats2bfloat162_rn(acc[4 * jn + 2 * r] * scale,
+                                acc[4 * jn + 2 * r + 1] * scale);
   }
 }
 
-// bf16: dK and dV of one 64-key tile as flash_bwd_dkdv_kernel, the products
-// on tensor cores.  Warp w owns rows (keys, or query rows in the score
-// stage) 16 (w % 4) and columns 32 (w / 4) + 64 u of each product.
+// bf16: dK and dV of one 64-key tile of KV head kvh, lane b, summed over
+// the G query heads of the group and the query tiles the masks admit.
+// Stationary: the tile's K and V.  Streamed by the producer warp: Q and dO
+// tiles of 64 query rows, with their lse and D.  The products run
+// transposed, so that P and dS stay in registers, and split between the
+// warpgroups, each holding one 64 x dh accumulator: warpgroup 0 computes
+// S^T = K Q^T, P^T = exp(scale S^T - lse) on the fragment (lse per column)
+// and dV += P^T dO; warpgroup 1 computes dP^T = V dO^T,
+// dS^T = P^T o (dP^T - D) with P^T handed over through shared memory (each
+// thread's fragment to the same thread of warpgroup 1), and dK += dS^T Q.
+// P^T and dS^T enter dV and dK rounded to bf16 as A fragments, dO and Q
+// read MN-major.
 template <int DH>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int S, int H,
-                          int KV, int causal, int window, float scale) {
-  using L = MmaLayout<DH>;
-  constexpr int LD = L::LD, U = DH / 64;
-  extern __shared__ __align__(16) uint8_t smem_bytes[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_bytes);
-  __nv_bfloat16* sv = sk + L::TILE;
-  __nv_bfloat16* sq = sv + L::TILE;
-  __nv_bfloat16* sdo = sq + L::TILE;
-  __nv_bfloat16* sp_hi = sdo + L::TILE;
-  __nv_bfloat16* sp_lo = sp_hi + L::PT;
-  __nv_bfloat16* sds_hi = sp_lo + L::PT;
-  __nv_bfloat16* sds_lo = sds_hi + L::PT;
-  float* slse = reinterpret_cast<float*>(sds_lo + L::PT);
-  float* sdelta = slse + BWD_TILE;
+__global__ void __launch_bounds__(BWD_WG_THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int S, int H,
+                            int KV, int causal, int window, float scale) {
+  using L = DkdvLayout<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bar_kv = base + L::BAR_OFF;
+  const uint32_t bar_full = bar_kv + 8;  // stage st: + 8 st
+  const uint32_t bar_empty = bar_full + 8 * BWD_STAGES;
+  const uint32_t bar_pt = bar_empty + 8 * BWD_STAGES;
 
-  const int k0 = blockIdx.x * BWD_TILE;  // tile 0, the most work, first
+  const int k0 = blockIdx.x * 64;  // tile 0, the most work, first
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
-  const int warp = threadIdx.x / 32;
-  const int m0 = 16 * (warp % 4), n0 = 32 * (warp / 4);
+  // query rows that admit a key of [k0, k0 + 64): causal q >= k0; window
+  // q < k + window for the tile's last key
   const int q_first = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(S, k0 + BWD_TILE - 1 + window) : S;
+  const int q_end = window > 0 ? min(S, k0 + 63 + window) : S;
+  const int n_q = q_first < q_end ? (q_end - q_first + 63) / 64 : 0;
+  const int n = G * n_q;  // tile j: head kvh G + j / n_q, tile j % n_q
 
-  load_tile_bf16<DH>(sk, k, b, k0, S, KV, kvh);
-  load_tile_bf16<DH>(sv, v, b, k0, S, KV, kvh);
-  float dk_acc[U][4][4], dv_acc[U][4][4];
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    zero_acc(dk_acc[u]);
-    zero_acc(dv_acc[u]);
-  }
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    for (int q0 = q_first; q0 < q_end; q0 += BWD_TILE) {
-      __syncthreads();  // the previous tile's Q, dO, P and dS are read
-      load_tile_bf16<DH>(sq, q, b, q0, S, H, h);
-      load_tile_bf16<DH>(sdo, dout, b, q0, S, H, h);
-      load_row_stats(slse, sdelta, lse, delta, b, q0, S, H, h);
-      __syncthreads();
-      softmax_grad_mma<DH>(sq, sdo, sk, sv, slse, sdelta, sp_hi, sp_lo,
-                           sds_hi, sds_lo, m0, n0, q0, k0, S, causal, window,
-                           scale);
-      __syncthreads();
-      // dV += P^T dO and dK += dS^T Q over the tile's 64 query rows
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int n = n0 + 64 * u;
-        warp_mma<true, true, BWD_TILE>(dv_acc[u], sp_hi, MMA_LDP, sdo, LD,
-                                       m0, n);
-        warp_mma<true, true, BWD_TILE>(dv_acc[u], sp_lo, MMA_LDP, sdo, LD,
-                                       m0, n);
-        warp_mma<true, true, BWD_TILE>(dk_acc[u], sds_hi, MMA_LDP, sq, LD,
-                                       m0, n);
-        warp_mma<true, true, BWD_TILE>(dk_acc[u], sds_lo, MMA_LDP, sq, LD,
-                                       m0, n);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < BWD_STAGES; ++st) {
+      mbar_init(bar_full + 8 * st, 32);  // the producer warp's lanes
+      mbar_init(bar_empty + 8 * st, 2 * WG);
+      mbar_init(bar_pt + 8 * st, WG);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+
+  // the warpgroup, uniform across the warp (a shuffle); warpgroup 2 is the
+  // producer warp
+  const int w = __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+  if (w == 2) {
+    const int lane = threadIdx.x - 2 * WG;
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::TILE);
+      tma_tile<DH>(base, &tm_k, bar_kv, kvh, k0, b);
+      tma_tile<DH>(base + L::TILE, &tm_v, bar_kv, kvh, k0, b);
+    }
+    // lse (times log2 e) and D of rows lane and lane + 32 of tile t, loaded
+    // a tile ahead (rows past S get 0: masked)
+    float st_l[2], st_d[2];
+    auto load_stats = [&](int t) {
+      const int h = kvh * G + t / n_q;
+      const int q0 = q_first + (t % n_q) * 64;
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
-    store_acc<DH>(dk, dk_acc[u], scale, b, k0, S, KV, kvh, m0, n0 + 64 * u);
-    store_acc<DH>(dv, dv_acc[u], 1.f, b, k0, S, KV, kvh, m0, n0 + 64 * u);
+      for (int r = 0; r < 2; ++r) {
+        const bool in = q0 + lane + 32 * r < S;
+        const size_t at = ((size_t)b * S + q0 + lane + 32 * r) * H + h;
+        st_l[r] = in ? lse[at] * LOG2E : 0.f;
+        st_d[r] = in ? delta[at] : 0.f;
+      }
+    };
+    if (n > 0) load_stats(0);
+    for (int t = 0; t < n; ++t) {  // tile t, once t - BWD_STAGES left
+      const int st = t % BWD_STAGES;
+      if (t >= BWD_STAGES)
+        mbar_wait(bar_empty + 8 * st, (t / BWD_STAGES - 1) & 1);
+      float* stat =
+          reinterpret_cast<float*>(smem + L::STAT_OFF + st * L::STAT_BYTES);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        stat[lane + 32 * r] = st_l[r];
+        stat[64 + lane + 32 * r] = st_d[r];
+      }
+      const uint32_t bar = bar_full + 8 * st;
+      if (lane == 0) {  // its arrival carries the tiles' bytes
+        const uint32_t dst = base + L::STAGE_OFF + st * 2 * L::TILE;
+        const int h = kvh * G + t / n_q;
+        const int q0 = q_first + (t % n_q) * 64;
+        mbar_expect_tx(bar, 2 * L::TILE);
+        tma_tile<DH>(dst, &tm_q, bar, h, q0, b);
+        tma_tile<DH>(dst + L::TILE, &tm_do, bar, h, q0, b);
+      } else {
+        mbar_arrive(bar);
+      }
+      if (t + 1 < n) load_stats(t + 1);
+    }
+    return;
   }
+
+  const int tid = threadIdx.x % WG;
+  const int warp = tid / 32, lane = tid % 32, tq = lane % 4;
+  // fragment: rows (keys) r0 and r0 + 8 of the tile; element i is row
+  // r0 + 8 ((i >> 1) & 1), column 8 (i / 4) + 2 tq + (i & 1)
+  const int r0 = 16 * warp + lane / 4;
+  const float c2 = scale * LOG2E;
+  float acc[DH / 2];  // dV (warpgroup 0) or dK (warpgroup 1), unscaled
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  mbar_wait(bar_kv, 0);
+
+  for (int j = 0; j < n; ++j) {
+    const int st = j % BWD_STAGES;
+    const int q0 = q_first + (j % n_q) * 64;
+    const uint32_t qb = base + L::STAGE_OFF + st * 2 * L::TILE;
+    const uint32_t dob = qb + L::TILE;
+    float* pt = reinterpret_cast<float*>(smem + L::PT_OFF + st * L::PT_BYTES);
+    const float* stat =
+        reinterpret_cast<const float*>(smem + L::STAT_OFF + st * L::STAT_BYTES);
+    mbar_wait(bar_full + 8 * st, (j / BWD_STAGES) & 1);
+    const int kind = block_kind(q0, k0, S, causal, window);
+    if (w == 0) {
+      if (kind != 0) {
+        float s[32];
+        uint32_t pa[4][4];
+        wgmma_fence();
+        gemm_nt<DH>(s, base, qb);  // S^T = K Q^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(s);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int c = 8 * (i / 4) + 2 * tq + (i & 1);
+          float p = fast_exp2(fmaf(s[i], c2, -stat[c]));
+          if (kind == 2 && !admits(q0 + c, k0 + r0 + 8 * ((i >> 1) & 1), S,
+                                   causal, window))
+            p = 0.f;
+          s[i] = p;
+        }
+        // P^T to warpgroup 1: element i of thread tid at float4 i / 4 of
+        // row tid (a warp's 32 float4 are contiguous)
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          *reinterpret_cast<float4*>(pt + (k * WG + tid) * 4) =
+              make_float4(s[4 * k], s[4 * k + 1], s[4 * k + 2], s[4 * k + 3]);
+        mbar_arrive(bar_pt + 8 * st);
+        to_a_frag(pa, s);
+        reg_fence(acc);
+        wgmma_fence();
+        gemm_rs<DH>(acc, pa, dob);  // dV += P^T dO
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(acc);
+      } else {
+        mbar_arrive(bar_pt + 8 * st);  // one phase a tile
+      }
+    } else if (kind != 0) {
+      float dp[32];
+      uint32_t dsa[4][4];
+      wgmma_fence();
+      gemm_nt<DH>(dp, base + L::TILE, dob);  // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dp);
+      mbar_wait(bar_pt + 8 * st, (j / BWD_STAGES) & 1);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float4 p4 =
+            *reinterpret_cast<const float4*>(pt + (k * WG + tid) * 4);
+        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * k + e;
+          const int c = 8 * (i / 4) + 2 * tq + (i & 1);
+          dp[i] = p[e] * (dp[i] - stat[64 + c]);
+        }
+      }
+      to_a_frag(dsa, dp);
+      reg_fence(acc);
+      wgmma_fence();
+      gemm_rs<DH>(acc, dsa, qb);  // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
+    }
+    mbar_arrive(bar_empty + 8 * st);  // this warpgroup is done with the stage
+  }
+  if (w == 0)
+    store_rows<DH>(dv, acc, 1.f, b, k0, S, KV, kvh, r0, tq);
+  else
+    store_rows<DH>(dk, acc, scale, b, k0, S, KV, kvh, r0, tq);
 }
 
-// bf16: dQ of one 64-row query tile as flash_bwd_dq_kernel, the products
-// on tensor cores; warps as in flash_bwd_dkdv_mma_kernel
+// bf16: dQ of 128 query rows of head h, lane b, over the key tiles the masks
+// admit.  Stationary: warpgroup w's 64 rows of Q and dO, with their lse
+// and D in registers.  Streamed by the producer warp: K and V tiles of 64
+// keys.  S = Q K^T and
+// dP = dO V^T; P and dS = P o (dP - D) on the fragment; dQ += dS K with dS
+// rounded to bf16 as A fragments and K read MN-major.
 template <int DH>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int S, int H, int KV,
-                        int causal, int window, float scale) {
-  using L = MmaLayout<DH>;
-  constexpr int LD = L::LD, U = DH / 64;
-  extern __shared__ __align__(16) uint8_t smem_bytes[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_bytes);
-  __nv_bfloat16* sv = sk + L::TILE;
-  __nv_bfloat16* sq = sv + L::TILE;
-  __nv_bfloat16* sdo = sq + L::TILE;
-  __nv_bfloat16* sds_hi = sdo + L::TILE;  // (the P tiles' room is unused)
-  __nv_bfloat16* sds_lo = sds_hi + L::PT;
-  float* slse = reinterpret_cast<float*>(sds_lo + 3 * L::PT);
-  float* sdelta = slse + BWD_TILE;
+__global__ void __launch_bounds__(BWD_WG_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int S, int H,
+                          int KV, int causal, int window, float scale) {
+  using L = DqLayout<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar_q = base + L::BAR_OFF;
+  const uint32_t bar_full = bar_q + 8;  // stage st: + 8 st
+  const uint32_t bar_empty = bar_full + 8 * BWD_STAGES;
 
   // causal: the last query tile has the most keys, so it runs first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BWD_TILE;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 128;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32;
-  const int m0 = 16 * (warp % 4), n0 = 32 * (warp / 4);
-  const int k_end = causal ? min(S, q0 + BWD_TILE) : S;
+  // keys admissible to a row of [q0, q0 + 128): causal k <= q; window
+  // k > q - window for the tile's first row
+  const int k_end = causal ? min(S, q0 + 128) : S;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_first = (k_lo / BWD_TILE) * BWD_TILE;
+  const int k_first = (k_lo / 64) * 64;
+  const int n = k_first < k_end ? (k_end - k_first + 63) / 64 : 0;
 
-  load_tile_bf16<DH>(sq, q, b, q0, S, H, h);
-  load_tile_bf16<DH>(sdo, dout, b, q0, S, H, h);
-  load_row_stats(slse, sdelta, lse, delta, b, q0, S, H, h);
-  float dq_acc[U][4][4];
-#pragma unroll
-  for (int u = 0; u < U; ++u) zero_acc(dq_acc[u]);
-
-  for (int k0 = k_first; k0 < k_end; k0 += BWD_TILE) {
-    __syncthreads();  // the previous tile's K and dS are read
-    load_tile_bf16<DH>(sk, k, b, k0, S, KV, kvh);
-    load_tile_bf16<DH>(sv, v, b, k0, S, KV, kvh);
-    __syncthreads();
-    softmax_grad_mma<DH>(sq, sdo, sk, sv, slse, sdelta, nullptr, nullptr,
-                         sds_hi, sds_lo, m0, n0, q0, k0, S, causal, window,
-                         scale);
-    __syncthreads();
-    // dQ += dS K over the tile's 64 keys
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      warp_mma<false, true, BWD_TILE>(dq_acc[u], sds_hi, MMA_LDP, sk, LD, m0,
-                                      n0 + 64 * u);
-      warp_mma<false, true, BWD_TILE>(dq_acc[u], sds_lo, MMA_LDP, sk, LD, m0,
-                                      n0 + 64 * u);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < BWD_STAGES; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, 2 * WG);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+
+  // the warpgroup, uniform across the warp (a shuffle); warpgroup 2 is the
+  // producer warp
+  const int w = __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+  if (w == 2) {  // one thread issues every load
+    if (threadIdx.x != 2 * WG) return;
+    mbar_expect_tx(bar_q, 4 * L::TILE);
+    for (int u = 0; u < 2; ++u) {
+      tma_tile<DH>(base + u * L::TILE, &tm_q, bar_q, h, q0 + 64 * u, b);
+      tma_tile<DH>(base + (2 + u) * L::TILE, &tm_do, bar_q, h, q0 + 64 * u,
+                   b);
+    }
+    for (int t = 0; t < n; ++t) {  // key tile t, once t - BWD_STAGES left
+      const int st = t % BWD_STAGES;
+      if (t >= BWD_STAGES)
+        mbar_wait(bar_empty + 8 * st, (t / BWD_STAGES - 1) & 1);
+      const uint32_t bar = bar_full + 8 * st;
+      const uint32_t dst = base + L::STAGE_OFF + st * 2 * L::TILE;
+      mbar_expect_tx(bar, 2 * L::TILE);
+      tma_tile<DH>(dst, &tm_k, bar, kvh, k_first + 64 * t, b);
+      tma_tile<DH>(dst + L::TILE, &tm_v, bar, kvh, k_first + 64 * t, b);
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x % WG;
+  const int warp = tid / 32, lane = tid % 32, tq = lane % 4;
+  // fragment: query rows r0 and r0 + 8 of the warpgroup's 64; element i is
+  // row r0 + 8 ((i >> 1) & 1), key 8 (i / 4) + 2 tq + (i & 1)
+  const int r0 = 16 * warp + lane / 4;
+  const int qw = q0 + 64 * w;
+  const uint32_t qa = base + w * L::TILE, doa = base + (2 + w) * L::TILE;
+  const float c2 = scale * LOG2E;
+  float lse2[2], dd[2];  // rows past S get 0 (masked)
 #pragma unroll
-  for (int u = 0; u < U; ++u)
-    store_acc<DH>(dq, dq_acc[u], scale, b, q0, S, H, h, m0, n0 + 64 * u);
+  for (int r = 0; r < 2; ++r) {
+    const bool in = qw + r0 + 8 * r < S;
+    const size_t at = ((size_t)b * S + qw + r0 + 8 * r) * H + h;
+    lse2[r] = in ? lse[at] * LOG2E : 0.f;
+    dd[r] = in ? delta[at] : 0.f;
+  }
+  float dq_acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dq_acc[i] = 0.f;
+  mbar_wait(bar_q, 0);
+
+  for (int j = 0; j < n; ++j) {
+    const int st = j % BWD_STAGES;
+    const int kt = k_first + 64 * j;
+    mbar_wait(bar_full + 8 * st, (j / BWD_STAGES) & 1);
+    const int kind = block_kind(qw, kt, S, causal, window);
+    if (kind != 0) {
+      const uint32_t kb = base + L::STAGE_OFF + st * 2 * L::TILE;
+      const uint32_t vb = kb + L::TILE;
+      float s[32], dp[32];
+      uint32_t dsa[4][4];
+      wgmma_fence();
+      gemm_nt<DH>(s, qa, kb);  // S = Q K^T
+      wgmma_commit();
+      gemm_nt<DH>(dp, doa, vb);  // dP = dO V^T
+      wgmma_commit();
+      wgmma_wait<1>();
+      reg_fence(s);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = fast_exp2(fmaf(s[i], c2, -lse2[r]));
+        if (kind == 2 && !admits(qw + r0 + 8 * r,
+                                 kt + 8 * (i / 4) + 2 * tq + (i & 1), S,
+                                 causal, window))
+          p = 0.f;
+        s[i] = p;
+      }
+      wgmma_wait<0>();
+      reg_fence(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dd[(i >> 1) & 1]);
+      to_a_frag(dsa, dp);
+      reg_fence(dq_acc);
+      wgmma_fence();
+      gemm_rs<DH>(dq_acc, dsa, kb);  // dQ += dS K
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dq_acc);
+    }
+    mbar_arrive(bar_empty + 8 * st);  // this warpgroup is done with the stage
+  }
+  store_rows<DH>(dq, dq_acc, scale, b, qw, S, H, h, r0, tq);
 }
 
-// D, then dK/dV and dQ: the FMA kernels for fp32, the mma.sync ones for
-// bf16
+// bf16: the tensor maps of q and dout (H heads) and k and v (KV heads), then
+// the dK/dV and dQ kernels
+template <int DH>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, void* dq, void* dk,
+                             void* dv, int B, int S, int H, int KV,
+                             int causal, int window, float scale,
+                             cudaStream_t stream) {
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  cudaError_t err = kv_map(&tm_q, q, B, S, H, DH);
+  if (err == cudaSuccess) err = kv_map(&tm_do, dout, B, S, H, DH);
+  if (err == cudaSuccess) err = kv_map(&tm_k, k, B, S, KV, DH);
+  if (err == cudaSuccess) err = kv_map(&tm_v, v, B, S, KV, DH);
+  if (err != cudaSuccess) return err;
+  const int smem_kv = DkdvLayout<DH>::BYTES, smem_q = DqLayout<DH>::BYTES;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_kv);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_q);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_wgmma_kernel<DH>
+      <<<dim3((S + 63) / 64, KV, B), BWD_WG_THREADS, smem_kv, stream>>>(
+          tm_q, tm_do, tm_k, tm_v, lse, delta,
+          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+          S, H, KV, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma_kernel<DH>
+      <<<dim3((S + 127) / 128, H, B), BWD_WG_THREADS, smem_q, stream>>>(
+          tm_q, tm_do, tm_k, tm_v, lse, delta,
+          static_cast<__nv_bfloat16*>(dq), S, H, KV, causal, window, scale);
+  return cudaGetLastError();
+}
+
+// CTAs per SM of the bf16 product kernels at their block size and shared
+// memory: out[0] dK/dV, out[1] dQ
+template <int DH>
+cudaError_t bwd_occupancy(int* out) {
+  const int smem_kv = DkdvLayout<DH>::BYTES, smem_q = DqLayout<DH>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma_kernel<DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_q);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, flash_bwd_dkdv_wgmma_kernel<DH>, BWD_WG_THREADS, smem_kv);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 1, flash_bwd_dq_wgmma_kernel<DH>, BWD_WG_THREADS, smem_q);
+  return err;
+}
+
+// D, then dK/dV and dQ: the FMA kernels for fp32, the wgmma ones for bf16
 template <typename T, int DH>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        void* dq, void* dk, void* dv, float* delta, int B,
                        int S, int H, int KV, int causal, int window,
                        float scale, cudaStream_t stream) {
-  constexpr bool MMA = sizeof(T) == 2;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
   const T* tdo = static_cast<const T*>(dout);
   const int rows = B * S * H;
   const int per_cta = BWD_THREADS / 32;
@@ -1581,27 +1824,16 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                                                delta, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int smem = MMA ? (int)MmaLayout<DH>::BYTES : (int)BwdLayout<DH>::BYTES;
-  const int tiles = (S + BWD_TILE - 1) / BWD_TILE;
-  const dim3 kv_grid(tiles, KV, B), q_grid(tiles, H, B);
-  if constexpr (MMA) {
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<DH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DH>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_mma_kernel<DH><<<kv_grid, BWD_THREADS, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        S, H, KV, causal, window, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_mma_kernel<DH><<<q_grid, BWD_THREADS, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, KV, causal,
-        window, scale);
+  if constexpr (sizeof(T) == 2) {
+    return launch_bwd_wgmma<DH>(q, k, v, dout, lse, delta, dq, dk, dv, B, S,
+                                H, KV, causal, window, scale, stream);
   } else {
+    const T* tq = static_cast<const T*>(q);
+    const T* tk = static_cast<const T*>(k);
+    const T* tv = static_cast<const T*>(v);
+    const int smem = (int)BwdLayout<DH>::BYTES;
+    const int tiles = (S + BWD_TILE - 1) / BWD_TILE;
+    const dim3 kv_grid(tiles, KV, B), q_grid(tiles, H, B);
     err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
@@ -1618,8 +1850,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     flash_bwd_dq_kernel<DH><<<q_grid, BWD_THREADS, smem, stream>>>(
         tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, KV, causal,
         window, scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1691,4 +1923,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     return launch_bwd<float, 64>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H,
                                  KV, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// CTAs per SM of the bf16 backward's dK/dV and dQ kernels: out[0], out[1]
+// at dh 64, out[2], out[3] at dh 128.  Returns the CUDA error (0 on
+// success).
+extern "C" int flash_attention_bwd_occupancy(int* out) {
+  cudaError_t err = bwd_occupancy<64>(out);
+  if (err == cudaSuccess) err = bwd_occupancy<128>(out + 2);
+  return (int)err;
 }

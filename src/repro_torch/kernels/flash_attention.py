@@ -17,8 +17,9 @@ on the H100 and how the design answers that.
 
 The backward has no TPU counterpart (the JAX package differentiates plain
 attention): :func:`flash_attention_bwd_cuda` launches the source's three
-kernels (D, then dK/dV and dQ, no atomics; the products on ``mma.sync``
-tensor cores in bf16, on FMA loops in fp32) for the training path's masks
+kernels (D, then dK/dV and dQ, no atomics; in bf16 warp-specialised
+kernels whose products run on ``wgmma`` with operands by TMA, in fp32 FMA
+loops) for the training path's masks
 only, from the forward's row log-sum-exp, which the forward writes when
 asked (``with_lse=True``).  :class:`FlashAttention` saves q, k, v, the
 output and the log-sum-exp and runs both.

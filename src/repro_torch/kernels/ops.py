@@ -16,8 +16,8 @@ from .flash_attention import (FlashAttention, _validate_attn_shapes,
                               check_bwd_scope, flash_attention_cuda)
 from .ref import (State, flash_attention_ref, flash_partial_ref, rmsnorm_ref,
                   ssd_scan_ref)
-from .ring_attention import (check_panel, flash_partial_cuda,
-                             ring_flash_attention)
+from .ring_attention import (check_no_grad, check_panel,
+                             flash_partial_cuda, ring_flash_attention)
 from .rmsnorm import RMSNorm
 from .ssd_scan import SSDScan
 
@@ -61,7 +61,10 @@ def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   delta: int, *, causal: bool = True,
                   window: Optional[int] = None) -> State:
     """One K/V panel visit of ring attention -> (acc, m, l) in fp32.  See
-    :func:`~repro_torch.kernels.ref.flash_partial_ref`."""
+    :func:`~repro_torch.kernels.ref.flash_partial_ref`.  It has no backward:
+    on either device, inputs that need gradients raise ValueError while
+    grad is enabled (:func:`~.ring_attention.check_no_grad`)."""
+    check_no_grad(q, k, v, "flash_partial")
     if _on_cuda(q):
         return flash_partial_cuda(q, k, v, delta, causal=causal,
                                   window=window)

@@ -46,6 +46,21 @@ def check_panel(H: int, KV: int, window: Optional[int]) -> None:
                          f"window={window} (every position would be masked)")
 
 
+def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  fn: str) -> None:
+    """Raise ValueError when autograd would record a panel visit: it has no
+    backward yet (K5 in ``ROADMAP.md``).  On the card the visit's outputs
+    would carry no ``grad_fn``, so q, k and v would get no gradient without
+    an error; on the CPU the plain visit's in-place steps break
+    ``.backward()``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise ValueError(
+            f"{fn} has no backward yet (K5, the ring's panel-visit "
+            "backward): call it under torch.no_grad(), or train through "
+            "flash attention on the gathered sequence")
+
+
 def flash_partial_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        delta: int, *, causal: bool = True,
                        window: Optional[int] = None) -> State:
@@ -105,7 +120,10 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sequence split in rank order over the P ranks of ``group``.  Returns
     the local (B, S/P, H, dh) output shard, equal to flash attention on the
     gathered sequence.  ``group=None`` is a ring of one rank (no process
-    group): plain flash attention, as the JAX package's ``axis_size=1``.
+    group): plain flash attention, as the JAX package's ``axis_size=1``,
+    which trains.  A ring of more ranks has no backward yet: inputs that
+    need gradients raise ValueError while grad is enabled
+    (:func:`check_no_grad`).
 
     Each round's hand-off of the current panel to the next rank is issued
     *before* the round's kernel, so the transfer has no dependency on it
@@ -126,6 +144,7 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _validate_attn_shapes(S_loc * P, T_loc * P, H, KV, window)
     if P == 1:
         return ops.flash_attention(q, k, v, causal=causal, window=window)
+    check_no_grad(q, k, v, "ring_flash_attention")
     backend = dist.get_backend(group)
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"ring attention carries panels over nccl or gloo; "

@@ -78,7 +78,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="train.py",
         description="Train a model on one device (PyTorch port).")
-    ap.add_argument("--arch", choices=list_archs(), default="mamba2-370m")
+    ap.add_argument("--arch", choices=list_archs(), default="qwen3-4b")
     ap.add_argument("--reduced", action="store_true",
                     help="shrink the model for local runs")
     ap.add_argument("--layers", type=int, default=None)

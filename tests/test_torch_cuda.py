@@ -441,9 +441,13 @@ def test_flash_partial_kernel_matches_plain_on_card(cuda_device, dtype, dh,
     assert bool((m[empty] == -1e30).all())
 
 
-# (S, causal, window): S off the 64-row tiles, windows off them, one tile
+# (S, causal, window): S off the 64-row tiles, windows off them, one tile;
+# then across the bf16 kernels' 128-row CTA tiles and their TMA ring: one
+# full 128-key tile and a partial one, a window across a 128-key boundary,
+# and many wraps of the three stages' parity
 FLASH_BWD_CASES = [(5, True, None), (100, True, None), (100, False, None),
-                   (100, True, 8), (130, False, 9), (64, True, 70)]
+                   (100, True, 8), (130, False, 9), (64, True, 70),
+                   (192, True, None), (300, True, 70), (2048, True, None)]
 
 
 @pytest.mark.gpu
@@ -479,6 +483,24 @@ def test_flash_backward_matches_plain_on_card(cuda_device, dtype, dh, H, S,
         assert g.dtype == dtype and torch.equal(g, g2)
         assert _rel_err(g, p) <= REL_TOL[dtype]
         assert _rel_err(g, a) <= REL_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_flash_partial_on_card_raises_under_grad(cuda_device):
+    """The panel visit has no backward (K5): on the card its outputs would
+    carry no ``grad_fn``, so an input that needs gradients raises while
+    grad is enabled, before any launch; under ``no_grad`` it launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device)
+               .bfloat16() for shape in ((1, 64, 8, 128), (1, 64, 2, 128),
+                                         (1, 64, 2, 128)))
+    launches = flash_partial_cuda.launches
+    with pytest.raises(ValueError, match="K5"):
+        ops.flash_partial(q, k.requires_grad_(), v, 0)
+    assert flash_partial_cuda.launches == launches
+    with torch.no_grad():
+        ops.flash_partial(q, k, v, 0)
+    assert flash_partial_cuda.launches == launches + 1
 
 
 @pytest.mark.gpu

@@ -118,6 +118,20 @@ def test_flash_partial_ref_matches_jax(H, KV, dh, causal, window, delta):
         assert not seen.any()           # a causally dead panel
 
 
+def test_flash_partial_under_grad_raises_naming_k5():
+    """The panel visit has no backward: an input that needs gradients
+    raises while grad is enabled, and under ``no_grad`` the visit runs."""
+    rng = np.random.default_rng(6)
+    q, k, v = map(torch.from_numpy, _qkv(rng, 1, S_LOC, T_LOC, 4, 2, 32))
+    with pytest.raises(ValueError, match="K5"):
+        ops.flash_partial(q.requires_grad_(), k, v, 0)
+    with torch.no_grad():
+        acc, m, l = ops.flash_partial(q, k, v, 0)
+    want = ops.flash_partial(q.detach(), k, v, 0)
+    for got, ref_ in zip((acc, m, l), want):
+        assert torch.equal(got, ref_)
+
+
 # ---------------------------------------------------------------------------
 # merge and finalize
 # ---------------------------------------------------------------------------
@@ -360,3 +374,79 @@ def test_ring_over_four_gloo_ranks_matches_jax(tmp_path):
     want = jax_attention(_jax_layer(tree), jnp.asarray(x), pos, cfg_j,
                          impl="ref")
     _close(_gather(tmp_path, "layer", (1, WORLD)), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# the ring under autograd, over 2 gloo ranks
+# ---------------------------------------------------------------------------
+
+GRAD_WORLD = 2
+GRAD_TIMEOUT_S = 120
+
+
+def _grad_worker(rank, world, init_file, out_dir, arrays, tree):
+    """One rank of a ring of ``world``: under grad, inputs that need
+    gradients make ``ring_flash_attention`` and ``attention(impl="ring")``
+    raise a ValueError naming K5; under ``no_grad`` the same call runs.
+    Saves the error messages and the ``no_grad`` output shard."""
+    torch.set_num_threads(1)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{init_file}",
+                     timeout_s=GRAD_TIMEOUT_S)
+    try:
+        mesh = make_ring_mesh(world, device_type="cpu")
+        group = mesh.get_group("seq")
+        q, k, v = (shard_sequence(torch.from_numpy(a), mesh) for a in arrays)
+        cfg_t = get_config("qwen3-4b").reduced().with_(dtype=torch.float32)
+        layer = params_from_jax(tree, cfg_t, device="cpu").blocks[0].attn
+        x = shard_sequence(torch.from_numpy(np.random.default_rng(12)
+                           .standard_normal((1, LAYER_S, cfg_t.d_model),
+                                            np.float32)), mesh)
+        pos = shard_sequence(torch.arange(LAYER_S, dtype=torch.int32)[None],
+                             mesh)
+        calls = {
+            "ring": lambda q_: ops.ring_flash_attention(q_, k, v, group=group),
+            "layer": lambda x_: attention(layer, x_, pos, cfg_t, impl="ring",
+                                          sp_group=group)}
+        errors = []
+        for name, call in calls.items():
+            leaf = (q if name == "ring" else x).clone().requires_grad_()
+            try:
+                call(leaf)
+            except ValueError as e:
+                errors.append(str(e))
+            else:
+                errors.append(f"{name}: no error")
+        with open(f"{out_dir}/errors-{rank}.txt", "w") as f:
+            f.write("\n".join(errors))
+        with torch.no_grad():
+            out = calls["ring"](q.clone().requires_grad_())
+        np.save(f"{out_dir}/nograd-{rank}.npy", out.numpy())
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_ring_under_grad_raises_naming_k5_on_two_gloo_ranks(tmp_path):
+    rng = np.random.default_rng(7)
+    arrays = _qkv(rng, 1, 64, 64, 4, 2, 32)
+    tree, _, _ = _layer(seed=2)
+    ctx = mp.start_processes(
+        _grad_worker, args=(GRAD_WORLD, str(tmp_path / "rendezvous"),
+                            str(tmp_path), arrays, tree),
+        nprocs=GRAD_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + GRAD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            assert time.monotonic() < deadline, "ring ranks timed out"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    for rank in range(GRAD_WORLD):
+        errors = (tmp_path / f"errors-{rank}.txt").read_text().splitlines()
+        assert len(errors) == 2
+        for msg in errors:
+            assert "K5" in msg and "torch.no_grad()" in msg, msg
+    want = jax_flash_ref(*map(jnp.asarray, arrays), causal=True)
+    _close(_gather(tmp_path, "nograd", (1, GRAD_WORLD)), np.asarray(want))

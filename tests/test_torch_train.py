@@ -222,6 +222,12 @@ def test_train_cli_runs_on_cpu_and_loss_falls(capsys):
     assert out.strip().endswith("done.")
 
 
+def test_train_cli_defaults_to_the_reference_arch():
+    """The reference's ``launch/train.py`` defaults to qwen3-4b."""
+    from repro_torch.launch.train import parse_args
+    assert parse_args([]).arch == "qwen3-4b"
+
+
 def test_train_needs_a_card_unless_told_cpu():
     from repro_torch.launch.train import main
     if torch.cuda.is_available():
