@@ -28,7 +28,9 @@ Phases (any failure exits non-zero before the final line is printed):
    spills, print those four kernels' CTAs per SM and any wgmma that ptxas
    serialised;
 2. hold each kernel against its plain PyTorch version on the card at the
-   serving and training paths' shapes, with the stated tolerances (the
+   serving and training paths' shapes (the flash forward also at the dense
+   engine's decode: S 1, non-causal, kv_len from 1 to T), with the stated
+   tolerances (the
    backward kernels against ``torch.autograd`` of the plain versions; the
    fp32 SSD cases against the plain version in float64, beside the fp32
    plain version's own distance from it; ring attention's panel visit at
@@ -79,9 +81,9 @@ Phases (any failure exits non-zero before the final line is printed):
    TFLOP/s of the attention kernels and SDPA; and what one RMSNorm call at
    the decode shape costs the host, by piece, beside the device time of an
    empty kernel;
-8. sequence-parallel attention at full qwen3-4b width (run before phase 7,
-   whose table reads its launches): 4 ranks on the one card, joined by a
-   gloo process group, each holding 8192 tokens of a 32768-token input,
+8. sequence-parallel attention at full qwen3-4b width: 4 ranks on the
+   one card, joined by a gloo process group, each holding 8192 tokens of
+   a 32768-token input,
    run one attention layer (random bf16 weights from seed 0, QK-norm) with
    ``impl="ring"``; the gathered output must lie within 2 bf16 ulps of the
    largest magnitude of single-process ``impl="flash"`` on the whole
@@ -105,14 +107,40 @@ Phases (any failure exits non-zero before the final line is printed):
 10. train a reduced fp32 qwen3-4b for three steps through
    ``repro_torch.launch.train`` on the card and on the CPU, from the same
    weights: the losses must agree (the card runs the fp32 flash forward and
-   the backward kernels, the CPU the plain attention).
+   the backward kernels, the CPU the plain attention);
+11. the dense-cache engine (``repro_torch.launch.serve.serve``) at
+   full-width qwen3-4b (random weights from seed 0, 36 layers): (a)
+   ``make_serve_step`` logits at every position of 2 lanes of 256 random
+   tokens against ``make_prefill_step`` logits on the same tokens, in bf16
+   within ``DECODE_VS_PREFILL_TOL`` of the largest logit, after the same
+   comparison in fp32 over 64 tokens within 1e-4; (b) ``serve`` on 8 lanes
+   of a 2048-token cache for 16 requests (prompts of 16-128 tokens, 32 new
+   tokens each; more requests than lanes, so slots are recycled): every
+   request completes, no plain version is called, the flash forward
+   launches once a layer a step; one decode step at mixed positions is
+   timed and profiled, and each of its 36 flash launches must read its
+   layer's cache in place, non-causal with a kv_len; then one request of
+   2040 + 32 tokens on one lane of the 2048-token cache, which wraps;
+   printed: step wall ms, device busy ms, kernels and flash launches a
+   step, plain calls, tok/s, KV-cache bytes and peak memory; (c) reduced
+   fp32 qwen3-4b through ``serve`` on the card and on the CPU from the same
+   weights, one request wrapping the cache: identical greedy tokens; (d)
+   the flash forward at the decode shape (B 8, S 1, T 2048, non-causal,
+   mixed kv_len) beside its bound, its plain version and SDPA with the
+   equivalent boolean mask; (e) ``make_prefill_step`` on full-width
+   mamba2-370m (2 x 2048 tokens, bf16), which must launch the SSD forward
+   once a layer and no backward, and on reduced fp32 mamba2-370m on the
+   card against the CPU within 1e-4 of the largest logit.
 
 Phase 7 also times the flash forward and backward at the dense training
 shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
-autograd backward (the library yardsticks, never on the port's path).  The phases run in the order 1, 2, 3, 4, 5, 6, 9, 10, 8, 7;
-the total seconds are printed before the final lines.
+autograd backward (the library yardsticks, never on the port's path).
+The phases run in the order 1, 2, 7, 3, 4, 5, 6, 9, 10, 11, 8: phase 7
+is the first to profile (``phase_timings`` says why), and its ``kernels``
+line, which reads every path's launches, is printed at the end; the total
+seconds are printed before the final lines.
 
 ``python3 chip_smoke.py --compare-flash-bwd PARENT_DIR`` runs none of
 the phases: it times the bf16 flash backward at the dense training shape
@@ -196,6 +224,22 @@ DENSE_BATCH, DENSE_SEQ, DENSE_STEPS, DENSE_LAYERS = 2, 4096, 6, 28
 DENSE_LR = 3e-5
 REMAT_LAYERS = 4
 WITNESS_LR, WITNESS_STEPS = 3e-4, 4
+# the dense-cache engine of phase 11 at full-width qwen3-4b: 8 lanes of a
+# 2048-token cache, 16 requests with prompts of 16-128 tokens and 32 new
+# tokens each; then one request of 2040 + 32 tokens on one lane, which
+# wraps the cache (its prompt fed a token a step: 2071 steps)
+DENSE_SERVE_LANES, DENSE_SERVE_CONTEXT = 8, 2048
+DENSE_SERVE_REQUESTS, DENSE_SERVE_NEW = 16, 32
+# decode against prefill, bf16 at 36 layers: 2 lanes of 256 tokens; at each
+# position the largest |difference| of the logits over the largest
+# |logit| of the prefill.  The two paths round differently (decode's
+# (B,1,d) products and cache reads against prefill's (B,S,d) products and
+# causal flash), a few bf16 ulps (2^-8) a layer compounding over 36
+# residual layers.  The same comparison in fp32 over 2 x 64 tokens, held
+# at REL_TOL["float32"], witnesses that the bf16 distance is rounding
+DECODE_VS_PREFILL_LANES, DECODE_VS_PREFILL_T = 2, 256
+DECODE_VS_PREFILL_TOL = 5e-2
+DECODE_VS_PREFILL_T_FP32 = 64
 
 
 def log(msg: str) -> None:
@@ -468,6 +512,10 @@ def flash_cases():
         ("all-masked rows", 2, 128, 64, dict(window=1)),
         ("not causal, kv_len", 2, 64, 200,
          dict(causal=False, kv_len=_i32([200, 57]))),
+        ("dense decode kv_len", 8, 1, DENSE_SERVE_CONTEXT,
+         dict(causal=False, kv_len=_i32(
+             [1, 2, 63, 64, 65, 1000, DENSE_SERVE_CONTEXT - 1,
+              DENSE_SERVE_CONTEXT]))),
     ]
 
 
@@ -480,13 +528,16 @@ GQA_SHAPES = [(8, 8, 128), (40, 8, 128), (16, 2, 128), (32, 8, 64),
 
 def gqa_flash_cases():
     """(name, B, S, T, kwargs) at small sizes for every GQA_SHAPES entry:
-    ragged S and T, a window, and decode at positions from -1 to T - 1."""
+    ragged S and T, a window, decode at positions from -1 to T - 1, and the
+    dense engine's decode (non-causal, kv_len from 1 to T)."""
     return [("ragged S=77 T=333", 2, 77, 333, {}),
             ("window 50, lanes", 2, 130, 200,
              dict(window=50, q_offset=_i32([0, 3]), kv_len=_i32([200, 150]))),
             ("decode", 6, 1, 300,
              dict(q_offset=_i32([-1, 0, 5, 64, 200, 299]),
-                  kv_len=_i32([300, 300, 3, 65, 150, 300])))]
+                  kv_len=_i32([300, 300, 3, 65, 150, 300]))),
+            ("dense decode", 6, 1, 300,
+             dict(causal=False, kv_len=_i32([1, 2, 64, 65, 150, 300])))]
 
 
 def phase_kernels():
@@ -1061,9 +1112,30 @@ def phase_serve():
     return launches
 
 
+# name fragments of the kernels of each category of device time
+KERNEL_CATEGORIES = {
+    "flash_fwd": ("flash_fwd_",), "flash_bwd": ("flash_bwd_",),
+    "rmsnorm": ("rmsnorm_",),
+    "gemm": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
+    "elementwise": ("elementwise",), "reduce": ("reduce",)}
+
+
+def _by_category(kernels, n=1):
+    """Device ms of the profiler's CUDA events by KERNEL_CATEGORIES, over
+    ``n`` runs."""
+    out = {c: 0.0 for c in [*KERNEL_CATEGORIES, "other"]}
+    for e in kernels:
+        cat = next((c for c, keys in KERNEL_CATEGORIES.items()
+                    if any(k in e.key for k in keys)), "other")
+        out[cat] += e.self_device_time_total / 1e3 / n
+    return out
+
+
 def profile_step(name, step, step_ms, n=3):
     """Device time by kernel over ``n`` steps (torch.profiler), and the
-    device's busy share of the step time measured without the profiler."""
+    device's busy share of the step time measured without the profiler.
+    Returns the device busy ms, the kernels of one step and its device ms
+    by category."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1077,11 +1149,15 @@ def profile_step(name, step, step_ms, n=3):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    per_step = sum(e.count for e in kernels) // n
+    cats = _by_category(kernels, n)
     log(f"[profile] {name} step: device busy {busy_ms:.3f} ms of "
         f"{step_ms:.3f} ms ({100 * busy_ms / step_ms:.1f}%), "
-        f"{sum(e.count for e in kernels) // n} kernels per step; top: "
+        f"{per_step} kernels per step; device ms by category: "
+        + ", ".join(f"{c} {ms:.3f}" for c, ms in cats.items()) + "; top: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f}"
                     f" ms x{e.count // n}" for e in top))
+    return busy_ms, per_step, cats
 
 
 # ---------------------------------------------------------------------------
@@ -1484,15 +1560,7 @@ def phase_dense_train():
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    categories = {"flash_fwd": ("flash_fwd_",), "flash_bwd": ("flash_bwd_",),
-                  "rmsnorm": ("rmsnorm_",),
-                  "gemm": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
-                  "elementwise": ("elementwise",), "reduce": ("reduce",)}
-    by_category = {c: 0.0 for c in [*categories, "other"]}
-    for e in kernels:
-        cat = next((c for c, keys in categories.items()
-                    if any(k in e.key for k in keys)), "other")
-        by_category[cat] += e.self_device_time_total / 1e3
+    by_category = _by_category(kernels)
     bwd_by_kernel = {k: sum(e.self_device_time_total for e in kernels
                             if k in e.key) / 1e3
                      for k in FLASH_BWD_KERNELS}
@@ -1593,6 +1661,305 @@ def phase_dense_cpu_vs_card():
         f"{losses['cuda']} cpu {losses['cpu']}; max relative diff "
         f"{worst:.2e} (tol {TRAIN_LOSS_RTOL:.0e})")
     check(worst <= TRAIN_LOSS_RTOL, f"dense losses differ by {worst}")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dense-cache engine at full-width qwen3-4b
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counted_serve_steps():
+    """Count the decode steps ``launch/serve.py::serve`` runs while the
+    block runs (its ``make_serve_step`` wrapped)."""
+    from repro_torch.launch import serve as serve_mod
+
+    steps = {"n": 0}
+    real = serve_mod.make_serve_step
+
+    def make(cfg):
+        step = real(cfg)
+
+        def counted(*args):
+            steps["n"] += 1
+            return step(*args)
+        return counted
+
+    serve_mod.make_serve_step = make
+    try:
+        yield steps
+    finally:
+        serve_mod.make_serve_step = real
+
+
+@contextlib.contextmanager
+def flash_routes():
+    """Check-only: record, for every launch of the flash forward through
+    ``ops.flash_attention`` while the block runs, the data pointer of its
+    keys, whether it is causal and whether it has a kv_len."""
+    from repro_torch.kernels import ops
+
+    routes = []
+    real = ops.flash_attention_cuda
+
+    def recording(q, k, v, **kw):
+        routes.append((k.data_ptr(), kw["causal"],
+                       kw.get("kv_len") is not None))
+        return real(q, k, v, **kw)
+
+    ops.flash_attention_cuda = recording
+    try:
+        yield routes
+    finally:
+        ops.flash_attention_cuda = real
+
+
+def _decode_vs_prefill(cfg, params, T, tol):
+    """Part (a): make_serve_step's logits at every position of 2 lanes of
+    T random tokens against make_prefill_step's on the same tokens; the
+    worst over positions of max |diff| / max |logit| must be within
+    ``tol``."""
+    import torch
+    from repro_torch.models import init_decode_state
+    from repro_torch.runtime.executor import make_prefill_step, make_serve_step
+
+    B = DECODE_VS_PREFILL_LANES
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                         device="cuda", dtype=torch.int32)
+    full = make_prefill_step(cfg)(params, {"tokens": toks}).float()
+    step = make_serve_step(cfg)
+    state = init_decode_state(cfg, B, T, device="cuda")
+    errs = []
+    for t in range(T):
+        logits, state = step(params, state, toks[:, t])
+        want = full[:, t]
+        errs.append((logits.float() - want).abs().max() / want.abs().max())
+    errs = torch.stack(errs).cpu()
+    worst = errs.max().item()
+    check(bool(torch.isfinite(full).all()), "prefill logits not finite")
+    what = str(cfg.dtype).replace("torch.", "")
+    log(f"[dense-serve] (a) decode vs prefill, {B} x {T} tokens, {what}: "
+        f"max |diff| / max |logit| per position: worst {worst:.3e} at "
+        f"t={int(errs.argmax())}, mean {errs.mean().item():.3e} "
+        f"(tol {tol:.0e})")
+    check(worst <= tol, f"{what} decode and prefill logits differ by "
+          f"{worst} of the largest")
+    return worst
+
+
+def _dense_decode_step(cfg, params):
+    """One decode step of 8 lanes over 2048-token caches at mixed
+    positions: its wall ms, device busy ms and kernels (profiler), and the
+    route of each flash launch, which must read the layer's cache in place,
+    non-causal with a kv_len."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import init_decode_state
+    from repro_torch.runtime.executor import make_serve_step
+
+    B, C = DENSE_SERVE_LANES, DENSE_SERVE_CONTEXT
+    step = make_serve_step(cfg)
+    state = init_decode_state(cfg, B, C, device="cuda")
+    state["index"] = _i32([16, 100, 300, 700, 1024, 1500, 2000, C - 1])
+    tok = _i32(list(range(1, B + 1)))
+    cache_ptrs = {c["k"].data_ptr() for c in state["caches"]}
+    before = flash_attention_cuda.launches
+    with flash_routes() as routes, plain_calls() as plain:
+        logits, _ = step(params, state, tok)
+        torch.cuda.synchronize()
+    flash = flash_attention_cuda.launches - before
+    check(flash == cfg.n_layers, f"one dense decode step launched flash "
+          f"{flash} times, not {cfg.n_layers}")
+    check(not plain, f"a decode step called plain versions: {plain}")
+    check(all(ptr in cache_ptrs and not causal and has_len
+              for ptr, causal, has_len in routes)
+          and len({ptr for ptr, _, _ in routes}) == cfg.n_layers,
+          f"a flash launch of the decode step did not read its layer's "
+          f"cache in place, non-causal with a kv_len: {routes}")
+    check(logits.shape == (B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "decode logits not finite")
+    ms = cuda_ms(lambda: step(params, state, tok), iters=10)
+    busy, kernels, cats = profile_step(
+        "dense decode", lambda: step(params, state, tok), ms)
+    return {"decode_step_ms": ms, "decode_busy_ms": busy,
+            "decode_device_ms_by_category": cats,
+            "kernels_per_step": kernels, "flash_per_step": flash,
+            "flash_reads_cache_in_place": True}
+
+
+def _dense_serve_cpu_vs_card():
+    """Part (c): reduced fp32 qwen3-4b through serve on the card and on the
+    CPU from the same weights, with requests that wrap the cache."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, serve
+    from repro_torch.models import init_lm
+
+    cfg = get_config("qwen3-4b").reduced().with_(dtype=torch.float32)
+    params_cpu = init_lm(cfg, seed=0, device="cpu")
+    params_gpu = copy.deepcopy(params_cpu).to("cuda")
+    rng = np.random.default_rng(2)
+    spec = [(rng.integers(0, cfg.vocab_size, int(rng.integers(5, 45))
+                          ).tolist(), int(rng.integers(4, 11)))
+            for _ in range(6)]
+    spec.append((rng.integers(0, cfg.vocab_size, 44).tolist(), 12))
+    tokens = {}
+    for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        reqs = [Request(i, p, n) for i, (p, n) in enumerate(spec)]
+        serve(cfg, reqs, 3, 48, verbose=False, device=dev, params=params)
+        tokens[dev] = [r.generated for r in reqs]
+    wraps = sum(len(p) + n > 48 for p, n in spec)
+    same = tokens["cpu"] == tokens["cuda"]
+    log(f"[dense-serve] (c) reduced fp32 qwen3-4b, {len(spec)} requests on 3 "
+        f"lanes of a 48-token cache ({wraps} wrap it): greedy tokens "
+        f"identical card vs cpu: {same}")
+    check(wraps >= 1, "no request wraps the cache")
+    check(same, f"card {tokens['cuda']} != cpu {tokens['cpu']}")
+
+
+def _ssm_prefill():
+    """make_prefill_step on mamba2-370m: at full width in bf16 (2 x 2048
+    tokens), where every layer launches the SSD forward and nothing else of
+    the SSD scan; and reduced in fp32 on the card against the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.runtime.executor import make_prefill_step
+
+    cfg = get_config("mamba2-370m")
+    params = init_lm(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (2, 2048), device="cuda",
+                         generator=gen)
+    counts = _zero_counts()
+    with plain_calls() as plain:
+        logits = make_prefill_step(cfg)(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    launches = counts()
+    check(not plain, f"the SSM prefill called plain versions: {plain}")
+    check(launches["ssd_scan"] == cfg.n_layers
+          and launches["ssd_scan_bwd"] == 0,
+          f"the SSM prefill launched {launches}")
+    check(logits.shape == (2, 2048, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "SSM prefill not finite")
+    del params, logits
+    small = cfg.reduced().with_(dtype=torch.float32)
+    p_cpu = init_lm(small, seed=0, device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    toks = torch.randint(0, small.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(4))
+    step = make_prefill_step(small)
+    want = step(p_cpu, {"tokens": toks})
+    got = step(p_gpu, {"tokens": toks.cuda()}).cpu()
+    err = rel_err(got, want)
+    log(f"[dense-serve] (e) SSM prefill: full-width mamba2-370m 2 x 2048 "
+        f"bf16 launched {launches['ssd_scan']} SSD forwards; reduced fp32 "
+        f"card vs cpu logits {err:.2e} of the largest (tol "
+        f"{REL_TOL['float32']:.0e})")
+    check(err <= REL_TOL["float32"], f"SSM prefill card vs cpu: {err}")
+    return launches
+
+
+def phase_dense_serve():
+    """Phase 11.  Returns the launches of part (b)'s serve run, of the SSM
+    prefill and the flash forward's times at the decode shape (part d)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, serve
+    from repro_torch.models import init_lm
+
+    # (a) in fp32 first, as a witness that bf16's distance is rounding
+    cfg = get_config("qwen3-4b").with_(dtype=torch.float32)
+    params = init_lm(cfg, seed=0, device="cuda")
+    worst_fp32 = _decode_vs_prefill(cfg, params, DECODE_VS_PREFILL_T_FP32,
+                                    REL_TOL["float32"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-4b")
+    params = init_lm(cfg, seed=0, device="cuda")
+    worst = _decode_vs_prefill(cfg, params, DECODE_VS_PREFILL_T,
+                               DECODE_VS_PREFILL_TOL)
+
+    # (b) the engine: 16 requests on 8 lanes of 2048 tokens, after a warm-up
+    lanes, context = DENSE_SERVE_LANES, DENSE_SERVE_CONTEXT
+    serve(cfg, [Request(-1, [1, 2, 3], 2)], lanes, context, verbose=False,
+          device="cuda", params=params)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                    int(rng.integers(16, 129))).tolist(),
+                    DENSE_SERVE_NEW) for i in range(DENSE_SERVE_REQUESTS)]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = _zero_counts()
+    with counted_serve_steps() as steps, plain_calls() as plain:
+        t0 = time.perf_counter()
+        serve(cfg, reqs, lanes, context, verbose=False, device="cuda",
+              params=params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in reqs:
+        check(r.done and len(r.generated) == DENSE_SERVE_NEW,
+              f"request {r.rid}: {len(r.generated)} of {DENSE_SERVE_NEW}")
+        check(all(0 <= t < cfg.vocab_size for t in r.generated),
+              f"request {r.rid}: token out of range")
+    check(not plain, f"the dense engine called plain versions: {plain}")
+    n = steps["n"]
+    check(launches["flash_attention"] == cfg.n_layers * n,
+          f"{launches['flash_attention']} flash launches in {n} steps")
+    for name in ("flash_attention", "rmsnorm"):
+        check(launches[name] > 0, f"{name} was never launched on the dense "
+              "engine's path")
+    new = sum(len(r.generated) for r in reqs)
+    kv_bytes = (cfg.n_layers * 2 * lanes * context * cfg.n_kv_heads * cfg.dh
+                * torch.finfo(cfg.dtype).bits // 8)
+    step = _dense_decode_step(cfg, params)
+
+    # the wrap: one request whose prompt and new tokens pass the context
+    wrap = Request(0, rng.integers(0, cfg.vocab_size,
+                                   context - 8).tolist(), DENSE_SERVE_NEW)
+    t0 = time.perf_counter()
+    serve(cfg, [wrap], 1, context, verbose=False, device="cuda",
+          params=params)
+    wrap_s = time.perf_counter() - t0
+    check(wrap.done and len(wrap.generated) == DENSE_SERVE_NEW
+          and all(0 <= t < cfg.vocab_size for t in wrap.generated),
+          f"the wrapping request gave {wrap.generated}")
+    result = {
+        "decode_vs_prefill_rel_err": worst, "tol": DECODE_VS_PREFILL_TOL,
+        "decode_vs_prefill_rel_err_fp32": worst_fp32,
+        "requests": len(reqs), "lanes": lanes, "context": context,
+        "new_tokens": new, "steps": n, "wall_s": wall, "tok_per_s": new / wall,
+        "step_wall_ms": 1e3 * wall / n, **step,
+        "rmsnorm_per_step": launches["rmsnorm"] / n,
+        "plain_calls": sum(plain.values()), "kv_cache_bytes": kv_bytes,
+        "peak_mem_gb": peak_gb,
+        "wrap": f"{len(wrap.prompt)} + {DENSE_SERVE_NEW} tokens on one lane "
+                f"of {context} in {wrap_s:.2f} s",
+    }
+    log("[dense-serve] (b) " + json.dumps(result))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _dense_serve_cpu_vs_card()
+
+    # (d) the kernel at the decode shape, mixed kv_len
+    t = _flash_timing(DENSE_SERVE_LANES, 1, DENSE_SERVE_CONTEXT, None,
+                      [16, 100, 300, 700, 1024, 1500, 2000, 2048],
+                      causal=False)
+    log(f"[dense-serve] (d) flash at {t['shape']}, mixed kv_len: "
+        f"kernel {t['ms']:.4f} ms ({t['launch_ms']:.4f} a launch), bound "
+        f"{t['bound_ms']:.5f} ({t['bound_by']}), plain {t['plain_ms']:.4f}, "
+        f"SDPA {t['library_ms']:.4f}")
+    prefill = _ssm_prefill()
+    return launches, prefill, t
 
 
 # ---------------------------------------------------------------------------
@@ -1786,9 +2153,10 @@ def _times(kernel, plain, library, *, iters=20, plain_iters=None):
     return out
 
 
-def _flash_timing(B, S, T, q_offset, kv_len):
+def _flash_timing(B, S, T, q_offset, kv_len, causal=True):
     """Times of the kernel, its plain version and SDPA, and the bound, at
-    one serving shape in bf16 (H=32, KV=8, dh=128)."""
+    one serving shape in bf16 (H=32, KV=8, dh=128); non-causal takes no
+    q_offset (the dense engine's decode)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -1799,18 +2167,23 @@ def _flash_timing(B, S, T, q_offset, kv_len):
     q = torch.randn(B, S, H, dh, generator=g, device="cuda").bfloat16()
     k = torch.randn(B, T, KV, dh, generator=g, device="cuda").bfloat16()
     v = torch.randn(B, T, KV, dh, generator=g, device="cuda").bfloat16()
-    kw = dict(q_offset=_i32(q_offset), kv_len=_i32(kv_len))
+    kw = dict(kv_len=_i32(kv_len))
     # admissible (query, key) pairs of these inputs, the keys read, and the
     # query rows read (those that admit a key); every output row written
-    qpos = kw["q_offset"][:, None].long() + torch.arange(S, device="cuda")
     kpos = torch.arange(T, device="cuda")
-    mask = ((kpos[None, None, :] <= qpos[:, :, None])
-            & (kpos[None, None, :] < kw["kv_len"].long()[:, None, None]))
+    mask = (kpos[None, None, :] < kw["kv_len"].long()[:, None, None]).expand(
+        B, S, T)
+    if causal:
+        kw["q_offset"] = _i32(q_offset)
+        qpos = kw["q_offset"][:, None].long() + torch.arange(S, device="cuda")
+        mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
+    else:
+        kw["causal"] = False
     pairs = mask.sum().item()
     keys = mask.any(1).sum().item()
     rows = mask.any(2).sum().item()     # query rows that admit a key
     n_bytes = (2 * (rows * H * dh + B * S * H * dh + 2 * keys * KV * dh)
-               + 8 * B)
+               + 4 * B * (2 if causal else 1))
     n_ops = 4 * pairs * H * dh
     bound, by = _bound_ms(n_bytes, n_ops, "bfloat16")
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
@@ -1820,7 +2193,8 @@ def _flash_timing(B, S, T, q_offset, kv_len):
                lambda: F.scaled_dot_product_attention(
                    qs, ks, vs, attn_mask=sdpa_mask, enable_gqa=True))
     return dict(t, bound_ms=bound, bound_by=by, gflop=n_ops / 1e9,
-                shape=f"B={B} S={S} T={T} H={H} KV={KV} dh={dh} bf16")
+                shape=f"B={B} S={S} T={T} H={H} KV={KV} dh={dh} bf16"
+                + ("" if causal else " non-causal"))
 
 
 def _flash_train_timing():
@@ -2134,8 +2508,16 @@ def _ssd_bwd_parts(call):
     return parts
 
 
-def phase_timings(errs, launches):
-    """launches: {path: {kernel: count}} read after each path's run."""
+def phase_timings():
+    """Phase 7's measurements: [(name, route, source, replaces, main shape,
+    {shape: times})] and the host costs of a decode-shape RMSNorm call.
+
+    It runs before every other phase that profiles: a torch.profiler
+    session in a process whose first session lies far behind, in time or
+    in kernels launched since, loses device events (on an H100, a session
+    of 5 kernels recorded 5, then 4, 3 and 1 of them after 1.1, 3.1 and
+    6.1 M launches, within a minute), and the short sessions of
+    :func:`_kernel_ms` may then find none."""
     decode_L = [300] * DECODE_SLOTS
     tokens = TRAIN_BATCH * TRAIN_SEQ
     ssd_fwd, ssd_bwd = _ssd_timing(TRAIN_BATCH, TRAIN_SEQ, 32, 64, 128, 64)
@@ -2179,9 +2561,19 @@ def phase_timings(errs, launches):
              "visible": _partial_timing(SP_LOCAL),
              "dead": _partial_timing(-SP_LOCAL)}),
     ]
-    host = _rmsnorm_host_costs()
+    return table, _rmsnorm_host_costs()
+
+
+def kernel_entries(timed, errs, launches, dense_decode):
+    """The ``kernels`` JSON line's entries, and a ``[time]`` line a shape:
+    ``timed`` from :func:`phase_timings`, ``launches`` {path: {kernel:
+    count}} read after each path's run, ``dense_decode`` phase 11's flash
+    times at the dense engine's decode shape."""
+    table, host = timed
     kernels = []
     for name, route, source, replaces, main_shape, by_shape in table:
+        if name == "flash_attention":
+            by_shape["dense_decode"] = dense_decode
         by_path = {path: counts[name] for path, counts in launches.items()}
         kernels.append({
             "name": name, "route": route, "source": source,
@@ -2263,14 +2655,17 @@ def main() -> int:
         phase_bf16_pds()
         phase_train_kernels(errs)
         phase_flash_bwd(errs)
+        timed = phase_timings()
         launches = {"serve": phase_serve()}
         phase_cpu_vs_card()
         launches["train"] = phase_train()
         phase_train_cpu_vs_card()
         launches["dense_train"] = phase_dense_train()
         phase_dense_cpu_vs_card()
+        (launches["dense_serve"], launches["ssm_prefill"],
+         dense_decode) = phase_dense_serve()
         launches["sp"] = phase_sp()
-        kernels = phase_timings(errs, launches)
+        kernels = kernel_entries(timed, errs, launches, dense_decode)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

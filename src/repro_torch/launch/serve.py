@@ -1,23 +1,35 @@
-"""Serving entry point of the port: the paged continuous-batching engine.
+"""Serving entry point of the port.
+
+Two engines behind one CLI, as in the JAX package:
+
+  * ``--engine paged`` (default): the continuous-batching engine over the
+    paged KV cache (``repro_torch.serving``).
+  * ``--engine dense``: the dense-cache reference, one KV ring buffer per
+    lane at full ``--context``, prompts fed one token per decode step
+    (:func:`serve`).
 
     python -m repro_torch.launch.serve --arch qwen3-4b --no-reduced \\
-        --requests 16 --batch 8 --max-new 32
+        --requests 16 --batch 8 --max-new 32 [--engine dense]
 
 Runs on the CUDA device unless ``--device cpu`` is given.  The JAX
-package's ``--engine dense`` reference and ``--plan`` (a searched v3 plan's
-serving section) are not ported yet (``ROADMAP.md``).
+package's ``--plan`` (a searched v3 plan's serving section) is not ported
+yet (``ROADMAP.md``).
 """
 from __future__ import annotations
 
 import argparse
-from typing import List
+import time
+from collections import deque
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_archs
-from repro_torch.models import init_lm
+from repro_torch.device import resolve_device
+from repro_torch.models import LM, init_decode_state, init_lm
 from repro_torch.models.common import ModelConfig
+from repro_torch.runtime.executor import make_serve_step
 from repro_torch.serving import (EngineConfig, ServeMetrics, ServeRequest,
                                  ServingEngine)
 
@@ -29,6 +41,75 @@ class Request:
         self.max_new = max_new
         self.generated: List[int] = []
         self.done = False
+
+
+def serve(cfg: ModelConfig, requests: List[Request], batch: int,
+          context: int, *, eos_id: Optional[int] = None, greedy: bool = True,
+          seed: int = 0, verbose: bool = True, device: torch.device = "cuda",
+          params: Optional[LM] = None) -> List[Request]:
+    """Dense-cache reference: one KV cache a layer, a slot a lane.
+
+    Each lane carries its own cache index, so a recycled slot restarts at
+    position 0 and the decode mask hides the previous request's K/V.
+    Prompts are fed one token a step; a lane stepped idle still advances
+    its index.  ``params`` defaults to random weights from ``seed``
+    (:func:`init_lm`); non-greedy sampling draws from a generator seeded
+    with ``seed``.  Generated tokens are written into each request."""
+    dev = resolve_device(device)
+    step = make_serve_step(cfg)
+    if params is None:
+        params = init_lm(cfg, seed=seed, device=dev)
+    elif params.embed.device != dev:
+        raise ValueError(f"params lie on {params.embed.device}, serve runs "
+                         f"on {dev}")
+    gen = None if greedy else torch.Generator(device=dev).manual_seed(seed)
+    with torch.inference_mode():
+        state = init_decode_state(cfg, batch, context, device=dev)
+        # the shared index -> per-lane positions
+        state["index"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        queue = deque(requests)
+        lanes: List[Optional[Request]] = [None] * batch
+        cursor = [0] * batch                  # next prompt position per lane
+        tok = np.zeros((batch,), np.int32)
+        n_steps = 0
+        t0 = time.perf_counter()
+        while queue or any(lane is not None for lane in lanes):
+            for i in range(batch):
+                if lanes[i] is None and queue:
+                    r = queue.popleft()
+                    lanes[i] = r
+                    cursor[i] = 1
+                    tok[i] = r.prompt[0]
+                    state["index"][i] = 0
+            logits, state = step(params, state, torch.tensor(tok, device=dev))
+            n_steps += 1
+            if greedy:
+                nxt = logits.argmax(-1).cpu().numpy()
+            else:
+                probs = torch.softmax(logits.float(), -1)
+                nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+                nxt = nxt.cpu().numpy()
+            for i in range(batch):
+                r = lanes[i]
+                if r is None:
+                    continue
+                if cursor[i] < len(r.prompt):     # still feeding the prompt
+                    tok[i] = r.prompt[cursor[i]]
+                    cursor[i] += 1
+                    continue
+                t = int(nxt[i])
+                r.generated.append(t)
+                tok[i] = t
+                if (eos_id is not None and t == eos_id) or \
+                        len(r.generated) >= r.max_new:
+                    r.done = True
+                    lanes[i] = None
+        dt = time.perf_counter() - t0
+    if verbose:
+        total_new = sum(len(r.generated) for r in requests)
+        print(f"served {len(requests)} requests, {total_new} tokens in "
+              f"{dt:.2f}s ({total_new / dt:.1f} tok/s, {n_steps} steps)")
+    return requests
 
 
 def serve_paged(cfg: ModelConfig, requests: List[Request],
@@ -78,12 +159,14 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         prog="serve.py",
         description="Serve synthetic requests with the paged "
-                    "continuous-batching engine (PyTorch port).")
+                    "continuous-batching engine or the dense reference "
+                    "(PyTorch port).")
     ap.add_argument("--arch", choices=list_archs(), default="qwen3-4b")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="shrink the model for local runs "
                          "(--no-reduced serves the full config)")
+    ap.add_argument("--engine", choices=("paged", "dense"), default="paged")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
     ap.add_argument("--requests", type=int, default=8)
@@ -93,11 +176,13 @@ def main(argv=None) -> None:
     ap.add_argument("--context", type=int, default=0,
                     help="per-lane context cap (0 = default 128)")
     ap.add_argument("--page-size", type=int, default=0,
-                    help="tokens per KV page (0 = default 16)")
+                    help="paged engine: tokens per KV page (0 = default 16)")
     ap.add_argument("--pages", type=int, default=0,
-                    help="shared pool pages per layer (0 = lanes x context)")
+                    help="paged engine: shared pool pages per layer "
+                         "(0 = lanes x context)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="prompt tokens per prefill call (0 = default 32)")
+                    help="paged engine: prompt tokens per prefill call "
+                         "(0 = default 32)")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -108,8 +193,12 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=4).tolist(),
                     args.max_new) for i in range(args.requests)]
-    serve_paged(cfg, reqs, engine_config_from_args(args), seed=args.seed,
-                device=args.device)
+    if args.engine == "paged":
+        serve_paged(cfg, reqs, engine_config_from_args(args), seed=args.seed,
+                    device=args.device)
+    else:
+        serve(cfg, reqs, args.batch or 4, args.context or 128,
+              eos_id=args.eos_id, seed=args.seed, device=args.device)
     for r in reqs[:3]:
         print(f"req {r.rid}: prompt={r.prompt} -> {r.generated[:8]}...")
 

@@ -1,12 +1,14 @@
 """Grouped-query attention with RoPE and optional QK-norm / QKV-bias: the
 full-sequence layer (:func:`attention`, whose ``impl="ring"`` is
-sequence-parallel ring attention) and the paged-cache layers of the serving
-path.  On the card the inner attention runs the flash-attention kernels
-(``kernels/ops.py``).
+sequence-parallel ring attention), the one-token decode layer over a dense
+ring or linear KV cache (:func:`attention_decode`) and the paged-cache
+layers of the serving path.  On the card the inner attention runs the
+flash-attention kernels (``kernels/ops.py``).
 
-The JAX package's pools are functional (``pool.at[...].set``).  Here the
-paged functions write K/V into the per-layer pools **in place**
-(``index_put_``) and return only the attention output.  Each pool has one
+The JAX package's caches and pools are functional (``cache.at[...].set``).
+Here the decode and paged functions write K/V into the per-layer caches and
+pools **in place** (``index_put_``).  The paged functions return only the
+attention output.  Each pool has one
 row more than the page table hands out: row ``N = pool.shape[0] - 1`` is a
 sink that receives the writes the JAX package drops (``mode="drop"``:
 inactive lanes, padding positions, unassigned pages), so no write needs a
@@ -20,6 +22,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -176,6 +179,74 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     return out.reshape(B, S, cfg.q_dim) @ p.wo
 
 
+def attention_decode(p: Attention, x: torch.Tensor, cache: Pool,
+                     cache_index: Union[int, torch.Tensor], cfg: ModelConfig,
+                     *, window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Pool]:
+    """One-token decode with a ring or linear KV cache.
+
+    x (B,1,d).  cache["k"/"v"]: (B, C, KV, dh) with C the full context or
+    the sliding window span (:func:`init_kv_cache`).  ``cache_index`` is the
+    number of tokens already in context, the new token's position: an int
+    or 0-d tensor shared by every lane, or (B,) when lanes sit at different
+    positions (the serve loop after slot recycling).  The new token's K/V
+    are written **in place** at slot ``index % C`` before the read.
+    Returns the output (B,1,d) through ``wo`` and ``cache``, the same
+    tensors.
+
+    Slot ``s`` holds position ``idx - ((idx - s) % C)``; the JAX package
+    admits it when that lies in [0, idx] and, with a window ``w``, above
+    ``idx - w``.  Softmax over the admitted keys ignores their order, and
+    each K was rotated at its own position, so the kernel reads the cache
+    as it lies:
+
+    * no window, or ``w >= C`` (every serving call: the window is at least
+      the span :func:`init_kv_cache` gives): the admitted slots are the
+      first ``min(idx + 1, C)``, a per-lane ``kv_len``, non-causal;
+    * ``w < C`` and no lane wrapped: causal at ``q_offset = idx``;
+    * ``w < C`` after a wrap (only when a caller passes a window shorter
+      than the span): the admitted slots form a cyclic range, so the cache
+      is gathered into position order (:func:`_ring_in_order`).  This copy
+      is off the serving path."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"decode takes one token per lane, got S={S}")
+    C = cache["k"].shape[1]
+    idx = torch.as_tensor(cache_index, device=x.device).to(
+        torch.int32).expand(B)
+    q, k, v = _project_qkv(p, x, cfg, idx.reshape(B, 1))
+    lane = torch.arange(B, device=x.device)
+    slot = (idx % C).long()
+    cache["k"][lane, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][lane, slot] = v[:, 0].to(cache["v"].dtype)
+    if window is None or window >= C:
+        out = ops.flash_attention(q, cache["k"], cache["v"], causal=False,
+                                  kv_len=(idx + 1).clamp(max=C))
+    elif not bool((idx >= C).any()):    # a host sync, off the serving path
+        out = ops.flash_attention(q, cache["k"], cache["v"], causal=True,
+                                  window=window, q_offset=idx)
+    else:
+        k_pos, v_pos, q_offset = _ring_in_order(cache, idx)
+        out = ops.flash_attention(q, k_pos, v_pos, causal=True,
+                                  window=window, q_offset=q_offset)
+    return out.reshape(B, 1, cfg.q_dim) @ p.wo, cache
+
+
+def _ring_in_order(cache: Pool, idx: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each lane's ring copied into position order: row ``j`` holds
+    position ``base + j`` with ``base = max(idx - C + 1, 0)`` (slot
+    ``(base + j) % C``; an unwrapped lane keeps its order), and the new
+    token's row ``idx - base`` as the q_offset.  A copy of the whole cache:
+    only :func:`attention_decode` with a window shorter than the span after
+    a wrap takes it."""
+    B, C = cache["k"].shape[:2]
+    base = (idx - C + 1).clamp(min=0)
+    order = (base[:, None] + torch.arange(C, device=idx.device)) % C
+    lane = torch.arange(B, device=idx.device)[:, None]
+    return cache["k"][lane, order], cache["v"][lane, order], idx - base
+
+
 def _gather_lanes(pool: Pool, page_rows: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each lane's pages as a linear (B, P*psz, KV, dh) view; unassigned
@@ -254,6 +325,21 @@ def attention_prefill_paged(p: Attention, x: torch.Tensor, pool: Pool,
                               window=_kernel_window(window, gk.shape[1]),
                               q_offset=q_offset, kv_len=kv_len)
     return out.reshape(B, S, cfg.q_dim) @ p.wo
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, context: int, *,
+                  dtype: Optional[torch.dtype] = None,
+                  device: torch.device = "cuda") -> Pool:
+    """K/V cache of one layer for :func:`attention_decode`: (batch, span,
+    KV, dh) zeros in ``dtype`` (the model's by default), where the span is
+    ``context``, or the config's sliding window when that is shorter."""
+    span = (context if cfg.sliding_window is None
+            else min(context, cfg.sliding_window))
+    shape = (batch, span, cfg.n_kv_heads, cfg.dh)
+    dev = resolve_device(device)
+    dt = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
 def init_page_pool(cfg: ModelConfig, n_pages: int, page_size: int, *,

@@ -1,5 +1,6 @@
 """Decoder-only language models (dense and SSM): training forward and loss,
-and the dense model's paged serving steps.
+the dense model's decode step over dense KV caches, and its paged serving
+steps.
 
 The JAX package stacks the L blocks' weights with a leading layer axis and
 runs them with ``lax.scan``; here the model is an ``nn.Module`` holding a
@@ -14,17 +15,19 @@ layout (``x @ w``, ``w`` of shape (d_in, d_out)) and names::
     head        (d, V), or None when the embeddings are tied
 
 Parameters are trainable; the serving steps run under
-``torch.inference_mode()``.  Training (:func:`lm_forward`,
-:func:`lm_loss`) covers every arch that :func:`build_stacks` builds, dense
-and SSM; on the card an attention layer's gradients run through the
-flash-attention backward kernel.  ``remat_segments`` ports the JAX
+``torch.inference_mode()``.  Decode (:func:`decode_step`, dense-cache or
+paged) covers pure-attention decoders; SSM decode is not ported yet.
+Training (:func:`lm_forward`, :func:`lm_loss`) covers every arch that
+:func:`build_stacks` builds, dense and SSM; on the card an attention
+layer's gradients run through the flash-attention backward kernel.
+``remat_segments`` ports the JAX
 package's per-segment remat (``apply_stack(remat=...)``, ``jax.checkpoint``
 around each scanned block) as ``torch.utils.checkpoint`` around each block
 of the segment: its activations are recomputed in the backward.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -32,9 +35,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
-from .attention import (Attention, Pool, attention, attention_decode_paged,
-                        attention_prefill_paged, init_attention,
-                        init_page_pool)
+from .attention import (Attention, Pool, attention, attention_decode,
+                        attention_decode_paged, attention_prefill_paged,
+                        init_attention, init_kv_cache, init_page_pool)
 from .common import ModelConfig
 from .embedding import embed, init_embedding
 from .layers import cross_entropy_loss, init_dense, rms_norm
@@ -177,6 +180,57 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     return loss + cfg.router_aux_coef * aux
 
 
+# --------------------------------------------------------------------------
+# decode over dense KV caches
+# --------------------------------------------------------------------------
+
+def check_dense_decode(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless the port decodes ``cfg``: dense
+    decoders only.  The JAX package also decodes SSM and hybrid models;
+    SSM serving is the port's next slice."""
+    if cfg.arch_type in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"the port decodes pure-attention models only so far; "
+            f"{cfg.name!r} has arch_type={cfg.arch_type!r}: SSM serving "
+            "(ssd_step, init_ssm_state, ssm_block_decode) is the next slice")
+    build_stacks(cfg)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, context: int, *,
+                      device: torch.device = "cuda") -> Dict[str, Any]:
+    """``{"caches": one K/V cache per layer (:func:`init_kv_cache`),
+    "index": 0-d int32}``; the serve loop makes ``index`` per lane (B,)."""
+    check_dense_decode(cfg)
+    dev = resolve_device(device)
+    return {"caches": [init_kv_cache(cfg, batch, context, device=dev)
+                       for _ in range(cfg.n_layers)],
+            "index": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def decode_step(params: LM, state: Dict[str, Any], token: torch.Tensor,
+                cfg: ModelConfig, *, window: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step: token (B,) -> logits (B, V) and the new state.
+
+    The token's K/V are written into ``state["caches"]`` in place; the new
+    state holds the same caches and ``index + 1``.  Attention takes
+    ``window``, else the config's ``sliding_window``."""
+    check_dense_decode(cfg)
+    x = embed(params.embed, token)[:, None, :]
+    index = state["index"]
+    win = window if window is not None else cfg.sliding_window
+    x = _cache_layers(
+        params, state["caches"], x, cfg,
+        lambda p, h, cache: attention_decode(p, h, cache, index, cfg,
+                                             window=win)[0])
+    return (_logits(params, x, cfg)[:, 0],
+            {"caches": state["caches"], "index": index + 1})
+
+
+# --------------------------------------------------------------------------
+# paged decode (serving engine)
+# --------------------------------------------------------------------------
+
 def supports_paged_decode(cfg: ModelConfig) -> bool:
     """Paged serving covers pure-attention decoders; SSM/hybrid state is not
     paged and enc-dec needs cross-attention."""
@@ -196,11 +250,13 @@ def init_paged_state(cfg: ModelConfig, n_pages: int, page_size: int, *,
             for _ in range(cfg.n_layers)]
 
 
-def _paged_layers(params: LM, pools: List[Pool], x: torch.Tensor,
+def _cache_layers(params: LM, caches: List[Pool], x: torch.Tensor,
                   cfg: ModelConfig,
                   attn_fn: Callable[[Attention, torch.Tensor, Pool],
                                     torch.Tensor]) -> torch.Tensor:
-    for blk, pool in zip(params.blocks, pools):
+    """The dense blocks over one cache or pool a layer: ln1, ``attn_fn``,
+    residual, ln2, SwiGLU, residual."""
+    for blk, pool in zip(params.blocks, caches):
         h = rms_norm(x, blk.ln1, cfg.norm_eps)
         x = x + attn_fn(blk.attn, h, pool)
         h = rms_norm(x, blk.ln2, cfg.norm_eps)
@@ -219,7 +275,7 @@ def paged_decode_step(params: LM, pools: List[Pool], token: torch.Tensor,
     new tokens' K/V are written into ``pools`` in place."""
     x = embed(params.embed, token)[:, None, :]
     win = window if window is not None else cfg.sliding_window
-    x = _paged_layers(
+    x = _cache_layers(
         params, pools, x, cfg,
         lambda p, h, pool: attention_decode_paged(
             p, h, pool, page_rows, lengths, cfg, window=win))
@@ -237,7 +293,7 @@ def paged_prefill_step(params: LM, pools: List[Pool], tokens: torch.Tensor,
     B, S = tokens.shape
     x = embed(params.embed, tokens)
     win = window if window is not None else cfg.sliding_window
-    x = _paged_layers(
+    x = _cache_layers(
         params, pools, x, cfg,
         lambda p, h, pool: attention_prefill_paged(
             p, h, pool, page_rows, base, prompt_len, cfg, window=win))

@@ -1,2 +1,2 @@
-"""Device steps of the port (``runtime/executor.py``): training and the
-paged serving steps."""
+"""Device steps of the port (``runtime/executor.py``): training, the
+dense-cache serving and prefill steps, and the paged serving steps."""

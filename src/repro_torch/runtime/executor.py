@@ -1,11 +1,12 @@
-"""Device steps: training and the serving engine's (``runtime/executor.py``
-counterpart), on one device.
+"""Device steps: training, prefill, the dense-cache decode step and the
+serving engine's (``runtime/executor.py`` counterpart), on one device.
 
 The JAX package jit-compiles each step with shardings and donated buffers.
 PyTorch runs eagerly, so a built step is the model function itself: the
 training step runs value-and-grad of ``lm_loss`` and the AdamW update, which
-writes the parameters and optimizer state in place; the serving steps run
-under ``torch.inference_mode()`` and update the pools in place.
+writes the parameters and optimizer state in place; the prefill and serving
+steps run under ``torch.inference_mode()``, and the serving steps update the
+caches or pools in place.
 """
 from __future__ import annotations
 
@@ -16,8 +17,10 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Pool
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import (LM, build_stacks, init_lm,
-                                            lm_loss, paged_decode_step,
+from repro_torch.models.transformer import (LM, build_stacks,
+                                            check_dense_decode, decode_step,
+                                            init_lm, lm_forward, lm_loss,
+                                            paged_decode_step,
                                             paged_prefill_step)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
@@ -53,6 +56,36 @@ def make_train_step(cfg: ModelConfig,
         metrics = adamw_update(leaves, grads, opt_state, opt_cfg)
         metrics["loss"] = loss.detach()
         return metrics
+
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig
+                      ) -> Callable[[LM, Dict[str, torch.Tensor]],
+                                    torch.Tensor]:
+    """``(params, batch)`` -> logits (B, S, V): the inference forward of
+    ``batch["tokens"]`` (B, S), :func:`lm_forward` without the loss, for
+    every arch the port builds.  Raises NotImplementedError for another."""
+    build_stacks(cfg)
+
+    @torch.inference_mode()
+    def step(params: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return lm_forward(params, batch["tokens"], cfg)[0]
+
+    return step
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable[..., Tuple[torch.Tensor,
+                                                            Dict[str, Any]]]:
+    """``(params, state, token (B,))`` -> ``(logits (B, V), state)``: one
+    decode step on the dense KV caches of ``init_decode_state``, written in
+    place.  Raises NotImplementedError for SSM and hybrid archs."""
+    check_dense_decode(cfg)
+
+    @torch.inference_mode()
+    def step(params: LM, state: Dict[str, Any], token: torch.Tensor
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        return decode_step(params, state, token, cfg)
 
     return step
 

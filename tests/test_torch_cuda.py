@@ -30,6 +30,8 @@ formulation on the same output and log-sum-exp) and ``torch.autograd`` of
 log-sum-exp against ``flash_attention_lse_ref`` at the forward's, and a
 second call must give the same bits (no atomics).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -112,6 +114,75 @@ def test_flash_kernel_decode_matches_plain_on_card(cuda_device, dtype, dh,
                                        kv_len=kv_len)
         assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
         assert bool((out[0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("H", GQA_HEADS)
+def test_flash_kernel_dense_decode_matches_plain_on_card(cuda_device, dtype,
+                                                         dh, H):
+    """The dense-cache engine's launch: one query row a lane (S = 1),
+    non-causal, a per-lane kv_len from 1 to T over a cache of T slots."""
+    T = 300
+    rng = np.random.default_rng(dh + H + 1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(cuda_device, dtype)
+               for shape in ((6, 1, H, dh), (6, T, 2, dh), (6, T, 2, dh)))
+    kv_len = torch.tensor([1, 2, 64, 65, 150, T], dtype=torch.int32,
+                          device=cuda_device)
+    out = flash_attention_cuda(q, k, v, causal=False, kv_len=kv_len)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=False, kv_len=kv_len)
+    assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 5], ids=["in-place", "gathered"])
+def test_attention_decode_on_card_matches_cpu(cuda_device, monkeypatch,
+                                              dtype, window):
+    """attention_decode over a ring of 8 slots for 12 tokens on the card
+    and on the CPU from the same weights.  With no window every launch
+    reads the cache tensors themselves, non-causal with a kv_len; with a
+    window of 5 the launches after the wrap read a gathered copy."""
+    from repro_torch.models.attention import (attention_decode,
+                                              init_attention, init_kv_cache)
+    from repro_torch.models.common import ModelConfig
+
+    cfg = ModelConfig(name="t", arch_type="dense", n_layers=1, d_model=256,
+                      n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=64,
+                      head_dim=64, qk_norm=True, dtype=dtype)
+    g = torch.Generator().manual_seed(0)
+    p_cpu = init_attention(cfg, generator=g, device=torch.device("cpu"))
+    p_gpu = copy.deepcopy(p_cpu).to(cuda_device)
+    caches = {dev: init_kv_cache(cfg, 2, 8, device=dev)
+              for dev in ("cpu", cuda_device)}
+    launches = []
+    real = ops.flash_attention_cuda
+
+    def recording(q, k, v, **kw):
+        launches.append((k.data_ptr() == caches[cuda_device]["k"].data_ptr(),
+                         kw["causal"], kw.get("kv_len") is not None))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention_cuda", recording)
+    xs = torch.randn(2, 12, 256, generator=g).to(dtype)
+    for t in range(12):
+        with torch.inference_mode():
+            want, _ = attention_decode(p_cpu, xs[:, t:t + 1], caches["cpu"],
+                                       t, cfg, window=window)
+            got, _ = attention_decode(p_gpu, xs[:, t:t + 1].to(cuda_device),
+                                      caches[cuda_device], t, cfg,
+                                      window=window)
+        torch.cuda.synchronize()
+        assert _rel_err(got.cpu(), want) <= REL_TOL[dtype], f"t={t}"
+    in_place = [(True, False, True)] * 12
+    if window is not None:      # causal in place, then gathered after t = 7
+        in_place = [(True, True, False)] * 8 + [(False, True, False)] * 4
+    assert launches == in_place
 
 
 @pytest.mark.gpu
