@@ -29,8 +29,11 @@ Phases (any failure exits non-zero before the final line is printed):
    serialised;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes (the flash forward also at the dense
-   engine's decode: S 1, non-causal, kv_len from 1 to T), with the stated
-   tolerances (the
+   engine's decode: S 1, non-causal, kv_len from 1 to T, and at zamba2's
+   shared block, H = KV = 32, dh 64: that decode at T 2048 and the causal
+   prefill of 2 x 2048; the SSD scan also at zamba2's H 64, P 64, N 64;
+   RMSNorm also at phase 12's decode rows, 8 x 1024, 2048 and 4096), with
+   the stated tolerances (the
    backward kernels against ``torch.autograd`` of the plain versions; the
    fp32 SSD cases against the plain version in float64, beside the fp32
    plain version's own distance from it; ring attention's panel visit at
@@ -130,14 +133,35 @@ Phases (any failure exits non-zero before the final line is printed):
    equivalent boolean mask; (e) ``make_prefill_step`` on full-width
    mamba2-370m (2 x 2048 tokens, bf16), which must launch the SSD forward
    once a layer and no backward, and on reduced fp32 mamba2-370m on the
-   card against the CPU within 1e-4 of the largest logit.
+   card against the CPU within 1e-4 of the largest logit;
+12. SSM and hybrid serving at full width (random weights from seed 0, 8
+   lanes) for mamba2-370m (48 layers) and zamba2-1.2b (38 layers, 6 calls
+   of the shared attention block a token): (a) in fp32, then bf16, each
+   mixer's decode against its prefill on the same input (the hidden state
+   the prefill hands that layer, 2 lanes of ``LAYERWISE_T`` tokens) within
+   ``REL_TOL`` of its dtype, and the logits of ``make_serve_step`` against
+   ``make_prefill_step`` at every position as in phase 11 (a), gated in
+   fp32 at ``SSM_LOGITS_FP32_TOL`` and printed in bf16 (the distance
+   compounds with depth, in the reference too); (b) ``serve`` of 16
+   requests (prompts of 16-128 tokens, 32 new tokens, zamba2's K/V caches
+   of 2048 tokens; lanes recycled): every request completes, no plain
+   version is called, no SSD scan is launched, the flash forward launches
+   once a shared-block call a step, reading its cache in place; printed:
+   tok/s, the decode step's wall and device-busy ms, kernels and flash
+   launches a step, peak memory beside the SSM state's, conv history's and
+   K/V caches' bytes; (c) reduced fp32 ``serve`` on the card and on the CPU
+   from the same weights with recycled lanes: identical greedy tokens; (d)
+   ``make_prefill_step`` on full-width zamba2-1.2b (2 x 2048 tokens, bf16),
+   which must launch the SSD forward once a layer and the flash forward
+   once a shared-block call, and reduced fp32 zamba2 on the card against
+   the CPU within 1e-4 of the largest logit.
 
 Phase 7 also times the flash forward and backward at the dense training
 shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
-The phases run in the order 1, 2, 7, 3, 4, 5, 6, 9, 10, 11, 8: phase 7
+The phases run in the order 1, 2, 7, 3, 4, 5, 6, 9, 10, 11, 12, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
 seconds are printed before the final lines.
@@ -240,6 +264,23 @@ DENSE_SERVE_REQUESTS, DENSE_SERVE_NEW = 16, 32
 DECODE_VS_PREFILL_LANES, DECODE_VS_PREFILL_T = 2, 256
 DECODE_VS_PREFILL_TOL = 5e-2
 DECODE_VS_PREFILL_T_FP32 = 64
+# phase 12, SSM and hybrid serving at full width: the archs, served on
+# phase 11's geometry (8 lanes, 16 requests of 16-128 prompt tokens and 32
+# new tokens; zamba2's shared-attention K/V caches of 2048 tokens); the
+# zamba2 shared block's attention: MHA, H = KV = 32, dh 64
+SSM_SERVE_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+ZAMBA2_HEADS = (32, 32, 64)
+# Decode against prefill on these random-weight SSM stacks compounds with
+# depth: a mixer's distance of an ulp or two grows about a hundredfold over
+# 48 layers, in the JAX package as in the port (tools/jax_decode_drift.py
+# prints the reference's), so phase 11's bf16 gate of 5e-2 on the logits
+# would fail the reference itself.  Phase 12 gates each mixer's decode
+# against its prefill on the same input (the hidden state the prefill hands
+# that layer, LAYERWISE_T tokens) at REL_TOL of its dtype; the logits'
+# distance is printed in both dtypes, gated in fp32 at SSM_LOGITS_FP32_TOL
+# and in bf16 not at all
+LAYERWISE_T = 64
+SSM_LOGITS_FP32_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -540,6 +581,17 @@ def gqa_flash_cases():
              dict(causal=False, kv_len=_i32([1, 2, 64, 65, 150, 300])))]
 
 
+def zamba2_flash_cases():
+    """(name, B, S, T, kwargs) of zamba2's shared attention block (H = KV
+    = 32, dh 64): the dense engine's decode over a 2048-token cache and the
+    causal prefill of 2 x 2048 tokens."""
+    return [("zamba2 decode kv_len", DENSE_SERVE_LANES, 1,
+             DENSE_SERVE_CONTEXT, dict(causal=False, kv_len=_i32(
+                 [1, 2, 63, 64, 65, 1000, DENSE_SERVE_CONTEXT - 1,
+                  DENSE_SERVE_CONTEXT]))),
+            ("zamba2 prefill", 2, 2048, 2048, {})]
+
+
 def phase_kernels():
     import torch
     from repro_torch.kernels import ref
@@ -554,6 +606,8 @@ def phase_kernels():
         cases += [(name, B, S, T, H, KV, dh, kw)
                   for H, KV, dh in GQA_SHAPES
                   for name, B, S, T, kw in gqa_flash_cases()]
+        cases += [(name, B, S, T, *ZAMBA2_HEADS, kw)
+                  for name, B, S, T, kw in zamba2_flash_cases()]
         for name, B, S, T, H, KV, dh, kw in cases:
             q = torch.randn(B, S, H, dh, generator=g, device="cuda").to(dt)
             k = torch.randn(B, T, KV, dh, generator=g, device="cuda").to(dt)
@@ -573,12 +627,16 @@ def phase_kernels():
                 check(bool((out[0] == 0).all()),
                       "a decode row with no admissible key is not zeros")
             errs["flash_attention"] = max(errs["flash_attention"], err)
-        # serving: prefill and decode rows at d_model and head_dim;
-        # training: ln1 / final_norm at d_model, the gated norm at d_inner;
-        # sequence parallel: the QK-norm of one rank's q and k
+        # serving: prefill and decode rows at d_model and head_dim, and
+        # SSM decode rows (8 x 1024: mamba2's ln1; 8 x 2048: its gated norm
+        # and zamba2's ln1; 8 x 4096: zamba2's gated norm); training: ln1 /
+        # final_norm at d_model, the gated norm at d_inner; sequence
+        # parallel: the QK-norm of one rank's q and k
         for shape in [(PREFILL_BATCH * PREFILL_CHUNK, 2560),
                       (PREFILL_BATCH * PREFILL_CHUNK * 32, 128),
                       (DECODE_SLOTS, 2560), (DECODE_SLOTS * 32, 128),
+                      (DECODE_SLOTS, 1024), (DECODE_SLOTS, 2048),
+                      (DECODE_SLOTS, 4096),
                       (TRAIN_BATCH * TRAIN_SEQ, 1024),
                       (TRAIN_BATCH * TRAIN_SEQ, 2048),
                       (SP_LOCAL * 32, 128), (SP_LOCAL * 8, 128)]:
@@ -816,8 +874,9 @@ def ssd_inputs(B, S, H, P, N, dtype, seed=0):
 
 def ssd_cases():
     """(name, B, S, H, P, N, chunk, dtypes): the reduced and full widths,
-    ragged S, S below a chunk, three heads of A from 1 to 16, and one layer
-    at the training shape."""
+    ragged S, S below a chunk, three heads of A from 1 to 16, one layer at
+    the training shape, and one zamba2 layer (H 64, P 64, N 64) at the
+    prefill of phase 12."""
     return [
         ("reduced width", 2, 64, 8, 64, 16, 16, ("float32", "bfloat16")),
         ("ragged S=333", 2, 333, 8, 64, 128, 64, ("float32", "bfloat16")),
@@ -825,6 +884,7 @@ def ssd_cases():
         ("S=100 H=3", 1, 100, 3, 64, 128, 64, ("float32",)),
         ("training layer", TRAIN_BATCH, TRAIN_SEQ, 32, 64, 128, 64,
          ("bfloat16",)),
+        ("zamba2 prefill", 2, 2048, 64, 64, 64, 64, ("float32", "bfloat16")),
     ]
 
 
@@ -1713,11 +1773,11 @@ def flash_routes():
         ops.flash_attention_cuda = real
 
 
-def _decode_vs_prefill(cfg, params, T, tol):
+def _decode_vs_prefill(cfg, params, T, tol, tag="[dense-serve] (a)"):
     """Part (a): make_serve_step's logits at every position of 2 lanes of
     T random tokens against make_prefill_step's on the same tokens; the
     worst over positions of max |diff| / max |logit| must be within
-    ``tol``."""
+    ``tol`` (None: printed, not gated)."""
     import torch
     from repro_torch.models import init_decode_state
     from repro_torch.runtime.executor import make_prefill_step, make_serve_step
@@ -1738,20 +1798,21 @@ def _decode_vs_prefill(cfg, params, T, tol):
     worst = errs.max().item()
     check(bool(torch.isfinite(full).all()), "prefill logits not finite")
     what = str(cfg.dtype).replace("torch.", "")
-    log(f"[dense-serve] (a) decode vs prefill, {B} x {T} tokens, {what}: "
+    log(f"{tag} decode vs prefill, {cfg.name} {B} x {T} tokens, {what}: "
         f"max |diff| / max |logit| per position: worst {worst:.3e} at "
         f"t={int(errs.argmax())}, mean {errs.mean().item():.3e} "
-        f"(tol {tol:.0e})")
-    check(worst <= tol, f"{what} decode and prefill logits differ by "
-          f"{worst} of the largest")
+        + (f"(tol {tol:.0e})" if tol else "(not gated)"))
+    check(tol is None or worst <= tol, f"{cfg.name} {what} decode and "
+          f"prefill logits differ by {worst} of the largest")
     return worst
 
 
-def _dense_decode_step(cfg, params):
+def _dense_decode_step(cfg, params, tag="dense decode"):
     """One decode step of 8 lanes over 2048-token caches at mixed
     positions: its wall ms, device busy ms and kernels (profiler), and the
-    route of each flash launch, which must read the layer's cache in place,
-    non-causal with a kv_len."""
+    route of each flash launch, which must read its cache (one an
+    attention call of the step: a layer's, or a hybrid's shared-block
+    call's) in place, non-causal with a kv_len."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.models import init_decode_state
@@ -1763,24 +1824,25 @@ def _dense_decode_step(cfg, params):
     state["index"] = _i32([16, 100, 300, 700, 1024, 1500, 2000, C - 1])
     tok = _i32(list(range(1, B + 1)))
     cache_ptrs = {c["k"].data_ptr() for c in state["caches"]}
+    n_attn = len(state["caches"])
     before = flash_attention_cuda.launches
     with flash_routes() as routes, plain_calls() as plain:
         logits, _ = step(params, state, tok)
         torch.cuda.synchronize()
     flash = flash_attention_cuda.launches - before
-    check(flash == cfg.n_layers, f"one dense decode step launched flash "
-          f"{flash} times, not {cfg.n_layers}")
-    check(not plain, f"a decode step called plain versions: {plain}")
+    check(flash == n_attn, f"one {tag} step launched flash {flash} times, "
+          f"not {n_attn}")
+    check(not plain, f"a {tag} step called plain versions: {plain}")
     check(all(ptr in cache_ptrs and not causal and has_len
               for ptr, causal, has_len in routes)
-          and len({ptr for ptr, _, _ in routes}) == cfg.n_layers,
-          f"a flash launch of the decode step did not read its layer's "
-          f"cache in place, non-causal with a kv_len: {routes}")
+          and len({ptr for ptr, _, _ in routes}) == n_attn,
+          f"a flash launch of the {tag} step did not read its cache in "
+          f"place, non-causal with a kv_len: {routes}")
     check(logits.shape == (B, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()), "decode logits not finite")
+          and bool(torch.isfinite(logits).all()), f"{tag} logits not finite")
     ms = cuda_ms(lambda: step(params, state, tok), iters=10)
     busy, kernels, cats = profile_step(
-        "dense decode", lambda: step(params, state, tok), ms)
+        tag, lambda: step(params, state, tok), ms)
     return {"decode_step_ms": ms, "decode_busy_ms": busy,
             "decode_device_ms_by_category": cats,
             "kernels_per_step": kernels, "flash_per_step": flash,
@@ -1818,31 +1880,35 @@ def _dense_serve_cpu_vs_card():
     check(same, f"card {tokens['cuda']} != cpu {tokens['cpu']}")
 
 
-def _ssm_prefill():
-    """make_prefill_step on mamba2-370m: at full width in bf16 (2 x 2048
-    tokens), where every layer launches the SSD forward and nothing else of
-    the SSD scan; and reduced in fp32 on the card against the CPU."""
+def _ssm_prefill(arch="mamba2-370m", tag="[dense-serve] (e)"):
+    """make_prefill_step on ``arch``: at full width in bf16 (2 x 2048
+    tokens), where every layer launches the SSD forward, a hybrid's every
+    shared-block call the flash forward, and nothing else of either; and
+    reduced in fp32 on the card against the CPU."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_lm
     from repro_torch.runtime.executor import make_prefill_step
 
-    cfg = get_config("mamba2-370m")
+    cfg = get_config(arch)
     params = init_lm(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(4)
     toks = torch.randint(0, cfg.vocab_size, (2, 2048), device="cuda",
                          generator=gen)
+    n_attn = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
     counts = _zero_counts()
     with plain_calls() as plain:
         logits = make_prefill_step(cfg)(params, {"tokens": toks})
         torch.cuda.synchronize()
     launches = counts()
-    check(not plain, f"the SSM prefill called plain versions: {plain}")
+    check(not plain, f"the {arch} prefill called plain versions: {plain}")
     check(launches["ssd_scan"] == cfg.n_layers
-          and launches["ssd_scan_bwd"] == 0,
-          f"the SSM prefill launched {launches}")
+          and launches["flash_attention"] == n_attn
+          and launches["ssd_scan_bwd"] == 0
+          and launches["flash_attention_bwd"] == 0,
+          f"the {arch} prefill launched {launches}")
     check(logits.shape == (2, 2048, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()), "SSM prefill not finite")
+          and bool(torch.isfinite(logits).all()), f"{arch} prefill not finite")
     del params, logits
     small = cfg.reduced().with_(dtype=torch.float32)
     p_cpu = init_lm(small, seed=0, device="cpu")
@@ -1853,11 +1919,12 @@ def _ssm_prefill():
     want = step(p_cpu, {"tokens": toks})
     got = step(p_gpu, {"tokens": toks.cuda()}).cpu()
     err = rel_err(got, want)
-    log(f"[dense-serve] (e) SSM prefill: full-width mamba2-370m 2 x 2048 "
-        f"bf16 launched {launches['ssd_scan']} SSD forwards; reduced fp32 "
-        f"card vs cpu logits {err:.2e} of the largest (tol "
+    log(f"{tag} {arch} prefill: full width 2 x 2048 bf16 launched "
+        f"{launches['ssd_scan']} SSD forwards and "
+        f"{launches['flash_attention']} flash forwards; reduced fp32 card vs "
+        f"cpu logits {err:.2e} of the largest (tol "
         f"{REL_TOL['float32']:.0e})")
-    check(err <= REL_TOL["float32"], f"SSM prefill card vs cpu: {err}")
+    check(err <= REL_TOL["float32"], f"{arch} prefill card vs cpu: {err}")
     return launches
 
 
@@ -1960,6 +2027,200 @@ def phase_dense_serve():
         f"SDPA {t['library_ms']:.4f}")
     prefill = _ssm_prefill()
     return launches, prefill, t
+
+
+# ---------------------------------------------------------------------------
+# phase 12: SSM and hybrid serving at full width
+# ---------------------------------------------------------------------------
+
+def _layerwise_decode_vs_prefill(cfg, params, T):
+    """Each mixer's decode against its prefill on the same input: the
+    hidden state that the prefill hands SSM layer i, (B,T,d), goes through
+    the layer's full-sequence block and, a token at a time, through
+    ``ssm_block_decode`` on a fresh state; likewise each shared-attention
+    call of a hybrid through ``attention`` and ``attention_decode``.
+    Returns max |diff| / max |prefill| of each mixer's output (before the
+    residual), in call order.  Unlike the logits', this distance does not
+    compound over the layers above."""
+    import torch
+    from repro_torch.models import init_decode_state
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.attention import attention, attention_decode
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.ssm import ssm_block, ssm_block_decode
+
+    B = DECODE_VS_PREFILL_LANES
+    dev = params.embed.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device=dev)
+    errs = []
+    with torch.inference_mode():
+        x = tr.embed(params.embed, toks)
+        pos = torch.arange(T, device=x.device).expand(B, T)
+        state = init_decode_state(cfg, B, T, device=x.device)
+        caches = iter(state["caches"])
+        sa = params.shared_attn
+        for _, i, j, shared in tr._segments(cfg):
+            for blk, st in zip(params.blocks[i:j], state["ssm_states"][i:j]):
+                h = rms_norm(x, blk.ln1, cfg.norm_eps)
+                want = ssm_block(blk.ssm, h, cfg)
+                got = torch.cat([ssm_block_decode(blk.ssm, h[:, t:t + 1], st,
+                                                  cfg)[0] for t in range(T)],
+                                dim=1)
+                errs.append(rel_err(got, want))
+                x = x + want
+            if shared and sa is not None:
+                h = rms_norm(x, sa.ln, cfg.norm_eps)
+                want = attention(sa.attn, h, pos, cfg,
+                                 window=cfg.sliding_window)
+                cache = next(caches)
+                got = torch.cat([attention_decode(
+                    sa.attn, h[:, t:t + 1], cache, t, cfg,
+                    window=cfg.sliding_window)[0] for t in range(T)], dim=1)
+                errs.append(rel_err(got, want))
+                x = x + want
+    return errs
+
+
+def _ssm_serve_cpu_vs_card(arch):
+    """Part (c): reduced fp32 ``arch`` (zamba2 at 5 layers: two shared-block
+    calls and a tail segment) through serve on the card and on the CPU from
+    the same weights: 6 requests on 2 lanes, so lanes are recycled."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, serve
+    from repro_torch.models import init_lm
+
+    cfg = get_config(arch).reduced().with_(dtype=torch.float32)
+    if cfg.attn_every:
+        cfg = cfg.with_(n_layers=5)
+    params_cpu = init_lm(cfg, seed=0, device="cpu")
+    params_gpu = copy.deepcopy(params_cpu).to("cuda")
+    rng = np.random.default_rng(5)
+    spec = [(rng.integers(0, cfg.vocab_size, int(rng.integers(3, 30))
+                          ).tolist(), int(rng.integers(4, 11)))
+            for _ in range(6)]
+    tokens = {}
+    for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        reqs = [Request(i, p, n) for i, (p, n) in enumerate(spec)]
+        serve(cfg, reqs, 2, 48, verbose=False, device=dev, params=params)
+        tokens[dev] = [r.generated for r in reqs]
+    same = tokens["cpu"] == tokens["cuda"]
+    log(f"[ssm-serve] (c) reduced fp32 {arch} ({cfg.n_layers} layers), "
+        f"{len(spec)} requests on 2 lanes (4 recycled): greedy tokens "
+        f"identical card vs cpu: {same}")
+    check(same, f"{arch}: card {tokens['cuda']} != cpu {tokens['cpu']}")
+
+
+def _ssm_serve(arch):
+    """Parts (a) to (c) for one arch.  Returns the launches of the serve
+    run of part (b)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, serve
+    from repro_torch.models import init_lm
+
+    # (a) in fp32 first, as a witness that bf16's distance is rounding
+    dist = {}
+    for dtype, T, tol in (("float32", DECODE_VS_PREFILL_T_FP32,
+                           SSM_LOGITS_FP32_TOL),
+                          ("bfloat16", DECODE_VS_PREFILL_T, None)):
+        cfg = get_config(arch).with_(dtype=getattr(torch, dtype))
+        params = init_lm(cfg, seed=0, device="cuda")
+        dist[f"logits_{dtype}"] = _decode_vs_prefill(cfg, params, T, tol,
+                                                     "[ssm-serve] (a)")
+        layers = _layerwise_decode_vs_prefill(cfg, params, LAYERWISE_T)
+        worst = max(layers)
+        dist[f"layerwise_{dtype}"] = worst
+        log(f"[ssm-serve] (a) {arch} {dtype}: each mixer's decode vs its "
+            f"prefill on the same input, {len(layers)} mixers x "
+            f"{LAYERWISE_T} tokens: worst {worst:.3e} (mixer "
+            f"{layers.index(worst)}), median "
+            f"{sorted(layers)[len(layers) // 2]:.3e} (tol "
+            f"{REL_TOL[dtype]:.0e})")
+        check(worst <= REL_TOL[dtype], f"{arch} {dtype}: a mixer's decode "
+              f"differs from its prefill by {worst} of the largest")
+        if dtype == "float32":
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # (b) the engine: 16 requests on 8 lanes, after a warm-up
+    lanes, context = DENSE_SERVE_LANES, DENSE_SERVE_CONTEXT
+    serve(cfg, [Request(-1, [1, 2, 3], 2)], lanes, context, verbose=False,
+          device="cuda", params=params)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                    int(rng.integers(16, 129))).tolist(),
+                    DENSE_SERVE_NEW) for i in range(DENSE_SERVE_REQUESTS)]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = _zero_counts()
+    with counted_serve_steps() as steps, plain_calls() as plain:
+        t0 = time.perf_counter()
+        serve(cfg, reqs, lanes, context, verbose=False, device="cuda",
+              params=params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in reqs:
+        check(r.done and len(r.generated) == DENSE_SERVE_NEW,
+              f"{arch} request {r.rid}: {len(r.generated)} of "
+              f"{DENSE_SERVE_NEW}")
+        check(all(0 <= t < cfg.vocab_size for t in r.generated),
+              f"{arch} request {r.rid}: token out of range")
+    check(not plain, f"{arch} serving called plain versions: {plain}")
+    n = steps["n"]
+    n_attn = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    check(launches["flash_attention"] == n_attn * n,
+          f"{arch}: {launches['flash_attention']} flash launches in {n} "
+          f"steps, not {n_attn} a step")
+    check(launches["rmsnorm"] > 0, f"rmsnorm was never launched serving "
+          f"{arch}")
+    check(launches["ssd_scan"] == 0 and launches["ssd_scan_bwd"] == 0,
+          f"{arch} decode launched the SSD scan: {launches}")
+    new = sum(len(r.generated) for r in reqs)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    state_bytes = {
+        "ssm_state_bytes": cfg.n_layers * lanes * H * P * N * 4,
+        "conv_bytes": (cfg.n_layers * lanes * (cfg.ssm_conv - 1)
+                       * (cfg.d_inner + 2 * N) * 4),
+        "kv_cache_bytes": (n_attn * 2 * lanes * context * cfg.n_kv_heads
+                           * cfg.dh * torch.finfo(cfg.dtype).bits // 8
+                           if n_attn else 0)}
+    step = _dense_decode_step(cfg, params, f"{arch} decode")
+    result = {
+        "arch": arch, "layers": cfg.n_layers,
+        **{f"decode_vs_prefill_{k}": v for k, v in dist.items()},
+        "requests": len(reqs), "lanes": lanes, "context": context,
+        "new_tokens": new, "steps": n, "wall_s": wall, "tok_per_s": new / wall,
+        "step_wall_ms": 1e3 * wall / n, **step,
+        "rmsnorm_per_step": launches["rmsnorm"] / n,
+        "plain_calls": sum(plain.values()), **state_bytes,
+        "peak_mem_gb": peak_gb,
+    }
+    log("[ssm-serve] (b) " + json.dumps(result))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _ssm_serve_cpu_vs_card(arch)
+    return launches
+
+
+def phase_ssm_serve():
+    """Phase 12.  Returns {path: launches}: each arch's serve run (part b)
+    and zamba2's full-width prefill (part d)."""
+    launches = {f"{arch.split('-')[0]}_serve": _ssm_serve(arch)
+                for arch in SSM_SERVE_ARCHS}
+    launches["zamba2_prefill"] = _ssm_prefill("zamba2-1.2b",
+                                              "[ssm-serve] (d)")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2153,16 +2414,17 @@ def _times(kernel, plain, library, *, iters=20, plain_iters=None):
     return out
 
 
-def _flash_timing(B, S, T, q_offset, kv_len, causal=True):
+def _flash_timing(B, S, T, q_offset, kv_len, causal=True,
+                  heads=(32, 8, 128)):
     """Times of the kernel, its plain version and SDPA, and the bound, at
-    one serving shape in bf16 (H=32, KV=8, dh=128); non-causal takes no
-    q_offset (the dense engine's decode)."""
+    one serving shape in bf16 (``heads`` (H, KV, dh): qwen3-4b's by
+    default); non-causal takes no q_offset (the dense engine's decode)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-    H, KV, dh = 32, 8, 128
+    H, KV, dh = heads
     g = torch.Generator(device="cuda").manual_seed(1)
     q = torch.randn(B, S, H, dh, generator=g, device="cuda").bfloat16()
     k = torch.randn(B, T, KV, dh, generator=g, device="cuda").bfloat16()
@@ -2413,10 +2675,10 @@ def _rmsnorm_bwd_timing(rows, d):
                 shape=f"rows={rows} d={d} bf16")
 
 
-def _ssd_timing(B, S, H, P, N, Q):
-    """Forward and backward at one shape in bf16; the plain backward is the
-    autograd backward of ssd_scan_ref.  No single PyTorch call computes the
-    scan, so there is no library time."""
+def _ssd_timing(B, S, H, P, N, Q, *, bwd=True):
+    """Forward and (with ``bwd``) backward at one shape in bf16; the plain
+    backward is the autograd backward of ssd_scan_ref.  No single PyTorch
+    call computes the scan, so there is no library time."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
@@ -2424,8 +2686,6 @@ def _ssd_timing(B, S, H, P, N, Q):
     leaves, views = ssd_inputs(B, S, H, P, N, torch.bfloat16, seed=5)
     with torch.no_grad():
         args = [t.detach() for t in views(*leaves)]
-    dy = torch.randn(B, S, H, P, device="cuda").bfloat16()
-    y_plain = ref.ssd_scan_ref(*views(*leaves), Q)
     fwd_ops, bwd_ops = _ssd_ops(B, S, H, P, N, Q)
     # bytes of the distinct elements: x, y (dx), dt (ddt); B and C (dB,
     # dC) once per batch and position: one group for all heads
@@ -2433,15 +2693,9 @@ def _ssd_timing(B, S, H, P, N, Q):
     shape = f"B={B} S={S} H={H} P={P} N={N} chunk={Q} bf16"
     fwd_bound, fwd_by = _bound_ms(seq + 2 * B * S * H * P, fwd_ops,
                                   "bfloat16")
-    bwd_bound, bwd_by = _bound_ms(2 * seq + 2 * B * S * H * P, bwd_ops,
-                                  "bfloat16")
     fwd = _times(lambda: ssd_scan_cuda(*args, Q),
                  lambda: ref.ssd_scan_ref(*args, Q), None, iters=10,
                  plain_iters=3)
-    bwd = _times(lambda: ssd_scan_bwd_cuda(dy, *args, Q),
-                 lambda: torch.autograd.grad(y_plain, leaves, dy,
-                                             retain_graph=True), None,
-                 iters=5, plain_iters=3)
     fwd_parts, names = _kernel_ms(lambda: ssd_scan_cuda(*args, Q),
                                   SSD_FWD_KERNELS)
     check(all(fwd_parts[k] > 0 for k in SSD_FWD_KERNELS)
@@ -2451,14 +2705,24 @@ def _ssd_timing(B, S, H, P, N, Q):
     log(f"[time] ssd_scan        {shape}: device ms by kernel (profiler, "
         "5 calls, mean a launch): " + ", ".join(
             f"{k} {v:.4f}" for k, v in fwd_parts.items()))
+    fwd = dict(fwd, bound_ms=fwd_bound, bound_by=fwd_by, shape=shape,
+               gflop=fwd_ops / 1e9, ms_by_kernel=fwd_parts)
+    if not bwd:
+        return fwd, None
+    dy = torch.randn(B, S, H, P, device="cuda").bfloat16()
+    y_plain = ref.ssd_scan_ref(*views(*leaves), Q)
+    bwd_bound, bwd_by = _bound_ms(2 * seq + 2 * B * S * H * P, bwd_ops,
+                                  "bfloat16")
+    bwd = _times(lambda: ssd_scan_bwd_cuda(dy, *args, Q),
+                 lambda: torch.autograd.grad(y_plain, leaves, dy,
+                                             retain_graph=True), None,
+                 iters=5, plain_iters=3)
     parts = _ssd_bwd_parts(lambda: ssd_scan_bwd_cuda(dy, *args, Q))
     log(f"[time] ssd_scan_bwd    {shape}: device ms by kernel (profiler, "
         "5 calls, mean a launch): " + ", ".join(
             f"{k} {v:.4f}" for k, v in parts.items()))
-    return (dict(fwd, bound_ms=fwd_bound, bound_by=fwd_by, shape=shape,
-                 gflop=fwd_ops / 1e9, ms_by_kernel=fwd_parts),
-            dict(bwd, bound_ms=bwd_bound, bound_by=bwd_by, shape=shape,
-                 gflop=bwd_ops / 1e9, ms_by_kernel=parts))
+    return fwd, dict(bwd, bound_ms=bwd_bound, bound_by=bwd_by, shape=shape,
+                     gflop=bwd_ops / 1e9, ms_by_kernel=parts)
 
 
 def _kernel_ms(call, names, n=5):
@@ -2521,6 +2785,7 @@ def phase_timings():
     decode_L = [300] * DECODE_SLOTS
     tokens = TRAIN_BATCH * TRAIN_SEQ
     ssd_fwd, ssd_bwd = _ssd_timing(TRAIN_BATCH, TRAIN_SEQ, 32, 64, 128, 64)
+    zamba2_ssd = _ssd_timing(2, 2048, 64, 64, 64, 64, bwd=False)[0]
     table = [
         ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:143", "decode", {
@@ -2529,10 +2794,24 @@ def phase_timings():
              "prefill": _flash_timing(PREFILL_BATCH, PREFILL_CHUNK,
                                       MAX_CONTEXT, [256] * PREFILL_BATCH,
                                       [384] * PREFILL_BATCH),
-             "dense_train": _flash_train_timing()}),
+             "dense_train": _flash_train_timing(),
+             # phase 12: zamba2's shared block, decode over 8 lanes of a
+             # 2048-token cache and the causal prefill of 2 x 2048
+             "zamba2_decode": _flash_timing(
+                 DENSE_SERVE_LANES, 1, DENSE_SERVE_CONTEXT, None,
+                 [16, 100, 300, 700, 1024, 1500, 2000, 2048], causal=False,
+                 heads=ZAMBA2_HEADS),
+             "zamba2_prefill": _flash_timing(2, 2048, 2048, [0, 0],
+                                             [2048, 2048],
+                                             heads=ZAMBA2_HEADS)}),
         ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "decode", {
              "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
+             # phase 12's decode rows: mamba2's ln1 and gated norm (1024,
+             # 2048), zamba2's ln1 and gated norm (2048, 4096)
+             "ssm_decode_1024": _rmsnorm_timing(DECODE_SLOTS, 1024),
+             "ssm_decode_2048": _rmsnorm_timing(DECODE_SLOTS, 2048),
+             "ssm_decode_4096": _rmsnorm_timing(DECODE_SLOTS, 4096),
              "prefill": _rmsnorm_timing(PREFILL_BATCH * PREFILL_CHUNK, 2560),
              "prefill_qk": _rmsnorm_timing(
                  PREFILL_BATCH * PREFILL_CHUNK * 32, 128),
@@ -2548,7 +2827,8 @@ def phase_timings():
              "dense_q_norm": _rmsnorm_bwd_timing(
                  DENSE_BATCH * DENSE_SEQ * 32, 128)}),
         ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
-         "src/repro/kernels/ssd_scan.py:72", "train", {"train": ssd_fwd}),
+         "src/repro/kernels/ssd_scan.py:72", "train",
+         {"train": ssd_fwd, "zamba2_prefill": zamba2_ssd}),
         ("ssd_scan_bwd", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd_scan.py:72", "train", {"train": ssd_bwd}),
         ("flash_attention_bwd", "cuda",
@@ -2664,6 +2944,7 @@ def main() -> int:
         phase_dense_cpu_vs_card()
         (launches["dense_serve"], launches["ssm_prefill"],
          dense_decode) = phase_dense_serve()
+        launches.update(phase_ssm_serve())
         launches["sp"] = phase_sp()
         kernels = kernel_entries(timed, errs, launches, dense_decode)
     except Failed as e:

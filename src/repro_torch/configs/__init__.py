@@ -12,7 +12,7 @@ from typing import Dict, List
 
 from repro_torch.models.common import ModelConfig
 
-_ARCH_MODULES = ["mamba2_370m", "qwen3_4b"]
+_ARCH_MODULES = ["mamba2_370m", "qwen3_4b", "zamba2_1_2b"]
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 

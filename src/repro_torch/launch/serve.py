@@ -5,11 +5,14 @@ Two engines behind one CLI, as in the JAX package:
   * ``--engine paged`` (default): the continuous-batching engine over the
     paged KV cache (``repro_torch.serving``).
   * ``--engine dense``: the dense-cache reference, one KV ring buffer per
-    lane at full ``--context``, prompts fed one token per decode step
-    (:func:`serve`).
+    lane at full ``--context`` (and one SSM state per lane and layer),
+    prompts fed one token per decode step (:func:`serve`).  It is the only
+    engine that serves SSM and hybrid models.
 
     python -m repro_torch.launch.serve --arch qwen3-4b --no-reduced \\
         --requests 16 --batch 8 --max-new 32 [--engine dense]
+    python -m repro_torch.launch.serve --engine dense --arch zamba2-1.2b \\
+        --no-reduced --requests 16 --batch 8 --context 2048
 
 Runs on the CUDA device unless ``--device cpu`` is given.  The JAX
 package's ``--plan`` (a searched v3 plan's serving section) is not ported
@@ -27,7 +30,8 @@ import torch
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.device import resolve_device
-from repro_torch.models import LM, init_decode_state, init_lm
+from repro_torch.models import (LM, init_decode_state, init_lm,
+                                reset_decode_lane)
 from repro_torch.models.common import ModelConfig
 from repro_torch.runtime.executor import make_serve_step
 from repro_torch.serving import (EngineConfig, ServeMetrics, ServeRequest,
@@ -47,14 +51,19 @@ def serve(cfg: ModelConfig, requests: List[Request], batch: int,
           context: int, *, eos_id: Optional[int] = None, greedy: bool = True,
           seed: int = 0, verbose: bool = True, device: torch.device = "cuda",
           params: Optional[LM] = None) -> List[Request]:
-    """Dense-cache reference: one KV cache a layer, a slot a lane.
+    """Dense-cache reference: one KV cache an attention call and one SSM
+    state an SSM layer (:func:`init_decode_state`), a slot a lane.
 
     Each lane carries its own cache index, so a recycled slot restarts at
-    position 0 and the decode mask hides the previous request's K/V.
-    Prompts are fed one token a step; a lane stepped idle still advances
-    its index.  ``params`` defaults to random weights from ``seed``
-    (:func:`init_lm`); non-greedy sampling draws from a generator seeded
-    with ``seed``.  Generated tokens are written into each request."""
+    position 0 and the decode mask hides the previous request's K/V; its
+    rows of every SSM state and conv history are zeroed
+    (:func:`reset_decode_lane`), so no request reads its predecessor's
+    context.  (The JAX ``serve`` resets only the index, and on SSM models a
+    recycled lane carries the previous request's state.)  Prompts are fed
+    one token a step; a lane stepped idle still advances its index.
+    ``params`` defaults to random weights from ``seed`` (:func:`init_lm`);
+    non-greedy sampling draws from a generator seeded with ``seed``.
+    Generated tokens are written into each request."""
     dev = resolve_device(device)
     step = make_serve_step(cfg)
     if params is None:
@@ -80,7 +89,7 @@ def serve(cfg: ModelConfig, requests: List[Request], batch: int,
                     lanes[i] = r
                     cursor[i] = 1
                     tok[i] = r.prompt[0]
-                    state["index"][i] = 0
+                    reset_decode_lane(state, i)
             logits, state = step(params, state, torch.tensor(tok, device=dev))
             n_steps += 1
             if greedy:

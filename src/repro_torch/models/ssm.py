@@ -1,23 +1,30 @@
 """Mamba2 block via SSD (state-space duality, arXiv:2405.21060): the
-full-sequence block that training runs.
+full-sequence block that training and prefill run, and the one-token
+decode step that serving runs.
 
 The sequence transform is the chunked SSD scan (``kernels/ops.py``): the
 CUDA kernels on a CUDA tensor, ``kernels/ref.py::ssd_scan_ref`` on a CPU
-tensor.  The single-token decode (``ssd_step``, ``ssm_block_decode``) waits
-for the SSM serving slice.
+tensor.  The decode update (:func:`ssd_step`) is O(1) in the sequence and
+plain PyTorch on both devices, as it is plain ``jnp`` in the JAX package;
+:func:`ssm_block_decode` writes the layer's state (:func:`init_ssm_state`)
+in place.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 from .common import ModelConfig
 from .layers import init_dense, rms_norm
+
+SSMState = Dict[str, torch.Tensor]
 
 
 class SSM(nn.Module):
@@ -97,3 +104,64 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = y.reshape(Bsz, S, di)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p.norm_w, cfg.norm_eps)
     return y @ p.out_proj
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, *,
+                   dtype: torch.dtype = torch.float32,
+                   device: torch.device = "cuda") -> SSMState:
+    """One layer's decode state, zeros in ``dtype`` (fp32 by default, as in
+    the JAX package): ``"ssm"`` (B, H, P, N) and ``"conv"`` (B, K-1,
+    di + 2N), the last K-1 inputs of the causal conv."""
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * N
+    device = resolve_device(device)
+    return {
+        "ssm": torch.zeros(batch, H, P, N, dtype=dtype, device=device),
+        "conv": torch.zeros(batch, cfg.ssm_conv - 1, conv_dim, dtype=dtype,
+                            device=device),
+    }
+
+
+def ssd_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+             A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD update, written into ``state`` in place.
+
+    state (B,H,P,N); x (B,H,P); dt (B,H); Bm/Cm (B,H,N), or (B,1,N) for one
+    group broadcast over the heads.  Returns (state, y (B,H,P) in x's
+    dtype): ``state * exp(dt A) + (x dt) B^T``, then ``y = state C``."""
+    dtf = dt.float()
+    dA = torch.exp(dtf * A.float())                           # (B,H)
+    xdt = x.float() * dtf[..., None]                          # (B,H,P)
+    state.mul_(dA[:, :, None, None]).addcmul_(
+        xdt[..., None], Bm.float()[:, :, None, :])
+    y = (state @ Cm.float()[..., None])[..., 0]               # (B,H,P)
+    return state, y.to(x.dtype)
+
+
+def ssm_block_decode(p: SSM, x: torch.Tensor, state: SSMState,
+                     cfg: ModelConfig) -> Tuple[torch.Tensor, SSMState]:
+    """One-token Mamba2 step. x (B,1,d) -> (B,1,d).
+
+    ``state["conv"]`` holds the previous K-1 conv inputs: the new input is
+    appended in the state's dtype, the conv reads all K, and the history
+    shifts by one.  Both entries of ``state`` are written in place; the
+    same dict is returned."""
+    Bsz = x.shape[0]
+    di, H, N, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    z, xBC, dt = _split_proj(p, x[:, 0], cfg)
+    conv = state["conv"]
+    hist = torch.cat([conv, xBC[:, None].to(conv.dtype)], dim=1)   # (B,K,C)
+    conv_out = torch.einsum("bkc,kc->bc", hist.float(), p.conv_w.float())
+    xBC = F.silu(conv_out + p.conv_b.float()).to(x.dtype)
+    conv.copy_(hist[:, 1:])
+    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    xs = xs.reshape(Bsz, H, P)
+    dtp = F.softplus(dt.float() + p.dt_bias)
+    A = -torch.exp(p.A_log)
+    _, y = ssd_step(state["ssm"], xs, dtp, A, Bm[:, None, :], Cm[:, None, :])
+    y = y + (p.D.float()[:, None] * xs.float()).to(y.dtype)
+    y = y.reshape(Bsz, 1, di)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype)[:, None, :], p.norm_w,
+                 cfg.norm_eps)
+    return y @ p.out_proj, state

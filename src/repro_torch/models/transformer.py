@@ -1,6 +1,6 @@
-"""Decoder-only language models (dense and SSM): training forward and loss,
-the dense model's decode step over dense KV caches, and its paged serving
-steps.
+"""Decoder-only language models (dense, SSM and the zamba2-style hybrid):
+training forward and loss, the decode step over dense KV caches and SSM
+states, and the dense model's paged serving steps.
 
 The JAX package stacks the L blocks' weights with a leading layer axis and
 runs them with ``lax.scan``; here the model is an ``nn.Module`` holding a
@@ -8,18 +8,20 @@ runs them with ``lax.scan``; here the model is an ``nn.Module`` holding a
 layout (``x @ w``, ``w`` of shape (d_in, d_out)) and names::
 
   LM
-    embed       (V, d)
-    blocks[i]   DenseBlock: ln1 (d,), attn (Attention), ln2 (d,), mlp (SwiGLU)
-                or SSMBlock: ln1 (d,), ssm (SSM)
-    final_norm  (d,)
-    head        (d, V), or None when the embeddings are tied
+    embed        (V, d)
+    blocks[i]    DenseBlock: ln1 (d,), attn (Attention), ln2 (d,), mlp (SwiGLU)
+                 or SSMBlock: ln1 (d,), ssm (SSM)
+    shared_attn  SharedAttention: ln (d,), attn (Attention); hybrid only, one
+                 block whose weights every attention call shares
+    final_norm   (d,)
+    head         (d, V), or None when the embeddings are tied
 
 Parameters are trainable; the serving steps run under
-``torch.inference_mode()``.  Decode (:func:`decode_step`, dense-cache or
-paged) covers pure-attention decoders; SSM decode is not ported yet.
-Training (:func:`lm_forward`, :func:`lm_loss`) covers every arch that
-:func:`build_stacks` builds, dense and SSM; on the card an attention
-layer's gradients run through the flash-attention backward kernel.
+``torch.inference_mode()``.  The dense-cache decode (:func:`decode_step`)
+covers dense, SSM and hybrid decoders; the paged steps cover pure-attention
+decoders.  Training (:func:`lm_forward`, :func:`lm_loss`) covers every arch
+that :func:`build_stacks` builds; on the card an attention layer's
+gradients run through the flash-attention backward kernel.
 ``remat_segments`` ports the JAX
 package's per-segment remat (``apply_stack(remat=...)``, ``jax.checkpoint``
 around each scanned block) as ``torch.utils.checkpoint`` around each block
@@ -42,7 +44,8 @@ from .common import ModelConfig
 from .embedding import embed, init_embedding
 from .layers import cross_entropy_loss, init_dense, rms_norm
 from .mlp import SwiGLU, init_swiglu, swiglu_mlp
-from .ssm import SSM, init_ssm, ssm_block
+from .ssm import (SSM, init_ssm, init_ssm_state, ssm_block,
+                  ssm_block_decode)
 
 
 def _param(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
@@ -66,26 +69,43 @@ class SSMBlock(nn.Module):
         self.ssm = ssm
 
 
+class SharedAttention(nn.Module):
+    """The hybrid's weight-shared attention block: ln (d,), attn."""
+
+    def __init__(self, ln: torch.Tensor, attn: Attention):
+        super().__init__()
+        self.ln = _param(ln)
+        self.attn = attn
+
+
 class LM(nn.Module):
     def __init__(self, embed: torch.Tensor, blocks: List[nn.Module],
-                 final_norm: torch.Tensor, head: Optional[torch.Tensor]):
+                 final_norm: torch.Tensor, head: Optional[torch.Tensor],
+                 shared_attn: Optional[SharedAttention] = None):
         super().__init__()
         self.embed = _param(embed)
         self.blocks = nn.ModuleList(blocks)
+        self.register_module("shared_attn", shared_attn)
         self.final_norm = _param(final_norm)
         self.register_parameter("head", _param(head))
 
 
 def build_stacks(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """Sequence of (kind, n_layers) segments for the architectures the port
-    builds: one segment of dense or of SSM blocks."""
-    if cfg.arch_type == "ssm":
-        return [("ssm", cfg.n_layers)]
-    if cfg.arch_type != "dense" or cfg.n_experts > 1:
+    builds: one segment of dense or of SSM blocks.  The hybrid is one SSM
+    segment; its shared attention block is interleaved by the model
+    functions, as in the JAX package."""
+    if cfg.n_experts > 1 or cfg.arch_type == "moe":
         raise NotImplementedError(
-            f"the port builds dense and SSM decoders only so far; "
-            f"{cfg.name!r} has arch_type={cfg.arch_type!r}, "
-            f"n_experts={cfg.n_experts}")
+            f"{cfg.name!r} is a MoE model (n_experts={cfg.n_experts}): the "
+            "port has no MoE block yet (ROADMAP.md queue 1, item 5)")
+    if cfg.arch_type in ("ssm", "hybrid"):
+        return [("ssm", cfg.n_layers)]
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"the port builds dense, SSM and hybrid decoders only so far; "
+            f"{cfg.name!r} has arch_type={cfg.arch_type!r} (ROADMAP.md "
+            "queue 1, item 7)")
     return [("dense", cfg.n_layers)]
 
 
@@ -108,10 +128,12 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
         blocks = [DenseBlock(ones(), init_attention(cfg, **kw), ones(),
                              init_swiglu(d, cfg.d_ff, dt, **kw))
                   for _ in range(n)]
+    shared = (SharedAttention(ones(), init_attention(cfg, **kw))
+              if cfg.arch_type == "hybrid" and cfg.attn_every else None)
     head = (None if cfg.tie_embeddings
             else init_dense(d, cfg.vocab_size, dt, **kw))
     return LM(init_embedding(cfg.vocab_size, d, dt, **kw), blocks, ones(),
-              head)
+              head, shared)
 
 
 def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -140,6 +162,18 @@ def ssm_block_outer(p: SSMBlock, x: torch.Tensor, positions: torch.Tensor,
 _BLOCK_APPLY = {"dense": dense_block, "ssm": ssm_block_outer}
 
 
+def _segments(cfg: ModelConfig) -> List[Tuple[str, int, int, bool]]:
+    """(kind, first block, end block, shared attention after it) of each
+    segment: the one stack of :func:`build_stacks`, or for the hybrid SSM
+    segments of ``attn_every`` layers, each full one followed by the
+    shared attention block (a shorter tail segment is not)."""
+    ((kind, n),) = build_stacks(cfg)
+    if cfg.arch_type != "hybrid" or not cfg.attn_every:
+        return [(kind, 0, n, False)]
+    k = cfg.attn_every
+    return [(kind, i, min(n, i + k), i + k <= n) for i in range(0, n, k)]
+
+
 def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
                remat_segments: Optional[Sequence[bool]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,25 +181,29 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     and SSM blocks have none).
 
     Query ``s`` sits at position ``s``; attention takes the config's
-    ``sliding_window``.  Segment ``i`` of :func:`build_stacks` is
-    rematerialised when ``remat_segments[min(i, len - 1)]`` is true (the
-    JAX rule: a one-entry list covers every segment)."""
+    ``sliding_window``.  The hybrid runs SSM segments of ``attn_every``
+    layers, the shared attention block (causal) after each full one.
+    Segment ``i`` is rematerialised when ``remat_segments[min(i, len -
+    1)]`` is true (the JAX rule: a one-entry list covers every segment);
+    the shared block is not."""
     x = embed(params.embed, tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     win = cfg.sliding_window
-    blocks = iter(params.blocks)
-    for si, (kind, n) in enumerate(build_stacks(cfg)):
+    sa = params.shared_attn
+    for si, (kind, i, j, shared) in enumerate(_segments(cfg)):
         fn = _BLOCK_APPLY[kind]
         remat = (bool(remat_segments[min(si, len(remat_segments) - 1)])
                  if remat_segments else False)
-        for _ in range(n):
-            blk = next(blocks)
+        for blk in params.blocks[i:j]:
             if remat:
                 x = checkpoint(fn, blk, x, positions, cfg, window=win,
                                use_reentrant=False)
             else:
                 x = fn(blk, x, positions, cfg, window=win)
+        if shared and sa is not None:
+            h = rms_norm(x, sa.ln, cfg.norm_eps)
+            x = x + attention(sa.attn, h, positions, cfg, window=win)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, x, cfg), aux
 
@@ -184,27 +222,46 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 # decode over dense KV caches
 # --------------------------------------------------------------------------
 
-def check_dense_decode(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless the port decodes ``cfg``: dense
-    decoders only.  The JAX package also decodes SSM and hybrid models;
-    SSM serving is the port's next slice."""
-    if cfg.arch_type in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the port decodes pure-attention models only so far; "
-            f"{cfg.name!r} has arch_type={cfg.arch_type!r}: SSM serving "
-            "(ssd_step, init_ssm_state, ssm_block_decode) is the next slice")
-    build_stacks(cfg)
-
-
 def init_decode_state(cfg: ModelConfig, batch: int, context: int, *,
                       device: torch.device = "cuda") -> Dict[str, Any]:
-    """``{"caches": one K/V cache per layer (:func:`init_kv_cache`),
-    "index": 0-d int32}``; the serve loop makes ``index`` per lane (B,)."""
-    check_dense_decode(cfg)
+    """The dense-cache decode state of ``batch`` lanes::
+
+      "caches"      one K/V cache (:func:`init_kv_cache`, ``context`` slots)
+                    per attention call of a step, in call order: a layer's
+                    for a dense model, one per shared-block call
+                    (``n_layers // attn_every``) for the hybrid, none for
+                    an SSM model
+      "ssm_states"  one :func:`init_ssm_state` per SSM layer (SSM and
+                    hybrid models): "ssm" (B,H,P,N), "conv" (B,K-1,di+2N),
+                    fp32
+      "index"       0-d int32; the serve loop makes it per lane (B,)
+
+    :func:`decode_step` writes every cache and state in place.  Raises
+    NotImplementedError for an arch :func:`build_stacks` does not build."""
+    segments = _segments(cfg)
     dev = resolve_device(device)
-    return {"caches": [init_kv_cache(cfg, batch, context, device=dev)
-                       for _ in range(cfg.n_layers)],
-            "index": torch.zeros((), dtype=torch.int32, device=dev)}
+    n_attn = (cfg.n_layers if cfg.arch_type == "dense"
+              else sum(shared for *_, shared in segments))
+    state: Dict[str, Any] = {
+        "caches": [init_kv_cache(cfg, batch, context, device=dev)
+                   for _ in range(n_attn)]}
+    if cfg.arch_type != "dense":
+        state["ssm_states"] = [init_ssm_state(cfg, batch, device=dev)
+                               for _ in range(cfg.n_layers)]
+    state["index"] = torch.zeros((), dtype=torch.int32, device=dev)
+    return state
+
+
+def reset_decode_lane(state: Dict[str, Any], lane: int) -> None:
+    """Start lane ``lane`` of a per-lane decode state over, in place: its
+    index to 0, and its rows of every SSM state and conv history to zeros.
+    The index alone hides a previous request's K/V (the decode mask admits
+    only slots below it); an SSM state carries the whole past and must be
+    cleared, or the next request on the lane reads its predecessor's."""
+    state["index"][lane] = 0
+    for st in state.get("ssm_states", ()):
+        st["ssm"][lane].zero_()
+        st["conv"][lane].zero_()
 
 
 def decode_step(params: LM, state: Dict[str, Any], token: torch.Tensor,
@@ -212,19 +269,42 @@ def decode_step(params: LM, state: Dict[str, Any], token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: token (B,) -> logits (B, V) and the new state.
 
-    The token's K/V are written into ``state["caches"]`` in place; the new
-    state holds the same caches and ``index + 1``.  Attention takes
-    ``window``, else the config's ``sliding_window``."""
-    check_dense_decode(cfg)
+    The token's K/V are written into ``state["caches"]`` and each SSM
+    layer's state into ``state["ssm_states"]``, in place; the new state
+    holds the same tensors and ``index + 1``.  Attention takes ``window``,
+    else the config's ``sliding_window``.  The hybrid runs the shared
+    attention block after each full segment of ``attn_every`` SSM layers,
+    as :func:`lm_forward` does, each call on a cache of its own."""
+    build_stacks(cfg)
     x = embed(params.embed, token)[:, None, :]
     index = state["index"]
     win = window if window is not None else cfg.sliding_window
-    x = _cache_layers(
-        params, state["caches"], x, cfg,
-        lambda p, h, cache: attention_decode(p, h, cache, index, cfg,
-                                             window=win)[0])
-    return (_logits(params, x, cfg)[:, 0],
-            {"caches": state["caches"], "index": index + 1})
+    if cfg.arch_type == "dense":
+        x = _cache_layers(
+            params, state["caches"], x, cfg,
+            lambda p, h, cache: attention_decode(p, h, cache, index, cfg,
+                                                 window=win)[0])
+    else:
+        x = _ssm_decode_layers(params, state, x, index, cfg, win)
+    return _logits(params, x, cfg)[:, 0], dict(state, index=index + 1)
+
+
+def _ssm_decode_layers(params: LM, state: Dict[str, Any], x: torch.Tensor,
+                       index: torch.Tensor, cfg: ModelConfig,
+                       window: Optional[int]) -> torch.Tensor:
+    """The SSM blocks one token: ln1, ``ssm_block_decode`` on the layer's
+    state, residual; after each full segment of the hybrid, the shared
+    attention block on the next of ``state["caches"]``."""
+    sa, caches = params.shared_attn, iter(state["caches"])
+    for _, i, j, shared in _segments(cfg):
+        for blk, st in zip(params.blocks[i:j], state["ssm_states"][i:j]):
+            h = rms_norm(x, blk.ln1, cfg.norm_eps)
+            x = x + ssm_block_decode(blk.ssm, h, st, cfg)[0]
+        if shared and sa is not None:
+            h = rms_norm(x, sa.ln, cfg.norm_eps)
+            x = x + attention_decode(sa.attn, h, next(caches), index, cfg,
+                                     window=window)[0]
+    return x
 
 
 # --------------------------------------------------------------------------

@@ -17,8 +17,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Pool
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import (LM, build_stacks,
-                                            check_dense_decode, decode_step,
+from repro_torch.models.transformer import (LM, build_stacks, decode_step,
                                             init_lm, lm_forward, lm_loss,
                                             paged_decode_step,
                                             paged_prefill_step)
@@ -78,9 +77,10 @@ def make_prefill_step(cfg: ModelConfig
 def make_serve_step(cfg: ModelConfig) -> Callable[..., Tuple[torch.Tensor,
                                                             Dict[str, Any]]]:
     """``(params, state, token (B,))`` -> ``(logits (B, V), state)``: one
-    decode step on the dense KV caches of ``init_decode_state``, written in
-    place.  Raises NotImplementedError for SSM and hybrid archs."""
-    check_dense_decode(cfg)
+    decode step on the KV caches and SSM states of ``init_decode_state``,
+    written in place, for dense, SSM and hybrid decoders.  Raises
+    NotImplementedError for an arch the port does not build."""
+    build_stacks(cfg)
 
     @torch.inference_mode()
     def step(params: LM, state: Dict[str, Any], token: torch.Tensor

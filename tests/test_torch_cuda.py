@@ -599,3 +599,124 @@ def test_flash_autograd_runs_the_kernels_on_card(cuda_device, dtype):
     with torch.no_grad():
         ops.flash_attention(q, k, v)
     assert flash_attention_bwd_cuda.launches - bwd == 1
+
+
+# ---------------------------------------------------------------------------
+# SSM and hybrid serving: the kernels at its shapes, and decode on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["decode", "prefill"])
+def test_flash_kernel_at_zamba2_shapes_on_card(cuda_device, dtype, case):
+    """zamba2's shared block (MHA, H = KV = 32, dh 64): the dense engine's
+    decode, 8 lanes over 2048 slots with kv_len from 1 to 2048, and the
+    causal prefill of 1024 tokens."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    B, S, T = (8, 1, 2048) if case == "decode" else (1, 1024, 1024)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+               for shape in ((B, S, 32, 64), (B, T, 32, 64), (B, T, 32, 64)))
+    kw = {} if case == "prefill" else dict(causal=False, kv_len=torch.tensor(
+        [1, 2, 63, 64, 65, 1000, 2047, 2048], dtype=torch.int32,
+        device=cuda_device))
+    out = flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1024, 2048, 4096])
+def test_rmsnorm_kernel_at_ssm_decode_rows_on_card(cuda_device, dtype, d):
+    """The SSM decode step's rows: 8 lanes at mamba2's d_model and d_inner
+    (1024, 2048) and zamba2's (2048, 4096)."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = (torch.randn(8, 1, d, generator=g, device=cuda_device) * 3).to(dtype)
+    w = torch.randn(d, generator=g, device=cuda_device).to(dtype)
+    out = rmsnorm_cuda(x, w, 1e-5).float()
+    torch.cuda.synchronize()
+    want = ref.rmsnorm_ref(x, w, 1e-5).float()
+    tol = TOL[dtype] if dtype == torch.float32 else torch.exp2(torch.floor(
+        torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    assert bool(((out - want).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ssd_scan_forward_at_zamba2_width_on_card(cuda_device, dtype):
+    """The forward at zamba2's H 64, P 64, N 64 (one B/C group), 600
+    tokens: ragged against the 64-token chunk."""
+    leaves, views = ssd_inputs(1, 600, 64, 64, 64, cuda_device, dtype)
+    args = [t.detach() for t in views(*leaves)]
+    y = ssd_scan_cuda(*args, 64)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        assert _rel_err(y, ref.ssd_scan_ref(*args, 64)) <= REL_TOL[dtype]
+        return
+    y64 = ref.ssd_scan_ref(*(t.double() for t in args), 64)
+    tol = max(REL_TOL[dtype], 2 * _rel_err(ref.ssd_scan_ref(*args, 64), y64))
+    assert _rel_err(y, y64) <= tol
+
+
+def _ssm_configs(arch):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced().with_(dtype=torch.float32)
+    return cfg.with_(n_layers=5) if cfg.attn_every else cfg
+
+
+@pytest.mark.gpu
+def test_ssm_block_decode_on_card_matches_cpu(cuda_device):
+    """One reduced fp32 mamba2 layer, 10 tokens on 3 lanes: the output and
+    the state written in place, on the card against the CPU."""
+    from repro_torch.models.ssm import (init_ssm, init_ssm_state,
+                                        ssm_block_decode)
+    cfg = _ssm_configs("mamba2-370m")
+    p_cpu = init_ssm(cfg, generator=torch.Generator().manual_seed(0),
+                     device=torch.device("cpu"))
+    p_gpu = copy.deepcopy(p_cpu).to(cuda_device)
+    states = {dev: init_ssm_state(cfg, 3, device=dev)
+              for dev in ("cpu", cuda_device)}
+    xs = torch.randn(3, 10, cfg.d_model, generator=torch.Generator()
+                     .manual_seed(1))
+    for t in range(10):
+        with torch.inference_mode():
+            want, _ = ssm_block_decode(p_cpu, xs[:, t:t + 1], states["cpu"],
+                                       cfg)
+            got, _ = ssm_block_decode(p_gpu, xs[:, t:t + 1].to(cuda_device),
+                                      states[cuda_device], cfg)
+        torch.cuda.synchronize()
+        assert _rel_err(got.cpu(), want) <= REL_TOL[torch.float32], f"t={t}"
+        for name in ("ssm", "conv"):
+            assert _rel_err(states[cuda_device][name].cpu(),
+                            states["cpu"][name]) <= REL_TOL[torch.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_ssm_serve_on_card_token_identical_to_cpu(cuda_device, arch):
+    """Reduced fp32 ``serve`` (zamba2 at 5 layers), 5 requests on 2 lanes,
+    so three are served on recycled lanes: the same greedy tokens on the
+    card and on the CPU from the same weights, every kernel launched on the
+    card (flash only for the hybrid's shared block)."""
+    from repro_torch.launch.serve import Request, serve
+    from repro_torch.models import init_lm
+    cfg = _ssm_configs(arch)
+    params_cpu = init_lm(cfg, seed=0, device="cpu")
+    params_gpu = copy.deepcopy(params_cpu).to(cuda_device)
+    rng = np.random.default_rng(3)
+    spec = [(rng.integers(0, cfg.vocab_size, int(rng.integers(2, 12))
+                          ).tolist(), int(rng.integers(3, 8)))
+            for _ in range(5)]
+    tokens = {}
+    for dev, params in (("cpu", params_cpu), (cuda_device, params_gpu)):
+        reqs = [Request(i, p, n) for i, (p, n) in enumerate(spec)]
+        flash, norm = flash_attention_cuda.launches, rmsnorm_cuda.launches
+        serve(cfg, reqs, 2, 32, verbose=False, device=dev, params=params)
+        tokens[str(dev)] = [r.generated for r in reqs]
+    assert tokens["cpu"] == tokens[str(cuda_device)]
+    assert rmsnorm_cuda.launches > norm
+    assert (flash_attention_cuda.launches > flash) == bool(cfg.attn_every)

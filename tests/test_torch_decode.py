@@ -18,7 +18,7 @@ take their plain versions.
 * ``serve`` token-identical to JAX ``serve`` on ``tests/test_serving.py``'s
   TINY geometry with a request longer than the context, and the port's
   paged engine token-identical to the port's ``serve``.
-* The CLI's ``--engine dense``, the SSM archs' NotImplementedError and the
+* The CLI's ``--engine dense``, the MoE archs' NotImplementedError and the
   entry points' refusal to run without a card.
 """
 import jax
@@ -348,20 +348,26 @@ def test_serve_cli_dense_engine_on_cpu(capsys):
 
 @pytest.mark.parametrize("entry", ["decode_step", "make_serve_step",
                                    "init_decode_state", "serve"])
-def test_ssm_decode_is_the_next_slice(entry):
-    cfg = get_config("mamba2-370m").reduced().with_(dtype=torch.float32)
+def test_moe_decode_is_refused(entry):
+    """The dense-cache engine's entry points raise for an MoE model, which
+    the port does not build yet; decode_step is given a dense model's
+    weights, so that its own check raises."""
+    dense = get_config("qwen3-4b").reduced().with_(dtype=torch.float32)
+    cfg = dense.with_(n_experts=4)
     call = {
         "decode_step": lambda: decode_step(
-            init_lm(cfg, device="cpu"),
-            {"caches": [], "index": torch.zeros((), dtype=torch.int32)},
+            init_lm(dense, device="cpu"),
+            init_decode_state(dense, 1, 8, device="cpu"),
             torch.zeros(1, dtype=torch.int32), cfg),
         "make_serve_step": lambda: make_serve_step(cfg),
         "init_decode_state": lambda: init_decode_state(cfg, 1, 8,
                                                        device="cpu"),
-        "serve": lambda: serve_mod.main(["--engine", "dense", "--arch",
-                                         "mamba2-370m", "--device", "cpu"]),
+        "serve": lambda: serve_mod.serve(
+            cfg, [serve_mod.Request(0, [1, 2], 2)], 1, 8, verbose=False,
+            device="cpu"),
     }[entry]
-    with pytest.raises(NotImplementedError, match="SSM serving .* next slice"):
+    with pytest.raises(NotImplementedError,
+                       match=r"MoE .*\(ROADMAP.md queue 1, item 5\)"):
         call()
 
 

@@ -240,10 +240,11 @@ def test_train_needs_a_card_unless_told_cpu():
 def test_training_an_attention_arch_raises_naming_the_kernel(arch):
     """Dense attention archs train now (``test_torch_dense_train.py``); an
     arch whose layers the port does not build yet still raises, naming
-    what it lacks: the MoE variant of ``arch`` and a hybrid."""
+    what it lacks: the MoE variant of ``arch`` and a VLM (the hybrid
+    trains: ``test_torch_hybrid.py``)."""
     base = get_config(arch).reduced().with_(dtype=torch.float32)
     for cfg, what in ((base.with_(n_experts=4, top_k=2), "n_experts=4"),
-                      (base.with_(arch_type="hybrid"), "'hybrid'")):
+                      (base.with_(arch_type="vlm"), "'vlm'")):
         for build in (lambda: make_train_step(cfg),
                       lambda: init_train_state(cfg, device="cpu")):
             with pytest.raises(NotImplementedError, match=what):
