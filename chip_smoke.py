@@ -154,14 +154,38 @@ Phases (any failure exits non-zero before the final line is printed):
    ``make_prefill_step`` on full-width zamba2-1.2b (2 x 2048 tokens, bf16),
    which must launch the SSD forward once a layer and the flash forward
    once a shared-block call, and reduced fp32 zamba2 on the card against
-   the CPU within 1e-4 of the largest logit.
+   the CPU within 1e-4 of the largest logit;
+13. the paper's plan search driving the card: (a) the port's Galvatron-BMW
+   search (NumPy, on the host; ``launch/train.py::search_plan``, the train
+   driver's ``bmw`` settings with batch grid [2]) for phase 9's model
+   (qwen3-4b at ``DENSE_LAYERS``, 2 x 4096 tokens) on one card of the
+   ``8x-h100-sxm-nvlink`` preset; the plan must certify
+   (``launch/search.py::certify_plans``: the plan linter and the schedule
+   certifier); its summary and the cost model's ``est_iter_time`` and
+   ``est_stage_mem`` are printed; (b) ``repro_torch.launch.train.main``
+   with ``--plan`` for 3 steps at phase 9's lr: the remat it takes must be
+   the plan's, as the JAX driver takes it (``strategies[0].ckpt``: on),
+   its losses must be phase 9's first three bit for bit, no plain version
+   may run, and the flash forward and backward and RMSNorm must launch as
+   in phase 9; the step ms and peak memory are printed beside the
+   estimates; (c) ``repro_torch.launch.search.main`` with ``--slo-sweep
+   30 --max-context 2048`` for qwen3-4b on the same card writes a v3
+   serving plan, and ``repro_torch.launch.serve.main`` with ``--plan``
+   serves 8 requests of 16 new tokens at full width with ``--batch 8``:
+   the engine's geometry must be the plan's with that override, its K/V
+   pool the plan's ``kv_pool_pages`` on the card beside the weights, every
+   request must complete, no plain version may run, and the flash forward
+   and RMSNorm must launch; the measured per-token latency is printed
+   beside the cost model's ``est_tok_ms``.  A plan that fails the lint,
+   an out-of-memory error or a kernel that does not launch fails the
+   phase.
 
 Phase 7 also times the flash forward and backward at the dense training
 shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
-The phases run in the order 1, 2, 7, 3, 4, 5, 6, 9, 10, 11, 12, 8: phase 7
+The phases run in the order 1, 2, 7, 3, 4, 5, 6, 9, 10, 11, 12, 13, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
 seconds are printed before the final lines.
@@ -180,6 +204,7 @@ the checkout; without either it exits non-zero and prints no result.
 import contextlib
 import copy
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -281,6 +306,21 @@ ZAMBA2_HEADS = (32, 32, 64)
 # and in bf16 not at all
 LAYERWISE_T = 64
 SSM_LOGITS_FP32_TOL = 1e-3
+# phase 13, the paper's plan search driving the card: the training plan is
+# searched for phase 9's model and tokens (DENSE_LAYERS, DENSE_BATCH x
+# DENSE_SEQ) on one card of the H100 node with the train driver's bmw
+# settings and batch grid [DENSE_BATCH]; train --plan runs PLAN_TRAIN_STEPS
+# of phase 9's steps, whose losses must be phase 9's first ones, bit for
+# bit (the same weights, batches, lr and remat; every kernel on the path is
+# deterministic: no atomics in a backward, phase 2 checks the flash
+# backward's and RMSNorm's dw bits twice).  The serving plan comes from
+# search --slo-sweep PLAN_SLO_MS --max-context PLAN_MAX_CONTEXT on the same
+# card; serve --plan runs PLAN_SERVE_REQUESTS requests of PLAN_SERVE_NEW
+# new tokens with --batch PLAN_SERVE_LANES overriding the plan's lanes
+PLAN_CLUSTER = "8x-h100-sxm-nvlink"
+PLAN_TRAIN_STEPS = 3
+PLAN_SLO_MS, PLAN_MAX_CONTEXT = 30, 2048
+PLAN_SERVE_REQUESTS, PLAN_SERVE_LANES, PLAN_SERVE_NEW = 8, 8, 16
 
 
 def log(msg: str) -> None:
@@ -1676,7 +1716,7 @@ def phase_dense_train():
         f"{WITNESS_LR:g}, {WITNESS_STEPS} steps from the same weights: "
         f"losses through the flash kernels {witness['kernels']}, through "
         f"the plain attention autodiffed by torch {witness['plain']}")
-    return launches
+    return launches, losses
 
 
 # ---------------------------------------------------------------------------
@@ -2221,6 +2261,230 @@ def phase_ssm_serve():
     launches["zamba2_prefill"] = _ssm_prefill("zamba2-1.2b",
                                               "[ssm-serve] (d)")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the paper's plan search in the port: search -> plan -> card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recorded_train_steps():
+    """Check-only: record the ``remat_segments`` that
+    ``launch/train.py`` gives ``make_train_step`` and each step's wall ms
+    (host clock ending in a synchronize) while the block runs."""
+    import torch
+    from repro_torch.launch import train as train_cli
+
+    seen = {"remat_segments": [], "step_ms": []}
+    real = train_cli.make_train_step
+
+    def make(cfg, opt_cfg=None, *, remat_segments=None):
+        seen["remat_segments"].append(remat_segments)
+        step = real(cfg, opt_cfg, remat_segments=remat_segments)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            seen["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    train_cli.make_train_step = make
+    try:
+        yield seen
+    finally:
+        train_cli.make_train_step = real
+
+
+@contextlib.contextmanager
+def recorded_engines():
+    """Check-only: keep the ``ServingEngine`` that ``launch/serve.py``
+    builds while the block runs (its geometry, pools and metrics)."""
+    from repro_torch.launch import serve as serve_mod
+
+    engines = []
+    real = serve_mod.ServingEngine
+
+    def make(*args, **kwargs):
+        engines.append(real(*args, **kwargs))
+        return engines[-1]
+
+    serve_mod.ServingEngine = make
+    try:
+        yield engines
+    finally:
+        serve_mod.ServingEngine = real
+
+
+def _plan_train(run_dir, dense_losses):
+    """(a) and (b): search and certify the one-card training plan, then
+    ``train --plan`` with it; returns the path's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import CLUSTERS
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.search import certify_plans
+
+    cfg = get_config("qwen3-4b").with_(n_layers=DENSE_LAYERS)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    plan = train_cli.search_plan(
+        cfg, DENSE_SEQ, cluster=CLUSTERS[PLAN_CLUSTER].with_devices(1),
+        batch_grid=[DENSE_BATCH])
+    search_s = time.perf_counter() - t0
+    check(certify_plans([plan], log=log), "the searched training plan does "
+          "not certify")
+    path = run_dir / "train.plan.json"
+    path.write_text(plan.dumps())
+    est_mem = max(plan.est_stage_mem)
+    log(f"[plan] (a) qwen3-4b, {L} layers, {DENSE_BATCH} x {DENSE_SEQ} "
+        f"tokens on {PLAN_CLUSTER} x1, bmw, batch grid [{DENSE_BATCH}]: "
+        f"{plan.summary()}; searched in {search_s:.3f} s and certified; "
+        f"cost model: est_iter_time {plan.est_iter_time:.4f} s, "
+        f"est_stage_mem {est_mem / 1e9:.2f} GB")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--plan", str(path), "--layers", str(L), "--seq", str(DENSE_SEQ),
+            "--batch", str(DENSE_BATCH), "--steps", str(PLAN_TRAIN_STEPS),
+            "--lr", str(DENSE_LR), "--log-every", "1"]
+    log(f"[plan] (b) python -m repro_torch.launch.train {' '.join(argv)}")
+    counts = _zero_counts()
+    with recorded_train_steps() as seen, plain_calls() as plain:
+        hist = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    remat = seen["remat_segments"]
+    check(remat == [[s.ckpt for s in plan.strategies[:1]]] == [[True]],
+          f"train --plan took remat_segments {remat}, not the plan's "
+          "strategies[0].ckpt (on)")
+    check(not plain, f"plain versions ran on the plan's training path: "
+          f"{plain}")
+    n = PLAN_TRAIN_STEPS
+    want = {"flash_attention": 2 * L * n, "flash_attention_bwd": L * n,
+            "rmsnorm": (8 * L + 1) * n, "rmsnorm_bwd": (4 * L + 1) * n}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"train --plan launches {launches}, not {want}")
+    check(all(np.isfinite(losses)), f"train --plan losses {losses}")
+    check(losses == dense_losses[:n], f"train --plan losses {losses} are "
+          f"not phase 9's first {n} {dense_losses[:n]}: differences "
+          f"{[a - b for a, b in zip(losses, dense_losses)]}")
+    step_ms = seen["step_ms"]
+    mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
+    log("[plan] " + json.dumps({
+        "train_losses": losses, "phase9_losses": dense_losses[:n],
+        "losses_bit_identical": True, "remat_segments": remat[0],
+        "step_ms": step_ms, "step_ms_mean_after_first": mean_ms,
+        "est_iter_time_ms": plan.est_iter_time * 1e3,
+        "peak_mem_gb": peak_gb, "est_stage_mem_gb": est_mem / 1e9,
+        "launches": launches}))
+    del hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _plan_serve(run_dir):
+    """(c): search the one-card serving plan through the search CLI, then
+    ``serve --plan`` with it; returns the path's launches."""
+    import gc
+
+    import torch
+    from repro_torch.analysis import load_plan_file
+    from repro_torch.launch import search as search_cli
+    from repro_torch.launch import serve as serve_mod
+
+    path = run_dir / "serve.plan.json"
+    argv = ["--arch", "qwen3-4b", "--cluster", PLAN_CLUSTER, "--devices",
+            "1", "--slo-sweep", str(PLAN_SLO_MS), "--max-context",
+            str(PLAN_MAX_CONTEXT), "--out", str(path)]
+    log(f"[plan] (c) python -m repro_torch.launch.search {' '.join(argv)}")
+    check(search_cli.main(argv) == 0, "the SLO search wrote no plan")
+    plan, _ = load_plan_file(str(path))
+    sv = plan.serving
+    check(sv is not None, "the SLO plan has no serving section")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--plan", str(path), "--no-reduced", "--requests",
+            str(PLAN_SERVE_REQUESTS), "--batch", str(PLAN_SERVE_LANES),
+            "--max-new", str(PLAN_SERVE_NEW)]
+    log(f"[plan] (c) python -m repro_torch.launch.serve {' '.join(argv)}")
+    counts = _zero_counts()
+    with recorded_engines() as engines, plain_calls() as plain:
+        reqs = serve_mod.main(argv)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(engines) == 1, f"serve --plan built {len(engines)} engines")
+    engine = engines[0]
+    ecfg = engine.ecfg
+    want = dict(page_size=sv.page_size, n_pages=sv.kv_pool_pages,
+                decode_slots=min(sv.decode_batch, PLAN_SERVE_LANES),
+                max_context=sv.max_context,
+                prefill_chunk=sv.prefill_chunk,
+                prefill_batch=min(4, PLAN_SERVE_LANES))
+    got = {k: getattr(ecfg, k) for k in want}
+    check(got == want, f"the engine's geometry {got} is not the plan's with "
+          f"--batch {PLAN_SERVE_LANES}: {want}")
+    cfg = engine.cfg
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for pool in engine.pools for t in pool.values())
+    want_bytes = (cfg.n_layers * 2 * (sv.kv_pool_pages + 1) * sv.page_size
+                  * cfg.n_kv_heads * cfg.dh * 2)
+    check(all(t.is_cuda for pool in engine.pools for t in pool.values())
+          and pool_bytes == want_bytes,
+          f"the K/V pool holds {pool_bytes} bytes on "
+          f"{engine.pools[0]['k'].device}, not the plan's {want_bytes} on "
+          "the card")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in engine.params.parameters())
+    for r in reqs:
+        check(r.done and len(r.generated) == PLAN_SERVE_NEW,
+              f"request {r.rid}: {len(r.generated)} of {PLAN_SERVE_NEW} "
+              "tokens")
+    check(not plain, f"plain versions ran on the plan's serving path: "
+          f"{plain}")
+    for name in ("flash_attention", "rmsnorm"):
+        check(launches[name] > 0, f"{name} was never launched by serve "
+              "--plan")
+    summ = engine.metrics.summary()
+    check(summ["completed"] == PLAN_SERVE_REQUESTS,
+          f"completed {summ['completed']}")
+    log("[plan] " + json.dumps({
+        "serving_section": sv.to_json(), "engine": dataclasses.asdict(ecfg),
+        "kv_pool_gb": pool_bytes / 1e9, "weights_gb": weight_bytes / 1e9,
+        "peak_mem_gb": peak_gb, "tok_ms_p50": summ["tok_ms_p50"],
+        "tok_ms_p99": summ["tok_ms_p99"],
+        "est_tok_ms": sv.est_tok_ms, "est_tok_ms_at_decode_batch":
+            sv.decode_batch, "measured_lanes": ecfg.decode_slots,
+        "ttft_ms_p50": summ["ttft_ms_p50"], "est_ttft_ms": sv.est_ttft_ms,
+        "tok_per_s": summ["tok_per_s"], "est_tok_per_s": sv.est_tok_per_s,
+        "decode_steps": summ["decode_steps"],
+        "prefill_chunks": summ["prefill_chunks"], "launches": launches}))
+    del engines, engine, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_plan(dense_losses):
+    """Phase 13: search -> plan -> card for training and for serving."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plans_") as d:
+        run_dir = pathlib.Path(d)
+        return {"plan_train": _plan_train(run_dir, dense_losses),
+                "plan_serve": _plan_serve(run_dir)}
 
 
 # ---------------------------------------------------------------------------
@@ -2940,11 +3204,12 @@ def main() -> int:
         phase_cpu_vs_card()
         launches["train"] = phase_train()
         phase_train_cpu_vs_card()
-        launches["dense_train"] = phase_dense_train()
+        launches["dense_train"], dense_losses = phase_dense_train()
         phase_dense_cpu_vs_card()
         (launches["dense_serve"], launches["ssm_prefill"],
          dense_decode) = phase_dense_serve()
         launches.update(phase_ssm_serve())
+        launches.update(phase_plan(dense_losses))
         launches["sp"] = phase_sp()
         kernels = kernel_entries(timed, errs, launches, dense_decode)
     except Failed as e:

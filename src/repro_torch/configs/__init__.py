@@ -3,7 +3,9 @@
 Each arch lives in ``configs/<id>.py`` and registers itself here;
 ``get_config(name)`` is the lookup used by the launcher (``--arch <id>``).
 Only the archs the port serves or trains so far are registered; the others
-follow in ``ROADMAP.md`` order.
+follow in ``ROADMAP.md`` order.  ``paper_models`` adds the paper's evaluation
+models as search workloads and registers the runnable ``gpt3-15b`` config,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -38,3 +40,4 @@ def list_archs() -> List[str]:
 def _ensure_loaded() -> None:
     for m in _ARCH_MODULES:
         importlib.import_module(f"repro_torch.configs.{m}")
+    importlib.import_module("repro_torch.configs.paper_models")

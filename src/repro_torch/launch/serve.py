@@ -14,9 +14,13 @@ Two engines behind one CLI, as in the JAX package:
     python -m repro_torch.launch.serve --engine dense --arch zamba2-1.2b \\
         --no-reduced --requests 16 --batch 8 --context 2048
 
-Runs on the CUDA device unless ``--device cpu`` is given.  The JAX
-package's ``--plan`` (a searched v3 plan's serving section) is not ported
-yet (``ROADMAP.md``).
+    python -m repro_torch.launch.serve --plan plan.json --no-reduced \\
+        --requests 8 --batch 8 --max-new 16
+
+Runs on the CUDA device unless ``--device cpu`` is given.  ``--plan`` sizes
+the paged engine from a searched v3 plan's serving section (``search
+--slo-sweep``), verified on load; flags override its fields where set, as
+in the JAX driver (:func:`engine_config_from_args`).
 """
 from __future__ import annotations
 
@@ -149,22 +153,39 @@ def serve_paged(cfg: ModelConfig, requests: List[Request],
 
 
 def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
-    """The paged-engine geometry from the CLI flags (0 = default)."""
-    context = args.context or 128
-    batch = args.batch or 4
-    page_size = args.page_size or 16
+    """Resolve the paged-engine geometry: ``--plan``'s serving section when
+    given, CLI flags otherwise (flags override plan fields when set; 0 =
+    default)."""
+    page_size, n_pages = args.page_size, args.pages
+    batch, context = args.batch, args.context
+    prefill_chunk, eos = args.prefill_chunk, args.eos_id
+    if args.plan:
+        from repro_torch.analysis import load_plan_file
+        plan, _ = load_plan_file(args.plan)
+        sv = plan.serving
+        if sv is None:
+            raise SystemExit(
+                f"{args.plan}: plan has no serving section (a v3 serving "
+                "plan comes from `search --slo-sweep`)")
+        page_size = sv.page_size
+        context = min(sv.max_context, context) if context else sv.max_context
+        batch = min(sv.decode_batch, batch) if batch else sv.decode_batch
+        prefill_chunk = prefill_chunk or sv.prefill_chunk
+        n_pages = n_pages or sv.kv_pool_pages
+    context = context or 128
+    batch = batch or 4
+    page_size = page_size or 16
     context = -(-context // page_size) * page_size   # round up to pages
+    n_pages = n_pages or (batch * (context // page_size))
     return EngineConfig(
-        page_size=page_size,
-        n_pages=args.pages or (batch * (context // page_size)),
-        decode_slots=batch,
+        page_size=page_size, n_pages=n_pages, decode_slots=batch,
         max_context=context,
         prefill_batch=min(4, batch),
-        prefill_chunk=args.prefill_chunk or min(32, context),
-        eos_id=args.eos_id)
+        prefill_chunk=prefill_chunk or min(32, context),
+        eos_id=eos)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> List[Request]:
     ap = argparse.ArgumentParser(
         prog="serve.py",
         description="Serve synthetic requests with the paged "
@@ -178,20 +199,24 @@ def main(argv=None) -> None:
     ap.add_argument("--engine", choices=("paged", "dense"), default="paged")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
+    ap.add_argument("--plan", default=None, metavar="PLAN.json",
+                    help="drive the paged engine from a searched v3 plan's "
+                         "serving section (verified load)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=0,
-                    help="decode lanes (0 = default 4)")
+                    help="decode lanes (0 = from plan, default 4)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--context", type=int, default=0,
-                    help="per-lane context cap (0 = default 128)")
+                    help="per-lane context cap (0 = from plan, default 128)")
     ap.add_argument("--page-size", type=int, default=0,
-                    help="paged engine: tokens per KV page (0 = default 16)")
+                    help="paged engine: tokens per KV page (0 = from plan, "
+                         "default 16)")
     ap.add_argument("--pages", type=int, default=0,
                     help="paged engine: shared pool pages per layer "
-                         "(0 = lanes x context)")
+                         "(0 = from plan, lanes x context)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="paged engine: prompt tokens per prefill call "
-                         "(0 = default 32)")
+                         "(0 = from plan, default 32)")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -210,6 +235,7 @@ def main(argv=None) -> None:
               eos_id=args.eos_id, seed=args.seed, device=args.device)
     for r in reqs[:3]:
         print(f"req {r.rid}: prompt={r.prompt} -> {r.generated[:8]}...")
+    return reqs
 
 
 if __name__ == "__main__":

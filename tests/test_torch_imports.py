@@ -1,6 +1,8 @@
 """The port stands alone: ``repro_torch`` imports neither ``jax`` nor
-anything of ``repro``, nor ``triton`` (every kernel is CUDA C++), and keeps
-the JAX package's source linter green."""
+anything of ``repro``, nor ``triton`` (every kernel is CUDA C++), not even
+through its copies of the NumPy search engine and plan layer (``core``,
+``analysis``, ``launch.search``, ``serving.slo_search``), and keeps the JAX
+package's source linter green."""
 import ast
 import os
 import pathlib
@@ -24,7 +26,11 @@ def test_import_loads_no_jax_triton_or_repro():
             "repro_torch.kernels.ssd_scan, repro_torch.kernels.ops, "
             "repro_torch.optim, repro_torch.data, "
             "repro_torch.runtime.executor, repro_torch.runtime.sequence, "
-            "repro_torch.launch.mesh, repro_torch.kernels.ring_attention; "
+            "repro_torch.launch.mesh, repro_torch.kernels.ring_attention, "
+            "repro_torch.core, repro_torch.analysis, "
+            "repro_torch.launch.search, repro_torch.serving.slo_search, "
+            "repro_torch.runtime.schedules, repro_torch.configs.specs, "
+            "repro_torch.configs.paper_models; "
             "print(sorted({m.split('.')[0] for m in sys.modules} "
             "& {'jax', 'jaxlib', 'triton', 'repro'}))")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -9,6 +9,7 @@
   / decode-step / prefill-chunk counts.
 """
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -133,3 +134,98 @@ def test_serve_cli_runs_on_cpu_when_asked(capsys):
           "--batch", "2", "--context", "20", "--page-size", "8"])
     out = capsys.readouterr().out
     assert "served 5 requests, 15 tokens" in out
+
+
+# ---------------------------------------------------------------------------
+# serve --plan: the engine's geometry from a searched v3 plan
+# ---------------------------------------------------------------------------
+
+SLO_PLAN = str(pathlib.Path(__file__).resolve().parent.parent / "examples"
+               / "plans" / "bert-huge-32_8dev_slo30ms.plan.json")
+NO_SERVING_PLAN = SLO_PLAN.replace("slo30ms", "12gb")
+FLAG_SETS = {
+    "plan-only": {},
+    "batch": {"batch": 2},
+    "context-batch": {"context": 60, "batch": 3},
+    "above-plan": {"context": 4096, "batch": 1024},
+    "pages-chunk-page-size": {"page_size": 16, "pages": 100,
+                              "prefill_chunk": 8, "eos_id": 3},
+}
+
+
+def _serve_args(plan=SLO_PLAN, **flags):
+    import argparse
+    args = dict(plan=plan, page_size=0, pages=0, batch=0, context=0,
+                prefill_chunk=0, eos_id=None)
+    args.update(flags)
+    return argparse.Namespace(**args)
+
+
+@pytest.mark.parametrize("plan", [SLO_PLAN, None], ids=["plan", "no-plan"])
+@pytest.mark.parametrize("flags", sorted(FLAG_SETS))
+def test_engine_config_from_args_resolves_the_reference_fields(flags, plan):
+    """Flags override the plan's fields where set, as in the reference."""
+    from repro.launch.serve import engine_config_from_args as jax_resolve
+    from repro_torch.launch.serve import engine_config_from_args
+    args = _serve_args(plan=plan, **FLAG_SETS[flags])
+    want = dataclasses.asdict(jax_resolve(args, None))
+    assert dataclasses.asdict(engine_config_from_args(args)) == want
+
+
+def test_serve_plan_without_a_serving_section_exits_as_the_reference():
+    from repro.launch.serve import engine_config_from_args as jax_resolve
+    from repro_torch.launch.serve import engine_config_from_args
+    args = _serve_args(plan=NO_SERVING_PLAN)
+    with pytest.raises(SystemExit) as ej:
+        jax_resolve(args, None)
+    with pytest.raises(SystemExit) as et:
+        engine_config_from_args(args)
+    assert str(et.value) == str(ej.value)
+    assert "plan has no serving section" in str(et.value)
+
+
+def test_serve_plan_geometry_token_identical_to_jax_serve_paged():
+    """Reduced fp32 qwen3-4b on the plan's geometry (page size 8, its
+    pool of 8448 pages and prefill chunk of 512; 3 lanes and a context of
+    64 from the flags), bridged weights: the port's engine gives JAX
+    ``serve_paged``'s tokens and counts."""
+    from repro.configs import get_config as jax_get_config
+    from repro.launch.serve import engine_config_from_args as jax_resolve
+    from repro.launch.serve import serve_paged as jax_serve_paged
+    from repro.serving import EngineConfig as JaxEngineConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import engine_config_from_args
+    from test_serving import _mixed_requests
+
+    args = _serve_args(batch=3, context=64)
+    ecfg = engine_config_from_args(args)
+    assert (ecfg.page_size, ecfg.n_pages, ecfg.prefill_chunk,
+            ecfg.decode_slots, ecfg.max_context) == (8, 8448, 512, 3, 64)
+    cfg_j = jax_get_config("qwen3-4b").reduced().with_(dtype=jnp.float32)
+    cfg_t = get_config("qwen3-4b").reduced().with_(dtype=torch.float32)
+    reqs_j = _mixed_requests(np.random.default_rng(1), 5, max_len=20)
+    metrics_j = jax_serve_paged(
+        cfg_j, reqs_j, JaxEngineConfig(**dataclasses.asdict(
+            jax_resolve(args, cfg_j))), seed=0, verbose=False)
+
+    params_j = jax.jit(lambda k: jax_init_lm(k, cfg_j))(jax.random.PRNGKey(0))
+    params_t = params_from_jax(jax.tree.map(np.asarray, params_j), cfg_t,
+                               device="cpu")
+    reqs_t = [ServeRequest(rid=str(r.rid), prompt=list(r.prompt),
+                           max_new=r.max_new) for r in reqs_j]
+    metrics_t = ServingEngine(cfg_t, params_t, ecfg, device="cpu").run(reqs_t)
+    for rj, rt in zip(reqs_j, reqs_t):
+        assert rt.tokens == rj.generated, f"request {rj.rid}"
+        assert rt.done and len(rt.tokens) == rt.max_new
+    sj, st = metrics_j.summary(), metrics_t.summary()
+    for key in ("requests", "completed", "new_tokens", "decode_steps",
+                "prefill_chunks"):
+        assert st[key] == sj[key], key
+
+
+def test_serve_cli_takes_a_plan_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+    reqs = main(["--device", "cpu", "--plan", SLO_PLAN, "--requests", "3",
+                 "--max-new", "2", "--batch", "2", "--context", "16"])
+    assert all(r.done and len(r.generated) == 2 for r in reqs)
+    assert "served 3 requests, 6 tokens" in capsys.readouterr().out

@@ -11,6 +11,8 @@ magnitude (fp32, sums over the model in another order); AdamW and the
 schedule 1e-6 (fp32 elementwise arithmetic); training losses 1e-4 relative
 over three steps (the updated weights feed the next step).
 """
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -249,3 +251,122 @@ def test_training_an_attention_arch_raises_naming_the_kernel(arch):
                       lambda: init_train_state(cfg, device="cpu")):
             with pytest.raises(NotImplementedError, match=what):
                 build()
+
+
+# ---------------------------------------------------------------------------
+# train --plan / --plan-out / --strict (the JAX driver's plan flags)
+# ---------------------------------------------------------------------------
+
+def _plan_file(path, n_layers, ckpt_first, version=None):
+    """A one-device plan for ``n_layers`` plus embed and head, whose first
+    strategy's ``ckpt`` is ``ckpt_first`` and the others' its opposite;
+    trimmed to ``version`` 0 (no format stamp, no schedule) when asked."""
+    from repro_torch.core import ParallelPlan, Strategy
+    n = n_layers + 2
+    strategies = ([Strategy((), ckpt=ckpt_first)]
+                  + [Strategy((), ckpt=not ckpt_first)] * (n - 1))
+    d = ParallelPlan(n_devices=1, pp_degree=1, partition=[n],
+                     strategies=strategies, global_batch=2, n_micro=1
+                     ).to_json()
+    if version == 0:
+        for k in ("format_version", "schedule", "vpp_degree",
+                  "est_iter_time", "est_throughput", "est_stage_mem",
+                  "alpha_t", "alpha_m", "searched_by", "search_stats"):
+            d.pop(k, None)
+    path.write_text(json.dumps(d))
+    return str(path)
+
+
+def _plan_cli_run(cfg, argv):
+    """``launch/train.py::train`` with ``argv``; returns its losses and the
+    ``remat_segments`` it gave ``make_train_step``."""
+    from repro_torch.launch import train as train_cli
+    seen = []
+    real = train_cli.make_train_step
+
+    def spy(cfg, opt_cfg=None, *, remat_segments=None):
+        seen.append(remat_segments)
+        return real(cfg, opt_cfg, remat_segments=remat_segments)
+
+    train_cli.make_train_step = spy
+    try:
+        hist = train_cli.train(cfg, train_cli.parse_args(argv))
+    finally:
+        train_cli.make_train_step = real
+    assert len(seen) == 1
+    return [h["loss"] for h in hist], seen[0]
+
+
+@pytest.mark.parametrize("ckpt_first", [True, False])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-370m"])
+def test_train_plan_takes_remat_as_the_reference_and_trains_alike(
+        arch, ckpt_first, tmp_path, capsys):
+    """``--plan``: the plan is verified on load, ``remat_segments`` is the
+    reference driver's ``[s.ckpt for s in plan.strategies[:1]]`` (the
+    embed layer's), and the losses equal ``make_train_step`` with that
+    ``remat_segments`` on the same weights and batches (fp32, the same
+    arithmetic: equal bits)."""
+    from repro.analysis import load_plan_file as jax_load_plan_file
+    cfg = get_config(arch).reduced().with_(dtype=torch.float32)
+    path = _plan_file(tmp_path / "p.plan.json", cfg.n_layers, ckpt_first)
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2",
+            "--batch", "2", "--seq", "16", "--lr", "1e-3", "--plan", path]
+    losses, remat = _plan_cli_run(cfg, argv)
+    ref_plan, _ = jax_load_plan_file(path)
+    assert remat == [s.ckpt for s in ref_plan.strategies[:1]] == [ckpt_first]
+    out = capsys.readouterr().out
+    assert f"loaded plan {path} (verified: 0 warning(s))" in out
+    assert f"remat_segments=[{ckpt_first}]" in out
+
+    opt_cfg = AdamWConfig(lr=1e-3)
+    params, opt = init_train_state(cfg, seed=0, opt_cfg=opt_cfg,
+                                   device="cpu")
+    step = make_train_step(cfg, opt_cfg, remat_segments=[ckpt_first])
+    gen = synthetic_lm_batches(DataConfig(seq_len=16, global_batch=2,
+                                          vocab_size=cfg.vocab_size))
+    want = [float(step(params, opt, {k: torch.from_numpy(v)
+                                     for k, v in next(gen).items()})["loss"])
+            for _ in range(2)]
+    assert losses == want
+
+
+def test_train_plan_out_round_trips(tmp_path, capsys):
+    """A searched plan written by ``--plan-out`` loads back through
+    ``--plan`` to the same plan and the same bytes."""
+    from repro_torch.core import ParallelPlan
+    cfg = get_config("mamba2-370m").reduced().with_(dtype=torch.float32)
+    base = ["--arch", "mamba2-370m", "--reduced", "--device", "cpu",
+            "--steps", "1", "--batch", "2", "--seq", "16"]
+    first, second = tmp_path / "first.json", tmp_path / "second.json"
+    losses_a, remat_a = _plan_cli_run(cfg, base + ["--plan-out", str(first)])
+    losses_b, remat_b = _plan_cli_run(
+        cfg, base + ["--plan", str(first), "--plan-out", str(second)])
+    assert second.read_text() == first.read_text()
+    plan = ParallelPlan.loads(first.read_text())
+    assert plan.n_devices == 64 and plan.searched_by
+    assert (losses_b, remat_b) == (losses_a, remat_a)
+    assert remat_a == [plan.strategies[0].ckpt]
+    assert capsys.readouterr().out.count("plan: " + plan.summary()) == 2
+
+
+def test_train_strict_rejects_a_v0_plan_with_pln001_as_the_reference(
+        tmp_path, capsys):
+    from repro.analysis import DiagnosticError as JaxDiagnosticError
+    from repro.analysis import load_plan_file as jax_load_plan_file
+    from repro_torch.analysis import DiagnosticError
+    from repro_torch.launch.train import main
+    cfg = get_config("mamba2-370m").reduced()
+    path = _plan_file(tmp_path / "v0.plan.json", cfg.n_layers, False,
+                      version=0)
+    argv = ["--arch", "mamba2-370m", "--reduced", "--device", "cpu",
+            "--steps", "1", "--batch", "2", "--seq", "16", "--plan", path]
+    with pytest.raises(DiagnosticError) as ei:
+        main(argv + ["--strict"])
+    with pytest.raises(JaxDiagnosticError) as ej:
+        jax_load_plan_file(path, strict=True)
+    assert ei.value.rules() == ej.value.rules() == ["PLN001"]
+    assert str(ei.value) == str(ej.value)
+    # without --strict the v0 plan loads with its deprecation warning
+    assert len(main(argv)) == 1
+    out = capsys.readouterr().out
+    assert "warning[PLN001]" in out and "(verified: 1 warning(s))" in out
