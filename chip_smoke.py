@@ -21,7 +21,7 @@ Phases (any failure exits non-zero before the final line is printed):
    those six kernels reach; fail if any RMSNorm kernel spills, and print
    the RMSNorm backward's warps a CTA and CTAs per SM at the training
    widths; a fourth ``nvcc`` builds the SSD scan without the bf16
-   backward's dB/dC atomics, which phase 7 times; print the flash
+   backward's dB/dC stores, which phase 7 times; print the flash
    backward's kernels (``flash_bwd_``: D, dK/dV and dQ, fp32 and bf16, dh
    64 and 128) with their registers, spills and HGMMA count, fail if one
    is missing or a bf16 product kernel (``_wgmma_kernel``) has no HGMMA or
@@ -44,7 +44,8 @@ Phases (any failure exits non-zero before the final line is printed):
    acc error at the visible visit with P rounded to bf16 and with P split;
    RMSNorm also on a bf16 view at storage offset 1 (the kernels' unaligned
    body), and its backward twice at 16384 x 2048, where dw must be the same
-   bits both times, and at the QK-norm rows of the dense training shape (d
+   bits both times, as must the SSD backward's gradients at the training
+   shape, and at the QK-norm rows of the dense training shape (d
    128, 65536 and 262144 rows); the flash backward against its plain
    version and against ``torch.autograd`` of the plain forward, with the
    forward's row log-sum-exp against its plain version, at S = 100 (GQA
@@ -76,7 +77,7 @@ Phases (any failure exits non-zero before the final line is printed):
    launches from Python), the bf16 SSD forward's and backward's three
    kernels apart (profiler; the forward must launch its three ``ssd_fwd_``
    kernels and no ``ssd_bwd_`` kernel) and the backward's chunk-grad
-   kernel without its dB/dC atomics, the flash backward's three kernels
+   kernel without its dB/dC stores, the flash backward's three kernels
    (``flash_bwd_delta``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) apart at the
    dense training shape (profiler; each must show device time),
    with the least time the card could take (bytes over 3.35 TB/s or
@@ -178,14 +179,45 @@ Phases (any failure exits non-zero before the final line is printed):
    and RMSNorm must launch; the measured per-token latency is printed
    beside the cost model's ``est_tok_ms``.  A plan that fails the lint,
    an out-of-memory error or a kernel that does not launch fails the
-   phase.
+   phase.  (a') Between (a) and (b), per-layer times are profiled on the
+   card (``core/profiler.py::profile_layerspecs``: the reference's fp32
+   matmul chain of each layer's FLOPs, CUDA events, no rescale) and the
+   same search is priced with them; the profiled plan must certify, and
+   its ``est_iter_time`` is printed beside the analytic one and the
+   measured step, with no limit on the ratios;
+14. checkpoints: phase 5's run through ``train --ckpt-dir --ckpt-every 2``
+   for 2 steps (``launch/train.py`` saves ``step_00000002`` in the JAX
+   package's layout), a freshly built model and AdamW state (seed 1)
+   restored from it on the card, then 2 more steps on the next batches:
+   the four losses must be phase 5's first four bit for bit, the SSD scan
+   and RMSNorm must launch both ways and no plain version run; the
+   checkpoint's bytes on disk and the save and restore seconds are
+   printed, and the directory is deleted;
+15. the pipeline runtime at full qwen3-4b width, depth cut to 16 layers:
+   (a) in a process of its own, the single-process ``lm_loss`` and its
+   gradients (remat on every layer) on ``init_lm`` seed 0 and the train
+   driver's first batch of 4 x 4096 tokens; (b) 4 gloo ranks sharing the
+   card, each drawing its stage (``init_stage``), run gpipe, 1f1b, zb-h1
+   (P 4) and 1f1b-interleaved (P 4, V 2) on that batch as 4 micro-batches:
+   each loss within 2e-3 relative of (a)'s, each gradient leaf within 2e-2
+   of (a)'s leaf's largest magnitude, gpipe's, 1f1b's and zb-h1's losses
+   and gradients the same bits, the kernels launched as many times as the
+   schedule's ticks ask and no plain version run; each rank's ticks worked
+   and idle, busy and receive-wait ms and peak memory are printed; (c) the
+   port's search (``search --devices 4 --max-pp 4 --batch-grid 16``) gives
+   a pp 4 plan, and ``train --pipeline --ranks 4`` trains 3 steps with it
+   (zb-h1, P 4, m 4, AdamW on each rank's leaves with the global grad
+   norm): its first loss must be (b)'s for that schedule, bit for bit; its
+   step ms and each rank's peak are printed.  The 4 ranks share one card,
+   so their times are not a pipeline's speed.
 
 Phase 7 also times the flash forward and backward at the dense training
 shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
-The phases run in the order 1, 2, 7, 3, 4, 5, 6, 9, 10, 11, 12, 13, 8: phase 7
+The phases run in the order 1, 2, 7, 3, 4, 5, 14, 6, 9, 10, 11, 12, 13,
+15, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
 seconds are printed before the final lines.
@@ -321,6 +353,35 @@ PLAN_CLUSTER = "8x-h100-sxm-nvlink"
 PLAN_TRAIN_STEPS = 3
 PLAN_SLO_MS, PLAN_MAX_CONTEXT = 30, 2048
 PLAN_SERVE_REQUESTS, PLAN_SERVE_LANES, PLAN_SERVE_NEW = 8, 8, 16
+# phase 14, checkpoints: phase 5's run (mamba2-370m, TRAIN_BATCH x
+# TRAIN_SEQ, bf16, nothing cut) saved after CKPT_STEPS steps by train
+# --ckpt-dir, restored into a freshly built model and AdamW state, then
+# CKPT_STEPS more steps: the losses must be phase 5's first 2 x CKPT_STEPS,
+# bit for bit
+CKPT_STEPS = 2
+# phase 15, the pipeline runtime: qwen3-4b at full width, depth cut from 36
+# to PIPE_LAYERS so that P x V = 8 (P 4 ranks, V 2 for the interleaved
+# schedule) divides it; PIPE_RANKS gloo ranks share the card; the global
+# batch is PIPE_MICRO micro-batches of one sequence of PIPE_SEQ tokens
+PIPE_LAYERS, PIPE_RANKS, PIPE_MICRO, PIPE_SEQ = 16, 4, 4, 4096
+# the schedules in the order the check run takes them: the three flush
+# schedules first (gpipe's gradients are kept to hold 1f1b's and zb-h1's
+# against them, bit for bit), then the interleaved one on its own stages
+PIPE_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("zb-h1", 1),
+                  ("1f1b-interleaved", 2))
+# each schedule's loss within PIPE_LOSS_RTOL of the single-process loss
+# (bf16, micro-batches of 1 sequence against one batch of 4: the same
+# arithmetic in other groupings); each gradient leaf within PIPE_GRAD_TOL of
+# the single-process leaf's largest magnitude (the rule of the JAX
+# package's pipeline tests)
+PIPE_LOSS_RTOL, PIPE_GRAD_TOL = 2e-3, 2e-2
+PIPE_TIMEOUT_S = 900
+# train --pipeline: the plan of search --devices 4 on the H100 node with
+# these flags, PIPE_TRAIN_STEPS steps at phase 9's lr
+PIPE_SEARCH = ["--arch", "qwen3-4b", "--seq", str(PIPE_SEQ), "--cluster",
+               PLAN_CLUSTER, "--devices", "4", "--budget", "24", "--max-pp",
+               "4", "--schedules", "1f1b,zb-h1", "--batch-grid", "16"]
+PIPE_TRAIN_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -444,7 +505,7 @@ RMSNORM_KERNELS = ("rmsnorm_fwd_kernel", "rmsnorm_fwd_row_kernel",
                    "rmsnorm_bwd_wide_kernel", "rmsnorm_bwd_dw_sum_kernel")
 # the flash backward's three kernels by name prefix, in launch order
 FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
-# built with it defined, the SSD scan skips the bf16 backward's atomics
+# built with it defined, the SSD scan skips the bf16 backward's dB/dC stores
 NO_ADDS = ("SSD_BWD_NO_ADDS",)
 
 
@@ -930,8 +991,9 @@ def ssd_cases():
 
 def phase_train_kernels(errs):
     """The training path's kernels against torch.autograd of their plain
-    versions: the SSD scan forward and backward, the RMSNorm backward (also
-    on an unaligned view, and dw bitwise-stable across two calls)."""
+    versions: the SSD scan forward and backward (at the training shape also
+    bitwise-stable across two calls), the RMSNorm backward (also on an
+    unaligned view, and dw bitwise-stable across two calls)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_bwd_cuda
@@ -980,6 +1042,17 @@ def phase_train_kernels(errs):
             log(f"[ssd] {dtype:8s} {name:15s} B={B} S={S} H={H} P={P} N={N} "
                 f"Q={chunk}: max|diff|/max|ref| vs the {oracle} version: "
                 + ", ".join(msg) + f" (tol {REL_TOL[dtype]:.0e})")
+            if name == "training layer":
+                # each head's dB and dC terms written once and summed in a
+                # fixed order: the same bits on a second call
+                again = torch.autograd.grad(
+                    SSDScan.apply(*views(*leaves), chunk), leaves, dy)
+                same = all(torch.equal(a, b) for a, b in zip(again, grads))
+                log(f"[ssd] {dtype:8s} {name:15s} gradients of a second "
+                    f"call bitwise equal: {same}")
+                check(same, f"ssd_scan_bwd {name}: the gradients differ "
+                      "between two calls")
+                del again
             del leaves, views, y, grads, y_ref, grads_ref, outs, plain
             if dtype == "float32":
                 del wit
@@ -1442,6 +1515,108 @@ def phase_train():
     del params, opt, step, batches, metrics, prof
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, losses
+
+
+# ---------------------------------------------------------------------------
+# phase 14: checkpoints of full-width mamba2-370m, save, restore, resume
+# ---------------------------------------------------------------------------
+
+def phase_ckpt(unbroken):
+    """Phase 5's run through ``train --ckpt-dir``: CKPT_STEPS steps and a
+    checkpoint, a freshly built model and AdamW state restored from it,
+    CKPT_STEPS more steps on the next batches; the losses must be phase 5's
+    (``unbroken``), bit for bit.  Returns the path's launches."""
+    import gc
+
+    import torch
+    from repro_torch.checkpointing import restore_train_state
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.executor import init_train_state, make_train_step
+
+    cfg = get_config("mamba2-370m")
+    ck = ROOT / "build" / "ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", "mamba2-370m", "--steps", str(CKPT_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+            "--ckpt-dir", str(ck), "--ckpt-every", str(CKPT_STEPS)]
+    log(f"[ckpt] python -m repro_torch.launch.train {' '.join(argv)}")
+    # check-only: time the save that launch/train.py makes
+    real_save, save_s = train_cli.save_train_state, []
+
+    def timed_save(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_save(*args, **kwargs)
+        save_s.append(time.perf_counter() - t0)
+        return out
+
+    counts = _zero_counts()
+    train_cli.save_train_state = timed_save
+    try:
+        with recorded_train_steps() as seen, plain_calls() as plain:
+            hist = train_cli.main(argv)
+    finally:
+        train_cli.save_train_state = real_save
+    losses = [h["loss"] for h in hist]
+    saved = ck / f"step_{CKPT_STEPS:08d}"
+    check(len(save_s) == 1 and saved.is_dir(), f"train --ckpt-dir wrote "
+          f"{sorted(p.name for p in ck.iterdir()) if ck.exists() else []}")
+    n_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    del hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt_cfg = AdamWConfig(lr=3e-4)          # the train CLI's default lr
+    remat = seen["remat_segments"][0]
+    params, opt = init_train_state(cfg, seed=1, opt_cfg=opt_cfg,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, step_no = restore_train_state(params, opt, ck)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(step_no == CKPT_STEPS and opt["step"] == CKPT_STEPS,
+          f"restored step {step_no}, AdamW step {opt['step']}")
+    check(all(p.is_cuda for p in params.parameters())
+          and all(t.is_cuda for k in ("master", "m", "v") for t in opt[k]),
+          "the restored state is not on the card")
+    gen = synthetic_lm_batches(DataConfig(seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH,
+                                          vocab_size=cfg.vocab_size))
+    for _ in range(CKPT_STEPS):
+        next(gen)
+    step = make_train_step(cfg, opt_cfg, remat_segments=remat)
+    with plain_calls() as plain_resumed:
+        for _ in range(CKPT_STEPS):
+            batch = {k: torch.from_numpy(v).to("cuda")
+                     for k, v in next(gen).items()}
+            losses.append(float(step(params, opt, batch)["loss"]))
+    torch.cuda.synchronize()
+    launches = counts()
+    want = unbroken[:2 * CKPT_STEPS]
+    check(not plain and not plain_resumed, f"plain versions ran on the "
+          f"checkpoint path: {plain} {plain_resumed}")
+    for name in ("rmsnorm", "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd"):
+        check(launches[name] > 0, f"{name} was never launched on the "
+              "checkpoint path")
+    check(losses == want, f"saved, restored and resumed losses {losses} are "
+          f"not phase 5's {want}: differences "
+          f"{[a - b for a, b in zip(losses, want)]}")
+    n_params = sum(p.numel() for p in params.parameters())
+    log("[ckpt] " + json.dumps({
+        "losses": losses, "phase5_losses": want, "losses_bit_identical": True,
+        "restored_step": step_no, "remat_segments": remat,
+        "checkpoint_bytes": n_bytes, "params": n_params,
+        "bytes_per_param": n_bytes / n_params, "save_s": save_s[0],
+        "restore_s": restore_s, "launches": launches}))
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ck, ignore_errors=True)
     return launches
 
 
@@ -2347,6 +2522,7 @@ def _plan_train(run_dir, dense_losses):
         f"{plan.summary()}; searched in {search_s:.3f} s and certified; "
         f"cost model: est_iter_time {plan.est_iter_time:.4f} s, "
         f"est_stage_mem {est_mem / 1e9:.2f} GB")
+    profiled = _profiled_plan(cfg)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2384,12 +2560,57 @@ def _plan_train(run_dir, dense_losses):
         "losses_bit_identical": True, "remat_segments": remat[0],
         "step_ms": step_ms, "step_ms_mean_after_first": mean_ms,
         "est_iter_time_ms": plan.est_iter_time * 1e3,
+        "profiled_est_iter_time_ms": profiled["est_iter_time_ms"],
+        "measured_over_analytic": mean_ms / (plan.est_iter_time * 1e3),
+        "measured_over_profiled": mean_ms / profiled["est_iter_time_ms"],
         "peak_mem_gb": peak_gb, "est_stage_mem_gb": est_mem / 1e9,
         "launches": launches}))
     del hist
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def _profiled_plan(cfg):
+    """(a'): per-layer times profiled on this card
+    (``core/profiler.py::profile_layerspecs``: the reference's fp32 matmul
+    chain of each layer's FLOPs, timed with CUDA events, no rescale: the
+    profiling host is the target) and the same search priced with them;
+    its ``est_iter_time`` in ms, printed beside the analytic one."""
+    from repro_torch.configs.specs import layerspecs_for
+    from repro_torch.core import CLUSTERS
+    from repro_torch.core.profiler import (measure_matmul_throughput,
+                                           profile_layerspecs)
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.search import certify_plans
+
+    specs = layerspecs_for(cfg, DENSE_SEQ)
+    t0 = time.perf_counter()
+    times = profile_layerspecs(specs, device="cuda")
+    profile_s = time.perf_counter() - t0
+    check(list(times) == list(dict.fromkeys(s.name for s in specs))
+          and all(t >= 0 for t in times.values()),
+          f"profile_layerspecs gave {times}")
+    rate = measure_matmul_throughput(device="cuda")
+    t0 = time.perf_counter()
+    plan = train_cli.search_plan(
+        cfg, DENSE_SEQ, cluster=CLUSTERS[PLAN_CLUSTER].with_devices(1),
+        batch_grid=[DENSE_BATCH], profiled_times=times)
+    search_s = time.perf_counter() - t0
+    check(certify_plans([plan], log=log), "the profiled plan does not "
+          "certify")
+    distinct = {}
+    for s in specs:
+        distinct.setdefault(f"{times[s.name]:.6e}", []).append(s.name)
+    out = {"est_iter_time_ms": plan.est_iter_time * 1e3,
+           "summary": plan.summary(), "profile_s": profile_s,
+           "search_s": search_s, "fp32_matmul_tflops_d1024": rate / 1e12,
+           "s_per_sample_by_layers": {
+               f"{v[0]}..{v[-1]} ({len(v)})" if len(v) > 1 else v[0]: float(t)
+               for t, v in distinct.items()}}
+    log(f"[plan] (a') profiled: {plan.summary()}; est_iter_time "
+        f"{plan.est_iter_time:.4f} s; " + json.dumps(out))
+    return out
 
 
 def _plan_serve(run_dir):
@@ -2488,6 +2709,334 @@ def phase_plan(dense_losses):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the pipeline runtime, 4 ranks on the card
+# ---------------------------------------------------------------------------
+
+PIPE_DIR = ROOT / "build" / "pipe"
+
+
+def spawn_ranks(fn, args, nprocs, what, timeout_s=PIPE_TIMEOUT_S):
+    """``launch/mesh.py::run_ranks``: ``fn(rank, *args)`` in ``nprocs``
+    spawned processes, a failed or late rank failing the phase.  Returns
+    the wall seconds."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    try:
+        run_ranks(fn, args, nprocs, timeout_s=timeout_s)
+    except RuntimeError as e:
+        raise Failed(f"{what}: {e}") from e
+    return time.perf_counter() - t0
+
+
+def _pipe_cfg():
+    from repro_torch.configs import get_config
+    return get_config("qwen3-4b").with_(n_layers=PIPE_LAYERS)
+
+
+def _pipe_batch(cfg):
+    """The train driver's first batch at the pipeline cell's geometry."""
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    return next(synthetic_lm_batches(DataConfig(
+        seq_len=PIPE_SEQ, global_batch=PIPE_MICRO,
+        vocab_size=cfg.vocab_size)))
+
+
+def _pipe_launches(L, m, remat, steps=1):
+    """Launches of one pipelined loss-and-grads summed over the ranks: per
+    micro-batch each layer runs the flash forward once and its four norms
+    (ln1, ln2, QK-norm) forward once, the last stage the final norm; a
+    remat schedule recomputes each tick's forward in the backward."""
+    f = 2 if remat else 1
+    return {"flash_attention": L * m * f * steps,
+            "flash_attention_bwd": L * m * steps,
+            "rmsnorm": (4 * L + 1) * m * f * steps,
+            "rmsnorm_bwd": (4 * L + 1) * m * steps}
+
+
+def pipe_reference(_rank, run_dir):
+    """Step 1, a process of its own: the single-process port's ``lm_loss``
+    (remat on every layer) and its gradients on the pipeline's weights
+    (``init_lm`` seed 0) and batch, saved for the ranks."""
+    import torch
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.optim import global_norm
+
+    torch.cuda.set_device(0)
+    cfg = _pipe_cfg()
+    params = init_lm(cfg, seed=0, device="cuda")
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in _pipe_batch(cfg).items()}
+    leaves = list(params.parameters())
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        loss = lm_loss(params, batch, cfg, remat_segments=[True])
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    torch.save({"loss": loss.item(), "grad_norm": global_norm(grads).item(),
+                "grads": {n: g.cpu() for (n, _), g in
+                          zip(params.named_parameters(), grads)},
+                "params": sum(p.numel() for p in leaves),
+                "wall_ms": wall_ms, "launches": counts(), "plain": plain,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9},
+               f"{run_dir}/reference.pt")
+
+
+def _leaf_err(g, r):
+    """max|g - r| / max|r| of two tensors, in slices of 2^24 elements."""
+    g, r = g.reshape(-1), r.reshape(-1)
+    diff = top = 0.0
+    for a in range(0, r.numel(), 1 << 24):
+        rs = r[a:a + (1 << 24)].to(g.device).float()
+        diff = max(diff, (g[a:a + (1 << 24)].float() - rs).abs().max().item())
+        top = max(top, rs.abs().max().item())
+    return diff / max(top, 1e-30)
+
+
+def pipe_rank(rank, world, run_dir):
+    """Step 2, one of PIPE_RANKS gloo ranks on the card: its stage of every
+    schedule of PIPE_SCHEDULES on the check batch, after one untimed 1f1b
+    call; each gradient leaf held against the reference's, the flush
+    schedules' against gpipe's bit for bit.  Saves its results."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_pipeline_mesh
+    from repro_torch.runtime.pipeline import (init_stage, make_pipeline_loss,
+                                              pipeline_grad_norm)
+
+    torch.cuda.set_device(0)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous",
+                     timeout_s=PIPE_TIMEOUT_S)
+    try:
+        cfg = _pipe_cfg()
+        mesh = make_pipeline_mesh(PIPE_RANKS, 1)
+        i = mesh.get_local_rank("pipe")
+        ref = torch.load(f"{run_dir}/reference.pt", mmap=True)
+        batch = {k: torch.from_numpy(v).reshape(PIPE_MICRO, 1, PIPE_SEQ)
+                 for k, v in _pipe_batch(cfg).items()}
+        out, stage, kept = {}, None, None
+        for sched, V in PIPE_SCHEDULES:
+            if stage is None or len(stage.chunks) != V:
+                stage = kept = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                stage = init_stage(cfg, PIPE_RANKS, V, i, seed=0,
+                                   device="cuda")
+                if V == 1:      # warm-up: the first call's set-up untimed
+                    make_pipeline_loss(cfg, mesh, PIPE_MICRO,
+                                       schedule="1f1b")(stage, batch)
+            loss_fn = make_pipeline_loss(cfg, mesh, PIPE_MICRO,
+                                         schedule=sched, n_chunks=V)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            counts = _zero_counts()
+            t0 = time.perf_counter()
+            with plain_calls() as plain:
+                loss, grads = loss_fn(stage, batch)
+                gnorm = pipeline_grad_norm(stage, grads, mesh)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            errs = {n: _leaf_err(g, ref["grads"][n])
+                    for (n, _), g in zip(stage.named_parameters(), grads)}
+            same = None
+            if sched == "gpipe":
+                kept = ([g.clone() for g in grads], loss.item())
+            elif kept is not None:
+                same = (loss.item() == kept[1]
+                        and all(torch.equal(a, b)
+                                for a, b in zip(grads, kept[0])))
+            worst = max(errs, key=errs.get)
+            out[sched] = {
+                "loss": loss.item(), "grad_norm": gnorm.item(),
+                "wall_ms": wall_ms, "peak_gb": peak, "launches": launches,
+                "plain": plain, "stats": loss_fn.stats, "n_leaves": len(errs),
+                "worst_leaf": worst, "worst_err": errs[worst],
+                "bit_identical_to_gpipe": same, "layers": stage.chunks}
+            del grads, loss
+        pathlib.Path(f"{run_dir}/rank{rank}.json").write_text(
+            json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def counted_pipeline_rank(rank, world, run_dir, cfg, layout, args):
+    """Check-only: ``launch/train.py``'s rank of ``train --pipeline``, with
+    the kernels' launches and any plain call counted in the rank and saved
+    under PIPE_DIR."""
+    from repro_torch.launch.train import _pipeline_rank
+
+    counts = _zero_counts()
+    with plain_calls() as plain:
+        _pipeline_rank(rank, world, run_dir, cfg, layout, args)
+    (PIPE_DIR / f"train_rank{rank}.json").write_text(json.dumps(
+        {"launches": counts(), "plain": plain}))
+
+
+def _pipe_train(check_losses):
+    """Step 3: ``train --pipeline --ranks 4`` with the port's searched pp 4
+    plan; its first loss must be the check run's for its schedule, bit for
+    bit.  Returns the path's launches."""
+    import tempfile
+
+    import torch
+    from repro_torch.analysis import load_plan_file
+    from repro_torch.launch import search as search_cli
+    from repro_torch.launch import train as train_cli
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_") as d:
+        path = pathlib.Path(d) / "pp.plan.json"
+        argv = PIPE_SEARCH + ["--out", str(path)]
+        log(f"[pipe] (c) python -m repro_torch.launch.search {' '.join(argv)}")
+        check(search_cli.main(argv) == 0, "the search wrote no plan")
+        plan, _ = load_plan_file(str(path))
+        lay = train_cli.pipeline_layout(plan, PIPE_RANKS, PIPE_LAYERS,
+                                        PIPE_MICRO)
+        check(plan.pp_degree >= 2 and (lay.n_stages, lay.n_chunks,
+                                       lay.n_micro, lay.n_data)
+              == (PIPE_RANKS, 1, PIPE_MICRO, 1) and lay.schedule in
+              check_losses, f"plan {plan.summary()} runs as {lay}")
+        argv = ["--pipeline", "--ranks", str(PIPE_RANKS), "--plan",
+                str(path), "--layers", str(PIPE_LAYERS), "--seq",
+                str(PIPE_SEQ), "--batch", str(PIPE_MICRO), "--steps",
+                str(PIPE_TRAIN_STEPS), "--lr", str(DENSE_LR), "--log-every",
+                "1"]
+        log(f"[pipe] (c) python -m repro_torch.launch.train {' '.join(argv)}")
+        real = train_cli._pipeline_rank
+        train_cli._pipeline_rank = counted_pipeline_rank
+        try:
+            t0 = time.perf_counter()
+            hist = train_cli.main(argv)
+            wall_s = time.perf_counter() - t0
+        finally:
+            train_cli._pipeline_rank = real
+    ranks = [json.loads((PIPE_DIR / f"train_rank{r}.json").read_text())
+             for r in range(PIPE_RANKS)]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    plain = [r["plain"] for r in ranks if r["plain"]]
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == PIPE_TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(not plain, f"plain versions ran in train --pipeline: {plain}")
+    want = _pipe_launches(PIPE_LAYERS, PIPE_MICRO, lay.schedule != "gpipe",
+                          PIPE_TRAIN_STEPS)
+    check(all(launches[k] == v for k, v in want.items()),
+          f"train --pipeline launches {launches}, not {want}")
+    check(losses[0] == check_losses[lay.schedule], f"train --pipeline's "
+          f"first loss {losses[0]} is not the check run's "
+          f"{lay.schedule} loss {check_losses[lay.schedule]}")
+    log("[pipe] " + json.dumps({
+        "plan": plan.summary(), "layout": dataclasses.asdict(lay),
+        "losses": losses, "first_loss_is_check_runs": True,
+        "step_ms": [h["step_ms"] for h in hist],
+        "peak_mem_gb_by_rank": [hist[-1][f"peak_mem_gb_rank{r}"]
+                                for r in range(PIPE_RANKS)],
+        "wall_s": wall_s, "launches": launches})
+        + " (4 ranks share one card: not a pipeline's speed)")
+    return launches
+
+
+def phase_pipeline():
+    """Phase 15: the single-process reference, the four schedules on 4
+    ranks against it, then ``train --pipeline --ranks 4``."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    PIPE_DIR.mkdir(parents=True)
+    cfg = _pipe_cfg()
+    log(f"[pipe] qwen3-4b at full width, {PIPE_LAYERS} of 36 layers, "
+        f"{PIPE_MICRO} micro-batches of 1 x {PIPE_SEQ} tokens, "
+        f"{PIPE_RANKS} gloo ranks on one card")
+    ref_s = spawn_ranks(pipe_reference, (str(PIPE_DIR),), 1,
+                        "the single-process reference")
+    ref = torch.load(PIPE_DIR / "reference.pt", mmap=True)
+    check(not ref["plain"], f"plain versions ran in the reference: "
+          f"{ref['plain']}")
+    ref_launches = dict(ref["launches"])
+    # one batch, every layer recomputed in the backward; the final norm,
+    # outside the stack, is not
+    L = PIPE_LAYERS
+    want = {"flash_attention": 2 * L, "flash_attention_bwd": L,
+            "rmsnorm": 2 * 4 * L + 1, "rmsnorm_bwd": 4 * L + 1}
+    check(all(ref_launches[k] == v for k, v in want.items()),
+          f"the reference's launches {ref_launches}, not {want}")
+    log(f"[pipe] (a) single process: loss {ref['loss']!r}, grad norm "
+        f"{ref['grad_norm']:.6f}, {ref['params'] / 1e9:.3f} B params, "
+        f"{ref['wall_ms']:.1f} ms, peak {ref['peak_gb']:.2f} GB, process "
+        f"{ref_s:.1f} s")
+    ranks_s = spawn_ranks(pipe_rank, (PIPE_RANKS, str(PIPE_DIR)), PIPE_RANKS,
+                          "pipeline ranks")
+    res = [json.loads((PIPE_DIR / f"rank{r}.json").read_text())
+           for r in range(PIPE_RANKS)]
+    # the four schedules' launches only: the reference's are its own path
+    launches = {k: 0 for k in ref_launches}
+    check_losses = {}
+    for sched, V in PIPE_SCHEDULES:
+        rows = [r[sched] for r in res]
+        loss = rows[0]["loss"]
+        check(all(r["loss"] == loss for r in rows),
+              f"{sched}: ranks disagree on the loss")
+        check(not any(r["plain"] for r in rows), f"{sched}: plain versions "
+              f"ran: {[r['plain'] for r in rows]}")
+        rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+        worst = max(rows, key=lambda r: r["worst_err"])
+        got = {k: sum(r["launches"][k] for r in rows)
+               for k in rows[0]["launches"]}
+        want = _pipe_launches(PIPE_LAYERS, PIPE_MICRO, sched != "gpipe")
+        check(all(got[k] == v for k, v in want.items()),
+              f"{sched}: launches {got}, not {want}")
+        for k, v in got.items():
+            launches[k] += v
+        check(sum(r["n_leaves"] for r in rows) == len(ref["grads"]),
+              f"{sched}: {[r['n_leaves'] for r in rows]} leaves")
+        check(rel <= PIPE_LOSS_RTOL, f"{sched}: loss {loss} against the "
+              f"single process's {ref['loss']} (rel {rel:.3e})")
+        check(worst["worst_err"] <= PIPE_GRAD_TOL, f"{sched}: gradient "
+              f"{worst['worst_leaf']} off by {worst['worst_err']:.3e} of its "
+              "largest magnitude")
+        if sched in ("1f1b", "zb-h1"):
+            check(all(r["bit_identical_to_gpipe"] for r in rows),
+                  f"{sched}: loss or gradients differ from gpipe's")
+        check_losses[sched] = loss
+        for r, row in enumerate(rows):
+            st = row["stats"]
+            check(st["work_ticks"] == PIPE_MICRO * V and st["bubble_ticks"]
+                  == st["program_bubble_ticks"], f"{sched} rank {r}: {st}")
+            log(f"[pipe] (b) {sched:16s} rank {r} layers {row['layers']}: "
+                f"{st['work_ticks']} ticks worked, {st['bubble_ticks']} "
+                f"bubble (program: {st['program_bubble_ticks']}); busy "
+                f"{st['busy_s'] * 1e3:.1f} ms, receive wait "
+                f"{st['recv_wait_s'] * 1e3:.1f} ms, call "
+                f"{row['wall_ms']:.1f} ms; peak {row['peak_gb']:.2f} GB")
+        log(f"[pipe] (b) {sched}: loss {loss!r} (single process "
+            f"{ref['loss']!r}, rel {rel:.3e}); worst gradient leaf "
+            f"{worst['worst_leaf']} at {worst['worst_err']:.3e} of its "
+            f"largest magnitude; grad norm {rows[0]['grad_norm']:.6f} "
+            f"(single process {ref['grad_norm']:.6f})"
+            + ("; loss and gradients bit for bit gpipe's"
+               if sched in ("1f1b", "zb-h1") else ""))
+    log(f"[pipe] (b) the four schedules in {ranks_s:.1f} s")
+    del ref
+    train_launches = _pipe_train(check_losses)
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    return {"pipe_reference": ref_launches, "pipe": launches,
+            "pipe_train": train_launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: sequence-parallel attention, 4 ranks on the card
 # ---------------------------------------------------------------------------
 
@@ -2571,8 +3120,6 @@ def sp_rank(rank, world, run_dir):
 
 def phase_sp():
     import torch
-    import torch.multiprocessing as mp
-    from torch.multiprocessing.spawn import ProcessException
     from repro_torch.configs import get_config
     from repro_torch.models.attention import attention
 
@@ -2583,24 +3130,8 @@ def phase_sp():
     torch.cuda.empty_cache()
     log(f"[sp] qwen3-4b attention layer, {SP_SEQ} tokens over {SP_RANKS} "
         f"gloo ranks on one card ({SP_LOCAL} each), impl='ring'")
-    t0 = time.perf_counter()
-    ctx = mp.start_processes(sp_rank, args=(SP_RANKS, str(run_dir)),
-                             nprocs=SP_RANKS, join=False,
-                             start_method="spawn")
-    try:
-        while not ctx.join(timeout=5):
-            check(time.perf_counter() - t0 < SP_TIMEOUT_S,
-                  f"sp ranks still running after {SP_TIMEOUT_S} s")
-    except ProcessException as e:
-        raise Failed(f"sp rank failed: {e}") from e
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
-                p.join(10)
-    codes = [p.exitcode for p in ctx.processes]
-    check(codes == [0] * SP_RANKS, f"sp ranks' exit codes {codes}")
-    wall_s = time.perf_counter() - t0
+    wall_s = spawn_ranks(sp_rank, (SP_RANKS, str(run_dir)), SP_RANKS,
+                         "sp ranks", SP_TIMEOUT_S)
     ranks = [torch.load(run_dir / f"rank{r}.pt") for r in range(SP_RANKS)]
     for r, res in enumerate(ranks):
         check(res["backend"] == "gloo", f"rank {r}: {res['backend']}")
@@ -3016,8 +3547,8 @@ def _kernel_ms(call, names, n=5):
 
 def _ssd_bwd_parts(call):
     """Device ms per call of each bf16 SSD backward kernel (profiler), and
-    of the chunk-grad kernel built without its dB/dC atomics; their
-    difference is what the atomics cost."""
+    of the chunk-grad kernel built without its dB/dC stores; their
+    difference is what writing each head's terms costs."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as mod
 
@@ -3031,8 +3562,8 @@ def _ssd_bwd_parts(call):
         grad = _kernel_ms(call, SSD_BWD_KERNELS)[0][SSD_BWD_KERNELS[2]]
     finally:
         mod._lib = lib
-    parts["chunk_grad_without_atomics"] = grad
-    parts["atomics"] = parts[SSD_BWD_KERNELS[2]] - grad
+    parts["chunk_grad_without_dbdc_stores"] = grad
+    parts["dbdc_stores"] = parts[SSD_BWD_KERNELS[2]] - grad
     return parts
 
 
@@ -3202,7 +3733,8 @@ def main() -> int:
         timed = phase_timings()
         launches = {"serve": phase_serve()}
         phase_cpu_vs_card()
-        launches["train"] = phase_train()
+        launches["train"], train_losses = phase_train()
+        launches["ckpt"] = phase_ckpt(train_losses)
         phase_train_cpu_vs_card()
         launches["dense_train"], dense_losses = phase_dense_train()
         phase_dense_cpu_vs_card()
@@ -3210,6 +3742,7 @@ def main() -> int:
          dense_decode) = phase_dense_serve()
         launches.update(phase_ssm_serve())
         launches.update(phase_plan(dense_losses))
+        launches.update(phase_pipeline())
         launches["sp"] = phase_sp()
         kernels = kernel_entries(timed, errs, launches, dense_decode)
     except Failed as e:

@@ -1,4 +1,4 @@
-"""Weights of the JAX package -> the port's model.
+"""Weights of the JAX package <-> the port's model.
 
 ``params_from_jax`` takes the JAX ``init_lm`` pytree with every leaf given as
 a numpy array (``jax.tree.map(np.asarray, params)``) and builds the port's
@@ -12,13 +12,21 @@ viewed back as ``torch.bfloat16``.  The hybrid's ``shared_attn`` (``ln``
 and an attention block) becomes the model's
 :class:`~repro_torch.models.transformer.SharedAttention`.  A key the port
 does not map raises, rather than leave a weight behind.
+
+The other way, :func:`tree_from_params` gives the JAX tree of a port model
+(numpy leaves, each block's leaf stacked on a leading L axis), and
+:func:`flat_from_leaves` / :func:`assign_flat` map any list aligned with
+``model.parameters()`` (the parameters, their gradients, AdamW's
+``master``, ``m`` and ``v``) to and from the JAX tree's flattened paths
+(``stacks/0/attn/wq``), which the checkpoint store writes.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
@@ -96,3 +104,112 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, *,
     head = tree.get("head")
     return LM(t(tree["embed"]), blocks, t(tree["final_norm"]),
               None if head is None else t(head), shared)
+
+
+# --------------------------------------------------------------------------
+# the port's model -> the JAX tree
+# --------------------------------------------------------------------------
+
+def jax_path(name: str) -> Tuple[str, Optional[int]]:
+    """The JAX tree path of a port parameter name and its layer index:
+    ``blocks.3.attn.wq`` -> (``stacks/0/attn/wq``, 3); ``shared_attn.ln`` ->
+    (``shared_attn/ln``, None)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return "/".join(["stacks", "0", *parts[2:]]), int(parts[1])
+    return "/".join(parts), None
+
+
+def flat_from_leaves(model: nn.Module, leaves: Sequence[torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """``leaves`` aligned with ``model.parameters()`` -> {JAX tree path:
+    host tensor}, each block's leaf stacked on a leading L axis in layer
+    order, dtypes kept."""
+    named = [n for n, _ in model.named_parameters()]
+    if len(named) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for {len(named)} parameters")
+    groups: Dict[str, List[Tuple[Optional[int], torch.Tensor]]] = {}
+    for name, leaf in zip(named, leaves):
+        path, layer = jax_path(name)
+        groups.setdefault(path, []).append((layer, leaf.detach().cpu()))
+    out = {}
+    for path, items in groups.items():
+        layers = [layer for layer, _ in items]
+        if layers == [None]:
+            out[path] = items[0][1]
+        elif layers == list(range(len(items))):
+            out[path] = torch.stack([t for _, t in items])
+        else:
+            raise ValueError(f"{path}: layers {layers} are not 0..L-1")
+    return out
+
+
+def assign_flat(model: nn.Module, targets: Sequence[torch.Tensor],
+                flat: Mapping[str, Any]) -> None:
+    """Copy ``flat`` ({JAX tree path: array or tensor, stacked on L}) into
+    ``targets`` (aligned with ``model.parameters()``), in place and on the
+    targets' devices, cast to their dtypes.  Raises ValueError on a path
+    that no target takes or a target that no path fills, and on a shape
+    that differs."""
+    named = [n for n, _ in model.named_parameters()]
+    if len(named) != len(targets):
+        raise ValueError(f"{len(targets)} targets for {len(named)} "
+                         "parameters")
+    used = set()
+    with torch.no_grad():
+        for name, t in zip(named, targets):
+            path, layer = jax_path(name)
+            if path not in flat:
+                raise ValueError(f"no leaf {path!r} for parameter {name!r}")
+            used.add(path)
+            src = flat[path]
+            src = src if isinstance(src, torch.Tensor) else \
+                torch.from_numpy(np.asarray(src))
+            if layer is not None:
+                src = src[layer]
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{path}: shape {tuple(src.shape)} for "
+                                 f"parameter {name!r} of {tuple(t.shape)}")
+            t.copy_(src.to(t.dtype))
+    extra = set(flat) - used
+    if extra:
+        raise ValueError(f"the port does not map leaves {sorted(extra)}")
+
+
+def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """{``a/0/b``: leaf} -> {"a": [{"b": leaf}]}: a path component that is
+    a digit indexes a list, as in the JAX tree's ``stacks``."""
+    root: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        parts = path.split("/")
+        node: Any = root
+        for here, nxt in zip(parts[:-1], parts[1:]):
+            key = int(here) if here.isdigit() else here
+            empty = [] if nxt.isdigit() else {}
+            if isinstance(node, list):
+                while len(node) <= key:
+                    node.append(None)
+                node[key] = node[key] if node[key] is not None else empty
+            else:
+                node.setdefault(key, empty)
+            node = node[key]
+        node[int(parts[-1]) if parts[-1].isdigit() else parts[-1]] = leaf
+    return root
+
+
+def _numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as numpy; bfloat16 bit for bit as ``ml_dtypes``'
+    bfloat16 (imported here only, where it is needed)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    import ml_dtypes
+    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
+def tree_from_params(model: LM) -> Dict[str, Any]:
+    """The JAX ``init_lm`` tree of the port's model, the inverse of
+    :func:`params_from_jax`: numpy leaves, each block's leaf stacked on a
+    leading L axis (``stacks[0]``), bfloat16 bit for bit."""
+    flat = flat_from_leaves(model, list(model.parameters()))
+    return _nest({k: _numpy_from_tensor(v) for k, v in flat.items()})

@@ -25,11 +25,13 @@
 // left out rather than added and subtracted in fp32, where their rounding
 // would remain: the diagonal of L (L_tt = 1 for every g), and the decay of
 // the last step to the chunk's end (exp(g_Q - g_s) gives +w_s u_s at Q and
-// -w_s u_s at s, so d(dt*a)_t gets sum_{s<t} w_s u_s, a forward prefix).  dB and dC are summed over the heads of a group
-// in fp32 with atomicAdd into zeroed (B,S,G,N) fp32 buffers, which the
-// wrapper rounds once to x's dtype; the order of the adds varies from run
-// to run, so their last fp32 bits may too.  da is written per (batch, head)
-// as fp32 partials that the wrapper sums over the batch in a fixed order.
+// -w_s u_s at s, so d(dt*a)_t gets sum_{s<t} w_s u_s, a forward prefix).  Each head writes its dB and dC terms once
+// into (B,S,H,N) fp32 buffers, which the wrapper sums over the heads of a
+// group in a fixed order and rounds once to x's dtype: no atomics, so the
+// same bits on every run (summing into one buffer with atomics, as the
+// first versions did, changed the last bits from run to run, and training
+// steps with them).  da is written per (batch, head) as fp32 partials that
+// the wrapper sums over the batch in a fixed order.
 //
 // The bf16 backward computes the same terms chunk-parallel, in three
 // kernels (ssd_bwd_*, below): (a) per (batch, head, chunk) the chunk's
@@ -72,8 +74,9 @@
 // shared memory as bf16 (rows padded by 16 bytes, free of ldmatrix bank
 // conflicts), S and dS in halves of N, so that two CTAs fit on an SM and
 // hide each other's loads; bf16 inputs are loaded with 16-byte cp.async;
-// the cumsums run as warp scans; dB and dC go through 4-wide fp32 vector
-// atomics (red.global.add.v4.f32).
+// the cumsums run as warp scans; dB and dC leave as 4-wide fp32 stores
+// into the per-head buffers (0.54 GB written at the training shape, which
+// the wrapper's sum reads again).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -296,7 +299,7 @@ ssd_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
 // ---------------------------------------------------------------------------
 // backward: one CTA per (batch, head); states is a B*H*nc*P*N fp32 scratch;
-// dB and dC are zeroed (B,S,G,N) fp32 accumulators
+// dB and dC are (B,S,H,N) fp32, each head's terms written once
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
@@ -434,9 +437,9 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     }
 
     const size_t row = (size_t)d.H;  // rows of (B,S,H,*) outputs
-    // this head's rows of the (B,S,G,N) dB and dC accumulators
-    const size_t grow = (size_t)d.G * N;
-    const size_t gbase = ((size_t)b * d.S * d.G + grp) * N;
+    // this head's rows of the (B,S,H,N) dB and dC terms
+    const size_t grow = (size_t)d.H * N;
+    const size_t gbase = ((size_t)b * d.S * d.H + h) * N;
     {  // dx_s = sum_t M_ts dy_t + w_s dS B_s;  u_s = x_s . (dS B_s)
       float a1[4][4], a2[4][4];
       zero(a1);
@@ -475,8 +478,8 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         for (int jj = 0; jj < 8; ++jj) {
           const int s = ty + 16 * ii, n = tx + 16 * jj;
           if (s < Q && n < N && s0 + s < d.S)
-            atomicAdd(out + (size_t)(s0 + s) * grow + n,
-                      a1[ii][jj] + sw[s] * a2[ii][jj]);
+            out[(size_t)(s0 + s) * grow + n] =
+                a1[ii][jj] + sw[s] * a2[ii][jj];
         }
     }
     {  // dC_t = sum_s W_ts B_s + exp(g_t) S^T dy_t;  v_t = C_t . (that)
@@ -497,7 +500,7 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
             const float off = seg[t] * a2[ii][jj];
             vp += sC[t * (N + 1) + n] * off;
             if (s0 + t < d.S)
-              atomicAdd(out + (size_t)(s0 + t) * grow + n, a1[ii][jj] + off);
+              out[(size_t)(s0 + t) * grow + n] = a1[ii][jj] + off;
           }
         }
         vp = row_sum(vp);
@@ -1012,31 +1015,32 @@ __device__ __forceinline__ float load_state_halves(
   return dot;
 }
 
-// out[row, col..col+3] += v over a (rows, N) fp32 buffer: one 16-byte
-// vector reduction where N allows it, else four scalar ones
-__device__ __forceinline__ void add4(float* out, size_t row_off, int col,
-                                     int N, float v0, float v1, float v2,
-                                     float v3) {
+// out[row, col..col+3] = v over a (rows, N) fp32 buffer: one 16-byte
+// vector store where N allows it, else four scalar ones
+__device__ __forceinline__ void store4(float* out, size_t row_off, int col,
+                                       int N, float v0, float v1, float v2,
+                                       float v3) {
   float* p = out + row_off + col;
   if ((N & 3) == 0) {
-    if (col < N) atomicAdd(reinterpret_cast<float4*>(p), make_float4(v0, v1, v2, v3));
+    if (col < N) *reinterpret_cast<float4*>(p) = make_float4(v0, v1, v2, v3);
   } else {
-    if (col < N) atomicAdd(p, v0);
-    if (col + 1 < N) atomicAdd(p + 1, v1);
-    if (col + 2 < N) atomicAdd(p + 2, v2);
-    if (col + 3 < N) atomicAdd(p + 3, v3);
+    if (col < N) p[0] = v0;
+    if (col + 1 < N) p[1] = v1;
+    if (col + 2 < N) p[2] = v2;
+    if (col + 3 < N) p[3] = v3;
   }
 }
 
-// acc (a warp's 16 x 32 tile at rows m0, columns n0 of a chunk) added into
-// rows s0 + m of a (B,S,G,N) fp32 buffer: lanes c and c ^ 1 swap halves so
-// that each holds 4 consecutive columns of one row
-__device__ __forceinline__ void add_tile(float* out, size_t rows_base,
-                                         size_t row_stride, int s0, int Q,
-                                         int S, int N, int m0, int n0,
-                                         const float (&acc)[4][4]) {
+// acc (a warp's 16 x 32 tile at rows m0, columns n0 of a chunk) stored
+// into rows s0 + m of this head's (B,S,H,N) fp32 terms (every element by
+// one warp of one CTA): lanes c and c ^ 1 swap halves so that each holds 4
+// consecutive columns of one row
+__device__ __forceinline__ void store_tile(float* out, size_t rows_base,
+                                           size_t row_stride, int s0, int Q,
+                                           int S, int N, int m0, int n0,
+                                           const float (&acc)[4][4]) {
 #ifdef SSD_BWD_NO_ADDS
-  // built so only to time the kernel without these atomics: the sums are
+  // built so only to time the kernel without these stores: the sums are
   // still computed, and never stored
   float sum = 0.f;
 #pragma unroll
@@ -1057,9 +1061,9 @@ __device__ __forceinline__ void add_tile(float* out, size_t rows_base,
     if (!row_ok) continue;
     const size_t off = rows_base + (size_t)(s0 + m) * row_stride;
     if (odd)
-      add4(out, off, col, N, x0, x1, acc[j][2], acc[j][3]);
+      store4(out, off, col, N, x0, x1, acc[j][2], acc[j][3]);
     else
-      add4(out, off, col, N, acc[j][0], acc[j][1], x0, x1);
+      store4(out, off, col, N, acc[j][0], acc[j][1], x0, x1);
   }
 #endif
 }
@@ -1197,8 +1201,8 @@ ssd_bwd_chunk_grad_kernel(MmaArgs g) {
 
   // 3. by halves of N: S_c and dS_c, then dx's state term, dB and dC
   const size_t state = bhc * d.P * d.N;
-  const size_t grow = (size_t)d.G * d.N;
-  const size_t gbase = ((size_t)b * d.S * d.G + grp) * d.N;
+  const size_t grow = (size_t)d.H * d.N;
+  const size_t gbase = ((size_t)b * d.S * d.H + h) * d.N;
   const int halves = d.N > 64 ? 2 : 1;
   float dss = 0.f;
   for (int half = 0; half < halves; ++half) {
@@ -1230,7 +1234,7 @@ ssd_bwd_chunk_grad_kernel(MmaArgs g) {
         for (int i = 0; i < 4; ++i)
           a1[j][i] += sw[m0 + gr + 8 * (i >> 1)] * a2[j][i];
       if (n_tile)
-        add_tile(g.dB, gbase, grow, s0, d.Q, d.S, d.N, m0, nh + n0, a1);
+        store_tile(g.dB, gbase, grow, s0, d.Q, d.S, d.N, m0, nh + n0, a1);
     }
     {  // dC_t = sum_s W_ts B_s + exp(g_t) S^T dy_t: rows t, columns n;
        // v_t = C_t . exp(g_t) S^T dy_t
@@ -1256,7 +1260,7 @@ ssd_bwd_chunk_grad_kernel(MmaArgs g) {
           a1[j][i] += off;
         }
       if (n_tile)
-        add_tile(g.dC, gbase, grow, s0, d.Q, d.S, d.N, m0, nh + n0, a1);
+        store_tile(g.dC, gbase, grow, s0, d.Q, d.S, d.N, m0, nh + n0, a1);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         vp[i] += __shfl_xor_sync(0xffffffffu, vp[i], 1);
@@ -1663,8 +1667,9 @@ cudaError_t launch_bwd_bf16(const void* x, const void* dt, const void* A,
 // H).  strides: 19 element strides, (b, s, h, p) of x, (b, s, h) of dt,
 // (b, s, g, n) of Bm and Cm, (b, s, h, p) of dy (ignored by the forward).
 // Outputs are contiguous: y, dx (B,S,H,P); ddt (B,S,H); da_part (B,H); dB
-// and dC (B,S,G,N), zeroed by the caller.  Returns the CUDA error of the
-// launch (0 on success).
+// and dC (B,S,H,N), each head's terms, every element written (the caller
+// sums the heads of a group).  Returns the CUDA error of the launch (0 on
+// success).
 // work: for bf16, B*H*nc*P*N + B*H*nc fp32 of scratch (the chunk-start
 // states and the chunk decays); for float32 it is unused.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,

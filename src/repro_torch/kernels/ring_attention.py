@@ -100,9 +100,10 @@ def flash_partial_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_partial_cuda.launches = 0
 
 
-def _host(x: torch.Tensor) -> torch.Tensor:
+def host_tensor(x: torch.Tensor) -> torch.Tensor:
     """x in host memory for gloo: a CUDA tensor is copied into a pinned
-    buffer (waiting for the copy), a CPU tensor is host memory already."""
+    buffer (waiting for the copy), a CPU tensor is host memory already.
+    The ring's panels and the pipeline's hand-offs travel so."""
     if not x.is_cuda:
         return x.contiguous()
     h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -155,7 +156,7 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_start = rank * S_loc
 
     # the panel as it travels: device tensors on nccl, host tensors on gloo
-    travel = [x.contiguous() if backend == "nccl" else _host(x)
+    travel = [x.contiguous() if backend == "nccl" else host_tensor(x)
               for x in (k, v)]
     k_cur, v_cur = k, v
     state: Optional[State] = None

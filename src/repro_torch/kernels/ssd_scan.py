@@ -11,10 +11,11 @@ says what bounds each kernel on the H100 and how the design answers that.
 ``Bm``/``Cm`` hold G groups, G dividing the H heads; head h reads group
 ``h // (H // G)``.  ``models/ssm.py`` passes one group for all heads, as a
 (B,S,1,N) view of its projection: the kernels take strides, so no copy is
-made.  The backward sums the heads' dB and dC terms of a group in fp32
-(atomics) and rounds once to x's dtype.  ``S`` need not be a multiple of
-the chunk; the kernels mask the tail, which equals the zero padding of the
-plain version.
+made.  The backward writes each head's dB and dC terms in fp32, which
+:func:`ssd_scan_bwd_cuda` sums over the heads of a group in a fixed order
+and rounds once to x's dtype: no atomics, the same bits on every run.
+``S`` need not be a multiple of the chunk; the kernels mask the tail,
+which equals the zero padding of the plain version.
 
 :func:`ssd_scan_cuda` and :func:`ssd_scan_bwd_cuda` only launch a kernel;
 ``kernels/ops.py`` routes CUDA tensors through :class:`SSDScan` and CPU
@@ -138,8 +139,8 @@ def ssd_scan_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
                       chunk: int = 64) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernels: the gradients (dx, ddt, dA, dB, dC) of
     ``sum(y * dy)``.  dB and dC have Bm's shape (B,S,G,N) and x's dtype:
-    the kernels sum each group's heads into fp32 accumulators, rounded once
-    here.  fp32 inputs run one kernel, whose fp32 dA partials are per
+    the kernels write each head's fp32 terms, (B,S,H,N), which are summed
+    here over the heads of each group in a fixed order and rounded once.  fp32 inputs run one kernel, whose fp32 dA partials are per
     (batch, head); bf16 inputs run three, chunk-parallel on tensor cores,
     whose partials are per (batch, head, chunk).  dA is their sum over the
     batch (and the chunks) in a fixed order."""
@@ -157,11 +158,17 @@ def ssd_scan_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     ddt = torch.empty(B, S, H, dtype=torch.float32, device=dev)
     da_part = torch.empty((B, H, nc) if bf16 else (B, H),
                           dtype=torch.float32, device=dev)
-    dB = torch.zeros(B, S, G, N, dtype=torch.float32, device=dev)
-    dC = torch.zeros(B, S, G, N, dtype=torch.float32, device=dev)
+    # every element is written by the kernels
+    dB = torch.empty(B, S, H, N, dtype=torch.float32, device=dev)
+    dC = torch.empty(B, S, H, N, dtype=torch.float32, device=dev)
+
+    def by_group(t: torch.Tensor) -> torch.Tensor:
+        return t.view(B, S, G, H // G, N).sum(3).to(x.dtype)
+
     if x.numel() == 0:
-        return (dx, ddt, torch.zeros_like(A), dB.to(x.dtype),
-                dC.to(x.dtype))
+        return (dx, ddt, torch.zeros_like(A),
+                torch.zeros(Bm.shape, dtype=x.dtype, device=dev),
+                torch.zeros(Cm.shape, dtype=x.dtype, device=dev))
     # the chunk-start states; for bf16 also the end-state gradients and
     # the chunk decays
     states = torch.empty(B * H * nc * P * N, dtype=torch.float32, device=dev)
@@ -179,7 +186,7 @@ def ssd_scan_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     _raise_on(err, "ssd_scan backward")
     ssd_scan_bwd_cuda.launches += 1
     dA = da_part.sum(2).sum(0) if bf16 else da_part.sum(0)
-    return dx, ddt, dA, dB.to(x.dtype), dC.to(x.dtype)
+    return dx, ddt, dA, by_group(dB), by_group(dC)
 
 
 ssd_scan_bwd_cuda.launches = 0

@@ -1,13 +1,15 @@
 """Training entry point of the port: a Galvatron-BMW plan, searched or
-loaded, then single-device training of a dense or SSM model on synthetic or
-byte-level text batches.
+loaded, then training of a dense or SSM model on synthetic or byte-level
+text batches, on one device or through the pipeline runtime.
 
     python -m repro_torch.launch.train --arch mamba2-370m \\
         --steps 10 --batch 8 --seq 2048
     python -m repro_torch.launch.train --plan plan.json --layers 28 \\
         --seq 4096 --batch 2 --steps 3 --lr 3e-5
     python -m repro_torch.launch.train --device cpu --reduced \\
-        --arch qwen3-4b --steps 5
+        --arch qwen3-4b --steps 5 --ckpt-dir ckpt --ckpt-every 5
+    python -m repro_torch.launch.train --pipeline --ranks 4 \\
+        --plan plan.json --layers 16 --seq 4096 --batch 4 --steps 3
 
 Runs on the CUDA device unless ``--device cpu`` is given.  The weights are
 random from seed 0.  As in the JAX driver, the plan comes from ``--plan``
@@ -16,17 +18,33 @@ paper's search (:func:`search_plan`, on the 64-GPU H100 preset), and
 ``--plan-out`` writes it.  The driver takes remat from the plan as the JAX
 driver does (:func:`remat_from_plan`); the plan's sharding degrees and
 micro-batch count are printed, not applied, as on the JAX driver's
-one-device path.  ``--pipeline`` and checkpoints are not ported yet
-(``ROADMAP.md``).
+one-device path.  ``--ckpt-dir`` saves the model and AdamW state every
+``--ckpt-every`` steps in the JAX package's layout
+(``checkpointing/store.py``); as in the JAX driver, nothing resumes from
+them.
+
+``--pipeline`` executes the plan's searched schedule through the pipeline
+runtime (``runtime/pipeline.py``), scaled down by the JAX driver's rules
+(:func:`pipeline_layout`) to what ``--ranks`` ranks (default: the CUDA
+devices) and the layer count support.  It starts the ranks itself
+(``torch.multiprocessing`` spawn, a ``file://`` rendezvous in a temporary
+directory, gloo); with fewer cards than ranks, ranks share cards.  Each rank
+draws its own stage of ``init_lm(cfg, seed=0)`` (:func:`init_stage`) and
+never holds the whole model.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import math
 import pathlib
+import tempfile
 import time
 from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.specs import layerspecs_for
@@ -34,6 +52,7 @@ from repro_torch.core import (ClusterSpec, GalvatronOptimizer, ParallelPlan,
                               galvatron_variant, h100_cluster)
 from repro_torch.data import (DataConfig, synthetic_lm_batches,
                               text_corpus_batches)
+from repro_torch.checkpointing import save_train_state
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import AdamWConfig
@@ -42,11 +61,15 @@ from repro_torch.runtime.executor import init_train_state, make_train_step
 
 def search_plan(cfg: ModelConfig, seq_len: int, n_devices: int = 64, *,
                 cluster: Optional[ClusterSpec] = None,
-                batch_grid: Sequence[int] = (64, 128, 256)) -> ParallelPlan:
+                batch_grid: Sequence[int] = (64, 128, 256),
+                profiled_times: Optional[Dict[str, float]] = None
+                ) -> ParallelPlan:
     """The JAX driver's search (``repro/launch/train.py::search_plan``):
     the same ``bmw`` settings and schedules, on ``cluster`` (default
     :func:`~repro_torch.core.hardware.h100_cluster` of ``n_devices``) over
-    ``batch_grid`` (default the JAX driver's)."""
+    ``batch_grid`` (default the JAX driver's), priced with
+    ``profiled_times`` ({layer name: s/sample},
+    ``core/profiler.py::profile_layerspecs``) where given."""
     specs = layerspecs_for(cfg, seq_len)
     ocfg = galvatron_variant("bmw")
     ocfg.batch_grid = list(batch_grid)
@@ -58,7 +81,7 @@ def search_plan(cfg: ModelConfig, seq_len: int, n_devices: int = 64, *,
     ocfg.schedules = ("1f1b", "1f1b-interleaved", "zb-h1")
     ocfg.vpp_candidates = (2,)
     plan = GalvatronOptimizer(specs, cluster or h100_cluster(n_devices),
-                              ocfg).optimize()
+                              ocfg, profiled_times=profiled_times).optimize()
     if plan is None:
         raise RuntimeError("no feasible plan")
     return plan
@@ -137,6 +160,153 @@ def train(cfg: ModelConfig, args: argparse.Namespace) -> List[Dict[str, float]]:
             print(f"step {i:5d}  loss={history[-1]['loss']:.4f}  "
                   f"gnorm={history[-1]['grad_norm']:.3f}  "
                   f"tok/s={tokens_seen / dt:,.0f}")
+        if args.ckpt_dir and i % args.ckpt_every == 0:
+            d = save_train_state(i, params, opt, args.ckpt_dir)
+            print(f"  checkpoint -> {d}")
+    print("done.")
+    return history
+
+
+# --------------------------------------------------------------------------
+# --pipeline: the searched schedule through the pipeline runtime
+# --------------------------------------------------------------------------
+
+# a rendezvous or collective of the pipeline's ranks that waits longer
+# raises instead of hanging
+PIPELINE_TIMEOUT_S = 900.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineLayout:
+    schedule: str
+    n_stages: int       # P
+    n_chunks: int       # V
+    n_micro: int        # m
+    n_data: int
+
+
+def pipeline_layout(plan: ParallelPlan, n_ranks: int, n_layers: int,
+                    batch: int) -> PipelineLayout:
+    """The JAX driver's degeneration rules (``run_pipeline``), with its
+    local devices as ``n_ranks``: P is the largest divisor of the ranks and
+    of the layers at most ``min(ranks, plan.pp_degree, L)``; V shrinks
+    until ``P·V`` divides L; ``1f1b-interleaved`` with V 1 becomes
+    ``1f1b``; ``m = gcd(plan.n_micro, batch)``; the data axis is
+    ``gcd(ranks // P, batch // m)`` (spare ranks idle)."""
+    P = 1
+    for cand in range(min(n_ranks, plan.pp_degree, n_layers), 0, -1):
+        if n_ranks % cand == 0 and n_layers % cand == 0:
+            P = cand
+            break
+    sched, V = plan.schedule, plan.vpp_degree
+    while V > 1 and n_layers % (P * V):
+        V -= 1
+    if V == 1 and sched == "1f1b-interleaved":
+        sched = "1f1b"          # interleaving degenerated away locally
+    m = math.gcd(plan.n_micro, batch)
+    n_data = math.gcd(n_ranks // P, batch // m)
+    return PipelineLayout(sched, P, V, m, n_data)
+
+
+def _pipeline_rank(rank: int, world: int, run_dir: str, cfg: ModelConfig,
+                   layout: PipelineLayout, args: argparse.Namespace) -> None:
+    """One rank of :func:`run_pipeline`: its stage, AdamW on its leaves with
+    the global grad norm, ``args.steps`` steps; rank 0 prints the steps.
+    Writes its history and peak memory to ``run_dir/rank<r>.json``."""
+    from repro_torch.launch.mesh import init_distributed, make_pipeline_mesh
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.runtime.pipeline import (init_stage, make_pipeline_loss,
+                                              pipeline_grad_norm)
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:
+        torch.set_num_threads(1)
+    dev = resolve_device(dev.type)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous",
+                     timeout_s=PIPELINE_TIMEOUT_S)
+    try:
+        P, V, m = layout.n_stages, layout.n_chunks, layout.n_micro
+        mesh = make_pipeline_mesh(P, layout.n_data, device_type=dev.type)
+        i = mesh.get_local_rank("pipe")
+        loss_fn = make_pipeline_loss(cfg, mesh, m, schedule=layout.schedule,
+                                     n_chunks=V)
+        stage = init_stage(cfg, P, V, i, seed=0, device=dev)
+        leaves = list(stage.parameters())
+        ocfg = AdamWConfig(lr=args.lr)
+        opt = adamw_init(leaves, ocfg)
+        dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
+                          vocab_size=cfg.vocab_size)
+        gen = (text_corpus_batches(args.corpus, dcfg) if args.corpus
+               else synthetic_lm_batches(dcfg))
+        history = []
+        t0 = time.time()
+        tokens_seen = 0
+        for step in range(1, args.steps + 1):
+            b = next(gen)
+            batch = {k: torch.from_numpy(v).reshape(m, args.batch // m,
+                                                    args.seq)
+                     for k, v in b.items()}
+            ts = time.perf_counter()
+            loss, grads = loss_fn(stage, batch)
+            gnorm = pipeline_grad_norm(stage, grads, mesh)
+            metrics = adamw_update(leaves, grads, opt, ocfg, grad_norm=gnorm)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            history.append({"loss": float(loss),
+                            "grad_norm": float(metrics["grad_norm"]),
+                            "lr": float(metrics["lr"]),
+                            "step_ms": (time.perf_counter() - ts) * 1e3})
+            del grads
+            tokens_seen += args.batch * args.seq
+            if rank == 0 and (step % args.log_every == 0
+                              or step == args.steps):
+                dt = time.time() - t0
+                print(f"step {step:5d}  loss={history[-1]['loss']:.4f}  "
+                      f"gnorm={history[-1]['grad_norm']:.3f}  "
+                      f"tok/s={tokens_seen / dt:,.0f}", flush=True)
+        peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else None)
+        pathlib.Path(run_dir, f"rank{rank}.json").write_text(json.dumps(
+            {"history": history, "peak_mem_gb": peak,
+             "stage": i, "layers": stage.chunks}))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_pipeline(cfg: ModelConfig, plan: ParallelPlan,
+                 args: argparse.Namespace) -> List[Dict[str, float]]:
+    """Execute the plan's searched schedule through the pipeline runtime on
+    ``args.ranks`` ranks (scaled down by :func:`pipeline_layout`); returns
+    rank 0's history, each step with ``peak_mem_gb_rank<r>`` of every rank
+    on a CUDA device.  Raises RuntimeError when a rank fails."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.runtime.pipeline import _check_stack
+
+    dev = resolve_device(args.device)
+    n_ranks = args.ranks or (torch.cuda.device_count()
+                             if dev.type == "cuda" else 1)
+    _check_stack(cfg)
+    layout = pipeline_layout(plan, n_ranks, cfg.n_layers, args.batch)
+    print(f"pipeline runtime: schedule={layout.schedule} "
+          f"P={layout.n_stages} V={layout.n_chunks} m={layout.n_micro} "
+          f"(plan asked {plan.schedule} P={plan.pp_degree} "
+          f"V={plan.vpp_degree} m={plan.n_micro})")
+    world = layout.n_stages * layout.n_data
+    print(f"ranks: {world} of {n_ranks} (pipe {layout.n_stages} x data "
+          f"{layout.n_data}) on {dev.type}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_pipeline_") as d:
+        run_ranks(_pipeline_rank, (world, d, cfg, layout, args), world)
+        ranks = [json.loads(pathlib.Path(d, f"rank{r}.json").read_text())
+                 for r in range(world)]
+    history = ranks[0]["history"]
+    if dev.type == "cuda":
+        for h in history:
+            h.update({f"peak_mem_gb_rank{r}": res["peak_mem_gb"]
+                      for r, res in enumerate(ranks)})
     print("done.")
     return history
 
@@ -144,7 +314,8 @@ def train(cfg: ModelConfig, args: argparse.Namespace) -> List[Dict[str, float]]:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="train.py",
-        description="Train a model on one device (PyTorch port).")
+        description="Train a model on one device or through the pipeline "
+                    "runtime (PyTorch port).")
     ap.add_argument("--arch", choices=list_archs(), default="qwen3-4b")
     ap.add_argument("--reduced", action="store_true",
                     help="shrink the model for local runs")
@@ -166,12 +337,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save the model and AdamW state here (the JAX "
+                         "package's layout)")
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--pipeline", action="store_true",
+                    help="execute the searched pipeline schedule through "
+                         "the pipeline runtime over --ranks ranks instead "
+                         "of training on one device")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks of --pipeline (default: the CUDA devices; "
+                         "1 with --device cpu)")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> List[Dict[str, float]]:
     args = parse_args(argv)
-    return train(config_from_args(args), args)
+    cfg = config_from_args(args)
+    if args.pipeline:
+        resolve_device(args.device)
+        return run_pipeline(cfg, plan_from_args(cfg, args), args)
+    return train(cfg, args)
 
 
 if __name__ == "__main__":

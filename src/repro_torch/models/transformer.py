@@ -98,14 +98,14 @@ def build_stacks(cfg: ModelConfig) -> List[Tuple[str, int]]:
     if cfg.n_experts > 1 or cfg.arch_type == "moe":
         raise NotImplementedError(
             f"{cfg.name!r} is a MoE model (n_experts={cfg.n_experts}): the "
-            "port has no MoE block yet (ROADMAP.md queue 1, item 5)")
+            "port has no MoE block yet (ROADMAP.md queue 1, item 3)")
     if cfg.arch_type in ("ssm", "hybrid"):
         return [("ssm", cfg.n_layers)]
     if cfg.arch_type != "dense":
         raise NotImplementedError(
             f"the port builds dense, SSM and hybrid decoders only so far; "
             f"{cfg.name!r} has arch_type={cfg.arch_type!r} (ROADMAP.md "
-            "queue 1, item 7)")
+            "queue 1, item 4)")
     return [("dense", cfg.n_layers)]
 
 
@@ -113,27 +113,50 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device: torch.device = "cuda") -> LM:
     """Random weights drawn on ``device`` from ``torch.Generator(seed)``,
     with the JAX package's distributions (not its numbers)."""
+    parts = init_lm_parts(cfg, seed=seed, device=device)
+    return LM(parts["embed"], [parts["blocks"][i]
+                               for i in range(cfg.n_layers)],
+              parts["final_norm"], parts["head"], parts["shared_attn"])
+
+
+def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
+                  device: torch.device = "cuda",
+                  keep: Optional[Callable[[Any], bool]] = None
+                  ) -> Dict[str, Any]:
+    """:func:`init_lm`'s draws, in its order (blocks 0..L-1, the shared
+    attention block, the head, the embedding), as {"embed", "blocks" (layer
+    index -> block), "final_norm", "head", "shared_attn"}.  ``keep(part)``,
+    asked for each layer index and for ``"embed"``, ``"head"`` and
+    ``"shared_attn"``, drops a part it refuses as soon as it is drawn (its
+    entry is None, or absent from "blocks"): a pipeline stage holds the
+    same numbers as the whole model without ever holding the whole model."""
     ((kind, n),) = build_stacks(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     kw = dict(generator=g, device=dev)
     d, dt = cfg.d_model, cfg.dtype
+    keep = keep or (lambda part: True)
 
     def ones():
         return torch.ones(d, dtype=dt, device=dev)
 
-    if kind == "ssm":
-        blocks = [SSMBlock(ones(), init_ssm(cfg, **kw)) for _ in range(n)]
-    else:
-        blocks = [DenseBlock(ones(), init_attention(cfg, **kw), ones(),
-                             init_swiglu(d, cfg.d_ff, dt, **kw))
-                  for _ in range(n)]
+    blocks = {}
+    for i in range(n):
+        blk = (SSMBlock(ones(), init_ssm(cfg, **kw)) if kind == "ssm" else
+               DenseBlock(ones(), init_attention(cfg, **kw), ones(),
+                          init_swiglu(d, cfg.d_ff, dt, **kw)))
+        if keep(i):
+            blocks[i] = blk
+        del blk
     shared = (SharedAttention(ones(), init_attention(cfg, **kw))
               if cfg.arch_type == "hybrid" and cfg.attn_every else None)
     head = (None if cfg.tie_embeddings
             else init_dense(d, cfg.vocab_size, dt, **kw))
-    return LM(init_embedding(cfg.vocab_size, d, dt, **kw), blocks, ones(),
-              head, shared)
+    embed = init_embedding(cfg.vocab_size, d, dt, **kw)
+    return {"embed": embed if keep("embed") else None, "blocks": blocks,
+            "final_norm": ones(),
+            "head": head if keep("head") else None,
+            "shared_attn": shared if keep("shared_attn") else None}
 
 
 def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

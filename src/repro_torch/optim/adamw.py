@@ -14,7 +14,7 @@ card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -56,12 +56,20 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 def adamw_update(params: Sequence[torch.Tensor],
                  grads: Sequence[torch.Tensor], state: Dict[str, Any],
                  cfg: AdamWConfig,
-                 lr_scale: float = 1.0) -> Dict[str, torch.Tensor]:
+                 lr_scale: float = 1.0, *,
+                 grad_norm: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
     """One step: updates ``params`` and ``state`` in place and returns
-    ``{"grad_norm", "lr"}``."""
+    ``{"grad_norm", "lr"}``.
+
+    The gradients are clipped to their global norm, which is computed from
+    ``grads`` unless ``grad_norm`` gives it: a pipeline stage holds only
+    its own leaves, and passes the norm over every stage
+    (``runtime/pipeline.py::pipeline_grad_norm``), as the JAX update sees
+    the whole split tree."""
     state["step"] += 1
     step = torch.tensor(float(state["step"]), dtype=torch.float32)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = cfg.lr * lr_scale
     b1c = float(1.0 - torch.tensor(cfg.beta1, dtype=torch.float32) ** step)

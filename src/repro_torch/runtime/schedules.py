@@ -1,7 +1,9 @@
 """Pipeline-schedule subsystem (DESIGN.md §5): the port's NumPy copy of
-``repro/runtime/schedules.py``.  The port has no pipeline runtime yet; the
-tables serve the plan and schedule verifiers.  The text below describes
-the JAX runtime that executes them.
+``repro/runtime/schedules.py``.  The tables serve the plan and schedule
+verifiers and the port's pipeline runtime (``runtime/pipeline.py``), which
+walks them over ``torch.distributed`` ranks with point-to-point hand-offs
+and schedules the backward itself; the text below describes the JAX
+runtime, a ``lax.scan`` over ``ppermute``.
 
 A *schedule* is compiled ahead of time into a per-tick **program table**:
 for every tick ``t`` and pipeline stage ``i`` the table says which

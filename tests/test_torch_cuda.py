@@ -28,7 +28,8 @@ The flash backward is held against both its plain version (the kernel's
 formulation on the same output and log-sum-exp) and ``torch.autograd`` of
 ``flash_attention_ref`` at the backward tolerances, the forward's row
 log-sum-exp against ``flash_attention_lse_ref`` at the forward's, and a
-second call must give the same bits (no atomics).
+second call must give the same bits (no atomics), as must the SSD scan's
+backward.
 """
 import copy
 
@@ -720,3 +721,25 @@ def test_ssm_serve_on_card_token_identical_to_cpu(cuda_device, arch):
     assert tokens["cpu"] == tokens[str(cuda_device)]
     assert rmsnorm_cuda.launches > norm
     assert (flash_attention_cuda.launches > flash) == bool(cfg.attn_every)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,G", [(torch.float32, 1), (torch.float32, 2),
+                                     (torch.bfloat16, 1),
+                                     (torch.bfloat16, 2)],
+                         ids=["float32-G1", "float32-G2", "bfloat16-G1",
+                              "bfloat16-G2"])
+def test_ssd_scan_backward_gives_the_same_bits_twice_on_card(cuda_device,
+                                                             dtype, G):
+    """Each head's dB and dC terms are written once and summed over a
+    group's heads in a fixed order (no atomics): a second call gives the
+    same bits, so training steps repeat."""
+    leaves, views = ssd_inputs(2, 1024, 8, 64, 128, cuda_device, dtype,
+                               groups=G, seed=4)
+    dy = torch.randn(2, 1024, 8, 64, device=cuda_device).to(dtype)
+    first = torch.autograd.grad(SSDScan.apply(*views(*leaves), 64), leaves,
+                                dy)
+    again = torch.autograd.grad(SSDScan.apply(*views(*leaves), 64), leaves,
+                                dy)
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), first, again):
+        assert torch.equal(a, b), name

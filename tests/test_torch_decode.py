@@ -367,7 +367,7 @@ def test_moe_decode_is_refused(entry):
             device="cpu"),
     }[entry]
     with pytest.raises(NotImplementedError,
-                       match=r"MoE .*\(ROADMAP.md queue 1, item 5\)"):
+                       match=r"MoE .*\(ROADMAP.md queue 1, item 3\)"):
         call()
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` imports neither ``jax`` nor
 anything of ``repro``, nor ``triton`` (every kernel is CUDA C++), not even
 through its copies of the NumPy search engine and plan layer (``core``,
-``analysis``, ``launch.search``, ``serving.slo_search``), and keeps the JAX
+``analysis``, ``launch.search``, ``serving.slo_search``) nor through the
+checkpoint store, the profiler and the pipeline runtime, and keeps the JAX
 package's source linter green."""
 import ast
 import os
@@ -30,7 +31,9 @@ def test_import_loads_no_jax_triton_or_repro():
             "repro_torch.core, repro_torch.analysis, "
             "repro_torch.launch.search, repro_torch.serving.slo_search, "
             "repro_torch.runtime.schedules, repro_torch.configs.specs, "
-            "repro_torch.configs.paper_models; "
+            "repro_torch.configs.paper_models, repro_torch.checkpointing, "
+            "repro_torch.checkpointing.store, repro_torch.core.profiler, "
+            "repro_torch.runtime.pipeline; "
             "print(sorted({m.split('.')[0] for m in sys.modules} "
             "& {'jax', 'jaxlib', 'triton', 'repro'}))")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
