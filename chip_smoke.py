@@ -209,7 +209,28 @@ Phases (any failure exits non-zero before the final line is printed):
    (zb-h1, P 4, m 4, AdamW on each rank's leaves with the global grad
    norm): its first loss must be (b)'s for that schedule, bit for bit; its
    step ms and each rank's peak are printed.  The 4 ranks share one card,
-   so their times are not a pipeline's speed.
+   so their times are not a pipeline's speed;
+16. the sharded executor at full qwen3-4b width, depth cut to 8 layers:
+   (a) in a process of its own, the single-process ``lm_loss`` and its
+   gradients (remat on every layer) on ``init_lm`` seed 0 and the train
+   driver's first batch of 4 x 4096 tokens, then 3 ``make_train_step``
+   steps at phase 9's lr; (b) 4 gloo ranks sharing the card on a (data 2,
+   model 2) ``make_local_mesh`` with ``ShardPolicy(tp=True, zero=True,
+   remat_segments=(True,))``, each drawing its shards
+   (``init_train_state(mesh=)``): the sharded loss within 2e-3 relative of
+   (a)'s and each gathered gradient leaf within 2e-2 of (a)'s leaf's
+   largest magnitude, with ``seq_shard`` off and on (on: the same bits as
+   off, or within those gates, which the line says), then 3 sharded steps
+   whose losses are printed beside (a)'s and must be finite; the flash
+   forward (2L), backward (L) and RMSNorm (8L+1, 4L+1) launched at exact
+   counts a rank a call and a step, no plain version run; each rank's call
+   and step ms, bytes sent through gloo and peak memory are printed; (c)
+   the port's search for 4 cards of the H100 node at this model (a budget
+   of 11 GB a card, batch grid [4]) and ``train --ranks 4 --plan``, 3
+   steps on ``make_local_mesh()`` (data 4, model 1): the policy it prints
+   must be the plan's middle strategy's, its first loss within 2e-3
+   relative of (a)'s, the kernels launched at their counts.  The 4 ranks
+   share one card: no time there is sharded training's speed.
 
 Phase 7 also times the flash forward and backward at the dense training
 shape as training launches them (causal, the forward writing its row
@@ -217,7 +238,7 @@ log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
 The phases run in the order 1, 2, 7, 3, 4, 5, 14, 6, 9, 10, 11, 12, 13,
-15, 8: phase 7
+15, 16, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
 seconds are printed before the final lines.
@@ -382,6 +403,27 @@ PIPE_SEARCH = ["--arch", "qwen3-4b", "--seq", str(PIPE_SEQ), "--cluster",
                PLAN_CLUSTER, "--devices", "4", "--budget", "24", "--max-pp",
                "4", "--schedules", "1f1b,zb-h1", "--batch-grid", "16"]
 PIPE_TRAIN_STEPS = 3
+# phase 16, the sharded executor: qwen3-4b at full width, depth cut from 36
+# to SHARD_LAYERS so that the single-process reference (its fp32 loss over
+# 16384 x 151936 logits beside 25.4 GB of bf16 params and grads and fp32
+# AdamW state) fits the card alone, and the 4 ranks of (b) and (c) (each
+# about 15 GB) fit it together; the train driver's first SHARD_STEPS
+# batches of SHARD_BATCH x SHARD_SEQ tokens; SHARD_RANKS gloo ranks share
+# the card on a (data, model) mesh of SHARD_MESH with TP, ZeRO and remat
+SHARD_LAYERS, SHARD_RANKS, SHARD_BATCH, SHARD_SEQ = 8, 4, 4, 4096
+SHARD_MESH, SHARD_STEPS = (2, 2), 3
+# the sharded loss within SHARD_LOSS_RTOL of the single process's, each
+# gathered gradient leaf within SHARD_GRAD_TOL of its largest magnitude
+# (phase 15's gates: the same bf16 arithmetic, TP's partial sums rounded
+# to bf16 before their fp32 sum)
+SHARD_LOSS_RTOL, SHARD_GRAD_TOL = PIPE_LOSS_RTOL, PIPE_GRAD_TOL
+SHARD_TIMEOUT_S = 900
+# train --ranks: the plan of the port's search for SHARD_RANKS cards of the
+# H100 node at this model, with a memory budget of SHARD_BUDGET_GB a card:
+# the ranks share one card, and 4 replicas of the whole AdamW state (25.4
+# GB each) would not fit it, so the budget is one that makes the searched
+# plan's middle strategy, the one the driver applies, shard the state
+SHARD_BUDGET_GB = 11
 
 
 def log(msg: str) -> None:
@@ -3037,6 +3079,373 @@ def phase_pipeline():
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the sharded executor, 4 ranks on the card
+# ---------------------------------------------------------------------------
+
+SHARD_DIR = ROOT / "build" / "shard"
+
+
+def _shard_cfg():
+    from repro_torch.configs import get_config
+    return get_config("qwen3-4b").with_(n_layers=SHARD_LAYERS)
+
+
+def _shard_batches(cfg):
+    """The train driver's first SHARD_STEPS batches, CPU tensors."""
+    import torch
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    gen = synthetic_lm_batches(DataConfig(
+        seq_len=SHARD_SEQ, global_batch=SHARD_BATCH,
+        vocab_size=cfg.vocab_size))
+    return [{k: torch.from_numpy(v) for k, v in next(gen).items()}
+            for _ in range(SHARD_STEPS)]
+
+
+def _shard_launches(L, calls=1):
+    """Launches of ``calls`` losses and gradients with remat on every
+    layer, on one rank or the single process: per layer the flash forward
+    twice (remat recomputes it) and the backward once, four norms (ln1,
+    ln2, QK-norm) twice forward and once backward; the final norm once
+    each way."""
+    return {"flash_attention": 2 * L * calls,
+            "flash_attention_bwd": L * calls,
+            "rmsnorm": (8 * L + 1) * calls,
+            "rmsnorm_bwd": (4 * L + 1) * calls}
+
+
+def shard_reference(_rank, run_dir):
+    """(a), a process of its own: the single-process ``lm_loss`` and its
+    gradients (remat on every layer) on ``init_lm`` seed 0 and the first
+    batch, then SHARD_STEPS ``make_train_step`` steps at phase 9's lr on
+    the driver's batches; saved for the ranks."""
+    import torch
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.optim import AdamWConfig, adamw_init, global_norm
+    from repro_torch.runtime.executor import make_train_step
+
+    torch.cuda.set_device(0)
+    cfg = _shard_cfg()
+    params = init_lm(cfg, seed=0, device="cuda")
+    batches = [{k: v.to("cuda") for k, v in b.items()}
+               for b in _shard_batches(cfg)]
+    leaves = list(params.parameters())
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        loss = lm_loss(params, batches[0], cfg, remat_segments=[True])
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    saved = {"loss": loss.item(), "grad_norm": global_norm(grads).item(),
+             "grads": {n: g.cpu() for (n, _), g in
+                       zip(params.named_parameters(), grads)},
+             "params": sum(p.numel() for p in leaves), "wall_ms": wall_ms,
+             "launches": launches, "plain": plain}
+    del grads, loss
+    ocfg = AdamWConfig(lr=DENSE_LR)
+    opt = adamw_init(leaves, ocfg)
+    step = make_train_step(cfg, ocfg, remat_segments=[True])
+    with plain_calls() as plain:
+        saved["losses"] = [float(step(params, opt, b)["loss"])
+                           for b in batches]
+    saved["plain"].update(plain)
+    saved["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(saved, f"{run_dir}/reference.pt")
+
+
+def shard_rank(rank, world, run_dir):
+    """(b), one of SHARD_RANKS gloo ranks on the card, on a SHARD_MESH
+    (data, model) mesh with TP, ZeRO and remat: its drawn shards, the
+    sharded loss and gradients with ``seq_shard`` off and on (each leaf
+    gathered and, on rank 0, held against the reference's; with
+    ``seq_shard`` on only when its bits differ from off's), then
+    SHARD_STEPS sharded steps.  Saves its results."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import (ShardPolicy, init_train_state,
+                                     make_sharded_loss, make_train_step)
+
+    torch.cuda.set_device(0)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous",
+                     timeout_s=SHARD_TIMEOUT_S)
+    try:
+        cfg = _shard_cfg()
+        mesh = make_local_mesh(SHARD_MESH[1])
+        pol = ShardPolicy(tp=True, zero=True, remat_segments=(True,))
+        ocfg = AdamWConfig(lr=DENSE_LR)
+        t0 = time.perf_counter()
+        params, opt = init_train_state(cfg, mesh=mesh, policy=pol, seed=0,
+                                       opt_cfg=ocfg, device="cuda")
+        torch.cuda.synchronize()
+        out = {"init_s": time.perf_counter() - t0,
+               "coord": [mesh.get_local_rank("data"),
+                         mesh.get_local_rank("model")],
+               "params_local": sum(p.numel() for p in params.parameters())}
+        ref = torch.load(f"{run_dir}/reference.pt", mmap=True)
+        batches = _shard_batches(cfg)
+        named = list(params.named_parameters())
+        kept = None
+        for seq in (False, True):
+            loss_fn = make_sharded_loss(
+                cfg, mesh, dataclasses.replace(pol, seq_shard=seq))
+            torch.cuda.synchronize()
+            dist.barrier()
+            counts = _zero_counts()
+            t0 = time.perf_counter()
+            with plain_calls() as plain:
+                loss, grads = loss_fn(params, batches[0])
+            torch.cuda.synchronize()
+            row = {"loss": loss.item(), "launches": counts(), "plain": plain,
+                   "ms": (time.perf_counter() - t0) * 1e3,
+                   "gloo_bytes": loss_fn.shard.traffic.bytes_sent,
+                   "grad_norm": loss_fn.shard.grad_norm(named, grads).item()}
+            if kept is None:
+                kept = (loss.item(), grads)
+            else:
+                same = torch.tensor([int(loss.item() == kept[0] and all(
+                    torch.equal(a, b) for a, b in zip(grads, kept[1])))])
+                dist.all_reduce(same, op=dist.ReduceOp.MIN)
+                row["same_bits"] = bool(same.item())
+            if row.get("same_bits"):    # the same gradients: seq0's errors
+                row.update({k: out["seq0"].get(k) for k in (
+                    "n_leaves", "worst_leaf", "worst_err")})
+            else:
+                errs = {}
+                for (n, _), g in zip(named, grads):
+                    full = loss_fn.shard.gather_tensor(n, g)
+                    if rank == 0:
+                        errs[n] = _leaf_err(full, ref["grads"][n])
+                    del full
+                if rank == 0:
+                    worst = max(errs, key=errs.get)
+                    row.update(n_leaves=len(errs), worst_leaf=worst,
+                               worst_err=errs[worst])
+            out[f"seq{int(seq)}"] = row
+            del grads, loss
+        del kept
+        step = make_train_step(cfg, ocfg, mesh=mesh, policy=pol)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        counts = _zero_counts()
+        hist = []
+        with plain_calls() as plain:
+            for b in batches:
+                sent = step.shard.traffic.bytes_sent
+                t0 = time.perf_counter()
+                m = step(params, opt, b)
+                torch.cuda.synchronize()
+                hist.append({"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "ms": (time.perf_counter() - t0) * 1e3,
+                             "gloo_bytes": step.shard.traffic.bytes_sent
+                             - sent})
+        out.update(steps=hist, launches=counts(), plain=plain,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        pathlib.Path(f"{run_dir}/rank{rank}.json").write_text(
+            json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def counted_sharded_rank(rank, world, run_dir, cfg, policy, args):
+    """Check-only: ``launch/train.py``'s rank of ``train --ranks``, with the
+    kernels' launches and any plain call counted in the rank and saved
+    under SHARD_DIR."""
+    from repro_torch.launch.train import _sharded_rank
+
+    counts = _zero_counts()
+    with plain_calls() as plain:
+        _sharded_rank(rank, world, run_dir, cfg, policy, args)
+    (SHARD_DIR / f"train_rank{rank}.json").write_text(json.dumps(
+        {"launches": counts(), "plain": plain}))
+
+
+def _shard_train(ref):
+    """(c): the port's search for SHARD_RANKS cards of the H100 node at
+    this model, then ``train --ranks 4 --plan``; the policy it prints must
+    be the plan's, its first loss within SHARD_LOSS_RTOL of (a)'s.
+    Returns the path's launches."""
+    import io
+    import tempfile
+
+    from repro_torch.core import CLUSTERS
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.search import certify_plans
+
+    cfg = _shard_cfg()
+    cluster = dataclasses.replace(
+        CLUSTERS[PLAN_CLUSTER].with_devices(SHARD_RANKS),
+        memory_budget=SHARD_BUDGET_GB * 1e9)
+    plan = train_cli.search_plan(cfg, SHARD_SEQ, cluster=cluster,
+                                 batch_grid=[SHARD_BATCH])
+    check(certify_plans([plan], log=log), "the searched plan does not "
+          "certify")
+    policy = train_cli.middle_strategy_policy(plan)
+    log(f"[shard] (c) {PLAN_CLUSTER} x{SHARD_RANKS}, budget "
+        f"{SHARD_BUDGET_GB} GB a card, batch grid [{SHARD_BATCH}]: "
+        f"{plan.summary()}; the driver's policy {policy}")
+    check(policy.zero, f"the plan's middle strategy replicates the state "
+          f"({policy}): {SHARD_RANKS} replicas do not fit one card")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as d:
+        path = pathlib.Path(d) / "shard.plan.json"
+        path.write_text(plan.dumps())
+        argv = ["--ranks", str(SHARD_RANKS), "--plan", str(path),
+                "--layers", str(SHARD_LAYERS), "--seq", str(SHARD_SEQ),
+                "--batch", str(SHARD_BATCH), "--steps", str(SHARD_STEPS),
+                "--lr", str(DENSE_LR), "--log-every", "1"]
+        log(f"[shard] (c) python -m repro_torch.launch.train "
+            f"{' '.join(argv)}")
+        real = train_cli._sharded_rank
+        train_cli._sharded_rank = counted_sharded_rank
+        printed = io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                hist = train_cli.main(argv)
+            wall_s = time.perf_counter() - t0
+        finally:
+            train_cli._sharded_rank = real
+            log(printed.getvalue().rstrip())
+    check(f"policy={policy}" in printed.getvalue()
+          and f"mesh={{'data': {SHARD_RANKS}, 'model': 1}}"
+          in printed.getvalue(), "train --ranks did not print the plan's "
+          "policy on make_local_mesh()")
+    ranks = [json.loads((SHARD_DIR / f"train_rank{r}.json").read_text())
+             for r in range(SHARD_RANKS)]
+    plain = [r["plain"] for r in ranks if r["plain"]]
+    check(not plain, f"plain versions ran in train --ranks: {plain}")
+    want = _shard_launches(SHARD_LAYERS, SHARD_STEPS)
+    for r, res in enumerate(ranks):
+        check(all(res["launches"][k] == v for k, v in want.items()),
+              f"train --ranks rank {r} launches {res['launches']}, not "
+              f"{want}")
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == SHARD_STEPS
+          and all(math.isfinite(x) for x in losses), f"losses {losses}")
+    rel = abs(losses[0] - ref["loss"]) / abs(ref["loss"])
+    check(rel <= SHARD_LOSS_RTOL, f"train --ranks' first loss {losses[0]} "
+          f"against the single process's {ref['loss']} (rel {rel:.3e})")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    log("[shard] (c) " + json.dumps({
+        "plan": plan.summary(), "policy": str(policy), "losses": losses,
+        "single_process_losses": ref["losses"], "first_loss_rel": rel,
+        "step_ms": [h["step_ms"] for h in hist],
+        "gloo_bytes_sent_rank0": [h["gloo_bytes_sent"] for h in hist],
+        "peak_mem_gb_by_rank": [hist[-1][f"peak_mem_gb_rank{r}"]
+                                for r in range(SHARD_RANKS)],
+        "wall_s": wall_s, "launches": launches})
+        + " (4 ranks share one card: not sharded training's speed)")
+    return launches
+
+
+def phase_shard():
+    """Phase 16: the single-process reference, the sharded step on a (data
+    2, model 2) mesh against it, then ``train --ranks 4 --plan``."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    L = SHARD_LAYERS
+    log(f"[shard] qwen3-4b at full width, {L} of 36 layers, "
+        f"{SHARD_BATCH} x {SHARD_SEQ} tokens, {SHARD_RANKS} gloo ranks on "
+        f"one card")
+    ref_s = spawn_ranks(shard_reference, (str(SHARD_DIR),), 1,
+                        "the single-process reference",
+                        timeout_s=SHARD_TIMEOUT_S)
+    ref = torch.load(SHARD_DIR / "reference.pt", mmap=True)
+    check(not ref["plain"], f"plain versions ran in the reference: "
+          f"{ref['plain']}")
+    want = _shard_launches(L)
+    check(all(ref["launches"][k] == v for k, v in want.items()),
+          f"the reference's launches {ref['launches']}, not {want}")
+    check(all(math.isfinite(x) for x in ref["losses"]),
+          f"the reference's losses {ref['losses']}")
+    log(f"[shard] (a) single process: loss {ref['loss']!r}, grad norm "
+        f"{ref['grad_norm']:.6f}, {ref['params'] / 1e9:.3f} B params, "
+        f"{ref['wall_ms']:.1f} ms; {SHARD_STEPS} steps at lr {DENSE_LR}: "
+        f"losses {ref['losses']}; peak {ref['peak_gb']:.2f} GB; process "
+        f"{ref_s:.1f} s")
+    ranks_s = spawn_ranks(shard_rank, (SHARD_RANKS, str(SHARD_DIR)),
+                          SHARD_RANKS, "sharded ranks",
+                          timeout_s=SHARD_TIMEOUT_S)
+    res = [json.loads((SHARD_DIR / f"rank{r}.json").read_text())
+           for r in range(SHARD_RANKS)]
+    check([r["coord"] for r in res] == [[0, 0], [0, 1], [1, 0], [1, 1]],
+          f"mesh coordinates {[r['coord'] for r in res]}")
+    for seq in (0, 1):
+        rows = [r[f"seq{seq}"] for r in res]
+        tag = f"seq_shard={bool(seq)}"
+        loss = rows[0]["loss"]
+        check(all(r["loss"] == loss for r in rows),
+              f"{tag}: ranks disagree on the loss")
+        check(not any(r["plain"] for r in rows), f"{tag}: plain versions "
+              f"ran: {[r['plain'] for r in rows]}")
+        for r, row in enumerate(rows):
+            check(all(row["launches"][k] == v for k, v in want.items()),
+                  f"{tag} rank {r}: launches {row['launches']}, not {want}")
+        rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+        check(rows[0]["n_leaves"] == len(ref["grads"]),
+              f"{tag}: {rows[0]['n_leaves']} leaves")
+        check(rel <= SHARD_LOSS_RTOL, f"{tag}: loss {loss} against the "
+              f"single process's {ref['loss']} (rel {rel:.3e})")
+        check(rows[0]["worst_err"] <= SHARD_GRAD_TOL, f"{tag}: gradient "
+              f"{rows[0]['worst_leaf']} off by {rows[0]['worst_err']:.3e} "
+              "of its largest magnitude")
+        same = ""
+        if seq:
+            same = ("; loss and gradients the same bits as seq_shard=False"
+                    if rows[0]["same_bits"] else "; NOT the same bits as "
+                    "seq_shard=False, within the gates above")
+        log(f"[shard] (b) {tag}: loss {loss!r} (single process "
+            f"{ref['loss']!r}, rel {rel:.3e}); worst gradient leaf "
+            f"{rows[0]['worst_leaf']} at {rows[0]['worst_err']:.3e} of its "
+            f"largest magnitude; grad norm {rows[0]['grad_norm']:.6f} "
+            f"(single process {ref['grad_norm']:.6f}); call ms by rank "
+            f"{[round(r['ms'], 1) for r in rows]}, gloo bytes sent by rank "
+            f"{[r['gloo_bytes'] for r in rows]}" + same)
+    steps = [r["steps"] for r in res]
+    losses = [h["loss"] for h in steps[0]]
+    check(all([h["loss"] for h in s] == losses for s in steps),
+          "ranks disagree on the step losses")
+    check(all(math.isfinite(x) for x in losses), f"step losses {losses}")
+    check(not any(r["plain"] for r in res), "plain versions ran in the "
+          f"steps: {[r['plain'] for r in res]}")
+    want_steps = _shard_launches(L, SHARD_STEPS)
+    for r, row in enumerate(res):
+        check(all(row["launches"][k] == v for k, v in want_steps.items()),
+              f"steps rank {r}: launches {row['launches']}, not "
+              f"{want_steps}")
+        log(f"[shard] (b) rank {r} (data {row['coord'][0]}, model "
+            f"{row['coord'][1]}): {row['params_local'] / 1e6:.1f} M params, "
+            f"init {row['init_s']:.1f} s; step ms "
+            f"{[round(h['ms'], 1) for h in row['steps']]}, gloo bytes sent "
+            f"a step {[h['gloo_bytes'] for h in row['steps']]}; peak "
+            f"{row['peak_gb']:.2f} GB")
+    log(f"[shard] (b) {SHARD_STEPS} sharded steps: losses {losses} (single "
+        f"process {ref['losses']}); ranks in {ranks_s:.1f} s (4 ranks share "
+        "one card: not sharded training's speed)")
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in res[0]["launches"]}
+    train_launches = _shard_train(ref)
+    ref_launches = dict(ref["launches"])
+    del ref
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    return {"shard_reference": ref_launches, "shard": launches,
+            "shard_train": train_launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: sequence-parallel attention, 4 ranks on the card
 # ---------------------------------------------------------------------------
 
@@ -3743,6 +4152,7 @@ def main() -> int:
         launches.update(phase_ssm_serve())
         launches.update(phase_plan(dense_losses))
         launches.update(phase_pipeline())
+        launches.update(phase_shard())
         launches["sp"] = phase_sp()
         kernels = kernel_entries(timed, errs, launches, dense_decode)
     except Failed as e:

@@ -5,7 +5,7 @@ The JAX package builds its meshes from the devices one process sees
 the processes, gives each its rank, and :func:`init_distributed` joins them
 into the default group; a mesh is then a ``DeviceMesh`` over that group:
 ``("data", "seq")`` for ring attention, ``("pipe", "data")`` for the
-pipeline runtime.
+pipeline runtime, ``("data", "model")`` for the sharded executor.
 Nothing here reads a cluster's environment: the address, world size and rank
 are passed in.
 """
@@ -95,3 +95,20 @@ def make_pipeline_mesh(n_stages: int = 2, n_data: int = 4, *,
                          f"{world}")
     return init_device_mesh(device_type, (n_stages, n_data),
                             mesh_dim_names=("pipe", "data"))
+
+
+def make_local_mesh(model: int = 1, *,
+                    device_type: str = "cuda") -> DeviceMesh:
+    """DP x TP mesh over every rank of the already-initialised default
+    group, with dims ``("data", "model")`` (the JAX package's
+    ``make_local_mesh``, whatever this host offers).  ``model`` is capped
+    at the world size; rank ``r`` sits at ``(r // model, r % model)``, so a
+    ``model`` group holds consecutive ranks.  The sharded executor
+    (``runtime/sharding.py``) runs on it."""
+    world = dist.get_world_size()
+    model = min(model, world)
+    if world % model:
+        raise ValueError(f"a model axis of {model} does not divide the "
+                         f"{world} ranks of the default group")
+    return init_device_mesh(device_type, (world // model, model),
+                            mesh_dim_names=("data", "model"))

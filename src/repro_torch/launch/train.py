@@ -1,6 +1,7 @@
 """Training entry point of the port: a Galvatron-BMW plan, searched or
 loaded, then training of a dense or SSM model on synthetic or byte-level
-text batches, on one device or through the pipeline runtime.
+text batches, on one device, sharded over ranks, or through the pipeline
+runtime.
 
     python -m repro_torch.launch.train --arch mamba2-370m \\
         --steps 10 --batch 8 --seq 2048
@@ -10,18 +11,27 @@ text batches, on one device or through the pipeline runtime.
         --arch qwen3-4b --steps 5 --ckpt-dir ckpt --ckpt-every 5
     python -m repro_torch.launch.train --pipeline --ranks 4 \\
         --plan plan.json --layers 16 --seq 4096 --batch 4 --steps 3
+    python -m repro_torch.launch.train --ranks 4 --plan plan.json \\
+        --layers 8 --seq 4096 --batch 4 --steps 3
 
 Runs on the CUDA device unless ``--device cpu`` is given.  The weights are
 random from seed 0.  As in the JAX driver, the plan comes from ``--plan``
 (verified on load; ``--strict`` rejects deprecated v0/v1 files) or from the
 paper's search (:func:`search_plan`, on the 64-GPU H100 preset), and
 ``--plan-out`` writes it.  The driver takes remat from the plan as the JAX
-driver does (:func:`remat_from_plan`); the plan's sharding degrees and
-micro-batch count are printed, not applied, as on the JAX driver's
-one-device path.  ``--ckpt-dir`` saves the model and AdamW state every
-``--ckpt-every`` steps in the JAX package's layout
+driver does (:func:`remat_from_plan`).  ``--ckpt-dir`` saves the model and
+AdamW state every ``--ckpt-every`` steps in the JAX package's layout
 (``checkpointing/store.py``); as in the JAX driver, nothing resumes from
 them.
+
+With ``--ranks N`` above 1 (default: the CUDA devices) the plan is applied
+as the JAX driver applies it (:func:`run_sharded`): the policy of its
+middle strategy (``ShardPolicy.from_strategy``, remat from the first) on
+``make_local_mesh()``, ``("data" N, "model" 1)``, over N gloo ranks that
+the driver starts itself; each rank draws its shards of ``init_lm(cfg,
+seed=0)`` and trains on its rows of the same batches.  With one rank the
+model trains on one device and the plan's sharding degrees and micro-batch
+count are printed, not applied.
 
 ``--pipeline`` executes the plan's searched schedule through the pipeline
 runtime (``runtime/pipeline.py``), scaled down by the JAX driver's rules
@@ -55,8 +65,11 @@ from repro_torch.data import (DataConfig, synthetic_lm_batches,
 from repro_torch.checkpointing import save_train_state
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import build_stacks
 from repro_torch.optim import AdamWConfig
-from repro_torch.runtime.executor import init_train_state, make_train_step
+from repro_torch.runtime.executor import (abstract_params, init_train_state,
+                                          make_train_step)
+from repro_torch.runtime.sharding import ShardPolicy
 
 
 def search_plan(cfg: ModelConfig, seq_len: int, n_devices: int = 64, *,
@@ -208,25 +221,97 @@ def pipeline_layout(plan: ParallelPlan, n_ranks: int, n_layers: int,
     return PipelineLayout(sched, P, V, m, n_data)
 
 
+def _join(rank: int, world: int, run_dir: str,
+          device: str) -> torch.device:
+    """Start a rank: its device (ranks share cards round-robin; one thread
+    on the CPU) and the gloo default group over ``run_dir``'s rendezvous
+    file."""
+    from repro_torch.launch.mesh import init_distributed
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:
+        torch.set_num_threads(1)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous",
+                     timeout_s=PIPELINE_TIMEOUT_S)
+    return resolve_device(dev.type)
+
+
+def _rank_steps(rank: int, cfg: ModelConfig, args: argparse.Namespace,
+                dev: torch.device, step_fn) -> List[Dict[str, float]]:
+    """``args.steps`` steps of ``step_fn(batch)`` on the driver's batches
+    (the global batch as numpy arrays, the same on every rank), each
+    timed to a synchronize; rank 0 prints them."""
+    dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
+                      vocab_size=cfg.vocab_size)
+    gen = (text_corpus_batches(args.corpus, dcfg) if args.corpus
+           else synthetic_lm_batches(dcfg))
+    history = []
+    t0 = time.time()
+    tokens_seen = 0
+    for step in range(1, args.steps + 1):
+        b = next(gen)
+        ts = time.perf_counter()
+        metrics = step_fn(b)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        history.append({"loss": float(metrics["loss"]),
+                        "grad_norm": float(metrics["grad_norm"]),
+                        "lr": float(metrics["lr"]),
+                        "step_ms": (time.perf_counter() - ts) * 1e3})
+        tokens_seen += args.batch * args.seq
+        if rank == 0 and (step % args.log_every == 0 or step == args.steps):
+            dt = time.time() - t0
+            print(f"step {step:5d}  loss={history[-1]['loss']:.4f}  "
+                  f"gnorm={history[-1]['grad_norm']:.3f}  "
+                  f"tok/s={tokens_seen / dt:,.0f}", flush=True)
+    return history
+
+
+def _rank_done(rank: int, run_dir: str, dev: torch.device,
+               history: List[Dict[str, float]], **extra) -> None:
+    """Write the rank's history and peak memory to ``run_dir/rank<r>.json``
+    and wait for the others."""
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else None)
+    pathlib.Path(run_dir, f"rank{rank}.json").write_text(json.dumps(
+        {"history": history, "peak_mem_gb": peak, **extra}))
+    dist.barrier()
+
+
+def _spawn(fn, world: int, args: tuple, dev: torch.device, prefix: str
+           ) -> List[Dict[str, float]]:
+    """``fn(rank, world, run_dir, *args)`` on ``world`` spawned ranks;
+    returns rank 0's history, each step with ``peak_mem_gb_rank<r>`` of
+    every rank on a CUDA device.  Raises RuntimeError when a rank fails."""
+    from repro_torch.launch.mesh import run_ranks
+
+    with tempfile.TemporaryDirectory(prefix=prefix) as d:
+        run_ranks(fn, (world, d, *args), world)
+        ranks = [json.loads(pathlib.Path(d, f"rank{r}.json").read_text())
+                 for r in range(world)]
+    history = ranks[0]["history"]
+    if dev.type == "cuda":
+        for h in history:
+            h.update({f"peak_mem_gb_rank{r}": res["peak_mem_gb"]
+                      for r, res in enumerate(ranks)})
+    print("done.")
+    return history
+
+
 def _pipeline_rank(rank: int, world: int, run_dir: str, cfg: ModelConfig,
                    layout: PipelineLayout, args: argparse.Namespace) -> None:
     """One rank of :func:`run_pipeline`: its stage, AdamW on its leaves with
     the global grad norm, ``args.steps`` steps; rank 0 prints the steps.
     Writes its history and peak memory to ``run_dir/rank<r>.json``."""
-    from repro_torch.launch.mesh import init_distributed, make_pipeline_mesh
+    from repro_torch.launch.mesh import make_pipeline_mesh
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.runtime.pipeline import (init_stage, make_pipeline_loss,
                                               pipeline_grad_norm)
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
-    else:
-        torch.set_num_threads(1)
-    dev = resolve_device(dev.type)
-    init_distributed(rank, world, backend="gloo",
-                     init_method=f"file://{run_dir}/rendezvous",
-                     timeout_s=PIPELINE_TIMEOUT_S)
+    dev = _join(rank, world, run_dir, args.device)
     try:
         P, V, m = layout.n_stages, layout.n_chunks, layout.n_micro
         mesh = make_pipeline_mesh(P, layout.n_data, device_type=dev.type)
@@ -237,42 +322,18 @@ def _pipeline_rank(rank: int, world: int, run_dir: str, cfg: ModelConfig,
         leaves = list(stage.parameters())
         ocfg = AdamWConfig(lr=args.lr)
         opt = adamw_init(leaves, ocfg)
-        dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
-                          vocab_size=cfg.vocab_size)
-        gen = (text_corpus_batches(args.corpus, dcfg) if args.corpus
-               else synthetic_lm_batches(dcfg))
-        history = []
-        t0 = time.time()
-        tokens_seen = 0
-        for step in range(1, args.steps + 1):
-            b = next(gen)
+
+        def step(b):
             batch = {k: torch.from_numpy(v).reshape(m, args.batch // m,
                                                     args.seq)
                      for k, v in b.items()}
-            ts = time.perf_counter()
             loss, grads = loss_fn(stage, batch)
             gnorm = pipeline_grad_norm(stage, grads, mesh)
             metrics = adamw_update(leaves, grads, opt, ocfg, grad_norm=gnorm)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            history.append({"loss": float(loss),
-                            "grad_norm": float(metrics["grad_norm"]),
-                            "lr": float(metrics["lr"]),
-                            "step_ms": (time.perf_counter() - ts) * 1e3})
-            del grads
-            tokens_seen += args.batch * args.seq
-            if rank == 0 and (step % args.log_every == 0
-                              or step == args.steps):
-                dt = time.time() - t0
-                print(f"step {step:5d}  loss={history[-1]['loss']:.4f}  "
-                      f"gnorm={history[-1]['grad_norm']:.3f}  "
-                      f"tok/s={tokens_seen / dt:,.0f}", flush=True)
-        peak = (torch.cuda.max_memory_allocated(dev) / 1e9
-                if dev.type == "cuda" else None)
-        pathlib.Path(run_dir, f"rank{rank}.json").write_text(json.dumps(
-            {"history": history, "peak_mem_gb": peak,
-             "stage": i, "layers": stage.chunks}))
-        dist.barrier()
+            return dict(metrics, loss=loss)
+
+        history = _rank_steps(rank, cfg, args, dev, step)
+        _rank_done(rank, run_dir, dev, history, stage=i, layers=stage.chunks)
     finally:
         dist.destroy_process_group()
 
@@ -283,7 +344,6 @@ def run_pipeline(cfg: ModelConfig, plan: ParallelPlan,
     ``args.ranks`` ranks (scaled down by :func:`pipeline_layout`); returns
     rank 0's history, each step with ``peak_mem_gb_rank<r>`` of every rank
     on a CUDA device.  Raises RuntimeError when a rank fails."""
-    from repro_torch.launch.mesh import run_ranks
     from repro_torch.runtime.pipeline import _check_stack
 
     dev = resolve_device(args.device)
@@ -298,17 +358,71 @@ def run_pipeline(cfg: ModelConfig, plan: ParallelPlan,
     world = layout.n_stages * layout.n_data
     print(f"ranks: {world} of {n_ranks} (pipe {layout.n_stages} x data "
           f"{layout.n_data}) on {dev.type}", flush=True)
-    with tempfile.TemporaryDirectory(prefix="repro_torch_pipeline_") as d:
-        run_ranks(_pipeline_rank, (world, d, cfg, layout, args), world)
-        ranks = [json.loads(pathlib.Path(d, f"rank{r}.json").read_text())
-                 for r in range(world)]
-    history = ranks[0]["history"]
-    if dev.type == "cuda":
-        for h in history:
-            h.update({f"peak_mem_gb_rank{r}": res["peak_mem_gb"]
-                      for r, res in enumerate(ranks)})
-    print("done.")
-    return history
+    return _spawn(_pipeline_rank, world, (cfg, layout, args), dev,
+                  "repro_torch_pipeline_")
+
+
+# --------------------------------------------------------------------------
+# --ranks N: the plan's policy through the sharded executor
+# --------------------------------------------------------------------------
+
+def middle_strategy_policy(plan: ParallelPlan) -> ShardPolicy:
+    """The JAX driver's policy: its middle strategy's DP/SDP/TP choice,
+    remat as :func:`remat_from_plan`."""
+    return ShardPolicy.from_strategy(
+        plan.strategies[len(plan.strategies) // 2],
+        remat_segments=remat_from_plan(plan))
+
+
+def _sharded_rank(rank: int, world: int, run_dir: str, cfg: ModelConfig,
+                  policy: ShardPolicy, args: argparse.Namespace) -> None:
+    """One rank of :func:`run_sharded`: ``make_local_mesh()``, its shards
+    of the model and AdamW state, ``args.steps`` sharded steps; rank 0
+    prints the steps.  Writes its history (with the bytes it sent through
+    gloo each step) and peak memory to ``run_dir/rank<r>.json``."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = _join(rank, world, run_dir, args.device)
+    try:
+        mesh = make_local_mesh(device_type=dev.type)
+        ocfg = AdamWConfig(lr=args.lr)
+        params, opt = init_train_state(cfg, mesh=mesh, policy=policy,
+                                       seed=0, opt_cfg=ocfg, device=dev)
+        step = make_train_step(cfg, ocfg, mesh=mesh, policy=policy)
+        sent = []
+
+        def run(b):
+            before = step.shard.traffic.bytes_sent
+            metrics = step(params, opt,
+                           {k: torch.from_numpy(v) for k, v in b.items()})
+            sent.append(step.shard.traffic.bytes_sent - before)
+            return metrics
+
+        history = _rank_steps(rank, cfg, args, dev, run)
+        for h, n in zip(history, sent):
+            h["gloo_bytes_sent"] = n
+        _rank_done(rank, run_dir, dev, history)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded(cfg: ModelConfig, plan: ParallelPlan,
+                args: argparse.Namespace, n_ranks: int
+                ) -> List[Dict[str, float]]:
+    """Train ``args.steps`` steps on ``n_ranks`` gloo ranks, each holding
+    its shards under the plan's policy (:func:`middle_strategy_policy`) on
+    ``make_local_mesh()``; returns rank 0's history, each step with
+    ``peak_mem_gb_rank<r>`` of every rank on a CUDA device.  Raises
+    RuntimeError when a rank fails."""
+    dev = resolve_device(args.device)
+    build_stacks(cfg)
+    policy = middle_strategy_policy(plan)
+    n_params = sum(p.numel() for p in abstract_params(cfg).parameters())
+    print(f"model: {args.arch} ({n_params / 1e6:.1f}M params), "
+          f"mesh={{'data': {n_ranks}, 'model': 1}} on {dev.type}, "
+          f"policy={policy}", flush=True)
+    return _spawn(_sharded_rank, n_ranks, (cfg, policy, args), dev,
+                  "repro_torch_sharded_")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -346,17 +460,28 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the pipeline runtime over --ranks ranks instead "
                          "of training on one device")
     ap.add_argument("--ranks", type=int, default=None,
-                    help="ranks of --pipeline (default: the CUDA devices; "
-                         "1 with --device cpu)")
+                    help="ranks to train on (default: the CUDA devices; 1 "
+                         "with --device cpu): the pipeline's with "
+                         "--pipeline, else above 1 the plan's policy "
+                         "through the sharded executor")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> List[Dict[str, float]]:
     args = parse_args(argv)
     cfg = config_from_args(args)
+    dev = resolve_device(args.device)
     if args.pipeline:
-        resolve_device(args.device)
         return run_pipeline(cfg, plan_from_args(cfg, args), args)
+    n_ranks = args.ranks or (torch.cuda.device_count()
+                             if dev.type == "cuda" else 1)
+    if n_ranks > 1:
+        if args.ckpt_dir:
+            raise NotImplementedError(
+                "--ckpt-dir with --ranks above 1: gathering a sharded state "
+                "into the JAX layout is not written yet (ROADMAP.md queue "
+                "1, item 1)")
+        return run_sharded(cfg, plan_from_args(cfg, args), args, n_ranks)
     return train(cfg, args)
 
 

@@ -68,18 +68,25 @@ def init_attention(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor
+                 positions: torch.Tensor, shard=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v of ``cfg``'s heads; with a sharding context ``shard``,
+    ``cfg`` is its rank's heads and the replicated biases and QK-norm
+    weights enter the TP region through it."""
     B, S, _ = x.shape
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if p.bq is not None:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
+        bq, bk, bv = ((p.bq, p.bk, p.bv) if shard is None else
+                      (shard.tp_local(b) for b in (p.bq, p.bk, p.bv)))
+        q, k, v = q + bq, k + bk, v + bv
     q = q.reshape(B, S, cfg.n_heads, cfg.dh)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.dh)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.dh)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        qn, kn = ((p.q_norm, p.k_norm) if shard is None else
+                  (shard.to_tp(p.q_norm), shard.to_tp(p.k_norm)))
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -140,7 +147,8 @@ ATTN_IMPLS = ("ring", "flash", "chunked", "ref", "auto")
 def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, *, causal: bool = True,
               window: Optional[int] = None, impl: str = "auto",
-              sp_group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+              sp_group: Optional[dist.ProcessGroup] = None,
+              shard=None) -> torch.Tensor:
     """Full-sequence (train / prefill) self-attention: x (B,S,d) ->
     (B,S,d).
 
@@ -155,11 +163,18 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     of one rank): x and ``positions`` are this rank's slice of a sequence
     split in rank order over the group.  ``positions`` (B,S) must be the
     shard's absolute token positions, so that RoPE agrees with the
-    unsharded layer."""
+    unsharded layer.
+
+    ``shard`` (``runtime/sharding.py::ShardContext``) runs the layer
+    tensor-parallel: x enters the TP region, the rank's weights hold its
+    ``n_heads / tp`` query and ``n_kv_heads / tp`` KV heads, and the
+    output projection's partial sums are added over ``model``."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"impl must be one of {ATTN_IMPLS}; got {impl!r}")
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    if shard is not None:
+        x, cfg = shard.to_tp(x), shard.local_cfg(cfg)
+    q, k, v = _project_qkv(p, x, cfg, positions, shard)
     if impl == "auto":
         impl = ("flash" if x.is_cuda else
                 "chunked" if S >= 1024 else "ref")
@@ -176,7 +191,8 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
         out = sdpa_chunked(q, k, v, causal=causal, window=window)
     else:
         out = sdpa_ref(q, k, v, causal=causal, window=window)
-    return out.reshape(B, S, cfg.q_dim) @ p.wo
+    out = out.reshape(B, S, cfg.q_dim) @ p.wo
+    return out if shard is None else shard.from_tp(out)
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cache: Pool,

@@ -13,5 +13,10 @@ def init_embedding(vocab: int, d: int, dtype: torch.dtype = torch.bfloat16, *,
     return (w * 0.02).to(dtype)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          shard=None) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``; with a sharding context ``shard``
+    (``runtime/sharding.py``) the vocab-parallel lookup."""
+    if shard is not None:
+        return shard.embed(table, tokens)
     return F.embedding(tokens, table)

@@ -26,5 +26,11 @@ def init_swiglu(d: int, d_ff: int, dtype: torch.dtype = torch.bfloat16, *,
                   init_dense(d_ff, d, dtype, **kw))
 
 
-def swiglu_mlp(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
-    return swiglu(x @ p.w_gate, x @ p.w_up) @ p.w_down
+def swiglu_mlp(p: SwiGLU, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """With a sharding context ``shard`` (``runtime/sharding.py``), the
+    Megatron MLP: w_gate/w_up column-parallel and w_down row-parallel on
+    the rank's d_ff columns, the partial sums added over ``model``."""
+    if shard is None:
+        return swiglu(x @ p.w_gate, x @ p.w_up) @ p.w_down
+    x = shard.to_tp(x)
+    return shard.from_tp(swiglu(x @ p.w_gate, x @ p.w_up) @ p.w_down)

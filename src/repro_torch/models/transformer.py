@@ -29,6 +29,7 @@ of the segment: its activations are recomputed in the backward.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -110,10 +111,13 @@ def build_stacks(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
-            device: torch.device = "cuda") -> LM:
+            device: torch.device = "cuda",
+            shard: Optional[Callable[[str, Any], Any]] = None) -> LM:
     """Random weights drawn on ``device`` from ``torch.Generator(seed)``,
-    with the JAX package's distributions (not its numbers)."""
-    parts = init_lm_parts(cfg, seed=seed, device=device)
+    with the JAX package's distributions (not its numbers).  On the
+    ``meta`` device only the shapes exist.  ``shard`` goes to
+    :func:`init_lm_parts`."""
+    parts = init_lm_parts(cfg, seed=seed, device=device, shard=shard)
     return LM(parts["embed"], [parts["blocks"][i]
                                for i in range(cfg.n_layers)],
               parts["final_norm"], parts["head"], parts["shared_attn"])
@@ -121,7 +125,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
 
 def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
                   device: torch.device = "cuda",
-                  keep: Optional[Callable[[Any], bool]] = None
+                  keep: Optional[Callable[[Any], bool]] = None,
+                  shard: Optional[Callable[[str, Any], Any]] = None
                   ) -> Dict[str, Any]:
     """:func:`init_lm`'s draws, in its order (blocks 0..L-1, the shared
     attention block, the head, the embedding), as {"embed", "blocks" (layer
@@ -129,13 +134,19 @@ def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
     asked for each layer index and for ``"embed"``, ``"head"`` and
     ``"shared_attn"``, drops a part it refuses as soon as it is drawn (its
     entry is None, or absent from "blocks"): a pipeline stage holds the
-    same numbers as the whole model without ever holding the whole model."""
+    same numbers as the whole model without ever holding the whole model.
+    ``shard(name, part)`` replaces each kept part as soon as it is drawn
+    (``blocks.<i>``, ``shared_attn``, ``head``, ``embed``,
+    ``final_norm``): a sharded run keeps its rank's shards of the same
+    numbers (``runtime/sharding.py::ShardContext.shard_part``)."""
     ((kind, n),) = build_stacks(cfg)
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.Generator(device="cpu" if dev.type == "meta" else dev
+                        ).manual_seed(seed)
     kw = dict(generator=g, device=dev)
     d, dt = cfg.d_model, cfg.dtype
     keep = keep or (lambda part: True)
+    shard = shard or (lambda name, part: part)
 
     def ones():
         return torch.ones(d, dtype=dt, device=dev)
@@ -146,40 +157,59 @@ def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
                DenseBlock(ones(), init_attention(cfg, **kw), ones(),
                           init_swiglu(d, cfg.d_ff, dt, **kw)))
         if keep(i):
-            blocks[i] = blk
+            blocks[i] = shard(f"blocks.{i}", blk)
         del blk
     shared = (SharedAttention(ones(), init_attention(cfg, **kw))
               if cfg.arch_type == "hybrid" and cfg.attn_every else None)
+    shared = shard("shared_attn", shared) if keep("shared_attn") else None
     head = (None if cfg.tie_embeddings
             else init_dense(d, cfg.vocab_size, dt, **kw))
+    head = shard("head", head) if keep("head") else None
     embed = init_embedding(cfg.vocab_size, d, dt, **kw)
-    return {"embed": embed if keep("embed") else None, "blocks": blocks,
-            "final_norm": ones(),
-            "head": head if keep("head") else None,
-            "shared_attn": shared if keep("shared_attn") else None}
+    return {"embed": shard("embed", embed) if keep("embed") else None,
+            "blocks": blocks, "final_norm": shard("final_norm", ones()),
+            "head": head, "shared_attn": shared}
 
 
-def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig,
+            shard=None) -> torch.Tensor:
+    """Final norm and head (``embed.T`` when tied); with a sharding
+    context ``shard``, the rank's vocabulary columns."""
+    if shard is None:
+        x = rms_norm(x, params.final_norm, cfg.norm_eps)
+        if params.head is not None:
+            return x @ params.head
+        return x @ params.embed.T
+    x = shard.to_tp(rms_norm(x, shard.w(params.final_norm), cfg.norm_eps))
     if params.head is not None:
-        return x @ params.head
-    return x @ params.embed.T
+        return x @ shard.w(params.head)
+    return x @ shard.w(params.embed).T
 
 
 def dense_block(p: DenseBlock, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, *,
-                window: Optional[int] = None) -> torch.Tensor:
-    """Pre-norm causal attention and SwiGLU MLP, each with its residual."""
+                cfg: ModelConfig, *, window: Optional[int] = None,
+                shard=None) -> torch.Tensor:
+    """Pre-norm causal attention and SwiGLU MLP, each with its residual;
+    ``shard`` runs both tensor-parallel (``runtime/sharding.py``)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    x = x + attention(p.attn, h, positions, cfg, window=window)
+    x = x + attention(p.attn, h, positions, cfg, window=window, shard=shard)
     h = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + swiglu_mlp(p.mlp, h)
+    return x + swiglu_mlp(p.mlp, h, shard)
 
 
 def ssm_block_outer(p: SSMBlock, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, **_) -> torch.Tensor:
     """Pre-norm SSM mixer with its residual (positions unused)."""
     return x + ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg)
+
+
+def shared_block(p: SharedAttention, x: torch.Tensor,
+                 positions: torch.Tensor, cfg: ModelConfig, *,
+                 window: Optional[int] = None, shard=None) -> torch.Tensor:
+    """The hybrid's shared attention block with its residual."""
+    h = rms_norm(x, p.ln, cfg.norm_eps)
+    return x + attention(p.attn, h, positions, cfg, window=window,
+                         shard=shard)
 
 
 _BLOCK_APPLY = {"dense": dense_block, "ssm": ssm_block_outer}
@@ -198,8 +228,8 @@ def _segments(cfg: ModelConfig) -> List[Tuple[str, int, int, bool]]:
 
 
 def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
-               remat_segments: Optional[Sequence[bool]] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               remat_segments: Optional[Sequence[bool]] = None,
+               shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) -> logits (B,S,V) and the auxiliary loss (zero: dense
     and SSM blocks have none).
 
@@ -208,14 +238,26 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     layers, the shared attention block (causal) after each full one.
     Segment ``i`` is rematerialised when ``remat_segments[min(i, len -
     1)]`` is true (the JAX rule: a one-entry list covers every segment);
-    the shared block is not."""
-    x = embed(params.embed, tokens)
+    the shared block is not.
+
+    ``shard`` (``runtime/sharding.py::ShardContext``) runs the model on a
+    rank's shards: each block through ``shard.block`` (its ZeRO weights
+    gathered, TP inside, under sequence sharding the stash this rank's
+    token slice), the embedding and the logits vocab-parallel; the logits
+    are then the rank's vocabulary columns."""
+    x = embed(params.embed, tokens, shard)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     win = cfg.sliding_window
     sa = params.shared_attn
+    run_shared = shared_block
+    if shard is not None:
+        x = shard.seq_slice(x)
+        run_shared = functools.partial(shard.block, shared_block)
     for si, (kind, i, j, shared) in enumerate(_segments(cfg)):
         fn = _BLOCK_APPLY[kind]
+        if shard is not None:
+            fn = functools.partial(shard.block, fn)
         remat = (bool(remat_segments[min(si, len(remat_segments) - 1)])
                  if remat_segments else False)
         for blk in params.blocks[i:j]:
@@ -225,19 +267,25 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
             else:
                 x = fn(blk, x, positions, cfg, window=win)
         if shared and sa is not None:
-            h = rms_norm(x, sa.ln, cfg.norm_eps)
-            x = x + attention(sa.attn, h, positions, cfg, window=win)
+            x = run_shared(sa, x, positions, cfg, window=win)
+    if shard is not None:
+        x = shard.seq_gather(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(params, x, cfg), aux
+    return _logits(params, x, cfg, shard), aux
 
 
 def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-            remat_segments: Optional[Sequence[bool]] = None) -> torch.Tensor:
+            remat_segments: Optional[Sequence[bool]] = None,
+            shard=None) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (``-100`` ignored), plus the weighted aux loss."""
+    ``batch["labels"]`` (``-100`` ignored), plus the weighted aux loss
+    (zero for every arch the port builds).  With a sharding context
+    ``shard``, ``batch`` is the rank's data shard and the result its share:
+    summed over ``data`` the shares give the global batch's loss, and
+    their gradients its gradient."""
     logits, aux = lm_forward(params, batch["tokens"], cfg,
-                             remat_segments=remat_segments)
-    loss = cross_entropy_loss(logits, batch["labels"])
+                             remat_segments=remat_segments, shard=shard)
+    loss = cross_entropy_loss(logits, batch["labels"], shard=shard)
     return loss + cfg.router_aux_coef * aux
 
 

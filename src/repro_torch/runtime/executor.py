@@ -1,5 +1,5 @@
 """Device steps: training, prefill, the dense-cache decode step and the
-serving engine's (``runtime/executor.py`` counterpart), on one device.
+serving engine's (``runtime/executor.py`` counterpart).
 
 The JAX package jit-compiles each step with shardings and donated buffers.
 PyTorch runs eagerly, so a built step is the model function itself: the
@@ -7,12 +7,22 @@ training step runs value-and-grad of ``lm_loss`` and the AdamW update, which
 writes the parameters and optimizer state in place; the prefill and serving
 steps run under ``torch.inference_mode()``, and the serving steps update the
 caches or pools in place.
+
+Training runs on one device, or sharded over the ranks of a ``("data",
+"model")`` mesh by a :class:`~repro_torch.runtime.sharding.ShardPolicy`
+(DP, ZeRO-3 and head-aligned TP, remat per segment, stash-only sequence
+sharding): each rank holds its shards of the parameters and of the AdamW
+state (:func:`init_train_state`, :func:`shard_train_state`), and the
+collectives GSPMD inserts in the JAX package run explicitly
+(``runtime/sharding.py``).
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Pool
@@ -22,30 +32,108 @@ from repro_torch.models.transformer import (LM, build_stacks, decode_step,
                                             paged_decode_step,
                                             paged_prefill_step)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.runtime.sharding import (ShardContext, ShardPolicy,
+                                          abstract_params)
 
 
-def init_train_state(cfg: ModelConfig, *, seed: int = 0,
+def init_train_state(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
+                     policy: Optional[ShardPolicy] = None, seed: int = 0,
                      opt_cfg: Optional[AdamWConfig] = None,
                      device: torch.device = "cuda"
                      ) -> Tuple[LM, Dict[str, Any]]:
     """Random weights from ``seed`` on ``device`` and their AdamW state.
-    Raises NotImplementedError for an arch the port does not build."""
-    params = init_lm(cfg, seed=seed, device=resolve_device(device))
+
+    With a ``mesh`` (``("data", "model")``, every rank calling), each rank
+    draws ``init_lm``'s numbers in its order and keeps its shards under
+    ``policy`` (default ``ShardPolicy()``), each full part freed as soon as
+    it is sliced: the numbers are the single process's on the same device
+    type.  Raises NotImplementedError for an arch the port does not
+    build."""
+    dev = resolve_device(device)
+    if mesh is None:
+        params = init_lm(cfg, seed=seed, device=dev)
+    else:
+        ctx = ShardContext(cfg, mesh, policy or ShardPolicy())
+        params = init_lm(cfg, seed=seed, device=dev, shard=ctx.shard_part)
     return params, adamw_init(list(params.parameters()), opt_cfg)
+
+
+def shard_train_state(params: LM, mesh: DeviceMesh, policy: ShardPolicy, *,
+                      cfg: ModelConfig,
+                      opt_cfg: Optional[AdamWConfig] = None
+                      ) -> Tuple[LM, Dict[str, Any]]:
+    """:func:`init_train_state`'s sharded state from a full model of
+    ``cfg`` (for example one bridged from JAX by
+    ``bridge.params_from_jax``): its parameters replaced by this rank's
+    shards, in place, and their AdamW state."""
+    params = ShardContext(cfg, mesh, policy).shard_model(params)
+    return params, adamw_init(list(params.parameters()), opt_cfg)
+
+
+def gather_params(params: LM, mesh: DeviceMesh, policy: ShardPolicy, *,
+                  cfg: ModelConfig) -> LM:
+    """A full copy of a sharded model, on every rank (a collective of
+    every rank), for checks."""
+    ctx = ShardContext(cfg, mesh, policy)
+    shards = dict(params.named_parameters())
+    return ctx.shard_model(copy.deepcopy(params), lambda name, _: (
+        ctx.gather_tensor(name, shards[name])))
+
+
+def make_sharded_loss(cfg: ModelConfig, mesh: DeviceMesh,
+                      policy: ShardPolicy
+                      ) -> Callable[..., Tuple[torch.Tensor,
+                                               List[torch.Tensor]]]:
+    """``loss_and_grads(params, batch) -> (loss, grads)`` of a sharded
+    model on ``mesh`` under ``policy``, called on every rank with the
+    global batch (int ``tokens``/``labels`` (B, S), on any device), of
+    which each rank takes its ``data`` rows.  ``loss`` is the global
+    batch's 0-d fp32 loss, the same on every rank; ``grads``, aligned with
+    ``params.parameters()``, are the rank's shards of the global gradient.
+    Remat follows ``policy.remat_segments``.  ``loss_and_grads.shard`` is
+    the :class:`ShardContext`.  Raises as ``ShardContext`` does."""
+    ctx = ShardContext(cfg, mesh, policy)
+    remat = list(policy.remat_segments) if policy.remat_segments else None
+
+    def loss_and_grads(params: LM, batch: Dict[str, torch.Tensor]
+                       ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        named = ctx.bind(params)
+        leaves = [p for _, p in named]
+        local = ctx.local_batch(batch, leaves[0].device)
+        share = lm_loss(params, local, cfg, remat_segments=remat, shard=ctx)
+        grads = torch.autograd.grad(share, leaves, allow_unused=True)
+        grads = ctx.reduce_grads(named, grads)
+        return ctx.data_sum(share.detach()), grads
+
+    loss_and_grads.shard = ctx
+    return loss_and_grads
 
 
 def make_train_step(cfg: ModelConfig,
                     opt_cfg: Optional[AdamWConfig] = None, *,
-                    remat_segments: Optional[Sequence[bool]] = None
+                    remat_segments: Optional[Sequence[bool]] = None,
+                    mesh: Optional[DeviceMesh] = None,
+                    policy: Optional[ShardPolicy] = None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``(params, opt_state, batch)`` -> ``{"loss", "grad_norm", "lr"}``
     (0-d tensors on the params' device); params and opt_state are updated
     in place.  ``batch`` holds int ``tokens`` and ``labels`` (B, S).
-    ``remat_segments`` goes to :func:`lm_loss` (the JAX executor takes it
-    from the plan's policy; the port reads no plans yet).  Raises
+    ``remat_segments`` goes to :func:`lm_loss`.
+
+    With a ``mesh`` the step is the sharded one (:func:`make_sharded_loss`
+    under ``policy``, default ``ShardPolicy()``, whose ``remat_segments``
+    it takes): ``batch`` is the global batch, ``params`` and ``opt_state``
+    this rank's shards (:func:`init_train_state`), the gradient norm that
+    of the whole model (every shard and every replicated leaf counted
+    once), and AdamW updates the local shards.  Raises
     NotImplementedError for an arch the port does not build."""
     build_stacks(cfg)
     opt_cfg = opt_cfg or AdamWConfig()
+    if mesh is not None:
+        if remat_segments is not None:
+            raise ValueError("a sharded step takes remat from "
+                             "policy.remat_segments")
+        return _sharded_step(cfg, opt_cfg, mesh, policy or ShardPolicy())
 
     def step(params: LM, opt_state: Dict[str, Any],
              batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -56,6 +144,25 @@ def make_train_step(cfg: ModelConfig,
         metrics["loss"] = loss.detach()
         return metrics
 
+    return step
+
+
+def _sharded_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMesh,
+                  policy: ShardPolicy) -> Callable[..., Dict[str,
+                                                          torch.Tensor]]:
+    loss_and_grads = make_sharded_loss(cfg, mesh, policy)
+    ctx = loss_and_grads.shard
+
+    def step(params: LM, opt_state: Dict[str, Any],
+             batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        loss, grads = loss_and_grads(params, batch)
+        named = list(params.named_parameters())
+        metrics = adamw_update([p for _, p in named], grads, opt_state,
+                               opt_cfg, grad_norm=ctx.grad_norm(named, grads))
+        metrics["loss"] = loss
+        return metrics
+
+    step.shard = ctx
     return step
 
 

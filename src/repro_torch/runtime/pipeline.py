@@ -62,6 +62,7 @@ from repro_torch.models.layers import cross_entropy_loss
 from repro_torch.models.transformer import (_BLOCK_APPLY, LM, _logits,
                                             build_stacks, init_lm_parts)
 from repro_torch.runtime.schedules import ScheduleProgram, compile_schedule
+from repro_torch.runtime.sharding import check_gloo
 
 Batch = Dict[str, torch.Tensor]
 
@@ -203,7 +204,7 @@ class _Link:
 
     def __init__(self, group: dist.ProcessGroup, stage: int, n_stages: int,
                  device: torch.device):
-        _check_gloo(group)
+        check_gloo(group, "the pipeline")
         self.group, self.device = group, device
         self.nxt = dist.get_global_rank(group, (stage + 1) % n_stages)
         self.prv = dist.get_global_rank(group, (stage - 1) % n_stages)
@@ -232,16 +233,9 @@ class _Link:
         self.sends.clear()
 
 
-def _check_gloo(group: dist.ProcessGroup) -> None:
-    backend = dist.get_backend(group)
-    if backend != "gloo":
-        raise ValueError(f"the pipeline carries host tensors over gloo; the "
-                         f"group's backend is {backend!r}")
-
-
 def _host_sum(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
     """``x`` summed over the gloo ``group`` on the host."""
-    _check_gloo(group)
+    check_gloo(group, "the pipeline")
     h = x.detach().cpu()
     dist.all_reduce(h, group=group)
     return h.to(x.device)

@@ -2,7 +2,8 @@
 anything of ``repro``, nor ``triton`` (every kernel is CUDA C++), not even
 through its copies of the NumPy search engine and plan layer (``core``,
 ``analysis``, ``launch.search``, ``serving.slo_search``) nor through the
-checkpoint store, the profiler and the pipeline runtime, and keeps the JAX
+checkpoint store, the profiler and the pipeline runtime, nor through the
+sharded executor, the plan bridge and the memory model, and keeps the JAX
 package's source linter green."""
 import ast
 import os
@@ -33,7 +34,9 @@ def test_import_loads_no_jax_triton_or_repro():
             "repro_torch.runtime.schedules, repro_torch.configs.specs, "
             "repro_torch.configs.paper_models, repro_torch.checkpointing, "
             "repro_torch.checkpointing.store, repro_torch.core.profiler, "
-            "repro_torch.runtime.pipeline; "
+            "repro_torch.runtime.pipeline, repro_torch.runtime.sharding, "
+            "repro_torch.runtime.plan_bridge, repro_torch.roofline, "
+            "repro_torch.roofline.analysis, repro_torch.runtime; "
             "print(sorted({m.split('.')[0] for m in sys.modules} "
             "& {'jax', 'jaxlib', 'triton', 'repro'}))")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
