@@ -230,15 +230,51 @@ Phases (any failure exits non-zero before the final line is printed):
    steps on ``make_local_mesh()`` (data 4, model 1): the policy it prints
    must be the plan's middle strategy's, its first loss within 2e-3
    relative of (a)'s, the kernels launched at their counts.  The 4 ranks
-   share one card: no time there is sharded training's speed.
+   share one card: no time there is sharded training's speed;
+17. tensor parallelism for Mamba2 and the zamba2 hybrid, and sharded
+   checkpoints, on 4 gloo ranks sharing the card on a (data 2, model 2)
+   mesh with ``ShardPolicy(tp=True, zero=True, remat_segments=(True,))``:
+   (a) full-width, full-depth mamba2-370m: a spawned single process saves
+   its ``lm_loss`` and gradients (remat on every layer) in fp32, and in
+   bf16 its loss and 3 step losses, on the train driver's first batches of
+   4 x 2048 tokens at lr 3e-4; the ranks hold their fp32 loss within 2e-3
+   relative and each gathered fp32 gradient leaf within 2e-2 of its
+   largest magnitude (phase 16's gates), then in bf16 their loss within
+   2e-3 with ``seq_shard`` off and on (on: the same bits, or the loss
+   within the gate, which the line says), then take 3 bf16 steps, saving
+   the whole state after step 2 with ``save_sharded_train_state``.  The
+   gradients are held in fp32 because in bf16 this 48-layer stack's
+   gradients are chaotic in the rounding: the bf16 single process and the
+   bf16 ranks, whose losses agree to 5e-6, differ by 1.3 to 2.7 of each
+   SSM leaf's largest magnitude, while in fp32 they agree within 7.5e-3
+   (NVIDIA H100 80GB HBM3, 700 W).  The SSD scan (forward 2L at 16 local
+   heads, backward L) and RMSNorm (4L+1, 2L+1) are launched at exact
+   counts a rank a call and a step, no plain version run; (c) 4 fresh
+   ranks drawn from seed 1 restore into their shards
+   (``restore_sharded_train_state``) and take step 3, whose loss must be
+   (a)'s unbroken step 3 bit for bit; ``train --ranks 4 --plan
+   --ckpt-dir --ckpt-every 2 --steps 2`` on the port's search for 4 cards
+   at mamba2-370m writes step 2's checkpoint; one spawned process restores
+   (a)'s files with ``restore_train_state`` and takes step 3 (within 2e-3
+   relative of the ranks'), then restores ``train --ranks``' files; the
+   files (5.89 GB each) are deleted; (b) zamba2-1.2b at full width, depth
+   cut from 38 to 6 layers (one shared attention call) and its steps to 1
+   for the script's time, as (a) without saving: the flash forward and
+   backward at 16 local heads and dh 64, the SSD scan at 32.  Each rank's
+   call and step ms, gloo bytes sent and peak memory, and the save and
+   restore seconds and bytes are printed.
 
+Phase 2 also holds the kernels at phase 17's TP-local shapes against
+their plain versions, and phase 7 times the SSD scan at a rank's mamba2
+layer (B 2, S 2048, H 16) and the flash forward and backward at zamba2's
+local heads (B 2, S 2048, H = KV = 16, dh 64).
 Phase 7 also times the flash forward and backward at the dense training
 shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
 The phases run in the order 1, 2, 7, 3, 4, 5, 14, 6, 9, 10, 11, 12, 13,
-15, 16, 8: phase 7
+15, 16, 17, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
 seconds are printed before the final lines.
@@ -424,6 +460,21 @@ SHARD_TIMEOUT_S = 900
 # GB each) would not fit it, so the budget is one that makes the searched
 # plan's middle strategy, the one the driver applies, shard the state
 SHARD_BUDGET_GB = 11
+# phase 17, SSM and hybrid TP and sharded checkpoints: (a) mamba2-370m at
+# full width and depth, (b) zamba2-1.2b at full width, depth cut from 38 to
+# SSMTP_ZAMBA2_LAYERS (one shared attention call at attn_every 6) and its
+# steps to SSMTP_ZAMBA2_STEPS, for the whole script's time; the train
+# driver's first batches of SSMTP_BATCH x SSMTP_SEQ tokens at the train
+# CLI's lr, SSMTP_STEPS steps for (a); SSMTP_RANKS gloo ranks share the
+# card on a (data, model) mesh of SSMTP_MESH with TP, ZeRO and remat, held
+# to phase 16's gates; (a)'s ranks save after step SSMTP_SAVE_AT
+SSMTP_RANKS, SSMTP_MESH, SSMTP_BATCH, SSMTP_SEQ = 4, (2, 2), 4, 2048
+SSMTP_STEPS, SSMTP_SAVE_AT, SSMTP_LR = 3, 2, 3e-4
+SSMTP_ZAMBA2_LAYERS, SSMTP_ZAMBA2_STEPS = 6, 1
+# a rank's batch rows and RMSNorm rows, and zamba2's TP-local (H, KV, dh)
+SSMTP_LOCAL_BATCH = SSMTP_BATCH // SSMTP_MESH[0]
+SSMTP_ROWS = SSMTP_LOCAL_BATCH * SSMTP_SEQ
+ZAMBA2_TP_HEADS = (32 // SSMTP_MESH[1], 32 // SSMTP_MESH[1], 64)
 
 
 def log(msg: str) -> None:
@@ -751,6 +802,9 @@ def phase_kernels():
                   for name, B, S, T, kw in gqa_flash_cases()]
         cases += [(name, B, S, T, *ZAMBA2_HEADS, kw)
                   for name, B, S, T, kw in zamba2_flash_cases()]
+        # phase 17: zamba2's shared block at its TP-local heads
+        cases.append(("zamba2 TP-local", SSMTP_LOCAL_BATCH, SSMTP_SEQ,
+                      SSMTP_SEQ, *ZAMBA2_TP_HEADS, {}))
         for name, B, S, T, H, KV, dh, kw in cases:
             q = torch.randn(B, S, H, dh, generator=g, device="cuda").to(dt)
             k = torch.randn(B, T, KV, dh, generator=g, device="cuda").to(dt)
@@ -774,8 +828,11 @@ def phase_kernels():
         # SSM decode rows (8 x 1024: mamba2's ln1; 8 x 2048: its gated norm
         # and zamba2's ln1; 8 x 4096: zamba2's gated norm); training: ln1 /
         # final_norm at d_model, the gated norm at d_inner; sequence
-        # parallel: the QK-norm of one rank's q and k
-        for shape in [(PREFILL_BATCH * PREFILL_CHUNK, 2560),
+        # parallel: the QK-norm of one rank's q and k; phase 17: a rank's
+        # rows of mamba2 (1024, 2048) and zamba2 (2048, 4096)
+        for shape in [(SSMTP_ROWS, 1024), (SSMTP_ROWS, 2048),
+                      (SSMTP_ROWS, 4096),
+                      (PREFILL_BATCH * PREFILL_CHUNK, 2560),
                       (PREFILL_BATCH * PREFILL_CHUNK * 32, 128),
                       (DECODE_SLOTS, 2560), (DECODE_SLOTS * 32, 128),
                       (DECODE_SLOTS, 1024), (DECODE_SLOTS, 2048),
@@ -1018,8 +1075,9 @@ def ssd_inputs(B, S, H, P, N, dtype, seed=0):
 def ssd_cases():
     """(name, B, S, H, P, N, chunk, dtypes): the reduced and full widths,
     ragged S, S below a chunk, three heads of A from 1 to 16, one layer at
-    the training shape, and one zamba2 layer (H 64, P 64, N 64) at the
-    prefill of phase 12."""
+    the training shape, one zamba2 layer (H 64, P 64, N 64) at the
+    prefill of phase 12, and the TP-local layers of phase 17 (a rank's 2 x
+    2048 tokens on half the heads)."""
     return [
         ("reduced width", 2, 64, 8, 64, 16, 16, ("float32", "bfloat16")),
         ("ragged S=333", 2, 333, 8, 64, 128, 64, ("float32", "bfloat16")),
@@ -1028,6 +1086,10 @@ def ssd_cases():
         ("training layer", TRAIN_BATCH, TRAIN_SEQ, 32, 64, 128, 64,
          ("bfloat16",)),
         ("zamba2 prefill", 2, 2048, 64, 64, 64, 64, ("float32", "bfloat16")),
+        ("mamba2 TP-local", SSMTP_LOCAL_BATCH, SSMTP_SEQ, 16, 64, 128, 64,
+         ("bfloat16",)),
+        ("zamba2 TP-local", SSMTP_LOCAL_BATCH, SSMTP_SEQ, 32, 64, 64, 64,
+         ("bfloat16",)),
     ]
 
 
@@ -1103,6 +1165,9 @@ def phase_train_kernels(errs):
     qk_rows = DENSE_BATCH * DENSE_SEQ * 8        # the k-norm; q-norm x 4
     for dtype, shape in (("bfloat16", (TRAIN_BATCH * TRAIN_SEQ, 1024)),
                          ("bfloat16", (TRAIN_BATCH * TRAIN_SEQ, 2048)),
+                         ("bfloat16", (SSMTP_ROWS, 1024)),
+                         ("bfloat16", (SSMTP_ROWS, 2048)),
+                         ("bfloat16", (SSMTP_ROWS, 4096)),
                          ("bfloat16", (qk_rows, 128)),
                          ("bfloat16", (4 * qk_rows, 128)),
                          ("bfloat16", (3, 5, 2560)),
@@ -1216,6 +1281,13 @@ def phase_flash_bwd(errs):
         f"bitwise equal: {same}")
     check(same, "flash backward: a second call gave other bits")
     del q, do, k, v, out, lse, got, again
+    # phase 17: zamba2's shared block at its TP-local heads
+    B, S, (H, KV, dh) = SSMTP_LOCAL_BATCH, SSMTP_SEQ, ZAMBA2_TP_HEADS
+    q, do = rand(bf16, B, S, H, dh), rand(bf16, B, S, H, dh)
+    k, v = rand(bf16, B, S, KV, dh), rand(bf16, B, S, KV, dh)
+    flash_bwd_check(q, k, v, do, True, None,
+                    f"B={B} S={S} H={H} KV={KV} dh={dh}", errs)
+    del q, do, k, v
     torch.cuda.empty_cache()
 
 
@@ -3446,6 +3518,664 @@ def phase_shard():
 
 
 # ---------------------------------------------------------------------------
+# phase 17: SSM and hybrid TP, sharded checkpoints, 4 ranks on the card
+# ---------------------------------------------------------------------------
+
+SSMTP_DIR = ROOT / "build" / "ssm_tp"
+
+
+def _ssmtp_cfg(arch, dtype="bfloat16"):
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).with_(dtype=getattr(torch, dtype))
+    if arch == "zamba2-1.2b":
+        cfg = cfg.with_(n_layers=SSMTP_ZAMBA2_LAYERS)
+    return cfg
+
+
+def _ssmtp_steps(arch):
+    return SSMTP_ZAMBA2_STEPS if arch == "zamba2-1.2b" else SSMTP_STEPS
+
+
+def _ssmtp_batches(cfg):
+    """The train driver's first batches, one a step of ``cfg``'s model
+    (:func:`_ssmtp_steps`), CPU tensors."""
+    import torch
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    gen = synthetic_lm_batches(DataConfig(
+        seq_len=SSMTP_SEQ, global_batch=SSMTP_BATCH,
+        vocab_size=cfg.vocab_size))
+    return [{k: torch.from_numpy(v) for k, v in next(gen).items()}
+            for _ in range(_ssmtp_steps(cfg.name))]
+
+
+def _ssm_launches(cfg, calls=1, remat=True):
+    """Launches of ``calls`` losses and gradients of an SSM or hybrid model,
+    on one rank or the single process: per SSM layer the SSD forward and
+    two norms (ln1, the gated norm) once each, twice under remat (the
+    recompute), and the SSD backward and the norms' backward once; per
+    shared attention call of the hybrid (not rematerialised) the flash
+    forward, backward and its norm once each; the final norm once each
+    way."""
+    from repro_torch.models.transformer import _segments
+
+    L, f = cfg.n_layers, 2 if remat else 1
+    n_attn = sum(shared for *_, shared in _segments(cfg))
+    return {"ssd_scan": f * L * calls, "ssd_scan_bwd": L * calls,
+            "flash_attention": n_attn * calls,
+            "flash_attention_bwd": n_attn * calls,
+            "rmsnorm": (2 * f * L + n_attn + 1) * calls,
+            "rmsnorm_bwd": (2 * L + n_attn + 1) * calls}
+
+
+def _loss_and_grads(params, batch, cfg):
+    """The single process's ``lm_loss`` and gradients, remat on every
+    layer, with its launches and plain calls: a dict."""
+    import torch
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.optim import global_norm
+
+    leaves = list(params.parameters())
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        loss = lm_loss(params, batch, cfg, remat_segments=[True])
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return {"loss": loss.item(), "grad_norm": global_norm(grads).item(),
+            "grads": {n: g.cpu() for (n, _), g in
+                      zip(params.named_parameters(), grads)},
+            "wall_ms": (time.perf_counter() - t0) * 1e3,
+            "launches": counts(), "plain": plain}
+
+
+def ssmtp_reference(_rank, run_dir, arch):
+    """(a) and (b), a process of its own, on ``init_lm`` seed 0 and the
+    driver's first batch: in fp32 the single-process ``lm_loss`` and its
+    gradients (remat on every layer); in bf16 the same, then
+    :func:`_ssmtp_steps` ``make_train_step`` steps at SSMTP_LR on the
+    driver's batches; saved for the ranks."""
+    import gc
+
+    import torch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.executor import make_train_step
+
+    torch.cuda.set_device(0)
+    saved = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _ssmtp_cfg(arch, dtype)
+        params = init_lm(cfg, seed=0, device="cuda")
+        batches = [{k: v.to("cuda") for k, v in b.items()}
+                   for b in _ssmtp_batches(cfg)]
+        row = _loss_and_grads(params, batches[0], cfg)
+        row["params"] = sum(p.numel() for p in params.parameters())
+        if dtype == "bfloat16":
+            del row["grads"]        # the ranks' gradients are held in fp32
+            ocfg = AdamWConfig(lr=SSMTP_LR)
+            opt = adamw_init(list(params.parameters()), ocfg)
+            step = make_train_step(cfg, ocfg, remat_segments=[True])
+            with plain_calls() as plain:
+                row["losses"] = [float(step(params, opt, b)["loss"])
+                                 for b in batches]
+            row["plain"].update(plain)
+            row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del opt, step
+        saved[dtype] = row
+        del params, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(saved, f"{run_dir}/{arch}.reference.pt")
+
+
+def _dir_bytes(d):
+    return sum(f.stat().st_size for f in pathlib.Path(d).rglob("*")
+               if f.is_file())
+
+
+def _sharded_call(cfg, mesh, pol, params, batch):
+    """One sharded loss and gradients on this rank, timed to a
+    synchronize after a barrier: (loss, grads, row, context)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.runtime import make_sharded_loss
+
+    loss_fn = make_sharded_loss(cfg, mesh, pol)
+    named = list(params.named_parameters())
+    torch.cuda.synchronize()
+    dist.barrier()
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        loss, grads = loss_fn(params, batch)
+    torch.cuda.synchronize()
+    row = {"loss": loss.item(), "launches": counts(), "plain": plain,
+           "ms": (time.perf_counter() - t0) * 1e3,
+           "gloo_bytes": loss_fn.shard.traffic.bytes_sent,
+           "grad_norm": loss_fn.shard.grad_norm(named, grads).item()}
+    return loss, grads, row, loss_fn.shard
+
+
+def ssmtp_rank(rank, world, run_dir, arch, save):
+    """(a) and (b), one of SSMTP_RANKS gloo ranks on the card, on a
+    SSMTP_MESH (data, model) mesh with TP, ZeRO and remat.  In fp32: its
+    drawn shards, the sharded loss and gradients, each leaf gathered and,
+    on rank 0, held against the reference's.  In bf16: its drawn shards,
+    the sharded loss and gradients with ``seq_shard`` off and on, then
+    :func:`_ssmtp_steps` sharded steps; with ``save`` the state after step
+    SSMTP_SAVE_AT is saved (``save_sharded_train_state``) under
+    SSMTP_DIR/ckpt.  Saves its results."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpointing import save_sharded_train_state
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import (ShardPolicy, init_train_state,
+                                     make_train_step)
+
+    torch.cuda.set_device(0)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous_{arch}",
+                     timeout_s=SHARD_TIMEOUT_S)
+    try:
+        mesh = make_local_mesh(SSMTP_MESH[1])
+        pol = ShardPolicy(tp=True, zero=True, remat_segments=(True,))
+        ocfg = AdamWConfig(lr=SSMTP_LR)
+        out = {"coord": [mesh.get_local_rank("data"),
+                         mesh.get_local_rank("model")]}
+        # fp32: the gradients, leaf by leaf
+        cfg = _ssmtp_cfg(arch, "float32")
+        params, _ = init_train_state(cfg, mesh=mesh, policy=pol, seed=0,
+                                     opt_cfg=ocfg, device="cuda")
+        batches = _ssmtp_batches(cfg)
+        _, grads, row, ctx = _sharded_call(cfg, mesh, pol, params,
+                                           batches[0])
+        ref = torch.load(f"{run_dir}/{arch}.reference.pt", mmap=True)
+        errs = {}
+        for (n, _), g in zip(params.named_parameters(), grads):
+            full = ctx.gather_tensor(n, g)
+            if rank == 0:
+                errs[n] = _leaf_err(full, ref["float32"]["grads"][n])
+            del full
+        if rank == 0:
+            worst = max(errs, key=errs.get)
+            row.update(n_leaves=len(errs), worst_leaf=worst,
+                       worst_err=errs[worst])
+        out["fp32"] = row
+        del params, grads, ref, ctx
+        gc.collect()
+        torch.cuda.empty_cache()
+        # bf16: the loss with seq_shard off and on, then the steps
+        cfg = _ssmtp_cfg(arch)
+        t0 = time.perf_counter()
+        params, opt = init_train_state(cfg, mesh=mesh, policy=pol, seed=0,
+                                       opt_cfg=ocfg, device="cuda")
+        torch.cuda.synchronize()
+        out.update(init_s=time.perf_counter() - t0,
+                   params_local=sum(p.numel() for p in params.parameters()))
+        kept = None
+        for seq in (False, True):
+            loss, grads, row, _ = _sharded_call(
+                cfg, mesh, dataclasses.replace(pol, seq_shard=seq), params,
+                batches[0])
+            if kept is None:
+                kept = (loss.item(), grads)
+            else:
+                same = torch.tensor([int(loss.item() == kept[0] and all(
+                    torch.equal(a, b) for a, b in zip(grads, kept[1])))])
+                dist.all_reduce(same, op=dist.ReduceOp.MIN)
+                row["same_bits"] = bool(same.item())
+            out[f"seq{int(seq)}"] = row
+            del grads, loss
+        del kept
+        step = make_train_step(cfg, ocfg, mesh=mesh, policy=pol)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        counts = _zero_counts()
+        hist = []
+        with plain_calls() as plain:
+            for i, b in enumerate(batches, 1):
+                sent = step.shard.traffic.bytes_sent
+                t0 = time.perf_counter()
+                m = step(params, opt, b)
+                torch.cuda.synchronize()
+                hist.append({"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "ms": (time.perf_counter() - t0) * 1e3,
+                             "gloo_bytes": step.shard.traffic.bytes_sent
+                             - sent})
+                if save and i == SSMTP_SAVE_AT:
+                    sent = step.shard.traffic.bytes_sent
+                    t0 = time.perf_counter()
+                    save_sharded_train_state(i, params, opt, step.shard,
+                                             SSMTP_DIR / "ckpt",
+                                             extra={"arch": arch})
+                    out["save"] = {"s": time.perf_counter() - t0,
+                                   "gloo_bytes": step.shard.traffic.bytes_sent
+                                   - sent}
+        out.update(steps=hist, launches=counts(), plain=plain,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        pathlib.Path(f"{run_dir}/{arch}.rank{rank}.json").write_text(
+            json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def ssmtp_resume_rank(rank, world, run_dir):
+    """(c), one of 4 fresh ranks: shards drawn from seed 1, the saved state
+    restored into them (``restore_sharded_train_state``), then step
+    SSMTP_SAVE_AT + 1 on its batch.  Saves its results."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpointing import restore_sharded_train_state
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import (ShardPolicy, init_train_state,
+                                     make_train_step)
+
+    torch.cuda.set_device(0)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous_resume",
+                     timeout_s=SHARD_TIMEOUT_S)
+    try:
+        cfg = _ssmtp_cfg("mamba2-370m")
+        mesh = make_local_mesh(SSMTP_MESH[1])
+        pol = ShardPolicy(tp=True, zero=True, remat_segments=(True,))
+        ocfg = AdamWConfig(lr=SSMTP_LR)
+        params, opt = init_train_state(cfg, mesh=mesh, policy=pol, seed=1,
+                                       opt_cfg=ocfg, device="cuda")
+        step = make_train_step(cfg, ocfg, mesh=mesh, policy=pol)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, at = restore_sharded_train_state(params, opt, step.shard,
+                                               SSMTP_DIR / "ckpt")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        out = {"restored_step": at, "opt_step": opt["step"],
+               "restore_s": restore_s}
+        b = _ssmtp_batches(cfg)[SSMTP_SAVE_AT]
+        dist.barrier()
+        counts = _zero_counts()
+        with plain_calls() as plain:
+            m = step(params, opt, b)
+        out.update(loss=float(m["loss"]), launches=counts(), plain=plain)
+        pathlib.Path(f"{run_dir}/resume.rank{rank}.json").write_text(
+            json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def ssmtp_ckpt_single(_rank, run_dir):
+    """(c), a process of its own: (a)'s files restored with the one-process
+    ``restore_train_state`` into a model drawn from seed 1, then step
+    SSMTP_SAVE_AT + 1; then the checkpoint of ``train --ranks`` restored
+    the same way.  Saves its results."""
+    import torch
+    from repro_torch.checkpointing import restore_train_state
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.executor import make_train_step
+
+    torch.cuda.set_device(0)
+    cfg = _ssmtp_cfg("mamba2-370m")
+    out = {}
+    for name, d in (("ranks", SSMTP_DIR / "ckpt"),
+                    ("train", SSMTP_DIR / "train_ckpt")):
+        params = init_lm(cfg, seed=1, device="cuda")
+        ocfg = AdamWConfig(lr=SSMTP_LR)
+        opt = adamw_init(list(params.parameters()), ocfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, at = restore_train_state(params, opt, d)
+        torch.cuda.synchronize()
+        row = {"restore_s": time.perf_counter() - t0, "step": at,
+               "opt_step": opt["step"], "bytes": _dir_bytes(d),
+               "master_rounds_to_params": all(
+                   torch.equal(p, m.to(p.dtype)) for p, m in
+                   zip(params.parameters(), opt["master"]))}
+        if name == "ranks":
+            step = make_train_step(cfg, ocfg, remat_segments=[True])
+            b = {k: v.to("cuda")
+                 for k, v in _ssmtp_batches(cfg)[SSMTP_SAVE_AT].items()}
+            counts = _zero_counts()
+            with plain_calls() as plain:
+                row["loss"] = float(step(params, opt, b)["loss"])
+            row.update(launches=counts(), plain=plain)
+        out[name] = row
+        del params, opt
+    pathlib.Path(f"{run_dir}/ckpt_single.json").write_text(json.dumps(out))
+
+
+def counted_ssmtp_rank(rank, world, run_dir, cfg, policy, args):
+    """Check-only: ``launch/train.py``'s rank of ``train --ranks``, with the
+    kernels' launches and any plain call counted in the rank and saved
+    under SSMTP_DIR."""
+    from repro_torch.launch.train import _sharded_rank
+
+    counts = _zero_counts()
+    with plain_calls() as plain:
+        _sharded_rank(rank, world, run_dir, cfg, policy, args)
+    (SSMTP_DIR / f"train_rank{rank}.json").write_text(json.dumps(
+        {"launches": counts(), "plain": plain}))
+
+
+def _ssmtp_check_ranks(arch, ref):
+    """(a) and (b)'s gates on the ranks' results against the reference
+    ``ref``: the fp32 loss and every gathered fp32 gradient leaf, the bf16
+    loss with ``seq_shard`` off and on, the launches of every call and
+    step, the step losses; returns the launches summed over ranks, rank 0's
+    bf16 step losses and every rank's results."""
+    cfg = _ssmtp_cfg(arch)
+    res = [json.loads((SSMTP_DIR / f"{arch}.rank{r}.json").read_text())
+           for r in range(SSMTP_RANKS)]
+    check([r["coord"] for r in res] == [[0, 0], [0, 1], [1, 0], [1, 1]],
+          f"{arch}: mesh coordinates {[r['coord'] for r in res]}")
+    want = _ssm_launches(cfg)
+    for key in ("fp32", "seq0", "seq1"):
+        rows = [r[key] for r in res]
+        dtype = "float32" if key == "fp32" else "bfloat16"
+        tag = (f"[ssm-tp] {arch} {dtype}"
+               + ("" if key == "fp32" else f" seq_shard={key == 'seq1'}"))
+        want_loss = ref[dtype]["loss"]
+        loss = rows[0]["loss"]
+        check(all(r["loss"] == loss for r in rows),
+              f"{tag}: ranks disagree on the loss")
+        check(not any(r["plain"] for r in rows), f"{tag}: plain versions "
+              f"ran: {[r['plain'] for r in rows]}")
+        for r, row in enumerate(rows):
+            check(all(row["launches"][k] == v for k, v in want.items()),
+                  f"{tag} rank {r}: launches {row['launches']}, not {want}")
+        rel = abs(loss - want_loss) / abs(want_loss)
+        check(rel <= SHARD_LOSS_RTOL, f"{tag}: loss {loss} against the "
+              f"single process's {want_loss} (rel {rel:.3e})")
+        extra = ""
+        if key == "fp32":
+            check(rows[0]["n_leaves"] == len(ref[dtype]["grads"]),
+                  f"{tag}: {rows[0]['n_leaves']} leaves")
+            check(rows[0]["worst_err"] <= SHARD_GRAD_TOL, f"{tag}: gradient "
+                  f"{rows[0]['worst_leaf']} off by "
+                  f"{rows[0]['worst_err']:.3e} of its largest magnitude")
+            extra = (f"; worst gradient leaf {rows[0]['worst_leaf']} at "
+                     f"{rows[0]['worst_err']:.3e} of its largest magnitude "
+                     f"({rows[0]['n_leaves']} leaves)")
+        elif key == "seq1":
+            extra = ("; loss and gradients the same bits as seq_shard=False"
+                     if rows[0]["same_bits"] else "; NOT the same bits as "
+                     "seq_shard=False, the loss within the gate above")
+        log(f"{tag}: loss {loss!r} (single process {want_loss!r}, rel "
+            f"{rel:.3e}); grad norm {rows[0]['grad_norm']:.6f} (single "
+            f"process {ref[dtype]['grad_norm']:.6f}); call ms by rank "
+            f"{[round(r['ms'], 1) for r in rows]}, gloo bytes sent by rank "
+            f"{[r['gloo_bytes'] for r in rows]}" + extra)
+    steps = [r["steps"] for r in res]
+    losses = [h["loss"] for h in steps[0]]
+    check(all([h["loss"] for h in s] == losses for s in steps),
+          f"{arch}: ranks disagree on the step losses")
+    check(all(math.isfinite(x) for x in losses),
+          f"{arch}: step losses {losses}")
+    check(not any(r["plain"] for r in res), f"{arch}: plain versions ran in "
+          f"the steps: {[r['plain'] for r in res]}")
+    want_steps = _ssm_launches(cfg, _ssmtp_steps(arch))
+    for r, row in enumerate(res):
+        check(all(row["launches"][k] == v for k, v in want_steps.items()),
+              f"{arch} steps rank {r}: launches {row['launches']}, not "
+              f"{want_steps}")
+        log(f"[ssm-tp] {arch} rank {r} (data {row['coord'][0]}, model "
+            f"{row['coord'][1]}): {row['params_local'] / 1e6:.1f} M params, "
+            f"bf16 init {row['init_s']:.1f} s; step ms "
+            f"{[round(h['ms'], 1) for h in row['steps']]}, gloo bytes sent "
+            f"a step {[h['gloo_bytes'] for h in row['steps']]}; peak "
+            f"{row['peak_gb']:.2f} GB")
+    log(f"[ssm-tp] {arch}: {len(losses)} sharded bf16 steps: losses "
+        f"{losses} (single process {ref['bfloat16']['losses']}; 4 ranks "
+        "share one card: not sharded training's speed)")
+    launches = {k: 0 for k in res[0]["launches"]}
+    for r in res:
+        for k in launches:
+            launches[k] += r["launches"][k] + sum(
+                r[key]["launches"][k] for key in ("fp32", "seq0", "seq1"))
+    return launches, losses, res
+
+
+def _ssmtp_reference(arch):
+    """The single-process reference of ``arch`` in a process of its own,
+    gated; returns it (mmap) and its launches."""
+    import torch
+
+    cfg = _ssmtp_cfg(arch)
+    ref_s = spawn_ranks(ssmtp_reference, (str(SSMTP_DIR), arch), 1,
+                        f"the {arch} single-process reference",
+                        timeout_s=SHARD_TIMEOUT_S)
+    ref = torch.load(SSMTP_DIR / f"{arch}.reference.pt", mmap=True)
+    want = _ssm_launches(cfg)
+    launches = {k: 0 for k in ref["float32"]["launches"]}
+    for dtype in ("float32", "bfloat16"):
+        row = ref[dtype]
+        check(not row["plain"], f"plain versions ran in the {arch} {dtype} "
+              f"reference: {row['plain']}")
+        check(all(row["launches"][k] == v for k, v in want.items()),
+              f"the {arch} {dtype} reference's launches {row['launches']}, "
+              f"not {want}")
+        for k in launches:
+            launches[k] += row["launches"][k]
+    bf = ref["bfloat16"]
+    check(all(math.isfinite(x) for x in bf["losses"]),
+          f"the {arch} reference's losses {bf['losses']}")
+    log(f"[ssm-tp] {arch} single process: {bf['params'] / 1e9:.4f} B "
+        f"params; fp32 loss {ref['float32']['loss']!r}, grad norm "
+        f"{ref['float32']['grad_norm']:.6f}, {ref['float32']['wall_ms']:.1f} "
+        f"ms; bf16 loss {bf['loss']!r}, grad norm {bf['grad_norm']:.6f}, "
+        f"{bf['wall_ms']:.1f} ms; {len(bf['losses'])} bf16 steps at lr "
+        f"{SSMTP_LR}: "
+        f"losses {bf['losses']}; peak {bf['peak_gb']:.2f} GB; process "
+        f"{ref_s:.1f} s")
+    return ref, launches
+
+
+def _ssmtp_train(ref):
+    """(c): the port's search for SSMTP_RANKS cards of the H100 node at
+    mamba2-370m, then ``train --ranks 4 --plan --ckpt-dir --ckpt-every 2
+    --steps 2``; the policy it prints must be the plan's, its first loss
+    within SHARD_LOSS_RTOL of (a)'s, the kernels launched at their counts,
+    and it must write step 2's checkpoint.  Returns the path's
+    launches."""
+    import io
+    import tempfile
+
+    from repro_torch.core import CLUSTERS
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.search import certify_plans
+
+    cfg = _ssmtp_cfg("mamba2-370m")
+    cluster = CLUSTERS[PLAN_CLUSTER].with_devices(SSMTP_RANKS)
+    plan = train_cli.search_plan(cfg, SSMTP_SEQ, cluster=cluster,
+                                 batch_grid=[SSMTP_BATCH])
+    check(certify_plans([plan], log=log), "the searched plan does not "
+          "certify")
+    policy = train_cli.middle_strategy_policy(plan)
+    remat = bool(policy.remat_segments and policy.remat_segments[0])
+    log(f"[ssm-tp] (c) {PLAN_CLUSTER} x{SSMTP_RANKS}, batch grid "
+        f"[{SSMTP_BATCH}]: {plan.summary()}; the driver's policy {policy}")
+    steps = SSMTP_SAVE_AT
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_tp_") as d:
+        path = pathlib.Path(d) / "ssm.plan.json"
+        path.write_text(plan.dumps())
+        argv = ["--arch", "mamba2-370m", "--ranks", str(SSMTP_RANKS),
+                "--plan", str(path), "--seq", str(SSMTP_SEQ), "--batch",
+                str(SSMTP_BATCH), "--steps", str(steps), "--lr",
+                str(SSMTP_LR), "--log-every", "1", "--ckpt-dir",
+                str(SSMTP_DIR / "train_ckpt"), "--ckpt-every",
+                str(SSMTP_SAVE_AT)]
+        log(f"[ssm-tp] (c) python -m repro_torch.launch.train "
+            f"{' '.join(argv)}")
+        real = train_cli._sharded_rank
+        train_cli._sharded_rank = counted_ssmtp_rank
+        printed = io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                hist = train_cli.main(argv)
+            wall_s = time.perf_counter() - t0
+        finally:
+            train_cli._sharded_rank = real
+            log(printed.getvalue().rstrip())
+    check(f"policy={policy}" in printed.getvalue(), "train --ranks did not "
+          "print the plan's policy")
+    written = sorted(p.name for p in (SSMTP_DIR / "train_ckpt").iterdir())
+    check(written == [f"step_{SSMTP_SAVE_AT:08d}"], f"train --ranks "
+          f"--ckpt-dir wrote {written}")
+    ranks = [json.loads((SSMTP_DIR / f"train_rank{r}.json").read_text())
+             for r in range(SSMTP_RANKS)]
+    plain = [r["plain"] for r in ranks if r["plain"]]
+    check(not plain, f"plain versions ran in train --ranks: {plain}")
+    want = _ssm_launches(cfg, steps, remat)
+    for r, res in enumerate(ranks):
+        check(all(res["launches"][k] == v for k, v in want.items()),
+              f"train --ranks rank {r} launches {res['launches']}, not "
+              f"{want}")
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"losses {losses}")
+    bf = ref["bfloat16"]
+    rel = abs(losses[0] - bf["loss"]) / abs(bf["loss"])
+    check(rel <= SHARD_LOSS_RTOL, f"train --ranks' first loss {losses[0]} "
+          f"against the single process's {bf['loss']} (rel {rel:.3e})")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    log("[ssm-tp] (c) " + json.dumps({
+        "plan": plan.summary(), "policy": str(policy), "losses": losses,
+        "single_process_losses": bf["losses"][:steps],
+        "first_loss_rel": rel, "step_ms": [h["step_ms"] for h in hist],
+        "gloo_bytes_sent_rank0": [h["gloo_bytes_sent"] for h in hist],
+        "peak_mem_gb_by_rank": [hist[-1][f"peak_mem_gb_rank{r}"]
+                                for r in range(SSMTP_RANKS)],
+        "checkpoint_bytes": _dir_bytes(SSMTP_DIR / "train_ckpt"),
+        "wall_s": wall_s, "launches": launches})
+        + " (4 ranks share one card: not sharded training's speed)")
+    return launches
+
+
+def phase_ssm_tp():
+    """Phase 17: (a) full-width mamba2-370m, its single-process reference
+    and 4 TP + ZeRO + remat ranks against it, saving after step 2; (c) 4
+    fresh ranks restore and take step 3, ``train --ranks 4 --ckpt-dir``,
+    and one process restores both checkpoints; (b) zamba2-1.2b at
+    SSMTP_ZAMBA2_LAYERS layers and SSMTP_ZAMBA2_STEPS steps as (a), without
+    saving."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(SSMTP_DIR, ignore_errors=True)
+    SSMTP_DIR.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    launches = {"ssm_tp_reference": None, "ssm_tp": None,
+                "ssm_tp_resume": None, "ssm_tp_train": None}
+
+    def add(path, counts):
+        if launches[path] is None:
+            launches[path] = dict(counts)
+        else:
+            for k, v in counts.items():
+                launches[path][k] += v
+
+    arch = "mamba2-370m"
+    log(f"[ssm-tp] (a) {arch} at full width and depth, {SSMTP_BATCH} x "
+        f"{SSMTP_SEQ} tokens, {SSMTP_RANKS} gloo ranks on one card, (data "
+        f"{SSMTP_MESH[0]}, model {SSMTP_MESH[1]}), TP + ZeRO + remat")
+    ref, ref_launches = _ssmtp_reference(arch)
+    add("ssm_tp_reference", ref_launches)
+    spawn_ranks(ssmtp_rank, (SSMTP_RANKS, str(SSMTP_DIR), arch, True),
+                SSMTP_RANKS, f"{arch} TP ranks", timeout_s=SHARD_TIMEOUT_S)
+    counts, losses, res = _ssmtp_check_ranks(arch, ref)
+    add("ssm_tp", counts)
+    log(f"[ssm-tp] (a) at {time.perf_counter() - t_phase:.1f} s")
+    ckpt_bytes = _dir_bytes(SSMTP_DIR / "ckpt")
+    log(f"[ssm-tp] (c) save_sharded_train_state after step {SSMTP_SAVE_AT}: "
+        f"{ckpt_bytes} bytes in s by rank "
+        f"{[round(r['save']['s'], 2) for r in res]}, gloo bytes sent by rank "
+        f"{[r['save']['gloo_bytes'] for r in res]}")
+
+    spawn_ranks(ssmtp_resume_rank, (SSMTP_RANKS, str(SSMTP_DIR)),
+                SSMTP_RANKS, "resuming ranks", timeout_s=SHARD_TIMEOUT_S)
+    rows = [json.loads((SSMTP_DIR / f"resume.rank{r}.json").read_text())
+            for r in range(SSMTP_RANKS)]
+    want = losses[SSMTP_SAVE_AT]
+    check(all(r["restored_step"] == SSMTP_SAVE_AT
+              and r["opt_step"] == SSMTP_SAVE_AT for r in rows),
+          "restored steps "
+          f"{[(r['restored_step'], r['opt_step']) for r in rows]}")
+    check(not any(r["plain"] for r in rows), "plain versions ran in the "
+          f"resumed step: {[r['plain'] for r in rows]}")
+    want_one = _ssm_launches(_ssmtp_cfg(arch))
+    for r, row in enumerate(rows):
+        check(all(row["launches"][k] == v for k, v in want_one.items()),
+              f"resumed rank {r}: launches {row['launches']}, not "
+              f"{want_one}")
+        add("ssm_tp_resume", row["launches"])
+    got = [r["loss"] for r in rows]
+    check(all(x == want for x in got), f"the resumed step "
+          f"{SSMTP_SAVE_AT + 1} losses {got} are not the unbroken run's "
+          f"{want!r} bit for bit")
+    log(f"[ssm-tp] (c) 4 fresh ranks (seed 1) restored step "
+        f"{SSMTP_SAVE_AT} in s by rank "
+        f"{[round(r['restore_s'], 2) for r in rows]}; step "
+        f"{SSMTP_SAVE_AT + 1} loss {got[0]!r}: the unbroken run's bit for "
+        "bit")
+    log(f"[ssm-tp] (c) resumed at {time.perf_counter() - t_phase:.1f} s")
+    add("ssm_tp_train", _ssmtp_train(ref))
+    log(f"[ssm-tp] (c) train --ranks at {time.perf_counter() - t_phase:.1f} s")
+    spawn_ranks(ssmtp_ckpt_single, (str(SSMTP_DIR),), 1,
+                "the one-process restore", timeout_s=SHARD_TIMEOUT_S)
+    single = json.loads((SSMTP_DIR / "ckpt_single.json").read_text())
+    one, tr = single["ranks"], single["train"]
+    check(one["step"] == one["opt_step"] == SSMTP_SAVE_AT
+          and one["master_rounds_to_params"], f"one process restoring the "
+          f"ranks' checkpoint: {one}")
+    check(not one["plain"], f"plain versions ran in the one-process step: "
+          f"{one['plain']}")
+    check(all(one["launches"][k] == v for k, v in want_one.items()),
+          f"one-process step launches {one['launches']}, not {want_one}")
+    add("ssm_tp_reference", one["launches"])
+    rel = abs(one["loss"] - want) / abs(want)
+    check(rel <= SHARD_LOSS_RTOL, f"one process's step {SSMTP_SAVE_AT + 1} "
+          f"loss {one['loss']} against the ranks' {want} (rel {rel:.3e})")
+    check(tr["step"] == tr["opt_step"] == SSMTP_SAVE_AT
+          and tr["master_rounds_to_params"], f"one process restoring train "
+          f"--ranks' checkpoint: {tr}")
+    log(f"[ssm-tp] (c) one process restored the ranks' {one['bytes']} bytes "
+        f"in {one['restore_s']:.2f} s; step {SSMTP_SAVE_AT + 1} loss "
+        f"{one['loss']!r} (ranks {want!r}, rel {rel:.3e}); it restored "
+        f"train --ranks' {tr['bytes']} bytes in {tr['restore_s']:.2f} s "
+        f"(step {tr['step']}, masters rounding to the parameters)")
+    shutil.rmtree(SSMTP_DIR / "ckpt", ignore_errors=True)
+    shutil.rmtree(SSMTP_DIR / "train_ckpt", ignore_errors=True)
+    del ref
+    log(f"[ssm-tp] (c) at {time.perf_counter() - t_phase:.1f} s")
+
+    arch = "zamba2-1.2b"
+    log(f"[ssm-tp] (b) {arch} at full width, {SSMTP_ZAMBA2_LAYERS} of 38 "
+        f"layers, as (a), {SSMTP_ZAMBA2_STEPS} step, no save")
+    ref, ref_launches = _ssmtp_reference(arch)
+    add("ssm_tp_reference", ref_launches)
+    spawn_ranks(ssmtp_rank, (SSMTP_RANKS, str(SSMTP_DIR), arch, False),
+                SSMTP_RANKS, f"{arch} TP ranks", timeout_s=SHARD_TIMEOUT_S)
+    add("ssm_tp", _ssmtp_check_ranks(arch, ref)[0])
+    del ref
+    shutil.rmtree(SSMTP_DIR, ignore_errors=True)
+    log(f"[ssm-tp] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 8: sequence-parallel attention, 4 ranks on the card
 # ---------------------------------------------------------------------------
 
@@ -3663,10 +4393,11 @@ def _flash_timing(B, S, T, q_offset, kv_len, causal=True,
                 + ("" if causal else " non-causal"))
 
 
-def _flash_train_timing():
-    """The forward as dense training launches it under autograd (B 2, S
-    4096, H 32, KV 8, dh 128, bf16, causal, no q_offset or kv_len, writing
-    the row log-sum-exp); its plain version is ``flash_attention_ref`` and
+def _flash_train_timing(B=DENSE_BATCH, S=DENSE_SEQ, H=32, KV=8, dh=128):
+    """The forward as training launches it under autograd (by default the
+    dense shape, B 2, S 4096, H 32, KV 8, dh 128; bf16, causal, no
+    q_offset or kv_len, writing the row log-sum-exp); its plain version is
+    ``flash_attention_ref`` and
     ``flash_attention_lse_ref`` on the same inputs, the library
     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``.
     The bound: q, k, v read and the output and lse written once, or 4 x
@@ -3676,7 +4407,6 @@ def _flash_train_timing():
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-    B, S, H, KV, dh = DENSE_BATCH, DENSE_SEQ, 32, 8, 128
     g = torch.Generator(device="cuda").manual_seed(1)
     q = torch.randn(B, S, H, dh, generator=g, device="cuda").bfloat16()
     k, v = (torch.randn(B, S, KV, dh, generator=g, device="cuda").bfloat16()
@@ -3695,9 +4425,10 @@ def _flash_train_timing():
                 shape=f"B={B} S={S} H={H} KV={KV} dh={dh} causal lse bf16")
 
 
-def _flash_bwd_timing():
-    """The backward at the dense training shape (B 2, S 4096, H 32, KV 8, dh
-    128, bf16, causal): the kernels on the forward's output and
+def _flash_bwd_timing(B=DENSE_BATCH, S=DENSE_SEQ, H=32, KV=8, dh=128):
+    """The backward at a training shape (by default the dense one, B 2, S
+    4096, H 32, KV 8, dh 128; bf16, causal): the kernels on the forward's
+    output and
     log-sum-exp, the plain version on the same, and the autograd backward
     of ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
     as the library yardstick.  The bound: the five products (dV, dP, dQ, dK
@@ -3710,7 +4441,6 @@ def _flash_bwd_timing():
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
 
-    B, S, H, KV, dh = DENSE_BATCH, DENSE_SEQ, 32, 8, 128
     g = torch.Generator(device="cuda").manual_seed(10)
     q, do = (torch.randn(B, S, H, dh, generator=g, device="cuda").bfloat16()
              for _ in range(2))
@@ -3990,6 +4720,9 @@ def phase_timings():
     tokens = TRAIN_BATCH * TRAIN_SEQ
     ssd_fwd, ssd_bwd = _ssd_timing(TRAIN_BATCH, TRAIN_SEQ, 32, 64, 128, 64)
     zamba2_ssd = _ssd_timing(2, 2048, 64, 64, 64, 64, bwd=False)[0]
+    # phase 17: a rank's mamba2 layer at tp 2 (half the heads)
+    tp_fwd, tp_bwd = _ssd_timing(SSMTP_LOCAL_BATCH, SSMTP_SEQ, 16, 64, 128,
+                                 64)
     table = [
         ("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:143", "decode", {
@@ -4007,7 +4740,10 @@ def phase_timings():
                  heads=ZAMBA2_HEADS),
              "zamba2_prefill": _flash_timing(2, 2048, 2048, [0, 0],
                                              [2048, 2048],
-                                             heads=ZAMBA2_HEADS)}),
+                                             heads=ZAMBA2_HEADS),
+             # phase 17: a rank's shared block under autograd at tp 2
+             "zamba2_tp_train": _flash_train_timing(
+                 SSMTP_LOCAL_BATCH, SSMTP_SEQ, *ZAMBA2_TP_HEADS)}),
         ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "decode", {
              "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
@@ -4032,13 +4768,17 @@ def phase_timings():
                  DENSE_BATCH * DENSE_SEQ * 32, 128)}),
         ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd_scan.py:72", "train",
-         {"train": ssd_fwd, "zamba2_prefill": zamba2_ssd}),
+         {"train": ssd_fwd, "zamba2_prefill": zamba2_ssd,
+          "mamba2_tp_local": tp_fwd}),
         ("ssd_scan_bwd", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
-         "src/repro/kernels/ssd_scan.py:72", "train", {"train": ssd_bwd}),
+         "src/repro/kernels/ssd_scan.py:72", "train",
+         {"train": ssd_bwd, "mamba2_tp_local": tp_bwd}),
         ("flash_attention_bwd", "cuda",
          "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:143", "train",
-         {"train": _flash_bwd_timing()}),
+         {"train": _flash_bwd_timing(),
+          "zamba2_tp_train": _flash_bwd_timing(
+              SSMTP_LOCAL_BATCH, SSMTP_SEQ, *ZAMBA2_TP_HEADS)}),
         ("flash_partial", "cuda", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/ring_attention.py:110", "visible", {
              "diagonal": _partial_timing(0),
@@ -4153,6 +4893,7 @@ def main() -> int:
         launches.update(phase_plan(dense_losses))
         launches.update(phase_pipeline())
         launches.update(phase_shard())
+        launches.update(phase_ssm_tp())
         launches["sp"] = phase_sp()
         kernels = kernel_entries(timed, errs, launches, dense_decode)
     except Failed as e:

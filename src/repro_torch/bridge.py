@@ -22,7 +22,8 @@ The other way, :func:`tree_from_params` gives the JAX tree of a port model
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -145,12 +146,15 @@ def flat_from_leaves(model: nn.Module, leaves: Sequence[torch.Tensor]
 
 
 def assign_flat(model: nn.Module, targets: Sequence[torch.Tensor],
-                flat: Mapping[str, Any]) -> None:
+                flat: Mapping[str, Any],
+                cut: Optional[Callable[[str, torch.Tensor],
+                                       torch.Tensor]] = None) -> None:
     """Copy ``flat`` ({JAX tree path: array or tensor, stacked on L}) into
     ``targets`` (aligned with ``model.parameters()``), in place and on the
-    targets' devices, cast to their dtypes.  Raises ValueError on a path
-    that no target takes or a target that no path fills, and on a shape
-    that differs."""
+    targets' devices, cast to their dtypes; ``cut(name, leaf)``, where
+    given, first cuts each parameter's whole leaf to the target's piece (a
+    rank's shard).  Raises ValueError on a path that no target takes or a
+    target that no path fills, and on a shape that differs."""
     named = [n for n, _ in model.named_parameters()]
     if len(named) != len(targets):
         raise ValueError(f"{len(targets)} targets for {len(named)} "
@@ -167,6 +171,8 @@ def assign_flat(model: nn.Module, targets: Sequence[torch.Tensor],
                 torch.from_numpy(np.asarray(src))
             if layer is not None:
                 src = src[layer]
+            if cut is not None:
+                src = cut(name, src)
             if tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{path}: shape {tuple(src.shape)} for "
                                  f"parameter {name!r} of {tuple(t.shape)}")

@@ -16,6 +16,12 @@ state holds lists in ``params.parameters()`` order
 JAX paths.  Restoring writes into the template's tensors, in place and on
 their devices, and raises on a stored leaf that the template does not take,
 rather than leave a weight behind.
+
+A sharded run (``runtime/sharding.py::ShardContext``) writes the same
+files: :func:`save_sharded_train_state` gathers each leaf whole on every
+rank and rank 0 writes it, as the JAX driver saves its sharded arrays
+through a gather to the host; :func:`restore_sharded_train_state` cuts each
+whole leaf to the rank's shard.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.bridge import assign_flat, flat_from_leaves
 from repro_torch.models.transformer import LM
@@ -119,19 +126,100 @@ def _opt_tree(params: LM, opt_state: Mapping[str, Any]) -> Dict[str, Any]:
                for k in ("master", "m", "v")}}
 
 
+def _write(step: int, params: LM, leaves, opt_state: Mapping[str, Any],
+           directory: str | pathlib.Path,
+           extra: Optional[Dict[str, Any]]) -> pathlib.Path:
+    d = pathlib.Path(directory) / f"step_{step:08d}"
+    d.mkdir(parents=True, exist_ok=True)
+    save_pytree(flat_from_leaves(params, leaves), d / "params.npz")
+    save_pytree(_opt_tree(params, opt_state), d / "opt_state.npz")
+    (d / "meta.json").write_text(json.dumps({"step": step, **(extra or {})}))
+    return d
+
+
 def save_train_state(step: int, params: LM, opt_state: Mapping[str, Any],
                      directory: str | pathlib.Path,
                      extra: Optional[Dict[str, Any]] = None) -> pathlib.Path:
     """Write ``directory/step_XXXXXXXX/{params.npz, opt_state.npz,
     meta.json}`` for the port's model and AdamW state; returns the step's
     directory."""
+    return _write(step, params, list(params.parameters()), opt_state,
+                  directory, extra)
+
+
+def save_sharded_train_state(step: int, params: LM,
+                             opt_state: Mapping[str, Any], shard,
+                             directory: str | pathlib.Path,
+                             extra: Optional[Dict[str, Any]] = None
+                             ) -> pathlib.Path:
+    """:func:`save_train_state` of a sharded run's model and AdamW state
+    (this rank's shards under ``shard``, a ``ShardContext``); a collective
+    of every rank.  Each parameter and each of AdamW's ``master``, ``m``
+    and ``v`` leaves is gathered whole (``shard.gather_tensor``), one leaf
+    at a time, so that a device holds one whole leaf beyond its shards;
+    rank 0 keeps it on the host and writes the files one process would,
+    then every rank waits at a barrier.  Returns the step's directory."""
+    named = list(params.named_parameters())
+    rank0 = dist.get_rank() == 0
+
+    def whole(leaves):
+        out = []
+        for (name, _), t in zip(named, leaves):
+            full = shard.gather_tensor(name, t)
+            out.append(full.cpu() if rank0 else None)
+            del full
+        return out
+
+    leaves = whole([p for _, p in named])
+    opt = {"step": opt_state["step"],
+           **{k: whole(opt_state[k]) for k in ("master", "m", "v")}}
     d = pathlib.Path(directory) / f"step_{step:08d}"
-    d.mkdir(parents=True, exist_ok=True)
-    save_pytree(flat_from_leaves(params, list(params.parameters())),
-                d / "params.npz")
-    save_pytree(_opt_tree(params, opt_state), d / "opt_state.npz")
-    (d / "meta.json").write_text(json.dumps({"step": step, **(extra or {})}))
+    if rank0:
+        _write(step, params, leaves, opt, directory, extra)
+    del leaves, opt
+    dist.barrier()
     return d
+
+
+def _step_dir(directory: str | pathlib.Path,
+              step: Optional[int]) -> pathlib.Path:
+    d = pathlib.Path(directory)
+    if step is not None:
+        return d / f"step_{step:08d}"
+    cands = sorted(d.glob("step_*"))
+    if not cands:
+        raise FileNotFoundError(f"no checkpoints under {d}")
+    return cands[-1]
+
+
+def _restore(params: LM, opt_state: Dict[str, Any],
+             directory: str | pathlib.Path, step: Optional[int],
+             cut) -> int:
+    """Restore ``step``'s checkpoint (the newest without it) into
+    ``params`` and ``opt_state`` in place, each leaf through
+    ``cut(name, whole leaf)`` where given; AdamW's groups are read one at a
+    time.  Returns the step."""
+    d = _step_dir(directory, step)
+    meta = json.loads((d / "meta.json").read_text())
+    assign_flat(params, list(params.parameters()), _read(d / "params.npz"),
+                cut)
+    path = d / "opt_state.npz"
+    with np.load(path, allow_pickle=False) as data:
+        groups: Dict[str, Dict[str, str]] = {"master": {}, "m": {}, "v": {}}
+        for key in data.files:
+            name = key[:-len(_BF16)] if key.endswith(_BF16) else key
+            head, _, rest = name.partition("/")
+            if name == "step":
+                continue
+            if head not in groups or not rest:
+                raise ValueError(f"{path}: leaf {name!r} is not step, "
+                                 "master, m or v")
+            groups[head][rest] = key
+        for k, keys in groups.items():
+            assign_flat(params, opt_state[k],
+                        {rest: data[key] for rest, key in keys.items()}, cut)
+        opt_state["step"] = int(data["step"])
+    return int(meta["step"])
 
 
 def restore_train_state(params_template: LM,
@@ -143,29 +231,18 @@ def restore_train_state(params_template: LM,
     into ``params_template`` and ``opt_template`` in place; returns them
     and the step.  Raises FileNotFoundError when there is none, and
     ValueError when a stored leaf is not the template's."""
-    d = pathlib.Path(directory)
-    if step is None:
-        cands = sorted(d.glob("step_*"))
-        if not cands:
-            raise FileNotFoundError(f"no checkpoints under {d}")
-        d = cands[-1]
-    else:
-        d = d / f"step_{step:08d}"
-    meta = json.loads((d / "meta.json").read_text())
-    leaves = list(params_template.parameters())
-    assign_flat(params_template, leaves, _read(d / "params.npz"))
-    opt = _read(d / "opt_state.npz")
-    groups: Dict[str, Dict[str, np.ndarray]] = {"master": {}, "m": {},
-                                                "v": {}}
-    for path, arr in opt.items():
-        head, _, rest = path.partition("/")
-        if path == "step":
-            continue
-        if head not in groups or not rest:
-            raise ValueError(f"{d / 'opt_state.npz'}: leaf {path!r} is not "
-                             "step, master, m or v")
-        groups[head][rest] = arr
-    for k, flat in groups.items():
-        assign_flat(params_template, opt_template[k], flat)
-    opt_template["step"] = int(opt["step"])
-    return params_template, opt_template, int(meta["step"])
+    step = _restore(params_template, opt_template, directory, step, None)
+    return params_template, opt_template, step
+
+
+def restore_sharded_train_state(params: LM, opt_state: Dict[str, Any],
+                                shard, directory: str | pathlib.Path,
+                                step: Optional[int] = None
+                                ) -> Tuple[LM, Dict[str, Any], int]:
+    """:func:`restore_train_state` into a sharded run's model and AdamW
+    state (this rank's shards under ``shard``, a ``ShardContext``): each
+    whole leaf is cut to the rank's shard (``shard.shard_tensor``) and
+    written into the template in place.  Every rank reads the files; no
+    collective."""
+    step = _restore(params, opt_state, directory, step, shard.shard_tensor)
+    return params, opt_state, step

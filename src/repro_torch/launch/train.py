@@ -21,8 +21,9 @@ paper's search (:func:`search_plan`, on the 64-GPU H100 preset), and
 ``--plan-out`` writes it.  The driver takes remat from the plan as the JAX
 driver does (:func:`remat_from_plan`).  ``--ckpt-dir`` saves the model and
 AdamW state every ``--ckpt-every`` steps in the JAX package's layout
-(``checkpointing/store.py``); as in the JAX driver, nothing resumes from
-them.
+(``checkpointing/store.py``), on one device or gathered from the ranks of
+``--ranks`` (``save_sharded_train_state``); as in the JAX driver, nothing
+resumes from them, and ``--pipeline`` saves none.
 
 With ``--ranks N`` above 1 (default: the CUDA devices) the plan is applied
 as the JAX driver applies it (:func:`run_sharded`): the policy of its
@@ -62,7 +63,8 @@ from repro_torch.core import (ClusterSpec, GalvatronOptimizer, ParallelPlan,
                               galvatron_variant, h100_cluster)
 from repro_torch.data import (DataConfig, synthetic_lm_batches,
                               text_corpus_batches)
-from repro_torch.checkpointing import save_train_state
+from repro_torch.checkpointing import (save_sharded_train_state,
+                                       save_train_state)
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import build_stacks
@@ -240,10 +242,12 @@ def _join(rank: int, world: int, run_dir: str,
 
 
 def _rank_steps(rank: int, cfg: ModelConfig, args: argparse.Namespace,
-                dev: torch.device, step_fn) -> List[Dict[str, float]]:
+                dev: torch.device, step_fn,
+                after_step=None) -> List[Dict[str, float]]:
     """``args.steps`` steps of ``step_fn(batch)`` on the driver's batches
     (the global batch as numpy arrays, the same on every rank), each
-    timed to a synchronize; rank 0 prints them."""
+    timed to a synchronize; rank 0 prints them.  ``after_step(i)`` runs
+    after step ``i``'s timing and print."""
     dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
                       vocab_size=cfg.vocab_size)
     gen = (text_corpus_batches(args.corpus, dcfg) if args.corpus
@@ -267,6 +271,8 @@ def _rank_steps(rank: int, cfg: ModelConfig, args: argparse.Namespace,
             print(f"step {step:5d}  loss={history[-1]['loss']:.4f}  "
                   f"gnorm={history[-1]['grad_norm']:.3f}  "
                   f"tok/s={tokens_seen / dt:,.0f}", flush=True)
+        if after_step is not None:
+            after_step(step)
     return history
 
 
@@ -378,8 +384,10 @@ def _sharded_rank(rank: int, world: int, run_dir: str, cfg: ModelConfig,
                   policy: ShardPolicy, args: argparse.Namespace) -> None:
     """One rank of :func:`run_sharded`: ``make_local_mesh()``, its shards
     of the model and AdamW state, ``args.steps`` sharded steps; rank 0
-    prints the steps.  Writes its history (with the bytes it sent through
-    gloo each step) and peak memory to ``run_dir/rank<r>.json``."""
+    prints the steps.  With ``args.ckpt_dir`` every rank takes part in
+    saving the whole state every ``args.ckpt_every`` steps.  Writes its
+    history (with the bytes it sent through gloo each step) and peak
+    memory to ``run_dir/rank<r>.json``."""
     from repro_torch.launch.mesh import make_local_mesh
 
     dev = _join(rank, world, run_dir, args.device)
@@ -398,7 +406,14 @@ def _sharded_rank(rank: int, world: int, run_dir: str, cfg: ModelConfig,
             sent.append(step.shard.traffic.bytes_sent - before)
             return metrics
 
-        history = _rank_steps(rank, cfg, args, dev, run)
+        def save(i):
+            if args.ckpt_dir and i % args.ckpt_every == 0:
+                d = save_sharded_train_state(i, params, opt, step.shard,
+                                             args.ckpt_dir)
+                if rank == 0:
+                    print(f"  checkpoint -> {d}", flush=True)
+
+        history = _rank_steps(rank, cfg, args, dev, run, save)
         for h, n in zip(history, sent):
             h["gloo_bytes_sent"] = n
         _rank_done(rank, run_dir, dev, history)
@@ -476,11 +491,6 @@ def main(argv=None) -> List[Dict[str, float]]:
     n_ranks = args.ranks or (torch.cuda.device_count()
                              if dev.type == "cuda" else 1)
     if n_ranks > 1:
-        if args.ckpt_dir:
-            raise NotImplementedError(
-                "--ckpt-dir with --ranks above 1: gathering a sharded state "
-                "into the JAX layout is not written yet (ROADMAP.md queue "
-                "1, item 1)")
         return run_sharded(cfg, plan_from_args(cfg, args), args, n_ranks)
     return train(cfg, args)
 

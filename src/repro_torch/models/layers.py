@@ -52,14 +52,15 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_id: int = -100, *,
                        shard=None) -> torch.Tensor:
-    """Mean token cross entropy in fp32 over the labels that are not
-    ``ignore_id``; 0 when every label is ignored.  logits (..., V),
+    """Mean token cross entropy in fp32 (float64 logits in float64) over
+    the labels that are not ``ignore_id``; 0 when every label is ignored.
+    logits (..., V),
     labels (...).  With a sharding context ``shard``
     (``runtime/sharding.py``): this rank's share of the global batch's
     mean, the logits its vocabulary columns under TP."""
     if shard is not None:
         return shard.cross_entropy(logits, labels, ignore_id)
-    lf = logits.float()
+    lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
     logz = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, labels.long().clamp_min(0)[..., None])[..., 0]
     mask = (labels != ignore_id).float()

@@ -12,7 +12,7 @@ in place.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -85,25 +85,81 @@ def _split_proj(p: SSM, x: torch.Tensor, cfg: ModelConfig):
     return torch.split(x @ p.in_proj, [di, di + 2 * N, H], dim=-1)
 
 
-def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ssm_tp_columns(cfg: ModelConfig, tp: int,
+                   rank: int) -> List[Tuple[int, int]]:
+    """The ``in_proj`` columns TP rank ``rank`` of ``tp`` computes with, as
+    [start, stop) ranges of the packed ``[z (di) | x (di) | B (N) | C (N) |
+    dt (H)]``: its heads' z, x and dt columns and all of B and C (one group
+    that every head reads)."""
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    a, b = rank * di // tp, (rank + 1) * di // tp
+    dt0 = 2 * di + 2 * N
+    return [(a, b), (di + a, di + b), (2 * di, dt0),
+            (dt0 + rank * H // tp, dt0 + (rank + 1) * H // tp)]
+
+
+def ssm_tp_conv_channels(cfg: ModelConfig, tp: int,
+                         rank: int) -> List[Tuple[int, int]]:
+    """The causal conv's channels (``[x (di) | B (N) | C (N)]``) of TP rank
+    ``rank`` of ``tp``: its heads' x channels and all of B and C."""
+    di, N = cfg.d_inner, cfg.ssm_state
+    a, b = rank * di // tp, (rank + 1) * di // tp
+    return [(a, b), (di, di + 2 * N)]
+
+
+def _columns(t: torch.Tensor, ranges: List[Tuple[int, int]]) -> torch.Tensor:
+    return torch.cat([t[..., a:b] for a, b in ranges], dim=-1)
+
+
+def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig,
+              shard=None) -> torch.Tensor:
     """Full-sequence Mamba2 block. x (B,S,d) -> (B,S,d).
 
     Bm/Cm go to the scan as one group for all heads, (B,S,1,N) views of
-    the projection, never as copies."""
+    the projection, never as copies.
+
+    ``shard`` (``runtime/sharding.py::ShardContext``) under TP runs the
+    block on the rank's ``H / tp`` heads: ``in_proj``, stored as the
+    contiguous column shard of the rule table, is gathered over ``model``
+    and cut to :func:`ssm_tp_columns`; the replicated conv weights to
+    :func:`ssm_tp_conv_channels` and ``dt_bias``, ``A_log`` and ``D`` to
+    the rank's heads, their gradients summed over ``model``; the gated
+    rows are gathered over ``model`` so that the norm runs on whole
+    ``d_inner`` rows, forward and backward, alike on every rank (its
+    weight's gradient is whole on each), then cut to the rank's columns
+    for the row-parallel ``out_proj``, whose partial sums are added over
+    ``model``."""
     Bsz, S, _ = x.shape
-    di, H, N, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
-    z, xBC, dt = _split_proj(p, x, cfg)
-    xBC = _causal_conv(xBC, p.conv_w, p.conv_b)
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    w, conv_w, conv_b, norm_w = p.in_proj, p.conv_w, p.conv_b, p.norm_w
+    dt_bias, A_log, D = p.dt_bias, p.A_log, p.D
+    tp = 1 if shard is None else shard.tp
+    if tp > 1:
+        r = shard.model_rank
+        x = shard.to_tp(x)
+        if w.shape[-1] != 2 * cfg.d_inner + 2 * N + cfg.ssm_heads:
+            w = shard.gather_tp(w)
+        w = _columns(w, ssm_tp_columns(cfg, tp, r))
+        conv_w, conv_b = (_columns(shard.to_tp(t), ssm_tp_conv_channels(
+            cfg, tp, r)) for t in (conv_w, conv_b))
+        dt_bias, A_log, D = (shard.tp_local(t) for t in (dt_bias, A_log, D))
+    H = A_log.shape[0]
+    di = H * P
+    z, xBC, dt = torch.split(x @ w, [di, di + 2 * N, H], dim=-1)
+    xBC = _causal_conv(xBC, conv_w, conv_b)
     xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
     xs = xs.reshape(Bsz, S, H, P)
     Bm, Cm = Bm[:, :, None, :], Cm[:, :, None, :]
-    dtp = F.softplus(dt.float() + p.dt_bias)
-    A = -torch.exp(p.A_log)
+    dtp = F.softplus(dt.float() + dt_bias)
+    A = -torch.exp(A_log)
     y = ops.ssd_scan(xs, dtp, A, Bm, Cm, cfg.ssm_chunk)
-    y = y + (p.D.float()[:, None] * xs.float()).to(y.dtype)
+    y = y + (D.float()[:, None] * xs.float()).to(y.dtype)
     y = y.reshape(Bsz, S, di)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p.norm_w, cfg.norm_eps)
-    return y @ p.out_proj
+    y = y * F.silu(z.float()).to(y.dtype)
+    if tp == 1:
+        return rms_norm(y, norm_w, cfg.norm_eps) @ p.out_proj
+    y = rms_norm(shard.gather_columns(y), norm_w, cfg.norm_eps)
+    return shard.from_tp(shard.keep_columns(y) @ p.out_proj)
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, *,

@@ -198,9 +198,11 @@ def dense_block(p: DenseBlock, x: torch.Tensor, positions: torch.Tensor,
 
 
 def ssm_block_outer(p: SSMBlock, x: torch.Tensor, positions: torch.Tensor,
-                    cfg: ModelConfig, **_) -> torch.Tensor:
-    """Pre-norm SSM mixer with its residual (positions unused)."""
-    return x + ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg)
+                    cfg: ModelConfig, *, shard=None, **_) -> torch.Tensor:
+    """Pre-norm SSM mixer with its residual (positions unused); ``shard``
+    runs the mixer tensor-parallel (``runtime/sharding.py``)."""
+    return x + ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                         shard=shard)
 
 
 def shared_block(p: SharedAttention, x: torch.Tensor,

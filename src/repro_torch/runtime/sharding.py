@@ -31,7 +31,15 @@ vocab-parallel; the other gradients are summed over ``data``.  Attention
 runs on the rank's ``n_heads / tp`` query heads and ``n_kv_heads / tp``
 KV heads, split head-aligned, so query head h still reads KV head h // G:
 tp must divide ``n_kv_heads`` (GSPMD would reshard a split head; the rule
-table itself only checks divisibility, as the reference's does).
+table itself only checks divisibility, as the reference's does).  A Mamba2
+block runs on the rank's ``ssm_heads / tp`` heads: its ``in_proj`` is
+stored as the contiguous column shard the rule table names, which cuts
+across the packed ``[z | x | B | C | dt]`` columns, so the block gathers
+it over ``model`` on use (backward: a reduce-scatter) and takes its heads'
+z, x and dt columns and all of B and C; the gated norm runs, forward and
+backward, on whole ``d_inner`` rows gathered over ``model``, alike on
+every rank (``models/ssm.py::ssm_block``).  GSPMD reshards the split
+columns instead; the numbers are the same.
 
 Every collective carries host tensors over gloo (one card refuses two NCCL
 ranks; a group of another backend raises): a CUDA tensor is copied into
@@ -277,7 +285,8 @@ def reduce_scatter_dim(x: torch.Tensor, group: dist.ProcessGroup, dim: int,
                        traffic: Optional[Traffic] = None) -> torch.Tensor:
     """This rank's slice along ``dim`` of the group's sum: chunk ``j`` of
     every rank goes to rank ``j`` (``all_to_all``), which adds them in
-    fp32 in rank order on ``x``'s device and rounds once to its dtype."""
+    fp32 (float64 in float64) in rank order on ``x``'s device and rounds
+    once to its dtype."""
     n = dist.get_world_size(group)
     if n == 1:
         return x
@@ -290,9 +299,9 @@ def reduce_scatter_dim(x: torch.Tensor, group: dist.ProcessGroup, dim: int,
     if traffic is not None:
         traffic.add((n - 1) * h.numel() // n * h.element_size())
     parts = recv.to(x.device).reshape(n, h.shape[0] // n, *h.shape[1:])
-    acc = parts[0].float()
+    acc = parts[0].to(torch.promote_types(x.dtype, torch.float32))
     for j in range(1, n):
-        acc += parts[j].float()
+        acc += parts[j].to(acc.dtype)
     return acc.to(x.dtype).movedim(0, dim).contiguous()
 
 
@@ -365,46 +374,51 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None, None
 
 
-class _SeqGather(torch.autograd.Function):
-    """Stash-only sequence parallelism, entering a layer: the token slices
-    of ``model`` gathered (dim 1).  The layer runs replicated, so each
-    rank's gradient is the whole one: backward keeps this rank's slice."""
+class _GatherSlices(torch.autograd.Function):
+    """The slices of ``group`` gathered along ``dim``, entering work that
+    runs replicated on every rank of the group (stash-only sequence
+    parallelism entering a layer, dim 1; the gated norm's whole rows, the
+    last dim), so each rank's gradient is the whole one: backward keeps
+    this rank's slice."""
 
     @staticmethod
-    def forward(ctx, x, group, rank, traffic):
-        ctx.rank, ctx.n = rank, x.shape[1]
-        return all_gather_dim(x, group, 1, traffic)
+    def forward(ctx, x, group, rank, dim, traffic):
+        ctx.rank, ctx.n, ctx.dim = rank, x.shape[dim], dim
+        return all_gather_dim(x, group, dim, traffic)
 
     @staticmethod
     def backward(ctx, g):
         a = ctx.rank * ctx.n
-        return g[:, a:a + ctx.n].contiguous(), None, None, None
+        return (g.narrow(ctx.dim, a, ctx.n).contiguous(), None, None, None,
+                None)
 
 
-class _SeqSlice(torch.autograd.Function):
-    """Leaving a layer: this rank's token slice; backward gathers the
-    slices' gradients."""
+class _KeepSlice(torch.autograd.Function):
+    """Leaving replicated work: this rank's slice along ``dim``; backward
+    gathers the slices' gradients."""
 
     @staticmethod
-    def forward(ctx, x, group, rank, traffic):
-        ctx.group, ctx.traffic = group, traffic
-        n = x.shape[1] // dist.get_world_size(group)
-        return x[:, rank * n:(rank + 1) * n].contiguous()
+    def forward(ctx, x, group, rank, dim, traffic):
+        ctx.group, ctx.dim, ctx.traffic = group, dim, traffic
+        n = x.shape[dim] // dist.get_world_size(group)
+        return x.narrow(dim, rank * n, n).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather_dim(g, ctx.group, 1, ctx.traffic), None, None, None
+        return (all_gather_dim(g, ctx.group, ctx.dim, ctx.traffic), None,
+                None, None, None)
 
 
 class _VocabParallelCE(torch.autograd.Function):
-    """Per-token fp32 cross entropy of logits split over ``model`` along
-    the vocabulary (this rank's columns ``[lo, lo + V_local)``): the max,
-    the sum of exponentials and the gold logit are reduced over the group;
-    backward is softmax minus one-hot on the rank's columns."""
+    """Per-token fp32 (float64 logits: float64) cross entropy of logits
+    split over ``model`` along the vocabulary (this rank's columns ``[lo,
+    lo + V_local)``): the max, the sum of exponentials and the gold logit
+    are reduced over the group; backward is softmax minus one-hot on the
+    rank's columns."""
 
     @staticmethod
     def forward(ctx, logits, labels, lo, group, traffic):
-        lf = logits.float()
+        lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
         m = all_reduce_max(lf.amax(-1), group, traffic)
         e = torch.exp(lf - m[..., None])
         se = all_reduce(e.sum(-1), group, traffic)
@@ -421,7 +435,7 @@ class _VocabParallelCE(torch.autograd.Function):
     def backward(ctx, g):
         e, se, idx, inr = ctx.saved_tensors
         grad = e / se[..., None]
-        grad.scatter_add_(-1, idx[..., None], -inr.float()[..., None])
+        grad.scatter_add_(-1, idx[..., None], -inr.to(grad.dtype)[..., None])
         grad *= g[..., None]
         return grad.to(ctx.dtype), None, None, None, None
 
@@ -457,8 +471,10 @@ class ShardContext:
     gloo groups.  TP is on when ``policy.tp`` and the ``model`` axis has
     more than one rank; ``policy.seq_shard`` shards the residual stream's
     tokens over ``model``.  Raises ValueError on another mesh or backend
-    and on a TP degree that does not split the heads, d_ff or the
-    vocabulary, NotImplementedError for TP on an SSM or hybrid model."""
+    and on a TP degree that does not split what the model has: the
+    attention heads and d_ff of a dense model, the SSM heads of a Mamba2
+    block, the shared attention block's heads of the hybrid, and the
+    vocabulary."""
 
     def __init__(self, cfg: ModelConfig, mesh: DeviceMesh,
                  policy: ShardPolicy):
@@ -582,15 +598,15 @@ class ShardContext:
         context as ``shard=``; under sequence sharding on the gathered
         tokens, keeping this rank's slice of the output."""
         if self._seq:
-            x = _SeqGather.apply(x, self.model, self.model_rank,
-                                 self.traffic)
+            x = _GatherSlices.apply(x, self.model, self.model_rank, 1,
+                                    self.traffic)
         gathered = {f"blk.{n}": self.w(p) for n, p in blk.named_parameters()
                     if id(p) in self._zero}
         y = torch.func.functional_call(_Apply(fn, blk), gathered,
                                        (x, *args), {**kwargs, "shard": self})
         if self._seq:
-            y = _SeqSlice.apply(y, self.model, self.model_rank,
-                                self.traffic)
+            y = _KeepSlice.apply(y, self.model, self.model_rank, 1,
+                                 self.traffic)
         return y
 
     def seq_slice(self, x: torch.Tensor) -> torch.Tensor:
@@ -600,13 +616,13 @@ class ShardContext:
         splits S (the reference's constraint applies only then)."""
         self._seq = (self.policy.seq_shard and self.n_model > 1
                      and x.shape[1] % self.n_model == 0)
-        return _SeqSlice.apply(x, self.model, self.model_rank,
-                               self.traffic) \
+        return _KeepSlice.apply(x, self.model, self.model_rank, 1,
+                                self.traffic) \
             if self._seq else x
 
     def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
-        return _SeqGather.apply(x, self.model, self.model_rank,
-                                 self.traffic) \
+        return _GatherSlices.apply(x, self.model, self.model_rank, 1,
+                                   self.traffic) \
             if self._seq else x
 
     def to_tp(self, x: torch.Tensor) -> torch.Tensor:
@@ -632,6 +648,35 @@ class ShardContext:
         n = t.shape[-1] // self.tp
         return self.to_tp(t)[..., self.model_rank * n:
                              (self.model_rank + 1) * n]
+
+    def gather_tp(self, t: torch.Tensor) -> torch.Tensor:
+        """A column shard of a leaf over ``model`` made whole (the ranks'
+        shards concatenated along the last dim); backward reduce-scatters:
+        each rank's partial gradient of the whole summed over ``model``,
+        its shard kept."""
+        if self.tp == 1:
+            return t
+        return _GatherOnUse.apply(t, self.model, t.dim() - 1, self.traffic)
+
+    def gather_columns(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``model`` ranks' columns of ``x`` (last dim) gathered into
+        whole rows, for work that every rank then runs alike; backward
+        keeps the rank's columns of the whole gradient, which every rank
+        holds."""
+        if self.tp == 1:
+            return x
+        return _GatherSlices.apply(x, self.model, self.model_rank,
+                                   x.dim() - 1, self.traffic)
+
+    def keep_columns(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's columns of rows that every rank holds whole, leaving
+        work run alike (:meth:`gather_columns`); backward gathers the
+        columns' gradients, so that work runs its backward on whole
+        rows."""
+        if self.tp == 1:
+            return x
+        return _KeepSlice.apply(x, self.model, self.model_rank, x.dim() - 1,
+                                self.traffic)
 
     def local_cfg(self, cfg: ModelConfig) -> ModelConfig:
         """The config of the rank's heads."""
@@ -666,7 +711,7 @@ class ShardContext:
             tok = _VocabParallelCE.apply(logits, labels, lo, self.model,
                                          self.traffic)
         else:
-            lf = logits.float()
+            lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
             gold = lf.gather(-1, labels.long().clamp_min(0)[..., None])
             tok = torch.logsumexp(lf, dim=-1) - gold[..., 0]
         mask = (labels != ignore_id).float()
@@ -720,16 +765,21 @@ class ShardContext:
 
 
 def _check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Head-aligned TP splits heads, d_ff and the vocabulary evenly."""
+    """Head-aligned TP splits what the model has evenly: the attention heads
+    and d_ff of a dense model, the SSM heads of a Mamba2 block, the shared
+    attention block's heads of the hybrid, and the vocabulary."""
+    checks = []
     if cfg.arch_type in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"TP on {cfg.name!r}: Mamba2's in_proj packs z, x, B, C and dt, "
-            "which a contiguous column split cuts wrongly; SSM and hybrid "
-            "models run DP and ZeRO only (ROADMAP.md queue 1)")
-    for leaf, what, n in (("blocks.*.attn.wq", "n_heads", cfg.n_heads),
-                          ("blocks.*.attn.wk", "n_kv_heads", cfg.n_kv_heads),
-                          ("blocks.*.mlp.w_up", "d_ff", cfg.d_ff),
-                          ("embed", "vocab_size", cfg.vocab_size)):
+        checks.append(("blocks.*.ssm.in_proj", "ssm_heads", cfg.ssm_heads))
+        if cfg.arch_type == "hybrid" and cfg.attn_every:
+            checks += [("shared_attn.attn.wq", "n_heads", cfg.n_heads),
+                       ("shared_attn.attn.wk", "n_kv_heads", cfg.n_kv_heads)]
+    else:
+        checks += [("blocks.*.attn.wq", "n_heads", cfg.n_heads),
+                   ("blocks.*.attn.wk", "n_kv_heads", cfg.n_kv_heads),
+                   ("blocks.*.mlp.w_up", "d_ff", cfg.d_ff)]
+    checks.append(("embed", "vocab_size", cfg.vocab_size))
+    for leaf, what, n in checks:
         if n % tp:
             raise ValueError(f"tp {tp} does not split {leaf}: {what} {n} "
                              f"is not a multiple of {tp}")
