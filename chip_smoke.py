@@ -193,7 +193,7 @@ Phases (any failure exits non-zero before the final line is printed):
    and RMSNorm must launch both ways and no plain version run; the
    checkpoint's bytes on disk and the save and restore seconds are
    printed, and the directory is deleted;
-15. the pipeline runtime at full qwen3-4b width, depth cut to 16 layers:
+15. the pipeline runtime at full qwen3-4b width, depth cut to 8 layers:
    (a) in a process of its own, the single-process ``lm_loss`` and its
    gradients (remat on every layer) on ``init_lm`` seed 0 and the train
    driver's first batch of 4 x 4096 tokens; (b) 4 gloo ranks sharing the
@@ -234,7 +234,9 @@ Phases (any failure exits non-zero before the final line is printed):
 17. tensor parallelism for Mamba2 and the zamba2 hybrid, and sharded
    checkpoints, on 4 gloo ranks sharing the card on a (data 2, model 2)
    mesh with ``ShardPolicy(tp=True, zero=True, remat_segments=(True,))``:
-   (a) full-width, full-depth mamba2-370m: a spawned single process saves
+   (a) full-width mamba2-370m, depth cut from 48 to
+   ``SSMTP_MAMBA2_LAYERS`` (24) for the script's time: a
+   spawned single process saves
    its ``lm_loss`` and gradients (remat on every layer) in fp32, and in
    bf16 its loss and 3 step losses, on the train driver's first batches of
    4 x 2048 tokens at lr 3e-4; the ranks hold their fp32 loss within 2e-3
@@ -243,10 +245,10 @@ Phases (any failure exits non-zero before the final line is printed):
    2e-3 with ``seq_shard`` off and on (on: the same bits, or the loss
    within the gate, which the line says), then take 3 bf16 steps, saving
    the whole state after step 2 with ``save_sharded_train_state``.  The
-   gradients are held in fp32 because in bf16 this 48-layer stack's
-   gradients are chaotic in the rounding: the bf16 single process and the
-   bf16 ranks, whose losses agree to 5e-6, differ by 1.3 to 2.7 of each
-   SSM leaf's largest magnitude, while in fp32 they agree within 7.5e-3
+   gradients are held in fp32 because in bf16 the 48-layer stack's
+   gradients were chaotic in the rounding: the bf16 single process and the
+   bf16 ranks, whose losses agreed to 5e-6, differed by 1.3 to 2.7 of each
+   SSM leaf's largest magnitude, while in fp32 they agreed within 7.5e-3
    (NVIDIA H100 80GB HBM3, 700 W).  The SSD scan (forward 2L at 16 local
    heads, backward L) and RMSNorm (4L+1, 2L+1) are launched at exact
    counts a rank a call and a step, no plain version run; (c) 4 fresh
@@ -257,27 +259,70 @@ Phases (any failure exits non-zero before the final line is printed):
    at mamba2-370m writes step 2's checkpoint; one spawned process restores
    (a)'s files with ``restore_train_state`` and takes step 3 (within 2e-3
    relative of the ranks'), then restores ``train --ranks``' files; the
-   files (5.89 GB each) are deleted; (b) zamba2-1.2b at full width, depth
+   files (2.9 GB each at 24 layers) are deleted; (b) zamba2-1.2b at full width, depth
    cut from 38 to 6 layers (one shared attention call) and its steps to 1
    for the script's time, as (a) without saving: the flash forward and
    backward at 16 local heads and dh 64, the SSD scan at 32.  Each rank's
    call and step ms, gloo bytes sent and peak memory, and the save and
    restore seconds and bytes are printed.
 
+18. sharded serving on 4 gloo ranks sharing the card on a (data 2, model
+   2) ``make_local_mesh`` with ``ShardPolicy(tp=True, zero=False)``,
+   each rank holding its shards (``init_serving_params``), against a
+   spawned single process on the same weights (``init_lm`` seed 0): (a)
+   the paged engine at full-width qwen3-4b, 36 layers, bf16, on phase 3's
+   geometry (the pools hold 4 of 8 KV heads a rank): the first prefill
+   chunk's and a decode step's logits within ``SS_LOGIT_TOL`` of the
+   largest, the flash forward launched at 16 query and 4 KV heads and
+   RMSNorm as often as in the single process; phase 3's 12 requests, the
+   last four arriving ``SS_ARRIVAL_S`` late (admission reads rank 0's
+   clock), complete on every rank with the same tokens and the same page
+   table at the end; in fp32 at ``SS_FP32_LAYERS`` layers the tokens are
+   the single process's; (b) the dense-cache step on 8 lanes of 2048-token
+   caches (lanes over ``data``, context over ``model``: each flash launch
+   reads its rank's 1024 slots with a local kv_len and writes its row
+   log-sum-exp, the parts merged over ``model``; SSM heads over
+   ``model``) from the preset positions ``SS_INDEX`` (lane 0 starts at 0,
+   wholly in model rank 0's slots; three lanes wrap), ``SS_STEPS`` steps:
+   qwen3-4b (and once more with ``shard_cache_seq=False``, KV heads over
+   ``model``), mamba2-370m and zamba2-1.2b (the shared block's caches
+   split by context) in bf16 at ``SS_BF16_LAYERS`` (18 of 36, 24 of 48,
+   18 of 38 layers, cut for the script's time), each at
+   ``SS_FP32_LAYERS`` (zamba2 ``SS_ZAMBA2_FP32_LAYERS``) in fp32, where
+   the logits must lie within ``REL_TOL`` and the greedy tokens and
+   ``serve`` of ``SS_DENSE_REQUESTS`` requests must be the single
+   process's; the sharded ``make_prefill_step`` on mamba2 and zamba2 (the
+   SSD forward once a layer at 16 and 32 local heads, each rank its block
+   of the logits); (c) ``serve --ranks 4`` (``launch/serve.py::
+   serve_ranks``: data 4, model 1, the reference's serving policy) for
+   both engines in fp32 at ``SS_FP32_LAYERS`` layers: the single
+   process's tokens.  No plain version may run anywhere.  Each rank's
+   decode step wall and busy ms, the bytes it sends through gloo, its
+   peak memory beside its pools' or caches' bytes, and tok/s are printed.
+   The 4 ranks share one card: no time here is sharded serving's speed.
+
 Phase 2 also holds the kernels at phase 17's TP-local shapes against
 their plain versions, and phase 7 times the SSD scan at a rank's mamba2
 layer (B 2, S 2048, H 16) and the flash forward and backward at zamba2's
-local heads (B 2, S 2048, H = KV = 16, dh 64).
+local heads (B 2, S 2048, H = KV = 16, dh 64).  Phase 2 holds the flash
+forward's row log-sum-exp against its plain version at phase 18's
+shapes (a rank's context slice: 4 lanes, T 1024, H 32, KV 8, dh 128,
+kv_len 0 to 1024; the TP-local paged decode: 8 lanes, T 512, H 16, KV
+4), the rows with no admissible key ``+inf``, and phase 7 times both.
 Phase 7 also times the flash forward and backward at the dense training
 shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
 The phases run in the order 1, 2, 7, 3, 4, 5, 14, 6, 9, 10, 11, 12, 13,
-15, 16, 17, 8: phase 7
+15, 16, 17, 18, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
 seconds are printed before the final lines.
+
+``python3 chip_smoke.py --phases 2,18`` runs phase 1 and the listed
+phases in the order above (a phase that needs an earlier one's results
+runs only with it) and prints no ``kernels`` line.
 
 ``python3 chip_smoke.py --compare-flash-bwd PARENT_DIR`` runs none of
 the phases: it times the bf16 flash backward at the dense training shape
@@ -420,7 +465,8 @@ CKPT_STEPS = 2
 # to PIPE_LAYERS so that P x V = 8 (P 4 ranks, V 2 for the interleaved
 # schedule) divides it; PIPE_RANKS gloo ranks share the card; the global
 # batch is PIPE_MICRO micro-batches of one sequence of PIPE_SEQ tokens
-PIPE_LAYERS, PIPE_RANKS, PIPE_MICRO, PIPE_SEQ = 16, 4, 4, 4096
+# (8 rather than 16, for the whole script's time)
+PIPE_LAYERS, PIPE_RANKS, PIPE_MICRO, PIPE_SEQ = 8, 4, 4, 4096
 # the schedules in the order the check run takes them: the three flush
 # schedules first (gpipe's gradients are kept to hold 1f1b's and zb-h1's
 # against them, bit for bit), then the interleaved one on its own stages
@@ -461,8 +507,9 @@ SHARD_TIMEOUT_S = 900
 # plan's middle strategy, the one the driver applies, shard the state
 SHARD_BUDGET_GB = 11
 # phase 17, SSM and hybrid TP and sharded checkpoints: (a) mamba2-370m at
-# full width and depth, (b) zamba2-1.2b at full width, depth cut from 38 to
-# SSMTP_ZAMBA2_LAYERS (one shared attention call at attn_every 6) and its
+# full width, depth cut from 48 to SSMTP_MAMBA2_LAYERS, (b) zamba2-1.2b at
+# full width, depth cut from 38 to SSMTP_ZAMBA2_LAYERS (one shared
+# attention call at attn_every 6) and its
 # steps to SSMTP_ZAMBA2_STEPS, for the whole script's time; the train
 # driver's first batches of SSMTP_BATCH x SSMTP_SEQ tokens at the train
 # CLI's lr, SSMTP_STEPS steps for (a); SSMTP_RANKS gloo ranks share the
@@ -471,10 +518,47 @@ SHARD_BUDGET_GB = 11
 SSMTP_RANKS, SSMTP_MESH, SSMTP_BATCH, SSMTP_SEQ = 4, (2, 2), 4, 2048
 SSMTP_STEPS, SSMTP_SAVE_AT, SSMTP_LR = 3, 2, 3e-4
 SSMTP_ZAMBA2_LAYERS, SSMTP_ZAMBA2_STEPS = 6, 1
+SSMTP_MAMBA2_LAYERS = 24
 # a rank's batch rows and RMSNorm rows, and zamba2's TP-local (H, KV, dh)
 SSMTP_LOCAL_BATCH = SSMTP_BATCH // SSMTP_MESH[0]
 SSMTP_ROWS = SSMTP_LOCAL_BATCH * SSMTP_SEQ
 ZAMBA2_TP_HEADS = (32 // SSMTP_MESH[1], 32 // SSMTP_MESH[1], 64)
+# phase 18, sharded serving: SERVE_SHARD_RANKS gloo ranks share the card on
+# a (data, model) mesh of SERVE_SHARD_MESH with ShardPolicy(tp=True,
+# zero=False), held against a single process on the same weights (init_lm
+# seed 0).  (a) the paged engine on phase 3's geometry and requests, the
+# last four arriving SS_ARRIVAL_S late; (b) the dense-cache engine's step
+# on 8 lanes of 2048-token caches from the preset positions SS_INDEX (lane
+# 0 lies wholly in model rank 0's slots for its first steps; the last
+# three lanes wrap), SS_STEPS steps, at SS_BF16_LAYERS in bf16 and
+# SS_FP32_LAYERS (zamba2: SS_ZAMBA2_FP32_LAYERS, two shared-block calls)
+# in fp32, then serve() of SS_DENSE_REQUESTS requests in fp32; the sharded
+# make_prefill_step on SS_PREFILL_BATCH x SS_PREFILL_SEQ tokens; (c) serve
+# --ranks 4 for both engines in fp32 at SS_FP32_LAYERS, SS_CLI_REQUESTS
+# requests on 8 lanes of SS_CLI_CONTEXT tokens
+SERVE_SHARD_RANKS, SERVE_SHARD_MESH = 4, (2, 2)
+SERVE_SHARD_TIMEOUT_S = 900
+SS_ARRIVAL_S = 0.5
+SS_INDEX = [0, 5, 100, 1000, 1500, 2040, 2044, 2047]
+SS_STEPS = {"bfloat16": 4, "float32": 16}
+# (b)'s bf16 depth, cut by half for the whole script's time (the paged
+# engine of (a) keeps all 36 layers)
+SS_BF16_LAYERS = {"qwen3-4b": 18, "mamba2-370m": 24, "zamba2-1.2b": 18}
+SS_FP32_LAYERS, SS_ZAMBA2_FP32_LAYERS = 4, 12
+SS_DENSE_REQUESTS, SS_DENSE_NEW = 10, 8
+SS_PREFILL_BATCH, SS_PREFILL_SEQ = 2, 1024
+SS_CLI_REQUESTS, SS_CLI_CONTEXT = 12, 256
+# the ranks' logits against the single process's, over its largest logit,
+# in bf16: TP rounds each rank's partial row products (wo, w_down) to
+# bf16 before their fp32 sum, one rounding more a layer than one process,
+# and a random-weight stack compounds it with depth (2.0e-2 to 4.9e-2 at
+# qwen3-4b's 36 layers on an H100 80GB HBM3 at 700 W, the same with
+# context or KV heads over model, so not the merge); fp32 at 4 layers at
+# REL_TOL, the algebra's gate.  The SSM stacks' bf16 distance is printed
+# (None: no gate), as phase 12 prints theirs: at 48 layers it is chaotic
+# in the rounding (0.38 for mamba2 there)
+SS_LOGIT_TOL = {"bfloat16": 1e-1, "float32": REL_TOL["float32"]}
+SS_SSM_BF16_TOL = None
 
 
 def log(msg: str) -> None:
@@ -786,6 +870,18 @@ def zamba2_flash_cases():
             ("zamba2 prefill", 2, 2048, 2048, {})]
 
 
+def lse_flash_cases():
+    """(name, B, S, T, H, KV, dh, kwargs) of phase 18's launches that
+    write the row log-sum-exp or run on local heads: a rank's context
+    slice of the dense engine's decode (4 lanes, 1024 of 2048 slots,
+    kv_len 0 to 1024: a lane with no slot there gives +inf) and the
+    TP-local paged decode (H 16, KV 4; an inactive lane at -1)."""
+    return [("ctx-slice decode lse", 4, 1, 1024, 32, 8, 128,
+             dict(causal=False, kv_len=_i32([0, 1, 500, 1024]))),
+            ("TP paged decode lse", DECODE_SLOTS, 1, MAX_CONTEXT, 16, 4,
+             128, dict(q_offset=_i32([0, 5, 100, 255, 256, 511, -1, 37])))]
+
+
 def phase_kernels():
     import torch
     from repro_torch.kernels import ref
@@ -823,6 +919,26 @@ def phase_kernels():
             if name == "decode":
                 check(bool((out[0] == 0).all()),
                       "a decode row with no admissible key is not zeros")
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+        for name, B, S, T, H, KV, dh, kw in lse_flash_cases():
+            q = torch.randn(B, S, H, dh, generator=g, device="cuda").to(dt)
+            k = torch.randn(B, T, KV, dh, generator=g, device="cuda").to(dt)
+            v = torch.randn(B, T, KV, dh, generator=g, device="cuda").to(dt)
+            out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            want_lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+            err = (out.float() - want.float()).abs().max().item()
+            empty = want_lse == float("inf")
+            e_lse = (lse - want_lse).masked_fill(empty, 0).abs().max().item()
+            log(f"[flash] {dtype:8s} H {H:2d} KV {KV} dh {dh:3d} {name:20s} "
+                f"max|diff| {err:.3e}, lse {e_lse:.3e} (tol "
+                f"{TOL[dtype]:.0e}); {int(empty.sum())} rows with no key")
+            check(err <= TOL[dtype] and e_lse <= TOL[dtype],
+                  f"flash {name} {dtype}: out {err}, lse {e_lse}")
+            check(bool(torch.equal(lse == float("inf"), empty))
+                  and bool(empty.any()), f"flash {name} {dtype}: the rows "
+                  "with no admissible key are not the +inf rows")
             errs["flash_attention"] = max(errs["flash_attention"], err)
         # serving: prefill and decode rows at d_model and head_dim, and
         # SSM decode rows (8 x 1024: mamba2's ln1; 8 x 2048: its gated norm
@@ -2065,12 +2181,13 @@ def counted_serve_steps():
     steps = {"n": 0}
     real = serve_mod.make_serve_step
 
-    def make(cfg):
-        step = real(cfg)
+    def make(cfg, **kw):
+        step = real(cfg, **kw)
 
         def counted(*args):
             steps["n"] += 1
             return step(*args)
+        counted.shard = step.shard
         return counted
 
     serve_mod.make_serve_step = make
@@ -3530,6 +3647,8 @@ def _ssmtp_cfg(arch, dtype="bfloat16"):
     cfg = get_config(arch).with_(dtype=getattr(torch, dtype))
     if arch == "zamba2-1.2b":
         cfg = cfg.with_(n_layers=SSMTP_ZAMBA2_LAYERS)
+    if arch == "mamba2-370m":
+        cfg = cfg.with_(n_layers=SSMTP_MAMBA2_LAYERS)
     return cfg
 
 
@@ -4006,7 +4125,8 @@ def _ssmtp_train(ref):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_tp_") as d:
         path = pathlib.Path(d) / "ssm.plan.json"
         path.write_text(plan.dumps())
-        argv = ["--arch", "mamba2-370m", "--ranks", str(SSMTP_RANKS),
+        argv = ["--arch", "mamba2-370m", "--layers",
+                str(SSMTP_MAMBA2_LAYERS), "--ranks", str(SSMTP_RANKS),
                 "--plan", str(path), "--seq", str(SSMTP_SEQ), "--batch",
                 str(SSMTP_BATCH), "--steps", str(steps), "--lr",
                 str(SSMTP_LR), "--log-every", "1", "--ckpt-dir",
@@ -4088,7 +4208,8 @@ def phase_ssm_tp():
                 launches[path][k] += v
 
     arch = "mamba2-370m"
-    log(f"[ssm-tp] (a) {arch} at full width and depth, {SSMTP_BATCH} x "
+    log(f"[ssm-tp] (a) {arch} at full width, {SSMTP_MAMBA2_LAYERS} of 48 "
+        f"layers, {SSMTP_BATCH} x "
         f"{SSMTP_SEQ} tokens, {SSMTP_RANKS} gloo ranks on one card, (data "
         f"{SSMTP_MESH[0]}, model {SSMTP_MESH[1]}), TP + ZeRO + remat")
     ref, ref_launches = _ssmtp_reference(arch)
@@ -4172,6 +4293,728 @@ def phase_ssm_tp():
     del ref
     shutil.rmtree(SSMTP_DIR, ignore_errors=True)
     log(f"[ssm-tp] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: sharded serving, 4 ranks on the card
+# ---------------------------------------------------------------------------
+
+SERVE_SHARD_DIR = ROOT / "build" / "serve_shard"
+
+
+def _ss_cfg(arch, dtype, layers=None):
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).with_(dtype=getattr(torch, dtype))
+    return cfg if layers is None else cfg.with_(n_layers=layers)
+
+
+def _ss_ecfg():
+    from repro_torch.serving import EngineConfig
+    return EngineConfig(page_size=PAGE_SIZE,
+                        n_pages=DECODE_SLOTS * MAX_CONTEXT // PAGE_SIZE,
+                        decode_slots=DECODE_SLOTS, max_context=MAX_CONTEXT,
+                        prefill_batch=PREFILL_BATCH,
+                        prefill_chunk=PREFILL_CHUNK)
+
+
+def _ss_requests(cfg):
+    """Phase 3's 12 requests; the last 4 arrive SS_ARRIVAL_S late, so
+    that admission reads the clock (rank 0's on the mesh)."""
+    import numpy as np
+    from repro_torch.serving import ServeRequest
+    rng = np.random.default_rng(0)
+    reqs = [ServeRequest(rid=f"r{i}",
+                         prompt=rng.integers(0, cfg.vocab_size,
+                                             int(rng.integers(33, 401))
+                                             ).tolist(),
+                         max_new=int(rng.integers(16, 33)))
+            for i in range(12)]
+    for r in reqs[8:]:
+        r.arrival_s = SS_ARRIVAL_S
+    return reqs
+
+
+def _ss_dense_requests(cfg):
+    """SS_DENSE_REQUESTS requests on the dense engine's 8 lanes (more than
+    lanes: slots are recycled), prompts of 8-40 tokens, SS_DENSE_NEW new
+    tokens each."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(3)
+    return [Request(i, rng.integers(0, cfg.vocab_size,
+                                    int(rng.integers(8, 41))).tolist(),
+                    SS_DENSE_NEW) for i in range(SS_DENSE_REQUESTS)]
+
+
+def _ss_cli_args(engine):
+    """(c)'s ``serve`` flags for one engine."""
+    from repro_torch.launch import serve as serve_mod
+    return serve_mod.parse_args([
+        "--device", "cuda", "--engine", engine, "--requests",
+        str(SS_CLI_REQUESTS), "--batch", str(DECODE_SLOTS), "--max-new",
+        str(SS_DENSE_NEW), "--context", str(SS_CLI_CONTEXT), "--ranks",
+        str(SERVE_SHARD_RANKS)])
+
+
+@contextlib.contextmanager
+def flash_shapes():
+    """Check-only: record, for every launch of the flash forward through
+    ``ops.flash_attention`` while the block runs, its (H, KV, T), whether
+    it writes the row log-sum-exp, is causal and has a kv_len."""
+    from repro_torch.kernels import ops
+
+    seen = []
+    real = ops.flash_attention_cuda
+
+    def recording(q, k, v, **kw):
+        seen.append((q.shape[2], k.shape[2], k.shape[1],
+                     bool(kw.get("with_lse")), bool(kw.get("causal", True)),
+                     kw.get("kv_len") is not None))
+        return real(q, k, v, **kw)
+
+    ops.flash_attention_cuda = recording
+    try:
+        yield seen
+    finally:
+        ops.flash_attention_cuda = real
+
+
+def _ss_digest(t):
+    import hashlib
+    return hashlib.sha1(t.detach().float().cpu().numpy().tobytes()
+                        ).hexdigest()
+
+
+def _ss_same_on_ranks(value):
+    """Whether every rank holds ``value`` (a collective; True without a
+    default group)."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return True
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, value)
+    return all(g == got[0] for g in got)
+
+
+def _ss_busy_ms(step, n=2):
+    """Device busy ms a call of ``step`` over ``n`` calls (torch.profiler),
+    or None when the profiler records no device time.  The calls run
+    whatever the profiler does: on a rank they hold collectives that every
+    rank must enter."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.__enter__()
+    except Exception as e:      # noqa: BLE001 - reported, never fatal
+        log(f"[serve-shard] profiler unavailable: {e}")
+        prof = None
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    if prof is None:
+        return None
+    try:
+        prof.__exit__(None, None, None)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    except Exception as e:      # noqa: BLE001 - reported, never fatal
+        log(f"[serve-shard] profiler failed: {e}")
+        return None
+    return busy / 1e3 / n or None
+
+
+def _ss_traffic(*steps):
+    return sum(s.shard.traffic.bytes_sent for s in steps
+               if getattr(s, "shard", None) is not None)
+
+
+def _ss_paged(cfg, params, run=True, mesh=None, policy=None):
+    """(a) on one process or a rank: the fixed prefill chunk and decode
+    step on an engine's pools (logits, launches, flash shapes), the decode
+    step's wall and busy ms and gloo bytes; with ``run``, the 12 requests
+    through a fresh engine (tokens, metrics, the page table at the end)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import ServingEngine
+
+    ecfg = _ss_ecfg()
+    engine = ServingEngine(cfg, params, ecfg, device="cuda", mesh=mesh,
+                           policy=policy)
+    P = ecfg.pages_per_slot
+    rng = np.random.default_rng(1)
+    rows = torch.arange(DECODE_SLOTS * P, dtype=torch.int32,
+                        device="cuda").reshape(DECODE_SLOTS, P)
+    ptok = _i32(rng.integers(0, cfg.vocab_size,
+                             (PREFILL_BATCH, PREFILL_CHUNK)).tolist())
+    plen = _i32([PREFILL_CHUNK, 100, 77, PREFILL_CHUNK])
+    tok = _i32(rng.integers(0, cfg.vocab_size, DECODE_SLOTS).tolist())
+    lens = _i32([PREFILL_CHUNK, 100, 77, PREFILL_CHUNK, -1, -1, -1, -1])
+    out = {}
+    for name, call in (
+            ("prefill", lambda: engine._prefill(
+                params, engine.pools, ptok, rows[:PREFILL_BATCH], 0, plen)),
+            ("decode", lambda: engine._decode(params, engine.pools, tok,
+                                              rows, lens))):
+        counts = _zero_counts()
+        sent = _ss_traffic(engine._decode, engine._prefill)
+        with flash_shapes() as shapes, plain_calls() as plain:
+            logits = call()
+            torch.cuda.synchronize()
+        out[name] = {"logits": logits.float().cpu(), "launches": counts(),
+                     "shapes": sorted(set(shapes)), "plain": dict(plain),
+                     "gloo_bytes": _ss_traffic(engine._decode,
+                                               engine._prefill) - sent,
+                     "digest": _ss_digest(logits)}
+    decode = out["decode"]
+    decode["ms"] = cuda_ms(lambda: engine._decode(params, engine.pools, tok,
+                                                  rows, lens), iters=3,
+                           warmup=1)
+    decode["busy_ms"] = _ss_busy_ms(lambda: engine._decode(
+        params, engine.pools, tok, rows, lens), n=1)
+    out["pool_bytes"] = sum(t.numel() * t.element_size()
+                            for pool in engine.pools for t in pool.values())
+    if run:
+        del engine
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServingEngine(cfg, params, ecfg, device="cuda", mesh=mesh,
+                               policy=policy)
+        reqs = _ss_requests(cfg)
+        counts = _zero_counts()
+        sent = _ss_traffic(engine._decode, engine._prefill)
+        with plain_calls() as plain:
+            metrics = engine.run(reqs)
+            torch.cuda.synchronize()
+        st = engine.state
+        summ = metrics.summary()
+        out["run"] = {
+            "tokens": [r.tokens for r in reqs],
+            "done": [r.done for r in reqs], "launches": counts(),
+            "plain": dict(plain), "summary": summ,
+            "gloo_bytes": _ss_traffic(engine._decode, engine._prefill)
+            - sent,
+            "page_table": _ss_digest(torch.cat([
+                t.reshape(-1).float() for t in st])),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return out
+
+
+def _ss_dense(cfg, params, steps, mesh=None, policy=None, timed=False):
+    """(b) on one process or a rank: ``steps`` decode steps of 8 lanes
+    over 2048-token caches from the preset positions SS_INDEX (three lanes
+    wrap) on fixed tokens: each step's logits, the launches and flash
+    shapes; with ``timed``, one more step's wall and busy ms and gloo
+    bytes."""
+    import numpy as np
+    import torch
+    from repro_torch.models import init_decode_state
+    from repro_torch.runtime.executor import make_serve_step
+
+    step = make_serve_step(cfg, mesh=mesh, policy=policy)
+    B, C = DENSE_SERVE_LANES, DENSE_SERVE_CONTEXT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_decode_state(cfg, B, C, device="cuda", shard=step.shard)
+    state["index"] = _i32(SS_INDEX)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (steps, B))
+    logits = []
+    counts = _zero_counts()
+    sent = _ss_traffic(step)
+    with flash_shapes() as shapes, plain_calls() as plain:
+        for t in toks:
+            lg, state = step(params, state, _i32(t.tolist()))
+            logits.append(lg.float().cpu())
+        torch.cuda.synchronize()
+    out = {"logits": torch.stack(logits), "launches": counts(),
+           "shapes": sorted(set(shapes)), "plain": dict(plain),
+           "gloo_bytes": (_ss_traffic(step) - sent) / steps,
+           "digest": _ss_digest(torch.stack(logits)),
+           "state_bytes": sum(
+               t.numel() * t.element_size() for part in
+               (state["caches"], state.get("ssm_states", ()))
+               for leaf in part for t in leaf.values()),
+           "layout": str(state.get("layout"))}
+    if timed:
+        tok = _i32(toks[-1].tolist())
+        out["ms"] = cuda_ms(lambda: step(params, state, tok), iters=2,
+                            warmup=1)
+        out["busy_ms"] = _ss_busy_ms(lambda: step(params, state, tok), n=1)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _ss_serve(cfg, params, mesh=None, policy=None):
+    """(b) through ``launch/serve.py::serve``: SS_DENSE_REQUESTS requests
+    on 8 lanes of 2048 tokens; the tokens and the ms a step."""
+    import torch
+    from repro_torch.launch.serve import serve
+
+    reqs = _ss_dense_requests(cfg)
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        serve(cfg, reqs, DENSE_SERVE_LANES, DENSE_SERVE_CONTEXT,
+              verbose=False, device="cuda", params=params, mesh=mesh,
+              policy=policy)
+        torch.cuda.synchronize()
+    return {"tokens": [r.generated for r in reqs],
+            "done": [r.done for r in reqs], "launches": counts(),
+            "plain": dict(plain), "wall_s": time.perf_counter() - t0}
+
+
+def _ss_prefill(cfg, params, mesh=None, policy=None):
+    """The sharded ``make_prefill_step`` on SS_PREFILL_BATCH x
+    SS_PREFILL_SEQ tokens: the last position's logits of each of this
+    process's lanes and vocabulary columns, and the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime.executor import make_prefill_step
+
+    step = make_prefill_step(cfg, mesh=mesh, policy=policy)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (SS_PREFILL_BATCH, SS_PREFILL_SEQ)))
+    counts = _zero_counts()
+    with plain_calls() as plain:
+        logits = step(params, {"tokens": tokens.to("cuda")})
+        torch.cuda.synchronize()
+    return {"last": logits[:, -1].float().cpu(), "launches": counts(),
+            "plain": dict(plain), "shape": list(logits.shape)}
+
+
+def _ss_parts():
+    """(tag, arch, dtype, layers, policy kwargs, what runs) of (a) and
+    (b), in the order every process runs them; consecutive parts of one
+    model share its weights."""
+    seq = dict(tp=True, zero=False)
+    heads = dict(tp=True, zero=False, shard_cache_seq=False)
+    L = SS_FP32_LAYERS
+    qwen = SS_BF16_LAYERS["qwen3-4b"]
+    return [
+        ("paged bfloat16", "qwen3-4b", "bfloat16", None, seq, ("paged",)),
+        ("qwen3-4b bf16", "qwen3-4b", "bfloat16", qwen, seq, ("steps",)),
+        ("qwen3-4b bf16 heads", "qwen3-4b", "bfloat16", qwen, heads,
+         ("steps",)),
+        ("paged float32", "qwen3-4b", "float32", L, seq, ("paged",)),
+        ("qwen3-4b fp32", "qwen3-4b", "float32", L, seq, ("steps", "serve")),
+        ("qwen3-4b fp32 heads", "qwen3-4b", "float32", L, heads,
+         ("steps", "serve")),
+        ("mamba2-370m bf16", "mamba2-370m", "bfloat16",
+         SS_BF16_LAYERS["mamba2-370m"], seq, ("steps", "prefill")),
+        ("mamba2-370m fp32", "mamba2-370m", "float32", L, seq,
+         ("steps", "serve")),
+        ("zamba2-1.2b bf16", "zamba2-1.2b", "bfloat16",
+         SS_BF16_LAYERS["zamba2-1.2b"], seq, ("steps", "prefill")),
+        ("zamba2-1.2b fp32", "zamba2-1.2b", "float32", SS_ZAMBA2_FP32_LAYERS,
+         seq, ("steps", "serve")),
+    ]
+
+
+def _ss_run_parts(mesh=None):
+    """(a) and (b) on one process (``mesh`` None: the reference, on the
+    whole model) or on a rank (its shards); returns {part: results}."""
+    import gc
+
+    import torch
+    from repro_torch.models import init_lm
+    from repro_torch.runtime import ShardPolicy, init_serving_params
+
+    out, held, params = {}, None, None
+    for tag, arch, dtype, layers, pk, what in _ss_parts():
+        t0 = time.perf_counter()
+        cfg = _ss_cfg(arch, dtype, layers)
+        pol = ShardPolicy(**pk)
+        if held != (arch, dtype, layers):
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = (init_lm(cfg, seed=0, device="cuda") if mesh is None
+                      else init_serving_params(cfg, mesh=mesh, policy=pol,
+                                               seed=0, device="cuda"))
+            held = (arch, dtype, layers)
+        kw = dict(mesh=mesh, policy=pol if mesh is not None else None)
+        if "paged" in what:     # the reference runs the engine in fp32
+            res = _ss_paged(cfg, params, run=mesh is not None
+                            or dtype == "float32", **kw)
+        else:
+            res = {}
+        if "steps" in what:
+            res["steps"] = _ss_dense(cfg, params, SS_STEPS[dtype],
+                                     timed=dtype == "bfloat16", **kw)
+        if "serve" in what:
+            res["serve"] = _ss_serve(cfg, params, **kw)
+        if "prefill" in what:
+            res["prefill"] = _ss_prefill(cfg, params, **kw)
+        res["s"] = time.perf_counter() - t0
+        out[tag] = res
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_shard_reference(_rank, run_dir):
+    """(a), (b) and (c)'s reference in a process of its own: every part on
+    the whole model (``init_lm`` seed 0), and (c)'s two engines through
+    ``launch/serve.py`` on one card; saved for the ranks' checks."""
+    import torch
+    from repro_torch.launch import serve as serve_mod
+
+    torch.cuda.set_device(0)
+    out = _ss_run_parts()
+    cfg = _ss_cfg("qwen3-4b", "float32", SS_FP32_LAYERS)
+    for engine in ("paged", "dense"):
+        args = _ss_cli_args(engine)
+        reqs = serve_mod.synthetic_requests(cfg, args)
+        serve_mod._run_engine(cfg, args, reqs, "cuda", verbose=False)
+        out[f"cli {engine}"] = [r.generated for r in reqs]
+    torch.save(out, f"{run_dir}/reference.pt")
+
+
+def serve_shard_rank(rank, world, run_dir):
+    """One of SERVE_SHARD_RANKS gloo ranks on a SERVE_SHARD_MESH (data,
+    model) mesh: every part of (a) and (b) on its shards; each result's
+    digest is compared over the ranks; rank 0 saves the logits, each rank
+    its launches, shapes, times and bytes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+
+    torch.cuda.set_device(0)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous",
+                     timeout_s=SERVE_SHARD_TIMEOUT_S)
+    try:
+        mesh = make_local_mesh(SERVE_SHARD_MESH[1])
+        out = _ss_run_parts(mesh)
+        same = {}
+        for part, res in out.items():
+            for key in ("digest", "tokens", "page_table"):
+                for sub, r in ([(None, res)] + [(k, v) for k, v in
+                                                res.items()
+                                                if isinstance(v, dict)]):
+                    if key in r:
+                        same[f"{part}/{sub}/{key}"] = _ss_same_on_ranks(
+                            r[key])
+        out["same_on_ranks"] = same
+        out["coord"] = [mesh.get_local_rank("data"),
+                        mesh.get_local_rank("model")]
+        if rank != 0:       # the logits are rank 0's (the same bits)
+            for res in out.values():
+                if isinstance(res, dict):
+                    for r in [res] + [v for v in res.values()
+                                      if isinstance(v, dict)]:
+                        r.pop("logits", None)
+        torch.save(out, f"{run_dir}/rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def counted_serve_rank(rank, world, run_dir, cfg, args, reqs):
+    """Check-only: ``launch/serve.py``'s rank of ``serve --ranks``, with
+    the kernels' launches, any plain call and the gloo bytes counted in
+    the rank and saved under SERVE_SHARD_DIR."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.runtime import sharding
+
+    sent = {"n": 0}
+    real = sharding.Traffic.add
+
+    def add(self, n):
+        sent["n"] += n
+        real(self, n)
+
+    sharding.Traffic.add = add
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        serve_mod._serve_rank(rank, world, run_dir, cfg, args, reqs)
+    (SERVE_SHARD_DIR / f"cli_{args.engine}_rank{rank}.json").write_text(
+        json.dumps({"launches": counts(), "plain": plain,
+                    "gloo_bytes": sent["n"],
+                    "s": time.perf_counter() - t0}))
+
+
+def _ss_cli(ref):
+    """(c): ``serve --ranks 4`` (``launch/serve.py::serve_ranks``, the
+    ``("data" 4, "model" 1)`` mesh) for both engines at the fp32 cut
+    depth: every request completes with the single process's tokens.
+    Returns the path's launches."""
+    from repro_torch.launch import serve as serve_mod
+
+    cfg = _ss_cfg("qwen3-4b", "float32", SS_FP32_LAYERS)
+    launches = {}
+    real = serve_mod._serve_rank
+    serve_mod._serve_rank = counted_serve_rank
+    try:
+        for engine in ("paged", "dense"):
+            args = _ss_cli_args(engine)
+            reqs = serve_mod.synthetic_requests(cfg, args)
+            t0 = time.perf_counter()
+            serve_mod.serve_ranks(cfg, args, reqs, SERVE_SHARD_RANKS)
+            wall = time.perf_counter() - t0
+            got = [r.generated for r in reqs]
+            check(all(len(g) == args.max_new for g in got),
+                  f"serve --ranks {engine}: a request did not complete")
+            check(got == ref[f"cli {engine}"], f"serve --ranks {engine}: "
+                  "tokens differ from the single process's")
+            ranks = [json.loads((SERVE_SHARD_DIR /
+                                 f"cli_{engine}_rank{r}.json").read_text())
+                     for r in range(SERVE_SHARD_RANKS)]
+            check(not any(r["plain"] for r in ranks),
+                  f"serve --ranks {engine}: plain versions ran")
+            for r in ranks:
+                check(r["launches"]["flash_attention"] > 0
+                      and r["launches"]["rmsnorm"] > 0,
+                      f"serve --ranks {engine}: a rank launched no kernel")
+            n_new = sum(len(g) for g in got)
+            log(f"[serve-shard] (c) serve --ranks {SERVE_SHARD_RANKS} "
+                f"--engine {engine} (data {SERVE_SHARD_RANKS}, model 1; "
+                f"qwen3-4b fp32 at {SS_FP32_LAYERS} layers): "
+                f"{len(reqs)} requests, tokens the single process's; "
+                f"{n_new} tokens in {wall:.1f} s with the ranks' start "
+                f"({n_new / wall:.1f} tok/s); gloo bytes sent by rank "
+                f"{[r['gloo_bytes'] for r in ranks]}; launches by rank "
+                f"{[r['launches']['flash_attention'] for r in ranks]} "
+                "flash")
+            for k in ranks[0]["launches"]:
+                launches[k] = launches.get(k, 0) + sum(
+                    r["launches"][k] for r in ranks)
+    finally:
+        serve_mod._serve_rank = real
+    return launches
+
+
+def _ss_rel(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _ss_argmax_same(got, want):
+    return bool((got.argmax(-1) == want.argmax(-1)).all())
+
+
+def _ss_check(ref, res, rank0):
+    """Gates of (a) and (b) on the ranks' results ``res`` against the
+    reference; returns {path: launches summed over the ranks}."""
+    launches = {"serve_tp": {}, "dense_serve_tp": {}}
+
+    def add(path, counts):
+        for k, v in counts.items():
+            launches[path][k] = launches[path].get(k, 0) + v
+
+    H, KV = 32, 8
+    for dtype in ("bfloat16", "float32"):
+        part = f"paged {dtype}"
+        want = ref[part]
+        for name in ("prefill", "decode"):
+            rows = [r[part][name] for r in res]
+            check(all(r["launches"] == want[name]["launches"] for r in rows),
+                  f"(a) {dtype} {name}: launches by rank "
+                  f"{[r['launches'] for r in rows]}, not the single "
+                  f"process's {want[name]['launches']}")
+            check(all(r["shapes"] and all(s[:2] == (H // 2, KV // 2)
+                                          for s in r["shapes"])
+                      for r in rows), f"(a) {dtype} {name}: flash shapes "
+                  f"{rows[0]['shapes']}, not {H // 2} and {KV // 2} local "
+                  "heads")
+            check(not any(r["plain"] for r in rows) and not want[name][
+                "plain"], f"(a) {dtype} {name}: plain versions ran")
+            tol = SS_LOGIT_TOL[dtype]
+            err = _ss_rel(rank0[part][name]["logits"],
+                          want[name]["logits"])
+            same_tok = _ss_argmax_same(rank0[part][name]["logits"],
+                                       want[name]["logits"])
+            log(f"[serve-shard] (a) paged TP {dtype} {name}: logits max "
+                f"|diff| {err:.3e} of the largest (tol {tol:.0e}), greedy "
+                f"tokens {'the same' if same_tok else 'DIFFERENT'}; "
+                f"launches a rank {rows[0]['launches']}; flash shapes "
+                f"(H, KV, T, lse, causal, kv_len) {rows[0]['shapes']}; gloo "
+                f"bytes sent by rank {[r['gloo_bytes'] for r in rows]}")
+            check(err <= tol, f"(a) {dtype} {name} logits off by {err:.3e}")
+            if dtype == "float32":
+                check(same_tok, f"(a) fp32 {name}: greedy tokens differ")
+            for r in rows:
+                add("serve_tp", r["launches"])
+        dec = [r[part]["decode"] for r in res]
+        log(f"[serve-shard] (a) paged TP {dtype} decode step: wall ms by "
+            f"rank {[round(r['ms'], 2) for r in dec]}, busy ms by rank "
+            f"{[r['busy_ms'] for r in dec]} (single process "
+            f"{want['decode']['ms']:.2f} wall, "
+            f"{want['decode']['busy_ms']} busy); pool bytes a rank "
+            f"{res[0][part]['pool_bytes']} (single process "
+            f"{want['pool_bytes']})")
+        runs = [r[part]["run"] for r in res]
+        for i, run in enumerate(runs):
+            check(all(run["done"]) and all(
+                len(t) == n for t, n in zip(
+                    run["tokens"], [len(x) for x in runs[0]["tokens"]])),
+                  f"(a) {dtype}: rank {i} did not complete every request")
+            check(not run["plain"], f"(a) {dtype}: plain versions ran")
+            add("serve_tp", run["launches"])
+        check(all(run["tokens"] == runs[0]["tokens"] for run in runs),
+              f"(a) {dtype}: the ranks' tokens differ")
+        check(all(run["page_table"] == runs[0]["page_table"]
+                  for run in runs), f"(a) {dtype}: the ranks' page tables "
+              "differ at the end")
+        if dtype == "float32":
+            check(runs[0]["tokens"] == want["run"]["tokens"],
+                  "(a) fp32: the ranks' tokens differ from the single "
+                  "process's")
+        summ = runs[0]["summary"]
+        log(f"[serve-shard] (a) paged TP {dtype} engine: 12 requests done "
+            f"on every rank, the same tokens and page table"
+            + (", the single process's tokens" if dtype == "float32"
+               else "") + f"; {summ['new_tokens']} tokens in "
+            f"{summ['wall_s']:.2f} s ({summ['tok_per_s']:.1f} tok/s), "
+            f"{summ['decode_steps']} decode steps, "
+            f"{summ['prefill_chunks']} prefill chunks; gloo bytes sent by "
+            f"rank {[r['gloo_bytes'] for r in runs]}; peak GB by rank "
+            f"{[round(r['peak_gb'], 2) for r in runs]}; part "
+            f"{res[0][part]['s']:.1f} s a rank")
+    for tag, arch, dtype, layers, pk, what in _ss_parts():
+        if "paged" in what:
+            continue
+        want, got = ref[tag], rank0[tag]
+        rows = [r[tag] for r in res]
+        tol = (SS_LOGIT_TOL[dtype] if arch == "qwen3-4b"
+               or dtype == "float32" else SS_SSM_BF16_TOL)
+        if "steps" in what:
+            s_rows = [r["steps"] for r in rows]
+            check(not any(r["plain"] for r in s_rows),
+                  f"(b) {tag}: plain versions ran")
+            check(all(r["launches"] == want["steps"]["launches"]
+                      for r in s_rows), f"(b) {tag}: launches by rank "
+                  f"{[r['launches'] for r in s_rows]}, not the single "
+                  f"process's {want['steps']['launches']}")
+            seq = pk.get("shard_cache_seq", True)
+            for r in s_rows:
+                for h, kv, T, lse, causal, has_len in r["shapes"]:
+                    check(not causal and has_len and lse == seq
+                          and T == DENSE_SERVE_CONTEXT // (2 if seq else 1),
+                          f"(b) {tag}: a flash launch ({h}, {kv}, {T}, lse "
+                          f"{lse}, causal {causal}, kv_len {has_len}) is "
+                          "not on its rank's slice")
+                add("dense_serve_tp", r["launches"])
+            err = _ss_rel(got["steps"]["logits"], want["steps"]["logits"])
+            same_tok = _ss_argmax_same(got["steps"]["logits"],
+                                       want["steps"]["logits"])
+            log(f"[serve-shard] (b) {tag} ({layers} layers, {pk}): "
+                f"{SS_STEPS[dtype]} steps, logits max |diff| {err:.3e} of "
+                f"the largest (tol {'printed only' if tol is None else f'{tol:.0e}'}), greedy tokens "
+                f"{'the same' if same_tok else 'DIFFERENT'}; layout "
+                f"{s_rows[0]['layout']}; state bytes a rank "
+                f"{s_rows[0]['state_bytes']} (single process "
+                f"{want['steps']['state_bytes']}); gloo bytes a step by rank "
+                f"{[int(r['gloo_bytes']) for r in s_rows]}; flash shapes "
+                f"{s_rows[0]['shapes']}; peak GB by rank "
+                f"{[round(r['peak_gb'], 2) for r in s_rows]}"
+                + ("" if "ms" not in s_rows[0] else
+                   f"; step wall ms by rank "
+                   f"{[round(r['ms'], 2) for r in s_rows]}, busy ms "
+                   f"{[r['busy_ms'] for r in s_rows]} (single "
+                   f"process {want['steps']['ms']:.2f} wall, "
+                   f"{want['steps']['busy_ms']} busy)"))
+            check(tol is None or err <= tol,
+                  f"(b) {tag}: logits off by {err:.3e}")
+            if dtype == "float32":
+                check(same_tok, f"(b) {tag}: greedy tokens differ")
+        if "serve" in what:
+            sv = [r["serve"] for r in rows]
+            check(all(all(r["done"]) for r in sv)
+                  and all(r["tokens"] == sv[0]["tokens"] for r in sv),
+                  f"(b) {tag} serve: ranks incomplete or disagree")
+            check(sv[0]["tokens"] == want["serve"]["tokens"],
+                  f"(b) {tag} serve: tokens differ from the single "
+                  "process's")
+            check(not any(r["plain"] for r in sv),
+                  f"(b) {tag} serve: plain versions ran")
+            for r in sv:
+                add("dense_serve_tp", r["launches"])
+            n_new = sum(len(t) for t in sv[0]["tokens"])
+            log(f"[serve-shard] (b) {tag} serve: {SS_DENSE_REQUESTS} "
+                f"requests, the single process's tokens; {n_new} tokens in "
+                f"{sv[0]['wall_s']:.1f} s ({n_new / sv[0]['wall_s']:.1f} "
+                f"tok/s; single process {want['serve']['wall_s']:.1f} s)")
+        if "prefill" in what:
+            pf = [r["prefill"] for r in rows]
+            check(not any(r["plain"] for r in pf),
+                  f"(b) {tag} prefill: plain versions ran")
+            n_layers = _ss_cfg(arch, dtype, layers).n_layers
+            check(all(r["launches"]["ssd_scan"] == n_layers
+                      and r["launches"]["ssd_scan_bwd"] == 0 for r in pf),
+                  f"(b) {tag} prefill: SSD launches "
+                  f"{[r['launches'] for r in pf]}, not one a layer")
+            full = want["prefill"]["last"]
+            errs = []
+            for r, rr in zip(pf, res):
+                d, m = rr["coord"]
+                lanes = full.shape[0] // SERVE_SHARD_MESH[0]
+                cols = full.shape[1] // SERVE_SHARD_MESH[1]
+                block = full[d * lanes:(d + 1) * lanes,
+                             m * cols:(m + 1) * cols]
+                errs.append(((r["last"] - block).abs().max()
+                             / full.abs().max()).item())
+                add("dense_serve_tp", r["launches"])
+            log(f"[serve-shard] (b) {tag} sharded make_prefill_step "
+                f"({SS_PREFILL_BATCH} x {SS_PREFILL_SEQ}): block "
+                f"{pf[0]['shape']} a rank, the SSD forward once a layer; "
+                f"last-position logits max |diff| by rank "
+                f"{[f'{e:.3e}' for e in errs]} of the largest")
+            check(tol is None or max(errs) <= tol,
+                  f"(b) {tag} prefill off by {max(errs):.3e}")
+        log(f"[serve-shard] (b) {tag}: part {rows[0]['s']:.1f} s a rank, "
+            f"{want['s']:.1f} s in the single process")
+    bad = [k for r in res for k, v in r["same_on_ranks"].items() if not v]
+    check(not bad, f"the ranks' results differ: {sorted(set(bad))}")
+    return launches
+
+
+def phase_serve_shard():
+    """Phase 18: the single-process reference, (a) and (b) on 4 gloo ranks
+    on a (data 2, model 2) mesh against it, then (c) ``serve --ranks 4``."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(SERVE_SHARD_DIR, ignore_errors=True)
+    SERVE_SHARD_DIR.mkdir(parents=True)
+    ref_s = spawn_ranks(serve_shard_reference, (str(SERVE_SHARD_DIR),), 1,
+                        "the single-process serving reference",
+                        timeout_s=SERVE_SHARD_TIMEOUT_S)
+    ref = torch.load(SERVE_SHARD_DIR / "reference.pt")
+    log(f"[serve-shard] single-process reference in {ref_s:.1f} s")
+    ranks_s = spawn_ranks(serve_shard_rank, (SERVE_SHARD_RANKS,
+                                             str(SERVE_SHARD_DIR)),
+                          SERVE_SHARD_RANKS, "sharded serving ranks",
+                          timeout_s=SERVE_SHARD_TIMEOUT_S)
+    res = [torch.load(SERVE_SHARD_DIR / f"rank{r}.pt")
+           for r in range(SERVE_SHARD_RANKS)]
+    check([r["coord"] for r in res] == [[0, 0], [0, 1], [1, 0], [1, 1]],
+          f"mesh coordinates {[r['coord'] for r in res]}")
+    log(f"[serve-shard] ranks in {ranks_s:.1f} s (4 ranks share one card: "
+        "no time here is sharded serving's speed)")
+    launches = _ss_check(ref, res, res[0])
+    ref_launches = {}
+    for part in ref.values():
+        if not isinstance(part, dict):
+            continue
+        for r in [part] + [v for v in part.values() if isinstance(v, dict)]:
+            for k, v in r.get("launches", {}).items():
+                ref_launches[k] = ref_launches.get(k, 0) + v
+    launches["serve_shard_reference"] = ref_launches
+    launches["serve_ranks"] = _ss_cli(ref)
+    del ref, res
+    shutil.rmtree(SERVE_SHARD_DIR, ignore_errors=True)
+    log(f"[serve-shard] phase 18 in {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4349,10 +5192,12 @@ def _times(kernel, plain, library, *, iters=20, plain_iters=None):
 
 
 def _flash_timing(B, S, T, q_offset, kv_len, causal=True,
-                  heads=(32, 8, 128)):
+                  heads=(32, 8, 128), with_lse=False):
     """Times of the kernel, its plain version and SDPA, and the bound, at
     one serving shape in bf16 (``heads`` (H, KV, dh): qwen3-4b's by
-    default); non-causal takes no q_offset (the dense engine's decode)."""
+    default); non-causal takes no q_offset (the dense engine's decode);
+    ``with_lse`` also writes the row log-sum-exp (the plain version also
+    computes it; SDPA does not)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -4379,18 +5224,27 @@ def _flash_timing(B, S, T, q_offset, kv_len, causal=True,
     keys = mask.any(1).sum().item()
     rows = mask.any(2).sum().item()     # query rows that admit a key
     n_bytes = (2 * (rows * H * dh + B * S * H * dh + 2 * keys * KV * dh)
-               + 4 * B * (2 if causal else 1))
+               + 4 * B * (2 if causal else 1)
+               + (4 * B * S * H if with_lse else 0))
     n_ops = 4 * pairs * H * dh
     bound, by = _bound_ms(n_bytes, n_ops, "bfloat16")
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
     sdpa_mask = mask[:, None]
-    t = _times(lambda: flash_attention_cuda(q, k, v, **kw),
-               lambda: ref.flash_attention_ref(q, k, v, **kw),
+
+    def plain():
+        out = ref.flash_attention_ref(q, k, v, **kw)
+        return (out, ref.flash_attention_lse_ref(q, k, v, **kw)) \
+            if with_lse else out
+
+    t = _times(lambda: flash_attention_cuda(q, k, v, with_lse=with_lse,
+                                            **kw),
+               plain,
                lambda: F.scaled_dot_product_attention(
                    qs, ks, vs, attn_mask=sdpa_mask, enable_gqa=True))
     return dict(t, bound_ms=bound, bound_by=by, gflop=n_ops / 1e9,
                 shape=f"B={B} S={S} T={T} H={H} KV={KV} dh={dh} bf16"
-                + ("" if causal else " non-causal"))
+                + ("" if causal else " non-causal")
+                + (" lse" if with_lse else ""))
 
 
 def _flash_train_timing(B=DENSE_BATCH, S=DENSE_SEQ, H=32, KV=8, dh=128):
@@ -4743,7 +5597,19 @@ def phase_timings():
                                              heads=ZAMBA2_HEADS),
              # phase 17: a rank's shared block under autograd at tp 2
              "zamba2_tp_train": _flash_train_timing(
-                 SSMTP_LOCAL_BATCH, SSMTP_SEQ, *ZAMBA2_TP_HEADS)}),
+                 SSMTP_LOCAL_BATCH, SSMTP_SEQ, *ZAMBA2_TP_HEADS),
+             # phase 18: a rank's context slice of the dense engine's
+             # decode (4 lanes, 1024 of 2048 slots, writing the row
+             # log-sum-exp) and the TP-local paged decode (H 16, KV 4)
+             "ctx_slice_decode": _flash_timing(
+                 DENSE_SERVE_LANES // SERVE_SHARD_MESH[0], 1,
+                 DENSE_SERVE_CONTEXT // SERVE_SHARD_MESH[1], None,
+                 [0, 300, 700, 1024], causal=False, with_lse=True),
+             "tp_paged_decode": _flash_timing(
+                 DECODE_SLOTS, 1, MAX_CONTEXT, decode_L,
+                 [MAX_CONTEXT] * DECODE_SLOTS,
+                 heads=(32 // SERVE_SHARD_MESH[1], 8 // SERVE_SHARD_MESH[1],
+                        128))}),
         ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "decode", {
              "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
@@ -4870,38 +5736,68 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     if sys.argv[1:2] == ["--compare-flash-bwd"] and len(sys.argv) == 3:
         return compare_flash_bwd(sys.argv[2])
+    only = None
+    if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
+        only = {1, *(int(n) for n in sys.argv[2].split(","))}
+
+    def run(n):
+        return only is None or n in only
+
     t_start = time.perf_counter()
+    kernels = None
     try:
         card = phase_build()
-        errs = phase_kernels()
-        phase_partial(errs)
-        phase_bf16_p()
-        phase_bf16_pds()
-        phase_train_kernels(errs)
-        phase_flash_bwd(errs)
-        timed = phase_timings()
-        launches = {"serve": phase_serve()}
-        phase_cpu_vs_card()
-        launches["train"], train_losses = phase_train()
-        launches["ckpt"] = phase_ckpt(train_losses)
-        phase_train_cpu_vs_card()
-        launches["dense_train"], dense_losses = phase_dense_train()
-        phase_dense_cpu_vs_card()
-        (launches["dense_serve"], launches["ssm_prefill"],
-         dense_decode) = phase_dense_serve()
-        launches.update(phase_ssm_serve())
-        launches.update(phase_plan(dense_losses))
-        launches.update(phase_pipeline())
-        launches.update(phase_shard())
-        launches.update(phase_ssm_tp())
-        launches["sp"] = phase_sp()
-        kernels = kernel_entries(timed, errs, launches, dense_decode)
+        errs, launches = {}, {}
+        if run(2):
+            errs = phase_kernels()
+            phase_partial(errs)
+            phase_bf16_p()
+            phase_bf16_pds()
+            phase_train_kernels(errs)
+            phase_flash_bwd(errs)
+        if run(7):
+            timed = phase_timings()
+        if run(3):
+            launches["serve"] = phase_serve()
+        if run(4):
+            phase_cpu_vs_card()
+        if run(5):
+            launches["train"], train_losses = phase_train()
+            if run(14):
+                launches["ckpt"] = phase_ckpt(train_losses)
+        if run(6):
+            phase_train_cpu_vs_card()
+        if run(9):
+            launches["dense_train"], dense_losses = phase_dense_train()
+        if run(10):
+            phase_dense_cpu_vs_card()
+        if run(11):
+            (launches["dense_serve"], launches["ssm_prefill"],
+             dense_decode) = phase_dense_serve()
+        if run(12):
+            launches.update(phase_ssm_serve())
+        if run(9) and run(13):
+            launches.update(phase_plan(dense_losses))
+        if run(15):
+            launches.update(phase_pipeline())
+        if run(16):
+            launches.update(phase_shard())
+        if run(17):
+            launches.update(phase_ssm_tp())
+        if run(18):
+            launches.update(phase_serve_shard())
+        if run(8):
+            launches["sp"] = phase_sp()
+        if only is None:
+            kernels = kernel_entries(timed, errs, launches, dense_decode)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] {'all phases' if only is None else f'phases {sorted(only)}'}"
+        f" in {time.perf_counter() - t_start:.1f} s")
     log(card)       # again, so that the end of the output names the card
-    print(json.dumps({"kernels": kernels}), flush=True)
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,8 +14,8 @@ import torch
 
 from .flash_attention import (FlashAttention, _validate_attn_shapes,
                               check_bwd_scope, flash_attention_cuda)
-from .ref import (State, flash_attention_ref, flash_partial_ref, rmsnorm_ref,
-                  ssd_scan_ref)
+from .ref import (State, flash_attention_lse_ref, flash_attention_ref,
+                  flash_partial_ref, rmsnorm_ref, ssd_scan_ref)
 from .ring_attention import (check_no_grad, check_panel,
                              flash_partial_cuda, ring_flash_attention)
 from .rmsnorm import RMSNorm
@@ -34,7 +34,8 @@ def _on_cuda(x: torch.Tensor) -> bool:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: Optional[torch.Tensor] = None,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_len: Optional[torch.Tensor] = None,
+                    return_lse: bool = False):
     """q (B,S,H,dh); k/v (B,T,KV,dh) -> (B,S,H,dh).  See
     :func:`~repro_torch.kernels.ref.flash_attention_ref` for the masks.
 
@@ -42,19 +43,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (the forward writes the row log-sum-exp, the backward kernels run in
     ``backward``), which takes the training path's masks only and raises on
     ``q_offset``, ``kv_len`` or S != T; otherwise the forward kernel alone
-    runs, writing nothing more (the serving path's lean launch)."""
+    runs, writing nothing more (the serving path's lean launch).
+
+    ``return_lse`` returns ``(out, lse)`` with the (B,S,H) fp32 row
+    log-sum-exp of the scaled scores over the admissible keys, ``+inf`` on
+    a row with none (the context merge of sharded decode reads it): the
+    forward kernel writes it on every mask, the plain version
+    (:func:`~repro_torch.kernels.ref.flash_attention_lse_ref`) computes
+    it.  It takes inputs that need no gradient; raises ValueError
+    otherwise."""
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if return_lse and needs_grad:
+        raise ValueError("flash_attention(return_lse=True) takes inputs "
+                         "that need no gradient (the serving path's)")
     if _on_cuda(q):
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
+        if needs_grad:
             check_bwd_scope(q.shape[1], k.shape[1], q_offset=q_offset,
                             kv_len=kv_len)
             return FlashAttention.apply(q, k, v, causal, window)
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset, kv_len=kv_len)
+                                    q_offset=q_offset, kv_len=kv_len,
+                                    with_lse=return_lse)
     _validate_attn_shapes(q.shape[1], k.shape[1], q.shape[2], k.shape[2],
                           window)
-    return flash_attention_ref(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset, kv_len=kv_len)
+    out = flash_attention_ref(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, kv_len=kv_len)
+    if not return_lse:
+        return out
+    return out, flash_attention_lse_ref(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset,
+                                        kv_len=kv_len)
 
 
 def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

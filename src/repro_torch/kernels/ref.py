@@ -69,17 +69,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
-                            window: Optional[int] = None) -> torch.Tensor:
+                            window: Optional[int] = None,
+                            q_offset: Optional[torch.Tensor] = None,
+                            kv_len: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """The row log-sum-exp of :func:`flash_attention_ref`'s scaled scores
-    over its admissible keys -> (B,S,H) fp32, ``+inf`` on a row with no
-    admissible key (so that ``exp(s - lse)`` is exactly 0 there).  ``v``
-    is not read; it keeps the attention signature."""
+    over its admissible keys (the same masks, ``q_offset`` and ``kv_len``
+    included) -> (B,S,H) fp32, ``+inf`` on a row with no admissible key
+    (so that ``exp(s - lse)`` is exactly 0 there).  ``v`` is not read; it
+    keeps the attention signature."""
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, dh).float()
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()).mul_(dh ** -0.5)
     mask = attn_mask(B, S, T, q.device, causal=causal, window=window,
-                     q_offset=None, kv_len=None)[:, None, None]
+                     q_offset=q_offset, kv_len=kv_len)[:, None, None]
     lse = torch.logsumexp(s.masked_fill_(~mask, float("-inf")), dim=-1)
     lse = lse.masked_fill(~mask.any(-1), float("inf"))        # (B,KV,G,S)
     return lse.permute(0, 3, 1, 2).reshape(B, S, H)

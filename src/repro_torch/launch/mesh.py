@@ -15,8 +15,15 @@ import datetime
 import time
 from typing import Callable, Optional
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch.device import resolve_device
+
+# a rendezvous or collective of the drivers' ranks that waits longer raises
+# instead of hanging
+RANK_TIMEOUT_S = 900.0
 
 
 def run_ranks(fn: Callable[..., None], args: tuple, nprocs: int, *,
@@ -56,6 +63,23 @@ def init_distributed(rank: int, world: int, *, backend: str,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def join_rank(rank: int, world: int, run_dir: str,
+              device: str) -> torch.device:
+    """Start a rank of a driver's run (``train --ranks``, ``serve
+    --ranks``): its device (ranks share cards round-robin; one thread on
+    the CPU) and the gloo default group over ``run_dir``'s rendezvous
+    file."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:
+        torch.set_num_threads(1)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous",
+                     timeout_s=RANK_TIMEOUT_S)
+    return resolve_device(dev.type)
 
 
 def make_ring_mesh(n_seq: int = 0, n_data: int = 1, *,

@@ -21,23 +21,42 @@ Runs on the CUDA device unless ``--device cpu`` is given.  ``--plan`` sizes
 the paged engine from a searched v3 plan's serving section (``search
 --slo-sweep``), verified on load; flags override its fields where set, as
 in the JAX driver (:func:`engine_config_from_args`).
+
+``--ranks N`` (default: the CUDA devices; 1 with ``--device cpu``) above 1
+serves on N gloo ranks, as the JAX drivers serve on every local device:
+``make_local_mesh()``, ``("data" N, "model" 1)``, with the reference's
+``ShardPolicy(tp=False, zero=False)``.  The ranks are spawned as ``train
+--ranks`` spawns them (a ``file://`` rendezvous in a temporary directory;
+ranks share cards round-robin); the dense engine's lanes split over
+``data``, the paged engine runs every lane on every rank.  Rank 0 prints
+the summary; every rank must generate the same tokens.
+
+    python -m repro_torch.launch.serve --ranks 4 --engine dense \
+        --arch qwen3-4b --no-reduced --requests 16 --batch 8
 """
 from __future__ import annotations
 
 import argparse
+import json
+import pathlib
+import tempfile
 import time
 from collections import deque
 from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.device import resolve_device
-from repro_torch.models import (LM, init_decode_state, init_lm,
-                                reset_decode_lane)
+from repro_torch.launch.mesh import join_rank, make_local_mesh, run_ranks
+from repro_torch.models import LM, init_decode_state, reset_decode_lane
 from repro_torch.models.common import ModelConfig
-from repro_torch.runtime.executor import make_serve_step
+from repro_torch.runtime.executor import (SERVING_POLICY, init_serving_params,
+                                          make_serve_step)
+from repro_torch.runtime.sharding import ShardPolicy
 from repro_torch.serving import (EngineConfig, ServeMetrics, ServeRequest,
                                  ServingEngine)
 
@@ -54,7 +73,8 @@ class Request:
 def serve(cfg: ModelConfig, requests: List[Request], batch: int,
           context: int, *, eos_id: Optional[int] = None, greedy: bool = True,
           seed: int = 0, verbose: bool = True, device: torch.device = "cuda",
-          params: Optional[LM] = None) -> List[Request]:
+          params: Optional[LM] = None, mesh: Optional[DeviceMesh] = None,
+          policy: Optional[ShardPolicy] = None) -> List[Request]:
     """Dense-cache reference: one KV cache an attention call and one SSM
     state an SSM layer (:func:`init_decode_state`), a slot a lane.
 
@@ -67,17 +87,24 @@ def serve(cfg: ModelConfig, requests: List[Request], batch: int,
     one token a step; a lane stepped idle still advances its index.
     ``params`` defaults to random weights from ``seed`` (:func:`init_lm`);
     non-greedy sampling draws from a generator seeded with ``seed``.
-    Generated tokens are written into each request."""
+    Generated tokens are written into each request.
+
+    With a ``mesh``, every rank of it calls ``serve`` with the same
+    requests: the step is sharded under ``policy`` (``make_serve_step``;
+    ``params``, if given, the rank's shards from ``init_serving_params``)
+    and every rank takes the same tokens."""
     dev = resolve_device(device)
-    step = make_serve_step(cfg)
+    step = make_serve_step(cfg, mesh=mesh, policy=policy)
     if params is None:
-        params = init_lm(cfg, seed=seed, device=dev)
+        params = init_serving_params(cfg, mesh=mesh, policy=policy,
+                                     seed=seed, device=dev)
     elif params.embed.device != dev:
         raise ValueError(f"params lie on {params.embed.device}, serve runs "
                          f"on {dev}")
     gen = None if greedy else torch.Generator(device=dev).manual_seed(seed)
     with torch.inference_mode():
-        state = init_decode_state(cfg, batch, context, device=dev)
+        state = init_decode_state(cfg, batch, context, device=dev,
+                                  shard=step.shard)
         # the shared index -> per-lane positions
         state["index"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
         queue = deque(requests)
@@ -127,14 +154,19 @@ def serve(cfg: ModelConfig, requests: List[Request], batch: int,
 
 def serve_paged(cfg: ModelConfig, requests: List[Request],
                 ecfg: EngineConfig, *, seed: int = 0, verbose: bool = True,
-                device: torch.device = "cuda") -> ServeMetrics:
+                device: torch.device = "cuda",
+                mesh: Optional[DeviceMesh] = None,
+                policy: Optional[ShardPolicy] = None) -> ServeMetrics:
     """Continuous-batching serve over the paged KV cache with random
-    weights from ``seed``.
+    weights from ``seed`` (on a ``mesh``, each rank's shards under
+    ``policy``: :class:`~repro_torch.serving.ServingEngine`).
 
     Returns the engine's :class:`~repro_torch.serving.ServeMetrics`;
     generated tokens are written back into each :class:`Request`."""
-    params = init_lm(cfg, seed=seed, device=device)
-    engine = ServingEngine(cfg, params, ecfg, device=device)
+    params = init_serving_params(cfg, mesh=mesh, policy=policy, seed=seed,
+                                 device=device)
+    engine = ServingEngine(cfg, params, ecfg, device=device, mesh=mesh,
+                           policy=policy)
     sreqs = [ServeRequest(rid=str(r.rid), prompt=list(r.prompt),
                           max_new=r.max_new) for r in requests]
     metrics = engine.run(sreqs, verbose=False)
@@ -185,7 +217,58 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         eos_id=eos)
 
 
-def main(argv=None) -> List[Request]:
+def _serve_rank(rank: int, world: int, run_dir: str, cfg: ModelConfig,
+                args: argparse.Namespace, reqs: List[Request]) -> None:
+    """One rank of ``--ranks``: the engine on ``make_local_mesh()`` under
+    the reference's serving policy; rank 0 prints.  Writes the tokens it
+    generated to ``run_dir/rank<r>.json``."""
+    dev = join_rank(rank, world, run_dir, args.device)
+    try:
+        mesh = make_local_mesh(device_type=dev.type)
+        _run_engine(cfg, args, reqs, dev, verbose=rank == 0, mesh=mesh,
+                    policy=SERVING_POLICY)
+        peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else None)
+        pathlib.Path(run_dir, f"rank{rank}.json").write_text(json.dumps(
+            {"tokens": [r.generated for r in reqs], "peak_mem_gb": peak}))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_engine(cfg: ModelConfig, args: argparse.Namespace,
+                reqs: List[Request], device, **kw) -> None:
+    if args.engine == "paged":
+        serve_paged(cfg, reqs, engine_config_from_args(args), seed=args.seed,
+                    device=device, **kw)
+    else:
+        serve(cfg, reqs, args.batch or 4, args.context or 128,
+              eos_id=args.eos_id, seed=args.seed, device=device, **kw)
+
+
+def serve_ranks(cfg: ModelConfig, args: argparse.Namespace,
+                reqs: List[Request], n_ranks: int) -> List[Request]:
+    """``--ranks``: serve ``reqs`` on ``n_ranks`` spawned gloo ranks
+    (:func:`_serve_rank`); rank 0's tokens are written into ``reqs``.
+    Raises RuntimeError when a rank fails or the ranks' tokens differ."""
+    print(f"serving on {n_ranks} ranks: mesh={{'data': {n_ranks}, "
+          f"'model': 1}}, policy={SERVING_POLICY}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_serve_") as d:
+        run_ranks(_serve_rank, (n_ranks, d, cfg, args, reqs), n_ranks)
+        ranks = [json.loads(pathlib.Path(d, f"rank{r}.json").read_text())
+                 for r in range(n_ranks)]
+    if any(r["tokens"] != ranks[0]["tokens"] for r in ranks):
+        raise RuntimeError("the ranks generated different tokens")
+    for r, toks in zip(reqs, ranks[0]["tokens"]):
+        r.generated, r.done = toks, True
+    if ranks[0]["peak_mem_gb"] is not None:
+        print("peak memory by rank (GB): "
+              f"{[round(r['peak_mem_gb'], 3) for r in ranks]}")
+    return reqs
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="serve.py",
         description="Serve synthetic requests with the paged "
@@ -219,20 +302,35 @@ def main(argv=None) -> List[Request]:
                          "(0 = from plan, default 32)")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks to serve on (default: the CUDA devices; 1 "
+                         "with --device cpu): above 1, the engine on "
+                         "make_local_mesh() over that many gloo ranks")
+    return ap.parse_args(argv)
 
+
+def synthetic_requests(cfg: ModelConfig,
+                       args: argparse.Namespace) -> List[Request]:
+    """The CLI's requests: ``args.requests`` prompts of 4 tokens drawn
+    from ``args.seed``, ``args.max_new`` new tokens each."""
+    rng = np.random.default_rng(args.seed)
+    return [Request(i, rng.integers(0, cfg.vocab_size, size=4).tolist(),
+                    args.max_new) for i in range(args.requests)]
+
+
+def main(argv=None) -> List[Request]:
+    args = parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    rng = np.random.default_rng(args.seed)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=4).tolist(),
-                    args.max_new) for i in range(args.requests)]
-    if args.engine == "paged":
-        serve_paged(cfg, reqs, engine_config_from_args(args), seed=args.seed,
-                    device=args.device)
+    reqs = synthetic_requests(cfg, args)
+    dev = resolve_device(args.device)
+    n_ranks = args.ranks or (torch.cuda.device_count()
+                             if dev.type == "cuda" else 1)
+    if n_ranks > 1:
+        serve_ranks(cfg, args, reqs, n_ranks)
     else:
-        serve(cfg, reqs, args.batch or 4, args.context or 128,
-              eos_id=args.eos_id, seed=args.seed, device=args.device)
+        _run_engine(cfg, args, reqs, args.device)
     for r in reqs[:3]:
         print(f"req {r.rid}: prompt={r.prompt} -> {r.generated[:8]}...")
     return reqs

@@ -66,6 +66,7 @@ from repro_torch.data import (DataConfig, synthetic_lm_batches,
 from repro_torch.checkpointing import (save_sharded_train_state,
                                        save_train_state)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import join_rank
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import build_stacks
 from repro_torch.optim import AdamWConfig
@@ -186,11 +187,6 @@ def train(cfg: ModelConfig, args: argparse.Namespace) -> List[Dict[str, float]]:
 # --pipeline: the searched schedule through the pipeline runtime
 # --------------------------------------------------------------------------
 
-# a rendezvous or collective of the pipeline's ranks that waits longer
-# raises instead of hanging
-PIPELINE_TIMEOUT_S = 900.0
-
-
 @dataclasses.dataclass(frozen=True)
 class PipelineLayout:
     schedule: str
@@ -221,24 +217,6 @@ def pipeline_layout(plan: ParallelPlan, n_ranks: int, n_layers: int,
     m = math.gcd(plan.n_micro, batch)
     n_data = math.gcd(n_ranks // P, batch // m)
     return PipelineLayout(sched, P, V, m, n_data)
-
-
-def _join(rank: int, world: int, run_dir: str,
-          device: str) -> torch.device:
-    """Start a rank: its device (ranks share cards round-robin; one thread
-    on the CPU) and the gloo default group over ``run_dir``'s rendezvous
-    file."""
-    from repro_torch.launch.mesh import init_distributed
-
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
-    else:
-        torch.set_num_threads(1)
-    init_distributed(rank, world, backend="gloo",
-                     init_method=f"file://{run_dir}/rendezvous",
-                     timeout_s=PIPELINE_TIMEOUT_S)
-    return resolve_device(dev.type)
 
 
 def _rank_steps(rank: int, cfg: ModelConfig, args: argparse.Namespace,
@@ -317,7 +295,7 @@ def _pipeline_rank(rank: int, world: int, run_dir: str, cfg: ModelConfig,
     from repro_torch.runtime.pipeline import (init_stage, make_pipeline_loss,
                                               pipeline_grad_norm)
 
-    dev = _join(rank, world, run_dir, args.device)
+    dev = join_rank(rank, world, run_dir, args.device)
     try:
         P, V, m = layout.n_stages, layout.n_chunks, layout.n_micro
         mesh = make_pipeline_mesh(P, layout.n_data, device_type=dev.type)
@@ -390,7 +368,7 @@ def _sharded_rank(rank: int, world: int, run_dir: str, cfg: ModelConfig,
     memory to ``run_dir/rank<r>.json``."""
     from repro_torch.launch.mesh import make_local_mesh
 
-    dev = _join(rank, world, run_dir, args.device)
+    dev = join_rank(rank, world, run_dir, args.device)
     try:
         mesh = make_local_mesh(device_type=dev.type)
         ocfg = AdamWConfig(lr=args.lr)

@@ -197,8 +197,8 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
 
 def attention_decode(p: Attention, x: torch.Tensor, cache: Pool,
                      cache_index: Union[int, torch.Tensor], cfg: ModelConfig,
-                     *, window: Optional[int] = None
-                     ) -> Tuple[torch.Tensor, Pool]:
+                     *, window: Optional[int] = None, shard=None,
+                     layout=None) -> Tuple[torch.Tensor, Pool]:
     """One-token decode with a ring or linear KV cache.
 
     x (B,1,d).  cache["k"/"v"]: (B, C, KV, dh) with C the full context or
@@ -223,29 +223,107 @@ def attention_decode(p: Attention, x: torch.Tensor, cache: Pool,
     * ``w < C`` after a wrap (only when a caller passes a window shorter
       than the span): the admitted slots form a cyclic range, so the cache
       is gathered into position order (:func:`_ring_in_order`).  This copy
-      is off the serving path."""
+      is off the serving path.
+
+    ``shard`` (``runtime/sharding.py::ShardContext``) with the state's
+    ``layout`` (``DecodeLayout``) runs a rank's share: x, ``cache_index``
+    and the cache are its lanes, the cache its slice (``layout.kv``).
+    Under TP the rank projects its ``n_heads / tp`` query and
+    ``n_kv_heads / tp`` KV heads and ``wo`` is row-parallel, its partial
+    sums added over ``model``.
+
+    * ``"seq"``: the rank holds slots ``[r C/m, (r+1) C/m)`` of every
+      lane's ring; the new token's K/V are written only where they fall,
+      which under TP needs every head of the token (q, k and v gathered
+      over ``model``, a few KB).  Each rank attends its slots (non-causal,
+      its local ``kv_len``) with the row log-sum-exp, the parts are merged
+      (``ShardContext.merge_context``) and under TP each rank keeps its
+      heads.  A window shorter than the span raises ValueError.
+    * ``"heads"``: the rank's KV heads; under TP the one-device arithmetic
+      on them, without TP its heads' outputs gathered before the
+      replicated ``wo``.
+    * None: the cache is whole on every rank."""
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"decode takes one token per lane, got S={S}")
-    C = cache["k"].shape[1]
     idx = torch.as_tensor(cache_index, device=x.device).to(
         torch.int32).expand(B)
-    q, k, v = _project_qkv(p, x, cfg, idx.reshape(B, 1))
-    lane = torch.arange(B, device=x.device)
+    split, lcfg = None, cfg
+    if shard is not None:
+        split, x, lcfg = layout.kv, shard.to_tp(x), shard.local_cfg(cfg)
+    q, k, v = _project_qkv(p, x, lcfg, idx.reshape(B, 1), shard)
+    if split == "seq":
+        out = _decode_context_shard(q, k, v, cache, idx, layout.span, window,
+                                    shard)
+    elif split == "heads" and shard.tp == 1:
+        r, m = shard.model_rank, shard.n_model
+        h, g = cfg.n_heads // m, cfg.n_kv_heads // m
+        out = shard.gather_model(_decode_attend(
+            q[:, :, r * h:(r + 1) * h], k[:, :, r * g:(r + 1) * g],
+            v[:, :, r * g:(r + 1) * g], cache, idx, window), 2)
+    else:       # one device, TP on the rank's heads, or a whole cache
+        out = _decode_attend(q, k, v, cache, idx, window)
+    out = out.reshape(B, 1, -1) @ p.wo
+    return (out if shard is None else shard.from_tp(out)), cache
+
+
+def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cache: Pool, idx: torch.Tensor,
+                   window: Optional[int]) -> torch.Tensor:
+    """:func:`attention_decode`'s write and read of a whole ring (its
+    three routes), on the heads of q, k, v and the cache."""
+    B, C = cache["k"].shape[:2]
+    lane = torch.arange(B, device=q.device)
     slot = (idx % C).long()
     cache["k"][lane, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][lane, slot] = v[:, 0].to(cache["v"].dtype)
     if window is None or window >= C:
-        out = ops.flash_attention(q, cache["k"], cache["v"], causal=False,
-                                  kv_len=(idx + 1).clamp(max=C))
-    elif not bool((idx >= C).any()):    # a host sync, off the serving path
-        out = ops.flash_attention(q, cache["k"], cache["v"], causal=True,
-                                  window=window, q_offset=idx)
-    else:
-        k_pos, v_pos, q_offset = _ring_in_order(cache, idx)
-        out = ops.flash_attention(q, k_pos, v_pos, causal=True,
-                                  window=window, q_offset=q_offset)
-    return out.reshape(B, 1, cfg.q_dim) @ p.wo, cache
+        return ops.flash_attention(q, cache["k"], cache["v"], causal=False,
+                                   kv_len=(idx + 1).clamp(max=C))
+    if not bool((idx >= C).any()):      # a host sync, off the serving path
+        return ops.flash_attention(q, cache["k"], cache["v"], causal=True,
+                                   window=window, q_offset=idx)
+    k_pos, v_pos, q_offset = _ring_in_order(cache, idx)
+    return ops.flash_attention(q, k_pos, v_pos, causal=True, window=window,
+                               q_offset=q_offset)
+
+
+def _decode_context_shard(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, cache: Pool, idx: torch.Tensor,
+                          span: int, window: Optional[int],
+                          shard) -> torch.Tensor:
+    """:func:`attention_decode` on a ring whose ``span`` slots split over
+    ``model`` (``"seq"``): the write where the slot falls, this rank's
+    part with its row log-sum-exp, the merge."""
+    if window is not None and window < span:
+        raise ValueError(
+            f"a window of {window} is shorter than the cache's span of "
+            f"{span}: after a wrap its slots form a cyclic range that one "
+            "device reorders (_ring_in_order) and a context-sharded cache "
+            "cannot; shard the KV heads instead "
+            "(ShardPolicy(shard_cache_seq=False))")
+    if shard.tp > 1:                    # every head of the new token
+        h, g = q.shape[2], k.shape[2]
+        qkv = shard.gather_model(torch.cat([q, k, v], 2), 0)
+        q, k, v = (torch.cat(parts, 2) for parts in zip(*(
+            t.split([h, g, g], 2) for t in qkv.chunk(shard.tp, 0))))
+    B, cl = q.shape[0], cache["k"].shape[1]
+    lo = shard.model_rank * cl
+    slot = (idx % span).long()
+    own = ((slot >= lo) & (slot < lo + cl))[:, None, None]
+    local = (slot - lo).clamp(0, cl - 1)
+    lane = torch.arange(B, device=q.device)
+    for name, t in (("k", k), ("v", v)):
+        c = cache[name]
+        c[lane, local] = torch.where(own, t[:, 0].to(c.dtype), c[lane, local])
+    kv_len = ((idx + 1).clamp(max=span) - lo).clamp(0, cl).to(torch.int32)
+    out, lse = ops.flash_attention(q, cache["k"], cache["v"], causal=False,
+                                   kv_len=kv_len, return_lse=True)
+    out = shard.merge_context(out, lse)
+    if shard.tp > 1:                    # this rank's heads for its wo rows
+        h = out.shape[2] // shard.tp
+        out = out[:, :, shard.model_rank * h:(shard.model_rank + 1) * h]
+    return out
 
 
 def _ring_in_order(cache: Pool, idx: torch.Tensor
@@ -276,22 +354,31 @@ def _gather_lanes(pool: Pool, page_rows: torch.Tensor
 
 def attention_decode_paged(p: Attention, x: torch.Tensor, pool: Pool,
                            page_rows: torch.Tensor, lengths: torch.Tensor,
-                           cfg: ModelConfig, *,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           cfg: ModelConfig, *, window: Optional[int] = None,
+                           shard=None) -> torch.Tensor:
     """One-token decode against a paged KV cache; writes the new token's
     K/V into ``pool`` in place and returns the attention output (B,1,d).
 
     x (B,1,d).  ``page_rows`` (B, P) int32 maps each lane's logical page to
     a pool row (-1 = unassigned); ``lengths`` (B,) is each lane's context
     length, the write position of the new token.  A negative length marks
-    an inactive lane: its write goes to the sink row."""
+    an inactive lane: its write goes to the sink row.
+
+    ``shard`` (``runtime/sharding.py::ShardContext``) runs it
+    head-parallel under TP: the pool holds the rank's ``n_kv_heads / tp``
+    KV heads (``init_page_pool(shard=)``), every page whole, the rank
+    projects and attends its ``n_heads / tp`` query heads, and ``wo`` is
+    row-parallel, its partial sums added over ``model``; without TP every
+    rank runs the one-device arithmetic."""
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"decode takes one token per lane, got S={S}")
+    if shard is not None:
+        x, cfg = shard.to_tp(x), shard.local_cfg(cfg)
     N, psz = pool["k"].shape[0] - 1, pool["k"].shape[1]
     P = page_rows.shape[1]
     L = lengths.to(torch.int32)
-    q, k, v = _project_qkv(p, x, cfg, L.clamp(min=0).reshape(B, 1))
+    q, k, v = _project_qkv(p, x, cfg, L.clamp(min=0).reshape(B, 1), shard)
     # the new token lands at (page_rows[lane, L // psz], L % psz)
     pi = (L // psz).clamp(0, P - 1).long()
     page = page_rows.gather(1, pi[:, None])[:, 0]
@@ -306,13 +393,15 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, pool: Pool,
     out = ops.flash_attention(q, gk, gv, causal=True,
                               window=_kernel_window(window, gk.shape[1]),
                               q_offset=L)
-    return out.reshape(B, 1, cfg.q_dim) @ p.wo
+    out = out.reshape(B, 1, cfg.q_dim) @ p.wo
+    return out if shard is None else shard.from_tp(out)
 
 
 def attention_prefill_paged(p: Attention, x: torch.Tensor, pool: Pool,
                             page_rows: torch.Tensor, base: int,
                             prompt_len: torch.Tensor, cfg: ModelConfig, *,
-                            window: Optional[int] = None) -> torch.Tensor:
+                            window: Optional[int] = None,
+                            shard=None) -> torch.Tensor:
     """Chunked-prefill attention that captures K/V into the page pools.
 
     x (B,S,d): one prompt chunk covering absolute positions
@@ -320,13 +409,15 @@ def attention_prefill_paged(p: Attention, x: torch.Tensor, pool: Pool,
     writes and masks shorter prompts; padding lanes use ``prompt_len = 0``.
     Writes the chunk's K/V into ``pool`` in place *first*, then attends
     over the gathered pool view, so earlier chunks of the same prompt are
-    visible."""
+    visible.  ``shard`` as :func:`attention_decode_paged`."""
     B, S, _ = x.shape
+    if shard is not None:
+        x, cfg = shard.to_tp(x), shard.local_cfg(cfg)
     N, psz = pool["k"].shape[0] - 1, pool["k"].shape[1]
     P = page_rows.shape[1]
     dev = x.device
     ap = base + torch.arange(S, dtype=torch.int32, device=dev)  # abs pos
-    q, k, v = _project_qkv(p, x, cfg, ap.expand(B, S))
+    q, k, v = _project_qkv(p, x, cfg, ap.expand(B, S), shard)
     page = page_rows[:, (ap // psz).clamp(0, P - 1).long()]     # (B,S)
     in_prompt = ap[None, :] < prompt_len[:, None]
     page = torch.where((page < 0) | ~in_prompt | (ap[None, :] // psz >= P),
@@ -340,18 +431,27 @@ def attention_prefill_paged(p: Attention, x: torch.Tensor, pool: Pool,
     out = ops.flash_attention(q, gk, gv, causal=True,
                               window=_kernel_window(window, gk.shape[1]),
                               q_offset=q_offset, kv_len=kv_len)
-    return out.reshape(B, S, cfg.q_dim) @ p.wo
+    out = out.reshape(B, S, cfg.q_dim) @ p.wo
+    return out if shard is None else shard.from_tp(out)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, context: int, *,
                   dtype: Optional[torch.dtype] = None,
-                  device: torch.device = "cuda") -> Pool:
+                  device: torch.device = "cuda", shard=None) -> Pool:
     """K/V cache of one layer for :func:`attention_decode`: (batch, span,
     KV, dh) zeros in ``dtype`` (the model's by default), where the span is
-    ``context``, or the config's sliding window when that is shorter."""
+    ``context``, or the config's sliding window when that is shorter.
+    With ``shard`` (``runtime/sharding.py::ShardContext``), the rank's
+    slice by ``shard.decode_layout``: its lanes, and its slots or KV heads
+    when they split over ``model``."""
     span = (context if cfg.sliding_window is None
             else min(context, cfg.sliding_window))
-    shape = (batch, span, cfg.n_kv_heads, cfg.dh)
+    shape = [batch, span, cfg.n_kv_heads, cfg.dh]
+    if shard is not None:
+        lay = shard.decode_layout(batch, span)
+        shape[0] = lay.lanes[1] - lay.lanes[0]
+        if lay.kv is not None:
+            shape[1 if lay.kv == "seq" else 2] //= shard.n_model
     dev = resolve_device(device)
     dt = dtype or cfg.dtype
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
@@ -359,10 +459,13 @@ def init_kv_cache(cfg: ModelConfig, batch: int, context: int, *,
 
 
 def init_page_pool(cfg: ModelConfig, n_pages: int, page_size: int, *,
-                   device: torch.device) -> Pool:
+                   device: torch.device, shard=None) -> Pool:
     """K/V page pool for one layer: (n_pages + 1, page_size, KV, dh) in the
     model's dtype; the last row is the sink for dropped writes (see the
-    module docstring)."""
-    shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.dh)
+    module docstring).  With ``shard`` under TP, the rank's ``KV / tp``
+    heads (``runtime/sharding.py::paged_state_specs``)."""
+    kv = (cfg.n_kv_heads if shard is None
+          else shard.local_cfg(cfg).n_kv_heads)
+    shape = (n_pages + 1, page_size, kv, cfg.dh)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}

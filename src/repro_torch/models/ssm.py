@@ -80,11 +80,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b.float()).to(x.dtype)
 
 
-def _split_proj(p: SSM, x: torch.Tensor, cfg: ModelConfig):
-    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    return torch.split(x @ p.in_proj, [di, di + 2 * N, H], dim=-1)
-
-
 def ssm_tp_columns(cfg: ModelConfig, tp: int,
                    rank: int) -> List[Tuple[int, int]]:
     """The ``in_proj`` columns TP rank ``rank`` of ``tp`` computes with, as
@@ -121,7 +116,8 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig,
     ``shard`` (``runtime/sharding.py::ShardContext``) under TP runs the
     block on the rank's ``H / tp`` heads: ``in_proj``, stored as the
     contiguous column shard of the rule table, is gathered over ``model``
-    and cut to :func:`ssm_tp_columns`; the replicated conv weights to
+    and cut to :func:`ssm_tp_columns` (a model placed for serving holds
+    those columns already); the replicated conv weights to
     :func:`ssm_tp_conv_channels` and ``dt_bias``, ``A_log`` and ``D`` to
     the rank's heads, their gradients summed over ``model``; the gated
     rows are gathered over ``model`` so that the norm runs on whole
@@ -137,9 +133,11 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig,
     if tp > 1:
         r = shard.model_rank
         x = shard.to_tp(x)
-        if w.shape[-1] != 2 * cfg.d_inner + 2 * N + cfg.ssm_heads:
-            w = shard.gather_tp(w)
-        w = _columns(w, ssm_tp_columns(cfg, tp, r))
+        cols = ssm_tp_columns(cfg, tp, r)
+        if w.shape[-1] != sum(b - a for a, b in cols):  # not a serving one
+            if w.shape[-1] != 2 * cfg.d_inner + 2 * N + cfg.ssm_heads:
+                w = shard.gather_tp(w)
+            w = _columns(w, cols)
         conv_w, conv_b = (_columns(shard.to_tp(t), ssm_tp_conv_channels(
             cfg, tp, r)) for t in (conv_w, conv_b))
         dt_bias, A_log, D = (shard.tp_local(t) for t in (dt_bias, A_log, D))
@@ -164,12 +162,26 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig,
 
 def init_ssm_state(cfg: ModelConfig, batch: int, *,
                    dtype: torch.dtype = torch.float32,
-                   device: torch.device = "cuda") -> SSMState:
+                   device: torch.device = "cuda", shard=None) -> SSMState:
     """One layer's decode state, zeros in ``dtype`` (fp32 by default, as in
     the JAX package): ``"ssm"`` (B, H, P, N) and ``"conv"`` (B, K-1,
-    di + 2N), the last K-1 inputs of the causal conv."""
+    di + 2N), the last K-1 inputs of the causal conv.
+
+    With ``shard`` (``runtime/sharding.py::ShardContext``), the rank's
+    share by ``shard.decode_layout``: its lanes, and its ``H / m`` heads
+    when they split over ``model``.  Under TP the conv history holds the
+    rank's x channels and all of B and C
+    (:func:`ssm_tp_conv_channels`), the channels it convolves; the
+    reference keeps every channel on every ``model`` rank."""
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     conv_dim = cfg.d_inner + 2 * N
+    if shard is not None:
+        lay = shard.decode_layout(batch, 1)
+        batch = lay.lanes[1] - lay.lanes[0]
+        if lay.ssm_heads:
+            H //= shard.n_model
+        if shard.tp > 1:
+            conv_dim = cfg.d_inner // shard.tp + 2 * N
     device = resolve_device(device)
     return {
         "ssm": torch.zeros(batch, H, P, N, dtype=dtype, device=device),
@@ -196,28 +208,65 @@ def ssd_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
 
 
 def ssm_block_decode(p: SSM, x: torch.Tensor, state: SSMState,
-                     cfg: ModelConfig) -> Tuple[torch.Tensor, SSMState]:
+                     cfg: ModelConfig, shard=None
+                     ) -> Tuple[torch.Tensor, SSMState]:
     """One-token Mamba2 step. x (B,1,d) -> (B,1,d).
 
     ``state["conv"]`` holds the previous K-1 conv inputs: the new input is
     appended in the state's dtype, the conv reads all K, and the history
     shifts by one.  Both entries of ``state`` are written in place; the
-    same dict is returned."""
+    same dict is returned.
+
+    ``shard`` (``runtime/sharding.py::ShardContext``) steps a rank's share
+    (``init_ssm_state(shard=)``).  Under TP: the rank's ``H / tp`` heads
+    through its ``in_proj`` columns (:func:`ssm_tp_columns`, taken once
+    when a serving model is placed; a training shard is gathered and cut
+    as :func:`ssm_block` does), its conv channels, the gated norm on whole
+    rows gathered over ``model``, and the row-parallel ``out_proj``.
+    Without TP on a state whose heads split over ``model``: the whole
+    projection and conv on every rank, the SSD update on the rank's
+    heads, their outputs gathered before the gated norm."""
     Bsz = x.shape[0]
     di, H, N, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
-    z, xBC, dt = _split_proj(p, x[:, 0], cfg)
+    w, conv_w, conv_b = p.in_proj, p.conv_w, p.conv_b
+    dt_bias, A_log, D = p.dt_bias, p.A_log, p.D
+    tp = 1 if shard is None else shard.tp
+    heads = None            # the rank's heads of a whole projection
+    if tp > 1:
+        r = shard.model_rank
+        x = shard.to_tp(x)
+        cols = ssm_tp_columns(cfg, tp, r)
+        if w.shape[-1] != sum(b - a for a, b in cols):
+            if w.shape[-1] != 2 * di + 2 * N + H:
+                w = shard.gather_tp(w)
+            w = _columns(w, cols)
+        conv_w, conv_b = (_columns(shard.to_tp(t), ssm_tp_conv_channels(
+            cfg, tp, r)) for t in (conv_w, conv_b))
+        dt_bias, A_log, D = (shard.tp_local(t) for t in (dt_bias, A_log, D))
+    elif shard is not None and state["ssm"].shape[1] < H:
+        h = state["ssm"].shape[1]
+        heads = slice(shard.model_rank * h, (shard.model_rank + 1) * h)
+    Hl = A_log.shape[0]
+    dil = Hl * P
+    z, xBC, dt = torch.split(x[:, 0] @ w, [dil, dil + 2 * N, Hl], dim=-1)
     conv = state["conv"]
     hist = torch.cat([conv, xBC[:, None].to(conv.dtype)], dim=1)   # (B,K,C)
-    conv_out = torch.einsum("bkc,kc->bc", hist.float(), p.conv_w.float())
-    xBC = F.silu(conv_out + p.conv_b.float()).to(x.dtype)
+    conv_out = torch.einsum("bkc,kc->bc", hist.float(), conv_w.float())
+    xBC = F.silu(conv_out + conv_b.float()).to(x.dtype)
     conv.copy_(hist[:, 1:])
-    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
-    xs = xs.reshape(Bsz, H, P)
-    dtp = F.softplus(dt.float() + p.dt_bias)
-    A = -torch.exp(p.A_log)
+    xs, Bm, Cm = torch.split(xBC, [dil, N, N], dim=-1)
+    xs = xs.reshape(Bsz, Hl, P)
+    dtp = F.softplus(dt.float() + dt_bias)
+    A = -torch.exp(A_log)
+    if heads is not None:
+        xs, dtp, A, D = xs[:, heads], dtp[:, heads], A[heads], D[heads]
     _, y = ssd_step(state["ssm"], xs, dtp, A, Bm[:, None, :], Cm[:, None, :])
-    y = y + (p.D.float()[:, None] * xs.float()).to(y.dtype)
-    y = y.reshape(Bsz, 1, di)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype)[:, None, :], p.norm_w,
-                 cfg.norm_eps)
-    return y @ p.out_proj, state
+    y = y + (D.float()[:, None] * xs.float()).to(y.dtype)
+    y = y.reshape(Bsz, 1, -1)
+    if heads is not None:
+        y = shard.gather_model(y, 2)
+    y = y * F.silu(z.float()).to(y.dtype)[:, None, :]
+    if tp == 1:
+        return rms_norm(y, p.norm_w, cfg.norm_eps) @ p.out_proj, state
+    y = rms_norm(shard.gather_columns(y), p.norm_w, cfg.norm_eps)
+    return shard.from_tp(shard.keep_columns(y) @ p.out_proj), state

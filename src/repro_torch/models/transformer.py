@@ -296,7 +296,8 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 # --------------------------------------------------------------------------
 
 def init_decode_state(cfg: ModelConfig, batch: int, context: int, *,
-                      device: torch.device = "cuda") -> Dict[str, Any]:
+                      device: torch.device = "cuda",
+                      shard=None) -> Dict[str, Any]:
     """The dense-cache decode state of ``batch`` lanes::
 
       "caches"      one K/V cache (:func:`init_kv_cache`, ``context`` slots)
@@ -309,6 +310,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, context: int, *,
                     fp32
       "index"       0-d int32; the serve loop makes it per lane (B,)
 
+    With ``shard`` (``runtime/sharding.py::ShardContext``) each cache and
+    state is the rank's share (``runtime/sharding.py::decode_state_specs``)
+    and ``"layout"`` holds where it lies (``shard.decode_layout``); the
+    index stays whole on every rank.
+
     :func:`decode_step` writes every cache and state in place.  Raises
     NotImplementedError for an arch :func:`build_stacks` does not build."""
     segments = _segments(cfg)
@@ -316,30 +322,43 @@ def init_decode_state(cfg: ModelConfig, batch: int, context: int, *,
     n_attn = (cfg.n_layers if cfg.arch_type == "dense"
               else sum(shared for *_, shared in segments))
     state: Dict[str, Any] = {
-        "caches": [init_kv_cache(cfg, batch, context, device=dev)
+        "caches": [init_kv_cache(cfg, batch, context, device=dev,
+                                 shard=shard)
                    for _ in range(n_attn)]}
     if cfg.arch_type != "dense":
-        state["ssm_states"] = [init_ssm_state(cfg, batch, device=dev)
+        state["ssm_states"] = [init_ssm_state(cfg, batch, device=dev,
+                                              shard=shard)
                                for _ in range(cfg.n_layers)]
     state["index"] = torch.zeros((), dtype=torch.int32, device=dev)
+    if shard is not None:
+        span = (context if cfg.sliding_window is None
+                else min(context, cfg.sliding_window))
+        state["layout"] = shard.decode_layout(batch, span)
     return state
 
 
 def reset_decode_lane(state: Dict[str, Any], lane: int) -> None:
     """Start lane ``lane`` of a per-lane decode state over, in place: its
-    index to 0, and its rows of every SSM state and conv history to zeros.
+    index to 0, and its rows of every SSM state and conv history to zeros
+    (on the rank that holds them, in a sharded state).
     The index alone hides a previous request's K/V (the decode mask admits
     only slots below it); an SSM state carries the whole past and must be
     cleared, or the next request on the lane reads its predecessor's."""
     state["index"][lane] = 0
+    layout = state.get("layout")
+    if layout is not None:
+        lo, hi = layout.lanes
+        if not lo <= lane < hi:
+            return
+        lane -= lo
     for st in state.get("ssm_states", ()):
         st["ssm"][lane].zero_()
         st["conv"][lane].zero_()
 
 
 def decode_step(params: LM, state: Dict[str, Any], token: torch.Tensor,
-                cfg: ModelConfig, *, window: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                cfg: ModelConfig, *, window: Optional[int] = None,
+                shard=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: token (B,) -> logits (B, V) and the new state.
 
     The token's K/V are written into ``state["caches"]`` and each SSM
@@ -347,36 +366,74 @@ def decode_step(params: LM, state: Dict[str, Any], token: torch.Tensor,
     holds the same tensors and ``index + 1``.  Attention takes ``window``,
     else the config's ``sliding_window``.  The hybrid runs the shared
     attention block after each full segment of ``attn_every`` SSM layers,
-    as :func:`lm_forward` does, each call on a cache of its own."""
+    as :func:`lm_forward` does, each call on a cache of its own.
+
+    ``shard`` (``runtime/sharding.py::ShardContext``) runs a rank's share
+    of a state from ``init_decode_state(shard=)``: its lanes of ``token``
+    (every lane's, on every rank), each block through ``shard.block``
+    (ZeRO weights gathered) on its caches and states, the embedding and the
+    logits vocab-parallel under TP; the logits returned are every lane's
+    whole rows, the same on every rank."""
     build_stacks(cfg)
-    x = embed(params.embed, token)[:, None, :]
     index = state["index"]
+    idx, layout = index, state.get("layout")
+    if shard is not None:
+        if layout is None:
+            raise ValueError("a sharded decode step takes a state of "
+                             "init_decode_state(shard=)")
+        lo, hi = layout.lanes
+        token = token[lo:hi]
+        idx = index[lo:hi] if index.dim() else index
+    x = embed(params.embed, token, shard)[:, None, :]
     win = window if window is not None else cfg.sliding_window
     if cfg.arch_type == "dense":
         x = _cache_layers(
             params, state["caches"], x, cfg,
-            lambda p, h, cache: attention_decode(p, h, cache, index, cfg,
-                                                 window=win)[0])
+            lambda p, h, cache, shard: attention_decode(
+                p, h, cache, idx, cfg, window=win, shard=shard,
+                layout=layout)[0], shard)
     else:
-        x = _ssm_decode_layers(params, state, x, index, cfg, win)
-    return _logits(params, x, cfg)[:, 0], dict(state, index=index + 1)
+        x = _ssm_decode_layers(params, state, x, idx, cfg, win, shard,
+                               layout)
+    logits = _logits(params, x, cfg, shard)[:, 0]
+    if shard is not None:
+        logits = shard.gather_lanes(shard.gather_vocab(logits),
+                                    layout.batch)
+    return logits, dict(state, index=index + 1)
+
+
+def _ssm_decode_layer(blk: SSMBlock, x: torch.Tensor, st, cfg: ModelConfig,
+                      shard=None) -> torch.Tensor:
+    h = rms_norm(x, blk.ln1, cfg.norm_eps)
+    return x + ssm_block_decode(blk.ssm, h, st, cfg, shard)[0]
+
+
+def _shared_decode_layer(sa: SharedAttention, x: torch.Tensor, cache: Pool,
+                         index: torch.Tensor, cfg: ModelConfig,
+                         window: Optional[int], layout,
+                         shard=None) -> torch.Tensor:
+    h = rms_norm(x, sa.ln, cfg.norm_eps)
+    return x + attention_decode(sa.attn, h, cache, index, cfg, window=window,
+                                shard=shard, layout=layout)[0]
 
 
 def _ssm_decode_layers(params: LM, state: Dict[str, Any], x: torch.Tensor,
                        index: torch.Tensor, cfg: ModelConfig,
-                       window: Optional[int]) -> torch.Tensor:
+                       window: Optional[int], shard=None,
+                       layout=None) -> torch.Tensor:
     """The SSM blocks one token: ln1, ``ssm_block_decode`` on the layer's
     state, residual; after each full segment of the hybrid, the shared
     attention block on the next of ``state["caches"]``."""
     sa, caches = params.shared_attn, iter(state["caches"])
+    ssm_layer, shared_layer = _ssm_decode_layer, _shared_decode_layer
+    if shard is not None:
+        ssm_layer = functools.partial(shard.block, ssm_layer)
+        shared_layer = functools.partial(shard.block, shared_layer)
     for _, i, j, shared in _segments(cfg):
         for blk, st in zip(params.blocks[i:j], state["ssm_states"][i:j]):
-            h = rms_norm(x, blk.ln1, cfg.norm_eps)
-            x = x + ssm_block_decode(blk.ssm, h, st, cfg)[0]
+            x = ssm_layer(blk, x, st, cfg)
         if shared and sa is not None:
-            h = rms_norm(x, sa.ln, cfg.norm_eps)
-            x = x + attention_decode(sa.attn, h, next(caches), index, cfg,
-                                     window=window)[0]
+            x = shared_layer(sa, x, next(caches), index, cfg, window, layout)
     return x
 
 
@@ -392,64 +449,88 @@ def supports_paged_decode(cfg: ModelConfig) -> bool:
 
 
 def init_paged_state(cfg: ModelConfig, n_pages: int, page_size: int, *,
-                     device: torch.device = "cuda") -> List[Pool]:
+                     device: torch.device = "cuda",
+                     shard=None) -> List[Pool]:
     """One K/V page pool per layer, shared by every lane: KV memory is
-    n_pages * page_size tokens per layer however many lanes there are."""
+    n_pages * page_size tokens per layer however many lanes there are.
+    With ``shard`` under TP, each pool holds the rank's KV heads
+    (``runtime/sharding.py::paged_state_specs``)."""
     if not supports_paged_decode(cfg):
         raise NotImplementedError(
             f"paged decode does not support arch_type={cfg.arch_type!r}")
     dev = resolve_device(device)
-    return [init_page_pool(cfg, n_pages, page_size, device=dev)
+    return [init_page_pool(cfg, n_pages, page_size, device=dev, shard=shard)
             for _ in range(cfg.n_layers)]
+
+
+def _dense_cache_layer(blk: DenseBlock, x: torch.Tensor, pool: Pool,
+                       cfg: ModelConfig, attn_fn, shard=None) -> torch.Tensor:
+    h = rms_norm(x, blk.ln1, cfg.norm_eps)
+    x = x + attn_fn(blk.attn, h, pool, shard)
+    h = rms_norm(x, blk.ln2, cfg.norm_eps)
+    return x + swiglu_mlp(blk.mlp, h, shard)
 
 
 def _cache_layers(params: LM, caches: List[Pool], x: torch.Tensor,
                   cfg: ModelConfig,
-                  attn_fn: Callable[[Attention, torch.Tensor, Pool],
-                                    torch.Tensor]) -> torch.Tensor:
-    """The dense blocks over one cache or pool a layer: ln1, ``attn_fn``,
-    residual, ln2, SwiGLU, residual."""
+                  attn_fn: Callable[..., torch.Tensor],
+                  shard=None) -> torch.Tensor:
+    """The dense blocks over one cache or pool a layer: ln1, ``attn_fn(p,
+    h, pool, shard)``, residual, ln2, SwiGLU, residual; with ``shard``
+    each block through ``shard.block`` (its ZeRO weights gathered, the
+    MLP tensor-parallel)."""
+    layer = (_dense_cache_layer if shard is None
+             else functools.partial(shard.block, _dense_cache_layer))
     for blk, pool in zip(params.blocks, caches):
-        h = rms_norm(x, blk.ln1, cfg.norm_eps)
-        x = x + attn_fn(blk.attn, h, pool)
-        h = rms_norm(x, blk.ln2, cfg.norm_eps)
-        x = x + swiglu_mlp(blk.mlp, h)
+        x = layer(blk, x, pool, cfg, attn_fn)
     return x
 
 
 def paged_decode_step(params: LM, pools: List[Pool], token: torch.Tensor,
                       page_rows: torch.Tensor, lengths: torch.Tensor,
-                      cfg: ModelConfig, *,
-                      window: Optional[int] = None) -> torch.Tensor:
+                      cfg: ModelConfig, *, window: Optional[int] = None,
+                      shard=None) -> torch.Tensor:
     """One decode step on the paged KV cache: token (B,) -> logits (B, V).
 
     ``page_rows`` (B, P) / ``lengths`` (B,) come from the serving engine's
     page table (one table for every layer; each layer owns its pool).  The
-    new tokens' K/V are written into ``pools`` in place."""
-    x = embed(params.embed, token)[:, None, :]
+    new tokens' K/V are written into ``pools`` in place.
+
+    ``shard`` (``runtime/sharding.py::ShardContext``) runs it on a rank:
+    every lane (tokens, page rows and lengths are whole on every rank, as
+    the reference replicates them), head-parallel under TP on pools of
+    ``init_paged_state(shard=)``; the logits are whole rows, the same on
+    every rank."""
+    x = embed(params.embed, token, shard)[:, None, :]
     win = window if window is not None else cfg.sliding_window
     x = _cache_layers(
         params, pools, x, cfg,
-        lambda p, h, pool: attention_decode_paged(
-            p, h, pool, page_rows, lengths, cfg, window=win))
-    return _logits(params, x, cfg)[:, 0]
+        lambda p, h, pool, shard: attention_decode_paged(
+            p, h, pool, page_rows, lengths, cfg, window=win, shard=shard),
+        shard)
+    logits = _logits(params, x, cfg, shard)[:, 0]
+    return logits if shard is None else shard.gather_vocab(logits)
 
 
 def paged_prefill_step(params: LM, pools: List[Pool], tokens: torch.Tensor,
                        page_rows: torch.Tensor, base: int,
                        prompt_len: torch.Tensor, cfg: ModelConfig, *,
-                       window: Optional[int] = None) -> torch.Tensor:
+                       window: Optional[int] = None,
+                       shard=None) -> torch.Tensor:
     """One chunked-prefill step: prompt chunk ``tokens`` (B, S) covering
     absolute positions [base, base + S), K/V written into ``pools`` in
     place.  Returns logits (B, V) at each lane's *last prompt position*
-    (meaningful only for lanes whose prompt ends inside this chunk)."""
+    (meaningful only for lanes whose prompt ends inside this chunk).
+    ``shard`` as :func:`paged_decode_step`."""
     B, S = tokens.shape
-    x = embed(params.embed, tokens)
+    x = embed(params.embed, tokens, shard)
     win = window if window is not None else cfg.sliding_window
     x = _cache_layers(
         params, pools, x, cfg,
-        lambda p, h, pool: attention_prefill_paged(
-            p, h, pool, page_rows, base, prompt_len, cfg, window=win))
+        lambda p, h, pool, shard: attention_prefill_paged(
+            p, h, pool, page_rows, base, prompt_len, cfg, window=win,
+            shard=shard), shard)
     last = (prompt_len.long() - 1 - base).clamp(0, S - 1)       # (B,)
     xl = x[torch.arange(B, device=x.device), last][:, None, :]  # (B,1,d)
-    return _logits(params, xl, cfg)[:, 0]
+    logits = _logits(params, xl, cfg, shard)[:, 0]
+    return logits if shard is None else shard.gather_vocab(logits)

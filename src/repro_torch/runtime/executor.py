@@ -8,13 +8,16 @@ writes the parameters and optimizer state in place; the prefill and serving
 steps run under ``torch.inference_mode()``, and the serving steps update the
 caches or pools in place.
 
-Training runs on one device, or sharded over the ranks of a ``("data",
-"model")`` mesh by a :class:`~repro_torch.runtime.sharding.ShardPolicy`
-(DP, ZeRO-3 and head-aligned TP, remat per segment, stash-only sequence
-sharding): each rank holds its shards of the parameters and of the AdamW
-state (:func:`init_train_state`, :func:`shard_train_state`), and the
-collectives GSPMD inserts in the JAX package run explicitly
-(``runtime/sharding.py``).
+Each step runs on one device, or sharded over the ranks of a ``("data",
+"model")`` mesh by a :class:`~repro_torch.runtime.sharding.ShardPolicy`:
+training with DP, ZeRO-3 and head-aligned TP, remat per segment and
+stash-only sequence sharding (each rank holds its shards of the
+parameters and of the AdamW state: :func:`init_train_state`,
+:func:`shard_train_state`); serving with the lanes over ``data``, the
+paged pools' KV heads over ``model`` under TP, the dense caches' context
+(or KV heads) and the SSM states' heads over ``model``
+(:func:`init_serving_params`).  The collectives GSPMD inserts in the JAX
+package run explicitly (``runtime/sharding.py``).
 """
 from __future__ import annotations
 
@@ -166,60 +169,156 @@ def _sharded_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMesh,
     return step
 
 
-def make_prefill_step(cfg: ModelConfig
+# --------------------------------------------------------------------------
+# serving: one device, or sharded over a ("data", "model") mesh
+# --------------------------------------------------------------------------
+
+SERVING_POLICY = ShardPolicy(tp=False, zero=False)
+
+
+def _serving_context(cfg: ModelConfig, mesh: DeviceMesh,
+                     policy: Optional[ShardPolicy]) -> ShardContext:
+    return ShardContext(cfg, mesh, policy or SERVING_POLICY, serving=True)
+
+
+def init_serving_params(cfg: ModelConfig, *,
+                        mesh: Optional[DeviceMesh] = None,
+                        policy: Optional[ShardPolicy] = None, seed: int = 0,
+                        device: torch.device = "cuda") -> LM:
+    """Random weights from ``seed`` on ``device`` for the serving steps.
+
+    With a ``mesh`` each rank draws ``init_lm``'s numbers and keeps its
+    shards under ``policy`` (default ``ShardPolicy(tp=False, zero=False)``,
+    the serving drivers' policy): the rule table's (``param_specs``),
+    except that under TP each Mamba2 ``in_proj`` is the rank's columns
+    (``models/ssm.py::ssm_tp_columns``), taken once here rather than
+    gathered over ``model`` every step."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return init_lm(cfg, seed=seed, device=dev)
+    ctx = _serving_context(cfg, mesh, policy)
+    return init_lm(cfg, seed=seed, device=dev, shard=ctx.shard_part)
+
+
+def shard_serving_params(params: LM, mesh: DeviceMesh,
+                         policy: Optional[ShardPolicy] = None, *,
+                         cfg: ModelConfig) -> LM:
+    """:func:`init_serving_params`'s shards from a full model of ``cfg``
+    (for example one bridged from JAX), its parameters replaced in
+    place."""
+    return _serving_context(cfg, mesh, policy).shard_model(params)
+
+
+def make_prefill_step(cfg: ModelConfig, *,
+                      mesh: Optional[DeviceMesh] = None,
+                      policy: Optional[ShardPolicy] = None
                       ) -> Callable[[LM, Dict[str, torch.Tensor]],
                                     torch.Tensor]:
     """``(params, batch)`` -> logits (B, S, V): the inference forward of
     ``batch["tokens"]`` (B, S), :func:`lm_forward` without the loss, for
-    every arch the port builds.  Raises NotImplementedError for another."""
+    every arch the port builds.  Raises NotImplementedError for another.
+
+    With a ``mesh`` (``policy`` default ``ShardPolicy(tp=False,
+    zero=False)``; params from :func:`init_serving_params`), every rank
+    calls it with the whole batch and gets its block of the logits, as the
+    reference's step leaves them sharded: its lanes (rows split over
+    ``data`` when they divide, ``ShardContext.lane_range``) and under TP
+    its vocabulary columns ``[r V / tp, (r + 1) V / tp)``.
+    ``step.shard`` is the :class:`ShardContext`."""
     build_stacks(cfg)
+    if mesh is None:
+        @torch.inference_mode()
+        def step(params: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            return lm_forward(params, batch["tokens"], cfg)[0]
+
+        return step
+    ctx = _serving_context(cfg, mesh, policy)
 
     @torch.inference_mode()
-    def step(params: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return lm_forward(params, batch["tokens"], cfg)[0]
+    def sharded(params: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        ctx.bind(params)
+        tokens = batch["tokens"]
+        lo, hi = ctx.lane_range(tokens.shape[0])
+        return lm_forward(params, tokens[lo:hi].to(params.embed.device), cfg,
+                          shard=ctx)[0]
 
-    return step
+    sharded.shard = ctx
+    return sharded
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable[..., Tuple[torch.Tensor,
-                                                            Dict[str, Any]]]:
+def make_serve_step(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
+                    policy: Optional[ShardPolicy] = None
+                    ) -> Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]:
     """``(params, state, token (B,))`` -> ``(logits (B, V), state)``: one
     decode step on the KV caches and SSM states of ``init_decode_state``,
     written in place, for dense, SSM and hybrid decoders.  Raises
-    NotImplementedError for an arch the port does not build."""
+    NotImplementedError for an arch the port does not build.
+
+    With a ``mesh`` (``policy`` default ``ShardPolicy(tp=False,
+    zero=False)``), every rank calls it with the whole ``token``, its
+    params from :func:`init_serving_params` and its state from
+    ``init_decode_state(shard=step.shard)``: lanes over ``data``, each
+    cache's context (or KV heads) and each SSM state's heads over
+    ``model`` (``runtime/sharding.py::decode_state_specs``).  The logits
+    are every lane's whole rows, the same on every rank."""
     build_stacks(cfg)
+    ctx = None if mesh is None else _serving_context(cfg, mesh, policy)
 
     @torch.inference_mode()
     def step(params: LM, state: Dict[str, Any], token: torch.Tensor
              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        return decode_step(params, state, token, cfg)
+        if ctx is not None:
+            ctx.bind(params)
+        return decode_step(params, state, token, cfg, shard=ctx)
 
+    step.shard = ctx
     return step
 
 
-def make_paged_decode_step(cfg: ModelConfig) -> Callable[..., torch.Tensor]:
+def make_paged_decode_step(cfg: ModelConfig, *,
+                           mesh: Optional[DeviceMesh] = None,
+                           policy: Optional[ShardPolicy] = None
+                           ) -> Callable[..., torch.Tensor]:
     """``(params, pools, token (B,), page_rows (B,P), lengths (B,))`` ->
-    logits (B, V); the pools are written in place."""
+    logits (B, V); the pools are written in place.
+
+    With a ``mesh`` (``policy`` default ``ShardPolicy(tp=False,
+    zero=False)``): the inputs whole on every rank, the pools from
+    ``init_paged_state(shard=step.shard)`` (their KV heads over ``model``
+    under TP, ``paged_state_specs``), params from
+    :func:`init_serving_params`; the logits whole, the same on every
+    rank."""
+    ctx = None if mesh is None else _serving_context(cfg, mesh, policy)
 
     @torch.inference_mode()
     def step(params: LM, pools: List[Pool], token: torch.Tensor,
              page_rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        if ctx is not None:
+            ctx.bind(params)
         return paged_decode_step(params, pools, token, page_rows, lengths,
-                                 cfg)
+                                 cfg, shard=ctx)
 
+    step.shard = ctx
     return step
 
 
-def make_paged_prefill_step(cfg: ModelConfig) -> Callable[..., torch.Tensor]:
+def make_paged_prefill_step(cfg: ModelConfig, *,
+                            mesh: Optional[DeviceMesh] = None,
+                            policy: Optional[ShardPolicy] = None
+                            ) -> Callable[..., torch.Tensor]:
     """``(params, pools, tokens (PB,S), page_rows (PB,P), base, prompt_len
     (PB,))`` -> last-prompt-position logits (PB, V); the pools are written
-    in place."""
+    in place.  ``mesh`` and ``policy`` as :func:`make_paged_decode_step`."""
+    ctx = None if mesh is None else _serving_context(cfg, mesh, policy)
 
     @torch.inference_mode()
     def step(params: LM, pools: List[Pool], tokens: torch.Tensor,
              page_rows: torch.Tensor, base: int,
              prompt_len: torch.Tensor) -> torch.Tensor:
+        if ctx is not None:
+            ctx.bind(params)
         return paged_prefill_step(params, pools, tokens, page_rows, base,
-                                  prompt_len, cfg)
+                                  prompt_len, cfg, shard=ctx)
 
+    step.shard = ctx
     return step

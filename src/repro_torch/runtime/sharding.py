@@ -41,6 +41,17 @@ backward, on whole ``d_inner`` rows gathered over ``model``, alike on
 every rank (``models/ssm.py::ssm_block``).  GSPMD reshards the split
 columns instead; the numbers are the same.
 
+Serving takes the reference's serving rules too: :func:`paged_state_specs`
+(the page pools' KV heads over ``model`` under TP) and
+:func:`decode_state_specs` (dense caches' lanes over the batch axes and
+their context, else their KV heads, over ``model``; SSM states' heads over
+``model``), which :class:`DecodeLayout` reads for a rank's share.  A model
+placed for serving (``ShardContext(serving=True)``) holds each Mamba2
+``in_proj`` as the rank's columns rather than the rule table's shard.  A
+cache whose context splits over ``model`` is read by each rank on its
+slots, and the parts' attention is merged from their row log-sum-exp
+(:meth:`ShardContext.merge_context`).
+
 Every collective carries host tensors over gloo (one card refuses two NCCL
 ranks; a group of another backend raises): a CUDA tensor is copied into
 pinned memory, and received tensors are summed back on its device.  Sums
@@ -63,6 +74,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.kernels.ring_attention import host_tensor
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.ssm import ssm_tp_columns
 from repro_torch.models.transformer import init_lm
 
 Entry = Union[None, str, Tuple[str, ...]]
@@ -237,6 +249,109 @@ def batch_specs(shapes: Mapping[str, Sequence[int]], mesh: MeshLike,
             entries[1] = seq
         out[k] = tuple(entries)
     return out
+
+
+def _map_named(tree, fn, name: str = ""):
+    """``fn(name, shape)`` on every tensor of a tree of dicts and lists,
+    ``name`` the last dict key above it (the JAX package's path rule: a
+    list entry takes its list's key); other leaves are kept."""
+    if isinstance(tree, Mapping):
+        return {k: _map_named(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_named(v, fn, name) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return fn(name, tuple(tree.shape))
+    return tree
+
+
+def _paged_leaf(name: str, shape: Sequence[int], mesh: MeshLike,
+                pol: ShardPolicy) -> Spec:
+    """The reference's ``paged_state_shardings`` rule on one leaf."""
+    model = "model" if ("model" in mesh_axes(mesh) and pol.tp) else None
+    nd = len(shape)
+    if name in ("k", "v") and nd >= 4:
+        entries: List[Entry] = [None] * nd
+        if model and shape[nd - 2] % _axis_size(mesh, model) == 0:
+            entries[nd - 2] = model
+        return tuple(entries)
+    return ()
+
+
+def paged_state_specs(pools, mesh: MeshLike, pol: ShardPolicy):
+    """Per dim of each K/V page pool (``init_paged_state``: one {"k", "v"}
+    of (n_pages + 1, page_size, KV, dh) a layer), the mesh axes it shards
+    over: under TP the KV-head dim over ``model`` (head-parallel decode),
+    when it divides.  The page dim stays whole on every rank, data ranks
+    included: every lane may read any pool row.  The reference's
+    ``paged_state_shardings`` on each leaf (its stacked layer dim
+    dropped); the same tree with a spec for each tensor."""
+    return _map_named(pools, lambda n, s: _paged_leaf(n, s, mesh, pol))
+
+
+def _decode_leaf(name: str, shape: Sequence[int], mesh: MeshLike,
+                 pol: ShardPolicy) -> Spec:
+    """The reference's ``decode_state_shardings`` rule on one leaf."""
+    bt = batch_axes(mesh)
+    model = "model" if "model" in mesh_axes(mesh) else None
+    nd = len(shape)
+    entries: List[Entry] = [None] * nd
+
+    def lanes(off: int) -> None:
+        if bt and nd > off and shape[off] % _axis_size(mesh, bt) == 0:
+            entries[off] = bt
+
+    if name in ("k", "v") and nd >= 4:      # (..., B, C, KV, dh)
+        off = nd - 4
+        lanes(off)
+        if (pol.shard_cache_seq and model
+                and shape[off + 1] % _axis_size(mesh, model) == 0):
+            entries[off + 1] = model
+        elif model and shape[off + 2] % _axis_size(mesh, model) == 0:
+            entries[off + 2] = model
+        return tuple(entries)
+    if name == "ssm" and nd >= 4:           # (..., B, H, P, N)
+        off = nd - 4
+        lanes(off)
+        if model and shape[off + 1] % _axis_size(mesh, model) == 0:
+            entries[off + 1] = model
+        return tuple(entries)
+    if name == "conv" and nd >= 3:          # (..., B, K-1, C)
+        lanes(nd - 3)
+        return tuple(entries)
+    if name == "cross_kv" or (nd >= 2 and name not in ("index",)):
+        lanes(1 if nd >= 2 and shape[0] < 256 else 0)  # stacked-L heuristic
+        return tuple(entries)
+    return ()
+
+
+def decode_state_specs(state, mesh: MeshLike, pol: ShardPolicy):
+    """Per dim of each tensor of a dense-cache decode state
+    (``init_decode_state`` on one device, or its shapes on ``meta``), the
+    mesh axes it shards over: K/V caches' lanes over the batch axes and
+    their context over ``model`` (``pol.shard_cache_seq``, when it
+    divides), else their KV heads; SSM states' lanes over the batch axes
+    and heads over ``model``; the conv history's lanes only; the index
+    whole.  Not gated on ``pol.tp``.  The reference's
+    ``decode_state_shardings`` on each leaf (a stacked leaf's layer dim
+    dropped, which its rule skips by rank); the same tree with a spec for
+    each tensor."""
+    return _map_named(state, lambda n, s: _decode_leaf(n, s, mesh, pol))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeLayout:
+    """Where a sharded dense-cache decode state lies, by
+    :func:`decode_state_specs` (``ShardContext.decode_layout``): this
+    rank's lanes ``[lo, hi)`` of ``batch`` (every lane unless they split
+    over ``data``); what of each K/V cache of ``span`` slots splits over a
+    ``model`` axis of several ranks: ``"seq"`` (rank ``r`` holds slots
+    ``[r span/m, (r+1) span/m)``), ``"heads"`` (its KV heads) or None
+    (whole); whether each SSM state's heads split over it."""
+    batch: int
+    span: int
+    lanes: Tuple[int, int]
+    kv: Optional[str]
+    ssm_heads: bool
 
 
 # --------------------------------------------------------------------------
@@ -470,14 +585,16 @@ class ShardContext:
     ``launch/mesh.py::make_local_mesh``) over the whole default group, with
     gloo groups.  TP is on when ``policy.tp`` and the ``model`` axis has
     more than one rank; ``policy.seq_shard`` shards the residual stream's
-    tokens over ``model``.  Raises ValueError on another mesh or backend
-    and on a TP degree that does not split what the model has: the
-    attention heads and d_ff of a dense model, the SSM heads of a Mamba2
-    block, the shared attention block's heads of the hybrid, and the
+    tokens over ``model``.  ``serving`` places each Mamba2 ``in_proj`` under
+    TP as the rank's columns (``models/ssm.py::ssm_tp_columns``), which the
+    serving steps read without a gather.  Raises ValueError on another mesh
+    or backend and on a TP degree that does not split what the model has:
+    the attention heads and d_ff of a dense model, the SSM heads of a
+    Mamba2 block, the shared attention block's heads of the hybrid, and the
     vocabulary."""
 
     def __init__(self, cfg: ModelConfig, mesh: DeviceMesh,
-                 policy: ShardPolicy):
+                 policy: ShardPolicy, *, serving: bool = False):
         if tuple(mesh.mesh_dim_names or ()) != ("data", "model"):
             raise ValueError(f"the sharded executor runs on a ('data', "
                              f"'model') mesh; got {mesh.mesh_dim_names}")
@@ -500,6 +617,17 @@ class ShardContext:
         self.specs = param_specs(abstract, axes, policy)
         self._shapes = {n: tuple(p.shape)
                         for n, p in abstract.named_parameters()}
+        # a serving model holds each Mamba2 in_proj as the rank's columns
+        # (models/ssm.py::ssm_tp_columns), taken once when it is placed,
+        # where training gathers the rule table's shard every call
+        self.serving = serving
+        self._cut: Dict[str, List[Tuple[int, int]]] = {}
+        if serving and self.tp > 1 and cfg.arch_type in ("ssm", "hybrid"):
+            cols = ssm_tp_columns(cfg, self.tp, self.model_rank)
+            for n, shape in list(self._shapes.items()):
+                if n.endswith(".ssm.in_proj"):
+                    self._cut[n] = cols
+                    self._shapes[n] = (shape[0], sum(b - a for a, b in cols))
         self._seq = False
         self._zero: Dict[int, int] = {}
         self.traffic = Traffic()
@@ -509,7 +637,8 @@ class ShardContext:
     def _dims(self, name: str) -> Tuple[Optional[int], Optional[int]]:
         """(model dim, data dim) of a leaf, None where it is whole."""
         spec = self.specs[name]
-        mdim = next((i for i, e in enumerate(spec) if e == "model"), None)
+        mdim = (None if name in self._cut else
+                next((i for i, e in enumerate(spec) if e == "model"), None))
         ddim = next((i for i, e in enumerate(spec)
                      if isinstance(e, tuple)), None)
         return mdim, ddim
@@ -519,6 +648,8 @@ class ShardContext:
         the full one can be freed)."""
         mdim, ddim = self._dims(name)
         t = full.detach()
+        if name in self._cut:
+            t = torch.cat([t[..., a:b] for a, b in self._cut[name]], dim=-1)
         if mdim is not None:
             t = t.chunk(self.n_model, mdim)[self.model_rank]
         if ddim is not None:
@@ -552,6 +683,9 @@ class ShardContext:
     def gather_tensor(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The full leaf ``name`` from this rank's shard ``t`` (a
         parameter or its gradient); a collective of every rank."""
+        if name in self._cut:
+            raise ValueError(f"{name} is placed for serving as this rank's "
+                             "columns; the whole leaf is not its gather")
         mdim, ddim = self._dims(name)
         t = t.detach()
         if ddim is not None:
@@ -602,8 +736,12 @@ class ShardContext:
                                     self.traffic)
         gathered = {f"blk.{n}": self.w(p) for n, p in blk.named_parameters()
                     if id(p) in self._zero}
-        y = torch.func.functional_call(_Apply(fn, blk), gathered,
-                                       (x, *args), {**kwargs, "shard": self})
+        if gathered:
+            y = torch.func.functional_call(_Apply(fn, blk), gathered,
+                                           (x, *args),
+                                           {**kwargs, "shard": self})
+        else:
+            y = fn(blk, x, *args, **kwargs, shard=self)
         if self._seq:
             y = _KeepSlice.apply(y, self.model, self.model_rank, 1,
                                  self.traffic)
@@ -717,6 +855,84 @@ class ShardContext:
         mask = (labels != ignore_id).float()
         count = all_reduce(mask.sum().detach(), self.data, self.traffic)
         return (tok * mask).sum() / count.clamp_min(1.0)
+
+    # ---- what the serving steps call ------------------------------------
+
+    def lane_range(self, batch: int) -> Tuple[int, int]:
+        """This rank's lanes ``[lo, hi)`` of ``batch``: its ``data`` share
+        when the batch axes split it (the rule of :func:`batch_specs` and
+        :func:`decode_state_specs`), else every lane."""
+        if self.n_data == 1 or batch % self.n_data:
+            return 0, batch
+        b = batch // self.n_data
+        return self.data_rank * b, (self.data_rank + 1) * b
+
+    def decode_layout(self, batch: int, span: int) -> DecodeLayout:
+        """The :class:`DecodeLayout` of ``batch`` lanes of K/V caches of
+        ``span`` slots (and SSM states), by :func:`decode_state_specs`."""
+        cfg, axes = self.cfg, mesh_axes(self.mesh)
+        k = _decode_leaf("k", (batch, span, max(cfg.n_kv_heads, 1), 1),
+                         axes, self.policy)
+        ssm = _decode_leaf("ssm", (batch, max(cfg.ssm_heads, 1), 1, 1),
+                           axes, self.policy)
+        kv = (None if self.n_model == 1 else "seq" if k[1] == "model"
+              else "heads" if k[2] == "model" else None)
+        return DecodeLayout(batch, span, self.lane_range(batch), kv,
+                            self.n_model > 1 and ssm[1] == "model")
+
+    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ``model`` ranks' ``x`` concatenated along ``dim``."""
+        return all_gather_dim(x, self.model, dim % x.dim(), self.traffic)
+
+    def gather_lanes(self, x: torch.Tensor, batch: int) -> torch.Tensor:
+        """Every lane's rows of ``x`` (this rank's :meth:`lane_range` of
+        ``batch`` along dim 0), gathered over ``data`` when split."""
+        lo, hi = self.lane_range(batch)
+        if hi - lo == batch:
+            return x
+        return all_gather_dim(x, self.data, 0, self.traffic)
+
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Whole rows of logits from the rank's vocabulary columns under
+        TP (``torch.argmax`` on them breaks ties to the lowest index, as
+        one process does, whatever the TP degree)."""
+        if self.tp == 1:
+            return logits
+        return self.gather_model(logits, -1)
+
+    def merge_context(self, out: torch.Tensor, lse: torch.Tensor
+                      ) -> torch.Tensor:
+        """Attention over a cache whose slots split over ``model`` from
+        each rank's part over its slots: ``out`` (B,S,H,dh) and its row
+        log-sum-exp ``lse`` (B,S,H) fp32, ``+inf`` where the rank holds
+        no admissible key (such a part weighs 0).  The parts are gathered,
+        rescaled by ``exp(lse - max)`` and summed in fp32 in rank order,
+        then divided and rounded once to ``out``'s dtype: every rank holds
+        the same bits.  A row with no key on any rank gives zeros (the
+        kernel's semantics)."""
+        if self.n_model == 1:
+            return out
+        parts = self.gather_model(
+            torch.cat([out.float(), lse[..., None]], -1)[None], 0)
+        outs, lses = parts[..., :-1], parts[..., -1]
+        lses = lses.masked_fill(lses == float("inf"), float("-inf"))
+        top = lses.amax(0)
+        top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+        w = torch.exp(lses - top)
+        num = w[0, ..., None] * outs[0].float()
+        den = w[0].clone()
+        for j in range(1, outs.shape[0]):
+            num += w[j, ..., None] * outs[j].float()
+            den += w[j]
+        merged = num / den.clamp_min(torch.finfo(den.dtype).tiny)[..., None]
+        return merged.masked_fill((den == 0)[..., None], 0.0).to(out.dtype)
+
+    def host_value(self, x: float) -> float:
+        """Rank 0's ``x`` on every rank: a host decision (the serving
+        engine's clock) that every rank must take alike."""
+        t = torch.tensor([x], dtype=torch.float64)
+        dist.broadcast(t, src=0)
+        return float(t.item())
 
     # ---- the step's pieces ------------------------------------------------
 

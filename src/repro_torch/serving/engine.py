@@ -12,6 +12,11 @@ host-side orchestration around two device steps (``runtime/executor.py``),
 Queued requests are admitted in arrival order, prefilled chunk by chunk
 between decode rounds and dropped into free decode lanes; slots are recycled
 as requests finish and their pages return to the pool.  Tokens are greedy.
+
+Given a ``("data", "model")`` mesh, every rank runs the engine on the same
+requests: the steps are sharded (``runtime/executor.py``; under TP each
+pool holds the rank's KV heads) and return the same logits on every rank,
+and every host decision is taken alike: admission reads rank 0's clock.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Deque, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
@@ -29,6 +35,7 @@ from repro_torch.models.transformer import (LM, init_paged_state,
                                             supports_paged_decode)
 from repro_torch.runtime.executor import (make_paged_decode_step,
                                           make_paged_prefill_step)
+from repro_torch.runtime.sharding import ShardPolicy
 
 from .metrics import RequestMetrics, ServeMetrics
 from .page_table import PageManager, PageState
@@ -74,10 +81,16 @@ class ServingEngine:
     """Greedy continuous-batching server for dense decoder LMs.
 
     ``params`` must lie on ``device``; pools and the page table are made
-    there."""
+    there.  With a ``mesh`` every rank of it builds the engine and runs the
+    same requests under ``policy`` (the reference's default
+    ``ShardPolicy(tp=False, zero=False)``), its ``params`` its shards
+    (``runtime/executor.py::init_serving_params``); raises ValueError as
+    ``ShardContext`` does."""
 
     def __init__(self, cfg: ModelConfig, params: LM, ecfg: EngineConfig, *,
-                 device: torch.device = "cuda"):
+                 device: torch.device = "cuda",
+                 mesh: Optional[DeviceMesh] = None,
+                 policy: Optional[ShardPolicy] = None):
         if not supports_paged_decode(cfg):
             raise NotImplementedError(
                 f"paged serving does not support arch_type={cfg.arch_type!r}")
@@ -93,10 +106,12 @@ class ServingEngine:
                               page_size=ecfg.page_size,
                               pages_per_slot=ecfg.pages_per_slot,
                               device=self.device)
-        self._decode = make_paged_decode_step(cfg)
-        self._prefill = make_paged_prefill_step(cfg)
+        self._decode = make_paged_decode_step(cfg, mesh=mesh, policy=policy)
+        self._prefill = make_paged_prefill_step(cfg, mesh=mesh,
+                                                policy=policy)
+        self.shard = self._decode.shard
         self.pools = init_paged_state(cfg, ecfg.n_pages, ecfg.page_size,
-                                      device=self.device)
+                                      device=self.device, shard=self.shard)
         self.state: PageState = self.pm.init()
         self.metrics = ServeMetrics()
         # host-side per-slot bookkeeping
@@ -235,12 +250,15 @@ class ServingEngine:
 
         Requests are admitted in arrival order as lanes and pages free up;
         ``arrival_s`` is honored against the engine's wall clock (a request
-        "arriving later" than the current elapsed time stays queued)."""
+        "arriving later" than the current elapsed time stays queued); on a
+        mesh, against rank 0's, so that every rank admits alike."""
         t0 = time.perf_counter()
         queue: Deque[ServeRequest] = deque(
             sorted(requests, key=lambda r: r.arrival_s))
         while queue or bool(self.state.active.any()):
             now = time.perf_counter() - t0
+            if self.shard is not None:
+                now = self.shard.host_value(now)
             slots = self._admit_batch(queue, now)
             if slots:
                 self._prefill_admitted(slots, t0)
