@@ -124,7 +124,8 @@ Phases (any failure exits non-zero before the final line is printed):
    launches once a layer a step; one decode step at mixed positions is
    timed and profiled, and each of its 36 flash launches must read its
    layer's cache in place, non-causal with a kv_len; then one request of
-   2040 + 32 tokens on one lane of the 2048-token cache, which wraps;
+   2040 + 32 tokens on one lane of the 2048-token cache, which wraps, on
+   the model's first ``WRAP_LAYERS`` (4) layers;
    printed: step wall ms, device busy ms, kernels and flash launches a
    step, plain calls, tok/s, KV-cache bytes and peak memory; (c) reduced
    fp32 qwen3-4b through ``serve`` on the card and on the CPU from the same
@@ -300,6 +301,36 @@ Phases (any failure exits non-zero before the final line is printed):
    decode step wall and busy ms, the bytes it sends through gloo, its
    peak memory beside its pools' or caches' bytes, and tok/s are printed.
    The 4 ranks share one card: no time here is sharded serving's speed.
+19. mixture-of-experts: arctic-480b at full width (d 7168, 56 query and 8
+   KV heads, 128 experts of d_ff 4864, top-2, a dense residual branch;
+   random bf16 weights from seed 0, each expert drawn apart), depth cut
+   from 35 to ``MOE_LAYERS`` (2: 55.4 GB), in this process right after
+   phase 3: (a) the paged engine on phase 3's geometry and requests, twice:
+   every request completes, the flash forward and RMSNorm launch as many
+   times as the decode steps and prefill chunks ask, no plain version
+   runs, and the second run gives the same tokens and the same bits of the
+   first decode step's logits; a decode step's wall and busy ms, device ms
+   by category and kernels are printed beside its bound (every weight read
+   once), with tok/s and peak memory; (b) the dense-cache engine:
+   ``make_serve_step`` against ``make_prefill_step`` on 2 lanes of 256
+   tokens at the check-only capacity where nothing drops
+   (``capacity_factor`` E / top_k), gated at ``MOE_DECODE_VS_PREFILL_TOL``
+   on the positions whose top-k experts agree at every layer (the
+   routings that differ are counted), the pairs the prefill drops at the
+   config's capacity factor printed, then in fp32 at ``MOE_FP32_LAYERS``
+   layer after the bf16 model is freed (64 tokens, ``REL_TOL``), and
+   ``serve`` of ``MOE_DENSE_REQUESTS`` requests on 8 lanes of 2048 tokens:
+   every one completes, the flash forward once a layer a step; (c) one
+   full-width MoE layer on a prefill chunk (4 x 128) and a decode batch (8
+   x 1): the sort, einsum and grouped dispatches within
+   ``MOE_DISPATCH_TOL`` of the largest output, the same kept (row, token,
+   expert) pairs, sort's and einsum's aux equal; (d) reduced fp32
+   arctic-480b and kimi-k2-1t-a32b (16 experts: top-8, a shared expert, a
+   dense first layer) on the card and the CPU from the same weights: the
+   paged engine's and ``serve``'s greedy tokens identical, 3 steps of
+   ``launch/train.py`` within ``TRAIN_LOSS_RTOL``; and kimi-k2's dh 112
+   attention at full width refused by the flash wrapper (no plain
+   attention on the card).
 
 Phase 2 also holds the kernels at phase 17's TP-local shapes against
 their plain versions, and phase 7 times the SSD scan at a rank's mamba2
@@ -309,18 +340,23 @@ forward's row log-sum-exp against its plain version at phase 18's
 shapes (a rank's context slice: 4 lanes, T 1024, H 32, KV 8, dh 128,
 kv_len 0 to 1024; the TP-local paged decode: 8 lanes, T 512, H 16, KV
 4), the rows with no admissible key ``+inf``, and phase 7 times both.
+Phase 2 also holds the flash forward at arctic-480b's heads (H 56, KV
+8, dh 128, a GQA group of 7) at phase 19's shapes (the paged decode and
+prefill, the dense engine's decode over 2048 slots, the causal prefill of
+2 x 256) in bf16 and fp32, and RMSNorm at 8 x 7168 and 512 x 7168; phase
+7 times the paged decode and prefill and both RMSNorm shapes.
 Phase 7 also times the flash forward and backward at the dense training
 shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
-The phases run in the order 1, 2, 7, 3, 4, 5, 14, 6, 9, 10, 11, 12, 13,
-15, 16, 17, 18, 8: phase 7
+The phases run in the order 1, 2, 7, 3, 19, 4, 5, 14, 6, 9, 10, 11, 12,
+13, 15, 16, 17, 18, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
 seconds are printed before the final lines.
 
-``python3 chip_smoke.py --phases 2,18`` runs phase 1 and the listed
+``python3 chip_smoke.py --phases 2,19`` runs phase 1 and the listed
 phases in the order above (a phase that needs an earlier one's results
 runs only with it) and prints no ``kernels`` line.
 
@@ -410,9 +446,13 @@ WITNESS_LR, WITNESS_STEPS = 3e-4, 4
 # the dense-cache engine of phase 11 at full-width qwen3-4b: 8 lanes of a
 # 2048-token cache, 16 requests with prompts of 16-128 tokens and 32 new
 # tokens each; then one request of 2040 + 32 tokens on one lane, which
-# wraps the cache (its prompt fed a token a step: 2071 steps)
+# wraps the cache (its prompt fed a token a step: 2071 steps), on the
+# model's first WRAP_LAYERS layers: at 36 layers the request took 110 s
+# of the script's time (NVIDIA H100 80GB HBM3, 700 W), and the wrap is a
+# cache's, the same in every layer (depth cut since the MoE slice)
 DENSE_SERVE_LANES, DENSE_SERVE_CONTEXT = 8, 2048
 DENSE_SERVE_REQUESTS, DENSE_SERVE_NEW = 16, 32
+WRAP_LAYERS = 4
 # decode against prefill, bf16 at 36 layers: 2 lanes of 256 tokens; at each
 # position the largest |difference| of the logits over the largest
 # |logit| of the prefill.  The two paths round differently (decode's
@@ -559,6 +599,37 @@ SS_CLI_REQUESTS, SS_CLI_CONTEXT = 12, 256
 # in the rounding (0.38 for mamba2 there)
 SS_LOGIT_TOL = {"bfloat16": 1e-1, "float32": REL_TOL["float32"]}
 SS_SSM_BF16_TOL = None
+# phase 19, mixture-of-experts: arctic-480b (hf:Snowflake/snowflake-arctic-
+# base) at full width (d 7168, 56 query and 8 KV heads of dh 128, 128
+# experts of d_ff 4864, top-2, a dense residual branch of 4864), depth cut
+# from 35 to MOE_LAYERS: one layer holds 13.61 B parameters (27.2 GB in
+# bf16), two with the embedding and head 55.4 GB, three would not fit the
+# card.  (a) serves phase 3's geometry and requests; (b) the dense-cache
+# engine on MOE_DENSE_LANES lanes of DENSE_SERVE_CONTEXT tokens,
+# MOE_DENSE_REQUESTS requests of 16-64 prompt tokens and MOE_DENSE_NEW new
+# ones
+MOE_ARCH, MOE_LAYERS, ARCTIC_HEADS = "arctic-480b", 2, (56, 8, 128)
+MOE_DENSE_LANES, MOE_DENSE_REQUESTS, MOE_DENSE_NEW = 8, 10, 16
+# decode against prefill needs a capacity at which no (token, choice)
+# pair drops (check-only: capacity_factor E / top_k makes C = T); a decode
+# group is one token (C = top_k: nothing drops), a prefill group of 256
+# tokens at arctic's capacity_factor 1.25 has C = 5 against a mean load of
+# 4.  bf16 noise near a top-k tie can route one hidden state to other
+# experts in the two paths: the gate holds the positions whose routing
+# agrees at every layer, at phase 11's tolerance, and the flips are
+# counted; fp32 at MOE_FP32_LAYERS layer(s) and DECODE_VS_PREFILL_T_FP32
+# tokens at REL_TOL
+MOE_DECODE_VS_PREFILL_TOL = DECODE_VS_PREFILL_TOL
+MOE_FP32_LAYERS = 1
+# (c) the three dispatches of one full-width MoE layer agree within this
+# of the largest output (sort and grouped run the same products on the
+# same buffers; einsum combines in one fp32 sum where sort adds rounded
+# bf16 terms)
+MOE_DISPATCH_TOL = REL_TOL["bfloat16"]
+# (d) reduced fp32 card vs CPU: arctic-480b's default reduction (4
+# experts, top-2) and kimi-k2-1t-a32b's at 16 experts (top-8, a shared
+# expert, its first layer dense)
+MOE_REDUCED = (("arctic-480b", {}), ("kimi-k2-1t-a32b", {"n_experts": 16}))
 
 
 def log(msg: str) -> None:
@@ -882,6 +953,24 @@ def lse_flash_cases():
              128, dict(q_offset=_i32([0, 5, 100, 255, 256, 511, -1, 37])))]
 
 
+def arctic_flash_cases():
+    """(name, B, S, T, kwargs) of phase 19 at arctic-480b's heads (H 56,
+    KV 8, dh 128: a GQA group of 7): the paged decode (8 lanes, T 512) and
+    prefill (4 x 128 at base 256), the dense engine's decode over a
+    2048-token cache and the causal prefill of 2 x 256 tokens."""
+    return [("arctic decode", DECODE_SLOTS, 1, MAX_CONTEXT,
+             dict(q_offset=_i32([0, 5, 100, 255, 256, 511, -1, 37]))),
+            ("arctic prefill base 256", PREFILL_BATCH, PREFILL_CHUNK,
+             MAX_CONTEXT, dict(q_offset=_i32([256] * PREFILL_BATCH),
+                               kv_len=_i32([384, 300, 260, 0]))),
+            ("arctic dense decode", DECODE_SLOTS, 1, DENSE_SERVE_CONTEXT,
+             dict(causal=False, kv_len=_i32(
+                 [1, 2, 63, 64, 65, 1000, DENSE_SERVE_CONTEXT - 1,
+                  DENSE_SERVE_CONTEXT]))),
+            ("arctic prefill 2 x 256", DECODE_VS_PREFILL_LANES,
+             DECODE_VS_PREFILL_T, DECODE_VS_PREFILL_T, {})]
+
+
 def phase_kernels():
     import torch
     from repro_torch.kernels import ref
@@ -901,6 +990,9 @@ def phase_kernels():
         # phase 17: zamba2's shared block at its TP-local heads
         cases.append(("zamba2 TP-local", SSMTP_LOCAL_BATCH, SSMTP_SEQ,
                       SSMTP_SEQ, *ZAMBA2_TP_HEADS, {}))
+        # phase 19: arctic-480b's GQA group of 7
+        cases += [(name, B, S, T, *ARCTIC_HEADS, kw)
+                  for name, B, S, T, kw in arctic_flash_cases()]
         for name, B, S, T, H, KV, dh, kw in cases:
             q = torch.randn(B, S, H, dh, generator=g, device="cuda").to(dt)
             k = torch.randn(B, T, KV, dh, generator=g, device="cuda").to(dt)
@@ -955,7 +1047,10 @@ def phase_kernels():
                       (DECODE_SLOTS, 4096),
                       (TRAIN_BATCH * TRAIN_SEQ, 1024),
                       (TRAIN_BATCH * TRAIN_SEQ, 2048),
-                      (SP_LOCAL * 32, 128), (SP_LOCAL * 8, 128)]:
+                      (SP_LOCAL * 32, 128), (SP_LOCAL * 8, 128),
+                      # phase 19: arctic-480b's decode and prefill rows
+                      (DECODE_SLOTS, 7168),
+                      (PREFILL_BATCH * PREFILL_CHUNK, 7168)]:
             x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dt)
             w = torch.randn(shape[-1], generator=g, device="cuda").to(dt)
             check_rmsnorm(x, w, dtype, str(shape), errs)
@@ -2383,7 +2478,7 @@ def phase_dense_serve():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Request, serve
-    from repro_torch.models import init_lm
+    from repro_torch.models import LM, init_lm
 
     # (a) in fp32 first, as a witness that bf16's distance is rounding
     cfg = get_config("qwen3-4b").with_(dtype=torch.float32)
@@ -2435,13 +2530,17 @@ def phase_dense_serve():
                 * torch.finfo(cfg.dtype).bits // 8)
     step = _dense_decode_step(cfg, params)
 
-    # the wrap: one request whose prompt and new tokens pass the context
+    # the wrap: one request whose prompt and new tokens pass the context,
+    # on the first WRAP_LAYERS layers
     wrap = Request(0, rng.integers(0, cfg.vocab_size,
                                    context - 8).tolist(), DENSE_SERVE_NEW)
+    shallow = LM(params.embed, list(params.blocks[:WRAP_LAYERS]),
+                 params.final_norm, params.head)
     t0 = time.perf_counter()
-    serve(cfg, [wrap], 1, context, verbose=False, device="cuda",
-          params=params)
+    serve(cfg.with_(n_layers=WRAP_LAYERS), [wrap], 1, context,
+          verbose=False, device="cuda", params=shallow)
     wrap_s = time.perf_counter() - t0
+    del shallow
     check(wrap.done and len(wrap.generated) == DENSE_SERVE_NEW
           and all(0 <= t < cfg.vocab_size for t in wrap.generated),
           f"the wrapping request gave {wrap.generated}")
@@ -2455,7 +2554,7 @@ def phase_dense_serve():
         "plain_calls": sum(plain.values()), "kv_cache_bytes": kv_bytes,
         "peak_mem_gb": peak_gb,
         "wrap": f"{len(wrap.prompt)} + {DENSE_SERVE_NEW} tokens on one lane "
-                f"of {context} in {wrap_s:.2f} s",
+                f"of {context} at {WRAP_LAYERS} layers in {wrap_s:.2f} s",
     }
     log("[dense-serve] (b) " + json.dumps(result))
     del params
@@ -5019,6 +5118,485 @@ def phase_serve_shard():
 
 
 # ---------------------------------------------------------------------------
+# phase 19: mixture-of-experts, full-width arctic-480b served on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Check-only: every ``models/moe.py::_route`` call's top-k experts
+    (sorted along k) while the block runs, in call order."""
+    from repro_torch.models import moe as moe_mod
+
+    routes, real = [], moe_mod._route
+
+    def recording(p, xf, cfg):
+        out = real(p, xf, cfg)
+        routes.append(out[1].sort(dim=-1).values.clone())
+        return out
+
+    moe_mod._route = recording
+    try:
+        yield routes
+    finally:
+        moe_mod._route = real
+
+
+def _moe_cfg(dtype="bfloat16", layers=MOE_LAYERS):
+    import torch
+    from repro_torch.configs import get_config
+    return get_config(MOE_ARCH).with_(n_layers=layers,
+                                      dtype=getattr(torch, dtype))
+
+
+def _moe_init(cfg):
+    import torch
+    from repro_torch.models import init_lm
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[moe] {cfg.name} at full width, {cfg.n_layers} of 35 layers, "
+        f"{str(cfg.dtype).replace('torch.', '')}: "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B params, "
+        f"{sum(p.nbytes for p in params.parameters()) / 1e9:.2f} GB, drawn "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def _free_cuda():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _moe_decode_bound(cfg, params):
+    """The least time of phase 3's decode step (8 lanes at 300 positions)
+    on this model: every weight read once (the embedding's 8 rows), the
+    K/V read and the new token's written; or its operations: each expert
+    on its whole capacity buffer (8 groups of C = top_k rows), every other
+    weight on 8 rows, QK and PV over 301 keys.  Returns (GB, ms, by)."""
+    from repro_torch.models.moe import _capacity
+    experts = sum(p.numel() for n, p in params.named_parameters()
+                  if n.split(".")[-1] in ("w_gate", "w_up", "w_down")
+                  and ".moe." in n and ".moe.shared." not in n
+                  and ".moe.dense_residual." not in n)
+    other = sum(p.numel() for n, p in params.named_parameters()
+                if n != "embed") - experts
+    keys = 301
+    kv = cfg.n_layers * DECODE_SLOTS * keys * 2 * cfg.n_kv_heads * cfg.dh
+    n_bytes = 2 * (experts + other + kv + DECODE_SLOTS * cfg.d_model)
+    rows = DECODE_SLOTS * _capacity(1, cfg)
+    n_ops = (2 * rows * experts + 2 * DECODE_SLOTS * other
+             + 4 * cfg.n_layers * DECODE_SLOTS * keys * cfg.n_heads * cfg.dh)
+    return (n_bytes / 1e9, *_bound_ms(n_bytes, n_ops, "bfloat16"))
+
+
+def _moe_paged(cfg, params):
+    """(a) Phase 3's requests through the paged engine, twice: every
+    request completes, the flash forward and RMSNorm launch at the counts a
+    decode step and a prefill chunk give, no plain version runs, and the
+    second run gives the same tokens and the same bits of the first decode
+    step's logits.  Then a decode step timed and profiled beside its
+    bound (every weight read once)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.serving import EngineConfig, ServeRequest, ServingEngine
+
+    ecfg = EngineConfig(page_size=PAGE_SIZE,
+                        n_pages=DECODE_SLOTS * MAX_CONTEXT // PAGE_SIZE,
+                        decode_slots=DECODE_SLOTS, max_context=MAX_CONTEXT,
+                        prefill_batch=PREFILL_BATCH,
+                        prefill_chunk=PREFILL_CHUNK)
+    ServingEngine(cfg, params, ecfg, device="cuda").run(
+        [ServeRequest(rid="warmup", prompt=list(range(1, 150)), max_new=3)])
+
+    def requests():
+        rng = np.random.default_rng(0)
+        return [ServeRequest(rid=f"r{i}",
+                             prompt=rng.integers(0, cfg.vocab_size,
+                                                 int(rng.integers(33, 401))
+                                                 ).tolist(),
+                             max_new=int(rng.integers(16, 33)))
+                for i in range(12)]
+
+    def one_run():
+        engine = ServingEngine(cfg, params, ecfg, device="cuda")
+        first, real = [], engine._decode
+
+        def recording(*args):
+            out = real(*args)
+            if not first:
+                first.append(out.clone())
+            return out
+
+        engine._decode = recording
+        reqs = requests()
+        torch.cuda.synchronize()
+        counts = _zero_counts()
+        with plain_calls() as plain:
+            metrics = engine.run(reqs)
+            torch.cuda.synchronize()
+        engine._decode = real
+        return engine, reqs, metrics.summary(), counts(), plain, first[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    engine, reqs, summ, launches, plain, first = one_run()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in reqs:
+        check(r.done and len(r.tokens) == r.max_new
+              and all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"moe request {r.rid}: {r.tokens} of {r.max_new}")
+    check(summ["completed"] == len(reqs), f"completed {summ['completed']}")
+    check(not plain, f"the MoE paged engine called plain versions: {plain}")
+
+    P = ecfg.pages_per_slot
+    rows = torch.arange(DECODE_SLOTS * P, dtype=torch.int32,
+                        device="cuda").reshape(DECODE_SLOTS, P)
+    tok = torch.arange(1, DECODE_SLOTS + 1, dtype=torch.int32, device="cuda")
+    lens = torch.full((DECODE_SLOTS,), 300, dtype=torch.int32, device="cuda")
+    ptok = torch.zeros(PREFILL_BATCH, PREFILL_CHUNK, dtype=torch.int32,
+                       device="cuda")
+    plen = torch.full((PREFILL_BATCH,), 400, dtype=torch.int32,
+                      device="cuda")
+
+    def decode():
+        return engine._decode(params, engine.pools, tok, rows, lens)
+
+    def prefill():
+        return engine._prefill(params, engine.pools, ptok,
+                               rows[:PREFILL_BATCH], 256, plen)
+
+    def per_call(step):
+        before = (flash_attention_cuda.launches, rmsnorm_cuda.launches)
+        out = step()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "MoE logits not finite")
+        return (flash_attention_cuda.launches - before[0],
+                rmsnorm_cuda.launches - before[1])
+
+    per_decode, per_prefill = per_call(decode), per_call(prefill)
+    calls = (summ["decode_steps"], summ["prefill_chunks"])
+    for i, name in enumerate(("flash_attention", "rmsnorm")):
+        want = per_decode[i] * calls[0] + per_prefill[i] * calls[1]
+        check(launches[name] == want and launches[name] > 0,
+              f"the MoE paged run launched {name} {launches[name]} times, "
+              f"not {want}")
+    check(per_decode[0] == per_prefill[0] == cfg.n_layers,
+          f"flash launches a decode step / prefill chunk: {per_decode[0]}, "
+          f"{per_prefill[0]}, not {cfg.n_layers}")
+    _, reqs2, _, _, _, first2 = one_run()
+    same_tokens = [r.tokens for r in reqs2] == [r.tokens for r in reqs]
+    same_bits = torch.equal(first2, first)
+    log(f"[moe] (a) second run: the same tokens {same_tokens}, the first "
+        f"decode step's logits the same bits {same_bits}")
+    check(same_tokens and same_bits, "the MoE serving forward is not "
+          "deterministic run to run")
+
+    ms = cuda_ms(decode, iters=10)
+    busy, kernels, cats = profile_step("moe paged decode", decode, ms)
+    prefill_ms = cuda_ms(prefill, iters=5, warmup=1)
+    bound_gb, bound, by = _moe_decode_bound(cfg, params)
+    result = {
+        "requests": summ["completed"], "new_tokens": summ["new_tokens"],
+        "decode_steps": summ["decode_steps"],
+        "prefill_chunks": summ["prefill_chunks"], "wall_s": summ["wall_s"],
+        "tok_per_s": summ["tok_per_s"], "ttft_ms_p50": summ["ttft_ms_p50"],
+        "decode_step_ms": ms, "decode_busy_ms": busy,
+        "decode_bound_ms": bound, "decode_bound_by": by,
+        "decode_bound_gb": bound_gb,
+        "decode_device_ms_by_category": cats, "kernels_per_step": kernels,
+        "prefill_chunk_ms": prefill_ms, "peak_mem_gb": peak_gb,
+        "launches_per_decode_step": dict(zip(("flash_attention", "rmsnorm"),
+                                             per_decode)),
+        "launches_per_prefill_chunk": dict(zip(
+            ("flash_attention", "rmsnorm"), per_prefill)),
+    }
+    log("[moe] (a) paged " + json.dumps(result))
+    return launches
+
+
+def _moe_decode_vs_prefill(cfg, params, T, tol, tag):
+    """make_serve_step's logits at every position of 2 lanes of T random
+    tokens against make_prefill_step's, at the check-only capacity where
+    nothing drops; positions whose routing differs at some layer between
+    the two (bf16 noise near a top-k tie) are counted and left out of the
+    gate.  Returns (worst, flips, the prefill's routes)."""
+    import torch
+    from repro_torch.models import init_decode_state
+    from repro_torch.runtime.executor import make_prefill_step, make_serve_step
+
+    cfg = cfg.with_(capacity_factor=cfg.n_experts / cfg.top_k)
+    B = DECODE_VS_PREFILL_LANES
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                         device="cuda", dtype=torch.int32)
+    with recorded_routes() as pre:
+        full = make_prefill_step(cfg)(params, {"tokens": toks}).float()
+    step = make_serve_step(cfg)
+    state = init_decode_state(cfg, B, T, device="cuda")
+    errs = []
+    with recorded_routes() as dec:
+        for t in range(T):
+            logits, state = step(params, state, toks[:, t])
+            want = full[:, t]
+            errs.append((logits.float() - want).abs().amax(-1)
+                        / want.abs().amax(-1))
+    errs = torch.stack(errs, 1).cpu()                          # (B, T)
+    L = len(pre)
+    dec = torch.stack([torch.cat(dec[li::L], 1) for li in range(L)])
+    pre = torch.stack(pre)                                     # (L,B,T,k)
+    agree = (dec == pre).all(-1).all(0).cpu()                  # (B, T)
+    flips = int((dec != pre).any(-1).sum())
+    check(bool(torch.isfinite(full).all()), "MoE prefill not finite")
+    check(bool(agree.any()), "no position's routing agrees")
+    at = divmod(int(errs.masked_fill(~agree, -1).argmax()), T)
+    worst = errs[agree].max().item()
+    what = str(cfg.dtype).replace("torch.", "")
+    log(f"{tag} decode vs prefill, {cfg.name} at {cfg.n_layers} layers, "
+        f"{B} x {T} tokens, {what}, capacity_factor "
+        f"{cfg.capacity_factor:g} (nothing drops): {flips} (layer, token) "
+        f"routings differ, {int((~agree).sum())} positions left out; over "
+        f"the rest max |diff| / max |logit| worst {worst:.3e} at (lane, t) "
+        f"{at}, mean {errs[agree].mean().item():.3e}; over all positions "
+        f"worst {errs.max().item():.3e} (tol {tol:.0e})")
+    check(worst <= tol, f"{cfg.name} {what} decode and prefill logits "
+          f"differ by {worst} of the largest where the routing agrees")
+    return toks
+
+
+def _moe_drops(cfg, params, toks):
+    """make_prefill_step at the config's capacity_factor on the same
+    tokens: how many (token, choice) pairs each layer drops."""
+    import torch
+    from repro_torch.models.moe import _capacity
+    from repro_torch.runtime.executor import make_prefill_step
+
+    with recorded_routes() as routes:
+        logits = make_prefill_step(cfg)(params, {"tokens": toks})
+    check(bool(torch.isfinite(logits).all()), "MoE prefill not finite")
+    T = toks.shape[1]
+    C = _capacity(T, cfg)
+    drops = []
+    for topi in routes:                                        # (B, T, k)
+        counts = torch.nn.functional.one_hot(
+            topi.flatten(1), cfg.n_experts).sum(1)             # (B, E)
+        drops.append(int((counts - C).clamp_min(0).sum()))
+    pairs = toks.numel() * cfg.top_k
+    log(f"[moe] (b) prefill of {tuple(toks.shape)} at capacity_factor "
+        f"{cfg.capacity_factor:g} (C = {C}): dropped (token, choice) pairs "
+        f"by layer {drops} of {pairs} each")
+    return drops
+
+
+def _moe_dense_serve(cfg, params):
+    """(b) serve on MOE_DENSE_LANES lanes of a DENSE_SERVE_CONTEXT-token
+    cache: every request completes, the flash forward launches once a layer
+    a step, no plain version runs."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import Request, serve
+
+    rng = np.random.default_rng(5)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                    int(rng.integers(16, 65))).tolist(),
+                    MOE_DENSE_NEW) for i in range(MOE_DENSE_REQUESTS)]
+    counts = _zero_counts()
+    with counted_serve_steps() as steps, plain_calls() as plain:
+        t0 = time.perf_counter()
+        serve(cfg, reqs, MOE_DENSE_LANES, DENSE_SERVE_CONTEXT, verbose=False,
+              device="cuda", params=params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counts()
+    for r in reqs:
+        check(r.done and len(r.generated) == MOE_DENSE_NEW
+              and all(0 <= t < cfg.vocab_size for t in r.generated),
+              f"moe dense request {r.rid}: {r.generated}")
+    check(not plain, f"the MoE dense engine called plain versions: {plain}")
+    n = steps["n"]
+    check(launches["flash_attention"] == cfg.n_layers * n,
+          f"{launches['flash_attention']} flash launches in {n} steps")
+    new = sum(len(r.generated) for r in reqs)
+    log(f"[moe] (b) serve: {len(reqs)} requests on {MOE_DENSE_LANES} lanes "
+        f"of {DENSE_SERVE_CONTEXT}, {new} tokens in {wall:.2f} s "
+        f"({new / wall:.1f} tok/s, {n} steps, {1e3 * wall / n:.2f} ms a "
+        f"step); launches {launches}")
+    return launches
+
+
+def _moe_dispatch_identity(params, cfg):
+    """(c) One full-width MoE layer on a prefill chunk and a decode batch:
+    sort, einsum and grouped agree within MOE_DISPATCH_TOL of the largest
+    output and keep the same (row, token, expert) pairs; sort's and
+    einsum's aux the same."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+
+    moe = params.blocks[0].moe
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for name, (G, T) in (("prefill", (PREFILL_BATCH, PREFILL_CHUNK)),
+                         ("decode", (DECODE_SLOTS, 1))):
+        x = torch.randn(G, T, cfg.d_model, generator=g,
+                        device="cuda").to(cfg.dtype)
+        # a token's signature: its row's sum in float64, unique here
+        sig = {round(v, 6): (gi, t) for gi, row in enumerate(
+            x.double().sum(-1).tolist()) for t, v in enumerate(row)}
+        check(len(sig) == G * T, "token signatures collide")
+        out, kept = {}, {}
+        for dispatch in ("sort", "einsum", "grouped"):
+            bufs, real = [], moe_mod._experts
+            moe_mod._experts = lambda p, h: (bufs.append(h), real(p, h))[1]
+            try:
+                with torch.inference_mode():
+                    out[dispatch] = moe_mod.moe_ffn(moe, x, cfg,
+                                                    dispatch=dispatch)
+            finally:
+                moe_mod._experts = real
+            (h,) = bufs
+            E = cfg.n_experts
+            h = h.reshape(E, G, -1, cfg.d_model)
+            rows = h.double().sum(-1).cpu()                    # (E, G, C)
+            full = h.abs().amax(-1) > 0
+            kept[dispatch] = {(*sig[round(rows[e, gi, c].item(), 6)], e)
+                              for e, gi, c in full.nonzero().tolist()}
+        ref = out["sort"][0].float()
+        errs = {d: ((o.float() - ref).abs().max() / ref.abs().max()).item()
+                for d, (o, _) in out.items()}
+        same_pairs = kept["sort"] == kept["einsum"] == kept["grouped"]
+        aux = {d: a.item() for d, (_, a) in out.items()}
+        log(f"[moe] (c) {name} {G} x {T}: max |diff| / max |out| against "
+            f"sort: {errs} (tol {MOE_DISPATCH_TOL:.0e}); {len(kept['sort'])} "
+            f"kept pairs of {G * T * cfg.top_k}, the same in all three "
+            f"{same_pairs}; aux {aux}")
+        check(max(errs.values()) <= MOE_DISPATCH_TOL and same_pairs
+              and aux["sort"] == aux["einsum"],
+              f"the MoE dispatches disagree at {name}")
+
+
+def _moe_cpu_vs_card():
+    """(d) Reduced fp32 arctic-480b and kimi-k2-1t-a32b on the card and on
+    the CPU from the same weights: the paged engine's and serve's greedy
+    tokens identical, and 3 steps of train's losses within
+    TRAIN_LOSS_RTOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.serve import Request, serve
+    from repro_torch.models import init_lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.serving import EngineConfig, ServeRequest, ServingEngine
+
+    counts = _zero_counts()
+    for arch, kw in MOE_REDUCED:
+        cfg = get_config(arch).reduced(**kw).with_(dtype=torch.float32)
+        params_cpu = init_lm(cfg, seed=0, device="cpu")
+        params_gpu = copy.deepcopy(params_cpu).to("cuda")
+        rng = np.random.default_rng(1)
+        spec = [(rng.integers(0, cfg.vocab_size, int(rng.integers(5, 41))
+                              ).tolist(), int(rng.integers(4, 11)))
+                for _ in range(6)]
+        ecfg = EngineConfig(page_size=8, n_pages=48, decode_slots=4,
+                            max_context=96, prefill_batch=2,
+                            prefill_chunk=16)
+        paged, dense = {}, {}
+        for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+            reqs = [ServeRequest(rid=str(i), prompt=p, max_new=n)
+                    for i, (p, n) in enumerate(spec)]
+            ServingEngine(cfg, params, ecfg, device=dev).run(reqs)
+            paged[dev] = [r.tokens for r in reqs]
+            reqs = [Request(i, p, n) for i, (p, n) in enumerate(spec)]
+            serve(cfg, reqs, 3, 48, verbose=False, device=dev, params=params)
+            dense[dev] = [r.generated for r in reqs]
+        log(f"[moe] (d) reduced fp32 {arch} (E {cfg.n_experts}, top-"
+            f"{cfg.top_k}, first_k_dense {cfg.first_k_dense}), {len(spec)} "
+            f"requests: paged tokens card = cpu {paged['cpu'] == paged['cuda']}"
+            f", dense tokens card = cpu {dense['cpu'] == dense['cuda']}")
+        check(paged["cpu"] == paged["cuda"] and dense["cpu"] == dense["cuda"],
+              f"{arch}: card and CPU tokens differ")
+
+        def same_weights(cfg, *, seed, opt_cfg, device):
+            params = copy.deepcopy(params_cpu).to(device)
+            return params, adamw_init(list(params.parameters()), opt_cfg)
+
+        argv = ["--reduced", "--arch", arch, "--steps", "3", "--batch", "2",
+                "--seq", "64", "--log-every", "1"]
+        init, train_cli.init_train_state = (train_cli.init_train_state,
+                                            same_weights)
+        try:
+            losses = {dev: [h["loss"] for h in train_cli.train(
+                          cfg, train_cli.parse_args(argv + ["--device", dev]))]
+                      for dev in ("cpu", "cuda")}
+        finally:
+            train_cli.init_train_state = init
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                        losses["cpu"]))
+        log(f"[moe] (d) reduced fp32 {arch} through repro_torch.launch.train"
+            f", 3 steps of 2 x 64: card {losses['cuda']} cpu "
+            f"{losses['cpu']}; max relative diff {worst:.2e} (tol "
+            f"{TRAIN_LOSS_RTOL:.0e})")
+        check(worst <= TRAIN_LOSS_RTOL, f"{arch} losses differ by {worst}")
+    launches = counts()
+    check(launches["flash_attention"] > 0 and launches["flash_attention_bwd"]
+          > 0 and launches["rmsnorm_bwd"] > 0,
+          f"the reduced MoE runs on the card launched {launches}")
+    return launches
+
+
+def _kimi_full_width_refused():
+    """kimi-k2-1t-a32b's attention at full width (dh 7168 / 64 = 112) is
+    refused by the flash kernel's wrapper, not sent to a plain version."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config("kimi-k2-1t-a32b")
+    q = torch.zeros(1, 4, cfg.n_heads, cfg.dh, dtype=torch.bfloat16,
+                    device="cuda")
+    kv = torch.zeros(1, 4, cfg.n_kv_heads, cfg.dh, dtype=torch.bfloat16,
+                     device="cuda")
+    try:
+        ops.flash_attention(q, kv, kv)
+    except ValueError as e:
+        log(f"[moe] kimi-k2-1t-a32b at full width (dh {cfg.dh}): the flash "
+            f"wrapper raises: {e}")
+        check("K13" in str(e), "the refusal does not name its queue item")
+        return
+    raise Failed("kimi-k2-1t-a32b's dh 112 attention ran on the card")
+
+
+def phase_moe():
+    """Phase 19.  Returns {path: launches}."""
+    t_phase = time.perf_counter()
+    _free_cuda()
+    launches = {}
+    cfg = _moe_cfg()
+    params = _moe_init(cfg)
+    launches["moe_serve"] = _moe_paged(cfg, params)
+    toks = _moe_decode_vs_prefill(cfg, params, DECODE_VS_PREFILL_T,
+                                  MOE_DECODE_VS_PREFILL_TOL, "[moe] (b)")
+    _moe_drops(cfg, params, toks)
+    launches["moe_dense_serve"] = _moe_dense_serve(cfg, params)
+    _moe_dispatch_identity(params, cfg)
+    del params
+    _free_cuda()
+    cfg32 = _moe_cfg("float32", MOE_FP32_LAYERS)
+    params = _moe_init(cfg32)
+    _moe_decode_vs_prefill(cfg32, params, DECODE_VS_PREFILL_T_FP32,
+                           REL_TOL["float32"], "[moe] (b)")
+    del params
+    _free_cuda()
+    launches["moe_cpu_vs_card"] = _moe_cpu_vs_card()
+    _kimi_full_width_refused()
+    log(f"[moe] phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 8: sequence-parallel attention, 4 ranks on the card
 # ---------------------------------------------------------------------------
 
@@ -5609,7 +6187,16 @@ def phase_timings():
                  DECODE_SLOTS, 1, MAX_CONTEXT, decode_L,
                  [MAX_CONTEXT] * DECODE_SLOTS,
                  heads=(32 // SERVE_SHARD_MESH[1], 8 // SERVE_SHARD_MESH[1],
-                        128))}),
+                        128)),
+             # phase 19: arctic-480b's paged decode and prefill (H 56,
+             # KV 8, dh 128)
+             "arctic_decode": _flash_timing(
+                 DECODE_SLOTS, 1, MAX_CONTEXT, decode_L,
+                 [MAX_CONTEXT] * DECODE_SLOTS, heads=ARCTIC_HEADS),
+             "arctic_prefill": _flash_timing(
+                 PREFILL_BATCH, PREFILL_CHUNK, MAX_CONTEXT,
+                 [256] * PREFILL_BATCH, [384] * PREFILL_BATCH,
+                 heads=ARCTIC_HEADS)}),
         ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "decode", {
              "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
@@ -5623,7 +6210,11 @@ def phase_timings():
                  PREFILL_BATCH * PREFILL_CHUNK * 32, 128),
              "sp_q_norm": _rmsnorm_timing(SP_LOCAL * 32, 128),
              "train": _rmsnorm_timing(tokens, 1024),
-             "train_gated": _rmsnorm_timing(tokens, 2048)}),
+             "train_gated": _rmsnorm_timing(tokens, 2048),
+             # phase 19: arctic-480b's rows
+             "arctic_decode": _rmsnorm_timing(DECODE_SLOTS, 7168),
+             "arctic_prefill": _rmsnorm_timing(
+                 PREFILL_BATCH * PREFILL_CHUNK, 7168)}),
         ("rmsnorm_bwd", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "train", {
              "train": _rmsnorm_bwd_timing(tokens, 1024),
@@ -5759,6 +6350,8 @@ def main() -> int:
             timed = phase_timings()
         if run(3):
             launches["serve"] = phase_serve()
+        if run(19):
+            launches.update(phase_moe())
         if run(4):
             phase_cpu_vs_card()
         if run(5):

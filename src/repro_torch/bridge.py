@@ -8,7 +8,9 @@ package stacks the L blocks of a segment along a leading layer axis
 leaves); they are unstacked here into one module per block.  bfloat16 is
 moved bit for bit: the numpy array (dtype ``bfloat16`` from ``ml_dtypes``,
 which this module does not import) is viewed as int16 and the torch tensor
-viewed back as ``torch.bfloat16``.  The hybrid's ``shared_attn`` (``ln``
+viewed back as ``torch.bfloat16``.  A MoE model has two segments when its
+first blocks are dense (``stacks[0]`` dense, ``stacks[1]`` MoE, each
+indexed from 0), one otherwise.  The hybrid's ``shared_attn`` (``ln``
 and an attention block) becomes the model's
 :class:`~repro_torch.models.transformer.SharedAttention`.  A key the port
 does not map raises, rather than leave a weight behind.
@@ -33,11 +35,16 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.mlp import SwiGLU
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
-from repro_torch.models.transformer import (LM, DenseBlock, SharedAttention,
-                                            SSMBlock, build_stacks)
+from repro_torch.models.transformer import (LM, DenseBlock, MoEBlock,
+                                            SharedAttention, SSMBlock,
+                                            build_stacks)
 
-_BLOCK_KEYS = {"ssm": {"ln1", "ssm"}, "dense": {"ln1", "attn", "ln2", "mlp"}}
+_BLOCK_KEYS = {"ssm": {"ln1", "ssm"}, "dense": {"ln1", "attn", "ln2", "mlp"},
+               "moe": {"ln1", "attn", "ln2", "moe"}}
+_MOE_KEYS = {"router", "w_gate", "w_up", "w_down", "shared",
+             "dense_residual"}
 _SSM_KEYS = {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w",
              "out_proj"}
 _TOP_KEYS = {"embed", "stacks", "final_norm", "head", "shared_attn"}
@@ -68,35 +75,61 @@ def _attention(leaves: Mapping[str, torch.Tensor]) -> Attention:
     return Attention(a.pop("wq"), a.pop("wk"), a.pop("wv"), a.pop("wo"), **a)
 
 
+def _swiglu(leaves: Mapping[str, torch.Tensor], what: str) -> SwiGLU:
+    _only_keys(leaves, {"w_gate", "w_up", "w_down"}, what)
+    return SwiGLU(leaves["w_gate"], leaves["w_up"], leaves["w_down"])
+
+
+def _moe(tree: Mapping[str, Any], t: Callable) -> MoE:
+    """A MoE FFN from one layer's JAX leaves."""
+    _only_keys(tree, _MOE_KEYS, "moe")
+    opt = {k: _swiglu({n: t(v) for n, v in tree[k].items()}, f"moe {k}")
+           for k in ("shared", "dense_residual") if k in tree}
+    return MoE(t(tree["router"]), t(tree["w_gate"]), t(tree["w_up"]),
+               t(tree["w_down"]), **opt)
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked subtree."""
+    if isinstance(tree, Mapping):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, *,
                     device: torch.device = "cuda") -> LM:
     """The port's model holding the weights of a JAX ``init_lm`` pytree.
     Raises ValueError on a key of the tree it does not map."""
-    ((kind, n),) = build_stacks(cfg)
+    stacks = build_stacks(cfg)
     dev = resolve_device(device)
 
     def t(a: np.ndarray) -> torch.Tensor:
         return tensor_from_numpy(a, dev)
 
     _only_keys(tree, _TOP_KEYS, "top-level")
-    (stack,) = tree["stacks"]           # one segment of L blocks
-    _only_keys(stack, _BLOCK_KEYS[kind], f"{kind} block")
-    if kind == "ssm":
-        _only_keys(stack["ssm"], _SSM_KEYS, "ssm")
+    if len(tree["stacks"]) != len(stacks):
+        raise ValueError(f"{len(tree['stacks'])} stacks in the tree, "
+                         f"{len(stacks)} segments in {cfg.name!r}")
     blocks = []
-    for i in range(n):
+    for (kind, n), stack in zip(stacks, tree["stacks"]):
+        _only_keys(stack, _BLOCK_KEYS[kind], f"{kind} block")
         if kind == "ssm":
-            blocks.append(SSMBlock(t(stack["ln1"][i]), SSM(
-                **{k: t(v[i]) for k, v in stack["ssm"].items()})))
-            continue
-        mlp = stack["mlp"]
-        _only_keys(mlp, {"w_gate", "w_up", "w_down"}, "mlp")
-        blocks.append(DenseBlock(
-            t(stack["ln1"][i]),
-            _attention({k: t(v[i]) for k, v in stack["attn"].items()}),
-            t(stack["ln2"][i]),
-            SwiGLU(t(mlp["w_gate"][i]), t(mlp["w_up"][i]),
-                   t(mlp["w_down"][i]))))
+            _only_keys(stack["ssm"], _SSM_KEYS, "ssm")
+        for i in range(n):
+            lay = _layer(stack, i)
+            if kind == "ssm":
+                blocks.append(SSMBlock(t(lay["ln1"]), SSM(
+                    **{k: t(v) for k, v in lay["ssm"].items()})))
+                continue
+            attn = _attention({k: t(v) for k, v in lay["attn"].items()})
+            if kind == "moe":
+                blocks.append(MoEBlock(t(lay["ln1"]), attn, t(lay["ln2"]),
+                                       _moe(lay["moe"], t)))
+            else:
+                blocks.append(DenseBlock(t(lay["ln1"]), attn, t(lay["ln2"]),
+                                         _swiglu({k: t(v) for k, v in
+                                                  lay["mlp"].items()},
+                                                 "mlp")))
     shared = tree.get("shared_attn")
     if shared is not None:
         _only_keys(shared, {"ln", "attn"}, "shared_attn")
@@ -111,13 +144,30 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, *,
 # the port's model -> the JAX tree
 # --------------------------------------------------------------------------
 
-def jax_path(name: str) -> Tuple[str, Optional[int]]:
-    """The JAX tree path of a port parameter name and its layer index:
-    ``blocks.3.attn.wq`` -> (``stacks/0/attn/wq``, 3); ``shared_attn.ln`` ->
-    (``shared_attn/ln``, None)."""
+def segment_starts(model: nn.Module) -> Tuple[int, ...]:
+    """The first block of each segment of ``model``: where the class of
+    its blocks changes (a MoE model's first MoE block after its dense
+    ones); ``(0,)`` for one segment."""
+    blocks = getattr(model, "blocks", None)
+    if not isinstance(blocks, nn.ModuleList):
+        return (0,)
+    kinds = [type(b) for b in blocks]
+    return (0, *(i for i in range(1, len(kinds)) if kinds[i] != kinds[i - 1]))
+
+
+def jax_path(name: str, starts: Sequence[int] = (0,)
+             ) -> Tuple[str, Optional[int]]:
+    """The JAX tree path of a port parameter name and its layer index in
+    its segment, the segments starting at blocks ``starts``
+    (:func:`segment_starts`): ``blocks.3.attn.wq`` -> (``stacks/0/attn/wq``,
+    3); with ``starts`` (0, 1), ``blocks.3.moe.router`` ->
+    (``stacks/1/moe/router``, 2); ``shared_attn.ln`` -> (``shared_attn/ln``,
+    None)."""
     parts = name.split(".")
     if parts[0] == "blocks":
-        return "/".join(["stacks", "0", *parts[2:]]), int(parts[1])
+        i = int(parts[1])
+        s = max(k for k, first in enumerate(starts) if first <= i)
+        return "/".join(["stacks", str(s), *parts[2:]]), i - starts[s]
     return "/".join(parts), None
 
 
@@ -130,8 +180,9 @@ def flat_from_leaves(model: nn.Module, leaves: Sequence[torch.Tensor]
     if len(named) != len(leaves):
         raise ValueError(f"{len(leaves)} leaves for {len(named)} parameters")
     groups: Dict[str, List[Tuple[Optional[int], torch.Tensor]]] = {}
+    starts = segment_starts(model)
     for name, leaf in zip(named, leaves):
-        path, layer = jax_path(name)
+        path, layer = jax_path(name, starts)
         groups.setdefault(path, []).append((layer, leaf.detach().cpu()))
     out = {}
     for path, items in groups.items():
@@ -160,9 +211,10 @@ def assign_flat(model: nn.Module, targets: Sequence[torch.Tensor],
         raise ValueError(f"{len(targets)} targets for {len(named)} "
                          "parameters")
     used = set()
+    starts = segment_starts(model)
     with torch.no_grad():
         for name, t in zip(named, targets):
-            path, layer = jax_path(name)
+            path, layer = jax_path(name, starts)
             if path not in flat:
                 raise ValueError(f"no leaf {path!r} for parameter {name!r}")
             used.add(path)
@@ -216,6 +268,7 @@ def _numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
 def tree_from_params(model: LM) -> Dict[str, Any]:
     """The JAX ``init_lm`` tree of the port's model, the inverse of
     :func:`params_from_jax`: numpy leaves, each block's leaf stacked on a
-    leading L axis (``stacks[0]``), bfloat16 bit for bit."""
+    leading L axis (``stacks[s]`` for segment ``s``), bfloat16 bit for
+    bit."""
     flat = flat_from_leaves(model, list(model.parameters()))
     return _nest({k: _numpy_from_tensor(v) for k, v in flat.items()})

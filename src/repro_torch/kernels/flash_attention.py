@@ -120,7 +120,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or v.shape != k.shape:
         raise ValueError(f"unsupported shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)} "
-                         f"(head dim must be one of {_HEAD_DIMS})")
+                         f"(head dim must be one of {_HEAD_DIMS}; another, "
+                         f"such as kimi-k2-1t-a32b's 112, is not built yet: "
+                         f"ROADMAP.md queue 2, K13)")
     return tuple(_aligned(x) for x in (q, k, v))
 
 

@@ -56,7 +56,7 @@ from repro_torch.models import LM, init_decode_state, reset_decode_lane
 from repro_torch.models.common import ModelConfig
 from repro_torch.runtime.executor import (SERVING_POLICY, init_serving_params,
                                           make_serve_step)
-from repro_torch.runtime.sharding import ShardPolicy
+from repro_torch.runtime.sharding import ShardPolicy, check_shardable
 from repro_torch.serving import (EngineConfig, ServeMetrics, ServeRequest,
                                  ServingEngine)
 
@@ -250,7 +250,9 @@ def serve_ranks(cfg: ModelConfig, args: argparse.Namespace,
                 reqs: List[Request], n_ranks: int) -> List[Request]:
     """``--ranks``: serve ``reqs`` on ``n_ranks`` spawned gloo ranks
     (:func:`_serve_rank`); rank 0's tokens are written into ``reqs``.
-    Raises RuntimeError when a rank fails or the ranks' tokens differ."""
+    Raises RuntimeError when a rank fails or the ranks' tokens differ, and
+    NotImplementedError for a MoE model (``check_shardable``)."""
+    check_shardable(cfg)
     print(f"serving on {n_ranks} ranks: mesh={{'data': {n_ranks}, "
           f"'model': 1}}, policy={SERVING_POLICY}",
           flush=True)

@@ -72,7 +72,7 @@ from repro_torch.models.transformer import build_stacks
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.executor import (abstract_params, init_train_state,
                                           make_train_step)
-from repro_torch.runtime.sharding import ShardPolicy
+from repro_torch.runtime.sharding import ShardPolicy, check_shardable
 
 
 def search_plan(cfg: ModelConfig, seq_len: int, n_devices: int = 64, *,
@@ -409,6 +409,7 @@ def run_sharded(cfg: ModelConfig, plan: ParallelPlan,
     RuntimeError when a rank fails."""
     dev = resolve_device(args.device)
     build_stacks(cfg)
+    check_shardable(cfg)
     policy = middle_strategy_policy(plan)
     n_params = sum(p.numel() for p in abstract_params(cfg).parameters())
     print(f"model: {args.arch} ({n_params / 1e6:.1f}M params), "

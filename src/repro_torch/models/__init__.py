@@ -1,4 +1,4 @@
-"""Model zoo of the port: dense, SSM and hybrid decoders (serving and
+"""Model zoo of the port: dense, MoE, SSM and hybrid decoders (serving and
 training)."""
 from .common import ModelConfig
 from .transformer import (LM, build_stacks, decode_step, init_decode_state,

@@ -1,6 +1,6 @@
-"""Decoder-only language models (dense, SSM and the zamba2-style hybrid):
-training forward and loss, the decode step over dense KV caches and SSM
-states, and the dense model's paged serving steps.
+"""Decoder-only language models (dense, MoE, SSM and the zamba2-style
+hybrid): training forward and loss, the decode step over dense KV caches
+and SSM states, and the attention models' paged serving steps.
 
 The JAX package stacks the L blocks' weights with a leading layer axis and
 runs them with ``lax.scan``; here the model is an ``nn.Module`` holding a
@@ -10,6 +10,7 @@ layout (``x @ w``, ``w`` of shape (d_in, d_out)) and names::
   LM
     embed        (V, d)
     blocks[i]    DenseBlock: ln1 (d,), attn (Attention), ln2 (d,), mlp (SwiGLU)
+                 or MoEBlock: ln1 (d,), attn (Attention), ln2 (d,), moe (MoE)
                  or SSMBlock: ln1 (d,), ssm (SSM)
     shared_attn  SharedAttention: ln (d,), attn (Attention); hybrid only, one
                  block whose weights every attention call shares
@@ -18,9 +19,12 @@ layout (``x @ w``, ``w`` of shape (d_in, d_out)) and names::
 
 Parameters are trainable; the serving steps run under
 ``torch.inference_mode()``.  The dense-cache decode (:func:`decode_step`)
-covers dense, SSM and hybrid decoders; the paged steps cover pure-attention
-decoders.  Training (:func:`lm_forward`, :func:`lm_loss`) covers every arch
-that :func:`build_stacks` builds; on the card an attention layer's
+covers dense, MoE, SSM and hybrid decoders; the paged steps cover
+pure-attention decoders (dense and MoE).  A MoE model's blocks are
+``first_k_dense`` dense blocks, then MoE blocks (:func:`build_stacks`);
+its aux loss is summed over the MoE blocks.  Training
+(:func:`lm_forward`, :func:`lm_loss`) covers every arch that
+:func:`build_stacks` builds; on the card an attention layer's
 gradients run through the flash-attention backward kernel.
 ``remat_segments`` ports the JAX
 package's per-segment remat (``apply_stack(remat=...)``, ``jax.checkpoint``
@@ -45,6 +49,7 @@ from .common import ModelConfig
 from .embedding import embed, init_embedding
 from .layers import cross_entropy_loss, init_dense, rms_norm
 from .mlp import SwiGLU, init_swiglu, swiglu_mlp
+from .moe import MoE, init_moe, moe_ffn
 from .ssm import (SSM, init_ssm, init_ssm_state, ssm_block,
                   ssm_block_decode)
 
@@ -61,6 +66,16 @@ class DenseBlock(nn.Module):
         self.attn = attn
         self.ln2 = _param(ln2)
         self.mlp = mlp
+
+
+class MoEBlock(nn.Module):
+    def __init__(self, ln1: torch.Tensor, attn: Attention, ln2: torch.Tensor,
+                 moe: MoE):
+        super().__init__()
+        self.ln1 = _param(ln1)
+        self.attn = attn
+        self.ln2 = _param(ln2)
+        self.moe = moe
 
 
 class SSMBlock(nn.Module):
@@ -92,22 +107,29 @@ class LM(nn.Module):
 
 
 def build_stacks(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    """Sequence of (kind, n_layers) segments for the architectures the port
-    builds: one segment of dense or of SSM blocks.  The hybrid is one SSM
-    segment; its shared attention block is interleaved by the model
-    functions, as in the JAX package."""
-    if cfg.n_experts > 1 or cfg.arch_type == "moe":
-        raise NotImplementedError(
-            f"{cfg.name!r} is a MoE model (n_experts={cfg.n_experts}): the "
-            "port has no MoE block yet (ROADMAP.md queue 1, item 3)")
+    """Sequence of (kind, n_layers) segments, as the JAX package's: one
+    segment of SSM blocks (SSM and hybrid; the hybrid's shared attention
+    block is interleaved by the model functions), ``first_k_dense`` dense
+    blocks then MoE blocks for a model with experts, else one segment of
+    dense blocks.  Raises NotImplementedError for an arch the port does
+    not build (VLM, audio)."""
     if cfg.arch_type in ("ssm", "hybrid"):
         return [("ssm", cfg.n_layers)]
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in ("dense", "moe"):
         raise NotImplementedError(
-            f"the port builds dense, SSM and hybrid decoders only so far; "
-            f"{cfg.name!r} has arch_type={cfg.arch_type!r} (ROADMAP.md "
-            "queue 1, item 4)")
+            f"the port builds dense, MoE, SSM and hybrid decoders only so "
+            f"far; {cfg.name!r} has arch_type={cfg.arch_type!r} (ROADMAP.md "
+            "queue 1, item 5)")
+    if cfg.n_experts > 1:
+        segs = [("dense", cfg.first_k_dense)] if cfg.first_k_dense else []
+        return segs + [("moe", cfg.n_layers - cfg.first_k_dense)]
     return [("dense", cfg.n_layers)]
+
+
+def is_attention_stack(cfg: ModelConfig) -> bool:
+    """True for a model of attention blocks only (dense or MoE): one K/V
+    cache or pool a layer."""
+    return all(kind != "ssm" for kind, _ in build_stacks(cfg))
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
@@ -138,8 +160,9 @@ def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
     ``shard(name, part)`` replaces each kept part as soon as it is drawn
     (``blocks.<i>``, ``shared_attn``, ``head``, ``embed``,
     ``final_norm``): a sharded run keeps its rank's shards of the same
-    numbers (``runtime/sharding.py::ShardContext.shard_part``)."""
-    ((kind, n),) = build_stacks(cfg)
+    numbers (``runtime/sharding.py::ShardContext.shard_part``).  A MoE
+    block draws its experts one at a time (``models/moe.py::init_moe``)."""
+    kinds = [kind for kind, n in build_stacks(cfg) for _ in range(n)]
     dev = resolve_device(device)
     g = torch.Generator(device="cpu" if dev.type == "meta" else dev
                         ).manual_seed(seed)
@@ -152,10 +175,15 @@ def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
         return torch.ones(d, dtype=dt, device=dev)
 
     blocks = {}
-    for i in range(n):
-        blk = (SSMBlock(ones(), init_ssm(cfg, **kw)) if kind == "ssm" else
-               DenseBlock(ones(), init_attention(cfg, **kw), ones(),
-                          init_swiglu(d, cfg.d_ff, dt, **kw)))
+    for i, kind in enumerate(kinds):
+        if kind == "ssm":
+            blk = SSMBlock(ones(), init_ssm(cfg, **kw))
+        elif kind == "moe":
+            blk = MoEBlock(ones(), init_attention(cfg, **kw), ones(),
+                           init_moe(cfg, **kw))
+        else:
+            blk = DenseBlock(ones(), init_attention(cfg, **kw), ones(),
+                             init_swiglu(d, cfg.d_ff, dt, **kw))
         if keep(i):
             blocks[i] = shard(f"blocks.{i}", blk)
         del blk
@@ -197,6 +225,18 @@ def dense_block(p: DenseBlock, x: torch.Tensor, positions: torch.Tensor,
     return x + swiglu_mlp(p.mlp, h, shard)
 
 
+def moe_block(p: MoEBlock, x: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig, *, window: Optional[int] = None,
+              shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm causal attention and the MoE FFN, each with its residual:
+    -> (x, aux).  ``shard`` raises NotImplementedError in ``moe_ffn``."""
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    x = x + attention(p.attn, h, positions, cfg, window=window, shard=shard)
+    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    y, aux = moe_ffn(p.moe, h, cfg, shard=shard)
+    return x + y, aux
+
+
 def ssm_block_outer(p: SSMBlock, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, *, shard=None, **_) -> torch.Tensor:
     """Pre-norm SSM mixer with its residual (positions unused); ``shard``
@@ -214,17 +254,24 @@ def shared_block(p: SharedAttention, x: torch.Tensor,
                          shard=shard)
 
 
-_BLOCK_APPLY = {"dense": dense_block, "ssm": ssm_block_outer}
+_BLOCK_APPLY = {"dense": dense_block, "moe": moe_block,
+                "ssm": ssm_block_outer}
 
 
 def _segments(cfg: ModelConfig) -> List[Tuple[str, int, int, bool]]:
     """(kind, first block, end block, shared attention after it) of each
-    segment: the one stack of :func:`build_stacks`, or for the hybrid SSM
-    segments of ``attn_every`` layers, each full one followed by the
-    shared attention block (a shorter tail segment is not)."""
-    ((kind, n),) = build_stacks(cfg)
+    segment: the stacks of :func:`build_stacks` (a MoE model's dense
+    blocks, then its MoE blocks), or for the hybrid SSM segments of
+    ``attn_every`` layers, each full one followed by the shared attention
+    block (a shorter tail segment is not)."""
+    stacks = build_stacks(cfg)
     if cfg.arch_type != "hybrid" or not cfg.attn_every:
-        return [(kind, 0, n, False)]
+        out, i = [], 0
+        for kind, n in stacks:
+            out.append((kind, i, i + n, False))
+            i += n
+        return out
+    ((kind, n),) = stacks
     k = cfg.attn_every
     return [(kind, i, min(n, i + k), i + k <= n) for i in range(0, n, k)]
 
@@ -232,8 +279,8 @@ def _segments(cfg: ModelConfig) -> List[Tuple[str, int, int, bool]]:
 def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
                remat_segments: Optional[Sequence[bool]] = None,
                shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) -> logits (B,S,V) and the auxiliary loss (zero: dense
-    and SSM blocks have none).
+    """tokens (B,S) -> logits (B,S,V) and the auxiliary loss: the sum of
+    the MoE blocks' load-balance losses (dense and SSM blocks have none).
 
     Query ``s`` sits at position ``s``; attention takes the config's
     ``sliding_window``.  The hybrid runs SSM segments of ``attn_every``
@@ -256,6 +303,7 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     if shard is not None:
         x = shard.seq_slice(x)
         run_shared = functools.partial(shard.block, shared_block)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (kind, i, j, shared) in enumerate(_segments(cfg)):
         fn = _BLOCK_APPLY[kind]
         if shard is not None:
@@ -264,15 +312,19 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
                  if remat_segments else False)
         for blk in params.blocks[i:j]:
             if remat:
-                x = checkpoint(fn, blk, x, positions, cfg, window=win,
-                               use_reentrant=False)
+                out = checkpoint(fn, blk, x, positions, cfg, window=win,
+                                 use_reentrant=False)
             else:
-                x = fn(blk, x, positions, cfg, window=win)
+                out = fn(blk, x, positions, cfg, window=win)
+            if kind == "moe":
+                x, a = out
+                aux = aux + a
+            else:
+                x = out
         if shared and sa is not None:
             x = run_shared(sa, x, positions, cfg, window=win)
     if shard is not None:
         x = shard.seq_gather(x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, x, cfg, shard), aux
 
 
@@ -280,8 +332,8 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             remat_segments: Optional[Sequence[bool]] = None,
             shard=None) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (``-100`` ignored), plus the weighted aux loss
-    (zero for every arch the port builds).  With a sharding context
+    ``batch["labels"]`` (``-100`` ignored), plus the MoE blocks' aux loss
+    weighted by ``router_aux_coef`` (zero without experts).  With a sharding context
     ``shard``, ``batch`` is the rank's data shard and the result its share:
     summed over ``data`` the shares give the global batch's loss, and
     their gradients its gradient."""
@@ -302,7 +354,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, context: int, *,
 
       "caches"      one K/V cache (:func:`init_kv_cache`, ``context`` slots)
                     per attention call of a step, in call order: a layer's
-                    for a dense model, one per shared-block call
+                    for a dense or MoE model, one per shared-block call
                     (``n_layers // attn_every``) for the hybrid, none for
                     an SSM model
       "ssm_states"  one :func:`init_ssm_state` per SSM layer (SSM and
@@ -319,13 +371,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, context: int, *,
     NotImplementedError for an arch :func:`build_stacks` does not build."""
     segments = _segments(cfg)
     dev = resolve_device(device)
-    n_attn = (cfg.n_layers if cfg.arch_type == "dense"
+    attn_stack = is_attention_stack(cfg)
+    n_attn = (cfg.n_layers if attn_stack
               else sum(shared for *_, shared in segments))
     state: Dict[str, Any] = {
         "caches": [init_kv_cache(cfg, batch, context, device=dev,
                                  shard=shard)
                    for _ in range(n_attn)]}
-    if cfg.arch_type != "dense":
+    if not attn_stack:
         state["ssm_states"] = [init_ssm_state(cfg, batch, device=dev,
                                               shard=shard)
                                for _ in range(cfg.n_layers)]
@@ -386,7 +439,7 @@ def decode_step(params: LM, state: Dict[str, Any], token: torch.Tensor,
         idx = index[lo:hi] if index.dim() else index
     x = embed(params.embed, token, shard)[:, None, :]
     win = window if window is not None else cfg.sliding_window
-    if cfg.arch_type == "dense":
+    if is_attention_stack(cfg):
         x = _cache_layers(
             params, state["caches"], x, cfg,
             lambda p, h, cache, shard: attention_decode(
@@ -463,11 +516,15 @@ def init_paged_state(cfg: ModelConfig, n_pages: int, page_size: int, *,
             for _ in range(cfg.n_layers)]
 
 
-def _dense_cache_layer(blk: DenseBlock, x: torch.Tensor, pool: Pool,
+def _dense_cache_layer(blk: nn.Module, x: torch.Tensor, pool: Pool,
                        cfg: ModelConfig, attn_fn, shard=None) -> torch.Tensor:
+    """A dense or MoE block over its cache or pool; a MoE block's aux loss
+    is discarded, as the reference's decode discards it."""
     h = rms_norm(x, blk.ln1, cfg.norm_eps)
     x = x + attn_fn(blk.attn, h, pool, shard)
     h = rms_norm(x, blk.ln2, cfg.norm_eps)
+    if isinstance(blk, MoEBlock):
+        return x + moe_ffn(blk.moe, h, cfg, shard=shard)[0]
     return x + swiglu_mlp(blk.mlp, h, shard)
 
 
@@ -475,8 +532,9 @@ def _cache_layers(params: LM, caches: List[Pool], x: torch.Tensor,
                   cfg: ModelConfig,
                   attn_fn: Callable[..., torch.Tensor],
                   shard=None) -> torch.Tensor:
-    """The dense blocks over one cache or pool a layer: ln1, ``attn_fn(p,
-    h, pool, shard)``, residual, ln2, SwiGLU, residual; with ``shard``
+    """The dense or MoE blocks over one cache or pool a layer: ln1,
+    ``attn_fn(p, h, pool, shard)``, residual, ln2, SwiGLU or MoE FFN,
+    residual; with ``shard``
     each block through ``shard.block`` (its ZeRO weights gathered, the
     MLP tensor-parallel)."""
     layer = (_dense_cache_layer if shard is None

@@ -251,7 +251,7 @@ def make_serve_step(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
                     ) -> Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]:
     """``(params, state, token (B,))`` -> ``(logits (B, V), state)``: one
     decode step on the KV caches and SSM states of ``init_decode_state``,
-    written in place, for dense, SSM and hybrid decoders.  Raises
+    written in place, for dense, MoE, SSM and hybrid decoders.  Raises
     NotImplementedError for an arch the port does not build.
 
     With a ``mesh`` (``policy`` default ``ShardPolicy(tp=False,

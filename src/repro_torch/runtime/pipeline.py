@@ -59,16 +59,25 @@ from repro_torch.kernels.ring_attention import host_tensor
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.embedding import embed
 from repro_torch.models.layers import cross_entropy_loss
-from repro_torch.models.transformer import (_BLOCK_APPLY, LM, _logits,
-                                            build_stacks, init_lm_parts)
+from repro_torch.models.transformer import (_BLOCK_APPLY, LM, MoEBlock,
+                                            _logits, build_stacks,
+                                            init_lm_parts)
 from repro_torch.runtime.schedules import ScheduleProgram, compile_schedule
 from repro_torch.runtime.sharding import check_gloo
 
 Batch = Dict[str, torch.Tensor]
 
 
+_MOE_REFUSED = ("the pipeline runtime does not run MoE yet (ROADMAP.md "
+                "queue 1, item 4 (b), EP and TP for MoE)")
+
+
 def _check_stack(cfg: ModelConfig) -> str:
-    """The one homogeneous stack's kind; raises ValueError otherwise."""
+    """The one homogeneous stack's kind; raises ValueError otherwise, and
+    NotImplementedError for a MoE model."""
+    if cfg.n_experts > 1:
+        raise NotImplementedError(f"{cfg.name!r} is a MoE model: "
+                                  + _MOE_REFUSED)
     if cfg.arch_type == "hybrid" or cfg.is_encoder_decoder:
         raise ValueError(
             f"pipeline runtime requires one homogeneous stack; "
@@ -146,7 +155,11 @@ def stage_split_params(params: LM, n_stages: int,
     of global virtual stage ``v·P + i``, the interleaved round-robin
     placement of the JAX package's ``stage_split_params``; with V = 1 this
     is the plain contiguous split.  Raises ValueError for a model with a
-    shared attention block or when ``P·V`` does not divide the layers."""
+    shared attention block or when ``P·V`` does not divide the layers, and
+    NotImplementedError for a MoE model."""
+    if any(isinstance(b, MoEBlock) for b in params.blocks):
+        raise NotImplementedError("the model has MoE blocks: "
+                                  + _MOE_REFUSED)
     if params.shared_attn is not None:
         raise ValueError("pipeline runtime requires one homogeneous stack; "
                          "the model has a shared attention block")

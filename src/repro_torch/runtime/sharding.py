@@ -571,6 +571,17 @@ class _Apply(nn.Module):
 # the execution context
 # --------------------------------------------------------------------------
 
+def check_shardable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a model the sharded executor does
+    not run: a MoE model, whose experts need EP and TP (the reference's
+    ``_moe_ep`` and ``_moe_shmap``), not ported yet."""
+    if cfg.n_experts > 1:
+        raise NotImplementedError(
+            f"{cfg.name!r} is a MoE model (n_experts={cfg.n_experts}): the "
+            "sharded executor does not run MoE yet (ROADMAP.md queue 1, "
+            "item 4 (b), EP and TP for MoE)")
+
+
 def abstract_params(cfg: ModelConfig) -> nn.Module:
     """The model's parameters on the ``meta`` device: names and shapes,
     no storage."""
@@ -591,10 +602,12 @@ class ShardContext:
     or backend and on a TP degree that does not split what the model has:
     the attention heads and d_ff of a dense model, the SSM heads of a
     Mamba2 block, the shared attention block's heads of the hybrid, and the
-    vocabulary."""
+    vocabulary.  Raises NotImplementedError for a MoE model
+    (:func:`check_shardable`)."""
 
     def __init__(self, cfg: ModelConfig, mesh: DeviceMesh,
                  policy: ShardPolicy, *, serving: bool = False):
+        check_shardable(cfg)
         if tuple(mesh.mesh_dim_names or ()) != ("data", "model"):
             raise ValueError(f"the sharded executor runs on a ('data', "
                              f"'model') mesh; got {mesh.mesh_dim_names}")

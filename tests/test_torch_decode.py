@@ -18,8 +18,10 @@ take their plain versions.
 * ``serve`` token-identical to JAX ``serve`` on ``tests/test_serving.py``'s
   TINY geometry with a request longer than the context, and the port's
   paged engine token-identical to the port's ``serve``.
-* The CLI's ``--engine dense``, the MoE archs' NotImplementedError and the
-  entry points' refusal to run without a card.
+* The MoE variant of reduced qwen3-4b through ``decode_step``,
+  ``make_serve_step``, ``init_decode_state`` and ``serve`` against JAX.
+* The CLI's ``--engine dense`` and the entry points' refusal to run
+  without a card.
 """
 import jax
 import jax.numpy as jnp
@@ -343,32 +345,61 @@ def test_serve_cli_dense_engine_on_cpu(capsys):
 
 
 # ---------------------------------------------------------------------------
-# what the slice refuses
+# the MoE variant of reduced qwen3-4b
 # ---------------------------------------------------------------------------
+
+def _moe_bridged():
+    """Reduced qwen3-4b with 4 experts, top-2 (every block a MoE block),
+    fp32, with the weights JAX ``serve`` draws from seed 0."""
+    cfg_j = jax_get_config("qwen3-4b").reduced().with_(
+        n_experts=4, top_k=2, dtype=jnp.float32)
+    cfg_t = get_config("qwen3-4b").reduced().with_(
+        n_experts=4, top_k=2, dtype=torch.float32)
+    params_j = jax.jit(lambda k: jax_init_lm(k, cfg_j))(jax.random.PRNGKey(0))
+    return cfg_j, cfg_t, params_j, params_from_jax(
+        jax.tree.map(np.asarray, params_j), cfg_t, device="cpu")
+
 
 @pytest.mark.parametrize("entry", ["decode_step", "make_serve_step",
                                    "init_decode_state", "serve"])
-def test_moe_decode_is_refused(entry):
-    """The dense-cache engine's entry points raise for an MoE model, which
-    the port does not build yet; decode_step is given a dense model's
-    weights, so that its own check raises."""
-    dense = get_config("qwen3-4b").reduced().with_(dtype=torch.float32)
-    cfg = dense.with_(n_experts=4)
-    call = {
-        "decode_step": lambda: decode_step(
-            init_lm(dense, device="cpu"),
-            init_decode_state(dense, 1, 8, device="cpu"),
-            torch.zeros(1, dtype=torch.int32), cfg),
-        "make_serve_step": lambda: make_serve_step(cfg),
-        "init_decode_state": lambda: init_decode_state(cfg, 1, 8,
-                                                       device="cpu"),
-        "serve": lambda: serve_mod.serve(
-            cfg, [serve_mod.Request(0, [1, 2], 2)], 1, 8, verbose=False,
-            device="cpu"),
-    }[entry]
-    with pytest.raises(NotImplementedError,
-                       match=r"MoE .*\(ROADMAP.md queue 1, item 3\)"):
-        call()
+def test_moe_decode_entry_points_match_jax(entry):
+    """The dense-cache engine's entry points run a MoE model (they raised
+    before the MoE slice) and match the JAX package's: 8 decode steps'
+    logits within 1e-5 with the same greedy tokens, the state's caches,
+    and ``serve``'s tokens with a recycled lane."""
+    cfg_j, cfg_t, params_j, params_t = _moe_bridged()
+    toks = np.random.default_rng(3).integers(0, cfg_t.vocab_size, (2, 8),
+                                             dtype=np.int32)
+    if entry == "init_decode_state":
+        state = init_decode_state(cfg_t, 2, 8, device="cpu")
+        want = jax_init_decode_state(cfg_j, 2, 8)["stacks"][0]
+        assert len(state["caches"]) == cfg_t.n_layers
+        assert "ssm_states" not in state
+        for cache in state["caches"]:
+            for key in ("k", "v"):
+                assert tuple(cache[key].shape) == want[key].shape[1:]
+        return
+    if entry == "serve":
+        spec = [(toks[i % 2, :3 + i].tolist(), 4) for i in range(3)]
+        reqs_j = [JaxRequest(i, p, n) for i, (p, n) in enumerate(spec)]
+        reqs_t = [serve_mod.Request(i, p, n) for i, (p, n) in enumerate(spec)]
+        jax_serve(cfg_j, reqs_j, batch=2, context=16, seed=0, verbose=False)
+        serve_mod.serve(cfg_t, reqs_t, 2, 16, verbose=False, device="cpu",
+                        params=params_t)
+        assert [r.generated for r in reqs_t] == [r.generated for r in reqs_j]
+        return
+    step = (make_serve_step(cfg_t) if entry == "make_serve_step" else
+            lambda p, s, t: decode_step(p, s, t, cfg_t))
+    state_t = init_decode_state(cfg_t, 2, 8, device="cpu")
+    state_j = jax_init_decode_state(cfg_j, 2, 8)
+    jstep = jax.jit(lambda p, s, t: jax_decode_step(p, s, t, cfg_j))
+    for t in range(toks.shape[1]):
+        want, state_j = jstep(params_j, state_j, jnp.asarray(toks[:, t]))
+        with torch.no_grad():
+            got, state_t = step(params_t, state_t,
+                                torch.from_numpy(toks[:, t]))
+        _close(got, want, 1e-5, f"logits at {t}")
+        assert (got.argmax(-1).numpy() == np.asarray(want).argmax(-1)).all()
 
 
 def test_paged_cli_refuses_an_ssm_arch_as_the_engine_does():

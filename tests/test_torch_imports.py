@@ -25,6 +25,8 @@ def test_import_loads_no_jax_triton_or_repro():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.serving, "
             "repro_torch.bridge, repro_torch.models.ssm, "
+            "repro_torch.models.moe, repro_torch.configs.arctic_480b, "
+            "repro_torch.configs.kimi_k2_1t_a32b, "
             "repro_torch.kernels.ssd_scan, repro_torch.kernels.ops, "
             "repro_torch.optim, repro_torch.data, "
             "repro_torch.runtime.executor, repro_torch.runtime.sequence, "

@@ -151,6 +151,17 @@ def _h100_one_card(pkg):
                        cluster, ocfg, [80])
 
 
+def _moe_arch(arch):
+    """A MoE arch cut to 4 layers (full width, every expert) with EP on
+    the 32-card A100 preset: the plans put ``ep`` on the expert layers."""
+    def case(pkg):
+        ocfg = _m(pkg, "core.optimizer").OptimizerConfig(
+            use_ep=True, batch_grid=(64,), micro_candidates=2, n_bins=64)
+        return _at_budgets(pkg, _arch(pkg, arch, 2048, n_layers=4),
+                           _preset(pkg, "32x-a100-80g-ib400"), ocfg, [40, 80])
+    return case
+
+
 SEARCH_CASES = {
     "bert-huge-32/8x-rtx-titan-pcie/12GB/3-schedules": _bert_schedules,
     "bert-huge-32/variant-dp+tp": _bert_variant("dp+tp"),
@@ -163,6 +174,9 @@ SEARCH_CASES = {
     "zamba2-1.2b/16x-a100-nvlink-ib100": _ssm_arch("zamba2-1.2b"),
     "gpt3-15b/32x-a100-80g-ib400": _gpt3,
     "qwen3-4b/28-layers/h100-one-card": _h100_one_card,
+    "arctic-480b/4-layers/ep/32x-a100-80g-ib400": _moe_arch("arctic-480b"),
+    "kimi-k2-1t-a32b/4-layers/ep/32x-a100-80g-ib400":
+        _moe_arch("kimi-k2-1t-a32b"),
 }
 
 
@@ -352,6 +366,14 @@ CLI_CASES = {
     "qwen3-4b-slo-sweep": ["--arch", "qwen3-4b", "--cluster",
                            "8x-rtx-titan-pcie", "--slo-sweep", "30",
                            "--max-context", "2048"],
+    # the MoE archs at full size (their training search finds no plan on
+    # a preset both packages have; serving does)
+    "arctic-480b-slo-sweep": ["--arch", "arctic-480b", "--cluster",
+                              "32x-a100-80g-ib400", "--slo-sweep", "30",
+                              "--max-context", "2048"],
+    "kimi-k2-1t-a32b-slo-sweep": ["--arch", "kimi-k2-1t-a32b", "--cluster",
+                                  "32x-a100-80g-ib400", "--slo-sweep", "60",
+                                  "--max-context", "2048"],
 }
 
 

@@ -240,17 +240,58 @@ def test_train_needs_a_card_unless_told_cpu():
 
 @pytest.mark.parametrize("arch", ["qwen3-4b"])
 def test_training_an_attention_arch_raises_naming_the_kernel(arch):
-    """Dense attention archs train now (``test_torch_dense_train.py``); an
-    arch whose layers the port does not build yet still raises, naming
-    what it lacks: the MoE variant of ``arch`` and a VLM (the hybrid
+    """Dense attention archs train now (``test_torch_dense_train.py``), and
+    their MoE variants (below); an arch whose layers the port does not
+    build yet still raises, naming what it lacks: a VLM (the hybrid
     trains: ``test_torch_hybrid.py``)."""
     base = get_config(arch).reduced().with_(dtype=torch.float32)
-    for cfg, what in ((base.with_(n_experts=4, top_k=2), "n_experts=4"),
-                      (base.with_(arch_type="vlm"), "'vlm'")):
+    for cfg, what in ((base.with_(arch_type="vlm"), "'vlm'"),):
         for build in (lambda: make_train_step(cfg),
                       lambda: init_train_state(cfg, device="cpu")):
             with pytest.raises(NotImplementedError, match=what):
                 build()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b"])
+def test_training_the_moe_variant_of_an_attention_arch_matches_jax(arch):
+    """The MoE variant of ``arch`` (4 experts, top-2), which raised before
+    the MoE slice: ``init_train_state`` builds it, and two steps of
+    ``make_train_step`` on weights bridged from JAX follow the JAX step
+    (loss and gradient norm within 1e-4 relative, the aux loss included)."""
+    cfg_j = jax_get_config(arch).reduced().with_(
+        n_experts=4, top_k=2, dtype=jnp.float32)
+    cfg_t = get_config(arch).reduced().with_(n_experts=4, top_k=2,
+                                             dtype=torch.float32)
+    params, opt = init_train_state(cfg_t, device="cpu")
+    assert all(type(b).__name__ == "MoEBlock" for b in params.blocks)
+    params_j = jax_init_lm(jax.random.PRNGKey(0), cfg_j)
+    params_t = params_from_jax(jax.tree.map(np.asarray, params_j), cfg_t,
+                               device="cpu")
+    opt_j_cfg, opt_t_cfg = JaxAdamWConfig(lr=1e-3), AdamWConfig(lr=1e-3)
+
+    @jax.jit
+    def jax_step(p, o, batch):
+        loss, grads = jax.value_and_grad(
+            lambda q: jax_lm_loss(q, batch, cfg_j))(p)
+        p, o, metrics = jax_adamw_update(p, grads, o, opt_j_cfg)
+        metrics["loss"] = loss
+        return p, o, metrics
+
+    opt_j = jax_adamw_init(params_j, opt_j_cfg)
+    opt_t = adamw_init(list(params_t.parameters()), opt_t_cfg)
+    step = make_train_step(cfg_t, opt_t_cfg)
+    gen = synthetic_lm_batches(DataConfig(seq_len=16, global_batch=2,
+                                          vocab_size=cfg_t.vocab_size))
+    for _ in range(2):
+        b = next(gen)
+        params_j, opt_j, m_j = jax_step(
+            params_j, opt_j, {k: jnp.asarray(v) for k, v in b.items()})
+        m_t = step(params_t, opt_t, {k: torch.from_numpy(v)
+                                     for k, v in b.items()})
+        assert float(m_t["loss"]) == pytest.approx(float(m_j["loss"]),
+                                                   rel=1e-4)
+        assert float(m_t["grad_norm"]) == pytest.approx(
+            float(m_j["grad_norm"]), rel=1e-4)
 
 
 # ---------------------------------------------------------------------------
