@@ -236,7 +236,7 @@ Phases (any failure exits non-zero before the final line is printed):
    checkpoints, on 4 gloo ranks sharing the card on a (data 2, model 2)
    mesh with ``ShardPolicy(tp=True, zero=True, remat_segments=(True,))``:
    (a) full-width mamba2-370m, depth cut from 48 to
-   ``SSMTP_MAMBA2_LAYERS`` (24) for the script's time: a
+   ``SSMTP_MAMBA2_LAYERS`` (12) for the script's time: a
    spawned single process saves
    its ``lm_loss`` and gradients (remat on every layer) in fp32, and in
    bf16 its loss and 3 step losses, on the train driver's first batches of
@@ -271,7 +271,8 @@ Phases (any failure exits non-zero before the final line is printed):
    2) ``make_local_mesh`` with ``ShardPolicy(tp=True, zero=False)``,
    each rank holding its shards (``init_serving_params``), against a
    spawned single process on the same weights (``init_lm`` seed 0): (a)
-   the paged engine at full-width qwen3-4b, 36 layers, bf16, on phase 3's
+   the paged engine at full-width qwen3-4b, ``SS_BF16_LAYERS`` (9 of 36
+   layers), bf16, on phase 3's
    geometry (the pools hold 4 of 8 KV heads a rank): the first prefill
    chunk's and a decode step's logits within ``SS_LOGIT_TOL`` of the
    largest, the flash forward launched at 16 query and 4 KV heads and
@@ -287,8 +288,8 @@ Phases (any failure exits non-zero before the final line is printed):
    wholly in model rank 0's slots; three lanes wrap), ``SS_STEPS`` steps:
    qwen3-4b (and once more with ``shard_cache_seq=False``, KV heads over
    ``model``), mamba2-370m and zamba2-1.2b (the shared block's caches
-   split by context) in bf16 at ``SS_BF16_LAYERS`` (18 of 36, 24 of 48,
-   18 of 38 layers, cut for the script's time), each at
+   split by context) in bf16 at ``SS_BF16_LAYERS`` (9 of 36, 12 of 48,
+   12 of 38 layers, cut for the script's time), each at
    ``SS_FP32_LAYERS`` (zamba2 ``SS_ZAMBA2_FP32_LAYERS``) in fp32, where
    the logits must lie within ``REL_TOL`` and the greedy tokens and
    ``serve`` of ``SS_DENSE_REQUESTS`` requests must be the single
@@ -330,7 +331,32 @@ Phases (any failure exits non-zero before the final line is printed):
    paged engine's and ``serve``'s greedy tokens identical, 3 steps of
    ``launch/train.py`` within ``TRAIN_LOSS_RTOL``; and kimi-k2's dh 112
    attention at full width refused by the flash wrapper (no plain
-   attention on the card).
+   attention on the card).  Phase 19 keeps the first decode step of (a)'s
+   first run and of (b)'s ``serve`` (logits, input tokens, each layer's
+   top-2 experts) for phase 20.
+20. MoE sharded, right after phase 19: 4 gloo ranks share the card. (a)
+   phase 19's model under TP on a (data 1, model 4) mesh (a rank: 32 of
+   128 experts a layer, 14 of 56 query and 2 of 8 KV heads, a quarter of
+   the residual branch and of the vocabulary), phase 3's requests through
+   the paged engine twice: every request completes, the same tokens and
+   first-step logits (bits) on every rank and in both runs, flash once a
+   layer a decode step or prefill chunk on the local heads, no plain
+   version; the first decode step against phase 19's within
+   ``MOE_SHARD_LOGIT_TOL`` on the lanes whose input token and top-2
+   experts at every layer agree (the others counted); each rank's decode
+   step wall and busy ms, gloo bytes and peak memory, and tok/s. (b) the
+   same model under EP on a (data 1, expert 4) mesh (a rank: 32 experts a
+   layer, the rest whole), ``serve`` of phase 19 (b)'s requests on 8 lanes
+   of 2048 tokens, two a rank: the same logit gate on the first step,
+   each rank's all-to-all bytes a step, step wall and busy ms, peak
+   memory. (c) reduced fp32 and bf16 arctic-480b and kimi-k2 on the card
+   under TP with ZeRO on (data 2, model 2) and EP on (data 1, expert 4):
+   the loss and every gathered gradient leaf of one batch against one
+   process on the card (bf16: phase 16's loss gate, and its leaf gate
+   under EP; TP's bf16 leaves printed beside the single process's own
+   bf16-against-fp32 distance) and on the CPU (fp32: 1e-5 for the loss and
+   every leaf), the router's leaf printed apart.  ``--phases 20`` runs phase 19
+   too.
 
 Phase 2 also holds the kernels at phase 17's TP-local shapes against
 their plain versions, and phase 7 times the SSD scan at a rank's mamba2
@@ -558,7 +584,9 @@ SHARD_BUDGET_GB = 11
 SSMTP_RANKS, SSMTP_MESH, SSMTP_BATCH, SSMTP_SEQ = 4, (2, 2), 4, 2048
 SSMTP_STEPS, SSMTP_SAVE_AT, SSMTP_LR = 3, 2, 3e-4
 SSMTP_ZAMBA2_LAYERS, SSMTP_ZAMBA2_STEPS = 6, 1
-SSMTP_MAMBA2_LAYERS = 24
+# (a)'s depth: at 24 layers the whole script, phase 20 included, ran
+# 1092.3 s, phase 17 277.6 s of it (NVIDIA H100 80GB HBM3, 700 W)
+SSMTP_MAMBA2_LAYERS = 12
 # a rank's batch rows and RMSNorm rows, and zamba2's TP-local (H, KV, dh)
 SSMTP_LOCAL_BATCH = SSMTP_BATCH // SSMTP_MESH[0]
 SSMTP_ROWS = SSMTP_LOCAL_BATCH * SSMTP_SEQ
@@ -581,9 +609,11 @@ SERVE_SHARD_TIMEOUT_S = 900
 SS_ARRIVAL_S = 0.5
 SS_INDEX = [0, 5, 100, 1000, 1500, 2040, 2044, 2047]
 SS_STEPS = {"bfloat16": 4, "float32": 16}
-# (b)'s bf16 depth, cut by half for the whole script's time (the paged
-# engine of (a) keeps all 36 layers)
-SS_BF16_LAYERS = {"qwen3-4b": 18, "mamba2-370m": 24, "zamba2-1.2b": 18}
+# the bf16 depth of (a) and (b), cut for the whole script's time: with (a)
+# at 36 layers and (b) at 18, 24 and 18 the whole script, phase 20
+# included, ran 1059.1 s, phase 18 197.3 s of it (NVIDIA H100 80GB HBM3,
+# 700 W)
+SS_BF16_LAYERS = {"qwen3-4b": 9, "mamba2-370m": 12, "zamba2-1.2b": 12}
 SS_FP32_LAYERS, SS_ZAMBA2_FP32_LAYERS = 4, 12
 SS_DENSE_REQUESTS, SS_DENSE_NEW = 10, 8
 SS_PREFILL_BATCH, SS_PREFILL_SEQ = 2, 1024
@@ -630,6 +660,47 @@ MOE_DISPATCH_TOL = REL_TOL["bfloat16"]
 # experts, top-2) and kimi-k2-1t-a32b's at 16 experts (top-8, a shared
 # expert, its first layer dense)
 MOE_REDUCED = (("arctic-480b", {}), ("kimi-k2-1t-a32b", {"n_experts": 16}))
+# phase 20, MoE sharded: MOE_SHARD_RANKS gloo ranks share the card.  (a)
+# phase 19's model under TP on a (data, model) mesh of MOE_TP_MESH,
+# ShardPolicy(tp=True, zero=False): a rank holds 32 of the 128 experts a
+# layer, 14 of the 56 query and 2 of the 8 KV heads, a quarter of the
+# residual branch's columns and of the vocabulary; phase 3's requests
+# through the paged engine, twice.  (b) the same model under EP on a
+# (data, expert) mesh of MOE_EP_MESH: a rank holds 32 experts a layer and
+# the rest whole; phase 19 (b)'s requests through serve() on
+# MOE_DENSE_LANES lanes of DENSE_SERVE_CONTEXT tokens, two a rank.  (c)
+# MOE_REDUCED on the card, under TP with ZeRO on MOE_TRAIN_TP_MESH and
+# under EP on MOE_EP_MESH: one batch of MOE_TRAIN_BATCH x MOE_TRAIN_SEQ
+# tokens against the single process on the CPU (the card's draw of the
+# same weights)
+MOE_SHARD_RANKS, MOE_TP_MESH, MOE_EP_MESH = 4, (1, 4), (1, 4)
+ARCTIC_TP_HEADS = (ARCTIC_HEADS[0] // MOE_TP_MESH[1],
+                   ARCTIC_HEADS[1] // MOE_TP_MESH[1], ARCTIC_HEADS[2])
+MOE_EP_LANES = MOE_DENSE_LANES // (MOE_EP_MESH[0] * MOE_EP_MESH[1])
+MOE_TRAIN_TP_MESH, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = (2, 2), 4, 64
+MOE_SHARD_TIMEOUT_S = 600
+# (a)'s and (b)'s first decode step against phase 19's single process,
+# over its largest logit, on the lanes whose top-2 experts agree at every
+# layer (paged: whose input token agrees too): phase 18's bf16 gate
+MOE_SHARD_LOGIT_TOL = SS_LOGIT_TOL["bfloat16"]
+# (c): the loss relative, each gathered gradient leaf over its largest
+# magnitude, by (dtype, mesh).  bf16 gates the loss at phase 16's
+# SHARD_LOSS_RTOL, and EP's leaves at SHARD_GRAD_TOL (a token's arithmetic
+# under EP is the single process's); TP's bf16 leaves are printed (None: no
+# gate): TP sums bf16 partials in fp32, so a state lies an ulp off, and a
+# random-weight MoE's bf16 gradients are chaotic in that rounding (a token
+# near a top-k tie routes to other experts; the router's leaf is a
+# difference of near-equal terms): (c) prints how far one process's own
+# bf16 gradients lie from the same weights' fp32 ones.  Every leaf is gated
+# in fp32, as phase 17 gates SSM gradients
+MOE_SHARD_TRAIN_TOL = {("bfloat16", "tp"): (SHARD_LOSS_RTOL, None),
+                       ("bfloat16", "ep"): (SHARD_LOSS_RTOL, SHARD_GRAD_TOL),
+                       ("float32", "tp"): (1e-5, 1e-5),
+                       ("float32", "ep"): (1e-5, 1e-5)}
+# which single process each dtype is gated against (both are printed): in
+# bf16 the card's, as phase 16 (the CPU's bf16 products round otherwise);
+# in fp32 the CPU's
+MOE_SHARD_TRAIN_REF = {"bfloat16": "cuda", "float32": "cpu"}
 
 
 def log(msg: str) -> None:
@@ -993,6 +1064,13 @@ def phase_kernels():
         # phase 19: arctic-480b's GQA group of 7
         cases += [(name, B, S, T, *ARCTIC_HEADS, kw)
                   for name, B, S, T, kw in arctic_flash_cases()]
+        # phase 20: a TP rank's heads on the paged decode and prefill, an
+        # EP rank's two lanes of the dense decode
+        cases += [(f"{name} TP", B, S, T, *ARCTIC_TP_HEADS, kw)
+                  for name, B, S, T, kw in arctic_flash_cases()[:2]]
+        cases.append(("arctic EP dense decode", MOE_EP_LANES, 1,
+                      DENSE_SERVE_CONTEXT, *ARCTIC_HEADS,
+                      dict(causal=False, kv_len=_i32([1, 1500]))))
         for name, B, S, T, H, KV, dh, kw in cases:
             q = torch.randn(B, S, H, dh, generator=g, device="cuda").to(dt)
             k = torch.randn(B, T, KV, dh, generator=g, device="cuda").to(dt)
@@ -1050,7 +1128,9 @@ def phase_kernels():
                       (SP_LOCAL * 32, 128), (SP_LOCAL * 8, 128),
                       # phase 19: arctic-480b's decode and prefill rows
                       (DECODE_SLOTS, 7168),
-                      (PREFILL_BATCH * PREFILL_CHUNK, 7168)]:
+                      (PREFILL_BATCH * PREFILL_CHUNK, 7168),
+                      # phase 20: an EP rank's decode rows
+                      (MOE_EP_LANES, 7168)]:
             x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dt)
             w = torch.randn(shape[-1], generator=g, device="cuda").to(dt)
             check_rmsnorm(x, w, dtype, str(shape), errs)
@@ -4695,7 +4775,7 @@ def _ss_parts():
     L = SS_FP32_LAYERS
     qwen = SS_BF16_LAYERS["qwen3-4b"]
     return [
-        ("paged bfloat16", "qwen3-4b", "bfloat16", None, seq, ("paged",)),
+        ("paged bfloat16", "qwen3-4b", "bfloat16", qwen, seq, ("paged",)),
         ("qwen3-4b bf16", "qwen3-4b", "bfloat16", qwen, seq, ("steps",)),
         ("qwen3-4b bf16 heads", "qwen3-4b", "bfloat16", qwen, heads,
          ("steps",)),
@@ -5129,8 +5209,8 @@ def recorded_routes():
 
     routes, real = [], moe_mod._route
 
-    def recording(p, xf, cfg):
-        out = real(p, xf, cfg)
+    def recording(p, xf, cfg, *rest):
+        out = real(p, xf, cfg, *rest)
         routes.append(out[1].sort(dim=-1).values.clone())
         return out
 
@@ -5193,55 +5273,121 @@ def _moe_decode_bound(cfg, params):
     return (n_bytes / 1e9, *_bound_ms(n_bytes, n_ops, "bfloat16"))
 
 
+def _moe_ecfg():
+    """Phase 3's paged geometry, for phases 19 (a) and 20 (a)."""
+    from repro_torch.serving import EngineConfig
+    return EngineConfig(page_size=PAGE_SIZE,
+                        n_pages=DECODE_SLOTS * MAX_CONTEXT // PAGE_SIZE,
+                        decode_slots=DECODE_SLOTS, max_context=MAX_CONTEXT,
+                        prefill_batch=PREFILL_BATCH,
+                        prefill_chunk=PREFILL_CHUNK)
+
+
+def _moe_requests(cfg):
+    """Phase 3's 12 requests, for phases 19 (a) and 20 (a)."""
+    import numpy as np
+    from repro_torch.serving import ServeRequest
+    rng = np.random.default_rng(0)
+    return [ServeRequest(rid=f"r{i}",
+                         prompt=rng.integers(0, cfg.vocab_size,
+                                             int(rng.integers(33, 401))
+                                             ).tolist(),
+                         max_new=int(rng.integers(16, 33)))
+            for i in range(12)]
+
+
+def _moe_dense_requests(cfg):
+    """MOE_DENSE_REQUESTS requests of 16-64 prompt tokens, for phases 19
+    (b) and 20 (b)."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(5)
+    return [Request(i, rng.integers(0, cfg.vocab_size,
+                                    int(rng.integers(16, 65))).tolist(),
+                    MOE_DENSE_NEW) for i in range(MOE_DENSE_REQUESTS)]
+
+
+def _first_call(step, rec):
+    """``step`` recording, at its first call, the logits it returns, its
+    token and length arguments and the top-k experts of every ``_route``
+    call it makes (L layers: (L, lanes, 1, k))."""
+    import torch
+
+    def first(*args):
+        if "logits" in rec:
+            return step(*args)
+        with recorded_routes() as routes:
+            out = step(*args)
+        logits = out[0] if isinstance(out, tuple) else out
+        rec.update(logits=logits.float().cpu(),
+                   routes=torch.stack(routes).cpu(),
+                   args=[a.cpu() for a in args[2:]
+                         if isinstance(a, torch.Tensor)])
+        return out
+    first.shard = getattr(step, "shard", None)
+    return first
+
+
+@contextlib.contextmanager
+def first_decode(engine):
+    """Check-only: the paged ``engine``'s first decode step while the
+    block runs (:func:`_first_call`)."""
+    rec, real = {}, engine._decode
+    engine._decode = _first_call(real, rec)
+    try:
+        yield rec
+    finally:
+        engine._decode = real
+
+
+@contextlib.contextmanager
+def first_serve_step():
+    """Check-only: the first decode step ``launch/serve.py::serve`` runs
+    while the block runs (:func:`_first_call` on its ``make_serve_step``);
+    ``rec["shard"]`` is the step's ``ShardContext``."""
+    from repro_torch.launch import serve as serve_mod
+
+    rec, real = {}, serve_mod.make_serve_step
+
+    def make(cfg, **kw):
+        step = real(cfg, **kw)
+        wrapped = _first_call(step, rec)
+        rec.setdefault("shard", step.shard)
+        return wrapped
+
+    serve_mod.make_serve_step = make
+    try:
+        yield rec
+    finally:
+        serve_mod.make_serve_step = real
+
+
 def _moe_paged(cfg, params):
     """(a) Phase 3's requests through the paged engine, twice: every
     request completes, the flash forward and RMSNorm launch at the counts a
     decode step and a prefill chunk give, no plain version runs, and the
     second run gives the same tokens and the same bits of the first decode
     step's logits.  Then a decode step timed and profiled beside its
-    bound (every weight read once)."""
-    import numpy as np
+    bound (every weight read once).  Returns the launches and the first
+    run's first decode step (:func:`first_decode`)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
-    from repro_torch.serving import EngineConfig, ServeRequest, ServingEngine
+    from repro_torch.serving import ServeRequest, ServingEngine
 
-    ecfg = EngineConfig(page_size=PAGE_SIZE,
-                        n_pages=DECODE_SLOTS * MAX_CONTEXT // PAGE_SIZE,
-                        decode_slots=DECODE_SLOTS, max_context=MAX_CONTEXT,
-                        prefill_batch=PREFILL_BATCH,
-                        prefill_chunk=PREFILL_CHUNK)
+    ecfg = _moe_ecfg()
     ServingEngine(cfg, params, ecfg, device="cuda").run(
         [ServeRequest(rid="warmup", prompt=list(range(1, 150)), max_new=3)])
 
-    def requests():
-        rng = np.random.default_rng(0)
-        return [ServeRequest(rid=f"r{i}",
-                             prompt=rng.integers(0, cfg.vocab_size,
-                                                 int(rng.integers(33, 401))
-                                                 ).tolist(),
-                             max_new=int(rng.integers(16, 33)))
-                for i in range(12)]
-
     def one_run():
         engine = ServingEngine(cfg, params, ecfg, device="cuda")
-        first, real = [], engine._decode
-
-        def recording(*args):
-            out = real(*args)
-            if not first:
-                first.append(out.clone())
-            return out
-
-        engine._decode = recording
-        reqs = requests()
+        reqs = _moe_requests(cfg)
         torch.cuda.synchronize()
         counts = _zero_counts()
-        with plain_calls() as plain:
+        with first_decode(engine) as first, plain_calls() as plain:
             metrics = engine.run(reqs)
             torch.cuda.synchronize()
-        engine._decode = real
-        return engine, reqs, metrics.summary(), counts(), plain, first[0]
+        return engine, reqs, metrics.summary(), counts(), plain, first
 
     torch.cuda.reset_peak_memory_stats()
     engine, reqs, summ, launches, plain, first = one_run()
@@ -5290,7 +5436,7 @@ def _moe_paged(cfg, params):
           f"{per_prefill[0]}, not {cfg.n_layers}")
     _, reqs2, _, _, _, first2 = one_run()
     same_tokens = [r.tokens for r in reqs2] == [r.tokens for r in reqs]
-    same_bits = torch.equal(first2, first)
+    same_bits = torch.equal(first2["logits"], first["logits"])
     log(f"[moe] (a) second run: the same tokens {same_tokens}, the first "
         f"decode step's logits the same bits {same_bits}")
     check(same_tokens and same_bits, "the MoE serving forward is not "
@@ -5316,7 +5462,7 @@ def _moe_paged(cfg, params):
             ("flash_attention", "rmsnorm"), per_prefill)),
     }
     log("[moe] (a) paged " + json.dumps(result))
-    return launches
+    return launches, first
 
 
 def _moe_decode_vs_prefill(cfg, params, T, tol, tag):
@@ -5395,17 +5541,15 @@ def _moe_drops(cfg, params, toks):
 def _moe_dense_serve(cfg, params):
     """(b) serve on MOE_DENSE_LANES lanes of a DENSE_SERVE_CONTEXT-token
     cache: every request completes, the flash forward launches once a layer
-    a step, no plain version runs."""
-    import numpy as np
+    a step, no plain version runs.  Returns the launches and the first
+    step (:func:`first_serve_step`)."""
     import torch
-    from repro_torch.launch.serve import Request, serve
+    from repro_torch.launch.serve import serve
 
-    rng = np.random.default_rng(5)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size,
-                                    int(rng.integers(16, 65))).tolist(),
-                    MOE_DENSE_NEW) for i in range(MOE_DENSE_REQUESTS)]
+    reqs = _moe_dense_requests(cfg)
     counts = _zero_counts()
-    with counted_serve_steps() as steps, plain_calls() as plain:
+    with counted_serve_steps() as steps, first_serve_step() as first, \
+            plain_calls() as plain:
         t0 = time.perf_counter()
         serve(cfg, reqs, MOE_DENSE_LANES, DENSE_SERVE_CONTEXT, verbose=False,
               device="cuda", params=params)
@@ -5425,7 +5569,7 @@ def _moe_dense_serve(cfg, params):
         f"of {DENSE_SERVE_CONTEXT}, {new} tokens in {wall:.2f} s "
         f"({new / wall:.1f} tok/s, {n} steps, {1e3 * wall / n:.2f} ms a "
         f"step); launches {launches}")
-    return launches
+    return launches, first
 
 
 def _moe_dispatch_identity(params, cfg):
@@ -5570,17 +5714,19 @@ def _kimi_full_width_refused():
 
 
 def phase_moe():
-    """Phase 19.  Returns {path: launches}."""
+    """Phase 19.  Returns {path: launches} and phase 20's reference: the
+    first decode step of (a)'s first run and of (b)'s serve."""
     t_phase = time.perf_counter()
     _free_cuda()
-    launches = {}
+    launches, ref = {}, {}
     cfg = _moe_cfg()
     params = _moe_init(cfg)
-    launches["moe_serve"] = _moe_paged(cfg, params)
+    launches["moe_serve"], ref["paged"] = _moe_paged(cfg, params)
     toks = _moe_decode_vs_prefill(cfg, params, DECODE_VS_PREFILL_T,
                                   MOE_DECODE_VS_PREFILL_TOL, "[moe] (b)")
     _moe_drops(cfg, params, toks)
-    launches["moe_dense_serve"] = _moe_dense_serve(cfg, params)
+    launches["moe_dense_serve"], ref["dense"] = _moe_dense_serve(cfg,
+                                                                 params)
     _moe_dispatch_identity(params, cfg)
     del params
     _free_cuda()
@@ -5593,6 +5739,461 @@ def phase_moe():
     launches["moe_cpu_vs_card"] = _moe_cpu_vs_card()
     _kimi_full_width_refused()
     log(f"[moe] phase 19 in {time.perf_counter() - t_phase:.1f} s")
+    return launches, ref
+
+
+# ---------------------------------------------------------------------------
+# phase 20: MoE sharded, full-width arctic-480b on 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MOE_SHARD_DIR = ROOT / "build" / "moe_shard"
+
+
+def _moe_train_cfgs():
+    """(tag, config) of (c): each of MOE_REDUCED in bf16 and fp32."""
+    import torch
+    from repro_torch.configs import get_config
+    return [(f"{arch} {dtype}", get_config(arch).reduced(**kw).with_(
+                dtype=getattr(torch, dtype)))
+            for arch, kw in MOE_REDUCED for dtype in ("bfloat16", "float32")]
+
+
+def _moe_train_batch(cfg):
+    import torch
+    from repro_torch.data import DataConfig, synthetic_lm_batches
+    b = next(synthetic_lm_batches(DataConfig(
+        seq_len=MOE_TRAIN_SEQ, global_batch=MOE_TRAIN_BATCH,
+        vocab_size=cfg.vocab_size, seed=0)))
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def _moe_train_reference(run_dir):
+    """(c)'s single process on the card and on the CPU, on the card's draw
+    of ``init_lm`` seed 0 (the ranks draw on the card): the loss and every
+    gradient of one batch, saved for rank 0."""
+    import torch
+    from repro_torch.models import init_lm, lm_loss
+
+    def run(params, cfg, dev):
+        batch = {k: v.to(dev) for k, v in _moe_train_batch(cfg).items()}
+        loss = lm_loss(params, batch, cfg)
+        named = list(params.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        return {"loss": float(loss.detach()),
+                "grads": {n: g.float().cpu() for (n, _), g in zip(named,
+                                                                  grads)}}
+
+    out = {}
+    for tag, cfg in _moe_train_cfgs():
+        params = init_lm(cfg, seed=0, device="cuda")
+        if cfg.dtype == torch.bfloat16:     # the same weights in fp32
+            out[f"{tag} fp32"] = run(copy.deepcopy(params).float(),
+                                     cfg.with_(dtype=torch.float32), "cuda")
+        for dev in ("cuda", "cpu"):
+            out[f"{tag} {dev}"] = run(params.to(dev), cfg, dev)
+    for tag, cfg in _moe_train_cfgs():
+        if cfg.dtype == torch.bfloat16:
+            own = out[f"{tag} cuda"]["grads"]
+            exact = out.pop(f"{tag} fp32")["grads"]
+            errs = {n: ((own[n] - g).abs().max() / g.abs().max()).item()
+                    for n, g in exact.items()}
+            worst = max(errs, key=errs.get)
+            log(f"[moe-shard] (c) {tag}: one process on the card, its bf16 "
+                f"gradients against the same weights' in fp32: worst leaf "
+                f"{worst} {errs[worst]:.2e}, median "
+                f"{sorted(errs.values())[len(errs) // 2]:.2e}")
+    torch.save(out, f"{run_dir}/train_ref.pt")
+
+
+def _moe_shard_paged(mesh):
+    """(a) on a rank: full-width arctic-480b under TP through the paged
+    engine, phase 3's requests twice (tokens, launches, plain calls, gloo
+    bytes, peak memory and the first decode step of each run); then a
+    decode step (8 lanes at 300 positions) and a prefill chunk: their
+    launches and gloo bytes, the decode step's wall and busy ms."""
+    import torch
+    from repro_torch.runtime import ShardPolicy, init_serving_params
+    from repro_torch.serving import ServingEngine
+
+    cfg, pol = _moe_cfg(), ShardPolicy(tp=True, zero=False)
+    t0 = time.perf_counter()
+    params = init_serving_params(cfg, mesh=mesh, policy=pol, seed=0,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0,
+           "param_gb": sum(p.nbytes for p in params.parameters()) / 1e9,
+           "runs": []}
+    ecfg = _moe_ecfg()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServingEngine(cfg, params, ecfg, device="cuda", mesh=mesh,
+                               policy=pol)
+        reqs = _moe_requests(cfg)
+        sent = _ss_traffic(engine._decode, engine._prefill)
+        counts = _zero_counts()
+        with first_decode(engine) as first, plain_calls() as plain:
+            metrics = engine.run(reqs)
+            torch.cuda.synchronize()
+        res["runs"].append({
+            "tokens": [r.tokens for r in reqs],
+            "complete": all(r.done and len(r.tokens) == r.max_new
+                            for r in reqs),
+            "launches": counts(), "plain": dict(plain),
+            "summary": metrics.summary(), "first": first,
+            "gloo_bytes": _ss_traffic(engine._decode, engine._prefill)
+            - sent, "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    P = ecfg.pages_per_slot
+    rows = torch.arange(DECODE_SLOTS * P, dtype=torch.int32,
+                        device="cuda").reshape(DECODE_SLOTS, P)
+    tok = torch.arange(1, DECODE_SLOTS + 1, dtype=torch.int32, device="cuda")
+    lens = torch.full((DECODE_SLOTS,), 300, dtype=torch.int32, device="cuda")
+    ptok = torch.zeros(PREFILL_BATCH, PREFILL_CHUNK, dtype=torch.int32,
+                       device="cuda")
+    plen = torch.full((PREFILL_BATCH,), 400, dtype=torch.int32,
+                      device="cuda")
+    calls = {"decode": lambda: engine._decode(params, engine.pools, tok,
+                                              rows, lens),
+             "prefill": lambda: engine._prefill(
+                 params, engine.pools, ptok, rows[:PREFILL_BATCH], 256,
+                 plen)}
+    for name, call in calls.items():
+        sent = _ss_traffic(engine._decode, engine._prefill)
+        counts = _zero_counts()
+        call()
+        torch.cuda.synchronize()
+        res[f"per_{name}"] = counts()
+        res[f"{name}_gloo_bytes"] = _ss_traffic(
+            engine._decode, engine._prefill) - sent
+    res["decode_ms"] = cuda_ms(calls["decode"], iters=3, warmup=1)
+    res["decode_busy_ms"] = _ss_busy_ms(calls["decode"], n=1)
+    return res
+
+
+def _moe_shard_dense(mesh):
+    """(b) on a rank: full-width arctic-480b under EP through ``serve``
+    (tokens, launches, steps, all-to-all and gloo bytes a step, peak
+    memory, the first step), then one step's wall and busy ms."""
+    import torch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_decode_state
+    from repro_torch.runtime import (ShardPolicy, init_serving_params,
+                                     make_serve_step)
+
+    cfg, pol = _moe_cfg(), ShardPolicy(tp=False, zero=False)
+    t0 = time.perf_counter()
+    params = init_serving_params(cfg, mesh=mesh, policy=pol, seed=0,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0,
+           "param_gb": sum(p.nbytes for p in params.parameters()) / 1e9}
+    reqs = _moe_dense_requests(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    counts = _zero_counts()
+    with counted_serve_steps() as steps, first_serve_step() as first, \
+            plain_calls() as plain:
+        t0 = time.perf_counter()
+        serve(cfg, reqs, MOE_DENSE_LANES, DENSE_SERVE_CONTEXT, verbose=False,
+              device="cuda", params=params, mesh=mesh, policy=pol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ctx, n = first.pop("shard"), steps["n"]
+    res.update(tokens=[r.generated for r in reqs],
+               complete=all(r.done and len(r.generated) == MOE_DENSE_NEW
+                            for r in reqs),
+               launches=counts(), plain=dict(plain), steps=n, wall_s=wall,
+               a2a_bytes_per_step=ctx.traffic.a2a_bytes / n,
+               gloo_bytes_per_step=ctx.traffic.bytes_sent / n,
+               lanes=ctx.lane_range(MOE_DENSE_LANES), first=first,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    step = make_serve_step(cfg, mesh=mesh, policy=pol)
+    state = init_decode_state(cfg, MOE_DENSE_LANES, DENSE_SERVE_CONTEXT,
+                              device="cuda", shard=step.shard)
+    state["index"] = _i32([300] * MOE_DENSE_LANES)
+    tok = _i32(list(range(1, MOE_DENSE_LANES + 1)))
+    res["step_ms"] = cuda_ms(lambda: step(params, state, tok), iters=2,
+                             warmup=1)
+    res["step_busy_ms"] = _ss_busy_ms(lambda: step(params, state, tok), n=1)
+    return res
+
+
+def _moe_shard_train(tp_mesh, ep_mesh, run_dir):
+    """(c) on a rank: each of MOE_REDUCED in bf16 and fp32 under TP with
+    ZeRO and under EP, the loss and gradients of one batch; rank 0 holds
+    each gathered leaf against the single process's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.runtime import (ShardPolicy, init_train_state,
+                                     make_sharded_loss)
+
+    ref = (torch.load(f"{run_dir}/train_ref.pt") if dist.get_rank() == 0
+           else None)
+    out = {}
+    counts = _zero_counts()
+    with plain_calls() as plain:
+        for tag, cfg in _moe_train_cfgs():
+            batch = _moe_train_batch(cfg)
+            for name, mesh, pk in (("tp", tp_mesh, dict(tp=True, zero=True)),
+                                   ("ep", ep_mesh, dict(tp=False,
+                                                        zero=False))):
+                pol = ShardPolicy(**pk)
+                params, _ = init_train_state(cfg, mesh=mesh, policy=pol,
+                                             seed=0, device="cuda")
+                fn = make_sharded_loss(cfg, mesh, pol)
+                loss, grads = fn(params, batch)
+                errs = {"cuda": {}, "cpu": {}}
+                for (n, _), g in zip(params.named_parameters(), grads):
+                    whole = fn.shard.gather_tensor(n, g).float().cpu()
+                    for dev in errs if ref is not None else ():
+                        want = ref[f"{tag} {dev}"]["grads"][n]
+                        errs[dev][n] = ((whole - want).abs().max()
+                                        / want.abs().max().clamp_min(1e-30)
+                                        ).item()
+                out[f"{tag} {name}"] = {
+                    "loss": float(loss), "errs": errs,
+                    "ref_loss": None if ref is None else {
+                        dev: ref[f"{tag} {dev}"]["loss"] for dev in errs}}
+        torch.cuda.synchronize()
+    out["launches"], out["plain"] = counts(), dict(plain)
+    return out
+
+
+def moe_shard_rank(rank, world, run_dir):
+    """One of MOE_SHARD_RANKS gloo ranks sharing the card: (a) on a
+    MOE_TP_MESH (data, model) mesh, (b) on a MOE_EP_MESH (data, expert)
+    mesh, each model freed before the next is drawn, then (c); saves its
+    results."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import (init_distributed, make_expert_mesh,
+                                         make_local_mesh)
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous",
+                     timeout_s=MOE_SHARD_TIMEOUT_S)
+    try:
+        tp = make_local_mesh(MOE_TP_MESH[1])
+        ep = make_expert_mesh(MOE_EP_MESH[1], MOE_EP_MESH[0])
+        train_tp = make_local_mesh(MOE_TRAIN_TP_MESH[1])
+        out = {"coord": [tp.get_local_rank("model"),
+                         ep.get_local_rank("expert")]}
+        t0 = time.perf_counter()
+        out["a"] = _moe_shard_paged(tp)
+        out["a"]["s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()              # (a)'s shards freed on every rank
+        t0 = time.perf_counter()
+        out["b"] = _moe_shard_dense(ep)
+        out["b"]["s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["c"] = _moe_shard_train(train_tp, ep, run_dir)
+        out["c"]["s"] = time.perf_counter() - t0
+        torch.save(out, f"{run_dir}/rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _moe_logit_gate(tag, want, got, routes, keep):
+    """The first decode step's logits ``got`` (lanes, V) against phase
+    19's ``want`` on the lanes ``keep`` (bool, lanes) where the top-k
+    experts ``routes`` (L, lanes, 1, k) of both agree at every layer;
+    returns (worst, lanes compared, flips)."""
+    agree = (routes == want["routes"]).all(-1).flatten(2).all(-1).all(0)
+    flips = int((keep & ~agree).sum())
+    use = keep & agree
+    check(int(use.sum()) * 2 >= int(keep.sum()) and bool(use.any()),
+          f"{tag}: the routing agrees on {int(use.sum())} of "
+          f"{int(keep.sum())} lanes")
+    w = want["logits"][use]
+    worst = ((got[use] - w).abs().max() / w.abs().max()).item()
+    log(f"[moe-shard] {tag} first decode step against the single process: "
+        f"max |diff| / max |logit| {worst:.3e} over {int(use.sum())} lanes "
+        f"(tol {MOE_SHARD_LOGIT_TOL:.0e}); {flips} lane(s) left out whose "
+        f"top-{routes.shape[-1]} experts differ at some layer")
+    check(worst <= MOE_SHARD_LOGIT_TOL, f"{tag}: logits off by {worst}")
+    return worst, int(use.sum()), flips
+
+
+def _moe_shard_check_a(ref, res, launches):
+    """(a)'s gates over the ranks' results ``res``."""
+    import torch
+    L = MOE_LAYERS
+    for r, a in enumerate(res):
+        for i, run in enumerate(a["runs"]):
+            check(run["complete"], f"(a) rank {r} run {i}: a request did "
+                  "not complete")
+            check(not run["plain"], f"(a) rank {r}: plain versions ran "
+                  f"{run['plain']}")
+            summ = run["summary"]
+            for k in ("flash_attention", "rmsnorm"):
+                want = (a["per_decode"][k] * summ["decode_steps"]
+                        + a["per_prefill"][k] * summ["prefill_chunks"])
+                check(run["launches"][k] == want > 0,
+                      f"(a) rank {r} run {i}: {k} launched "
+                      f"{run['launches'][k]} times, not {want}")
+        check(a["per_decode"]["flash_attention"] == L
+              == a["per_prefill"]["flash_attention"],
+              f"(a) rank {r}: flash launches a decode step / prefill chunk "
+              f"{a['per_decode']['flash_attention']} / "
+              f"{a['per_prefill']['flash_attention']}, not {L}")
+        for run in a["runs"]:
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    runs = [run for a in res for run in a["runs"]]
+    check(all(run["tokens"] == runs[0]["tokens"] for run in runs),
+          "(a) the ranks' or the runs' tokens differ")
+    firsts = [run["first"]["logits"] for run in runs]
+    same_bits = all(torch.equal(f, firsts[0]) for f in firsts)
+    check(same_bits, "(a) the first decode step's logits differ between "
+          "runs or ranks")
+    first = res[0]["runs"][0]["first"]
+    tok, lens = first["args"][0], first["args"][2]
+    keep = ((lens >= 0) & (ref["args"][2] >= 0)
+            & (tok == ref["args"][0]))
+    log(f"[moe-shard] (a) the first decode step's input token agrees with "
+        f"the single process's on {int(keep.sum())} of "
+        f"{int((lens >= 0).sum())} active lanes")
+    _moe_logit_gate("(a) paged TP", ref, first["logits"], first["routes"],
+                    keep)
+    summ = res[0]["runs"][1]["summary"]
+    log("[moe-shard] (a) paged TP on (data, model) " + json.dumps({
+        "tok_per_s": summ["tok_per_s"], "wall_s": summ["wall_s"],
+        "decode_steps": summ["decode_steps"],
+        "prefill_chunks": summ["prefill_chunks"],
+        "ttft_ms_p50": summ["ttft_ms_p50"],
+        "same_bits_run_to_run_and_rank_to_rank": same_bits,
+        "param_gb_by_rank": [a["param_gb"] for a in res],
+        "init_s_by_rank": [a["init_s"] for a in res],
+        "decode_step_ms_by_rank": [a["decode_ms"] for a in res],
+        "decode_busy_ms_by_rank": [a["decode_busy_ms"] for a in res],
+        "decode_gloo_bytes_by_rank": [a["decode_gloo_bytes"] for a in res],
+        "prefill_gloo_bytes_by_rank": [a["prefill_gloo_bytes"]
+                                       for a in res],
+        "run_gloo_bytes_by_rank": [a["runs"][1]["gloo_bytes"] for a in res],
+        "peak_gb_by_rank": [a["runs"][1]["peak_gb"] for a in res],
+        "launches_per_decode_step": res[0]["per_decode"],
+        "launches_per_prefill_chunk": res[0]["per_prefill"],
+        "phase_s_by_rank": [a["s"] for a in res]}))
+
+
+def _moe_shard_check_b(ref, res, launches):
+    """(b)'s gates over the ranks' results ``res``."""
+    import torch
+    L = MOE_LAYERS
+    for r, b in enumerate(res):
+        check(b["complete"], f"(b) rank {r}: a request did not complete")
+        check(not b["plain"], f"(b) rank {r}: plain versions ran "
+              f"{b['plain']}")
+        check(b["launches"]["flash_attention"] == L * b["steps"] > 0,
+              f"(b) rank {r}: {b['launches']['flash_attention']} flash "
+              f"launches in {b['steps']} steps")
+        check(b["a2a_bytes_per_step"] > 0, f"(b) rank {r}: no all-to-all")
+        for k, v in b["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    check(all(b["tokens"] == res[0]["tokens"] for b in res),
+          "(b) the ranks' tokens differ")
+    check([b["lanes"] for b in res] == [
+        (2 * r, 2 * r + 2) for r in range(MOE_SHARD_RANKS)],
+        f"(b) lanes by rank {[b['lanes'] for b in res]}")
+    routes = torch.cat([b["first"]["routes"] for b in res], 1)
+    keep = torch.ones(MOE_DENSE_LANES, dtype=torch.bool)
+    _moe_logit_gate("(b) dense EP", ref, res[0]["first"]["logits"], routes,
+                    keep)
+    log("[moe-shard] (b) dense-cache serve, EP on (data, expert) "
+        + json.dumps({
+            "steps": res[0]["steps"], "wall_s": res[0]["wall_s"],
+            "tok_per_s": MOE_DENSE_REQUESTS * MOE_DENSE_NEW
+            / res[0]["wall_s"],
+            "param_gb_by_rank": [b["param_gb"] for b in res],
+            "init_s_by_rank": [b["init_s"] for b in res],
+            "a2a_bytes_per_step_by_rank": [b["a2a_bytes_per_step"]
+                                           for b in res],
+            "gloo_bytes_per_step_by_rank": [b["gloo_bytes_per_step"]
+                                            for b in res],
+            "step_ms_by_rank": [b["step_ms"] for b in res],
+            "step_busy_ms_by_rank": [b["step_busy_ms"] for b in res],
+            "peak_gb_by_rank": [b["peak_gb"] for b in res],
+            "phase_s_by_rank": [b["s"] for b in res]}))
+
+
+def _moe_shard_check_c(res, launches):
+    """(c)'s gates: rank 0's losses and gradient errors."""
+    c = res[0]["c"]
+    for r in res:
+        check(not r["c"]["plain"], f"(c) plain versions ran "
+              f"{r['c']['plain']}")
+        for k, v in r["c"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    failed = []
+    for key, v in c.items():
+        if not isinstance(v, dict) or "errs" not in v:
+            continue
+        _, dtype, mesh = key.split()
+        gated = MOE_SHARD_TRAIN_REF[dtype]
+        loss_tol, grad_tol = MOE_SHARD_TRAIN_TOL[(dtype, mesh)]
+        for dev, errs in v["errs"].items():
+            want = v["ref_loss"][dev]
+            rel = abs(v["loss"] - want) / abs(want)
+            worst = max(errs, key=errs.get)
+            router = max(e for n, e in errs.items()
+                         if n.endswith(".moe.router"))
+            log(f"[moe-shard] (c) {key} ranks on the card against one "
+                f"process on the {dev}: loss {v['loss']:.6f} vs {want:.6f}, "
+                f"relative {rel:.2e}; worst leaf {worst} {errs[worst]:.2e}, "
+                f"router {router:.2e}" + (
+                    f" (tol {loss_tol:.0e}, {grad_tol})" if dev == gated
+                    else " (not gated)"))
+            if dev == gated and (rel > loss_tol or (
+                    grad_tol is not None and errs[worst] > grad_tol)):
+                failed.append(f"{key} against the {dev}: loss {rel:.2e}, "
+                              f"{worst} {errs[worst]:.2e}")
+    check(not failed, f"(c) {failed}")
+    check(all(launches.get(k, 0) > 0 for k in (
+        "flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd")),
+        f"(c) launches {launches}")
+    log(f"[moe-shard] (c) launches over the ranks {launches}, "
+        f"{[round(r['c']['s'], 1) for r in res]} s by rank")
+
+
+def phase_moe_shard(ref):
+    """Phase 20 on phase 19's reference ``ref``.  Returns {path:
+    launches}."""
+    import torch
+
+    t_phase = time.perf_counter()
+    _free_cuda()
+    shutil.rmtree(MOE_SHARD_DIR, ignore_errors=True)
+    MOE_SHARD_DIR.mkdir(parents=True)
+    _moe_train_reference(MOE_SHARD_DIR)
+    _free_cuda()
+    ranks_s = spawn_ranks(moe_shard_rank, (MOE_SHARD_RANKS,
+                                           str(MOE_SHARD_DIR)),
+                          MOE_SHARD_RANKS, "MoE sharded ranks",
+                          timeout_s=MOE_SHARD_TIMEOUT_S)
+    res = [torch.load(MOE_SHARD_DIR / f"rank{r}.pt")
+           for r in range(MOE_SHARD_RANKS)]
+    check([r["coord"] for r in res] == [[r, r] for r in range(
+        MOE_SHARD_RANKS)], f"mesh coordinates {[r['coord'] for r in res]}")
+    log(f"[moe-shard] {MOE_SHARD_RANKS} ranks in {ranks_s:.1f} s (they "
+        "share one card: no time here is sharded serving's speed)")
+    launches = {"moe_tp_serve": {}, "moe_ep_serve": {},
+                "moe_shard_train": {}}
+    _moe_shard_check_a(ref["paged"], [r["a"] for r in res],
+                       launches["moe_tp_serve"])
+    _moe_shard_check_b(ref["dense"], [r["b"] for r in res],
+                       launches["moe_ep_serve"])
+    _moe_shard_check_c(res, launches["moe_shard_train"])
+    shutil.rmtree(MOE_SHARD_DIR, ignore_errors=True)
+    log(f"[moe-shard] phase 20 in {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -6091,29 +6692,38 @@ def _ssd_timing(B, S, H, P, N, Q, *, bwd=True):
                      gflop=bwd_ops / 1e9, ms_by_kernel=parts)
 
 
-def _kernel_ms(call, names, n=5):
+def _kernel_ms(call, names, n=5, sessions=3):
     """Device ms per call of each kernel whose name holds one of ``names``
     (profiler over ``n`` calls, each launching it once: its device time over
     the launches the profiler recorded), and the names of every kernel the
-    calls launched."""
+    calls launched.  A session that records none of some kernel's launches
+    (the profiler loses device events now and then) is run again, up to
+    ``sessions`` in all; the last one's times are returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    def mean_ms(k):
-        hits = [e for e in events if k in e.key]
-        count = sum(e.count for e in hits)
-        return (sum(e.self_device_time_total for e in hits) / 1e3
-                / max(count, 1))
-    return {k: mean_ms(k) for k in names}, [e.key for e in events]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+
+        def mean_ms(k):
+            hits = [e for e in events if k in e.key]
+            count = sum(e.count for e in hits)
+            return (sum(e.self_device_time_total for e in hits) / 1e3
+                    / max(count, 1))
+        times = {k: mean_ms(k) for k in names}
+        if all(times.values()):
+            break
+        log(f"[time] a profiler session recorded no device time of "
+            f"{[k for k, v in times.items() if not v]}; profiling again")
+    return times, [e.key for e in events]
 
 
 def _ssd_bwd_parts(call):
@@ -6196,7 +6806,11 @@ def phase_timings():
              "arctic_prefill": _flash_timing(
                  PREFILL_BATCH, PREFILL_CHUNK, MAX_CONTEXT,
                  [256] * PREFILL_BATCH, [384] * PREFILL_BATCH,
-                 heads=ARCTIC_HEADS)}),
+                 heads=ARCTIC_HEADS),
+             # phase 20: a TP rank's paged decode (H 14, KV 2)
+             "arctic_tp_decode": _flash_timing(
+                 DECODE_SLOTS, 1, MAX_CONTEXT, decode_L,
+                 [MAX_CONTEXT] * DECODE_SLOTS, heads=ARCTIC_TP_HEADS)}),
         ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "decode", {
              "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
@@ -6330,6 +6944,8 @@ def main() -> int:
     only = None
     if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
         only = {1, *(int(n) for n in sys.argv[2].split(","))}
+        if 20 in only:          # phase 20 holds its ranks against phase 19
+            only.add(19)
 
     def run(n):
         return only is None or n in only
@@ -6351,7 +6967,10 @@ def main() -> int:
         if run(3):
             launches["serve"] = phase_serve()
         if run(19):
-            launches.update(phase_moe())
+            moe_launches, moe_ref = phase_moe()
+            launches.update(moe_launches)
+            if run(20):
+                launches.update(phase_moe_shard(moe_ref))
         if run(4):
             phase_cpu_vs_card()
         if run(5):

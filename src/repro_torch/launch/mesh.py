@@ -5,7 +5,8 @@ The JAX package builds its meshes from the devices one process sees
 the processes, gives each its rank, and :func:`init_distributed` joins them
 into the default group; a mesh is then a ``DeviceMesh`` over that group:
 ``("data", "seq")`` for ring attention, ``("pipe", "data")`` for the
-pipeline runtime, ``("data", "model")`` for the sharded executor.
+pipeline runtime, ``("data", "model")`` and ``("data", "expert")`` for the
+sharded executor.
 Nothing here reads a cluster's environment: the address, world size and rank
 are passed in.
 """
@@ -119,6 +120,25 @@ def make_pipeline_mesh(n_stages: int = 2, n_data: int = 4, *,
                          f"{world}")
     return init_device_mesh(device_type, (n_stages, n_data),
                             mesh_dim_names=("pipe", "data"))
+
+
+def make_expert_mesh(n_ep: int = 0, n_data: int = 1, *,
+                     device_type: str = "cuda") -> DeviceMesh:
+    """DP x EP mesh for expert parallelism, with dims ``("data",
+    "expert")`` over the already-initialised default group.
+
+    The ``expert`` axis carries the searched ``plan.ep_degree``: expert
+    weights shard over it (``runtime/sharding.py``), the batch dim
+    co-shards over data x expert, and MoE dispatch runs the all-to-all path
+    (``models/moe.py::_moe_ep``).  ``n_ep=0`` takes every rank left after
+    the ``data`` axis.  Rank ``r`` sits at ``(r // n_ep, r % n_ep)``."""
+    world = dist.get_world_size()
+    n_ep = n_ep or world // n_data
+    if n_ep * n_data != world:
+        raise ValueError(f"a ({n_data}, {n_ep}) mesh needs {n_data * n_ep} "
+                         f"ranks; the default group has {world}")
+    return init_device_mesh(device_type, (n_data, n_ep),
+                            mesh_dim_names=("data", "expert"))
 
 
 def make_local_mesh(model: int = 1, *,

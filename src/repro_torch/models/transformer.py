@@ -134,12 +134,14 @@ def is_attention_stack(cfg: ModelConfig) -> bool:
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device: torch.device = "cuda",
-            shard: Optional[Callable[[str, Any], Any]] = None) -> LM:
+            shard: Optional[Callable[[str, Any], Any]] = None,
+            experts: Optional[Tuple[int, int]] = None) -> LM:
     """Random weights drawn on ``device`` from ``torch.Generator(seed)``,
     with the JAX package's distributions (not its numbers).  On the
-    ``meta`` device only the shapes exist.  ``shard`` goes to
+    ``meta`` device only the shapes exist.  ``shard`` and ``experts`` go to
     :func:`init_lm_parts`."""
-    parts = init_lm_parts(cfg, seed=seed, device=device, shard=shard)
+    parts = init_lm_parts(cfg, seed=seed, device=device, shard=shard,
+                          experts=experts)
     return LM(parts["embed"], [parts["blocks"][i]
                                for i in range(cfg.n_layers)],
               parts["final_norm"], parts["head"], parts["shared_attn"])
@@ -148,7 +150,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
 def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
                   device: torch.device = "cuda",
                   keep: Optional[Callable[[Any], bool]] = None,
-                  shard: Optional[Callable[[str, Any], Any]] = None
+                  shard: Optional[Callable[[str, Any], Any]] = None,
+                  experts: Optional[Tuple[int, int]] = None
                   ) -> Dict[str, Any]:
     """:func:`init_lm`'s draws, in its order (blocks 0..L-1, the shared
     attention block, the head, the embedding), as {"embed", "blocks" (layer
@@ -161,7 +164,9 @@ def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
     (``blocks.<i>``, ``shared_attn``, ``head``, ``embed``,
     ``final_norm``): a sharded run keeps its rank's shards of the same
     numbers (``runtime/sharding.py::ShardContext.shard_part``).  A MoE
-    block draws its experts one at a time (``models/moe.py::init_moe``)."""
+    block draws its experts one at a time (``models/moe.py::init_moe``),
+    keeping only experts ``[lo, hi)`` when ``experts`` is ``(lo, hi)``: a
+    rank whose experts split never holds another rank's."""
     kinds = [kind for kind, n in build_stacks(cfg) for _ in range(n)]
     dev = resolve_device(device)
     g = torch.Generator(device="cpu" if dev.type == "meta" else dev
@@ -180,7 +185,7 @@ def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
             blk = SSMBlock(ones(), init_ssm(cfg, **kw))
         elif kind == "moe":
             blk = MoEBlock(ones(), init_attention(cfg, **kw), ones(),
-                           init_moe(cfg, **kw))
+                           init_moe(cfg, experts=experts, **kw))
         else:
             blk = DenseBlock(ones(), init_attention(cfg, **kw), ones(),
                              init_swiglu(d, cfg.d_ff, dt, **kw))
@@ -229,7 +234,8 @@ def moe_block(p: MoEBlock, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, *, window: Optional[int] = None,
               shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm causal attention and the MoE FFN, each with its residual:
-    -> (x, aux).  ``shard`` raises NotImplementedError in ``moe_ffn``."""
+    -> (x, aux); ``shard`` runs both sharded (``runtime/sharding.py``,
+    ``models/moe.py::moe_ffn``), aux then the rank's share."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     x = x + attention(p.attn, h, positions, cfg, window=window, shard=shard)
     h = rms_norm(x, p.ln2, cfg.norm_eps)
@@ -293,7 +299,8 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     rank's shards: each block through ``shard.block`` (its ZeRO weights
     gathered, TP inside, under sequence sharding the stash this rank's
     token slice), the embedding and the logits vocab-parallel; the logits
-    are then the rank's vocabulary columns."""
+    are then the rank's vocabulary columns, and the aux the rank's share
+    (summed over the batch ranks, the global batch's)."""
     x = embed(params.embed, tokens, shard)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -434,7 +441,7 @@ def decode_step(params: LM, state: Dict[str, Any], token: torch.Tensor,
         if layout is None:
             raise ValueError("a sharded decode step takes a state of "
                              "init_decode_state(shard=)")
-        lo, hi = layout.lanes
+        lo, hi = shard.lane_range(layout.batch)     # = layout.lanes
         token = token[lo:hi]
         idx = index[lo:hi] if index.dim() else index
     x = embed(params.embed, token, shard)[:, None, :]

@@ -9,15 +9,19 @@ steps run under ``torch.inference_mode()``, and the serving steps update the
 caches or pools in place.
 
 Each step runs on one device, or sharded over the ranks of a ``("data",
-"model")`` mesh by a :class:`~repro_torch.runtime.sharding.ShardPolicy`:
-training with DP, ZeRO-3 and head-aligned TP, remat per segment and
-stash-only sequence sharding (each rank holds its shards of the
-parameters and of the AdamW state: :func:`init_train_state`,
-:func:`shard_train_state`); serving with the lanes over ``data``, the
-paged pools' KV heads over ``model`` under TP, the dense caches' context
-(or KV heads) and the SSM states' heads over ``model``
-(:func:`init_serving_params`).  The collectives GSPMD inserts in the JAX
-package run explicitly (``runtime/sharding.py``).
+"model")`` or ``("data", "expert")`` mesh by a
+:class:`~repro_torch.runtime.sharding.ShardPolicy`: training with DP,
+ZeRO-3, head-aligned TP (a MoE layer's experts over ``model``) or EP (its
+experts over ``expert``, the batch over ``data`` x ``expert``), remat per
+segment and stash-only sequence sharding (each rank holds its shards of
+the parameters and of the AdamW state: :func:`init_train_state`,
+:func:`shard_train_state`); serving with the lanes over the batch axes
+(x ``expert``), the paged pools' KV heads over ``model`` under TP, the
+dense caches' context (or KV heads) and the SSM states' heads over
+``model`` (:func:`init_serving_params`).  The paged steps do not run on an
+expert mesh: their pools serve every lane on every rank, and EP needs the
+lanes split.  The collectives GSPMD inserts in the JAX package run
+explicitly (``runtime/sharding.py``).
 """
 from __future__ import annotations
 
@@ -46,18 +50,20 @@ def init_train_state(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
                      ) -> Tuple[LM, Dict[str, Any]]:
     """Random weights from ``seed`` on ``device`` and their AdamW state.
 
-    With a ``mesh`` (``("data", "model")``, every rank calling), each rank
-    draws ``init_lm``'s numbers in its order and keeps its shards under
-    ``policy`` (default ``ShardPolicy()``), each full part freed as soon as
-    it is sliced: the numbers are the single process's on the same device
-    type.  Raises NotImplementedError for an arch the port does not
-    build."""
+    With a ``mesh`` (``("data", "model")`` or ``("data", "expert")``, every
+    rank calling), each rank draws ``init_lm``'s numbers in its order and
+    keeps its shards under ``policy`` (default ``ShardPolicy()``), each
+    full part freed as soon as it is sliced (a MoE layer's experts kept
+    only where they are the rank's): the numbers are the single process's
+    on the same device type.  Raises NotImplementedError for an arch the
+    port does not build."""
     dev = resolve_device(device)
     if mesh is None:
         params = init_lm(cfg, seed=seed, device=dev)
     else:
         ctx = ShardContext(cfg, mesh, policy or ShardPolicy())
-        params = init_lm(cfg, seed=seed, device=dev, shard=ctx.shard_part)
+        params = init_lm(cfg, seed=seed, device=dev, shard=ctx.shard_part,
+                         experts=ctx.expert_range())
     return params, adamw_init(list(params.parameters()), opt_cfg)
 
 
@@ -90,7 +96,8 @@ def make_sharded_loss(cfg: ModelConfig, mesh: DeviceMesh,
     """``loss_and_grads(params, batch) -> (loss, grads)`` of a sharded
     model on ``mesh`` under ``policy``, called on every rank with the
     global batch (int ``tokens``/``labels`` (B, S), on any device), of
-    which each rank takes its ``data`` rows.  ``loss`` is the global
+    which each rank takes its batch rows (over ``data``, x ``expert`` on an
+    expert mesh).  ``loss`` is the global
     batch's 0-d fp32 loss, the same on every rank; ``grads``, aligned with
     ``params.parameters()``, are the rank's shards of the global gradient.
     Remat follows ``policy.remat_segments``.  ``loss_and_grads.shard`` is
@@ -177,7 +184,14 @@ SERVING_POLICY = ShardPolicy(tp=False, zero=False)
 
 
 def _serving_context(cfg: ModelConfig, mesh: DeviceMesh,
-                     policy: Optional[ShardPolicy]) -> ShardContext:
+                     policy: Optional[ShardPolicy], *,
+                     paged: bool = False) -> ShardContext:
+    if paged and "expert" in (mesh.mesh_dim_names or ()):
+        raise NotImplementedError(
+            "the paged engine does not run on an expert mesh: its pools "
+            "serve every lane on every rank, and expert parallelism needs "
+            "the lanes split over data x expert (serve the dense-cache "
+            "engine, or TP on a ('data', 'model') mesh)")
     return ShardContext(cfg, mesh, policy or SERVING_POLICY, serving=True)
 
 
@@ -197,7 +211,8 @@ def init_serving_params(cfg: ModelConfig, *,
     if mesh is None:
         return init_lm(cfg, seed=seed, device=dev)
     ctx = _serving_context(cfg, mesh, policy)
-    return init_lm(cfg, seed=seed, device=dev, shard=ctx.shard_part)
+    return init_lm(cfg, seed=seed, device=dev, shard=ctx.shard_part,
+                   experts=ctx.expert_range())
 
 
 def shard_serving_params(params: LM, mesh: DeviceMesh,
@@ -222,7 +237,8 @@ def make_prefill_step(cfg: ModelConfig, *,
     zero=False)``; params from :func:`init_serving_params`), every rank
     calls it with the whole batch and gets its block of the logits, as the
     reference's step leaves them sharded: its lanes (rows split over
-    ``data`` when they divide, ``ShardContext.lane_range``) and under TP
+    ``data``, x ``expert`` on an expert mesh, when they divide,
+    ``ShardContext.lane_range``) and under TP
     its vocabulary columns ``[r V / tp, (r + 1) V / tp)``.
     ``step.shard`` is the :class:`ShardContext`."""
     build_stacks(cfg)
@@ -257,7 +273,8 @@ def make_serve_step(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
     With a ``mesh`` (``policy`` default ``ShardPolicy(tp=False,
     zero=False)``), every rank calls it with the whole ``token``, its
     params from :func:`init_serving_params` and its state from
-    ``init_decode_state(shard=step.shard)``: lanes over ``data``, each
+    ``init_decode_state(shard=step.shard)``: lanes over ``data`` (x
+    ``expert`` on an expert mesh), each
     cache's context (or KV heads) and each SSM state's heads over
     ``model`` (``runtime/sharding.py::decode_state_specs``).  The logits
     are every lane's whole rows, the same on every rank."""
@@ -288,7 +305,8 @@ def make_paged_decode_step(cfg: ModelConfig, *,
     under TP, ``paged_state_specs``), params from
     :func:`init_serving_params`; the logits whole, the same on every
     rank."""
-    ctx = None if mesh is None else _serving_context(cfg, mesh, policy)
+    ctx = (None if mesh is None
+           else _serving_context(cfg, mesh, policy, paged=True))
 
     @torch.inference_mode()
     def step(params: LM, pools: List[Pool], token: torch.Tensor,
@@ -309,7 +327,8 @@ def make_paged_prefill_step(cfg: ModelConfig, *,
     """``(params, pools, tokens (PB,S), page_rows (PB,P), base, prompt_len
     (PB,))`` -> last-prompt-position logits (PB, V); the pools are written
     in place.  ``mesh`` and ``policy`` as :func:`make_paged_decode_step`."""
-    ctx = None if mesh is None else _serving_context(cfg, mesh, policy)
+    ctx = (None if mesh is None
+           else _serving_context(cfg, mesh, policy, paged=True))
 
     @torch.inference_mode()
     def step(params: LM, pools: List[Pool], tokens: torch.Tensor,

@@ -42,8 +42,10 @@ Two deliberate differences from the JAX runtime:
 Hand-offs, and the sums over ``pipe`` and ``data``, travel as host
 tensors over gloo (one card refuses two NCCL ranks); a group of another
 backend raises.  Only one
-homogeneous stack is pipelined: the hybrid and encoder-decoder models
-raise, as the JAX runtime's assert does.
+homogeneous stack is pipelined: the hybrid, encoder-decoder models and a
+MoE model with dense blocks first (kimi-k2) raise, as the JAX runtime's
+assert does.  A MoE stack (arctic-480b) runs with its load-balance aux
+loss dropped, as the JAX runtime drops it (``h, _ = block(...)``).
 """
 from __future__ import annotations
 
@@ -59,31 +61,27 @@ from repro_torch.kernels.ring_attention import host_tensor
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.embedding import embed
 from repro_torch.models.layers import cross_entropy_loss
-from repro_torch.models.transformer import (_BLOCK_APPLY, LM, MoEBlock,
-                                            _logits, build_stacks,
-                                            init_lm_parts)
+from repro_torch.models.transformer import (_BLOCK_APPLY, LM, _logits,
+                                            build_stacks, init_lm_parts)
 from repro_torch.runtime.schedules import ScheduleProgram, compile_schedule
 from repro_torch.runtime.sharding import check_gloo
 
 Batch = Dict[str, torch.Tensor]
 
 
-_MOE_REFUSED = ("the pipeline runtime does not run MoE yet (ROADMAP.md "
-                "queue 1, item 4 (b), EP and TP for MoE)")
-
-
 def _check_stack(cfg: ModelConfig) -> str:
-    """The one homogeneous stack's kind; raises ValueError otherwise, and
-    NotImplementedError for a MoE model."""
-    if cfg.n_experts > 1:
-        raise NotImplementedError(f"{cfg.name!r} is a MoE model: "
-                                  + _MOE_REFUSED)
-    if cfg.arch_type == "hybrid" or cfg.is_encoder_decoder:
+    """The one homogeneous stack's kind (a MoE model of MoE blocks only,
+    such as arctic-480b, included); raises ValueError otherwise (the
+    hybrid, or kimi-k2's dense first layer before its MoE blocks), as the
+    reference asserts one stack."""
+    stacks = build_stacks(cfg)
+    if (cfg.arch_type == "hybrid" or cfg.is_encoder_decoder
+            or len(stacks) != 1):
         raise ValueError(
             f"pipeline runtime requires one homogeneous stack; "
-            f"{cfg.name!r} is {cfg.arch_type!r} (run it unpipelined)")
-    ((kind, _),) = build_stacks(cfg)
-    return kind
+            f"{cfg.name!r} is {cfg.arch_type!r} with segments "
+            f"{[kind for kind, _ in stacks]} (run it unpipelined)")
+    return stacks[0][0]
 
 
 def stage_layers(n_layers: int, n_stages: int, n_chunks: int,
@@ -155,14 +153,16 @@ def stage_split_params(params: LM, n_stages: int,
     of global virtual stage ``v·P + i``, the interleaved round-robin
     placement of the JAX package's ``stage_split_params``; with V = 1 this
     is the plain contiguous split.  Raises ValueError for a model with a
-    shared attention block or when ``P·V`` does not divide the layers, and
-    NotImplementedError for a MoE model."""
-    if any(isinstance(b, MoEBlock) for b in params.blocks):
-        raise NotImplementedError("the model has MoE blocks: "
-                                  + _MOE_REFUSED)
+    shared attention block or blocks of two kinds (kimi-k2's dense first
+    layer before its MoE blocks), or when ``P·V`` does not divide the
+    layers."""
     if params.shared_attn is not None:
         raise ValueError("pipeline runtime requires one homogeneous stack; "
                          "the model has a shared attention block")
+    kinds = sorted({type(b).__name__ for b in params.blocks})
+    if len(kinds) > 1:
+        raise ValueError("pipeline runtime requires one homogeneous stack; "
+                         f"the model has blocks of {kinds}")
     tied = params.head is None
     out = []
     for i in range(n_stages):
@@ -314,6 +314,8 @@ def make_pipeline_loss_from_program(cfg: ModelConfig, mesh: DeviceMesh,
                 x = embed(stage.embed, tokens[mb]).to(cfg.dtype)
             for blk in stage.chunk_blocks(v):
                 x = block(blk, x, positions, cfg, window=cfg.sliding_window)
+                if kind == "moe":           # the aux loss is dropped
+                    x = x[0]
             loss = None
             if prog.loss_valid[t, i]:
                 loss = cross_entropy_loss(_logits(stage, x, cfg), labels[mb])

@@ -1,8 +1,8 @@
 """Plan -> sharded execution over ``torch.distributed`` ranks
 (``repro/runtime/sharding.py``).
 
-A searched plan maps onto a ``("data", "model")`` mesh as in the JAX
-package (DESIGN.md §3):
+A searched plan maps onto a ``("data", "model")`` or ``("data",
+"expert")`` mesh as in the JAX package (DESIGN.md §3):
 
   * TP level  -> parameters sharded along ``model`` (Megatron column/row
                  parallel; the vocabulary of the embedding and the head),
@@ -10,7 +10,10 @@ package (DESIGN.md §3):
                  (ZeRO-3),
   * DP level  -> the batch dim sharded along the batch axes,
   * CKPT      -> remat per layer-stack segment,
-  * PP, SP, EP -> the pipeline runtime, ring attention and the MoE path.
+  * EP level  -> the experts sharded along ``expert``, the batch dim
+                 co-sharded over the batch axes x ``expert``, MoE dispatch
+                 by all-to-all (``models/moe.py::_moe_ep``),
+  * PP, SP    -> the pipeline runtime and ring attention.
 
 The first half of this module is the reference's rule table:
 :func:`leaf_spec` gives each parameter, per dim, the mesh axes it shards
@@ -39,7 +42,12 @@ it over ``model`` on use (backward: a reduce-scatter) and takes its heads'
 z, x and dt columns and all of B and C; the gated norm runs, forward and
 backward, on whole ``d_inner`` rows gathered over ``model``, alike on
 every rank (``models/ssm.py::ssm_block``).  GSPMD reshards the split
-columns instead; the numbers are the same.
+columns instead; the numbers are the same.  A MoE layer under TP holds
+``n_experts / tp`` experts, routes every token on every ``model`` rank and
+sums the partial outputs over ``model`` (``models/moe.py::_moe_tp``, the
+reference's ``_moe_shmap``); on an expert mesh the ``expert`` ranks act as
+data ranks for everything but the experts, whose gradients alone are
+summed over ``data`` only.
 
 Serving takes the reference's serving rules too: :func:`paged_state_specs`
 (the page pools' KV heads over ``model`` under TP) and
@@ -359,10 +367,12 @@ class DecodeLayout:
 # --------------------------------------------------------------------------
 
 class Traffic:
-    """Bytes this rank sent through gloo."""
+    """Bytes this rank sent through gloo; ``a2a_bytes`` counts those of
+    the MoE all-to-alls apart (they are in ``bytes_sent`` too)."""
 
     def __init__(self):
         self.bytes_sent = 0
+        self.a2a_bytes = 0
 
     def add(self, n: int) -> None:
         self.bytes_sent += n
@@ -420,6 +430,27 @@ def reduce_scatter_dim(x: torch.Tensor, group: dist.ProcessGroup, dim: int,
     return acc.to(x.dtype).movedim(0, dim).contiguous()
 
 
+def all_to_all_dim0(x: torch.Tensor, group: dist.ProcessGroup,
+                    traffic: Optional[Traffic] = None) -> torch.Tensor:
+    """Chunk ``j`` of ``x`` along dim 0 sent to rank ``j`` of ``group``;
+    the chunks received, in rank order along dim 0 (the tiled
+    ``all_to_all`` of the reference's ``_moe_ep``)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    h = host_tensor(x.detach().contiguous())
+    if h.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over "
+                         f"{n} ranks")
+    recv = _pinned(h.shape, h.dtype, x.is_cuda)
+    dist.all_to_all_single(recv, h, group=group)
+    if traffic is not None:
+        sent = (n - 1) * h.numel() // n * h.element_size()
+        traffic.add(sent)
+        traffic.a2a_bytes += sent
+    return recv.to(x.device)
+
+
 def all_reduce(x: torch.Tensor, group: dist.ProcessGroup,
                traffic: Optional[Traffic] = None) -> torch.Tensor:
     """The group's sum, the same bits on every rank (a reduce-scatter of
@@ -474,6 +505,20 @@ class _CopyToTP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce(g, ctx.group, ctx.traffic), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all_dim0`; backward sends each chunk's gradient back
+    to the rank it came from (the same exchange)."""
+
+    @staticmethod
+    def forward(ctx, x, group, traffic):
+        ctx.group, ctx.traffic = group, traffic
+        return all_to_all_dim0(x, group, traffic)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_dim0(g, ctx.group, ctx.traffic), None, None
 
 
 class _ReduceFromTP(torch.autograd.Function):
@@ -571,17 +616,6 @@ class _Apply(nn.Module):
 # the execution context
 # --------------------------------------------------------------------------
 
-def check_shardable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a model the sharded executor does
-    not run: a MoE model, whose experts need EP and TP (the reference's
-    ``_moe_ep`` and ``_moe_shmap``), not ported yet."""
-    if cfg.n_experts > 1:
-        raise NotImplementedError(
-            f"{cfg.name!r} is a MoE model (n_experts={cfg.n_experts}): the "
-            "sharded executor does not run MoE yet (ROADMAP.md queue 1, "
-            "item 4 (b), EP and TP for MoE)")
-
-
 def abstract_params(cfg: ModelConfig) -> nn.Module:
     """The model's parameters on the ``meta`` device: names and shapes,
     no storage."""
@@ -593,36 +627,59 @@ class ShardContext:
     functions (``models/``) call when handed it as ``shard=``.
 
     The mesh must be a ``("data", "model")`` ``DeviceMesh`` (for example
-    ``launch/mesh.py::make_local_mesh``) over the whole default group, with
-    gloo groups.  TP is on when ``policy.tp`` and the ``model`` axis has
-    more than one rank; ``policy.seq_shard`` shards the residual stream's
-    tokens over ``model``.  ``serving`` places each Mamba2 ``in_proj`` under
-    TP as the rank's columns (``models/ssm.py::ssm_tp_columns``), which the
-    serving steps read without a gather.  Raises ValueError on another mesh
-    or backend and on a TP degree that does not split what the model has:
-    the attention heads and d_ff of a dense model, the SSM heads of a
-    Mamba2 block, the shared attention block's heads of the hybrid, and the
-    vocabulary.  Raises NotImplementedError for a MoE model
-    (:func:`check_shardable`)."""
+    ``launch/mesh.py::make_local_mesh``) or a ``("data", "expert")`` one
+    (``make_expert_mesh``) over the whole default group, with gloo groups.
+    TP is on when ``policy.tp`` and the ``model`` axis has more than one
+    rank; ``policy.seq_shard`` shards the residual stream's tokens over
+    ``model``.  The mesh decides the policy's ``expert_axis`` and
+    ``ep_degree``: on an expert mesh the experts shard over ``expert`` and
+    the batch over ``data`` x ``expert`` (the ``batch`` group, the world),
+    elsewhere the experts follow TP.  ``serving`` places each Mamba2
+    ``in_proj`` under TP as the rank's columns
+    (``models/ssm.py::ssm_tp_columns``), which the serving steps read
+    without a gather.  Raises ValueError on another mesh or backend and on
+    a TP degree that does not split what the model has: the attention heads
+    and d_ff of a dense model, the SSM heads of a Mamba2 block, the shared
+    attention block's heads of the hybrid, the experts and the shared and
+    residual branches' widths of a MoE model, and the vocabulary."""
 
     def __init__(self, cfg: ModelConfig, mesh: DeviceMesh,
                  policy: ShardPolicy, *, serving: bool = False):
-        check_shardable(cfg)
-        if tuple(mesh.mesh_dim_names or ()) != ("data", "model"):
+        names = tuple(mesh.mesh_dim_names or ())
+        if names not in (("data", "model"), ("data", "expert")):
             raise ValueError(f"the sharded executor runs on a ('data', "
-                             f"'model') mesh; got {mesh.mesh_dim_names}")
+                             f"'model') or ('data', 'expert') mesh; got "
+                             f"{mesh.mesh_dim_names}")
         if mesh.size() != dist.get_world_size():
             raise ValueError(f"a mesh of {mesh.size()} ranks in a world of "
                              f"{dist.get_world_size()}")
+        axes = mesh_axes(mesh)
+        # the mesh's second axis: "model" (TP) or "expert" (EP)
+        self.axis = names[1]
+        policy = dataclasses.replace(
+            policy, expert_axis=self.axis,
+            ep_degree=axes["expert"] if self.axis == "expert" else 1)
         self.cfg, self.mesh, self.policy = cfg, mesh, policy
         self.data = mesh.get_group("data")
-        self.model = mesh.get_group("model")
-        for g in (self.data, self.model, dist.group.WORLD):
+        self.axis_group = mesh.get_group(self.axis)
+        for g in (self.data, self.axis_group, dist.group.WORLD):
             check_gloo(g, "the sharded executor")
-        axes = mesh_axes(mesh)
-        self.n_data, self.n_model = axes["data"], axes["model"]
+        self.n_data, self.n_axis = axes["data"], axes[self.axis]
         self.data_rank = mesh.get_local_rank("data")
-        self.model_rank = mesh.get_local_rank("model")
+        self.axis_rank = mesh.get_local_rank(self.axis)
+        model = self.axis == "model"
+        self.model = self.axis_group if model else None
+        self.n_model = self.n_axis if model else 1
+        self.model_rank = self.axis_rank if model else 0
+        self.expert = None if model else self.axis_group
+        self.n_expert = 1 if model else self.n_axis
+        self.expert_rank = 0 if model else self.axis_rank
+        # the batch rows split over data, and over expert too on an expert
+        # mesh (rank r at (r // n_expert, r % n_expert) holds share r)
+        self.batch = self.data if model else dist.group.WORLD
+        self.n_batch = self.n_data * self.n_expert
+        self.batch_rank = self.data_rank * self.n_expert + self.expert_rank
+        self.rows = 0           # the global batch of the current forward
         self.tp = self.n_model if (policy.tp and self.n_model > 1) else 1
         if self.tp > 1:
             _check_tp(cfg, self.tp)
@@ -648,26 +705,41 @@ class ShardContext:
     # ---- placement ------------------------------------------------------
 
     def _dims(self, name: str) -> Tuple[Optional[int], Optional[int]]:
-        """(model dim, data dim) of a leaf, None where it is whole."""
+        """(dim over the mesh's second axis, ``model`` or ``expert``; data
+        dim) of a leaf, None where it is whole."""
         spec = self.specs[name]
         mdim = (None if name in self._cut else
-                next((i for i, e in enumerate(spec) if e == "model"), None))
+                next((i for i, e in enumerate(spec) if e == self.axis),
+                     None))
         ddim = next((i for i, e in enumerate(spec)
                      if isinstance(e, tuple)), None)
         return mdim, ddim
 
+    def expert_range(self) -> Optional[Tuple[int, int]]:
+        """This rank's experts ``[lo, hi)`` where the rule table splits a
+        MoE model's experts over the mesh's second axis, else None (for
+        ``init_lm(experts=)``, which then draws only them)."""
+        name = next((n for n in self.specs if n.endswith(".moe.w_up")), None)
+        if name is None or self.specs[name][0] != self.axis:
+            return None
+        n = self.cfg.n_experts // self.n_axis
+        return self.axis_rank * n, (self.axis_rank + 1) * n
+
     def shard_tensor(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of the full leaf ``name`` (a fresh tensor, so
-        the full one can be freed)."""
+        """This rank's shard of the full leaf ``name``: a fresh tensor where
+        it is cut (so the full one can be freed), else the leaf itself (a
+        replicated leaf, or an expert leaf drawn as the rank's experts
+        already, :meth:`expert_range`: no copy of either is made)."""
         mdim, ddim = self._dims(name)
-        t = full.detach()
+        t = whole = full.detach()
         if name in self._cut:
             t = torch.cat([t[..., a:b] for a, b in self._cut[name]], dim=-1)
-        if mdim is not None:
-            t = t.chunk(self.n_model, mdim)[self.model_rank]
+        if mdim is not None and t.shape[mdim] == self._shapes[name][mdim]:
+            t = t.chunk(self.n_axis, mdim)[self.axis_rank]
         if ddim is not None:
             t = t.chunk(self.n_data, ddim)[self.data_rank]
-        return t.clone(memory_format=torch.contiguous_format)
+        return t if t is whole else t.clone(
+            memory_format=torch.contiguous_format)
 
     def shard_part(self, prefix: str, part):
         """``init_lm_parts``'s hook: a block or the shared attention block
@@ -704,7 +776,7 @@ class ShardContext:
         if ddim is not None:
             t = all_gather_dim(t, self.data, ddim, self.traffic)
         if mdim is not None:
-            t = all_gather_dim(t, self.model, mdim, self.traffic)
+            t = all_gather_dim(t, self.axis_group, mdim, self.traffic)
         return t
 
     def bind(self, params: nn.Module) -> List[Tuple[str, torch.Tensor]]:
@@ -719,7 +791,7 @@ class ShardContext:
             full = self._shapes[name]
             want = list(full)
             if mdim is not None:
-                want[mdim] //= self.n_model
+                want[mdim] //= self.n_axis
             if ddim is not None:
                 want[ddim] //= self.n_data
                 self._zero[id(p)] = ddim
@@ -853,10 +925,10 @@ class ShardContext:
     def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor,
                       ignore_id: int = -100) -> torch.Tensor:
         """This rank's share of the mean token cross entropy: its tokens'
-        summed loss over the label count of every data rank (summed over
-        ``data``, the shares give ``cross_entropy_loss`` of the global
-        batch, and their gradients its gradient).  Under TP ``logits`` are
-        the rank's vocabulary columns."""
+        summed loss over the label count of every batch rank (summed over
+        the ``batch`` group, the shares give ``cross_entropy_loss`` of the
+        global batch, and their gradients its gradient).  Under TP
+        ``logits`` are the rank's vocabulary columns."""
         if self.tp > 1:
             lo = self.model_rank * logits.shape[-1]
             tok = _VocabParallelCE.apply(logits, labels, lo, self.model,
@@ -866,19 +938,22 @@ class ShardContext:
             gold = lf.gather(-1, labels.long().clamp_min(0)[..., None])
             tok = torch.logsumexp(lf, dim=-1) - gold[..., 0]
         mask = (labels != ignore_id).float()
-        count = all_reduce(mask.sum().detach(), self.data, self.traffic)
+        count = all_reduce(mask.sum().detach(), self.batch, self.traffic)
         return (tok * mask).sum() / count.clamp_min(1.0)
 
     # ---- what the serving steps call ------------------------------------
 
     def lane_range(self, batch: int) -> Tuple[int, int]:
-        """This rank's lanes ``[lo, hi)`` of ``batch``: its ``data`` share
-        when the batch axes split it (the rule of :func:`batch_specs` and
-        :func:`decode_state_specs`), else every lane."""
-        if self.n_data == 1 or batch % self.n_data:
+        """This rank's lanes ``[lo, hi)`` of ``batch``: its share over the
+        ``batch`` group (``data``, x ``expert`` on an expert mesh) when it
+        splits them (the rule of :func:`batch_specs`), else every lane.
+        Notes ``batch`` as the global batch of the forward that follows
+        (``rows``, which the MoE layer's gate reads)."""
+        self.rows = batch
+        if self.n_batch == 1 or batch % self.n_batch:
             return 0, batch
-        b = batch // self.n_data
-        return self.data_rank * b, (self.data_rank + 1) * b
+        b = batch // self.n_batch
+        return self.batch_rank * b, (self.batch_rank + 1) * b
 
     def decode_layout(self, batch: int, span: int) -> DecodeLayout:
         """The :class:`DecodeLayout` of ``batch`` lanes of K/V caches of
@@ -899,11 +974,12 @@ class ShardContext:
 
     def gather_lanes(self, x: torch.Tensor, batch: int) -> torch.Tensor:
         """Every lane's rows of ``x`` (this rank's :meth:`lane_range` of
-        ``batch`` along dim 0), gathered over ``data`` when split."""
+        ``batch`` along dim 0), gathered over the ``batch`` group when
+        split."""
         lo, hi = self.lane_range(batch)
         if hi - lo == batch:
             return x
-        return all_gather_dim(x, self.data, 0, self.traffic)
+        return all_gather_dim(x, self.batch, 0, self.traffic)
 
     def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
         """Whole rows of logits from the rank's vocabulary columns under
@@ -951,26 +1027,34 @@ class ShardContext:
 
     def local_batch(self, batch: Mapping[str, torch.Tensor],
                     device: torch.device) -> Dict[str, torch.Tensor]:
-        """This data rank's rows of the global batch, on ``device``."""
+        """This batch rank's rows of the global batch (over ``data``, x
+        ``expert`` on an expert mesh), on ``device``."""
         B = batch["tokens"].shape[0]
-        if B % self.n_data:
+        if B % self.n_batch:
             raise ValueError(f"a batch of {B} does not split over "
-                             f"{self.n_data} data ranks")
-        b = B // self.n_data
-        return {k: v[self.data_rank * b:(self.data_rank + 1) * b].to(device)
+                             f"{self.n_batch} batch ranks")
+        self.rows = B
+        b = B // self.n_batch
+        return {k: v[self.batch_rank * b:(self.batch_rank + 1) * b].to(device)
                 for k, v in batch.items()}
 
     def reduce_grads(self, named: Sequence[Tuple[str, torch.Tensor]],
                      grads: Sequence[Optional[torch.Tensor]]
                      ) -> List[torch.Tensor]:
-        """Each leaf's gradient summed over ``data``: a ZeRO leaf's was
-        reduce-scattered in the backward, the others are summed here."""
+        """Each leaf's gradient summed over the ``batch`` group: an expert
+        leaf sharded over ``expert`` over ``data`` only; a ZeRO leaf's
+        ``data`` sum was reduce-scattered in the backward (its ``expert``
+        sum is taken here), the others are summed here."""
         out = []
         for (name, p), g in zip(named, grads):
+            expert = "expert" in self.specs[name]
             if g is None:
                 g = torch.zeros_like(p)
             elif id(p) not in self._zero:
-                g = all_reduce(g, self.data, self.traffic)
+                g = all_reduce(g, self.data if expert else self.batch,
+                               self.traffic)
+            elif not expert and self.n_expert > 1:
+                g = all_reduce(g, self.expert, self.traffic)
             out.append(g)
         return out
 
@@ -979,7 +1063,8 @@ class ShardContext:
         """The global gradient norm: each shard counted on one rank (the
         one at index 0 of every axis the leaf is not sharded over), the
         squares summed over the world."""
-        coord = {"data": self.data_rank, "model": self.model_rank}
+        coord = {"data": self.data_rank, "model": self.model_rank,
+                 "expert": self.expert_rank}
         dev = grads[0].device
         sq = torch.zeros((), dtype=torch.float32, device=dev)
         for (name, _), g in zip(named, grads):
@@ -990,13 +1075,20 @@ class ShardContext:
         return torch.sqrt(all_reduce(sq, dist.group.WORLD, self.traffic))
 
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
-        return all_reduce(x, self.data, self.traffic)
+        """``x`` summed over the ``batch`` group (the shares of a loss)."""
+        return all_reduce(x, self.batch, self.traffic)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """:func:`all_to_all_dim0` over ``expert``, differentiable."""
+        return _AllToAll.apply(x, self.expert, self.traffic)
 
 
 def _check_tp(cfg: ModelConfig, tp: int) -> None:
     """Head-aligned TP splits what the model has evenly: the attention heads
-    and d_ff of a dense model, the SSM heads of a Mamba2 block, the shared
-    attention block's heads of the hybrid, and the vocabulary."""
+    and d_ff of a dense model (of a MoE model's dense blocks), the SSM
+    heads of a Mamba2 block, the shared attention block's heads of the
+    hybrid, a MoE model's experts (the rank runs its own) and its shared
+    expert's and dense residual branch's widths, and the vocabulary."""
     checks = []
     if cfg.arch_type in ("ssm", "hybrid"):
         checks.append(("blocks.*.ssm.in_proj", "ssm_heads", cfg.ssm_heads))
@@ -1005,8 +1097,16 @@ def _check_tp(cfg: ModelConfig, tp: int) -> None:
                        ("shared_attn.attn.wk", "n_kv_heads", cfg.n_kv_heads)]
     else:
         checks += [("blocks.*.attn.wq", "n_heads", cfg.n_heads),
-                   ("blocks.*.attn.wk", "n_kv_heads", cfg.n_kv_heads),
-                   ("blocks.*.mlp.w_up", "d_ff", cfg.d_ff)]
+                   ("blocks.*.attn.wk", "n_kv_heads", cfg.n_kv_heads)]
+        if cfg.n_experts <= 1 or cfg.first_k_dense:
+            checks.append(("blocks.*.mlp.w_up", "d_ff", cfg.d_ff))
+    if cfg.n_experts > 1:
+        checks.append(("blocks.*.moe.w_up", "n_experts", cfg.n_experts))
+        for branch in ("shared_expert_ff", "dense_residual_ff"):
+            if getattr(cfg, branch):
+                leaf = branch.replace("_expert_ff", "").replace("_ff", "")
+                checks.append((f"blocks.*.moe.{leaf}.w_up", branch,
+                               getattr(cfg, branch)))
     checks.append(("embed", "vocab_size", cfg.vocab_size))
     for leaf, what, n in checks:
         if n % tp:

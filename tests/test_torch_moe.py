@@ -20,12 +20,11 @@ package's, in fp32 on the CPU.
   (training and serving: ``test_torch_moe_serving.py``).
 * The bridge's round trip for kimi-k2's two segments and checkpoints
   interchangeable with the JAX package's both ways.
-* The refusals: the sharded executor (``ShardContext``, the steps'
-  ``mesh=``, ``train --ranks``, ``serve --ranks``), the pipeline runtime
-  and ``moe_ffn(shard=)`` raise NotImplementedError naming
-  ``ROADMAP.md`` queue 1, item 4 (b).
+* What the sharded executor and the pipeline still refuse of a MoE
+  model (EP and TP themselves: ``test_torch_moe_{ep,tp,sharded}.py``).
 """
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -66,7 +65,6 @@ from repro_torch.runtime.sharding import ShardContext, ShardPolicy
 
 torch.set_num_threads(1)
 
-REFUSED = r"ROADMAP\.md queue 1, item 4 \(b\)"
 # the two archs at reduced size: arctic's default (4 experts, top-2, the
 # dense residual branch) and kimi-k2 with 16 experts (top-8, a shared
 # expert, its first layer dense)
@@ -378,41 +376,68 @@ def test_checkpoints_interchange_with_jax_both_ways(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# what the slice refuses
+# what the sharded executor and the pipeline still refuse
 # ---------------------------------------------------------------------------
+
+class _Reached(Exception):
+    """Raised in place of spawning a CLI's ranks."""
+
 
 @pytest.mark.parametrize("entry", [
     "ShardContext", "make_train_step", "make_serve_step",
     "init_serving_params", "train --ranks", "serve --ranks",
     "stage_split_params", "init_stage", "train --pipeline", "moe_ffn"])
-def test_sharded_and_pipelined_moe_is_refused(entry):
-    """EP and TP for MoE are not ported: every sharded or pipelined entry
-    raises NotImplementedError naming the queue item, before any rank is
-    spawned."""
+def test_sharded_and_pipelined_moe_is_refused(entry, monkeypatch):
+    """EP and TP for MoE are ported (``test_torch_moe_{ep,tp,sharded}.py``);
+    what each entry still refuses of a MoE model, before any rank is
+    spawned: the sharded entries a mesh that is neither ``("data",
+    "model")`` nor ``("data", "expert")`` (ValueError); the CLIs refuse
+    nothing and reach their ranks; the pipeline kimi-k2's two segments (its
+    dense first layer, then MoE blocks: ValueError, as the reference
+    asserts one homogeneous stack); ``moe_ffn`` the einsum dispatch on
+    experts split over ranks (NotImplementedError)."""
     cfg = get_config("arctic-480b").reduced().with_(dtype=torch.float32)
-    mesh = object()          # refused before the mesh is looked at
-    call = {
-        "ShardContext": lambda: ShardContext(cfg, mesh, ShardPolicy()),
-        "make_train_step": lambda: make_train_step(cfg, mesh=mesh),
-        "make_serve_step": lambda: make_serve_step(cfg, mesh=mesh),
-        "init_serving_params": lambda: init_serving_params(
-            cfg, mesh=mesh, device="cpu"),
-        "train --ranks": lambda: train_mod.main(
+    kimi = get_config("kimi-k2-1t-a32b").reduced(n_experts=16)
+    ring = types.SimpleNamespace(mesh_dim_names=("data", "seq"))
+
+    def reached(*args, **kwargs):
+        raise _Reached
+
+    monkeypatch.setattr(train_mod, "_spawn", reached)
+    monkeypatch.setattr(serve_mod, "run_ranks", reached)
+    moe = init_lm(cfg, device="cpu").blocks[0].moe
+    rank_share = MoE(moe.router, moe.w_gate[:2], moe.w_up[:2],
+                     moe.w_down[:2], dense_residual=moe.dense_residual)
+    call, want = {
+        "ShardContext": (lambda: ShardContext(cfg, ring, ShardPolicy()),
+                         ValueError),
+        "make_train_step": (lambda: make_train_step(cfg, mesh=ring),
+                            ValueError),
+        "make_serve_step": (lambda: make_serve_step(cfg, mesh=ring),
+                            ValueError),
+        "init_serving_params": (lambda: init_serving_params(
+            cfg, mesh=ring, device="cpu"), ValueError),
+        "train --ranks": (lambda: train_mod.main(
             ["--arch", "arctic-480b", "--reduced", "--device", "cpu",
-             "--ranks", "2", "--steps", "1"]),
-        "serve --ranks": lambda: serve_mod.main(
+             "--ranks", "2", "--steps", "1"]), _Reached),
+        "serve --ranks": (lambda: serve_mod.main(
             ["--arch", "arctic-480b", "--device", "cpu", "--ranks", "2"]),
-        "stage_split_params": lambda: stage_split_params(
-            init_lm(cfg, device="cpu"), 2),
-        "init_stage": lambda: init_stage(cfg, 2, 1, 0, device="cpu"),
-        "train --pipeline": lambda: train_mod.main(
-            ["--arch", "arctic-480b", "--reduced", "--device", "cpu",
-             "--pipeline", "--ranks", "2", "--steps", "1"]),
-        "moe_ffn": lambda: moe_ffn(init_lm(cfg, device="cpu").blocks[0].moe,
-                                   torch.zeros(1, 2, cfg.d_model), cfg,
-                                   shard=object()),
+            _Reached),
+        "stage_split_params": (lambda: stage_split_params(
+            init_lm(kimi, device="cpu"), 2), ValueError),
+        "init_stage": (lambda: init_stage(kimi, 2, 1, 0, device="cpu"),
+                       ValueError),
+        "train --pipeline": (lambda: train_mod.main(
+            ["--arch", "kimi-k2-1t-a32b", "--reduced", "--device", "cpu",
+             "--pipeline", "--ranks", "2", "--steps", "1"]), ValueError),
+        "moe_ffn": (lambda: moe_ffn(rank_share, torch.zeros(1, 2,
+                                                            cfg.d_model),
+                                    cfg, dispatch="einsum", shard=object()),
+                    NotImplementedError),
     }[entry]
-    with pytest.raises(NotImplementedError, match=REFUSED):
+    match = {ValueError: "'data', 'expert'|homogeneous stack",
+             NotImplementedError: "einsum", _Reached: None}[want]
+    with pytest.raises(want, match=match):
         call()
 
 
