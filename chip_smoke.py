@@ -12,8 +12,8 @@ Phases (any failure exits non-zero before the final line is printed):
    backward) and print the build seconds; print each CUDA kernel's
    registers and spill bytes (``-Xptxas -v``) and its HGMMA
    (``wgmma``) and HMMA (``mma.sync``) counts (``cuobjdump -sass``), and
-   fail unless the four bf16 flash instantiations (both entries, dh 64 and
-   128) contain HGMMA, the product kernels of the bf16 SSD forward
+   fail unless the six bf16 flash instantiations (both entries, dh 64, 112
+   and 128) contain HGMMA, the product kernels of the bf16 SSD forward
    (``ssd_fwd_chunk_state_kernel``, ``ssd_fwd_chunk_scan_kernel``) and
    backward (``ssd_bwd_chunk_state_kernel``, ``ssd_bwd_chunk_grad_kernel``)
    contain HMMA, and the three ``ssd_fwd_`` and three ``ssd_bwd_`` kernels
@@ -23,10 +23,10 @@ Phases (any failure exits non-zero before the final line is printed):
    widths; a fourth ``nvcc`` builds the SSD scan without the bf16
    backward's dB/dC stores, which phase 7 times; print the flash
    backward's kernels (``flash_bwd_``: D, dK/dV and dQ, fp32 and bf16, dh
-   64 and 128) with their registers, spills and HGMMA count, fail if one
-   is missing or a bf16 product kernel (``_wgmma_kernel``) has no HGMMA or
-   spills, print those four kernels' CTAs per SM and any wgmma that ptxas
-   serialised;
+   64, 112 and 128) with their registers, spills and HGMMA count, fail if
+   one is missing or a bf16 product kernel (``_wgmma_kernel``) has no HGMMA
+   or spills, print those six kernels' CTAs per SM and any wgmma that
+   ptxas serialised;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes (the flash forward also at the dense
    engine's decode: S 1, non-causal, kv_len from 1 to T, and at zamba2's
@@ -55,7 +55,16 @@ Phases (any failure exits non-zero before the final line is printed):
    log why the bf16 backward rounds P and dS to bf16 for dV, dK and dQ:
    the plain backward's error at that shape with P and dS rounded and with
    them split into bf16 hi + lo, the rounding held within half the bf16
-   tolerance;
+   tolerance; the flash kernels at whisper-medium's heads (H = KV = 16, dh
+   64, 8 lanes): the encoder's non-causal S = T = 1500, cross-attention's
+   32 and 1 queries over 1500 rows, the decoder's causal prefill of 32 and
+   its decode over 448 slots; and (``phase_k13``) the flash kernels at
+   kimi-k2-1t-a32b's heads (H 64, KV 8, dh 112, run in tiles padded to
+   128 columns), bf16 and fp32 at the same gates: the forward at phase
+   21's paged decode and prefill chunk, the dense engine's decode and a
+   causal prefill of 2 x 256, the backward's S = 100 cases, the causal
+   training shape (B 1, S 4096) for the forward with its row log-sum-exp
+   and the backward (a second call the same bits), and the panel visit;
 3. serve full-width qwen3-4b (random bf16 weights from seed 0) through the
    paged continuous-batching engine: 12 requests, prompts of 33-400
    tokens, 16-32 new tokens each; every request must complete and both
@@ -236,7 +245,7 @@ Phases (any failure exits non-zero before the final line is printed):
    checkpoints, on 4 gloo ranks sharing the card on a (data 2, model 2)
    mesh with ``ShardPolicy(tp=True, zero=True, remat_segments=(True,))``:
    (a) full-width mamba2-370m, depth cut from 48 to
-   ``SSMTP_MAMBA2_LAYERS`` (12) for the script's time: a
+   ``SSMTP_MAMBA2_LAYERS`` (6) for the script's time: a
    spawned single process saves
    its ``lm_loss`` and gradients (remat on every layer) in fp32, and in
    bf16 its loss and 3 step losses, on the train driver's first batches of
@@ -329,11 +338,9 @@ Phases (any failure exits non-zero before the final line is printed):
    arctic-480b and kimi-k2-1t-a32b (16 experts: top-8, a shared expert, a
    dense first layer) on the card and the CPU from the same weights: the
    paged engine's and ``serve``'s greedy tokens identical, 3 steps of
-   ``launch/train.py`` within ``TRAIN_LOSS_RTOL``; and kimi-k2's dh 112
-   attention at full width refused by the flash wrapper (no plain
-   attention on the card).  Phase 19 keeps the first decode step of (a)'s
-   first run and of (b)'s ``serve`` (logits, input tokens, each layer's
-   top-2 experts) for phase 20.
+   ``launch/train.py`` within ``TRAIN_LOSS_RTOL``.  Phase 19 keeps the
+   first decode step of (a)'s first run and of (b)'s ``serve`` (logits,
+   input tokens, each layer's top-2 experts) for phase 20.
 20. MoE sharded, right after phase 19: 4 gloo ranks share the card. (a)
    phase 19's model under TP on a (data 1, model 4) mesh (a rank: 32 of
    128 experts a layer, 14 of 56 query and 2 of 8 KV heads, a quarter of
@@ -357,6 +364,27 @@ Phases (any failure exits non-zero before the final line is printed):
    bf16-against-fp32 distance) and on the CPU (fp32: 1e-5 for the loss and
    every leaf), the router's leaf printed apart.  ``--phases 20`` runs phase 19
    too.
+21. kimi-k2-1t-a32b at full width (d 7168, 64 query and 8 KV heads of dh
+   112, 384 experts of d_ff 2048, top-8, a shared expert), depth cut from
+   61 to ``KIMI_LAYERS`` (2: the dense first layer and one MoE layer,
+   about 39 GB, reckoned from the shapes and printed before the draw),
+   bf16, random weights from seed 0: (a) phase 19 (a)'s paged run on
+   phase 3's requests, twice, the flash forward at dh 112 once a layer a
+   decode step and a prefill chunk, the decode step against its bound;
+   (b) phase 19 (b)'s decode against prefill at
+   ``MOE_DECODE_VS_PREFILL_TOL`` where the routing agrees, the flips
+   counted.  ``--phases 21`` runs phase 2's dh 112 checks first.
+22. whisper-medium's encoder-decoder serving path at full width (24 + 24
+   layers, bf16, random weights from seed 0; ``models/encdec.py``), 8 lanes
+   of random frames (8, 1500, 1024): ``init_encdec_decode_state`` (448
+   slots) and 32 greedy steps of ``make_serve_step``, each step's logits
+   against ``make_prefill_step`` teacher-forced on the same tokens within
+   ``DECODE_VS_PREFILL_TOL`` of the largest logit; the flash forward the
+   only attention (24 launches an encoder pass, 48 a decoder step: self
+   plus cross at S != T), no plain version; a second decode the same bits;
+   the same in fp32 at 4 + 4 layers within ``REL_TOL``; the encoder's ms,
+   the decode step's wall and busy ms, tok/s, peak memory and the cross
+   K/V bytes are printed.
 
 Phase 2 also holds the kernels at phase 17's TP-local shapes against
 their plain versions, and phase 7 times the SSD scan at a rank's mamba2
@@ -371,16 +399,22 @@ Phase 2 also holds the flash forward at arctic-480b's heads (H 56, KV
 prefill, the dense engine's decode over 2048 slots, the causal prefill of
 2 x 256) in bf16 and fp32, and RMSNorm at 8 x 7168 and 512 x 7168; phase
 7 times the paged decode and prefill and both RMSNorm shapes.
+Phase 7 also times the flash forward at kimi-k2's paged decode and
+prefill chunk and, with the backward and a visible panel of 4096 keys,
+at its causal training shape (B 1, S 4096, H 64, KV 8, dh 112), and the
+forward at whisper-medium's encoder (8 x 1500, non-causal) and
+cross-attention decode (8 queries over 1500 rows).
 Phase 7 also times the flash forward and backward at the dense training
 shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
-The phases run in the order 1, 2, 7, 3, 19, 4, 5, 14, 6, 9, 10, 11, 12,
-13, 15, 16, 17, 18, 8: phase 7
+The phases run in the order 1, 2, 7, 3, 19, 20, 21, 22, 4, 5, 14, 6, 9,
+10, 11, 12, 13, 15, 16, 17, 18, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
-seconds are printed before the final lines.
+seconds, and each phase's in run order, are printed before the final
+lines.
 
 ``python3 chip_smoke.py --phases 2,19`` runs phase 1 and the listed
 phases in the order above (a phase that needs an earlier one's results
@@ -585,8 +619,10 @@ SSMTP_RANKS, SSMTP_MESH, SSMTP_BATCH, SSMTP_SEQ = 4, (2, 2), 4, 2048
 SSMTP_STEPS, SSMTP_SAVE_AT, SSMTP_LR = 3, 2, 3e-4
 SSMTP_ZAMBA2_LAYERS, SSMTP_ZAMBA2_STEPS = 6, 1
 # (a)'s depth: at 24 layers the whole script, phase 20 included, ran
-# 1092.3 s, phase 17 277.6 s of it (NVIDIA H100 80GB HBM3, 700 W)
-SSMTP_MAMBA2_LAYERS = 12
+# 1092.3 s, phase 17 277.6 s of it; at 12, with phases 21 and 22, 966.3
+# and 1081.7 s in two runs, phase 17 233.6 and 255.8 s (NVIDIA H100 80GB
+# HBM3, 700 W)
+SSMTP_MAMBA2_LAYERS = 6
 # a rank's batch rows and RMSNorm rows, and zamba2's TP-local (H, KV, dh)
 SSMTP_LOCAL_BATCH = SSMTP_BATCH // SSMTP_MESH[0]
 SSMTP_ROWS = SSMTP_LOCAL_BATCH * SSMTP_SEQ
@@ -701,6 +737,27 @@ MOE_SHARD_TRAIN_TOL = {("bfloat16", "tp"): (SHARD_LOSS_RTOL, None),
 # bf16 the card's, as phase 16 (the CPU's bf16 products round otherwise);
 # in fp32 the CPU's
 MOE_SHARD_TRAIN_REF = {"bfloat16": "cuda", "float32": "cpu"}
+# phase 21: kimi-k2-1t-a32b at full width (d 7168, 64 query and 8 KV heads
+# of dh 7168 / 64 = 112, 384 experts of d_ff 2048, top-8, a shared expert,
+# the first layer dense), depth cut from 61 to KIMI_LAYERS: the dense
+# first layer and one MoE layer.  One MoE layer is 384 x 3 x 7168 x 2048
+# = 16.9 B parameters (33.8 GB in bf16), the embedding and the untied head
+# 163840 x 7168 each (2.35 GB each): two layers come to about 39 GB, and a
+# third would leave too little room beside the check-only buffers of (b).
+# Phase 2 (phase_k13) holds the dh 112 kernels at KIMI_HEADS first, the
+# training shape at KIMI_TRAIN (B, S)
+KIMI_ARCH, KIMI_LAYERS, KIMI_HEADS = "kimi-k2-1t-a32b", 2, (64, 8, 112)
+KIMI_TRAIN = (1, 4096)
+# phase 22: whisper-medium at full width (24 + 24 layers, d 1024, 16 heads
+# of dh 64, d_ff 4096, vocab 51865), bf16: WHISPER_LANES lanes of random
+# frames (WHISPER_LANES, WHISPER_FRAMES, 1024), a greedy decode of
+# WHISPER_TOKENS tokens on a WHISPER_CONTEXT-slot cache (whisper's decoder
+# window), each step's logits against the teacher-forced prefill's at
+# DECODE_VS_PREFILL_TOL of the largest logit; the same in fp32 at
+# WHISPER_FP32_LAYERS + WHISPER_FP32_LAYERS layers at REL_TOL
+WHISPER_ARCH, WHISPER_HEADS = "whisper-medium", (16, 16, 64)
+WHISPER_LANES, WHISPER_FRAMES, WHISPER_TOKENS = 8, 1500, 32
+WHISPER_CONTEXT, WHISPER_FP32_LAYERS = 448, 4
 
 
 def log(msg: str) -> None:
@@ -824,6 +881,9 @@ RMSNORM_KERNELS = ("rmsnorm_fwd_kernel", "rmsnorm_fwd_row_kernel",
                    "rmsnorm_bwd_wide_kernel", "rmsnorm_bwd_dw_sum_kernel")
 # the flash backward's three kernels by name prefix, in launch order
 FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+# the head dims csrc/flash_attention.cu instantiates, in the order of
+# flash_attention_bwd_occupancy's output
+FLASH_HEAD_DIMS = (64, 112, 128)
 # built with it defined, the SSD scan skips the bf16 backward's dB/dC stores
 NO_ADDS = ("SSD_BWD_NO_ADDS",)
 
@@ -884,14 +944,15 @@ def phase_build():
                 f"spill stores/loads {spill[0]}/{spill[1]} bytes, "
                 f"{hg} HGMMA, {hm} HMMA in SASS")
         if name == "flash_attention":
-            # the bf16 instantiations (both entries, dh 64 and 128) must
-            # run their products on wgmma
+            # the bf16 instantiations (both entries, dh 64, 112 and 128)
+            # must run their products on wgmma
             wgmma = {fn: n[0] for fn, n in mma.items()
                      if "flash_fwd_wgmma_kernel" in fn}
-            check(len(wgmma) == 4 and all(wgmma.values()),
+            check(len(wgmma) == 2 * len(FLASH_HEAD_DIMS)
+                  and all(wgmma.values()),
                   f"bf16 flash kernels without HGMMA in their SASS: {wgmma}")
             # the backward: D for both dtypes, dK/dV and dQ on FMA for fp32
-            # and on wgmma (HGMMA) for bf16, dh 64 and 128; the bf16
+            # and on wgmma (HGMMA) for bf16, dh 64, 112 and 128; the bf16
             # product kernels spill nothing
             bwd = {k: v for k, v in report.items()
                    if k.startswith("flash_bwd_")}
@@ -899,16 +960,17 @@ def phase_build():
                 f"{k} {v[0]} registers, spills {v[1][0]}/{v[1][1]}, "
                 f"{v[2]} HGMMA" for k, v in sorted(bwd.items())))
             wg = {k: v for k, v in bwd.items() if "_wgmma_kernel" in k}
-            check(len(bwd) == 12 and len(wg) == 4 and all(
+            n_dh = len(FLASH_HEAD_DIMS)
+            check(len(bwd) == 6 * n_dh and len(wg) == 2 * n_dh and all(
                 v[2] > 0 and v[1] == (0, 0) for v in wg.values()),
                   f"flash backward kernels missing, or bf16 ones without "
                   f"HGMMA or spilling: {bwd}")
-            occ = (ctypes.c_int * 4)()
+            occ = (ctypes.c_int * (2 * n_dh))()
             check(ctypes.CDLL(str(lib)).flash_attention_bwd_occupancy(occ)
                   == 0, "flash_attention_bwd_occupancy failed")
             log("[build]   bf16 flash backward, CTAs of 256 threads per SM: "
                 + ", ".join(f"{k} dh {dh} {n}" for (dh, k), n in zip(
-                    [(dh, k) for dh in (64, 128)
+                    [(dh, k) for dh in FLASH_HEAD_DIMS
                      for k in ("flash_bwd_dkdv_wgmma_kernel",
                                "flash_bwd_dq_wgmma_kernel")], occ)))
             # ptxas names a kernel whose wgmma it had to serialise
@@ -1024,22 +1086,42 @@ def lse_flash_cases():
              128, dict(q_offset=_i32([0, 5, 100, 255, 256, 511, -1, 37])))]
 
 
-def arctic_flash_cases():
-    """(name, B, S, T, kwargs) of phase 19 at arctic-480b's heads (H 56,
-    KV 8, dh 128: a GQA group of 7): the paged decode (8 lanes, T 512) and
-    prefill (4 x 128 at base 256), the dense engine's decode over a
-    2048-token cache and the causal prefill of 2 x 256 tokens."""
-    return [("arctic decode", DECODE_SLOTS, 1, MAX_CONTEXT,
+def moe_flash_cases(arch="arctic"):
+    """(name, B, S, T, kwargs) of a MoE model's serving phase (19 for
+    arctic-480b, 21 for kimi-k2), each name led by ``arch``: the paged
+    decode (8 lanes, T 512) and prefill (4 x 128 at base 256), the dense
+    engine's decode over a 2048-token cache and the causal prefill of 2 x
+    256 tokens."""
+    return [(f"{arch} decode", DECODE_SLOTS, 1, MAX_CONTEXT,
              dict(q_offset=_i32([0, 5, 100, 255, 256, 511, -1, 37]))),
-            ("arctic prefill base 256", PREFILL_BATCH, PREFILL_CHUNK,
+            (f"{arch} prefill base 256", PREFILL_BATCH, PREFILL_CHUNK,
              MAX_CONTEXT, dict(q_offset=_i32([256] * PREFILL_BATCH),
                                kv_len=_i32([384, 300, 260, 0]))),
-            ("arctic dense decode", DECODE_SLOTS, 1, DENSE_SERVE_CONTEXT,
+            (f"{arch} dense decode", DECODE_SLOTS, 1, DENSE_SERVE_CONTEXT,
              dict(causal=False, kv_len=_i32(
                  [1, 2, 63, 64, 65, 1000, DENSE_SERVE_CONTEXT - 1,
                   DENSE_SERVE_CONTEXT]))),
-            ("arctic prefill 2 x 256", DECODE_VS_PREFILL_LANES,
+            (f"{arch} prefill 2 x 256", DECODE_VS_PREFILL_LANES,
              DECODE_VS_PREFILL_T, DECODE_VS_PREFILL_T, {})]
+
+
+def whisper_flash_cases():
+    """(name, B, S, T, kwargs) of phase 22 at whisper-medium's heads (H =
+    KV = 16, dh 64), 8 lanes: the encoder's non-causal S = T = 1500 (a
+    ragged tail of 28 keys past 23 tiles of 64), cross-attention's 32
+    prefill queries and one decode query over the 1500 encoder rows, the
+    decoder's causal prefill of 32 tokens and its decode over a
+    448-slot cache."""
+    F, L, C = WHISPER_FRAMES, WHISPER_TOKENS, WHISPER_CONTEXT
+    return [("whisper encoder", WHISPER_LANES, F, F, dict(causal=False)),
+            ("whisper cross prefill", WHISPER_LANES, L, F,
+             dict(causal=False)),
+            ("whisper cross decode", WHISPER_LANES, 1, F,
+             dict(causal=False)),
+            ("whisper self prefill", WHISPER_LANES, L, L, {}),
+            ("whisper self decode", WHISPER_LANES, 1, C,
+             dict(causal=False, kv_len=_i32(
+                 [1, 2, 31, 32, 64, 65, 300, C])))]
 
 
 def phase_kernels():
@@ -1063,14 +1145,17 @@ def phase_kernels():
                       SSMTP_SEQ, *ZAMBA2_TP_HEADS, {}))
         # phase 19: arctic-480b's GQA group of 7
         cases += [(name, B, S, T, *ARCTIC_HEADS, kw)
-                  for name, B, S, T, kw in arctic_flash_cases()]
+                  for name, B, S, T, kw in moe_flash_cases()]
         # phase 20: a TP rank's heads on the paged decode and prefill, an
         # EP rank's two lanes of the dense decode
         cases += [(f"{name} TP", B, S, T, *ARCTIC_TP_HEADS, kw)
-                  for name, B, S, T, kw in arctic_flash_cases()[:2]]
+                  for name, B, S, T, kw in moe_flash_cases()[:2]]
         cases.append(("arctic EP dense decode", MOE_EP_LANES, 1,
                       DENSE_SERVE_CONTEXT, *ARCTIC_HEADS,
                       dict(causal=False, kv_len=_i32([1, 1500]))))
+        # phase 22: whisper-medium's encoder, decoder and cross-attention
+        cases += [(name, B, S, T, *WHISPER_HEADS, kw)
+                  for name, B, S, T, kw in whisper_flash_cases()]
         for name, B, S, T, H, KV, dh, kw in cases:
             q = torch.randn(B, S, H, dh, generator=g, device="cuda").to(dt)
             k = torch.randn(B, T, KV, dh, generator=g, device="cuda").to(dt)
@@ -1183,58 +1268,71 @@ def partial_cases():
             for window in (None, 4096)]
 
 
-def phase_partial(errs):
-    """Ring attention's panel-visit kernel against its plain version at
-    qwen3-4b width (H 32, KV 8, dh 128), B 1, S_loc = T_loc = 8192, and at
-    300 local queries and keys for every GQA_SHAPES entry."""
+def _partial_visit(q, k, v, delta, window, dtype, what, errs):
+    """One panel visit of the kernel against its plain version: the rows
+    with keys the same, empty rows exactly (0, -1e30, 0), the rest within
+    PARTIAL_TOL."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.ring_attention import flash_partial_cuda
 
-    def visit(q, k, v, delta, window, dtype, what):
-        got = flash_partial_cuda(q, k, v, delta, causal=True, window=window)
-        torch.cuda.synchronize()
-        want = ref.flash_partial_ref(q, k, v, delta, causal=True,
-                                     window=window)
-        label = f"flash_partial {dtype} {what} delta {delta} window {window}"
-        seen = want[2][..., 0] > 0
-        check(torch.equal(got[2][..., 0] > 0, seen),
-              f"{label}: rows with keys differ")
-        empty = ~seen
-        check(bool((got[0][empty] == 0).all()
-                   and (got[1][empty] == -1e30).all()
-                   and (got[2][empty] == 0).all()),
-              f"{label}: empty rows are not exactly (0, -1e30, 0)")
-        rel = [rel_err(a[seen], b[seen]) if seen.any() else 0.0
-               for a, b in zip(got, want)]
-        log(f"[flash_partial] {dtype:8s} {what:20s} delta {delta:6d} window "
-            f"{str(window):4s}: rows with keys {seen.sum().item():7d} of "
-            f"{seen.numel()}; max|diff|/max|ref| acc {rel[0]:.2e}, "
-            f"m {rel[1]:.2e}, l {rel[2]:.2e} (tol "
-            f"{PARTIAL_TOL[dtype]:.0e}); empty rows exact")
-        check(max(rel) <= PARTIAL_TOL[dtype], f"{label}: {rel}")
-        if seen.any():
-            errs["flash_partial"] = max(errs["flash_partial"], *(
-                (a[seen] - b[seen]).abs().max().item()
-                for a, b in zip(got, want)))
+    got = flash_partial_cuda(q, k, v, delta, causal=True, window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_partial_ref(q, k, v, delta, causal=True, window=window)
+    label = f"flash_partial {dtype} {what} delta {delta} window {window}"
+    seen = want[2][..., 0] > 0
+    check(torch.equal(got[2][..., 0] > 0, seen),
+          f"{label}: rows with keys differ")
+    empty = ~seen
+    check(bool((got[0][empty] == 0).all()
+               and (got[1][empty] == -1e30).all()
+               and (got[2][empty] == 0).all()),
+          f"{label}: empty rows are not exactly (0, -1e30, 0)")
+    rel = [rel_err(a[seen], b[seen]) if seen.any() else 0.0
+           for a, b in zip(got, want)]
+    log(f"[flash_partial] {dtype:8s} {what:20s} delta {delta:6d} window "
+        f"{str(window):4s}: rows with keys {seen.sum().item():7d} of "
+        f"{seen.numel()}; max|diff|/max|ref| acc {rel[0]:.2e}, "
+        f"m {rel[1]:.2e}, l {rel[2]:.2e} (tol "
+        f"{PARTIAL_TOL[dtype]:.0e}); empty rows exact")
+    check(max(rel) <= PARTIAL_TOL[dtype], f"{label}: {rel}")
+    if seen.any():
+        errs["flash_partial"] = max(errs.get("flash_partial", 0.0), *(
+            (a[seen] - b[seen]).abs().max().item()
+            for a, b in zip(got, want)))
 
-    g = torch.Generator(device="cuda").manual_seed(7)
-    errs["flash_partial"] = 0.0
+
+def _partial_shapes(shapes, g, errs):
+    """Panel visits for each (n, H, KV, dh, [(delta, window)]) of
+    ``shapes``, B 1, S_loc = T_loc = n, in bf16 and fp32."""
+    import torch
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        shapes = [(SP_LOCAL, 32, 8, 128, partial_cases())]
-        shapes += [(300, H, KV, dh, [(d, w) for d in (0, 300, -300, 37)
-                                     for w in (None, 100)])
-                   for H, KV, dh in GQA_SHAPES]
         for n, H, KV, dh, cases in shapes:
             q = torch.randn(1, n, H, dh, generator=g, device="cuda").to(dt)
             k = torch.randn(1, n, KV, dh, generator=g, device="cuda").to(dt)
             v = torch.randn(1, n, KV, dh, generator=g, device="cuda").to(dt)
             for delta, window in cases:
-                visit(q, k, v, delta, window, dtype,
-                      f"S=T={n} H {H} KV {KV} dh {dh}")
+                _partial_visit(q, k, v, delta, window, dtype,
+                               f"S=T={n} H {H} KV {KV} dh {dh}", errs)
             del q, k, v
     torch.cuda.empty_cache()
+
+
+# a panel visit's small cases: (delta, window) at 300 local queries and keys
+SMALL_VISITS = [(d, w) for d in (0, 300, -300, 37) for w in (None, 100)]
+
+
+def phase_partial(errs):
+    """Ring attention's panel-visit kernel against its plain version at
+    qwen3-4b width (H 32, KV 8, dh 128), B 1, S_loc = T_loc = 8192, and at
+    300 local queries and keys for every GQA_SHAPES entry."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(7)
+    errs["flash_partial"] = 0.0
+    _partial_shapes([(SP_LOCAL, 32, 8, 128, partial_cases())]
+                    + [(300, H, KV, dh, SMALL_VISITS)
+                       for H, KV, dh in GQA_SHAPES], g, errs)
 
 
 def phase_bf16_p():
@@ -1580,6 +1678,73 @@ def phase_flash_bwd(errs):
                     f"B={B} S={S} H={H} KV={KV} dh={dh}", errs)
     del q, do, k, v
     torch.cuda.empty_cache()
+
+
+def phase_k13(errs):
+    """The flash kernels at kimi-k2-1t-a32b's heads (H 64, KV 8, dh 112:
+    tiles padded to 128 columns), bf16 and fp32, against their plain
+    versions at phase 2's gates: the forward at phase 21's paged decode
+    (8 lanes, T 512) and prefill chunk (4 x 128 at base 256), the dense
+    engine's decode and phase 21 (b)'s causal prefill of 2 x 256; the
+    backward's small cases at dh 112 (S 100, GQA groups of 1, 5 and 8, the
+    training masks); the causal training shape (B 1, S 4096) for the
+    forward with its row log-sum-exp and the backward, whose second call
+    must give the same bits; ring attention's panel visit at 300 local
+    queries and keys."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+
+    t0 = time.perf_counter()
+    for key in ("flash_attention", "flash_attention_bwd", "flash_partial"):
+        errs.setdefault(key, 0.0)
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def rand(dt, *shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    H, KV, dh = KIMI_HEADS
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for name, B, S, T, kw in moe_flash_cases("kimi"):
+            q, k, v = rand(dt, B, S, H, dh), rand(dt, B, T, KV, dh), \
+                rand(dt, B, T, KV, dh)
+            out = flash_attention_cuda(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            err = (out.float() - want.float()).abs().max().item()
+            log(f"[k13] {dtype:8s} H {H} KV {KV} dh {dh} {name:24s} "
+                f"max|diff| {err:.3e} (tol {TOL[dtype]:.0e})")
+            check(err <= TOL[dtype], f"flash {name} {dtype}: {err}")
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+        for Hs, KVs in FLASH_BWD_GROUPS:
+            q, do = rand(dt, 2, 100, Hs, dh), rand(dt, 2, 100, Hs, dh)
+            k, v = rand(dt, 2, 100, KVs, dh), rand(dt, 2, 100, KVs, dh)
+            for causal, window in FLASH_BWD_MASKS:
+                flash_bwd_check(
+                    q, k, v, do, causal, window,
+                    f"S=100 H {Hs} KV {KVs} dh {dh} "
+                    f"{'causal' if causal else 'bidir'} window {window}",
+                    errs)
+        B, S = KIMI_TRAIN
+        q, do = rand(dt, B, S, H, dh), rand(dt, B, S, H, dh)
+        k, v = rand(dt, B, S, KV, dh), rand(dt, B, S, KV, dh)
+        out, lse, got = flash_bwd_check(
+            q, k, v, do, True, None, f"B={B} S={S} H={H} KV={KV} dh={dh}",
+            errs)
+        again = flash_attention_bwd_cuda(q, k, v, out, do, lse)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[k13] {dtype} B={B} S={S} H={H} KV={KV} dh={dh}: dq, dk, dv "
+            f"of a second call bitwise equal: {same}")
+        check(same, f"flash backward at dh {dh} {dtype}: a second call "
+              "gave other bits")
+        del q, do, k, v, out, lse, got, again
+        torch.cuda.empty_cache()
+    _partial_shapes([(300, H, KV, dh, SMALL_VISITS)], g, errs)
+    log(f"[k13] the flash kernels at dh {dh} held against their plain "
+        f"versions in {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5221,20 +5386,22 @@ def recorded_routes():
         moe_mod._route = real
 
 
-def _moe_cfg(dtype="bfloat16", layers=MOE_LAYERS):
+def _moe_cfg(dtype="bfloat16", layers=MOE_LAYERS, arch=MOE_ARCH):
     import torch
     from repro_torch.configs import get_config
-    return get_config(MOE_ARCH).with_(n_layers=layers,
-                                      dtype=getattr(torch, dtype))
+    return get_config(arch).with_(n_layers=layers,
+                                  dtype=getattr(torch, dtype))
 
 
-def _moe_init(cfg):
+def _moe_init(cfg, tag="[moe]"):
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.models import init_lm
     t0 = time.perf_counter()
     params = init_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"[moe] {cfg.name} at full width, {cfg.n_layers} of 35 layers, "
+    log(f"{tag} {cfg.name} at full width, {cfg.n_layers} of "
+        f"{get_config(cfg.name).n_layers} layers, "
         f"{str(cfg.dtype).replace('torch.', '')}: "
         f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B params, "
         f"{sum(p.nbytes for p in params.parameters()) / 1e9:.2f} GB, drawn "
@@ -5362,7 +5529,7 @@ def first_serve_step():
         serve_mod.make_serve_step = real
 
 
-def _moe_paged(cfg, params):
+def _moe_paged(cfg, params, tag="[moe] (a)"):
     """(a) Phase 3's requests through the paged engine, twice: every
     request completes, the flash forward and RMSNorm launch at the counts a
     decode step and a prefill chunk give, no plain version runs, and the
@@ -5437,7 +5604,7 @@ def _moe_paged(cfg, params):
     _, reqs2, _, _, _, first2 = one_run()
     same_tokens = [r.tokens for r in reqs2] == [r.tokens for r in reqs]
     same_bits = torch.equal(first2["logits"], first["logits"])
-    log(f"[moe] (a) second run: the same tokens {same_tokens}, the first "
+    log(f"{tag} second run: the same tokens {same_tokens}, the first "
         f"decode step's logits the same bits {same_bits}")
     check(same_tokens and same_bits, "the MoE serving forward is not "
           "deterministic run to run")
@@ -5461,7 +5628,7 @@ def _moe_paged(cfg, params):
         "launches_per_prefill_chunk": dict(zip(
             ("flash_attention", "rmsnorm"), per_prefill)),
     }
-    log("[moe] (a) paged " + json.dumps(result))
+    log(f"{tag} paged " + json.dumps(result))
     return launches, first
 
 
@@ -5691,28 +5858,6 @@ def _moe_cpu_vs_card():
     return launches
 
 
-def _kimi_full_width_refused():
-    """kimi-k2-1t-a32b's attention at full width (dh 7168 / 64 = 112) is
-    refused by the flash kernel's wrapper, not sent to a plain version."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-
-    cfg = get_config("kimi-k2-1t-a32b")
-    q = torch.zeros(1, 4, cfg.n_heads, cfg.dh, dtype=torch.bfloat16,
-                    device="cuda")
-    kv = torch.zeros(1, 4, cfg.n_kv_heads, cfg.dh, dtype=torch.bfloat16,
-                     device="cuda")
-    try:
-        ops.flash_attention(q, kv, kv)
-    except ValueError as e:
-        log(f"[moe] kimi-k2-1t-a32b at full width (dh {cfg.dh}): the flash "
-            f"wrapper raises: {e}")
-        check("K13" in str(e), "the refusal does not name its queue item")
-        return
-    raise Failed("kimi-k2-1t-a32b's dh 112 attention ran on the card")
-
-
 def phase_moe():
     """Phase 19.  Returns {path: launches} and phase 20's reference: the
     first decode step of (a)'s first run and of (b)'s serve."""
@@ -5737,7 +5882,6 @@ def phase_moe():
     del params
     _free_cuda()
     launches["moe_cpu_vs_card"] = _moe_cpu_vs_card()
-    _kimi_full_width_refused()
     log(f"[moe] phase 19 in {time.perf_counter() - t_phase:.1f} s")
     return launches, ref
 
@@ -6198,6 +6342,217 @@ def phase_moe_shard(ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 21: kimi-k2-1t-a32b at full width, attention at dh 112
+# ---------------------------------------------------------------------------
+
+def _param_footprint(cfg):
+    """(parameters, GB in the config's dtype) of ``init_lm(cfg)``, from
+    its shapes on the meta device."""
+    from repro_torch.models import init_lm
+    n = sum(p.numel() for p in init_lm(cfg, device="meta").parameters())
+    return n, n * cfg.dtype.itemsize / 1e9
+
+
+def phase_kimi():
+    """Phase 21: kimi-k2-1t-a32b at full width, KIMI_LAYERS of 61 layers
+    (the dense first layer and one MoE layer), bf16, random weights from
+    seed 0.  The memory is reckoned from the shapes and printed before
+    the draw.  (a) phase 3's 12 requests through the paged engine, twice
+    (:func:`_moe_paged`: every request completes, flash at dh 112 once a
+    layer a decode step and a prefill chunk, no plain version, the same
+    tokens and first-step bits in both runs, the decode step against its
+    bound); (b) ``make_serve_step`` against ``make_prefill_step`` on 2 x
+    256 tokens where the routing agrees (384 experts, top-8, the shared
+    expert), the flips counted.  Returns {path: launches}."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    _free_cuda()
+    cfg = _moe_cfg(layers=KIMI_LAYERS, arch=KIMI_ARCH)
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.dh) == KIMI_HEADS,
+          f"kimi-k2's heads {(cfg.n_heads, cfg.n_kv_heads, cfg.dh)}")
+    n, gb = _param_footprint(cfg)
+    more = _param_footprint(cfg.with_(n_layers=KIMI_LAYERS + 1))[1] - gb
+    free, total = torch.cuda.mem_get_info()
+    log(f"[kimi] memory reckoned before the draw: {KIMI_LAYERS} of "
+        f"{get_config(KIMI_ARCH).n_layers} layers, {n / 1e9:.3f} B params, "
+        f"{gb:.2f} GB in bf16 (a further MoE layer {more:.2f} GB); the card "
+        f"has {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    check(gb < free / 1e9, f"kimi-k2 at {KIMI_LAYERS} layers needs {gb:.2f} "
+          f"GB, {free / 1e9:.2f} GB free")
+    params = _moe_init(cfg, "[kimi]")
+    launches = {}
+    launches["kimi_serve"], _ = _moe_paged(cfg, params, "[kimi] (a)")
+    _moe_decode_vs_prefill(cfg, params, DECODE_VS_PREFILL_T,
+                           MOE_DECODE_VS_PREFILL_TOL, "[kimi] (b)")
+    del params
+    _free_cuda()
+    log(f"[kimi] phase 21 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 22: whisper-medium's encoder-decoder serving path at full width
+# ---------------------------------------------------------------------------
+
+def _whisper_greedy(cfg, params, frames, first):
+    """WHISPER_TOKENS greedy ``make_serve_step`` steps from token
+    ``first`` (B,) on ``init_encdec_decode_state`` (WHISPER_CONTEXT slots):
+    the logits (B, steps, V) in fp32, the tokens fed (B, steps) and the
+    state."""
+    import torch
+    from repro_torch.models import init_encdec_decode_state
+    from repro_torch.runtime.executor import make_serve_step
+
+    step = make_serve_step(cfg)
+    state = init_encdec_decode_state(params, frames, cfg, WHISPER_CONTEXT)
+    tok, fed, out = first, [], []
+    for _ in range(WHISPER_TOKENS):
+        fed.append(tok)
+        logits, state = step(params, state, tok)
+        out.append(logits.float())
+        tok = logits.argmax(-1).to(torch.int32)
+    return torch.stack(out, 1), torch.stack(fed, 1), state
+
+
+def _whisper_vs_prefill(cfg, params, frames, first, tol, tag):
+    """The greedy decode (:func:`_whisper_greedy`) against
+    ``make_prefill_step`` teacher-forced on the tokens it was fed: each
+    step's logits within ``tol`` of the prefill's largest logit at that
+    position.  Returns the decode's logits, tokens and state."""
+    import torch
+    from repro_torch.runtime.executor import make_prefill_step
+
+    logits, fed, state = _whisper_greedy(cfg, params, frames, first)
+    full = make_prefill_step(cfg)(params, {"tokens": fed,
+                                           "frames": frames}).float()
+    check(bool(torch.isfinite(full).all() and torch.isfinite(logits).all()),
+          f"{tag}: logits not finite")
+    err = ((logits - full).abs().amax(-1) / full.abs().amax(-1)).cpu()
+    worst = err.max().item()
+    at = divmod(int(err.argmax()), err.shape[1])
+    log(f"{tag} {cfg.name} at {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+        f"{str(cfg.dtype).replace('torch.', '')}, {tuple(fed.shape)} tokens "
+        f"greedy: each step's logits against the teacher-forced prefill's, "
+        f"max |diff| / max |logit| worst {worst:.3e} at (lane, step) {at}, "
+        f"mean {err.mean().item():.3e} (tol {tol:.0e}); first lane's tokens "
+        f"{fed[0, :8].tolist()}...")
+    check(worst <= tol, f"{tag}: decode and prefill logits differ by "
+          f"{worst} of the largest")
+    return logits, fed, state
+
+
+def phase_whisper():
+    """Phase 22: whisper-medium at full width (24 + 24 layers), bf16,
+    random weights from seed 0, WHISPER_LANES lanes of random frames:
+    (a) a greedy decode of WHISPER_TOKENS steps through ``make_serve_step``
+    on ``init_encdec_decode_state``, each step's logits against
+    ``make_prefill_step`` teacher-forced on the same tokens; the flash
+    forward the only attention (24 launches an encoder pass, 48 a decoder
+    step: self plus cross), no plain version; the encoder's ms, the decode
+    step's wall and busy ms, tok/s, peak memory and the cross-K/V bytes;
+    (b) a second decode gives the same bits; (c) fp32 at
+    WHISPER_FP32_LAYERS + WHISPER_FP32_LAYERS layers at REL_TOL.  Returns
+    {path: launches}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import encode, init_encdec
+    from repro_torch.runtime.executor import make_serve_step
+
+    t_phase = time.perf_counter()
+    _free_cuda()
+    cfg = get_config(WHISPER_ARCH)
+    E, L = cfg.n_enc_layers, cfg.n_layers
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.dh) == WHISPER_HEADS,
+          f"whisper's heads {(cfg.n_heads, cfg.n_kv_heads, cfg.dh)}")
+    t0 = time.perf_counter()
+    params = init_encdec(cfg, max_dec_len=WHISPER_CONTEXT, seed=0,
+                         device="cuda")
+    torch.cuda.synchronize()
+    log(f"[whisper] {cfg.name} at full width, {E} + {L} layers, bf16: "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B params, "
+        f"{sum(p.nbytes for p in params.parameters()) / 1e9:.2f} GB, drawn "
+        f"in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    frames = torch.randn(WHISPER_LANES, WHISPER_FRAMES, cfg.d_model,
+                         generator=g, device="cuda")
+    first = torch.randint(0, cfg.vocab_size, (WHISPER_LANES,), generator=g,
+                          device="cuda", dtype=torch.int32)
+
+    counts = _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        logits, fed, state = _whisper_vs_prefill(
+            cfg, params, frames, first, DECODE_VS_PREFILL_TOL,
+            "[whisper] (a)")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = counts()
+    check(not plain, f"the enc-dec path called plain versions: {plain}")
+    # the state's encoder pass, the decode steps, the prefill's encoder
+    # and decoder
+    want = E + WHISPER_TOKENS * 2 * L + E + 2 * L
+    check(launches["flash_attention"] == want,
+          f"{launches['flash_attention']} flash launches, not {want}")
+
+    def flash_of(fn):
+        before = flash_attention_cuda.launches
+        fn()
+        torch.cuda.synchronize()
+        return flash_attention_cuda.launches - before
+
+    step, tok = make_serve_step(cfg), fed[:, -1]
+
+    def decode():       # the step at position WHISPER_TOKENS, repeatable
+        return step(params, state, tok)[0]
+
+    def encoder():
+        return encode(params, frames, cfg)
+
+    per = {"encoder": flash_of(encoder), "decode_step": flash_of(decode)}
+    check(per == {"encoder": E, "decode_step": 2 * L},
+          f"flash launches an encoder pass / a decode step: {per}")
+    encode_ms = cuda_ms(encoder, iters=5, warmup=1)
+    step_ms = cuda_ms(decode, iters=10)
+    busy, kernels, cats = profile_step("whisper decode", decode, step_ms)
+    logits2, fed2, _ = _whisper_greedy(cfg, params, frames, first)
+    same = torch.equal(logits2, logits) and torch.equal(fed2, fed)
+    log(f"[whisper] (b) a second decode: the same tokens and logits bits "
+        f"{same}")
+    check(same, "the enc-dec decode is not deterministic run to run")
+    cross = sum(k.nbytes + v.nbytes for k, v in state["cross_kv"])
+    cache = sum(c["k"].nbytes + c["v"].nbytes for c in state["self_cache"])
+    result = {
+        "lanes": WHISPER_LANES, "frames": WHISPER_FRAMES,
+        "tokens": WHISPER_TOKENS, "context": WHISPER_CONTEXT,
+        "encode_ms": encode_ms, "decode_step_ms": step_ms,
+        "decode_busy_ms": busy, "decode_device_ms_by_category": cats,
+        "kernels_per_step": kernels,
+        "decode_tok_per_s": WHISPER_LANES * 1e3 / step_ms,
+        "run_s": wall, "peak_mem_gb": peak_gb, "cross_kv_bytes": cross,
+        "self_cache_bytes": cache,
+        "flash_per_encoder": per["encoder"],
+        "flash_per_decode_step": per["decode_step"]}
+    log("[whisper] (a) " + json.dumps(result))
+    del params, state, logits, logits2
+    _free_cuda()
+    cfg32 = cfg.with_(n_layers=WHISPER_FP32_LAYERS,
+                      n_enc_layers=WHISPER_FP32_LAYERS, dtype=torch.float32)
+    params = init_encdec(cfg32, max_dec_len=WHISPER_CONTEXT, seed=0,
+                         device="cuda")
+    _whisper_vs_prefill(cfg32, params, frames, first, REL_TOL["float32"],
+                        "[whisper] (c)")
+    del params
+    _free_cuda()
+    log(f"[whisper] phase 22 in {time.perf_counter() - t_phase:.1f} s")
+    return {"whisper_serve": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: sequence-parallel attention, 4 ranks on the card
 # ---------------------------------------------------------------------------
 
@@ -6507,9 +6862,10 @@ def _flash_bwd_timing(B=DENSE_BATCH, S=DENSE_SEQ, H=32, KV=8, dh=128):
                 shape=shape, ms_by_kernel=parts)
 
 
-def _partial_timing(delta):
-    """Ring attention's panel visit at the phase-8 shape (S_loc = T_loc =
-    8192, H 32, KV 8, dh 128, bf16, causal) for one ``delta``: the kernel,
+def _partial_timing(delta, S=SP_LOCAL, heads=(32, 8, 128)):
+    """Ring attention's panel visit at the phase-8 shape (by default S_loc
+    = T_loc = 8192, H 32, KV 8, dh 128; bf16, causal) for one ``delta``:
+    the kernel,
     its plain version and, as the library yardstick, SDPA over the same
     admissible pairs; SDPA writes the normalised output, not the state.  The
     bound counts the q rows that admit some key read (a dead visit needs no
@@ -6520,7 +6876,7 @@ def _partial_timing(delta):
     from repro_torch.kernels import ref
     from repro_torch.kernels.ring_attention import flash_partial_cuda
 
-    S, H, KV, dh = SP_LOCAL, 32, 8, 128
+    H, KV, dh = heads
     g = torch.Generator(device="cuda").manual_seed(6)
     q = torch.randn(1, S, H, dh, generator=g, device="cuda").bfloat16()
     k = torch.randn(1, S, KV, dh, generator=g, device="cuda").bfloat16()
@@ -6810,7 +7166,27 @@ def phase_timings():
              # phase 20: a TP rank's paged decode (H 14, KV 2)
              "arctic_tp_decode": _flash_timing(
                  DECODE_SLOTS, 1, MAX_CONTEXT, decode_L,
-                 [MAX_CONTEXT] * DECODE_SLOTS, heads=ARCTIC_TP_HEADS)}),
+                 [MAX_CONTEXT] * DECODE_SLOTS, heads=ARCTIC_TP_HEADS),
+             # phase 21: kimi-k2's paged decode and prefill chunk (H 64,
+             # KV 8, dh 112), and its causal training shape under autograd
+             "kimi_decode": _flash_timing(
+                 DECODE_SLOTS, 1, MAX_CONTEXT, decode_L,
+                 [MAX_CONTEXT] * DECODE_SLOTS, heads=KIMI_HEADS),
+             "kimi_prefill": _flash_timing(
+                 PREFILL_BATCH, PREFILL_CHUNK, MAX_CONTEXT,
+                 [256] * PREFILL_BATCH, [384] * PREFILL_BATCH,
+                 heads=KIMI_HEADS),
+             "kimi_train": _flash_train_timing(*KIMI_TRAIN, *KIMI_HEADS),
+             # phase 22: whisper-medium's encoder (8 x 1500, non-causal)
+             # and cross-attention decode (8 queries over 1500 rows)
+             "whisper_encoder": _flash_timing(
+                 WHISPER_LANES, WHISPER_FRAMES, WHISPER_FRAMES, None,
+                 [WHISPER_FRAMES] * WHISPER_LANES, causal=False,
+                 heads=WHISPER_HEADS),
+             "whisper_cross_decode": _flash_timing(
+                 WHISPER_LANES, 1, WHISPER_FRAMES, None,
+                 [WHISPER_FRAMES] * WHISPER_LANES, causal=False,
+                 heads=WHISPER_HEADS)}),
         ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "decode", {
              "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
@@ -6849,12 +7225,16 @@ def phase_timings():
          "src/repro/kernels/flash_attention.py:143", "train",
          {"train": _flash_bwd_timing(),
           "zamba2_tp_train": _flash_bwd_timing(
-              SSMTP_LOCAL_BATCH, SSMTP_SEQ, *ZAMBA2_TP_HEADS)}),
+              SSMTP_LOCAL_BATCH, SSMTP_SEQ, *ZAMBA2_TP_HEADS),
+          "kimi_train": _flash_bwd_timing(*KIMI_TRAIN, *KIMI_HEADS)}),
         ("flash_partial", "cuda", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/ring_attention.py:110", "visible", {
              "diagonal": _partial_timing(0),
              "visible": _partial_timing(SP_LOCAL),
-             "dead": _partial_timing(-SP_LOCAL)}),
+             "dead": _partial_timing(-SP_LOCAL),
+             # kimi-k2's heads: a visible panel of 4096 local keys
+             "kimi_visible": _partial_timing(KIMI_TRAIN[1], S=KIMI_TRAIN[1],
+                                             heads=KIMI_HEADS)}),
     ]
     return table, _rmsnorm_host_costs()
 
@@ -6951,62 +7331,80 @@ def main() -> int:
         return only is None or n in only
 
     t_start = time.perf_counter()
+    marks = [(1, t_start)]      # (phase, start) for the seconds by phase
+
+    def begin(n):
+        if run(n):
+            marks.append((n, time.perf_counter()))
+            return True
+        return False
+
     kernels = None
     try:
         card = phase_build()
         errs, launches = {}, {}
-        if run(2):
+        if begin(2):
             errs = phase_kernels()
             phase_partial(errs)
             phase_bf16_p()
             phase_bf16_pds()
             phase_train_kernels(errs)
             phase_flash_bwd(errs)
-        if run(7):
+            phase_k13(errs)
+        if begin(7):
             timed = phase_timings()
-        if run(3):
+        if begin(3):
             launches["serve"] = phase_serve()
-        if run(19):
+        if begin(19):
             moe_launches, moe_ref = phase_moe()
             launches.update(moe_launches)
-            if run(20):
+            if begin(20):
                 launches.update(phase_moe_shard(moe_ref))
-        if run(4):
+        if begin(21):
+            if not run(2):      # the dh 112 kernels first
+                phase_k13(errs)
+            launches.update(phase_kimi())
+        if begin(22):
+            launches.update(phase_whisper())
+        if begin(4):
             phase_cpu_vs_card()
-        if run(5):
+        if begin(5):
             launches["train"], train_losses = phase_train()
-            if run(14):
+            if begin(14):
                 launches["ckpt"] = phase_ckpt(train_losses)
-        if run(6):
+        if begin(6):
             phase_train_cpu_vs_card()
-        if run(9):
+        if begin(9):
             launches["dense_train"], dense_losses = phase_dense_train()
-        if run(10):
+        if begin(10):
             phase_dense_cpu_vs_card()
-        if run(11):
+        if begin(11):
             (launches["dense_serve"], launches["ssm_prefill"],
              dense_decode) = phase_dense_serve()
-        if run(12):
+        if begin(12):
             launches.update(phase_ssm_serve())
-        if run(9) and run(13):
+        if run(9) and begin(13):
             launches.update(phase_plan(dense_losses))
-        if run(15):
+        if begin(15):
             launches.update(phase_pipeline())
-        if run(16):
+        if begin(16):
             launches.update(phase_shard())
-        if run(17):
+        if begin(17):
             launches.update(phase_ssm_tp())
-        if run(18):
+        if begin(18):
             launches.update(phase_serve_shard())
-        if run(8):
+        if begin(8):
             launches["sp"] = phase_sp()
         if only is None:
             kernels = kernel_entries(timed, errs, launches, dense_decode)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    ends = [t for _, t in marks[1:]] + [time.perf_counter()]
     log(f"[done] {'all phases' if only is None else f'phases {sorted(only)}'}"
-        f" in {time.perf_counter() - t_start:.1f} s")
+        f" in {ends[-1] - t_start:.1f} s; seconds by phase, in run order, "
+        "the build in phase 1 and the kernels line in the last: "
+        + json.dumps({n: round(e - t, 1) for (n, t), e in zip(marks, ends)}))
     log(card)       # again, so that the end of the output names the card
     if kernels is not None:
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,8 +12,13 @@ viewed back as ``torch.bfloat16``.  A MoE model has two segments when its
 first blocks are dense (``stacks[0]`` dense, ``stacks[1]`` MoE, each
 indexed from 0), one otherwise.  The hybrid's ``shared_attn`` (``ln``
 and an attention block) becomes the model's
-:class:`~repro_torch.models.transformer.SharedAttention`.  A key the port
-does not map raises, rather than leave a weight behind.
+:class:`~repro_torch.models.transformer.SharedAttention`.  An
+encoder-decoder config takes the JAX ``init_encdec`` tree (``enc_pos``,
+the stacked ``enc_blocks`` {``ln1``, ``attn``, ``ln2``, ``mlp``},
+``enc_ln``, ``embed``, ``dec_pos``, the stacked ``dec_blocks`` {``ln1``,
+``self_attn``, ``ln_x``, ``cross_attn``, ``ln2``, ``mlp``}, ``dec_ln``) and
+gives :class:`~repro_torch.models.encdec.EncDec`.  A key the port does not
+map raises, rather than leave a weight behind.
 
 The other way, :func:`tree_from_params` gives the JAX tree of a port model
 (numpy leaves, each block's leaf stacked on a leading L axis), and
@@ -34,7 +39,8 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.mlp import SwiGLU
+from repro_torch.models.encdec import DecBlock, EncBlock, EncDec, LayerNorm
+from repro_torch.models.mlp import GeluMLP, SwiGLU
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
 from repro_torch.models.transformer import (LM, DenseBlock, MoEBlock,
@@ -48,6 +54,12 @@ _MOE_KEYS = {"router", "w_gate", "w_up", "w_down", "shared",
 _SSM_KEYS = {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w",
              "out_proj"}
 _TOP_KEYS = {"embed", "stacks", "final_norm", "head", "shared_attn"}
+_ENCDEC_KEYS = {"enc_pos", "enc_blocks", "enc_ln", "embed", "dec_pos",
+                "dec_blocks", "dec_ln"}
+_ENC_KEYS = {"ln1", "attn", "ln2", "mlp"}
+_DEC_KEYS = {"ln1", "self_attn", "ln_x", "cross_attn", "ln2", "mlp"}
+# the encoder-decoder's stacked blocks: their JAX paths carry no segment
+_STACKED = ("enc_blocks", "dec_blocks")
 
 
 def tensor_from_numpy(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -96,15 +108,67 @@ def _layer(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _layer_norm(tree: Mapping[str, Any], t: Callable, what: str
+                ) -> LayerNorm:
+    _only_keys(tree, {"w", "b"}, what)
+    return LayerNorm(t(tree["w"]), t(tree["b"]))
+
+
+def _gelu_mlp(tree: Mapping[str, Any], t: Callable) -> GeluMLP:
+    _only_keys(tree, {"w_fc", "b_fc", "w_proj", "b_proj"}, "gelu mlp")
+    return GeluMLP(t(tree["w_fc"]), t(tree["b_fc"]), t(tree["w_proj"]),
+                   t(tree["b_proj"]))
+
+
+def _encdec_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
+                     t: Callable) -> EncDec:
+    """The port's encoder-decoder from a JAX ``init_encdec`` tree."""
+    _only_keys(tree, _ENCDEC_KEYS, "encoder-decoder top-level")
+    enc, dec = tree["enc_blocks"], tree["dec_blocks"]
+    _only_keys(enc, _ENC_KEYS, "encoder block")
+    _only_keys(dec, _DEC_KEYS, "decoder block")
+
+    def attn(leaves):
+        return _attention({k: t(v) for k, v in leaves.items()})
+
+    enc_blocks = []
+    for i in range(len(enc["ln1"]["w"])):
+        lay = _layer(enc, i)
+        enc_blocks.append(EncBlock(
+            _layer_norm(lay["ln1"], t, "ln1"), attn(lay["attn"]),
+            _layer_norm(lay["ln2"], t, "ln2"), _gelu_mlp(lay["mlp"], t)))
+    dec_blocks = []
+    for i in range(len(dec["ln1"]["w"])):
+        lay = _layer(dec, i)
+        dec_blocks.append(DecBlock(
+            _layer_norm(lay["ln1"], t, "ln1"), attn(lay["self_attn"]),
+            _layer_norm(lay["ln_x"], t, "ln_x"), attn(lay["cross_attn"]),
+            _layer_norm(lay["ln2"], t, "ln2"), _gelu_mlp(lay["mlp"], t)))
+    for what, blocks, want in (("encoder", enc_blocks,
+                                cfg.n_enc_layers or cfg.n_layers),
+                               ("decoder", dec_blocks, cfg.n_layers)):
+        if len(blocks) != want:
+            raise ValueError(f"{len(blocks)} {what} blocks in the tree, "
+                             f"{want} in {cfg.name!r}")
+    return EncDec(t(tree["enc_pos"]), enc_blocks,
+                  _layer_norm(tree["enc_ln"], t, "enc_ln"), t(tree["embed"]),
+                  t(tree["dec_pos"]), dec_blocks,
+                  _layer_norm(tree["dec_ln"], t, "dec_ln"))
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, *,
-                    device: torch.device = "cuda") -> LM:
-    """The port's model holding the weights of a JAX ``init_lm`` pytree.
-    Raises ValueError on a key of the tree it does not map."""
-    stacks = build_stacks(cfg)
+                    device: torch.device = "cuda") -> nn.Module:
+    """The port's model holding the weights of a JAX ``init_lm`` pytree,
+    or of an ``init_encdec`` one for an encoder-decoder config.  Raises
+    ValueError on a key of the tree it does not map."""
     dev = resolve_device(device)
 
     def t(a: np.ndarray) -> torch.Tensor:
         return tensor_from_numpy(a, dev)
+
+    if cfg.is_encoder_decoder:
+        return _encdec_from_jax(tree, cfg, t)
+    stacks = build_stacks(cfg)
 
     _only_keys(tree, _TOP_KEYS, "top-level")
     if len(tree["stacks"]) != len(stacks):
@@ -162,8 +226,11 @@ def jax_path(name: str, starts: Sequence[int] = (0,)
     (:func:`segment_starts`): ``blocks.3.attn.wq`` -> (``stacks/0/attn/wq``,
     3); with ``starts`` (0, 1), ``blocks.3.moe.router`` ->
     (``stacks/1/moe/router``, 2); ``shared_attn.ln`` -> (``shared_attn/ln``,
-    None)."""
+    None); the encoder-decoder's ``dec_blocks.2.ln_x.w`` ->
+    (``dec_blocks/ln_x/w``, 2)."""
     parts = name.split(".")
+    if parts[0] in _STACKED:
+        return "/".join([parts[0], *parts[2:]]), int(parts[1])
     if parts[0] == "blocks":
         i = int(parts[1])
         s = max(k for k, first in enumerate(starts) if first <= i)
@@ -265,10 +332,11 @@ def _numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
 
 
-def tree_from_params(model: LM) -> Dict[str, Any]:
-    """The JAX ``init_lm`` tree of the port's model, the inverse of
-    :func:`params_from_jax`: numpy leaves, each block's leaf stacked on a
-    leading L axis (``stacks[s]`` for segment ``s``), bfloat16 bit for
+def tree_from_params(model: nn.Module) -> Dict[str, Any]:
+    """The JAX ``init_lm`` (or, for an :class:`EncDec`, ``init_encdec``)
+    tree of the port's model, the inverse of :func:`params_from_jax`: numpy
+    leaves, each block's leaf stacked on a leading L axis (``stacks[s]``
+    for segment ``s``; ``enc_blocks``, ``dec_blocks``), bfloat16 bit for
     bit."""
     flat = flat_from_leaves(model, list(model.parameters()))
     return _nest({k: _numpy_from_tensor(v) for k, v in flat.items()})

@@ -70,6 +70,27 @@
 // Left for later: warp specialisation (a producer warp and setmaxnreg),
 // overlapping one tile's softmax with the next tile's Q K^T, persistent CTAs.
 //
+// Head dims.  The TPU kernel takes any dh (its blocks span the whole row);
+// this file instantiates the ones the port's configs use: 64, 128, and 112
+// (kimi-k2-1t-a32b: 7168 / 64).  The bf16 bodies assume rows of whole
+// 128-byte swizzle atoms (64 bf16), and 112 = 64 + 48 is not, so dh 112
+// runs in tiles padded to DP = pad64(DH) = 128 columns inside the kernel,
+// over tensor maps of the real 112-wide arrays: the second 64-column box of
+// a row reads the 48 real columns and the TMA zero-fills the 16 past the
+// end (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE; the box's bytes still count in
+// full on the mbarrier), Q is staged by the threads with zeros in its pad
+// columns, and a row's global stride is the real 224 bytes, which TMA
+// takes (a multiple of 16).  Products over dh (Q K^T, dO V^T) run dh / 16
+// = 7 k-steps and never read the pad; products whose N is dh (P V, dS K,
+// P^T dO, dS^T Q) run at N = DP with operands whose pad columns are zeros,
+// so the accumulator's pad columns stay 0 and the epilogues store only the
+// DH real ones.  The scale stays 1 / sqrt(dh) from the wrapper.  The other
+// way, a wgmma of N = 112 (legal), would need 112-column MN-major operand
+// descriptors across a partial swizzle atom; padding keeps one tile layout
+// for every dh at the price of 128 / 112 of the N = dh products' work.
+// The fp32 FMA bodies take dh 112 as it is, with the threads that own a
+// column past 112 idle in the products and the stores.
+//
 // fp32 (flash_fwd_kernel): the first version's FMA body, unchanged.  Its job
 // is exactness (the fp32 cases within 1e-5, fp32 greedy tokens identical card
 // against CPU); TF32 tensor cores would break both.  One CTA per (64 query
@@ -153,12 +174,19 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int BLOCK_Q = 64;
 constexpr int BLOCK_K = 64;
 constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;  // the ring state's "no key" row max
+
+// a head's row padded to whole 64-column blocks (the note at the top)
+__host__ __device__ constexpr int pad64(int dh) {
+  return (dh + 63) / 64 * 64;
+}
 
 // ---------------------------------------------------------------------------
 // fp32: the FMA body
@@ -203,10 +231,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const int* __restrict__ q_offset,
                  const int* __restrict__ kv_len, int S, int T_len, int H,
                  int KV, int causal, int window, float scale) {
-  static_assert(THREADS % DH == 0 || DH % THREADS == 0, "dh layout");
+  // thread tid owns output column tid % DP (idle past DH: dh 112)
+  constexpr int DP = pad64(DH);
+  static_assert(THREADS % DP == 0 || DP % THREADS == 0, "dh layout");
   constexpr int QS = DH + 1;                   // padded row stride
   constexpr int PS = BLOCK_K + 1;
-  constexpr int RPT = BLOCK_Q * DH / THREADS;  // output rows per thread
+  constexpr int RPT = BLOCK_Q * DP / THREADS;  // output rows per thread
   constexpr int VEC = 16 / sizeof(T);          // elements per 16-byte load
   static_assert(BLOCK_K * DH % (VEC * THREADS) == 0, "tile load layout");
   extern __shared__ float smem[];
@@ -245,8 +275,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     s_m[r] = -INFINITY;
     s_l[r] = 0.f;
   }
-  const int d_own = tid % DH;
-  const int r_own = (tid / DH) * RPT;
+  const int d_own = tid % DP;
+  const int r_own = (tid / DP) * RPT;
+  const bool owns = DH == DP || d_own < DH;
   float acc[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
@@ -327,7 +358,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = r_own + i;
-      if (r < rows) {
+      if (owns && r < rows) {
         const float* pr = sp + r * PS;
         float a = acc[i] * s_a[r];
 #pragma unroll 8
@@ -340,7 +371,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = r_own + i;
-    if (r < rows) {
+    if (owns && r < rows) {
       const size_t at = ((size_t)(b * S + q0 + r) * H + h) * DH + d_own;
       if constexpr (PARTIAL) {
         static_cast<float*>(o)[at] = acc[i];  // 0 on a rejected row
@@ -587,8 +618,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                        const int* __restrict__ q_offset,
                        const int* __restrict__ kv_len, int S, int T_len,
                        int H, int KV, int causal, int window, float scale) {
-  using L = Layout<DH>;
-  constexpr int CB = DH / SW_COLS;  // 128-byte column blocks of a row
+  constexpr int DP = pad64(DH);     // the tiles' padded row
+  static_assert(DH % 16 == 0, "Q K^T runs dh / 16 k-steps");
+  using L = Layout<DP>;
+  constexpr int CB = DP / SW_COLS;  // 128-byte column blocks of a row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -639,13 +672,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
     for (int j = 0; j < min(n_tiles, STAGES); ++j) load_tile(j);
 
   // stage Q: packed row r at (s, h) = ((m0 + r) / G, kvh G + (m0 + r) % G);
-  // rows past S G are zeros.  A dead CTA skips it.
+  // rows past S G and columns past DH are zeros.  A dead CTA skips it.
   if (n_tiles > 0) {
-    for (int i = tid; i < ROWS * DH / 8; i += THREADS) {
-      const int r = i / (DH / 8), c = i % (DH / 8);
+    for (int i = tid; i < ROWS * DP / 8; i += THREADS) {
+      const int r = i / (DP / 8), c = i % (DP / 8);
       const int m = m0 + r;
       uint4 x = make_uint4(0, 0, 0, 0);
-      if (m < n_rows)
+      if (m < n_rows && c < DH / 8)
         x = *reinterpret_cast<const uint4*>(
             q + (((size_t)b * S + m / G) * H + kvh * G + m % G) * DH + c * 8);
       *reinterpret_cast<uint4*>(smem + (c / 8) * ROWS * SW_BYTES +
@@ -662,10 +695,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int r0 = 16 * warp + lane / 4;
   const int qpos[2] = {off + (m0 + r0) / G, off + (m0 + r0 + 8) / G};
   const float c2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
-  float acc[DH / 2];
+  float acc[DP / 2];
   float s[KEYS / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < KEYS / 2; ++i) s[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // raw q.k units
@@ -678,7 +711,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
     const uint32_t vbase = kbase + L::TILE_BYTES;
     mbar_wait(bar0 + 8 * st, (j / STAGES) & 1);
 
-    // S = Q K^T over dh in steps of 16: 32 bytes along a swizzled row
+    // S = Q K^T over dh in steps of 16: 32 bytes along a swizzled row (the
+    // pad columns of dh 112 are never read)
     reg_fence(s);
     wgmma_fence();
 #pragma unroll
@@ -729,7 +763,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       l_run[(i >> 1) & 1] += s[i];
     }
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
     // P as A fragments, split into bf16 high and low parts: for keys
     // 16 kk .. 16 kk + 15, register e holds elements 8 kk + 2 e, + 1
@@ -745,15 +779,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
         p_lo[kk][e] = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
       }
     }
-    // acc += P_hi V + P_lo V; keys 16 kk.. are rows 16 kk.. of the V tile
+    // acc += P_hi V + P_lo V; keys 16 kk.. are rows 16 kk.. of the V tile,
+    // at N = DP (V's pad columns are zeros, and so are acc's)
     reg_fence(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KEYS / 16; ++kk) {
       const uint64_t dv = sw128_desc(vbase + kk * 16 * SW_BYTES,
                                      KEYS * SW_BYTES, 8 * SW_BYTES);
-      wgmma_rs_tn<DH>(acc, p_hi[kk], dv);
-      wgmma_rs_tn<DH>(acc, p_lo[kk], dv);
+      wgmma_rs_tn<DP>(acc, p_hi[kk], dv);
+      wgmma_rs_tn<DP>(acc, p_lo[kk], dv);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -776,7 +811,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
     if constexpr (PARTIAL) {
       float* out = static_cast<float*>(o) + row * DH + 2 * tq;
 #pragma unroll
-      for (int jn = 0; jn < DH / 8; ++jn)  // 0 on a rejected row
+      for (int jn = 0; jn < DH / 8; ++jn)  // 0 on a rejected row; real columns
         *reinterpret_cast<float2*>(out + 8 * jn) =
             make_float2(acc[4 * jn + 2 * r], acc[4 * jn + 2 * r + 1]);
       if (tq == 0) {
@@ -828,9 +863,10 @@ EncodeTiled encode_tiled() {
 }
 
 // the contiguous (B,T,KV,dh) bf16 array as a 4-D map {dh, KV, T, B}, boxes
-// of 64 dh x 1 x KEYS x 1, 128-byte swizzle, rows past T read as zeros (the
-// backward also maps q and dout, with H heads for KV).  T = 0 gives a
-// zeroed map that the kernel never reads (no tiles).
+// of 64 dh x 1 x KEYS x 1, 128-byte swizzle, rows past T and columns past dh
+// (dh 112's second box) read as zeros (the backward also maps q and dout,
+// with H heads for KV).  T = 0 gives a zeroed map that the kernel never
+// reads (no tiles).
 cudaError_t kv_map(CUtensorMap* map, const void* ptr, int B, int T_len,
                    int KV, int dh) {
   memset(map, 0, sizeof(*map));
@@ -861,7 +897,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   cudaError_t err = kv_map(&tm_k, k, B, T_len, KV, DH);
   if (err == cudaSuccess) err = kv_map(&tm_v, v, B, T_len, KV, DH);
   if (err != cudaSuccess) return err;
-  const int smem = Layout<DH>::BYTES;
+  const int smem = Layout<pad64(DH)>::BYTES;
   err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DH, PARTIAL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
@@ -873,6 +909,19 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// run(std::integral_constant<int, dh>()) for a head dim and dtype (0 =
+// float32, 1 = bfloat16) the kernels take; cudaErrorInvalidValue otherwise
+template <typename Run>
+int with_head_dim(int dh, int dtype, Run run) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  switch (dh) {
+    case 64: return run(std::integral_constant<int, 64>());
+    case 112: return run(std::integral_constant<int, 112>());
+    case 128: return run(std::integral_constant<int, 128>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <bool PARTIAL>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              float* m_out, float* l_out, const void* q_offset,
@@ -882,22 +931,17 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   const int* qo = static_cast<const int*>(q_offset);
   const int* kl = static_cast<const int*>(kv_len);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 128)
-    return launch_wgmma<128, PARTIAL>(q, k, v, o, m_out, l_out, qo, kl, B, S,
+  auto run = [&](auto dh_c) -> int {
+    constexpr int DH = decltype(dh_c)::value;
+    if (dtype == 1)
+      return launch_wgmma<DH, PARTIAL>(q, k, v, o, m_out, l_out, qo, kl, B, S,
+                                       T_len, H, KV, causal, window, scale,
+                                       st);
+    return launch<float, DH, PARTIAL>(q, k, v, o, m_out, l_out, qo, kl, B, S,
                                       T_len, H, KV, causal, window, scale,
                                       st);
-  if (dtype == 1 && dh == 64)
-    return launch_wgmma<64, PARTIAL>(q, k, v, o, m_out, l_out, qo, kl, B, S,
-                                     T_len, H, KV, causal, window, scale, st);
-  if (dtype == 0 && dh == 128)
-    return launch<float, 128, PARTIAL>(q, k, v, o, m_out, l_out, qo, kl, B,
-                                       S, T_len, H, KV, causal, window,
-                                       scale, st);
-  if (dtype == 0 && dh == 64)
-    return launch<float, 64, PARTIAL>(q, k, v, o, m_out, l_out, qo, kl, B, S,
-                                      T_len, H, KV, causal, window, scale,
-                                      st);
-  return (int)cudaErrorInvalidValue;
+  };
+  return with_head_dim(dh, dtype, run);
 }
 
 
@@ -929,6 +973,13 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 
 __device__ __forceinline__ float at4(float4 x, int i) {
   return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+// whether the 4 columns 64 u + 4 td of the fp32 backward's register tiles
+// lie below DH (always, unless DH is ragged: dh 112)
+template <int DH>
+__device__ __forceinline__ bool has_col(int u, int td) {
+  return DH % 64 == 0 || 64 * u + 4 * td < DH;
 }
 
 // rows [r0, r0 + 64) of one head of a contiguous (B, n, heads, DH) fp32
@@ -1064,7 +1115,8 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // fp32: dK and dV of one 64-key tile of KV head kvh, lane b: the G query
 // heads of the group and every query tile the masks admit for these keys,
 // summed in the CTA's registers and written once.  Thread (tj, td) owns
-// keys 4 tj + c and columns 64 u + 4 td + e.
+// keys 4 tj + c and columns 64 u + 4 td + e (below DH: at dh 112 the
+// threads with td >= 12 have no column of the second block).
 template <int DH>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -1075,7 +1127,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float* __restrict__ dv, int S, int H, int KV, int causal,
                       int window, float scale) {
   using L = BwdLayout<DH>;
-  constexpr int RS = L::RS, U = DH / 64;
+  constexpr int RS = L::RS, U = pad64(DH) / 64;
   extern __shared__ float smem[];
   float* sk = smem;
   float* sv = sk + L::TILE;
@@ -1129,6 +1181,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float4 ds4 = ld4(sds + i * BWD_PS + 4 * tj);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
+          if (!has_col<DH>(u, td)) continue;
           const float4 o4 = ld4(sdo + i * RS + 64 * u + 4 * td);
           const float4 q4 = ld4(sq + i * RS + 64 * u + 4 * td);
 #pragma unroll
@@ -1154,6 +1207,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int u = 0; u < U; ++u)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        if (!has_col<DH>(u, td)) continue;
         const size_t at = row * DH + 64 * u + 4 * td + e;
         dk[at] = dk_acc[c][4 * u + e] * scale;
         dv[at] = dv_acc[c][4 * u + e];
@@ -1163,7 +1217,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // fp32: dQ of one 64-row query tile of head h, lane b: every key tile the
 // masks admit, P and dP recomputed.  Thread (ti, td) owns rows ti + 16 a
-// and columns 64 u + 4 td + e.
+// and columns 64 u + 4 td + e below DH, as in flash_bwd_dkdv_kernel.
 template <int DH>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -1174,7 +1228,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     int S, int H, int KV, int causal, int window,
                     float scale) {
   using L = BwdLayout<DH>;
-  constexpr int RS = L::RS, U = DH / 64;
+  constexpr int RS = L::RS, U = pad64(DH) / 64;
   extern __shared__ float smem[];
   float* sk = smem;
   float* sv = sk + L::TILE;
@@ -1230,6 +1284,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
         for (int u = 0; u < U; ++u) {
+          if (!has_col<DH>(u, td)) continue;
           const float4 k4 = ld4(sk + (j + jj) * RS + 64 * u + 4 * td);
 #pragma unroll
           for (int a = 0; a < 4; ++a) {
@@ -1252,7 +1307,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int u = 0; u < U; ++u)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        dq[row * DH + 64 * u + 4 * td + e] = dq_acc[a][4 * u + e] * scale;
+        if (has_col<DH>(u, td))
+          dq[row * DH + 64 * u + 4 * td + e] = dq_acc[a][4 * u + e] * scale;
   }
 }
 
@@ -1394,12 +1450,12 @@ __device__ __forceinline__ int block_kind(int q0, int k0, int S, int causal,
   return 1;
 }
 
-// rows r0 and r0 + 8 of a (64 x DH) accumulator fragment, times scale, into
-// rows row0 + r of one head of a (B, S, heads, DH) bf16 array; rows at or
-// past S are not written
+// rows r0 and r0 + 8 of a (64 x pad64(DH)) accumulator fragment, times
+// scale, into rows row0 + r of one head of a (B, S, heads, DH) bf16 array;
+// rows at or past S and the pad columns are not written
 template <int DH>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
-                                           const float (&acc)[DH / 2],
+                                           const float (&acc)[pad64(DH) / 2],
                                            float scale, int b, int row0,
                                            int S, int heads, int head, int r0,
                                            int tq) {
@@ -1428,7 +1484,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
 // dS^T = P^T o (dP^T - D) with P^T handed over through shared memory (each
 // thread's fragment to the same thread of warpgroup 1), and dK += dS^T Q.
 // P^T and dS^T enter dV and dK rounded to bf16 as A fragments, dO and Q
-// read MN-major.
+// read MN-major.  Tiles are DP = pad64(DH) wide (the note at the top).
 template <int DH>
 __global__ void __launch_bounds__(BWD_WG_THREADS, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -1440,7 +1496,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, int S, int H,
                             int KV, int causal, int window, float scale) {
-  using L = DkdvLayout<DH>;
+  constexpr int DP = pad64(DH);
+  using L = DkdvLayout<DP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -1478,8 +1535,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int lane = threadIdx.x - 2 * WG;
     if (lane == 0) {
       mbar_expect_tx(bar_kv, 2 * L::TILE);
-      tma_tile<DH>(base, &tm_k, bar_kv, kvh, k0, b);
-      tma_tile<DH>(base + L::TILE, &tm_v, bar_kv, kvh, k0, b);
+      tma_tile<DP>(base, &tm_k, bar_kv, kvh, k0, b);
+      tma_tile<DP>(base + L::TILE, &tm_v, bar_kv, kvh, k0, b);
     }
     // lse (times log2 e) and D of rows lane and lane + 32 of tile t, loaded
     // a tile ahead (rows past S get 0: masked)
@@ -1513,8 +1570,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int h = kvh * G + t / n_q;
         const int q0 = q_first + (t % n_q) * 64;
         mbar_expect_tx(bar, 2 * L::TILE);
-        tma_tile<DH>(dst, &tm_q, bar, h, q0, b);
-        tma_tile<DH>(dst + L::TILE, &tm_do, bar, h, q0, b);
+        tma_tile<DP>(dst, &tm_q, bar, h, q0, b);
+        tma_tile<DP>(dst + L::TILE, &tm_do, bar, h, q0, b);
       } else {
         mbar_arrive(bar);
       }
@@ -1529,9 +1586,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // r0 + 8 ((i >> 1) & 1), column 8 (i / 4) + 2 tq + (i & 1)
   const int r0 = 16 * warp + lane / 4;
   const float c2 = scale * LOG2E;
-  float acc[DH / 2];  // dV (warpgroup 0) or dK (warpgroup 1), unscaled
+  float acc[DP / 2];  // dV (warpgroup 0) or dK (warpgroup 1), unscaled
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   mbar_wait(bar_kv, 0);
 
   for (int j = 0; j < n; ++j) {
@@ -1572,7 +1629,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         to_a_frag(pa, s);
         reg_fence(acc);
         wgmma_fence();
-        gemm_rs<DH>(acc, pa, dob);  // dV += P^T dO
+        gemm_rs<DP>(acc, pa, dob);  // dV += P^T dO
         wgmma_commit();
         wgmma_wait<0>();
         reg_fence(acc);
@@ -1603,7 +1660,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       to_a_frag(dsa, dp);
       reg_fence(acc);
       wgmma_fence();
-      gemm_rs<DH>(acc, dsa, qb);  // dK += dS^T Q
+      gemm_rs<DP>(acc, dsa, qb);  // dK += dS^T Q
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(acc);
@@ -1621,7 +1678,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // and D in registers.  Streamed by the producer warp: K and V tiles of 64
 // keys.  S = Q K^T and
 // dP = dO V^T; P and dS = P o (dP - D) on the fragment; dQ += dS K with dS
-// rounded to bf16 as A fragments and K read MN-major.
+// rounded to bf16 as A fragments and K read MN-major.  Tiles are DP =
+// pad64(DH) wide.
 template <int DH>
 __global__ void __launch_bounds__(BWD_WG_THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -1632,7 +1690,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dq, int S, int H,
                           int KV, int causal, int window, float scale) {
-  using L = DqLayout<DH>;
+  constexpr int DP = pad64(DH);
+  using L = DqLayout<DP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -1668,8 +1727,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x != 2 * WG) return;
     mbar_expect_tx(bar_q, 4 * L::TILE);
     for (int u = 0; u < 2; ++u) {
-      tma_tile<DH>(base + u * L::TILE, &tm_q, bar_q, h, q0 + 64 * u, b);
-      tma_tile<DH>(base + (2 + u) * L::TILE, &tm_do, bar_q, h, q0 + 64 * u,
+      tma_tile<DP>(base + u * L::TILE, &tm_q, bar_q, h, q0 + 64 * u, b);
+      tma_tile<DP>(base + (2 + u) * L::TILE, &tm_do, bar_q, h, q0 + 64 * u,
                    b);
     }
     for (int t = 0; t < n; ++t) {  // key tile t, once t - BWD_STAGES left
@@ -1679,8 +1738,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t bar = bar_full + 8 * st;
       const uint32_t dst = base + L::STAGE_OFF + st * 2 * L::TILE;
       mbar_expect_tx(bar, 2 * L::TILE);
-      tma_tile<DH>(dst, &tm_k, bar, kvh, k_first + 64 * t, b);
-      tma_tile<DH>(dst + L::TILE, &tm_v, bar, kvh, k_first + 64 * t, b);
+      tma_tile<DP>(dst, &tm_k, bar, kvh, k_first + 64 * t, b);
+      tma_tile<DP>(dst + L::TILE, &tm_v, bar, kvh, k_first + 64 * t, b);
     }
     return;
   }
@@ -1701,9 +1760,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     lse2[r] = in ? lse[at] * LOG2E : 0.f;
     dd[r] = in ? delta[at] : 0.f;
   }
-  float dq_acc[DH / 2];
+  float dq_acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dq_acc[i] = 0.f;
   mbar_wait(bar_q, 0);
 
   for (int j = 0; j < n; ++j) {
@@ -1740,7 +1799,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       to_a_frag(dsa, dp);
       reg_fence(dq_acc);
       wgmma_fence();
-      gemm_rs<DH>(dq_acc, dsa, kb);  // dQ += dS K
+      gemm_rs<DP>(dq_acc, dsa, kb);  // dQ += dS K
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dq_acc);
@@ -1765,7 +1824,8 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
   if (err == cudaSuccess) err = kv_map(&tm_k, k, B, S, KV, DH);
   if (err == cudaSuccess) err = kv_map(&tm_v, v, B, S, KV, DH);
   if (err != cudaSuccess) return err;
-  const int smem_kv = DkdvLayout<DH>::BYTES, smem_q = DqLayout<DH>::BYTES;
+  const int smem_kv = DkdvLayout<pad64(DH)>::BYTES;
+  const int smem_q = DqLayout<pad64(DH)>::BYTES;
   err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_kv);
@@ -1792,7 +1852,8 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
 // memory: out[0] dK/dV, out[1] dQ
 template <int DH>
 cudaError_t bwd_occupancy(int* out) {
-  const int smem_kv = DkdvLayout<DH>::BYTES, smem_q = DqLayout<DH>::BYTES;
+  const int smem_kv = DkdvLayout<pad64(DH)>::BYTES;
+  const int smem_q = DqLayout<pad64(DH)>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkdv_wgmma_kernel<DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
@@ -1908,28 +1969,24 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 128)
-    return launch_bwd<__nv_bfloat16, 128>(q, k, v, o, dout, l, dq, dk, dv, d,
-                                          B, S, H, KV, causal, window, scale,
-                                          st);
-  if (dtype == 1 && dh == 64)
-    return launch_bwd<__nv_bfloat16, 64>(q, k, v, o, dout, l, dq, dk, dv, d,
-                                         B, S, H, KV, causal, window, scale,
-                                         st);
-  if (dtype == 0 && dh == 128)
-    return launch_bwd<float, 128>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H,
-                                  KV, causal, window, scale, st);
-  if (dtype == 0 && dh == 64)
-    return launch_bwd<float, 64>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H,
+  auto run = [&](auto dh_c) -> int {
+    constexpr int DH = decltype(dh_c)::value;
+    if (dtype == 1)
+      return launch_bwd<__nv_bfloat16, DH>(q, k, v, o, dout, l, dq, dk, dv, d,
+                                           B, S, H, KV, causal, window, scale,
+                                           st);
+    return launch_bwd<float, DH>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H,
                                  KV, causal, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+  };
+  return with_head_dim(dh, dtype, run);
 }
 
 // CTAs per SM of the bf16 backward's dK/dV and dQ kernels: out[0], out[1]
-// at dh 64, out[2], out[3] at dh 128.  Returns the CUDA error (0 on
-// success).
+// at dh 64, out[2], out[3] at dh 112, out[4], out[5] at dh 128.  Returns
+// the CUDA error (0 on success).
 extern "C" int flash_attention_bwd_occupancy(int* out) {
   cudaError_t err = bwd_occupancy<64>(out);
-  if (err == cudaSuccess) err = bwd_occupancy<128>(out + 2);
+  if (err == cudaSuccess) err = bwd_occupancy<112>(out + 2);
+  if (err == cudaSuccess) err = bwd_occupancy<128>(out + 4);
   return (int)err;
 }

@@ -40,7 +40,9 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+# the head dims the source instantiates: 64 and 128, and kimi-k2-1t-a32b's
+# 112 (7168 / 64), which runs in tiles padded to 128 columns
+_HEAD_DIMS = (64, 112, 128)
 
 
 def _validate_attn_shapes(S: int, T: int, H: int, KV: int,
@@ -106,24 +108,30 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  fn: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Raise on what the kernel does not take: q (B,S,H,dh), k/v
     (B,T,KV,dh) on one CUDA device, one dtype (float32 or bfloat16), dh in
-    {64, 128}.  Return q, k, v laid out for the kernel.  The caller checks
-    the GQA grouping and the window."""
-    B, S, H, dh = q.shape
-    T, KV = k.shape[1], k.shape[2]
+    ``_HEAD_DIMS``.  Return q, k, v laid out for the kernel.  The caller
+    checks the GQA grouping and the window."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{fn} needs q, k and v on one CUDA device; got "
                          f"{q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes must all be float32 or bfloat16; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
+    check_shapes(q, k, v)
+    return tuple(_aligned(x) for x in (q, k, v))
+
+
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ValueError unless q is (B,S,H,dh) and k, v (B,T,KV,dh) with dh
+    one of ``_HEAD_DIMS``, the head dims ``csrc/flash_attention.cu``
+    instantiates."""
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
     if dh not in _HEAD_DIMS or k.shape != (B, T, KV, dh) \
             or v.shape != k.shape:
         raise ValueError(f"unsupported shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)} "
-                         f"(head dim must be one of {_HEAD_DIMS}; another, "
-                         f"such as kimi-k2-1t-a32b's 112, is not built yet: "
-                         f"ROADMAP.md queue 2, K13)")
-    return tuple(_aligned(x) for x in (q, k, v))
+                         f"(head dim must be one of {_HEAD_DIMS}, the ones "
+                         f"csrc/flash_attention.cu instantiates)")
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -143,8 +151,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scaled scores (+inf on a row with no admissible key): ``(out, lse)``.
 
     Tensors must lie on one CUDA device, share a dtype (float32 or
-    bfloat16) and have dh in {64, 128}.  Raises otherwise, and raises if the
-    launch fails; it never computes on another path."""
+    bfloat16) and have dh in ``_HEAD_DIMS`` (64, 112, 128).  Raises
+    otherwise, and raises if the launch fails; it never computes on another
+    path."""
     _validate_attn_shapes(q.shape[1], k.shape[1], q.shape[2], k.shape[2],
                           window)
     q, k, v = check_inputs(q, k, v, "flash_attention_cuda")

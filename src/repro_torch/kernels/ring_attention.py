@@ -69,8 +69,8 @@ def flash_partial_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`~repro_torch.kernels.ref.flash_partial_ref`.
 
     Tensors must lie on one CUDA device, share a dtype (float32 or
-    bfloat16) and have dh in {64, 128}.  Raises otherwise, and raises if the
-    launch fails; it never computes on another path."""
+    bfloat16) and have dh in 64, 112 or 128.  Raises otherwise, and raises
+    if the launch fails; it never computes on another path."""
     check_panel(q.shape[2], k.shape[2], window)
     q, k, v = check_inputs(q, k, v, "flash_partial_cuda")
     B, S, H, dh = q.shape

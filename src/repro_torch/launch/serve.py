@@ -61,6 +61,20 @@ from repro_torch.serving import (EngineConfig, ServeMetrics, ServeRequest,
                                  ServingEngine)
 
 
+def check_decoder_only(cfg: ModelConfig) -> None:
+    """Both engines serve decoder-only models: raise NotImplementedError
+    for an encoder-decoder, whose requests need frames, naming the steps
+    that serve it.  (The JAX ``serve`` builds ``init_lm``'s decoder-only
+    tree for it and fails on the mismatch with its enc-dec step; JAX
+    ``serve_paged`` refuses it.)"""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"serve drives decoder-only models and {cfg.name!r} is an "
+            "encoder-decoder: serve it through runtime/executor.py's "
+            "make_prefill_step and make_serve_step (encdec_decode_step on "
+            "init_encdec_decode_state's state)")
+
+
 class Request:
     def __init__(self, rid: int, prompt: List[int], max_new: int):
         self.rid = rid
@@ -92,7 +106,9 @@ def serve(cfg: ModelConfig, requests: List[Request], batch: int,
     With a ``mesh``, every rank of it calls ``serve`` with the same
     requests: the step is sharded under ``policy`` (``make_serve_step``;
     ``params``, if given, the rank's shards from ``init_serving_params``)
-    and every rank takes the same tokens."""
+    and every rank takes the same tokens.  Raises NotImplementedError for
+    an encoder-decoder (:func:`check_decoder_only`)."""
+    check_decoder_only(cfg)
     dev = resolve_device(device)
     step = make_serve_step(cfg, mesh=mesh, policy=policy)
     if params is None:
@@ -162,7 +178,9 @@ def serve_paged(cfg: ModelConfig, requests: List[Request],
     ``policy``: :class:`~repro_torch.serving.ServingEngine`).
 
     Returns the engine's :class:`~repro_torch.serving.ServeMetrics`;
-    generated tokens are written back into each :class:`Request`."""
+    generated tokens are written back into each :class:`Request`.  Raises
+    NotImplementedError for an encoder-decoder (:func:`check_decoder_only`)."""
+    check_decoder_only(cfg)
     params = init_serving_params(cfg, mesh=mesh, policy=policy, seed=seed,
                                  device=device)
     engine = ServingEngine(cfg, params, ecfg, device=device, mesh=mesh,

@@ -1,8 +1,9 @@
 """Grouped-query attention with RoPE and optional QK-norm / QKV-bias: the
 full-sequence layer (:func:`attention`, whose ``impl="ring"`` is
 sequence-parallel ring attention), the one-token decode layer over a dense
-ring or linear KV cache (:func:`attention_decode`) and the paged-cache
-layers of the serving path.  On the card the inner attention runs the
+ring or linear KV cache (:func:`attention_decode`), the paged-cache
+layers of the serving path, and the encoder-decoder's cross-attention over
+precomputed encoder K/V (:func:`cross_attention`).  On the card the inner attention runs the
 flash-attention kernels (``kernels/ops.py``).
 
 The JAX package's caches and pools are functional (``cache.at[...].set``).
@@ -50,11 +51,14 @@ class Attention(nn.Module):
 
 
 def init_attention(cfg: ModelConfig, *, generator: torch.Generator,
-                   device: torch.device) -> Attention:
+                   device: torch.device, cross: bool = False) -> Attention:
+    """Random projections (wq, wk, wv, wo drawn in that order); the
+    config's QKV biases, except on a ``cross`` (-attention) block, and its
+    QK-norm weights."""
     d, dt = cfg.d_model, cfg.dtype
     kw = dict(generator=generator, device=device)
     extra = {}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         extra.update(bq=torch.zeros(cfg.q_dim, dtype=dt, device=device),
                      bk=torch.zeros(cfg.kv_dim, dtype=dt, device=device),
                      bv=torch.zeros(cfg.kv_dim, dtype=dt, device=device))
@@ -433,6 +437,32 @@ def attention_prefill_paged(p: Attention, x: torch.Tensor, pool: Pool,
                               q_offset=q_offset, kv_len=kv_len)
     out = out.reshape(B, S, cfg.q_dim) @ p.wo
     return out if shard is None else shard.from_tp(out)
+
+
+def cross_attention(p: Attention, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V
+    (:func:`precompute_cross_kv`), no RoPE and no mask: x (B,S,d) ->
+    (B,S,d).  On the card the S queries attend the T encoder keys through
+    the flash kernel (non-causal, S != T; S = 1 in decode); on the CPU its
+    plain version, which computes the reference's ``sdpa_ref``."""
+    B, S, _ = x.shape
+    q = (x @ p.wq).reshape(B, S, cfg.n_heads, cfg.dh)
+    k, v = enc_kv
+    out = ops.flash_attention(q, k, v, causal=False)
+    return out.reshape(B, S, cfg.q_dim) @ p.wo
+
+
+def precompute_cross_kv(p: Attention, enc_out: torch.Tensor,
+                        cfg: ModelConfig
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output's K and V (B, T, KV, dh) for a decoder layer's
+    cross-attention."""
+    B, T, _ = enc_out.shape
+    k = (enc_out @ p.wk).reshape(B, T, cfg.n_kv_heads, cfg.dh)
+    v = (enc_out @ p.wv).reshape(B, T, cfg.n_kv_heads, cfg.dh)
+    return k, v
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, context: int, *,

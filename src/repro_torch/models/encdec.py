@@ -1,0 +1,242 @@
+"""Whisper-style encoder-decoder transformer (``repro/models/encdec.py``
+counterpart): the serving path.
+
+As in the reference, the mel-spectrogram and conv feature extractor is a
+stub: the encoder takes precomputed frame embeddings (B, T_enc, d).  The
+transformer is the Whisper recipe: a non-causal encoder, a causal decoder
+with cross-attention, learned positional embeddings, LayerNorm and GELU
+MLPs, and a one-token decode step over self-attention K/V caches and
+cross K/V precomputed once.  The reference's choices are kept:
+
+* the encoder's and the decoder's self-attention apply RoPE on top of the
+  learned positions (``attention`` projects with RoPE at the token
+  positions);
+* decoder positions index the learned table modulo its length, so a
+  sequence longer than the table wraps (``encdec.py:110-111``, ``:158-159``);
+  RoPE takes the unwrapped position;
+* the logits are ``x @ embed.T`` (the output projection is tied);
+* the decode state holds one scalar ``index`` shared by every lane.
+
+The JAX package stacks each side's blocks on a leading layer axis; here
+they are a ``ModuleList`` each, walked by a Python loop.  Weights keep the
+JAX layout and names::
+
+  EncDec
+    enc_pos       (encoder_seq, d)
+    enc_blocks[i] EncBlock: ln1, attn (Attention), ln2, mlp (GeluMLP)
+    enc_ln        LayerNorm: w (d,), b (d,)
+    embed         (V, d)
+    dec_pos       (max_dec_len, d)
+    dec_blocks[i] DecBlock: ln1, self_attn, ln_x, cross_attn (no QKV bias),
+                  ln2, mlp
+    dec_ln        LayerNorm
+
+On the card every attention runs the flash kernel's forward
+(``kernels/ops.py``): the encoder's S = T self-attention, the decoder's
+causal self-attention, cross-attention at S != T, and the decode step's
+self-attention over its cache.  The training slice (``encdec_loss`` and a
+gradient through cross-attention, which needs a flash backward at S != T)
+is still to come (``ROADMAP.md`` queue 1, item 5): :func:`encode` and
+:func:`decode_train` run under ``torch.inference_mode``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+
+from .attention import (Attention, attention, attention_decode,
+                        cross_attention, init_attention, init_kv_cache,
+                        precompute_cross_kv)
+from .common import ModelConfig
+from .embedding import embed, init_embedding, init_learned_pos
+from .layers import layer_norm
+from .mlp import GeluMLP, gelu_mlp, init_gelu_mlp
+
+
+class LayerNorm(nn.Module):
+    """w (d,), b (d,): the reference's ``{"w", "b"}``."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.w = nn.Parameter(w)
+        self.b = nn.Parameter(b)
+
+
+class EncBlock(nn.Module):
+    def __init__(self, ln1: LayerNorm, attn: Attention, ln2: LayerNorm,
+                 mlp: GeluMLP):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+
+
+class DecBlock(nn.Module):
+    def __init__(self, ln1: LayerNorm, self_attn: Attention, ln_x: LayerNorm,
+                 cross_attn: Attention, ln2: LayerNorm, mlp: GeluMLP):
+        super().__init__()
+        self.ln1, self.self_attn, self.ln_x = ln1, self_attn, ln_x
+        self.cross_attn, self.ln2, self.mlp = cross_attn, ln2, mlp
+
+
+class EncDec(nn.Module):
+    def __init__(self, enc_pos: torch.Tensor, enc_blocks: List[EncBlock],
+                 enc_ln: LayerNorm, embed: torch.Tensor,
+                 dec_pos: torch.Tensor, dec_blocks: List[DecBlock],
+                 dec_ln: LayerNorm):
+        super().__init__()
+        self.enc_pos = nn.Parameter(enc_pos)
+        self.enc_blocks = nn.ModuleList(enc_blocks)
+        self.enc_ln = enc_ln
+        self.embed = nn.Parameter(embed)
+        self.dec_pos = nn.Parameter(dec_pos)
+        self.dec_blocks = nn.ModuleList(dec_blocks)
+        self.dec_ln = dec_ln
+
+
+def _ln(x: torch.Tensor, p: LayerNorm, cfg: ModelConfig) -> torch.Tensor:
+    return layer_norm(x, p.w, p.b, cfg.norm_eps)
+
+
+def _init_ln(cfg: ModelConfig, device: torch.device) -> LayerNorm:
+    return LayerNorm(torch.ones(cfg.d_model, dtype=cfg.dtype, device=device),
+                     torch.zeros(cfg.d_model, dtype=cfg.dtype, device=device))
+
+
+def init_enc_block(cfg: ModelConfig, *, generator: torch.Generator,
+                   device: torch.device) -> EncBlock:
+    kw = dict(generator=generator, device=device)
+    attn = init_attention(cfg, **kw)
+    mlp = init_gelu_mlp(cfg.d_model, cfg.d_ff, cfg.dtype, **kw)
+    return EncBlock(_init_ln(cfg, device), attn, _init_ln(cfg, device), mlp)
+
+
+def init_dec_block(cfg: ModelConfig, *, generator: torch.Generator,
+                   device: torch.device) -> DecBlock:
+    kw = dict(generator=generator, device=device)
+    self_attn = init_attention(cfg, **kw)
+    cross_attn = init_attention(cfg, cross=True, **kw)
+    mlp = init_gelu_mlp(cfg.d_model, cfg.d_ff, cfg.dtype, **kw)
+    return DecBlock(_init_ln(cfg, device), self_attn, _init_ln(cfg, device),
+                    cross_attn, _init_ln(cfg, device), mlp)
+
+
+def init_encdec(cfg: ModelConfig, *, max_dec_len: int = 4096, seed: int = 0,
+                device: torch.device = "cuda") -> EncDec:
+    """Random weights drawn on ``device`` from ``torch.Generator(seed)`` in
+    the reference's order (the encoder's positions and blocks, the
+    embedding, the decoder's positions and blocks), with its distributions
+    (not its numbers).  The decoder's positional table holds
+    ``max_dec_len`` rows; the encoder's ``encoder_seq`` (1500 if unset)."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(generator=g, device=dev)
+    d, dt = cfg.d_model, cfg.dtype
+    enc_pos = init_learned_pos(cfg.encoder_seq or 1500, d, dt, **kw)
+    enc = [init_enc_block(cfg, **kw)
+           for _ in range(cfg.n_enc_layers or cfg.n_layers)]
+    table = init_embedding(cfg.vocab_size, d, dt, **kw)
+    dec_pos = init_learned_pos(max_dec_len, d, dt, **kw)
+    dec = [init_dec_block(cfg, **kw) for _ in range(cfg.n_layers)]
+    return EncDec(enc_pos, enc, _init_ln(cfg, dev), table, dec_pos, dec,
+                  _init_ln(cfg, dev))
+
+
+@torch.inference_mode()
+def encode(params: EncDec, frames: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """frames (B, T_enc, d), the stub front end's output -> the encoder's
+    output (B, T_enc, d) in the model's dtype: the learned positions
+    added, the blocks (pre-norm non-causal self-attention and GELU MLP,
+    each with its residual), the final LayerNorm."""
+    B, T, _ = frames.shape
+    x = frames.to(params.enc_pos.device, cfg.dtype) + params.enc_pos[:T]
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    for p in params.enc_blocks:
+        h = _ln(x, p.ln1, cfg)
+        x = x + attention(p.attn, h, positions, cfg, causal=False)
+        x = x + gelu_mlp(p.mlp, _ln(x, p.ln2, cfg))
+    return _ln(x, params.enc_ln, cfg)
+
+
+def _dec_block(p: DecBlock, x: torch.Tensor, positions: torch.Tensor,
+               enc_out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = _ln(x, p.ln1, cfg)
+    x = x + attention(p.self_attn, h, positions, cfg, causal=True)
+    h = _ln(x, p.ln_x, cfg)
+    kv = precompute_cross_kv(p.cross_attn, enc_out, cfg)
+    x = x + cross_attention(p.cross_attn, h, kv, cfg)
+    return x + gelu_mlp(p.mlp, _ln(x, p.ln2, cfg))
+
+
+def _dec_pos(params: EncDec, positions: torch.Tensor) -> torch.Tensor:
+    """Rows of the learned table at ``positions`` modulo its length."""
+    return params.dec_pos[positions % params.dec_pos.shape[0]]
+
+
+def _logits(params: EncDec, x: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    return _ln(x, params.dec_ln, cfg) @ params.embed.T
+
+
+@torch.inference_mode()
+def decode_train(params: EncDec, tokens: torch.Tensor,
+                 enc_out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Teacher-forced decoder: tokens (B, S) against the encoder's output
+    -> logits (B, S, V).  Token ``s`` sits at position ``s`` (the learned
+    table's row ``s`` modulo its length)."""
+    B, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device)
+    x = embed(params.embed, tokens) + _dec_pos(params, pos)
+    positions = pos.expand(B, S)
+    for p in params.dec_blocks:
+        x = _dec_block(p, x, positions, enc_out, cfg)
+    return _logits(params, x, cfg)
+
+
+@torch.inference_mode()
+def init_encdec_decode_state(params: EncDec, frames: torch.Tensor,
+                             cfg: ModelConfig,
+                             context: int) -> Dict[str, Any]:
+    """Run the encoder once, precompute every decoder layer's cross K/V and
+    allocate the self-attention caches::
+
+      "cross_kv"    one (k, v) of (B, T_enc, KV, dh) a decoder layer
+      "self_cache"  one K/V cache of ``context`` slots a decoder layer
+                    (:func:`~repro_torch.models.attention.init_kv_cache`)
+      "index"       0-d int32, shared by every lane
+
+    :func:`encdec_decode_step` writes the caches in place."""
+    enc_out = encode(params, frames, cfg)
+    B = frames.shape[0]
+    return {"cross_kv": [precompute_cross_kv(p.cross_attn, enc_out, cfg)
+                         for p in params.dec_blocks],
+            "self_cache": [init_kv_cache(cfg, B, context,
+                                         device=enc_out.device)
+                           for _ in params.dec_blocks],
+            "index": torch.zeros((), dtype=torch.int32,
+                                 device=enc_out.device)}
+
+
+@torch.inference_mode()
+def encdec_decode_step(params: EncDec, state: Dict[str, Any],
+                       token: torch.Tensor, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step: token (B,) -> logits (B, V) and the new state.
+
+    Every lane sits at the state's one ``index``: the token's learned
+    position is that row of the table (modulo its length), and its
+    self-attention K/V are written into each layer's cache in place
+    (:func:`~repro_torch.models.attention.attention_decode`); the new state
+    holds the same tensors and ``index + 1``."""
+    index = state["index"]
+    x = embed(params.embed, token)[:, None, :] + _dec_pos(params, index)
+    for p, cache, ckv in zip(params.dec_blocks, state["self_cache"],
+                             state["cross_kv"]):
+        h = _ln(x, p.ln1, cfg)
+        x = x + attention_decode(p.self_attn, h, cache, index, cfg)[0]
+        x = x + cross_attention(p.cross_attn, _ln(x, p.ln_x, cfg), ckv, cfg)
+        x = x + gelu_mlp(p.mlp, _ln(x, p.ln2, cfg))
+    return _logits(params, x, cfg)[:, 0], dict(state, index=index + 1)

@@ -1,5 +1,5 @@
-"""Primitive layers: initializers, RMSNorm, rotary embeddings, SwiGLU, the
-cross-entropy loss."""
+"""Primitive layers: initializers, RMSNorm, LayerNorm, rotary embeddings,
+SwiGLU, GELU, the cross-entropy loss."""
 from __future__ import annotations
 
 from typing import Optional
@@ -27,6 +27,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return ops.rmsnorm(x, weight, eps)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in fp32 with the population variance,
+    returned in x's dtype (the reference's ``layer_norm``).  A plain
+    PyTorch op, as the reference's is jnp: no TPU kernel computes it."""
+    y = F.layer_norm(x.float(), x.shape[-1:], weight.float(), bias.float(),
+                     eps)
+    return y.to(x.dtype)
+
+
 def rope_freqs(dh: int, theta: float, device: torch.device) -> torch.Tensor:
     exps = torch.arange(0, dh, 2, dtype=torch.float32, device=device) / dh
     return 1.0 / (theta ** exps)
@@ -47,6 +57,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.float()).to(gate.dtype) * up
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation, as the reference's
+    ``jax.nn.gelu(approximate=True)``; a plain op."""
+    return F.gelu(x, approximate="tanh")
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

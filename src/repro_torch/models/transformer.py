@@ -111,15 +111,21 @@ def build_stacks(cfg: ModelConfig) -> List[Tuple[str, int]]:
     segment of SSM blocks (SSM and hybrid; the hybrid's shared attention
     block is interleaved by the model functions), ``first_k_dense`` dense
     blocks then MoE blocks for a model with experts, else one segment of
-    dense blocks.  Raises NotImplementedError for an arch the port does
-    not build (VLM, audio)."""
+    dense blocks.  Raises NotImplementedError for an arch this module does
+    not build: the encoder-decoder (``models/encdec.py``) and the VLM."""
     if cfg.arch_type in ("ssm", "hybrid"):
         return [("ssm", cfg.n_layers)]
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name!r} is an encoder-decoder: models/encdec.py builds "
+            "it (init_encdec), and runtime/executor.py's make_prefill_step "
+            "and make_serve_step serve it; its training is ROADMAP.md "
+            "queue 1, item 5")
     if cfg.arch_type not in ("dense", "moe"):
         raise NotImplementedError(
-            f"the port builds dense, MoE, SSM and hybrid decoders only so "
-            f"far; {cfg.name!r} has arch_type={cfg.arch_type!r} (ROADMAP.md "
-            "queue 1, item 5)")
+            f"the port builds dense, MoE, SSM and hybrid decoders and the "
+            f"encoder-decoder so far; {cfg.name!r} has arch_type="
+            f"{cfg.arch_type!r} (ROADMAP.md queue 1, item 5)")
     if cfg.n_experts > 1:
         segs = [("dense", cfg.first_k_dense)] if cfg.first_k_dense else []
         return segs + [("moe", cfg.n_layers - cfg.first_k_dense)]

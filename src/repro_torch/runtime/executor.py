@@ -22,6 +22,12 @@ dense caches' context (or KV heads) and the SSM states' heads over
 expert mesh: their pools serve every lane on every rank, and EP needs the
 lanes split.  The collectives GSPMD inserts in the JAX package run
 explicitly (``runtime/sharding.py``).
+
+An encoder-decoder config (``models/encdec.py``) is served on one device:
+its params come from ``init_encdec``, its prefill is the encoder and the
+teacher-forced decoder, and its serving step ``encdec_decode_step`` on the
+state of ``init_encdec_decode_state``.  With a mesh it raises
+NotImplementedError (sharded enc-dec is ``ROADMAP.md`` queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -34,6 +40,9 @@ from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Pool
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.encdec import (EncDec, decode_train,
+                                       encdec_decode_step, encode,
+                                       init_encdec)
 from repro_torch.models.transformer import (LM, build_stacks, decode_step,
                                             init_lm, lm_forward, lm_loss,
                                             paged_decode_step,
@@ -183,6 +192,19 @@ def _sharded_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMesh,
 SERVING_POLICY = ShardPolicy(tp=False, zero=False)
 
 
+def _one_device_encdec(cfg: ModelConfig, mesh: Optional[DeviceMesh]) -> bool:
+    """True for an encoder-decoder config without a mesh; raises
+    NotImplementedError for one with a mesh."""
+    if not cfg.is_encoder_decoder:
+        return False
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{cfg.name!r} is an encoder-decoder, which the port serves on "
+            "one device only so far: sharded enc-dec is ROADMAP.md queue "
+            "1, item 5")
+    return True
+
+
 def _serving_context(cfg: ModelConfig, mesh: DeviceMesh,
                      policy: Optional[ShardPolicy], *,
                      paged: bool = False) -> ShardContext:
@@ -198,8 +220,9 @@ def _serving_context(cfg: ModelConfig, mesh: DeviceMesh,
 def init_serving_params(cfg: ModelConfig, *,
                         mesh: Optional[DeviceMesh] = None,
                         policy: Optional[ShardPolicy] = None, seed: int = 0,
-                        device: torch.device = "cuda") -> LM:
-    """Random weights from ``seed`` on ``device`` for the serving steps.
+                        device: torch.device = "cuda") -> LM | EncDec:
+    """Random weights from ``seed`` on ``device`` for the serving steps
+    (``init_encdec``'s for an encoder-decoder config, on one device).
 
     With a ``mesh`` each rank draws ``init_lm``'s numbers and keeps its
     shards under ``policy`` (default ``ShardPolicy(tp=False, zero=False)``,
@@ -208,6 +231,8 @@ def init_serving_params(cfg: ModelConfig, *,
     (``models/ssm.py::ssm_tp_columns``), taken once here rather than
     gathered over ``model`` every step."""
     dev = resolve_device(device)
+    if _one_device_encdec(cfg, mesh):
+        return init_encdec(cfg, seed=seed, device=dev)
     if mesh is None:
         return init_lm(cfg, seed=seed, device=dev)
     ctx = _serving_context(cfg, mesh, policy)
@@ -232,6 +257,8 @@ def make_prefill_step(cfg: ModelConfig, *,
     """``(params, batch)`` -> logits (B, S, V): the inference forward of
     ``batch["tokens"]`` (B, S), :func:`lm_forward` without the loss, for
     every arch the port builds.  Raises NotImplementedError for another.
+    For an encoder-decoder, ``decode_train`` of the tokens against
+    ``encode`` of ``batch["frames"]`` (B, T_enc, d), on one device.
 
     With a ``mesh`` (``policy`` default ``ShardPolicy(tp=False,
     zero=False)``; params from :func:`init_serving_params`), every rank
@@ -241,6 +268,13 @@ def make_prefill_step(cfg: ModelConfig, *,
     ``ShardContext.lane_range``) and under TP
     its vocabulary columns ``[r V / tp, (r + 1) V / tp)``.
     ``step.shard`` is the :class:`ShardContext`."""
+    if _one_device_encdec(cfg, mesh):
+        def encdec(params: EncDec, batch: Dict[str, torch.Tensor]
+                   ) -> torch.Tensor:
+            return decode_train(params, batch["tokens"],
+                                encode(params, batch["frames"], cfg), cfg)
+
+        return encdec
     build_stacks(cfg)
     if mesh is None:
         @torch.inference_mode()
@@ -267,8 +301,10 @@ def make_serve_step(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
                     ) -> Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]:
     """``(params, state, token (B,))`` -> ``(logits (B, V), state)``: one
     decode step on the KV caches and SSM states of ``init_decode_state``,
-    written in place, for dense, MoE, SSM and hybrid decoders.  Raises
-    NotImplementedError for an arch the port does not build.
+    written in place, for dense, MoE, SSM and hybrid decoders; for an
+    encoder-decoder, ``encdec_decode_step`` on the state of
+    ``init_encdec_decode_state``, on one device (``step.shard`` None).
+    Raises NotImplementedError for an arch the port does not build.
 
     With a ``mesh`` (``policy`` default ``ShardPolicy(tp=False,
     zero=False)``), every rank calls it with the whole ``token``, its
@@ -278,6 +314,14 @@ def make_serve_step(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
     cache's context (or KV heads) and each SSM state's heads over
     ``model`` (``runtime/sharding.py::decode_state_specs``).  The logits
     are every lane's whole rows, the same on every rank."""
+    if _one_device_encdec(cfg, mesh):
+        def encdec(params: EncDec, state: Dict[str, Any],
+                   token: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            return encdec_decode_step(params, state, token, cfg)
+
+        encdec.shard = None
+        return encdec
     build_stacks(cfg)
     ctx = None if mesh is None else _serving_context(cfg, mesh, policy)
 

@@ -69,7 +69,7 @@ GQA_HEADS = [2, 8, 10, 16]
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 112, 128])
 @pytest.mark.parametrize("H", GQA_HEADS)
 @pytest.mark.parametrize("S,T,causal,window", FLASH_CASES)
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, dh, H, S, T,
@@ -94,7 +94,7 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, dh, H, S, T,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 112, 128])
 @pytest.mark.parametrize("H", GQA_HEADS)
 def test_flash_kernel_decode_matches_plain_on_card(cuda_device, dtype, dh,
                                                    H):
@@ -120,7 +120,7 @@ def test_flash_kernel_decode_matches_plain_on_card(cuda_device, dtype, dh,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 112, 128])
 @pytest.mark.parametrize("H", GQA_HEADS)
 def test_flash_kernel_dense_decode_matches_plain_on_card(cuda_device, dtype,
                                                          dh, H):
@@ -484,7 +484,7 @@ PARTIAL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 112, 128])
 @pytest.mark.parametrize("H", GQA_HEADS)
 @pytest.mark.parametrize("S,T,delta,causal,window", PARTIAL_CASES)
 def test_flash_partial_kernel_matches_plain_on_card(cuda_device, dtype, dh,
@@ -525,7 +525,7 @@ FLASH_BWD_CASES = [(5, True, None), (100, True, None), (100, False, None),
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 112, 128])
 @pytest.mark.parametrize("H", GQA_HEADS)
 @pytest.mark.parametrize("S,causal,window", FLASH_BWD_CASES)
 def test_flash_backward_matches_plain_on_card(cuda_device, dtype, dh, H, S,
@@ -743,3 +743,72 @@ def test_ssd_scan_backward_gives_the_same_bits_twice_on_card(cuda_device,
                                 dy)
     for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), first, again):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_backward_at_kimi_heads_gives_the_same_bits_twice_on_card(
+        cuda_device, dtype):
+    """Kimi-k2's heads (H 64, KV 8, dh 112: tiles padded to 128 columns):
+    the forward, its row log-sum-exp and the backward against their plain
+    versions, and a second backward call the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    q, do = (torch.randn(1, 300, 64, 112, generator=g,
+                         device=cuda_device).to(dtype) for _ in range(2))
+    k, v = (torch.randn(1, 300, 8, 112, generator=g,
+                        device=cuda_device).to(dtype) for _ in range(2))
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+    assert (out.float() - ref.flash_attention_ref(q, k, v).float()
+            ).abs().max().item() <= TOL[dtype]
+    assert (lse - ref.flash_attention_lse_ref(q, k, v)).abs().max().item() \
+        <= TOL[dtype]
+    first = flash_attention_bwd_cuda(q, k, v, out, do, lse)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse)
+    for a, b in zip(first, want):
+        assert _rel_err(a, b) <= REL_TOL[dtype]
+    again = flash_attention_bwd_cuda(q, k, v, out, do, lse)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _whisper(dtype=torch.float32):
+    from repro_torch.configs import get_config
+    return get_config("whisper-medium").reduced().with_(dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_encdec_serving_on_card_matches_cpu(cuda_device):
+    """Reduced fp32 whisper-medium from the same weights on the card and
+    on the CPU: ``make_prefill_step`` logits within 1e-4 of the largest,
+    then 8 steps of ``make_serve_step`` with the same greedy tokens, every
+    attention (encoder, decoder, cross-attention at S != T, the decode
+    step's cache) through the flash kernel on the card."""
+    from repro_torch.models import init_encdec, init_encdec_decode_state
+    from repro_torch.runtime.executor import make_prefill_step, \
+        make_serve_step
+    cfg = _whisper()
+    params_cpu = init_encdec(cfg, max_dec_len=64, seed=0, device="cpu")
+    params_gpu = copy.deepcopy(params_cpu).to(cuda_device)
+    rng = np.random.default_rng(8)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.encoder_seq, cfg.d_model), np.float32))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9)
+                                           ).astype(np.int32))
+    logits, greedy = {}, {}
+    for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        launches = flash_attention_cuda.launches
+        logits[dev] = make_prefill_step(cfg)(params, {
+            "tokens": tokens.to(dev), "frames": frames.to(dev)}).cpu()
+        state = init_encdec_decode_state(params, frames.to(dev), cfg, 16)
+        step, tok, out = make_serve_step(cfg), tokens[:, 0].to(dev), []
+        for _ in range(8):
+            lg, state = step(params, state, tok)
+            tok = lg.argmax(-1).to(torch.int32)
+            out.append(tok.cpu())
+        greedy[dev] = torch.stack(out)
+        flash = flash_attention_cuda.launches - launches
+        L, E = cfg.n_layers, cfg.n_enc_layers
+        assert flash == ((2 * E + 2 * L) + 8 * 2 * L if dev == "cuda"
+                         else 0)
+    assert _rel_err(logits["cuda"], logits["cpu"]) <= 1e-4
+    assert torch.equal(greedy["cuda"], greedy["cpu"])
