@@ -65,6 +65,17 @@ Phases (any failure exits non-zero before the final line is printed):
    causal prefill of 2 x 256, the backward's S = 100 cases, the causal
    training shape (B 1, S 4096) for the forward with its row log-sum-exp
    and the backward (a second call the same bits), and the panel visit;
+   and (``phase_k14``) the flash backward at S != T (K14: cross-attention,
+   no mask) in bf16 and fp32 at ``REL_TOL``, against its plain version and
+   ``torch.autograd`` of the plain forward: whisper-medium's cross shape
+   (B 8, S 448 decoder tokens over T 1500 encoder frames, H = KV = 16, dh
+   64; a second call the same bits), dh 112 and 128 with a GQA group of 4
+   over the same 1500 keys, and S 200 over T 37; a causal mask at S != T
+   must be refused; then the S == T backward and the forward with its row
+   log-sum-exp at whisper-medium's training shapes (the encoder's
+   non-causal S = T = 1500 and the decoder's causal S = T = 448, B 8, H =
+   KV = 16, dh 64), bf16 and fp32 at the same gates, a second call the
+   same bits;
 3. serve full-width qwen3-4b (random bf16 weights from seed 0) through the
    paged continuous-batching engine: 12 requests, prompts of 33-400
    tokens, 16-32 new tokens each; every request must complete and both
@@ -122,7 +133,8 @@ Phases (any failure exits non-zero before the final line is printed):
    weights: the losses must agree (the card runs the fp32 flash forward and
    the backward kernels, the CPU the plain attention);
 11. the dense-cache engine (``repro_torch.launch.serve.serve``) at
-   full-width qwen3-4b (random weights from seed 0, 36 layers): (a)
+   full-width qwen3-4b (random weights from seed 0; (a) and (b) at
+   ``DENSE_SERVE_LAYERS``, 12 of 36 layers, for the script's time): (a)
    ``make_serve_step`` logits at every position of 2 lanes of 256 random
    tokens against ``make_prefill_step`` logits on the same tokens, in bf16
    within ``DECODE_VS_PREFILL_TOL`` of the largest logit, after the same
@@ -131,10 +143,10 @@ Phases (any failure exits non-zero before the final line is printed):
    tokens each; more requests than lanes, so slots are recycled): every
    request completes, no plain version is called, the flash forward
    launches once a layer a step; one decode step at mixed positions is
-   timed and profiled, and each of its 36 flash launches must read its
-   layer's cache in place, non-causal with a kv_len; then one request of
-   2040 + 32 tokens on one lane of the 2048-token cache, which wraps, on
-   the model's first ``WRAP_LAYERS`` (4) layers;
+   timed and profiled, and each of its flash launches (one a layer) must
+   read its layer's cache in place, non-causal with a kv_len; then one
+   request of 2040 + 32 tokens on one lane of the 2048-token cache, which
+   wraps, on the model's first ``WRAP_LAYERS`` (4) layers;
    printed: step wall ms, device busy ms, kernels and flash launches a
    step, plain calls, tok/s, KV-cache bytes and peak memory; (c) reduced
    fp32 qwen3-4b through ``serve`` on the card and on the CPU from the same
@@ -146,10 +158,12 @@ Phases (any failure exits non-zero before the final line is printed):
    once a layer and no backward, and on reduced fp32 mamba2-370m on the
    card against the CPU within 1e-4 of the largest logit;
 12. SSM and hybrid serving at full width (random weights from seed 0, 8
-   lanes) for mamba2-370m (48 layers) and zamba2-1.2b (38 layers, 6 calls
-   of the shared attention block a token): (a) in fp32, then bf16, each
-   mixer's decode against its prefill on the same input (the hidden state
-   the prefill hands that layer, 2 lanes of ``LAYERWISE_T`` tokens) within
+   lanes) for mamba2-370m and zamba2-1.2b, depth cut to
+   ``SSM_SERVE_LAYERS`` (12 of 48 and 12 of 38 layers, 2 calls of
+   zamba2's shared attention block a token) for the script's time: (a)
+   in fp32, then bf16, each mixer's decode against its prefill on the
+   same input (the hidden state the prefill hands that layer, 2 lanes of
+   ``LAYERWISE_T`` tokens) within
    ``REL_TOL`` of its dtype, and the logits of ``make_serve_step`` against
    ``make_prefill_step`` at every position as in phase 11 (a), gated in
    fp32 at ``SSM_LOGITS_FP32_TOL`` and printed in bf16 (the distance
@@ -220,7 +234,7 @@ Phases (any failure exits non-zero before the final line is printed):
    norm): its first loss must be (b)'s for that schedule, bit for bit; its
    step ms and each rank's peak are printed.  The 4 ranks share one card,
    so their times are not a pipeline's speed;
-16. the sharded executor at full qwen3-4b width, depth cut to 8 layers:
+16. the sharded executor at full qwen3-4b width, depth cut to 4 layers:
    (a) in a process of its own, the single-process ``lm_loss`` and its
    gradients (remat on every layer) on ``init_lm`` seed 0 and the train
    driver's first batch of 4 x 4096 tokens, then 3 ``make_train_step``
@@ -236,7 +250,7 @@ Phases (any failure exits non-zero before the final line is printed):
    counts a rank a call and a step, no plain version run; each rank's call
    and step ms, bytes sent through gloo and peak memory are printed; (c)
    the port's search for 4 cards of the H100 node at this model (a budget
-   of 11 GB a card, batch grid [4]) and ``train --ranks 4 --plan``, 3
+   of 9 GB a card, batch grid [4]) and ``train --ranks 4 --plan``, 3
    steps on ``make_local_mesh()`` (data 4, model 1): the policy it prints
    must be the plan's middle strategy's, its first loss within 2e-3
    relative of (a)'s, the kernels launched at their counts.  The 4 ranks
@@ -385,6 +399,27 @@ Phases (any failure exits non-zero before the final line is printed):
    the same in fp32 at 4 + 4 layers within ``REL_TOL``; the encoder's ms,
    the decode step's wall and busy ms, tok/s, peak memory and the cross
    K/V bytes are printed.
+23. whisper-medium training at full width (24 + 24 layers, bf16, random
+   weights from seed 0): (a) ``repro_torch.launch.train --arch
+   whisper-medium --batch 8 --seq 448`` for 3 steps on the synthetic
+   stream's frames (8, 1500, 1024), with the searched plan's remat and
+   ``--ckpt-dir --ckpt-every 2``: finite losses; each step the flash
+   backward 72 times (24 encoder, 24 decoder and 24 cross-attention
+   layers), 24 of them at S != T (K14), the forward once an attention
+   (twice under remat), no RMSNorm and no plain version; (d) a model and
+   AdamW state drawn from seed 1, restored from step 2's checkpoint, take
+   step 3: its loss must be (a)'s bit for bit (the files are deleted);
+   two more steps are timed and one profiled (the busy share of their
+   wall time); (b) step 1's loss and every gradient twice
+   from ``init_encdec`` seed 0 on (a)'s first batch: the same bits, the
+   loss (a)'s; (c) reduced fp32 whisper through ``launch/train.py::train``
+   on the card and on the CPU from the same weights, 3 steps of 2 x 100
+   tokens over 32 frames: losses within ``TRAIN_LOSS_RTOL``, the card's
+   flash backward once an attention, a third at S != T.  Printed: the
+   step's wall ms, decoder tokens/s, the device's busy share and ms by
+   category (gemm, flash forward and backward, elementwise), peak memory,
+   the checkpoint's bytes and save and restore seconds.  ``--phases 23``
+   runs phase 2's K14 checks first.
 
 Phase 2 also holds the kernels at phase 17's TP-local shapes against
 their plain versions, and phase 7 times the SSD scan at a rank's mamba2
@@ -403,14 +438,19 @@ Phase 7 also times the flash forward at kimi-k2's paged decode and
 prefill chunk and, with the backward and a visible panel of 4096 keys,
 at its causal training shape (B 1, S 4096, H 64, KV 8, dh 112), and the
 forward at whisper-medium's encoder (8 x 1500, non-causal) and
-cross-attention decode (8 queries over 1500 rows).
+cross-attention decode (8 queries over 1500 rows), and the backward at
+phase 23's cross-attention (K14: 8 x 448 queries over 1500 keys, no
+mask) beside autograd of SDPA without a mask; the ``kernels`` line gives
+K14 a row of its own
+(``flash_attention_bwd_cross``: its launches are counted apart, and also
+among ``flash_attention_bwd``'s).
 Phase 7 also times the flash forward and backward at the dense training
 shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
-The phases run in the order 1, 2, 7, 3, 19, 20, 21, 22, 4, 5, 14, 6, 9,
-10, 11, 12, 13, 15, 16, 17, 18, 8: phase 7
+The phases run in the order 1, 2, 7, 3, 19, 20, 21, 22, 23, 4, 5, 14, 6,
+9, 10, 11, 12, 13, 15, 16, 17, 18, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
 seconds, and each phase's in run order, are printed before the final
@@ -424,7 +464,10 @@ runs only with it) and prints no ``kernels`` line.
 the phases: it times the bf16 flash backward at the dense training shape
 with ``_flash_bwd_timing`` of the checkout at PARENT_DIR and of this one,
 in turn parent, this, this, parent, each in its own process after that
-tree's build, and prints a JSON line per run.
+tree's build, and prints a JSON line per run; each run also hashes the
+backward's dq, dk and dv at S == T on seeded inputs (the dense training
+shape and phase 2's S = 100 cases, both dtypes, dh 64, 112 and 128), and
+it exits 1 unless every run of both trees gives the same bits.
 
 The last three lines of standard output are the card's ``nvidia-smi``
 name and power limit (also printed first), the ``kernels`` JSON line and
@@ -511,15 +554,21 @@ WITNESS_LR, WITNESS_STEPS = 3e-4, 4
 # of the script's time (NVIDIA H100 80GB HBM3, 700 W), and the wrap is a
 # cache's, the same in every layer (depth cut since the MoE slice)
 DENSE_SERVE_LANES, DENSE_SERVE_CONTEXT = 8, 2048
+# (a) and (b)'s depth, cut from 36 for the whole script's time once phase
+# 23 came (at 36 phase 11 took 50.1 and 74.4 s of scripts of 974.5 and
+# 1260.9 s, NVIDIA H100 80GB HBM3, 700 W)
+DENSE_SERVE_LAYERS = 12
 DENSE_SERVE_REQUESTS, DENSE_SERVE_NEW = 16, 32
 WRAP_LAYERS = 4
-# decode against prefill, bf16 at 36 layers: 2 lanes of 256 tokens; at each
-# position the largest |difference| of the logits over the largest
-# |logit| of the prefill.  The two paths round differently (decode's
-# (B,1,d) products and cache reads against prefill's (B,S,d) products and
-# causal flash), a few bf16 ulps (2^-8) a layer compounding over 36
-# residual layers.  The same comparison in fp32 over 2 x 64 tokens, held
-# at REL_TOL["float32"], witnesses that the bf16 distance is rounding
+# decode against prefill, bf16 at DENSE_SERVE_LAYERS: 2 lanes of 256
+# tokens; at each position the largest |difference| of the logits over
+# the largest |logit| of the prefill.  The two paths round differently
+# (decode's (B,1,d) products and cache reads against prefill's (B,S,d)
+# products and causal flash), a few bf16 ulps (2^-8) a layer compounding
+# over the residual layers.  The gate was set at 36 layers, where the
+# distance came to 2.67e-2 (1.77e-2 at 12; NVIDIA H100 80GB HBM3, 700 W).
+# The same comparison in fp32 over 2 x 64 tokens, held at
+# REL_TOL["float32"], witnesses that the bf16 distance is rounding
 DECODE_VS_PREFILL_LANES, DECODE_VS_PREFILL_T = 2, 256
 DECODE_VS_PREFILL_TOL = 5e-2
 DECODE_VS_PREFILL_T_FP32 = 64
@@ -529,6 +578,12 @@ DECODE_VS_PREFILL_T_FP32 = 64
 # zamba2 shared block's attention: MHA, H = KV = 32, dh 64
 SSM_SERVE_ARCHS = ("mamba2-370m", "zamba2-1.2b")
 ZAMBA2_HEADS = (32, 32, 64)
+# the depth of (a) to (c), cut for the whole script's time once phase 23
+# came: at 48 and 38 layers phase 12 took 77.6 s of the 974.5 s script,
+# at 24 and 19 46.6 s of a 1260.9 s one (NVIDIA H100 80GB HBM3, 700 W);
+# zamba2 at 12 layers makes 2 calls of its shared attention block.  Part
+# (d)'s prefill keeps the full depth
+SSM_SERVE_LAYERS = {"mamba2-370m": 12, "zamba2-1.2b": 12}
 # Decode against prefill on these random-weight SSM stacks compounds with
 # depth: a mixer's distance of an ulp or two grows about a hundredfold over
 # 48 layers, in the JAX package as in the port (tools/jax_decode_drift.py
@@ -592,7 +647,9 @@ PIPE_TRAIN_STEPS = 3
 # about 15 GB) fit it together; the train driver's first SHARD_STEPS
 # batches of SHARD_BATCH x SHARD_SEQ tokens; SHARD_RANKS gloo ranks share
 # the card on a (data, model) mesh of SHARD_MESH with TP, ZeRO and remat
-SHARD_LAYERS, SHARD_RANKS, SHARD_BATCH, SHARD_SEQ = 8, 4, 4, 4096
+# (8 until PR 33 added phase 23: at 8 the phase took 156.0 and 181.7 s of
+# scripts of 974.5 and 1260.9 s, NVIDIA H100 80GB HBM3, 700 W)
+SHARD_LAYERS, SHARD_RANKS, SHARD_BATCH, SHARD_SEQ = 4, 4, 4, 4096
 SHARD_MESH, SHARD_STEPS = (2, 2), 3
 # the sharded loss within SHARD_LOSS_RTOL of the single process's, each
 # gathered gradient leaf within SHARD_GRAD_TOL of its largest magnitude
@@ -602,10 +659,12 @@ SHARD_LOSS_RTOL, SHARD_GRAD_TOL = PIPE_LOSS_RTOL, PIPE_GRAD_TOL
 SHARD_TIMEOUT_S = 900
 # train --ranks: the plan of the port's search for SHARD_RANKS cards of the
 # H100 node at this model, with a memory budget of SHARD_BUDGET_GB a card:
-# the ranks share one card, and 4 replicas of the whole AdamW state (25.4
-# GB each) would not fit it, so the budget is one that makes the searched
-# plan's middle strategy, the one the driver applies, shard the state
-SHARD_BUDGET_GB = 11
+# the ranks share one card, and 4 replicas of the whole AdamW state (18.9
+# GB each at 4 layers) would not fit it, so the budget is one that makes
+# the searched plan's middle strategy, the one the driver applies, shard
+# the state (at 4 layers 11 GB gives TP without ZeRO, 9 GB ZeRO; 11 GB at
+# 8 layers)
+SHARD_BUDGET_GB = 9
 # phase 17, SSM and hybrid TP and sharded checkpoints: (a) mamba2-370m at
 # full width, depth cut from 48 to SSMTP_MAMBA2_LAYERS, (b) zamba2-1.2b at
 # full width, depth cut from 38 to SSMTP_ZAMBA2_LAYERS (one shared
@@ -758,6 +817,32 @@ KIMI_TRAIN = (1, 4096)
 WHISPER_ARCH, WHISPER_HEADS = "whisper-medium", (16, 16, 64)
 WHISPER_LANES, WHISPER_FRAMES, WHISPER_TOKENS = 8, 1500, 32
 WHISPER_CONTEXT, WHISPER_FP32_LAYERS = 448, 4
+# K14 (phase 2, phase_k14): the flash backward at S != T, (B, S, T, H, KV,
+# dh): whisper-medium's cross-attention in training (WHISPER_LANES
+# sequences of WHISPER_CONTEXT decoder tokens over WHISPER_FRAMES encoder
+# frames), dh 112 and 128 with a GQA group of 4 over the same ragged keys,
+# and more queries than keys
+K14_CASES = [(WHISPER_LANES, WHISPER_CONTEXT, WHISPER_FRAMES,
+              *WHISPER_HEADS),
+             (2, 130, WHISPER_FRAMES, 16, 4, 112),
+             (2, 130, WHISPER_FRAMES, 16, 4, 128),
+             (2, 200, 37, 16, 4, 64)]
+# beside K14 (phase_k14): the S == T flash backward at whisper-medium's
+# training shapes, (B, S, H, KV, dh, causal): the encoder's self-attention
+# (1500 = 23 x 64 + 28 queries and keys, ragged at both ends) and the
+# decoder's causal self-attention over its WHISPER_CONTEXT tokens
+WHISPER_SELF_BWD_CASES = [(WHISPER_LANES, WHISPER_FRAMES, *WHISPER_HEADS,
+                           False),
+                          (WHISPER_LANES, WHISPER_CONTEXT, *WHISPER_HEADS,
+                           True)]
+# phase 23: whisper-medium training at full width (24 + 24 layers, bf16,
+# random weights from seed 0): WHISPER_TRAIN_STEPS steps of train --arch
+# whisper-medium --batch WHISPER_LANES --seq WHISPER_CONTEXT (whisper's
+# decoder window) on frames (WHISPER_LANES, WHISPER_FRAMES, 1024), the
+# searched plan's remat, saved after step WHISPER_CKPT_AT; reduced fp32
+# card vs CPU through the CLI on WHISPER_CPU_BATCH x WHISPER_CPU_SEQ
+WHISPER_TRAIN_STEPS, WHISPER_CKPT_AT = 3, 2
+WHISPER_CPU_BATCH, WHISPER_CPU_SEQ = 2, 100
 
 
 def log(msg: str) -> None:
@@ -1593,11 +1678,13 @@ def phase_train_kernels(errs):
             check(same, f"rmsnorm_bwd {what}: dw differs between two calls")
 
 
-def flash_bwd_check(q, k, v, do, causal, window, what, errs):
+def flash_bwd_check(q, k, v, do, causal, window, what, errs,
+                    key="flash_attention_bwd"):
     """The forward with its row log-sum-exp and the backward kernels on one
     case, held against the plain versions (``flash_attention_lse_ref``,
     ``flash_attention_bwd_ref`` on the kernel's output and log-sum-exp)
-    and against ``torch.autograd`` of ``flash_attention_ref``.  Returns
+    and against ``torch.autograd`` of ``flash_attention_ref``; the largest
+    |difference| from the plain version goes to ``errs[key]``.  Returns
     (out, lse, (dq, dk, dv)) of the kernels."""
     import torch
     from repro_torch.kernels import ref
@@ -1613,7 +1700,7 @@ def flash_bwd_check(q, k, v, do, causal, window, what, errs):
     e_lse = e_lse.item()
     plain = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, **kw)
     e_plain = [rel_err(a, b) for a, b in zip(got, plain)]
-    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], *(
+    errs[key] = max(errs.get(key, 0.0), *(
         (a.float() - b.float()).abs().max().item()
         for a, b in zip(got, plain)))
     del plain
@@ -1745,6 +1832,98 @@ def phase_k13(errs):
     _partial_shapes([(300, H, KV, dh, SMALL_VISITS)], g, errs)
     log(f"[k13] the flash kernels at dh {dh} held against their plain "
         f"versions in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_k14(errs):
+    """K14, the flash backward at S != T (cross-attention: no mask), bf16
+    and fp32, against its plain version and ``torch.autograd`` of the
+    plain forward at ``REL_TOL`` (:func:`flash_bwd_check`), at
+    ``K14_CASES``: whisper-medium's decoder over its encoder (B 8, S 448,
+    T 1500, H = KV = 16, dh 64; 1500 = 23 x 64 + 28 keys, ragged), dh 112
+    and 128 with a GQA group of 4, and S above T; at whisper's shape a
+    second call must give the same bits, and every call counts as a cross
+    launch.  A causal mask at S != T must be refused.  Then the S == T
+    backward at ``WHISPER_SELF_BWD_CASES`` (the shapes of whisper-medium's
+    encoder and decoder self-attention in phase 23), the forward's output
+    against ``flash_attention_ref`` at ``TOL`` beside it, a second call the
+    same bits, no call counted as a cross launch."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+
+    t0 = time.perf_counter()
+    errs.setdefault("flash_attention_bwd_cross", 0.0)
+    g = torch.Generator(device="cuda").manual_seed(14)
+
+    def rand(dt, *shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for i, (B, S, T, H, KV, dh) in enumerate(K14_CASES):
+            q, do = rand(dt, B, S, H, dh), rand(dt, B, S, H, dh)
+            k, v = rand(dt, B, T, KV, dh), rand(dt, B, T, KV, dh)
+            before = flash_attention_bwd_cuda.cross_launches
+            out, lse, got = flash_bwd_check(
+                q, k, v, do, False, None,
+                f"cross B={B} S={S} T={T} H={H} KV={KV} dh={dh}", errs,
+                key="flash_attention_bwd_cross")
+            if i == 0:
+                again = flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                                 causal=False)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                log(f"[k14] {dtype} B={B} S={S} T={T}: dq, dk, dv of a "
+                    f"second call bitwise equal: {same}")
+                check(same, f"flash backward at S != T {dtype}: a second "
+                      "call gave other bits")
+                del again
+            n = flash_attention_bwd_cuda.cross_launches - before
+            check(n == (2 if i == 0 else 1),
+                  f"{n} cross launches counted for case {i}")
+            del q, do, k, v, out, lse, got
+        torch.cuda.empty_cache()
+    q, k = rand(torch.bfloat16, 1, 8, 4, 64), rand(torch.bfloat16, 1, 6, 2, 64)
+    try:
+        flash_attention_bwd_cuda(q, k, k, q, q, torch.zeros(
+            1, 8, 4, device="cuda"), causal=True)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "the backward took a causal mask at S != T")
+    errs.setdefault("flash_attention_bwd", 0.0)
+    errs.setdefault("flash_attention", 0.0)
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for B, S, H, KV, dh, causal in WHISPER_SELF_BWD_CASES:
+            what = (f"B={B} S=T={S} H={H} KV={KV} dh={dh} "
+                    f"{'causal' if causal else 'bidir'}")
+            q, do = rand(dt, B, S, H, dh), rand(dt, B, S, H, dh)
+            k, v = rand(dt, B, S, KV, dh), rand(dt, B, S, KV, dh)
+            before = flash_attention_bwd_cuda.cross_launches
+            out, lse, got = flash_bwd_check(q, k, v, do, causal, None, what,
+                                            errs)
+            err = (out.float() - ref.flash_attention_ref(
+                q, k, v, causal=causal).float()).abs().max().item()
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            again = flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                             causal=causal)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"[k14] {dtype:8s} whisper self-attention {what}: forward "
+                f"max|diff| {err:.3e} (tol {TOL[dtype]:.0e}); dq, dk, dv of "
+                f"a second call bitwise equal: {same}")
+            check(err <= TOL[dtype], f"flash forward {what} {dtype}: {err}")
+            check(same, f"flash backward {what} {dtype}: a second call gave "
+                  "other bits")
+            check(flash_attention_bwd_cuda.cross_launches == before,
+                  f"{what}: an S == T call counted as a cross launch")
+            del q, do, k, v, out, lse, got, again
+        torch.cuda.empty_cache()
+    log(f"[k14] the flash backward at S != T and at whisper's S == T "
+        f"shapes held against its plain version in "
+        f"{time.perf_counter() - t0:.1f} s; largest |diff| at S != T "
+        f"{errs['flash_attention_bwd_cross']:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -1964,7 +2143,12 @@ def _zero_counts():
            "flash_partial": flash_partial_cuda}
     for fn in fns.values():
         fn.launches = 0
-    return lambda: {name: fn.launches for name, fn in fns.items()}
+    flash_attention_bwd_cuda.cross_launches = 0
+    # K14, the backward at S != T, counts its launches apart as well (they
+    # are also among flash_attention_bwd's)
+    return lambda: {**{name: fn.launches for name, fn in fns.items()},
+                    "flash_attention_bwd_cross":
+                        flash_attention_bwd_cuda.cross_launches}
 
 
 def phase_train():
@@ -2726,14 +2910,14 @@ def phase_dense_serve():
     from repro_torch.models import LM, init_lm
 
     # (a) in fp32 first, as a witness that bf16's distance is rounding
-    cfg = get_config("qwen3-4b").with_(dtype=torch.float32)
-    params = init_lm(cfg, seed=0, device="cuda")
-    worst_fp32 = _decode_vs_prefill(cfg, params, DECODE_VS_PREFILL_T_FP32,
+    cfg = get_config("qwen3-4b").with_(n_layers=DENSE_SERVE_LAYERS)
+    params = init_lm(cfg.with_(dtype=torch.float32), seed=0, device="cuda")
+    worst_fp32 = _decode_vs_prefill(cfg.with_(dtype=torch.float32), params,
+                                    DECODE_VS_PREFILL_T_FP32,
                                     REL_TOL["float32"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("qwen3-4b")
     params = init_lm(cfg, seed=0, device="cuda")
     worst = _decode_vs_prefill(cfg, params, DECODE_VS_PREFILL_T,
                                DECODE_VS_PREFILL_TOL)
@@ -2919,7 +3103,8 @@ def _ssm_serve(arch):
     for dtype, T, tol in (("float32", DECODE_VS_PREFILL_T_FP32,
                            SSM_LOGITS_FP32_TOL),
                           ("bfloat16", DECODE_VS_PREFILL_T, None)):
-        cfg = get_config(arch).with_(dtype=getattr(torch, dtype))
+        cfg = get_config(arch).with_(n_layers=SSM_SERVE_LAYERS[arch],
+                                     dtype=getattr(torch, dtype))
         params = init_lm(cfg, seed=0, device="cuda")
         dist[f"logits_{dtype}"] = _decode_vs_prefill(cfg, params, T, tol,
                                                      "[ssm-serve] (a)")
@@ -3018,14 +3203,15 @@ def phase_ssm_serve():
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def recorded_train_steps():
+def recorded_train_steps(counts=None):
     """Check-only: record the ``remat_segments`` that
     ``launch/train.py`` gives ``make_train_step`` and each step's wall ms
-    (host clock ending in a synchronize) while the block runs."""
+    (host clock ending in a synchronize) while the block runs, and with
+    ``counts`` (:func:`_zero_counts`' reader) each step's launches."""
     import torch
     from repro_torch.launch import train as train_cli
 
-    seen = {"remat_segments": [], "step_ms": []}
+    seen = {"remat_segments": [], "step_ms": [], "launches": []}
     real = train_cli.make_train_step
 
     def make(cfg, opt_cfg=None, *, remat_segments=None):
@@ -3033,11 +3219,15 @@ def recorded_train_steps():
         step = real(cfg, opt_cfg, remat_segments=remat_segments)
 
         def timed(*args):
+            before = counts() if counts else None
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = step(*args)
             torch.cuda.synchronize()
             seen["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            if counts:
+                seen["launches"].append({k: v - before[k]
+                                         for k, v in counts().items()})
             return out
         return timed
 
@@ -6510,7 +6700,8 @@ def phase_whisper():
     def decode():       # the step at position WHISPER_TOKENS, repeatable
         return step(params, state, tok)[0]
 
-    def encoder():
+    @torch.inference_mode()
+    def encoder():      # as init_encdec_decode_state runs it
         return encode(params, frames, cfg)
 
     per = {"encoder": flash_of(encoder), "decode_step": flash_of(decode)}
@@ -6550,6 +6741,227 @@ def phase_whisper():
     _free_cuda()
     log(f"[whisper] phase 22 in {time.perf_counter() - t_phase:.1f} s")
     return {"whisper_serve": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: whisper-medium training at full width
+# ---------------------------------------------------------------------------
+
+def _whisper_train_cpu_vs_card():
+    """(c): reduced fp32 whisper-medium through ``launch/train.py::train``
+    on the CPU and on the card from the same weights (the CPU's draw, as
+    phase 10), three steps: the losses within ``TRAIN_LOSS_RTOL``, and the
+    card's steps launch the flash backward once an attention, a third of
+    them at S != T."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.executor import init_train_state
+
+    cfg = get_config(WHISPER_ARCH).reduced().with_(dtype=torch.float32)
+    argv = ["--reduced", "--arch", WHISPER_ARCH, "--steps", "3", "--batch",
+            str(WHISPER_CPU_BATCH), "--seq", str(WHISPER_CPU_SEQ),
+            "--log-every", "1"]
+    params_cpu, _ = init_train_state(cfg, seed=0, device="cpu")
+
+    def same_weights(cfg, *, seed, opt_cfg, device):
+        params = copy.deepcopy(params_cpu).to(device)
+        return params, adamw_init(list(params.parameters()), opt_cfg)
+
+    counts = _zero_counts()
+    init, train_cli.init_train_state = (train_cli.init_train_state,
+                                        same_weights)
+    try:
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            before = counts()
+            losses[dev] = [h["loss"] for h in train_cli.train(
+                cfg, train_cli.parse_args(argv + ["--device", dev]))]
+            n = {k: v - before[k] for k, v in counts().items()}
+    finally:
+        train_cli.init_train_state = init
+    E, L = cfg.n_enc_layers, cfg.n_layers
+    want = (3 * (E + 2 * L), 3 * L)
+    got = (n["flash_attention_bwd"], n["flash_attention_bwd_cross"])
+    check(got == want, f"(c) the card's steps launched the flash backward "
+          f"{got} times (all, at S != T), not {want}")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                    losses["cpu"]))
+    log(f"[whisper-train] (c) reduced fp32 {WHISPER_ARCH} ({E} + {L} "
+        f"layers, {cfg.encoder_seq} frames) through repro_torch.launch."
+        f"train, 3 steps of {WHISPER_CPU_BATCH} x {WHISPER_CPU_SEQ}: card "
+        f"{losses['cuda']} cpu {losses['cpu']}; max relative diff "
+        f"{worst:.2e} (tol {TRAIN_LOSS_RTOL:.0e}); the card's flash "
+        f"backward launches (all, at S != T) {got}")
+    check(worst <= TRAIN_LOSS_RTOL, f"(c) whisper losses differ by {worst}")
+
+
+def phase_whisper_train():
+    """Phase 23: whisper-medium training at full width (24 + 24 layers,
+    bf16, random weights from seed 0).  (a) ``train --arch whisper-medium
+    --batch 8 --seq 448`` for WHISPER_TRAIN_STEPS steps on the synthetic
+    stream's frames (8, 1500, 1024), with the searched plan's remat and a
+    checkpoint after step WHISPER_CKPT_AT: finite losses; each step the
+    flash backward once an attention (24 encoder, 24 decoder, 24 cross:
+    72, of them 24 at S != T, K14), the forward once (twice under remat),
+    no RMSNorm and no plain version; the step's wall ms, decoder tokens/s,
+    peak memory.  (d) a model and AdamW state drawn from seed 1, restored
+    from that checkpoint, take step 3: its loss must be (a)'s, bit for
+    bit; save and restore seconds and bytes printed, the files deleted;
+    then two more steps timed and one profiled: the device's busy share of
+    those steps' wall time and its ms by category.  Tokens/s are step 2's,
+    the warm step with no checkpoint around it.  (b) step 1's loss and gradients, twice from ``init_encdec``
+    seed 0 on (a)'s first batch: the same bits both times, and the loss
+    (a)'s.  (c) :func:`_whisper_train_cpu_vs_card`.  Returns {path:
+    launches}."""
+    import torch
+    from repro_torch.checkpointing import restore_train_state
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import encdec_loss, init_encdec
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.executor import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    _free_cuda()
+    cfg = get_config(WHISPER_ARCH)
+    E, L = cfg.n_enc_layers, cfg.n_layers
+    ck = ROOT / "build" / "whisper_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", WHISPER_ARCH, "--steps", str(WHISPER_TRAIN_STEPS),
+            "--batch", str(WHISPER_LANES), "--seq", str(WHISPER_CONTEXT),
+            "--log-every", "1", "--ckpt-dir", str(ck), "--ckpt-every",
+            str(WHISPER_CKPT_AT)]
+    log(f"[whisper-train] (a) python -m repro_torch.launch.train "
+        f"{' '.join(argv)}")
+    # check-only: time the save that launch/train.py makes
+    real_save, save_s = train_cli.save_train_state, []
+
+    def timed_save(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_save(*args, **kwargs)
+        save_s.append(time.perf_counter() - t0)
+        return out
+
+    counts = _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    train_cli.save_train_state = timed_save
+    try:
+        with recorded_train_steps(counts) as seen, plain_calls() as plain:
+            hist = train_cli.main(argv)
+    finally:
+        train_cli.save_train_state = real_save
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = counts()
+    losses = [h["loss"] for h in hist]
+    remat = seen["remat_segments"][0]
+    on = bool(remat and remat[0])
+    check(len(losses) == WHISPER_TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses), f"(a) losses {losses}")
+    check(not plain, f"(a) plain versions ran on the training path: {plain}")
+    per_step = {"flash_attention": (E + 2 * L) * (2 if on else 1),
+                "flash_attention_bwd": E + 2 * L,
+                "flash_attention_bwd_cross": L, "rmsnorm": 0,
+                "rmsnorm_bwd": 0}
+    for i, n in enumerate(seen["launches"], 1):
+        check(all(n[k] == v for k, v in per_step.items()),
+              f"(a) step {i} launched {n}, not {per_step}")
+    saved = ck / f"step_{WHISPER_CKPT_AT:08d}"
+    wrote = sorted(x.name for x in ck.iterdir()) if ck.exists() else []
+    check(len(save_s) == 1 and saved.is_dir(),
+          f"(a) train --ckpt-dir wrote {wrote}")
+    n_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    step_ms = seen["step_ms"]
+    # step 2: warm, and no checkpoint before it (step 3 follows the save)
+    warm_ms = step_ms[1]
+    tokens = WHISPER_LANES * WHISPER_CONTEXT
+    del hist
+    _free_cuda()
+
+    # (d) restore into a fresh draw and take step 3
+    opt_cfg = AdamWConfig(lr=train_cli.parse_args(argv).lr)
+    params, opt = init_train_state(cfg, seed=1, opt_cfg=opt_cfg,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, step_no = restore_train_state(params, opt, ck)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(step_no == WHISPER_CKPT_AT and opt["step"] == WHISPER_CKPT_AT,
+          f"(d) restored step {step_no}, AdamW step {opt['step']}")
+    shutil.rmtree(ck, ignore_errors=True)
+    gen = train_cli.batches(cfg, train_cli.parse_args(argv))
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                next(gen).items()} for _ in range(WHISPER_TRAIN_STEPS)]
+    check(batches[0]["frames"].shape == (WHISPER_LANES, WHISPER_FRAMES,
+                                         cfg.d_model),
+          f"(a) frames {tuple(batches[0]['frames'].shape)}")
+    step = make_train_step(cfg, opt_cfg, remat_segments=remat)
+    with plain_calls() as plain_resumed:
+        resumed = float(step(params, opt, batches[WHISPER_CKPT_AT])["loss"])
+    torch.cuda.synchronize()
+    check(not plain_resumed, f"(d) plain versions ran: {plain_resumed}")
+    log(f"[whisper-train] (d) restored step {step_no} into a fresh draw "
+        f"(seed 1) in {restore_s:.2f} s ({n_bytes / 1e9:.2f} GB saved in "
+        f"{save_s[0]:.2f} s); step {WHISPER_CKPT_AT + 1}'s loss "
+        f"{resumed!r} against the unbroken run's "
+        f"{losses[WHISPER_CKPT_AT]!r}: bit for bit "
+        f"{resumed == losses[WHISPER_CKPT_AT]}")
+    check(resumed == losses[WHISPER_CKPT_AT], "(d) the resumed step's loss "
+          "is not the unbroken run's")
+    # the busy share's wall time: the profiled step itself, on the same
+    # state, timed without the profiler and with no checkpoint near it
+    wall_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt, batches[0])
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    busy, kernels, cats = profile_step(
+        "whisper train", lambda: step(params, opt, batches[0]),
+        sum(wall_ms) / len(wall_ms), n=1)
+    del params, opt, step
+    _free_cuda()
+
+    # (b) step 1's loss and gradients twice from the same state
+    params = init_encdec(cfg, seed=0, device="cuda")
+    leaves = list(params.parameters())
+    runs = []
+    for _ in range(2):
+        loss = encdec_loss(params, batches[0], cfg, remat=on)
+        runs.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+        del loss
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    first = float(runs[0][0])
+    log(f"[whisper-train] (b) step 1 from the same state twice: loss and "
+        f"{len(leaves)} gradient leaves bitwise equal {same}; loss "
+        f"{first!r}, (a)'s step 1 {losses[0]!r}")
+    check(same, "(b) step 1's loss or gradients differ run to run")
+    check(first == losses[0], "(b) step 1's loss is not (a)'s")
+    del params, leaves, runs, batches
+    _free_cuda()
+
+    _whisper_train_cpu_vs_card()
+    result = {
+        "arch": WHISPER_ARCH, "layers": [E, L], "batch": WHISPER_LANES,
+        "decoder_tokens": WHISPER_CONTEXT, "frames": WHISPER_FRAMES,
+        "remat_segments": remat, "losses": losses, "step_ms": step_ms,
+        "step_ms_warm": warm_ms,
+        "decoder_tok_per_s": tokens * 1e3 / warm_ms,
+        "encoder_frames_per_s": WHISPER_LANES * WHISPER_FRAMES * 1e3
+        / warm_ms, "profiled_step_wall_ms": wall_ms,
+        "device_busy_ms": busy,
+        "device_busy_share": busy * len(wall_ms) / sum(wall_ms),
+        "device_ms_by_category": cats, "kernels_per_step": kernels,
+        "peak_mem_gb": peak_gb, "launches_per_step": seen["launches"][0],
+        "checkpoint_bytes": n_bytes, "save_s": save_s[0],
+        "restore_s": restore_s, "phase_s": time.perf_counter() - t_phase}
+    log("[whisper-train] " + json.dumps(result))
+    return {"whisper_train": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -6813,45 +7225,52 @@ def _flash_train_timing(B=DENSE_BATCH, S=DENSE_SEQ, H=32, KV=8, dh=128):
                 shape=f"B={B} S={S} H={H} KV={KV} dh={dh} causal lse bf16")
 
 
-def _flash_bwd_timing(B=DENSE_BATCH, S=DENSE_SEQ, H=32, KV=8, dh=128):
+def _flash_bwd_timing(B=DENSE_BATCH, S=DENSE_SEQ, H=32, KV=8, dh=128, *,
+                      T=None, causal=True):
     """The backward at a training shape (by default the dense one, B 2, S
-    4096, H 32, KV 8, dh 128; bf16, causal): the kernels on the forward's
-    output and
+    4096, H 32, KV 8, dh 128; bf16, causal; ``T`` keys, S by default, and
+    at S != T no mask: K14): the kernels on the forward's output and
     log-sum-exp, the plain version on the same, and the autograd backward
-    of ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-    as the library yardstick.  The bound: the five products (dV, dP, dQ, dK
-    and the recomputed S) over the admissible pairs at 989 TFLOP/s, or each
-    of q, k, v, o, dO, lse read and dq, dk, dv written once at 3.35 TB/s.
-    Phase 9's profile splits the time by kernel."""
+    of ``F.scaled_dot_product_attention(is_causal=causal,
+    enable_gqa=True)`` as the library yardstick.  The bound: the five
+    products (dV, dP, dQ, dK and the recomputed S) over the admissible
+    pairs at 989 TFLOP/s, or each of q, k, v, o, dO, lse read and dq, dk,
+    dv written once at 3.35 TB/s.  Phase 9's profile splits the time by
+    kernel."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
 
+    T = S if T is None else T
     g = torch.Generator(device="cuda").manual_seed(10)
     q, do = (torch.randn(B, S, H, dh, generator=g, device="cuda").bfloat16()
              for _ in range(2))
-    k, v = (torch.randn(B, S, KV, dh, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(B, T, KV, dh, generator=g, device="cuda").bfloat16()
             for _ in range(2))
-    out, lse = flash_attention_cuda(q, k, v, with_lse=True)
-    pairs = S * (S + 1) // 2                # causal pairs of one head
+    kw = dict(causal=causal)
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    # admissible pairs of one head: causal S == T, or every (query, key)
+    pairs = S * (S + 1) // 2 if causal else S * T
     n_ops = 5 * 2 * B * H * pairs * dh
-    n_bytes = 2 * 4 * B * S * H * dh + 2 * 4 * B * S * KV * dh + 4 * B * S * H
+    n_bytes = 2 * 4 * B * S * H * dh + 2 * 4 * B * T * KV * dh + 4 * B * S * H
     bound, by = _bound_ms(n_bytes, n_ops, "bfloat16")
     qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    y = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+    y = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                        enable_gqa=True)
     dys = do.transpose(1, 2)
-    t = _times(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse),
-               lambda: ref.flash_attention_bwd_ref(q, k, v, out, do, lse),
+    t = _times(lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw),
+               lambda: ref.flash_attention_bwd_ref(q, k, v, out, do, lse,
+                                                   **kw),
                lambda: torch.autograd.grad(y, (qs, ks, vs), dys,
                                            retain_graph=True),
                iters=5, plain_iters=2)
-    shape = f"B={B} S={S} H={H} KV={KV} dh={dh} causal bf16"
+    shape = (f"B={B} S={S} H={H} KV={KV} dh={dh} causal bf16" if causal
+             else f"B={B} S={S} T={T} H={H} KV={KV} dh={dh} non-causal bf16")
     parts = _kernel_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, do,
-                                                        lse),
+                                                        lse, **kw),
                        FLASH_BWD_KERNELS)[0]
     check(all(parts.values()), f"flash backward kernels without device "
           f"time: {parts}")
@@ -7227,6 +7646,14 @@ def phase_timings():
           "zamba2_tp_train": _flash_bwd_timing(
               SSMTP_LOCAL_BATCH, SSMTP_SEQ, *ZAMBA2_TP_HEADS),
           "kimi_train": _flash_bwd_timing(*KIMI_TRAIN, *KIMI_HEADS)}),
+        # K14: the backward at S != T, phase 23's cross-attention (its
+        # launches are also among flash_attention_bwd's)
+        ("flash_attention_bwd_cross", "cuda",
+         "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:143", "whisper_cross_train",
+         {"whisper_cross_train": _flash_bwd_timing(
+             WHISPER_LANES, WHISPER_CONTEXT, *WHISPER_HEADS,
+             T=WHISPER_FRAMES, causal=False)}),
         ("flash_partial", "cuda", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/ring_attention.py:110", "visible", {
              "diagonal": _partial_timing(0),
@@ -7249,7 +7676,8 @@ def kernel_entries(timed, errs, launches, dense_decode):
     for name, route, source, replaces, main_shape, by_shape in table:
         if name == "flash_attention":
             by_shape["dense_decode"] = dense_decode
-        by_path = {path: counts[name] for path, counts in launches.items()}
+        by_path = {path: counts.get(name, 0)
+                   for path, counts in launches.items()}
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -7278,17 +7706,60 @@ def kernel_entries(timed, errs, launches, dense_decode):
     return kernels
 
 
+# run in each tree by compare_flash_bwd: the sha256 of the flash
+# backward's dq, dk and dv bytes at S == T on seeded inputs, through the
+# wrappers' interface, which the parent shares: the dense training shape
+# (bf16, causal) and the S = 100 cases of phase 2 in both dtypes at dh 64,
+# 112 and 128
+_BWD_DIGEST_CODE = """
+def _bwd_digests():
+    import hashlib
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    cases = [("bfloat16", 2, 4096, 32, 8, 128, True, None)]
+    for dtype in ("bfloat16", "float32"):
+        for dh in (64, 112, 128):
+            for H, KV in ((2, 2), (10, 2), (16, 2)):
+                for causal, window in ((True, None), (False, None),
+                                       (True, 8), (False, 8)):
+                    cases.append((dtype, 2, 100, H, KV, dh, causal, window))
+    out = {}
+    for i, (dtype, B, S, H, KV, dh, causal, window) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(i)
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn(B, S, H, dh, generator=g, device="cuda").to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, KV, dh, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        h = hashlib.sha256()
+        for t in flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        out[f"{dtype} B={B} S={S} H={H} KV={KV} dh={dh} causal={causal} "
+            f"window={window}"] = h.hexdigest()
+    return out
+"""
+
+
 def compare_flash_bwd(parent: str) -> int:
     """The bf16 flash backward at the dense training shape timed by
     ``_flash_bwd_timing`` of the parent checkout at ``parent`` and of this
     one, in turn parent, this, this, parent, each in a process of its own
-    that first builds that tree's kernels (``phase_build``).  Prints one
-    JSON line per run."""
+    that first builds that tree's kernels (``phase_build``), with the
+    digests of its S == T outputs (``_BWD_DIGEST_CODE``), which must be
+    the same in every run: a change that leaves self-attention alone keeps
+    its bits.  Prints one JSON line per run; returns 1 if a run fails or
+    the digests differ."""
     code = ("import json, sys; sys.path[:0] = ['.', 'src']; "
             "import chip_smoke as cs; cs.phase_build(); "
+            + _BWD_DIGEST_CODE + "\n"
             "t = cs._flash_bwd_timing(); print('RESULT ' + json.dumps("
-            "{k: t.get(k) for k in ('ms', 'launch_ms', 'library_ms', "
-            "'bound_ms', 'ms_by_kernel')}))")
+            "{**{k: t.get(k) for k in ('ms', 'launch_ms', 'library_ms', "
+            "'bound_ms', 'ms_by_kernel')}, 'digests': _bwd_digests()}))")
+    digests = []
     for name, tree in (("parent", parent), ("this", str(ROOT)),
                        ("this", str(ROOT)), ("parent", parent)):
         res = subprocess.run([sys.executable, "-c", code], cwd=tree,
@@ -7299,9 +7770,15 @@ def compare_flash_bwd(parent: str) -> int:
             print(f"chip_smoke: {name} tree failed:\n{res.stdout[-3000:]}"
                   f"\n{res.stderr[-3000:]}", file=sys.stderr)
             return 1
-        log(json.dumps({"tree": name, "path": tree,
-                        **json.loads(lines[-1][len("RESULT "):])}))
-    return 0
+        out = json.loads(lines[-1][len("RESULT "):])
+        digests.append(out.pop("digests"))
+        log(json.dumps({"tree": name, "path": tree, **out}))
+    differ = sorted(k for k in digests[0]
+                    if len({d.get(k) for d in digests}) != 1)
+    log(f"[compare-flash-bwd] {len(digests[0])} S == T cases: dq, dk, dv "
+        f"the same bits in every run of both trees: {not differ}"
+        + (f"; they differ at {differ}" if differ else ""))
+    return 1 if differ else 0
 
 
 def main() -> int:
@@ -7351,6 +7828,7 @@ def main() -> int:
             phase_train_kernels(errs)
             phase_flash_bwd(errs)
             phase_k13(errs)
+            phase_k14(errs)
         if begin(7):
             timed = phase_timings()
         if begin(3):
@@ -7366,6 +7844,10 @@ def main() -> int:
             launches.update(phase_kimi())
         if begin(22):
             launches.update(phase_whisper())
+        if begin(23):
+            if not run(2):      # K14 against its plain version first
+                phase_k14(errs)
+            launches.update(phase_whisper_train())
         if begin(4):
             phase_cpu_vs_card()
         if begin(5):

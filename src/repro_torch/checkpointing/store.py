@@ -10,12 +10,14 @@ array; every layer's leaf is stacked on a leading L axis, as the JAX
 ``<path>@bf16``.  ``opt_state.npz`` holds ``step`` (an int32 scalar) and
 ``master``, ``m`` and ``v``, each laid out like the params.
 
-The port's params are an ``LM`` module of per-block modules and its AdamW
+The port's params are an ``LM`` module of per-block modules (or, for an
+encoder-decoder, an ``EncDec``, whose ``enc_blocks`` and ``dec_blocks``
+are stacked as the JAX ``init_encdec`` tree stacks them) and its AdamW
 state holds lists in ``params.parameters()`` order
 (``repro_torch/optim/adamw.py``); ``bridge.py`` maps both to and from the
-JAX paths.  Restoring writes into the template's tensors, in place and on
-their devices, and raises on a stored leaf that the template does not take,
-rather than leave a weight behind.
+JAX paths (``bridge.py::jax_path``).  Restoring writes into the template's
+tensors, in place and on their devices, and raises on a stored leaf that
+the template does not take, rather than leave a weight behind.
 
 A sharded run (``runtime/sharding.py::ShardContext``) writes the same
 files: :func:`save_sharded_train_state` gathers each leaf whole on every
@@ -34,7 +36,10 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.bridge import assign_flat, flat_from_leaves
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import LM
+
+Model = LM | EncDec
 
 _BF16 = "@bf16"
 
@@ -120,13 +125,13 @@ def load_pytree(template: Any, path: str | pathlib.Path) -> Any:
     return restore(template)
 
 
-def _opt_tree(params: LM, opt_state: Mapping[str, Any]) -> Dict[str, Any]:
+def _opt_tree(params: Model, opt_state: Mapping[str, Any]) -> Dict[str, Any]:
     return {"step": np.asarray(opt_state["step"], np.int32),
             **{k: flat_from_leaves(params, opt_state[k])
                for k in ("master", "m", "v")}}
 
 
-def _write(step: int, params: LM, leaves, opt_state: Mapping[str, Any],
+def _write(step: int, params: Model, leaves, opt_state: Mapping[str, Any],
            directory: str | pathlib.Path,
            extra: Optional[Dict[str, Any]]) -> pathlib.Path:
     d = pathlib.Path(directory) / f"step_{step:08d}"
@@ -137,7 +142,7 @@ def _write(step: int, params: LM, leaves, opt_state: Mapping[str, Any],
     return d
 
 
-def save_train_state(step: int, params: LM, opt_state: Mapping[str, Any],
+def save_train_state(step: int, params: Model, opt_state: Mapping[str, Any],
                      directory: str | pathlib.Path,
                      extra: Optional[Dict[str, Any]] = None) -> pathlib.Path:
     """Write ``directory/step_XXXXXXXX/{params.npz, opt_state.npz,
@@ -192,7 +197,7 @@ def _step_dir(directory: str | pathlib.Path,
     return cands[-1]
 
 
-def _restore(params: LM, opt_state: Dict[str, Any],
+def _restore(params: Model, opt_state: Dict[str, Any],
              directory: str | pathlib.Path, step: Optional[int],
              cut) -> int:
     """Restore ``step``'s checkpoint (the newest without it) into
@@ -222,11 +227,11 @@ def _restore(params: LM, opt_state: Dict[str, Any],
     return int(meta["step"])
 
 
-def restore_train_state(params_template: LM,
+def restore_train_state(params_template: Model,
                         opt_template: Dict[str, Any],
                         directory: str | pathlib.Path,
                         step: Optional[int] = None
-                        ) -> Tuple[LM, Dict[str, Any], int]:
+                        ) -> Tuple[Model, Dict[str, Any], int]:
     """Restore the newest checkpoint under ``directory`` (or ``step``'s)
     into ``params_template`` and ``opt_template`` in place; returns them
     and the step.  Raises FileNotFoundError when there is none, and

@@ -106,8 +106,9 @@
 // Backward (flash_attention_bwd below).  The TPU package has no backward
 // kernel (the JAX package trains through autodiffed jnp attention); this one
 // computes the gradients of the same function for the training path's masks
-// (S == T, causal or not, with or without a window, no offsets or lengths),
-// for both dtypes, with fp32 accumulators:
+// (no offsets or lengths; self-attention, S == T, causal or not, with or
+// without a window; cross-attention, S queries against T != S keys with no
+// mask), for both dtypes, with fp32 accumulators:
 //   P = exp(scale Q K^T - lse) on admissible pairs, D = rowsum(dO o O),
 //   dV = P^T dO, dP = dO V^T, dS = P o (dP - D),
 //   dQ = scale dS K, dK = scale dS^T Q,
@@ -164,6 +165,22 @@
 //    rows x dh / 16 columns.
 //  - Causal load balance: the dK/dV grid starts at the first key tile and
 //    the dQ grid at the last query tile, the CTAs with the most work.
+//  - Cross-attention (S != T, whisper's decoder: 448 queries over 1500
+//    encoder keys) runs the same bodies with the two lengths apart: the
+//    dK/dV grid covers ceil(T / 64) key tiles and loops over the query
+//    tiles of S, the dQ grid covers the query tiles of S and loops over
+//    ceil(T / 64) key tiles; the bf16 tensor maps of k and v hold T rows,
+//    those of q and dout S.  Both sides may be ragged at once (1500 = 23 x
+//    64 + 28): TMA zero-fills the rows past T (or S) of a tile and still
+//    counts the whole box on the mbarrier, a block that crosses either end
+//    is masked per element (keys at or past T, queries at or past S), and
+//    dQ stores no row at or past S, dK and dV none at or past T.  At
+//    S == T every bound is the one the self-attention path always used, so
+//    its bits do not change.  The reference differentiates cross-attention
+//    only without a mask, so causal or windowed attention at S != T is
+//    refused (cudaErrorInvalidValue).  Bound at whisper-medium's shape (B
+//    8, S 448, T 1500, H = KV = 16, dh 64): 10 x 5.376e6 pairs x 16 x 64 =
+//    55.1 GFLOP, 0.0557 ms at 989 TFLOP/s.
 // Left for later (ROADMAP K9): the fused five-product kernel with dQ summed
 // in a fixed order (a semaphore per query tile), persistent CTAs, and
 // overlapping a consumer's elementwise work with its own next product.
@@ -1070,12 +1087,13 @@ __device__ __forceinline__ void score_tiles(const float* sq, const float* sdo,
 
 // P = exp(scale s - lse) on the admissible (query, key) pairs of the tile at
 // (q0, k0) and 0 elsewhere; dS = P (dp - D).  Writes dS, and P when sp is
-// not null, at [i][j] with row stride BWD_PS.  S == T: the mask is the
-// forward's with no offset or length.
+// not null, at [i][j] with row stride BWD_PS.  The mask is the forward's
+// with no offset or length over S queries and T keys (causal or a window
+// only at S == T).
 __device__ __forceinline__ void softmax_grad_tiles(
     const float (&s)[4][4], const float (&dp)[4][4], const float* slse,
     const float* sdelta, float* sp, float* sds, int tx, int ty, int q0,
-    int k0, int S, int causal, int window, float scale) {
+    int k0, int S, int T, int causal, int window, float scale) {
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = ty + 16 * a, qpos = q0 + i;
@@ -1083,7 +1101,7 @@ __device__ __forceinline__ void softmax_grad_tiles(
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int j = tx + 16 * c, kpos = k0 + j;
-      bool ok = qpos < S && kpos < S;
+      bool ok = qpos < S && kpos < T;
       if (causal) ok = ok && kpos <= qpos;
       if (window > 0) ok = ok && kpos > qpos - window;
       const float p = ok ? expf(fmaf(s[a][c], scale, -lse)) : 0.f;
@@ -1124,8 +1142,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int S, int H, int KV, int causal,
-                      int window, float scale) {
+                      float* __restrict__ dv, int S, int T, int H, int KV,
+                      int causal, int window, float scale) {
   using L = BwdLayout<DH>;
   constexpr int RS = L::RS, U = pad64(DH) / 64;
   extern __shared__ float smem[];
@@ -1150,8 +1168,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q_first = causal ? k0 : 0;
   const int q_end = window > 0 ? min(S, k0 + BWD_TILE - 1 + window) : S;
 
-  load_tile<DH>(sk, k, b, k0, S, KV, kvh);
-  load_tile<DH>(sv, v, b, k0, S, KV, kvh);
+  load_tile<DH>(sk, k, b, k0, T, KV, kvh);
+  load_tile<DH>(sv, v, b, k0, T, KV, kvh);
 
   float dk_acc[4][4 * U], dv_acc[4][4 * U];
 #pragma unroll
@@ -1170,7 +1188,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
       float s[4][4], dp[4][4];
       score_tiles<DH>(sq, sdo, sk, sv, tx, ty, s, dp);
-      softmax_grad_tiles(s, dp, slse, sdelta, sp, sds, tx, ty, q0, k0, S,
+      softmax_grad_tiles(s, dp, slse, sdelta, sp, sds, tx, ty, q0, k0, S, T,
                          causal, window, scale);
       __syncthreads();
 
@@ -1201,8 +1219,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int t = k0 + 4 * tj + c;
-    if (t >= S) continue;
-    const size_t row = ((size_t)b * S + t) * KV + kvh;
+    if (t >= T) continue;
+    const size_t row = ((size_t)b * T + t) * KV + kvh;
 #pragma unroll
     for (int u = 0; u < U; ++u)
 #pragma unroll
@@ -1225,7 +1243,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
-                    int S, int H, int KV, int causal, int window,
+                    int S, int T, int H, int KV, int causal, int window,
                     float scale) {
   using L = BwdLayout<DH>;
   constexpr int RS = L::RS, U = pad64(DH) / 64;
@@ -1248,7 +1266,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // keys admissible to a row of [q0, q0 + 64): causal k <= q; window
   // k > q - window for the tile's first row
-  const int k_end = causal ? min(S, q0 + BWD_TILE) : S;
+  const int k_end = causal ? min(T, q0 + BWD_TILE) : T;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int k_first = (k_lo / BWD_TILE) * BWD_TILE;
 
@@ -1264,14 +1282,14 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = k_first; k0 < k_end; k0 += BWD_TILE) {
     __syncthreads();  // the previous tile's K and dS are read
-    load_tile<DH>(sk, k, b, k0, S, KV, kvh);
-    load_tile<DH>(sv, v, b, k0, S, KV, kvh);
+    load_tile<DH>(sk, k, b, k0, T, KV, kvh);
+    load_tile<DH>(sv, v, b, k0, T, KV, kvh);
     __syncthreads();
 
     float s[4][4], dp[4][4];
     score_tiles<DH>(sq, sdo, sk, sv, tx, ty, s, dp);
     softmax_grad_tiles(s, dp, slse, sdelta, nullptr, sds, tx, ty, q0, k0, S,
-                       causal, window, scale);
+                       T, causal, window, scale);
     __syncthreads();
 
     // dQ += dS K over the tile's 64 keys, four at a time
@@ -1318,9 +1336,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // 64-row operands are loaded once; the other operand pair streams in 64-row
 // tiles through a ring of BWD_STAGES stages with full / empty mbarriers.
 // Every tile lies in shared memory in the forward's 128-byte-swizzled
-// layout (a box of 64 dh x 64 rows per 64-wide column block, rows past S
-// zero-filled), which a wgmma descriptor reads K-major (dh along a row) or
-// MN-major (transpose bit).
+// layout (a box of 64 dh x 64 rows per 64-wide column block, rows past the
+// array's S or T zero-filled), which a wgmma descriptor reads K-major (dh
+// along a row) or MN-major (transpose bit).
 
 constexpr int WG = 128;                      // threads of a warpgroup
 // two consumers and a producer: 168 registers a thread (the note at the top)
@@ -1428,10 +1446,11 @@ __device__ __forceinline__ void to_a_frag(uint32_t (&a)[4][4],
           __floats2bfloat162_rn(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]));
 }
 
-// the training masks (S == T, no offsets or lengths)
-__device__ __forceinline__ bool admits(int qpos, int kpos, int S, int causal,
-                                       int window) {
-  bool ok = qpos < S && kpos < S;
+// the training masks (no offsets or lengths): S queries against T keys;
+// causal or a window only at S == T (the entry refuses them otherwise)
+__device__ __forceinline__ bool admits(int qpos, int kpos, int S, int T,
+                                       int causal, int window) {
+  bool ok = qpos < S && kpos < T;
   if (causal) ok = ok && kpos <= qpos;
   if (window > 0) ok = ok && kpos > qpos - window;
   return ok;
@@ -1439,32 +1458,33 @@ __device__ __forceinline__ bool admits(int qpos, int kpos, int S, int causal,
 
 // the 64 query rows from q0 against the 64 keys from k0: 0 if the masks
 // admit no pair, 1 if they admit every pair, 2 otherwise (masked per element)
-__device__ __forceinline__ int block_kind(int q0, int k0, int S, int causal,
-                                          int window) {
-  if (q0 >= S || k0 >= S || (causal && k0 > q0 + 63) ||
+__device__ __forceinline__ int block_kind(int q0, int k0, int S, int T,
+                                          int causal, int window) {
+  if (q0 >= S || k0 >= T || (causal && k0 > q0 + 63) ||
       (window > 0 && k0 + 63 <= q0 - window))
     return 0;
-  if (q0 + 64 > S || k0 + 64 > S || (causal && k0 + 63 > q0) ||
+  if (q0 + 64 > S || k0 + 64 > T || (causal && k0 + 63 > q0) ||
       (window > 0 && k0 <= q0 + 63 - window))
     return 2;
   return 1;
 }
 
 // rows r0 and r0 + 8 of a (64 x pad64(DH)) accumulator fragment, times
-// scale, into rows row0 + r of one head of a (B, S, heads, DH) bf16 array;
-// rows at or past S and the pad columns are not written
+// scale, into rows row0 + r of one head of a (B, n, heads, DH) bf16 array
+// (n = S for dQ, T for dK and dV); rows at or past n and the pad columns
+// are not written
 template <int DH>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
                                            const float (&acc)[pad64(DH) / 2],
                                            float scale, int b, int row0,
-                                           int S, int heads, int head, int r0,
+                                           int n, int heads, int head, int r0,
                                            int tq) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r0 + 8 * r;
-    if (row >= S) continue;
+    if (row >= n) continue;
     __nv_bfloat16* out =
-        dst + (((size_t)b * S + row) * heads + head) * DH + 2 * tq;
+        dst + (((size_t)b * n + row) * heads + head) * DH + 2 * tq;
 #pragma unroll
     for (int jn = 0; jn < DH / 8; ++jn)
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * jn) =
@@ -1494,8 +1514,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             __nv_bfloat16* __restrict__ dk,
-                            __nv_bfloat16* __restrict__ dv, int S, int H,
-                            int KV, int causal, int window, float scale) {
+                            __nv_bfloat16* __restrict__ dv, int S, int T,
+                            int H, int KV, int causal, int window,
+                            float scale) {
   constexpr int DP = pad64(DH);
   using L = DkdvLayout<DP>;
   extern __shared__ uint8_t smem_raw[];
@@ -1600,7 +1621,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float* stat =
         reinterpret_cast<const float*>(smem + L::STAT_OFF + st * L::STAT_BYTES);
     mbar_wait(bar_full + 8 * st, (j / BWD_STAGES) & 1);
-    const int kind = block_kind(q0, k0, S, causal, window);
+    const int kind = block_kind(q0, k0, S, T, causal, window);
     if (w == 0) {
       if (kind != 0) {
         float s[32];
@@ -1615,7 +1636,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           const int c = 8 * (i / 4) + 2 * tq + (i & 1);
           float p = fast_exp2(fmaf(s[i], c2, -stat[c]));
           if (kind == 2 && !admits(q0 + c, k0 + r0 + 8 * ((i >> 1) & 1), S,
-                                   causal, window))
+                                   T, causal, window))
             p = 0.f;
           s[i] = p;
         }
@@ -1668,9 +1689,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_arrive(bar_empty + 8 * st);  // this warpgroup is done with the stage
   }
   if (w == 0)
-    store_rows<DH>(dv, acc, 1.f, b, k0, S, KV, kvh, r0, tq);
+    store_rows<DH>(dv, acc, 1.f, b, k0, T, KV, kvh, r0, tq);
   else
-    store_rows<DH>(dk, acc, scale, b, k0, S, KV, kvh, r0, tq);
+    store_rows<DH>(dk, acc, scale, b, k0, T, KV, kvh, r0, tq);
 }
 
 // bf16: dQ of 128 query rows of head h, lane b, over the key tiles the masks
@@ -1688,8 +1709,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_v,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, int S, int H,
-                          int KV, int causal, int window, float scale) {
+                          __nv_bfloat16* __restrict__ dq, int S, int T,
+                          int H, int KV, int causal, int window,
+                          float scale) {
   constexpr int DP = pad64(DH);
   using L = DqLayout<DP>;
   extern __shared__ uint8_t smem_raw[];
@@ -1705,7 +1727,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kvh = h / (H / KV);
   // keys admissible to a row of [q0, q0 + 128): causal k <= q; window
   // k > q - window for the tile's first row
-  const int k_end = causal ? min(S, q0 + 128) : S;
+  const int k_end = causal ? min(T, q0 + 128) : T;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int k_first = (k_lo / 64) * 64;
   const int n = k_first < k_end ? (k_end - k_first + 63) / 64 : 0;
@@ -1769,7 +1791,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int st = j % BWD_STAGES;
     const int kt = k_first + 64 * j;
     mbar_wait(bar_full + 8 * st, (j / BWD_STAGES) & 1);
-    const int kind = block_kind(qw, kt, S, causal, window);
+    const int kind = block_kind(qw, kt, S, T, causal, window);
     if (kind != 0) {
       const uint32_t kb = base + L::STAGE_OFF + st * 2 * L::TILE;
       const uint32_t vb = kb + L::TILE;
@@ -1787,7 +1809,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int r = (i >> 1) & 1;
         float p = fast_exp2(fmaf(s[i], c2, -lse2[r]));
         if (kind == 2 && !admits(qw + r0 + 8 * r,
-                                 kt + 8 * (i / 4) + 2 * tq + (i & 1), S,
+                                 kt + 8 * (i / 4) + 2 * tq + (i & 1), S, T,
                                  causal, window))
           p = 0.f;
         s[i] = p;
@@ -1815,14 +1837,14 @@ template <int DH>
 cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dq, void* dk,
-                             void* dv, int B, int S, int H, int KV,
+                             void* dv, int B, int S, int T, int H, int KV,
                              int causal, int window, float scale,
                              cudaStream_t stream) {
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   cudaError_t err = kv_map(&tm_q, q, B, S, H, DH);
   if (err == cudaSuccess) err = kv_map(&tm_do, dout, B, S, H, DH);
-  if (err == cudaSuccess) err = kv_map(&tm_k, k, B, S, KV, DH);
-  if (err == cudaSuccess) err = kv_map(&tm_v, v, B, S, KV, DH);
+  if (err == cudaSuccess) err = kv_map(&tm_k, k, B, T, KV, DH);
+  if (err == cudaSuccess) err = kv_map(&tm_v, v, B, T, KV, DH);
   if (err != cudaSuccess) return err;
   const int smem_kv = DkdvLayout<pad64(DH)>::BYTES;
   const int smem_q = DqLayout<pad64(DH)>::BYTES;
@@ -1835,16 +1857,17 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
                                smem_q);
   if (err != cudaSuccess) return err;
   flash_bwd_dkdv_wgmma_kernel<DH>
-      <<<dim3((S + 63) / 64, KV, B), BWD_WG_THREADS, smem_kv, stream>>>(
+      <<<dim3((T + 63) / 64, KV, B), BWD_WG_THREADS, smem_kv, stream>>>(
           tm_q, tm_do, tm_k, tm_v, lse, delta,
           static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-          S, H, KV, causal, window, scale);
+          S, T, H, KV, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dq_wgmma_kernel<DH>
       <<<dim3((S + 127) / 128, H, B), BWD_WG_THREADS, smem_q, stream>>>(
           tm_q, tm_do, tm_k, tm_v, lse, delta,
-          static_cast<__nv_bfloat16*>(dq), S, H, KV, causal, window, scale);
+          static_cast<__nv_bfloat16*>(dq), S, T, H, KV, causal, window,
+          scale);
   return cudaGetLastError();
 }
 
@@ -1875,8 +1898,8 @@ template <typename T, int DH>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        void* dq, void* dk, void* dv, float* delta, int B,
-                       int S, int H, int KV, int causal, int window,
-                       float scale, cudaStream_t stream) {
+                       int S, int T_len, int H, int KV, int causal,
+                       int window, float scale, cudaStream_t stream) {
   const T* tdo = static_cast<const T*>(dout);
   const int rows = B * S * H;
   const int per_cta = BWD_THREADS / 32;
@@ -1887,14 +1910,14 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   if constexpr (sizeof(T) == 2) {
     return launch_bwd_wgmma<DH>(q, k, v, dout, lse, delta, dq, dk, dv, B, S,
-                                H, KV, causal, window, scale, stream);
+                                T_len, H, KV, causal, window, scale, stream);
   } else {
     const T* tq = static_cast<const T*>(q);
     const T* tk = static_cast<const T*>(k);
     const T* tv = static_cast<const T*>(v);
     const int smem = (int)BwdLayout<DH>::BYTES;
-    const int tiles = (S + BWD_TILE - 1) / BWD_TILE;
-    const dim3 kv_grid(tiles, KV, B), q_grid(tiles, H, B);
+    const dim3 kv_grid((T_len + BWD_TILE - 1) / BWD_TILE, KV, B);
+    const dim3 q_grid((S + BWD_TILE - 1) / BWD_TILE, H, B);
     err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
@@ -1905,12 +1928,12 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     flash_bwd_dkdv_kernel<DH><<<kv_grid, BWD_THREADS, smem, stream>>>(
         tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        S, H, KV, causal, window, scale);
+        S, T_len, H, KV, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     flash_bwd_dq_kernel<DH><<<q_grid, BWD_THREADS, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, KV, causal,
-        window, scale);
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, T_len, H, KV,
+        causal, window, scale);
     return cudaGetLastError();
   }
 }
@@ -1949,8 +1972,9 @@ extern "C" int flash_partial_fwd(const void* q, const void* k, const void* v,
 }
 
 // The gradients (dq, dk, dv) of flash_attention_fwd's output against dout,
-// for the training path's masks only: S == T, causal or not, window <= 0
-// (none) or a positive span, no q_offset or kv_len.  q, o, dout, dq are
+// for the training path's masks only, no q_offset or kv_len: at S == T
+// causal or not, window <= 0 (none) or a positive span; at S != T
+// (cross-attention) neither causal nor a window.  q, o, dout, dq are
 // (B,S,H,dh), k, v, dk, dv (B,T,KV,dh), all of dtype (0 = float32,
 // 1 = bfloat16), contiguous with 16-byte-aligned bases; lse is the
 // forward's (B,S,H) fp32 row log-sum-exp; delta (B,S,H) fp32 is scratch
@@ -1963,9 +1987,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int B, int S, int T_len, int H, int KV,
                                    int dh, int dtype, int causal, int window,
                                    float scale, void* stream) {
-  if (S != T_len || KV <= 0 || H % KV != 0 || window < 0)
+  if (KV <= 0 || H % KV != 0 || window < 0 ||
+      (S != T_len && (causal || window > 0)))
     return (int)cudaErrorInvalidValue;
-  if (B * S == 0) return 0;
+  if (B * S == 0 || T_len == 0) return 0;
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1973,10 +1998,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     constexpr int DH = decltype(dh_c)::value;
     if (dtype == 1)
       return launch_bwd<__nv_bfloat16, DH>(q, k, v, o, dout, l, dq, dk, dv, d,
-                                           B, S, H, KV, causal, window, scale,
-                                           st);
-    return launch_bwd<float, DH>(q, k, v, o, dout, l, dq, dk, dv, d, B, S, H,
-                                 KV, causal, window, scale, st);
+                                           B, S, T_len, H, KV, causal, window,
+                                           scale, st);
+    return launch_bwd<float, DH>(q, k, v, o, dout, l, dq, dk, dv, d, B, S,
+                                 T_len, H, KV, causal, window, scale, st);
   };
   return with_head_dim(dh, dtype, run);
 }

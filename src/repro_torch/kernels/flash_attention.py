@@ -19,10 +19,11 @@ The backward has no TPU counterpart (the JAX package differentiates plain
 attention): :func:`flash_attention_bwd_cuda` launches the source's three
 kernels (D, then dK/dV and dQ, no atomics; in bf16 warp-specialised
 kernels whose products run on ``wgmma`` with operands by TMA, in fp32 FMA
-loops) for the training path's masks
-only, from the forward's row log-sum-exp, which the forward writes when
-asked (``with_lse=True``).  :class:`FlashAttention` saves q, k, v, the
-output and the log-sum-exp and runs both.
+loops) for the training path's masks only (self-attention at S == T,
+causal or not, with or without a window; cross-attention at S != T with
+no mask), from the forward's row log-sum-exp, which the forward writes
+when asked (``with_lse=True``).  :class:`FlashAttention` saves q, k, v,
+the output and the log-sum-exp and runs both.
 
 :func:`flash_attention_cuda` and :func:`flash_attention_bwd_cuda` only
 launch kernels; ``kernels/ops.py`` sends CUDA tensors that need gradients
@@ -185,21 +186,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 
 
-def check_bwd_scope(S: int, T: int, *,
+def check_bwd_scope(S: int, T: int, *, causal: bool = True,
+                    window: Optional[int] = None,
                     q_offset: Optional[torch.Tensor] = None,
                     kv_len: Optional[torch.Tensor] = None) -> None:
     """Raise ValueError, naming the argument, for what the backward does not
-    take: it covers the training path's self-attention (S == T, no
-    ``q_offset`` or ``kv_len``); the JAX package never differentiates its
-    paged or offset paths."""
+    take: it covers the training path's attention, with no ``q_offset`` or
+    ``kv_len`` (the JAX package never differentiates its paged or offset
+    paths): self-attention at S == T with any mask, and cross-attention at
+    S != T without one (the only case the reference differentiates:
+    whisper's decoder over the encoder's keys)."""
     for name, arg in (("q_offset", q_offset), ("kv_len", kv_len)):
         if arg is not None:
             raise ValueError(f"the flash-attention backward takes no {name}: "
-                             "it covers the training path's self-attention "
+                             "it covers the training path's attention "
                              f"only; got {name}={arg}")
-    if S != T:
-        raise ValueError(f"the flash-attention backward needs as many keys "
-                         f"as queries (self-attention); got S={S}, T={T}")
+    if S != T and (causal or window is not None):
+        raise ValueError(
+            f"the flash-attention backward at S != T (cross-attention) "
+            f"takes no causal mask or window; got S={S}, T={T}, "
+            f"causal={causal}, window={window}")
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -213,13 +219,15 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     ``sum(flash_attention(q, k, v) * dout)`` from the forward's output
     ``o`` and row log-sum-exp ``lse`` (B,S,H) fp32, in the inputs' dtype.
 
-    Takes what the forward takes with S == T and no offsets or lengths
-    (:func:`check_bwd_scope`); raises ValueError otherwise and RuntimeError
-    if a launch fails.  Never computes on another path."""
+    Takes what the forward takes with no offsets or lengths, and at S != T
+    no causal mask or window (:func:`check_bwd_scope`); raises ValueError
+    otherwise and RuntimeError if a launch fails.  Never computes on
+    another path.  ``launches`` counts every call that launches the
+    kernels; ``cross_launches`` those at S != T (K14)."""
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
     _validate_attn_shapes(S, T, H, KV, window)
-    check_bwd_scope(S, T)
+    check_bwd_scope(S, T, causal=causal, window=window)
     q, k, v = check_inputs(q, k, v, "flash_attention_bwd_cuda")
     for name, x in (("o", o), ("dout", dout)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
@@ -233,8 +241,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{lse.device}")
     o, dout, lse = _aligned(o), _aligned(dout), lse.contiguous()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    if dq.numel() == 0:             # S == T == 0: nothing to launch
-        return dq, dk, dv
+    if dq.numel() == 0 or dk.numel() == 0:  # no query or no key: no
+        return dq.zero_(), dk.zero_(), dv.zero_()   # launch, zero gradients
     delta = torch.empty(B, S, H, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -248,10 +256,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {err}")
     flash_attention_bwd_cuda.launches += 1
+    if S != T:
+        flash_attention_bwd_cuda.cross_launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.cross_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

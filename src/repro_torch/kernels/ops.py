@@ -42,8 +42,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On CUDA, inputs that need gradients go through :class:`FlashAttention`
     (the forward writes the row log-sum-exp, the backward kernels run in
     ``backward``), which takes the training path's masks only and raises on
-    ``q_offset``, ``kv_len`` or S != T; otherwise the forward kernel alone
-    runs, writing nothing more (the serving path's lean launch).
+    ``q_offset``, ``kv_len``, or a causal mask or window at S != T
+    (cross-attention takes none); otherwise the forward kernel alone runs,
+    writing nothing more (the serving path's lean launch).
 
     ``return_lse`` returns ``(out, lse)`` with the (B,S,H) fp32 row
     log-sum-exp of the scaled scores over the admissible keys, ``+inf`` on
@@ -59,8 +60,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "that need no gradient (the serving path's)")
     if _on_cuda(q):
         if needs_grad:
-            check_bwd_scope(q.shape[1], k.shape[1], q_offset=q_offset,
-                            kv_len=kv_len)
+            check_bwd_scope(q.shape[1], k.shape[1], causal=causal,
+                            window=window, q_offset=q_offset, kv_len=kv_len)
             return FlashAttention.apply(q, k, v, causal, window)
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset, kv_len=kv_len,

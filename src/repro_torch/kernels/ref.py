@@ -103,8 +103,12 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     ``dS = P * (do v^T - D)``, ``dq = scale dS k``, ``dk = scale dS^T q``;
     dk and dv summed over the G query heads of each KV head.  ``o`` and
     ``lse`` (B,S,H) are the forward's output and row log-sum-exp.  The
-    masks are the self-attention ones of the training path (no offsets or
-    lengths).  Largest temporaries: two (B,H,S,T) fp32 tensors."""
+    masks are the training path's, with no offsets or lengths:
+    self-attention at S == T, causal or not, with or without a window, and
+    cross-attention, S queries against T != S keys with no mask (K14's
+    plain version; the kernels refuse a mask at S != T, the arithmetic
+    here reads the two lengths apart whatever the mask).  Largest
+    temporaries: two (B,H,S,T) fp32 tensors."""
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV

@@ -1,7 +1,8 @@
 """Training entry point of the port: a Galvatron-BMW plan, searched or
-loaded, then training of a dense or SSM model on synthetic or byte-level
-text batches, on one device, sharded over ranks, or through the pipeline
-runtime.
+loaded, then training of a dense, MoE, SSM or hybrid model on synthetic or
+byte-level text batches, on one device, sharded over ranks, or through the
+pipeline runtime; or of the encoder-decoder (whisper-medium) on one
+device, its batches carrying the synthetic stream's random frames.
 
     python -m repro_torch.launch.train --arch mamba2-370m \\
         --steps 10 --batch 8 --seq 2048
@@ -13,6 +14,8 @@ runtime.
         --plan plan.json --layers 16 --seq 4096 --batch 4 --steps 3
     python -m repro_torch.launch.train --ranks 4 --plan plan.json \\
         --layers 8 --seq 4096 --batch 4 --steps 3
+    python -m repro_torch.launch.train --arch whisper-medium --batch 8 \\
+        --seq 448 --steps 3
 
 Runs on the CUDA device unless ``--device cpu`` is given.  The weights are
 random from seed 0.  As in the JAX driver, the plan comes from ``--plan``
@@ -32,7 +35,11 @@ middle strategy (``ShardPolicy.from_strategy``, remat from the first) on
 the driver starts itself; each rank draws its shards of ``init_lm(cfg,
 seed=0)`` and trains on its rows of the same batches.  With one rank the
 model trains on one device and the plan's sharding degrees and micro-batch
-count are printed, not applied.
+count are printed, not applied.  An encoder-decoder trains on one device
+only: ``--ranks`` above 1 raises NotImplementedError (sharded enc-dec is
+the next item of ``ROADMAP.md`` queue 1), and ``--pipeline`` raises the
+pipeline runtime's ValueError (one homogeneous stack), as the reference
+asserts.
 
 ``--pipeline`` executes the plan's searched schedule through the pipeline
 runtime (``runtime/pipeline.py``), scaled down by the JAX driver's rules
@@ -71,7 +78,8 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import build_stacks
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.executor import (abstract_params, init_train_state,
-                                          make_train_step)
+                                          make_train_step,
+                                          refuse_sharded_encdec)
 from repro_torch.runtime.sharding import ShardPolicy
 
 
@@ -144,16 +152,25 @@ def config_from_args(args: argparse.Namespace) -> ModelConfig:
     return cfg
 
 
+def batches(cfg: ModelConfig, args: argparse.Namespace):
+    """The driver's batches: ``--corpus`` as byte-level text, else the
+    synthetic stream of the JAX driver's ``DataConfig``, whose batches for
+    an encoder-decoder also carry ``frames`` (B, encoder_seq, d_model)."""
+    dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
+                      vocab_size=cfg.vocab_size,
+                      vision_tokens=cfg.vision_tokens, d_vision=cfg.d_vision,
+                      encoder_seq=cfg.encoder_seq, d_model=cfg.d_model)
+    return (text_corpus_batches(args.corpus, dcfg) if args.corpus
+            else synthetic_lm_batches(dcfg))
+
+
 def train(cfg: ModelConfig, args: argparse.Namespace) -> List[Dict[str, float]]:
     """Resolve the plan, then run ``args.steps`` steps; return each step's
     loss, grad norm and lr."""
     dev = resolve_device(args.device)
     plan = plan_from_args(cfg, args)
     remat = remat_from_plan(plan)
-    dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
-                      vocab_size=cfg.vocab_size)
-    gen = (text_corpus_batches(args.corpus, dcfg) if args.corpus
-           else synthetic_lm_batches(dcfg))
+    gen = batches(cfg, args)
     opt_cfg = AdamWConfig(lr=args.lr)
     params, opt = init_train_state(cfg, seed=0, opt_cfg=opt_cfg,
                                    device=dev)
@@ -226,10 +243,7 @@ def _rank_steps(rank: int, cfg: ModelConfig, args: argparse.Namespace,
     (the global batch as numpy arrays, the same on every rank), each
     timed to a synchronize; rank 0 prints them.  ``after_step(i)`` runs
     after step ``i``'s timing and print."""
-    dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
-                      vocab_size=cfg.vocab_size)
-    gen = (text_corpus_batches(args.corpus, dcfg) if args.corpus
-           else synthetic_lm_batches(dcfg))
+    gen = batches(cfg, args)
     history = []
     t0 = time.time()
     tokens_seen = 0
@@ -322,18 +336,21 @@ def _pipeline_rank(rank: int, world: int, run_dir: str, cfg: ModelConfig,
         dist.destroy_process_group()
 
 
-def run_pipeline(cfg: ModelConfig, plan: ParallelPlan,
-                 args: argparse.Namespace) -> List[Dict[str, float]]:
-    """Execute the plan's searched schedule through the pipeline runtime on
-    ``args.ranks`` ranks (scaled down by :func:`pipeline_layout`); returns
-    rank 0's history, each step with ``peak_mem_gb_rank<r>`` of every rank
-    on a CUDA device.  Raises RuntimeError when a rank fails."""
+def run_pipeline(cfg: ModelConfig, args: argparse.Namespace
+                 ) -> List[Dict[str, float]]:
+    """Execute the plan's searched schedule (:func:`plan_from_args`, after
+    the one-stack check) through the pipeline runtime on ``args.ranks``
+    ranks (scaled down by :func:`pipeline_layout`); returns rank 0's
+    history, each step with ``peak_mem_gb_rank<r>`` of every rank on a
+    CUDA device.  Raises ValueError for a model of more than one stack,
+    RuntimeError when a rank fails."""
     from repro_torch.runtime.pipeline import _check_stack
 
     dev = resolve_device(args.device)
     n_ranks = args.ranks or (torch.cuda.device_count()
                              if dev.type == "cuda" else 1)
     _check_stack(cfg)
+    plan = plan_from_args(cfg, args)
     layout = pipeline_layout(plan, n_ranks, cfg.n_layers, args.batch)
     print(f"pipeline runtime: schedule={layout.schedule} "
           f"P={layout.n_stages} V={layout.n_chunks} m={layout.n_micro} "
@@ -399,17 +416,19 @@ def _sharded_rank(rank: int, world: int, run_dir: str, cfg: ModelConfig,
         dist.destroy_process_group()
 
 
-def run_sharded(cfg: ModelConfig, plan: ParallelPlan,
-                args: argparse.Namespace, n_ranks: int
+def run_sharded(cfg: ModelConfig, args: argparse.Namespace, n_ranks: int
                 ) -> List[Dict[str, float]]:
     """Train ``args.steps`` steps on ``n_ranks`` gloo ranks, each holding
-    its shards under the plan's policy (:func:`middle_strategy_policy`) on
-    ``make_local_mesh()``; returns rank 0's history, each step with
-    ``peak_mem_gb_rank<r>`` of every rank on a CUDA device.  Raises
-    RuntimeError when a rank fails."""
+    its shards under the plan's policy (:func:`plan_from_args`,
+    :func:`middle_strategy_policy`) on ``make_local_mesh()``; returns rank
+    0's history, each step with ``peak_mem_gb_rank<r>`` of every rank on a
+    CUDA device.  Raises NotImplementedError, before the search, for an
+    encoder-decoder or an arch the port does not build, and RuntimeError
+    when a rank fails."""
     dev = resolve_device(args.device)
+    refuse_sharded_encdec(cfg)
     build_stacks(cfg)
-    policy = middle_strategy_policy(plan)
+    policy = middle_strategy_policy(plan_from_args(cfg, args))
     n_params = sum(p.numel() for p in abstract_params(cfg).parameters())
     print(f"model: {args.arch} ({n_params / 1e6:.1f}M params), "
           f"mesh={{'data': {n_ranks}, 'model': 1}} on {dev.type}, "
@@ -465,11 +484,11 @@ def main(argv=None) -> List[Dict[str, float]]:
     cfg = config_from_args(args)
     dev = resolve_device(args.device)
     if args.pipeline:
-        return run_pipeline(cfg, plan_from_args(cfg, args), args)
+        return run_pipeline(cfg, args)
     n_ranks = args.ranks or (torch.cuda.device_count()
                              if dev.type == "cuda" else 1)
     if n_ranks > 1:
-        return run_sharded(cfg, plan_from_args(cfg, args), args, n_ranks)
+        return run_sharded(cfg, args, n_ranks)
     return train(cfg, args)
 
 

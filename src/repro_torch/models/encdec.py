@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder transformer (``repro/models/encdec.py``
-counterpart): the serving path.
+counterpart): training and serving.
 
 As in the reference, the mel-spectrogram and conv feature extractor is a
 stub: the encoder takes precomputed frame embeddings (B, T_enc, d).  The
@@ -31,13 +31,17 @@ JAX layout and names::
                   ln2, mlp
     dec_ln        LayerNorm
 
-On the card every attention runs the flash kernel's forward
-(``kernels/ops.py``): the encoder's S = T self-attention, the decoder's
-causal self-attention, cross-attention at S != T, and the decode step's
-self-attention over its cache.  The training slice (``encdec_loss`` and a
-gradient through cross-attention, which needs a flash backward at S != T)
-is still to come (``ROADMAP.md`` queue 1, item 5): :func:`encode` and
-:func:`decode_train` run under ``torch.inference_mode``.
+On the card every attention runs the flash kernels (``kernels/ops.py``):
+the encoder's S = T self-attention, the decoder's causal self-attention,
+cross-attention at S != T, and the decode step's self-attention over its
+cache.  :func:`encdec_loss` trains through :func:`encode` and
+:func:`decode_train`, whose attentions run the flash backward too (at
+S != T for cross-attention), with the reference's ``remat``: each block
+recomputed in the backward (``torch.utils.checkpoint``, as
+``jax.checkpoint`` around the reference's scan body).  The decode path
+(:func:`init_encdec_decode_state`, :func:`encdec_decode_step`) runs under
+``torch.inference_mode``; ``runtime/executor.py``'s prefill step runs
+:func:`encode` and :func:`decode_train` under it too.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -53,7 +58,7 @@ from .attention import (Attention, attention, attention_decode,
                         precompute_cross_kv)
 from .common import ModelConfig
 from .embedding import embed, init_embedding, init_learned_pos
-from .layers import layer_norm
+from .layers import cross_entropy_loss, layer_norm
 from .mlp import GeluMLP, gelu_mlp, init_gelu_mlp
 
 
@@ -144,20 +149,35 @@ def init_encdec(cfg: ModelConfig, *, max_dec_len: int = 4096, seed: int = 0,
                   _init_ln(cfg, dev))
 
 
-@torch.inference_mode()
-def encode(params: EncDec, frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+def _enc_block(p: EncBlock, x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    h = _ln(x, p.ln1, cfg)
+    x = x + attention(p.attn, h, positions, cfg, causal=False)
+    return x + gelu_mlp(p.mlp, _ln(x, p.ln2, cfg))
+
+
+def _run_blocks(fn, blocks, x: torch.Tensor, *args,
+                remat: bool) -> torch.Tensor:
+    """``x = fn(block, x, *args)`` over ``blocks``; with ``remat`` each
+    block's activations are recomputed in the backward."""
+    for p in blocks:
+        x = (checkpoint(fn, p, x, *args, use_reentrant=False) if remat
+             else fn(p, x, *args))
+    return x
+
+
+def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig, *,
+           remat: bool = False) -> torch.Tensor:
     """frames (B, T_enc, d), the stub front end's output -> the encoder's
     output (B, T_enc, d) in the model's dtype: the learned positions
     added, the blocks (pre-norm non-causal self-attention and GELU MLP,
-    each with its residual), the final LayerNorm."""
+    each with its residual; with ``remat`` recomputed in the backward),
+    the final LayerNorm."""
     B, T, _ = frames.shape
     x = frames.to(params.enc_pos.device, cfg.dtype) + params.enc_pos[:T]
     positions = torch.arange(T, device=x.device).expand(B, T)
-    for p in params.enc_blocks:
-        h = _ln(x, p.ln1, cfg)
-        x = x + attention(p.attn, h, positions, cfg, causal=False)
-        x = x + gelu_mlp(p.mlp, _ln(x, p.ln2, cfg))
+    x = _run_blocks(_enc_block, params.enc_blocks, x, positions, cfg,
+                    remat=remat)
     return _ln(x, params.enc_ln, cfg)
 
 
@@ -181,19 +201,31 @@ def _logits(params: EncDec, x: torch.Tensor, cfg: ModelConfig
     return _ln(x, params.dec_ln, cfg) @ params.embed.T
 
 
-@torch.inference_mode()
 def decode_train(params: EncDec, tokens: torch.Tensor,
-                 enc_out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                 enc_out: torch.Tensor, cfg: ModelConfig, *,
+                 remat: bool = False) -> torch.Tensor:
     """Teacher-forced decoder: tokens (B, S) against the encoder's output
     -> logits (B, S, V).  Token ``s`` sits at position ``s`` (the learned
-    table's row ``s`` modulo its length)."""
+    table's row ``s`` modulo its length).  With ``remat`` each block is
+    recomputed in the backward."""
     B, S = tokens.shape
     pos = torch.arange(S, device=tokens.device)
     x = embed(params.embed, tokens) + _dec_pos(params, pos)
     positions = pos.expand(B, S)
-    for p in params.dec_blocks:
-        x = _dec_block(p, x, positions, enc_out, cfg)
+    x = _run_blocks(_dec_block, params.dec_blocks, x, positions, enc_out,
+                    cfg, remat=remat)
     return _logits(params, x, cfg)
+
+
+def encdec_loss(params: EncDec, batch: Dict[str, torch.Tensor],
+                cfg: ModelConfig, *, remat: bool = False) -> torch.Tensor:
+    """Mean cross entropy of :func:`decode_train`'s logits of
+    ``batch["tokens"]`` (B, S) over :func:`encode` of ``batch["frames"]``
+    (B, T_enc, d) against ``batch["labels"]`` (B, S) (``-100`` ignored):
+    the reference's ``encdec_loss``, ``remat`` applied to both stacks."""
+    enc_out = encode(params, batch["frames"], cfg, remat=remat)
+    logits = decode_train(params, batch["tokens"], enc_out, cfg, remat=remat)
+    return cross_entropy_loss(logits, batch["labels"])
 
 
 @torch.inference_mode()

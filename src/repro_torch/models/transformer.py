@@ -118,9 +118,9 @@ def build_stacks(cfg: ModelConfig) -> List[Tuple[str, int]]:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name!r} is an encoder-decoder: models/encdec.py builds "
-            "it (init_encdec), and runtime/executor.py's make_prefill_step "
-            "and make_serve_step serve it; its training is ROADMAP.md "
-            "queue 1, item 5")
+            "it (init_encdec) and trains it (encdec_loss); runtime/"
+            "executor.py's init_train_state and make_train_step train it, "
+            "and make_prefill_step and make_serve_step serve it")
     if cfg.arch_type not in ("dense", "moe"):
         raise NotImplementedError(
             f"the port builds dense, MoE, SSM and hybrid decoders and the "

@@ -23,11 +23,13 @@ expert mesh: their pools serve every lane on every rank, and EP needs the
 lanes split.  The collectives GSPMD inserts in the JAX package run
 explicitly (``runtime/sharding.py``).
 
-An encoder-decoder config (``models/encdec.py``) is served on one device:
-its params come from ``init_encdec``, its prefill is the encoder and the
-teacher-forced decoder, and its serving step ``encdec_decode_step`` on the
-state of ``init_encdec_decode_state``.  With a mesh it raises
-NotImplementedError (sharded enc-dec is ``ROADMAP.md`` queue 1, item 5).
+An encoder-decoder config (``models/encdec.py``) trains and is served on
+one device: its params come from ``init_encdec``, its training step runs
+``encdec_loss`` (the reference's ``loss_fn_for``), its prefill is the
+encoder and the teacher-forced decoder, and its serving step
+``encdec_decode_step`` on the state of ``init_encdec_decode_state``.  With
+a mesh each raises NotImplementedError (sharded enc-dec is the next item
+of ``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import Pool
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.encdec import (EncDec, decode_train,
-                                       encdec_decode_step, encode,
-                                       init_encdec)
+                                       encdec_decode_step, encdec_loss,
+                                       encode, init_encdec)
 from repro_torch.models.transformer import (LM, build_stacks, decode_step,
                                             init_lm, lm_forward, lm_loss,
                                             paged_decode_step,
@@ -52,12 +54,33 @@ from repro_torch.runtime.sharding import (ShardContext, ShardPolicy,
                                           abstract_params)
 
 
+def refuse_sharded_encdec(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for an encoder-decoder config, which the
+    port trains and serves on one device only."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name!r} is an encoder-decoder, which the port trains and "
+            "serves on one device only so far: sharded enc-dec (DP, ZeRO-3 "
+            "and TP over gloo ranks) is the next item of ROADMAP.md queue 1")
+
+
+def _one_device_encdec(cfg: ModelConfig, mesh: Optional[DeviceMesh]) -> bool:
+    """True for an encoder-decoder config without a mesh; raises
+    NotImplementedError for one with a mesh."""
+    if mesh is not None:
+        refuse_sharded_encdec(cfg)
+    return cfg.is_encoder_decoder
+
+
 def init_train_state(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
                      policy: Optional[ShardPolicy] = None, seed: int = 0,
                      opt_cfg: Optional[AdamWConfig] = None,
                      device: torch.device = "cuda"
-                     ) -> Tuple[LM, Dict[str, Any]]:
-    """Random weights from ``seed`` on ``device`` and their AdamW state.
+                     ) -> Tuple[LM | EncDec, Dict[str, Any]]:
+    """Random weights from ``seed`` on ``device`` and their AdamW state:
+    ``init_lm``'s, or for an encoder-decoder config ``init_encdec``'s (its
+    default 4096-row decoder position table, as the reference's
+    ``init_train_state``), on one device.
 
     With a ``mesh`` (``("data", "model")`` or ``("data", "expert")``, every
     rank calling), each rank draws ``init_lm``'s numbers in its order and
@@ -65,9 +88,11 @@ def init_train_state(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
     full part freed as soon as it is sliced (a MoE layer's experts kept
     only where they are the rank's): the numbers are the single process's
     on the same device type.  Raises NotImplementedError for an arch the
-    port does not build."""
+    port does not build, and for an encoder-decoder with a mesh."""
     dev = resolve_device(device)
-    if mesh is None:
+    if _one_device_encdec(cfg, mesh):
+        params = init_encdec(cfg, seed=seed, device=dev)
+    elif mesh is None:
         params = init_lm(cfg, seed=seed, device=dev)
     else:
         ctx = ShardContext(cfg, mesh, policy or ShardPolicy())
@@ -136,8 +161,11 @@ def make_train_step(cfg: ModelConfig,
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``(params, opt_state, batch)`` -> ``{"loss", "grad_norm", "lr"}``
     (0-d tensors on the params' device); params and opt_state are updated
-    in place.  ``batch`` holds int ``tokens`` and ``labels`` (B, S).
-    ``remat_segments`` goes to :func:`lm_loss`.
+    in place.  ``batch`` holds int ``tokens`` and ``labels`` (B, S), and
+    for an encoder-decoder config float ``frames`` (B, T_enc, d).
+    ``remat_segments`` goes to :func:`lm_loss`; an encoder-decoder runs
+    ``encdec_loss`` with ``remat = bool(remat_segments and
+    remat_segments[0])``, the reference's ``loss_fn_for``, on one device.
 
     With a ``mesh`` the step is the sharded one (:func:`make_sharded_loss`
     under ``policy``, default ``ShardPolicy()``, whose ``remat_segments``
@@ -145,19 +173,31 @@ def make_train_step(cfg: ModelConfig,
     this rank's shards (:func:`init_train_state`), the gradient norm that
     of the whole model (every shard and every replicated leaf counted
     once), and AdamW updates the local shards.  Raises
-    NotImplementedError for an arch the port does not build."""
-    build_stacks(cfg)
+    NotImplementedError for an arch the port does not build, and for an
+    encoder-decoder with a mesh."""
     opt_cfg = opt_cfg or AdamWConfig()
     if mesh is not None:
+        refuse_sharded_encdec(cfg)
+        build_stacks(cfg)
         if remat_segments is not None:
             raise ValueError("a sharded step takes remat from "
                              "policy.remat_segments")
         return _sharded_step(cfg, opt_cfg, mesh, policy or ShardPolicy())
+    if cfg.is_encoder_decoder:
+        remat = bool(remat_segments and remat_segments[0])
 
-    def step(params: LM, opt_state: Dict[str, Any],
+        def loss_fn(params, batch):
+            return encdec_loss(params, batch, cfg, remat=remat)
+    else:
+        build_stacks(cfg)
+
+        def loss_fn(params, batch):
+            return lm_loss(params, batch, cfg, remat_segments=remat_segments)
+
+    def step(params: LM | EncDec, opt_state: Dict[str, Any],
              batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         leaves = list(params.parameters())
-        loss = lm_loss(params, batch, cfg, remat_segments=remat_segments)
+        loss = loss_fn(params, batch)
         grads = torch.autograd.grad(loss, leaves)
         metrics = adamw_update(leaves, grads, opt_state, opt_cfg)
         metrics["loss"] = loss.detach()
@@ -190,19 +230,6 @@ def _sharded_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMesh,
 # --------------------------------------------------------------------------
 
 SERVING_POLICY = ShardPolicy(tp=False, zero=False)
-
-
-def _one_device_encdec(cfg: ModelConfig, mesh: Optional[DeviceMesh]) -> bool:
-    """True for an encoder-decoder config without a mesh; raises
-    NotImplementedError for one with a mesh."""
-    if not cfg.is_encoder_decoder:
-        return False
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{cfg.name!r} is an encoder-decoder, which the port serves on "
-            "one device only so far: sharded enc-dec is ROADMAP.md queue "
-            "1, item 5")
-    return True
 
 
 def _serving_context(cfg: ModelConfig, mesh: DeviceMesh,
@@ -269,6 +296,7 @@ def make_prefill_step(cfg: ModelConfig, *,
     its vocabulary columns ``[r V / tp, (r + 1) V / tp)``.
     ``step.shard`` is the :class:`ShardContext`."""
     if _one_device_encdec(cfg, mesh):
+        @torch.inference_mode()
         def encdec(params: EncDec, batch: Dict[str, torch.Tensor]
                    ) -> torch.Tensor:
             return decode_train(params, batch["tokens"],

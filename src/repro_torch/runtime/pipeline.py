@@ -72,11 +72,15 @@ Batch = Dict[str, torch.Tensor]
 def _check_stack(cfg: ModelConfig) -> str:
     """The one homogeneous stack's kind (a MoE model of MoE blocks only,
     such as arctic-480b, included); raises ValueError otherwise (the
-    hybrid, or kimi-k2's dense first layer before its MoE blocks), as the
-    reference asserts one stack."""
+    hybrid, kimi-k2's dense first layer before its MoE blocks, an
+    encoder-decoder's two stacks), as the reference asserts one stack."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"pipeline runtime requires one homogeneous stack; "
+            f"{cfg.name!r} is an encoder-decoder, with an encoder and a "
+            f"decoder stack (run it unpipelined)")
     stacks = build_stacks(cfg)
-    if (cfg.arch_type == "hybrid" or cfg.is_encoder_decoder
-            or len(stacks) != 1):
+    if cfg.arch_type == "hybrid" or len(stacks) != 1:
         raise ValueError(
             f"pipeline runtime requires one homogeneous stack; "
             f"{cfg.name!r} is {cfg.arch_type!r} with segments "

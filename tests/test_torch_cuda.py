@@ -29,7 +29,9 @@ formulation on the same output and log-sum-exp) and ``torch.autograd`` of
 ``flash_attention_ref`` at the backward tolerances, the forward's row
 log-sum-exp against ``flash_attention_lse_ref`` at the forward's, and a
 second call must give the same bits (no atomics), as must the SSD scan's
-backward.
+backward; its cases include cross-attention (S != T, no mask, K14).
+Reduced fp32 whisper-medium serves and trains on the card as on the CPU
+(losses within 1e-4).
 """
 import copy
 
@@ -517,9 +519,14 @@ def test_flash_partial_kernel_matches_plain_on_card(cuda_device, dtype, dh,
 # then across the bf16 kernels' 128-row CTA tiles and their TMA ring: one
 # full 128-key tile and a partial one, a window across a 128-key boundary,
 # and many wraps of the three stages' parity
+# and cross-attention (K14): (S, T) with S != T and no mask, T ragged past
+# one and 23 key tiles (whisper's 1500 encoder frames), S below and above T
 FLASH_BWD_CASES = [(5, True, None), (100, True, None), (100, False, None),
                    (100, True, 8), (130, False, 9), (64, True, 70),
-                   (192, True, None), (300, True, 70), (2048, True, None)]
+                   (192, True, None), (300, True, 70), (2048, True, None),
+                   *(pytest.param((S, T), False, None, id=f"S{S}-T{T}-cross")
+                     for S, T in ((37, 200), (200, 37), (130, 1500),
+                                  (448, 1500)))]
 
 
 @pytest.mark.gpu
@@ -530,10 +537,11 @@ FLASH_BWD_CASES = [(5, True, None), (100, True, None), (100, False, None),
 @pytest.mark.parametrize("S,causal,window", FLASH_BWD_CASES)
 def test_flash_backward_matches_plain_on_card(cuda_device, dtype, dh, H, S,
                                               causal, window):
-    rng = np.random.default_rng(S + dh + H + 2 * causal + (window or 0))
+    S, T = S if isinstance(S, tuple) else (S, S)
+    rng = np.random.default_rng(S + T + dh + H + 2 * causal + (window or 0))
     q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, np.float32))
                    .to(cuda_device, dtype)
-                   for shape in ((2, S, H, dh), (2, S, 2, dh), (2, S, 2, dh),
+                   for shape in ((2, S, H, dh), (2, T, 2, dh), (2, T, 2, dh),
                                  (2, S, H, dh)))
     win = None if window is not None and window >= S else window
     out, lse = flash_attention_cuda(q, k, v, causal=causal, window=win,
@@ -812,3 +820,50 @@ def test_encdec_serving_on_card_matches_cpu(cuda_device):
                          else 0)
     assert _rel_err(logits["cuda"], logits["cpu"]) <= 1e-4
     assert torch.equal(greedy["cuda"], greedy["cpu"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_encdec_training_on_card_matches_cpu(cuda_device, remat):
+    """Reduced fp32 whisper-medium from the same weights: three
+    ``make_train_step`` steps on the card and on the CPU, losses within
+    1e-4; on the card every attention runs the flash kernels both ways,
+    the backward once an attention a step (a third of them at S != T,
+    cross-attention), and a second loss-and-gradient pass from the same
+    weights gives the same bits."""
+    from repro_torch.models import encdec_loss, init_encdec
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.executor import make_train_step
+    cfg = _whisper()
+    params_cpu = init_encdec(cfg, seed=0, device="cpu")
+    params_gpu = copy.deepcopy(params_cpu).to(cuda_device)
+    rng = np.random.default_rng(9)
+    batches = [{"frames": torch.from_numpy(rng.standard_normal(
+                    (2, cfg.encoder_seq, cfg.d_model), np.float32)),
+                "tokens": torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (2, 40)).astype(np.int32)),
+                "labels": torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (2, 40)).astype(np.int32))}
+               for _ in range(3)]
+    b0 = {k: v.to(cuda_device) for k, v in batches[0].items()}
+    leaves = list(params_gpu.parameters())
+    twice = [torch.autograd.grad(encdec_loss(params_gpu, b0, cfg,
+                                             remat=remat), leaves)
+             for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*twice))
+    step = make_train_step(cfg, remat_segments=[remat])
+    losses = {}
+    for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        opt = adamw_init(list(params.parameters()))
+        n, cross = (flash_attention_bwd_cuda.launches,
+                    flash_attention_bwd_cuda.cross_launches)
+        losses[dev] = [float(step(params, opt, {k: v.to(dev) for k, v in
+                                                b.items()})["loss"])
+                       for b in batches]
+        n = flash_attention_bwd_cuda.launches - n
+        cross = flash_attention_bwd_cuda.cross_launches - cross
+        L, E = cfg.n_layers, cfg.n_enc_layers
+        assert (n, cross) == ((3 * (E + 2 * L), 3 * L) if dev == "cuda"
+                              else (0, 0))
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b)

@@ -14,9 +14,10 @@ arithmetic summed in another order through 2 + 2 layers), and 8 steps of
 ``encdec_decode_step``, once from position 0 and once across the end of
 the 64-row learned position table and of a 16-slot self-attention ring.
 The bridge carries the enc-dec tree bit for bit both ways in bf16.
-Sharded enc-dec and ``serve`` of an enc-dec config raise
-NotImplementedError; what the JAX ``serve`` does with one is shown as a
-fact about the reference.
+Sharded enc-dec (serving and training) and ``serve`` of an enc-dec config
+raise NotImplementedError; what the JAX ``serve`` does with one is shown as
+a fact about the reference.  Training is held against JAX in
+``test_torch_encdec_train.py``.
 """
 import dataclasses
 
@@ -51,7 +52,7 @@ from repro_torch.models.layers import gelu, layer_norm
 from repro_torch.models.mlp import GeluMLP, gelu_mlp
 from repro_torch.runtime.executor import (init_serving_params,
                                           init_train_state, make_prefill_step,
-                                          make_serve_step)
+                                          make_serve_step, make_train_step)
 
 torch.set_num_threads(1)
 
@@ -170,7 +171,12 @@ def test_encode_and_decode_train_match_jax(model):
                                        cfg_j)
     assert logits_t.shape == (*tokens.shape, cfg_t.vocab_size)
     assert _rel(logits_t, logits_j) <= MODEL_TOL
-    assert not logits_t.requires_grad       # inference mode only
+    # both differentiate (the training path); the prefill step does not
+    assert enc_t.requires_grad and logits_t.requires_grad
+    prefill = make_prefill_step(cfg_t)(params_t, {
+        "tokens": torch.from_numpy(tokens),
+        "frames": torch.from_numpy(frames)})
+    assert not prefill.requires_grad and torch.is_inference(prefill)
 
 
 def test_decode_train_wraps_positions_past_the_learned_table(model):
@@ -332,21 +338,33 @@ def one_rank_mesh(tmp_path):
 
 
 def test_sharded_encdec_raises(one_rank_mesh):
+    """Sharded enc-dec is the next item: every step builder and state
+    initialiser, serving and (since the training slice) training, raises
+    on a mesh naming it."""
     _, cfg_t = _cfgs()
     for build in (lambda: make_prefill_step(cfg_t, mesh=one_rank_mesh),
                   lambda: make_serve_step(cfg_t, mesh=one_rank_mesh),
                   lambda: init_serving_params(cfg_t, mesh=one_rank_mesh,
-                                              device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 5"):
+                                              device="cpu"),
+                  lambda: make_train_step(cfg_t, mesh=one_rank_mesh),
+                  lambda: init_train_state(cfg_t, mesh=one_rank_mesh,
+                                           device="cpu")):
+        with pytest.raises(NotImplementedError, match="sharded enc-dec"):
             build()
 
 
 def test_training_and_decoder_only_setup_raise_naming_encdec():
+    """The decoder-only builder still refuses an encoder-decoder, naming
+    where it is built and trained; the training state is now
+    ``init_encdec``'s (the refusal this test asserted before the training
+    slice is lifted)."""
     _, cfg_t = _cfgs()
-    for build in (lambda: build_stacks(cfg_t),
-                  lambda: init_train_state(cfg_t, device="cpu")):
-        with pytest.raises(NotImplementedError, match="encoder-decoder"):
-            build()
+    with pytest.raises(NotImplementedError, match="encoder-decoder.*"
+                       "encdec_loss"):
+        build_stacks(cfg_t)
+    params, opt = init_train_state(cfg_t, device="cpu")
+    assert isinstance(params, EncDec)
+    assert len(opt["master"]) == len(list(params.parameters()))
 
 
 @pytest.mark.parametrize("engine", ["paged", "dense"])

@@ -233,7 +233,7 @@ def test_older_formats_load_to_the_same_canonical_bytes(version):
 
 LAYERSPEC_CASES = [("qwen3-4b", 4096, {}), ("qwen3-4b", 128, {"n_layers": 2}),
                    ("mamba2-370m", 2048, {}), ("zamba2-1.2b", 2048, {}),
-                   ("gpt3-15b", 2048, {})]
+                   ("gpt3-15b", 2048, {}), ("whisper-medium", 448, {})]
 
 
 @pytest.mark.parametrize("arch,seq,with_", LAYERSPEC_CASES,
@@ -311,7 +311,7 @@ def test_bmw_search_on_one_h100_certifies():
 
 
 TRAIN_SEARCH_CASES = [("qwen3-4b", 128), ("mamba2-370m", 64),
-                      ("qwen3-4b", 4096)]
+                      ("qwen3-4b", 4096), ("whisper-medium", 448)]
 
 
 @pytest.mark.parametrize("arch,seq", TRAIN_SEARCH_CASES,
