@@ -237,20 +237,21 @@ Phases (any failure exits non-zero before the final line is printed):
 16. the sharded executor at full qwen3-4b width, depth cut to 4 layers:
    (a) in a process of its own, the single-process ``lm_loss`` and its
    gradients (remat on every layer) on ``init_lm`` seed 0 and the train
-   driver's first batch of 4 x 4096 tokens, then 3 ``make_train_step``
-   steps at phase 9's lr; (b) 4 gloo ranks sharing the card on a (data 2,
-   model 2) ``make_local_mesh`` with ``ShardPolicy(tp=True, zero=True,
-   remat_segments=(True,))``, each drawing its shards
-   (``init_train_state(mesh=)``): the sharded loss within 2e-3 relative of
+   CLI's first batch of 4 x 4096 tokens, then 2 ``make_train_step``
+   steps at phase 9's lr (3 before phase 24 came); (b) 4 gloo ranks
+   sharing the card on a (data 2, model 2) ``make_local_mesh`` with
+   ``ShardPolicy(tp=True, zero=True, remat_segments=(True,))``, each
+   drawing its shards (``init_train_state(mesh=)``): the sharded loss
+   within 2e-3 relative of
    (a)'s and each gathered gradient leaf within 2e-2 of (a)'s leaf's
    largest magnitude, with ``seq_shard`` off and on (on: the same bits as
-   off, or within those gates, which the line says), then 3 sharded steps
+   off, or within those gates, which the line says), then 2 sharded steps
    whose losses are printed beside (a)'s and must be finite; the flash
    forward (2L), backward (L) and RMSNorm (8L+1, 4L+1) launched at exact
    counts a rank a call and a step, no plain version run; each rank's call
    and step ms, bytes sent through gloo and peak memory are printed; (c)
    the port's search for 4 cards of the H100 node at this model (a budget
-   of 9 GB a card, batch grid [4]) and ``train --ranks 4 --plan``, 3
+   of 9 GB a card, batch grid [4]) and ``train --ranks 4 --plan``, 2
    steps on ``make_local_mesh()`` (data 4, model 1): the policy it prints
    must be the plan's middle strategy's, its first loss within 2e-3
    relative of (a)'s, the kernels launched at their counts.  The 4 ranks
@@ -259,7 +260,7 @@ Phases (any failure exits non-zero before the final line is printed):
    checkpoints, on 4 gloo ranks sharing the card on a (data 2, model 2)
    mesh with ``ShardPolicy(tp=True, zero=True, remat_segments=(True,))``:
    (a) full-width mamba2-370m, depth cut from 48 to
-   ``SSMTP_MAMBA2_LAYERS`` (6) for the script's time: a
+   ``SSMTP_MAMBA2_LAYERS`` (2) for the script's time: a
    spawned single process saves
    its ``lm_loss`` and gradients (remat on every layer) in fp32, and in
    bf16 its loss and 3 step losses, on the train driver's first batches of
@@ -294,7 +295,7 @@ Phases (any failure exits non-zero before the final line is printed):
    2) ``make_local_mesh`` with ``ShardPolicy(tp=True, zero=False)``,
    each rank holding its shards (``init_serving_params``), against a
    spawned single process on the same weights (``init_lm`` seed 0): (a)
-   the paged engine at full-width qwen3-4b, ``SS_BF16_LAYERS`` (9 of 36
+   the paged engine at full-width qwen3-4b, ``SS_BF16_LAYERS`` (6 of 36
    layers), bf16, on phase 3's
    geometry (the pools hold 4 of 8 KV heads a rank): the first prefill
    chunk's and a decode step's logits within ``SS_LOGIT_TOL`` of the
@@ -311,7 +312,7 @@ Phases (any failure exits non-zero before the final line is printed):
    wholly in model rank 0's slots; three lanes wrap), ``SS_STEPS`` steps:
    qwen3-4b (and once more with ``shard_cache_seq=False``, KV heads over
    ``model``), mamba2-370m and zamba2-1.2b (the shared block's caches
-   split by context) in bf16 at ``SS_BF16_LAYERS`` (9 of 36, 12 of 48,
+   split by context) in bf16 at ``SS_BF16_LAYERS`` (6 of 36, 6 of 48,
    12 of 38 layers, cut for the script's time), each at
    ``SS_FP32_LAYERS`` (zamba2 ``SS_ZAMBA2_FP32_LAYERS``) in fp32, where
    the logits must lie within ``REL_TOL`` and the greedy tokens and
@@ -420,6 +421,33 @@ Phases (any failure exits non-zero before the final line is printed):
    category (gemm, flash forward and backward, elementwise), peak memory,
    the checkpoint's bytes and save and restore seconds.  ``--phases 23``
    runs phase 2's K14 checks first.
+24. sharded whisper-medium: full width, depth cut to 4 + 4 layers, bf16,
+   random weights from seed 0, 4 gloo ranks sharing the card, against
+   the single process in this process: (a) training on (data 2, model 2)
+   with TP, ZeRO, remat and ``seq_shard`` and on (4, 1) with ZeRO, 8 x 448
+   decoder tokens over 8 x 1500 frames: one sharded loss and gradients
+   (the bf16 loss within ``SHARD_LOSS_RTOL``; the ranks' worst bf16 leaf
+   within ``WSHARD_BF16_VS_FP32`` times the single process's own worst
+   distance from the same weights' fp32 gradients; the same shards in
+   fp32, every gathered leaf within ``REL_TOL`` of the single process's
+   fp32 gradients), two AdamW steps; each rank's step ms, gloo bytes and
+   peak; the flash launches a call, K14's at the TP-local shape (B 4, S
+   448, T 1500, H 8, dh 64); (b) a sharded checkpoint after step 1,
+   restored into a fresh draw, repeats step 2 bit for bit; (c) serving on
+   (2, 2) without and with TP: ``init_encdec_decode_state`` of 8 lanes of
+   1500 frames and 16 greedy ``make_serve_step`` steps on a 448-slot
+   cache, the first step within phase 18's bf16 gate of the single
+   process's, decode within phase 22's gate of the sharded teacher-forced
+   ``make_prefill_step``, the same logits and tokens on every rank; each
+   rank's step ms wall, gloo bytes a step and cross-K/V bytes; (d) reduced
+   fp32 (2 + 2 layers, a vocabulary of 1001): the sharded loss within
+   1e-5 and the decode logits within 1e-4 of the single process's, with
+   its tokens.  Phase 2 holds the flash kernels at phase 24's rank-local
+   shapes first: the forward (the encoder, cross-attention in training,
+   prefill and decode, the causal self-attention; the serving decode over
+   a rank's half of the self cache with its row log-sum-exp), K14 and
+   the S == T backward at a TP rank's heads, in bf16 and fp32, each
+   against its plain version and a second call the same bits.
 
 Phase 2 also holds the kernels at phase 17's TP-local shapes against
 their plain versions, and phase 7 times the SSD scan at a rank's mamba2
@@ -440,8 +468,10 @@ at its causal training shape (B 1, S 4096, H 64, KV 8, dh 112), and the
 forward at whisper-medium's encoder (8 x 1500, non-causal) and
 cross-attention decode (8 queries over 1500 rows), and the backward at
 phase 23's cross-attention (K14: 8 x 448 queries over 1500 keys, no
-mask) beside autograd of SDPA without a mask; the ``kernels`` line gives
-K14 a row of its own
+mask) beside autograd of SDPA without a mask, and the forward, backward
+and K14 at phase 24's TP-local shapes (B 4, H = KV = 8: the encoder's S =
+T = 1500 non-causal, cross-attention's 448 queries over 1500 keys); the
+``kernels`` line gives K14 a row of its own
 (``flash_attention_bwd_cross``: its launches are counted apart, and also
 among ``flash_attention_bwd``'s).
 Phase 7 also times the flash forward and backward at the dense training
@@ -449,7 +479,7 @@ shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
-The phases run in the order 1, 2, 7, 3, 19, 20, 21, 22, 23, 4, 5, 14, 6,
+The phases run in the order 1, 2, 7, 3, 19, 20, 21, 22, 23, 24, 4, 5, 14, 6,
 9, 10, 11, 12, 13, 15, 16, 17, 18, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
@@ -648,9 +678,13 @@ PIPE_TRAIN_STEPS = 3
 # batches of SHARD_BATCH x SHARD_SEQ tokens; SHARD_RANKS gloo ranks share
 # the card on a (data, model) mesh of SHARD_MESH with TP, ZeRO and remat
 # (8 until PR 33 added phase 23: at 8 the phase took 156.0 and 181.7 s of
-# scripts of 974.5 and 1260.9 s, NVIDIA H100 80GB HBM3, 700 W)
+# scripts of 974.5 and 1260.9 s, NVIDIA H100 80GB HBM3, 700 W).  The
+# depth cannot go lower: at 2 layers no budget makes the CLI's searched
+# plan shard the AdamW state (ZeRO), which (c) checks; so when phase 24
+# came (the script 1226.5 s with it on a slow host, phase 16 150.1 s of
+# it) the steps went from 3 to 2 instead, a step 6.1-8.0 s a rank
 SHARD_LAYERS, SHARD_RANKS, SHARD_BATCH, SHARD_SEQ = 4, 4, 4, 4096
-SHARD_MESH, SHARD_STEPS = (2, 2), 3
+SHARD_MESH, SHARD_STEPS = (2, 2), 2
 # the sharded loss within SHARD_LOSS_RTOL of the single process's, each
 # gathered gradient leaf within SHARD_GRAD_TOL of its largest magnitude
 # (phase 15's gates: the same bf16 arithmetic, TP's partial sums rounded
@@ -679,9 +713,10 @@ SSMTP_STEPS, SSMTP_SAVE_AT, SSMTP_LR = 3, 2, 3e-4
 SSMTP_ZAMBA2_LAYERS, SSMTP_ZAMBA2_STEPS = 6, 1
 # (a)'s depth: at 24 layers the whole script, phase 20 included, ran
 # 1092.3 s, phase 17 277.6 s of it; at 12, with phases 21 and 22, 966.3
-# and 1081.7 s in two runs, phase 17 233.6 and 255.8 s (NVIDIA H100 80GB
-# HBM3, 700 W)
-SSMTP_MAMBA2_LAYERS = 6
+# and 1081.7 s in two runs, phase 17 233.6 and 255.8 s; at 6, with phase
+# 24, 1226.5 s, phase 17 250.4 s on a slow host (NVIDIA H100 80GB HBM3,
+# 700 W); 2 since then
+SSMTP_MAMBA2_LAYERS = 2
 # a rank's batch rows and RMSNorm rows, and zamba2's TP-local (H, KV, dh)
 SSMTP_LOCAL_BATCH = SSMTP_BATCH // SSMTP_MESH[0]
 SSMTP_ROWS = SSMTP_LOCAL_BATCH * SSMTP_SEQ
@@ -707,9 +742,15 @@ SS_STEPS = {"bfloat16": 4, "float32": 16}
 # the bf16 depth of (a) and (b), cut for the whole script's time: with (a)
 # at 36 layers and (b) at 18, 24 and 18 the whole script, phase 20
 # included, ran 1059.1 s, phase 18 197.3 s of it (NVIDIA H100 80GB HBM3,
-# 700 W)
-SS_BF16_LAYERS = {"qwen3-4b": 9, "mamba2-370m": 12, "zamba2-1.2b": 12}
-SS_FP32_LAYERS, SS_ZAMBA2_FP32_LAYERS = 4, 12
+# 700 W); qwen3-4b 9 -> 6 and mamba2-370m 12 -> 6 once phase 24 came
+# (zamba2 keeps 12: two calls of its shared block), when the whole script
+# ran 1226.5 s before any cut, phase 18 198.6 s of it, on a slow host
+SS_BF16_LAYERS = {"qwen3-4b": 6, "mamba2-370m": 6, "zamba2-1.2b": 12}
+# fp32's depth (zamba2 aside: two shared-block calls need 12), 4 until
+# phase 24 came: with phase 24 the script ran 1142.4 s at 4 on a slow host
+# (the fp32 parts of phase 18 took 30.3 s of a rank's 90.7 s in an
+# earlier run of 198.6 s; NVIDIA H100 80GB HBM3, 700 W)
+SS_FP32_LAYERS, SS_ZAMBA2_FP32_LAYERS = 2, 12
 SS_DENSE_REQUESTS, SS_DENSE_NEW = 10, 8
 SS_PREFILL_BATCH, SS_PREFILL_SEQ = 2, 1024
 SS_CLI_REQUESTS, SS_CLI_CONTEXT = 12, 256
@@ -718,10 +759,10 @@ SS_CLI_REQUESTS, SS_CLI_CONTEXT = 12, 256
 # bf16 before their fp32 sum, one rounding more a layer than one process,
 # and a random-weight stack compounds it with depth (2.0e-2 to 4.9e-2 at
 # qwen3-4b's 36 layers on an H100 80GB HBM3 at 700 W, the same with
-# context or KV heads over model, so not the merge); fp32 at 4 layers at
-# REL_TOL, the algebra's gate.  The SSM stacks' bf16 distance is printed
-# (None: no gate), as phase 12 prints theirs: at 48 layers it is chaotic
-# in the rounding (0.38 for mamba2 there)
+# context or KV heads over model, so not the merge); fp32 at
+# SS_FP32_LAYERS layers at REL_TOL, the algebra's gate.  The SSM stacks'
+# bf16 distance is printed (None: no gate), as phase 12 prints theirs: at
+# 48 layers it is chaotic in the rounding (0.38 for mamba2 there)
 SS_LOGIT_TOL = {"bfloat16": 1e-1, "float32": REL_TOL["float32"]}
 SS_SSM_BF16_TOL = None
 # phase 19, mixture-of-experts: arctic-480b (hf:Snowflake/snowflake-arctic-
@@ -843,6 +884,60 @@ WHISPER_SELF_BWD_CASES = [(WHISPER_LANES, WHISPER_FRAMES, *WHISPER_HEADS,
 # card vs CPU through the CLI on WHISPER_CPU_BATCH x WHISPER_CPU_SEQ
 WHISPER_TRAIN_STEPS, WHISPER_CKPT_AT = 3, 2
 WHISPER_CPU_BATCH, WHISPER_CPU_SEQ = 2, 100
+# phase 24: sharded whisper-medium, WSHARD_RANKS gloo ranks sharing the
+# card, at full width with the depth cut from 24 + 24 to WSHARD_LAYERS +
+# WSHARD_LAYERS (phase 23 trains the whole depth; a sharded step's gloo
+# bytes grow with it), on phase 23's batch (WHISPER_LANES x
+# WHISPER_CONTEXT decoder tokens over WHISPER_FRAMES frames): (a)
+# training on WSHARD_TP_MESH with TP, ZeRO, remat and seq_shard and on
+# WSHARD_ZERO_MESH with ZeRO, one loss and gradients against the single
+# process at phase 16's gates, then WSHARD_STEPS AdamW steps at WSHARD_LR;
+# (c) serving on WSHARD_TP_MESH, WSHARD_TOKENS greedy steps of 8 lanes on
+# a WHISPER_CONTEXT-slot cache, the first step against the single process
+# at phase 18's bf16 gate, decode against the teacher-forced prefill at
+# phase 22's; (d) the reduced fp32 model at WSHARD_FP32_LAYERS +
+# WSHARD_FP32_LAYERS layers with a vocabulary of WSHARD_FP32_VOCAB, which
+# no model axis splits: WSHARD_FP32_BATCH x WSHARD_FP32_SEQ tokens and
+# WSHARD_FP32_STEPS greedy steps against the single process on the card
+WSHARD_RANKS, WSHARD_LAYERS, WSHARD_STEPS, WSHARD_LR = 4, 4, 2, 3e-4
+WSHARD_TP_MESH, WSHARD_ZERO_MESH = (2, 2), (4, 1)
+WSHARD_TOKENS, WSHARD_TIMEOUT_S = 16, 600
+WSHARD_LOSS_RTOL = SHARD_LOSS_RTOL
+WSHARD_LOGIT_TOL = SS_LOGIT_TOL["bfloat16"]
+WSHARD_FP32_LAYERS, WSHARD_FP32_VOCAB = 2, 1001
+WSHARD_FP32_BATCH, WSHARD_FP32_SEQ, WSHARD_FP32_STEPS = 4, 32, 8
+WSHARD_FP32_LOSS_RTOL, WSHARD_FP32_LOGIT_TOL = 1e-5, 1e-4
+# (a)'s bf16 gradient leaves are not held against the single process's
+# bf16 leaves at SHARD_GRAD_TOL: at 4 + 4 layers its LayerNorm leaves lie
+# up to 2.6e-2 from the same weights' fp32 gradients, and the ranks' from
+# the single process's up to 3.5e-2 under TP and 2.5e-2 under ZeRO
+# (NVIDIA H100 80GB HBM3, 700 W), sums of 3584 tokens rounded to bf16
+# otherwise.  Both are held against fp32 instead (WSHARD_BF16_VS_FP32
+# below).  Every leaf is gated in fp32 on the same weights (the loss at
+# WSHARD_FP32_LOSS_RTOL, each leaf at WSHARD_FP32_GRAD_TOL of its largest
+# magnitude: the card's fp32 tolerance), and the bf16 loss at
+# WSHARD_LOSS_RTOL
+WSHARD_FP32_GRAD_TOL = REL_TOL["float32"]
+# a rank's (B, H, KV, dh) under TP on WSHARD_TP_MESH (phase 7 times the
+# flash kernels there)
+WHISPER_TP_LOCAL = (WHISPER_LANES // WSHARD_TP_MESH[0],
+                    WHISPER_HEADS[0] // WSHARD_TP_MESH[1],
+                    WHISPER_HEADS[1] // WSHARD_TP_MESH[1], WHISPER_HEADS[2])
+# phase 2 holds the flash kernels at phase 24's rank-local shapes too: K14
+# (B, S, T, H, KV, dh) and the S == T backward (B, S, H, KV, dh, causal)
+# of a TP rank (the encoder's and the decoder's self-attention); the
+# forward cases are whisper_rank_flash_cases()
+WHISPER_TP_K14 = (WHISPER_TP_LOCAL[0], WHISPER_CONTEXT, WHISPER_FRAMES,
+                  *WHISPER_TP_LOCAL[1:])
+WHISPER_TP_SELF_BWD_CASES = [
+    (WHISPER_TP_LOCAL[0], WHISPER_FRAMES, *WHISPER_TP_LOCAL[1:], False),
+    (WHISPER_TP_LOCAL[0], WHISPER_CONTEXT, *WHISPER_TP_LOCAL[1:], True)]
+# (a)'s bf16 gate on the gradient leaves: the ranks' worst leaf's distance
+# from the same weights' fp32 gradients within WSHARD_BF16_VS_FP32 times
+# the single process's own worst bf16-to-fp32 distance (at 4 + 4 layers
+# the single process lies 2.63e-2 from fp32, TP's ranks 3.00e-2 and
+# ZeRO's 1.29e-2, NVIDIA H100 80GB HBM3, 700 W)
+WSHARD_BF16_VS_FP32 = 2.0
 
 
 def log(msg: str) -> None:
@@ -912,6 +1007,15 @@ def rel_err(got, want) -> float:
 # ---------------------------------------------------------------------------
 # phase 1: card, build
 # ---------------------------------------------------------------------------
+
+def same_bits(a, b) -> bool:
+    """Whether two results (a tensor or a tuple of them) are equal bit for
+    bit (a second call of a kernel on the same inputs)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
 
 def ptxas_report(text):
     """[(mangled kernel, registers, (spill store bytes, spill load bytes))]
@@ -1168,7 +1272,13 @@ def lse_flash_cases():
     return [("ctx-slice decode lse", 4, 1, 1024, 32, 8, 128,
              dict(causal=False, kv_len=_i32([0, 1, 500, 1024]))),
             ("TP paged decode lse", DECODE_SLOTS, 1, MAX_CONTEXT, 16, 4,
-             128, dict(q_offset=_i32([0, 5, 100, 255, 256, 511, -1, 37])))]
+             128, dict(q_offset=_i32([0, 5, 100, 255, 256, 511, -1, 37]))),
+            # phase 24's serving decode on a rank of WSHARD_TP_MESH: its 4
+            # lanes over its half of the 448-slot self cache, every head
+            ("whisper rank ctx-slice decode lse", WHISPER_TP_LOCAL[0], 1,
+             WHISPER_CONTEXT // WSHARD_TP_MESH[1], *WHISPER_HEADS,
+             dict(causal=False, kv_len=_i32(
+                 [0, 1, 100, WHISPER_CONTEXT // WSHARD_TP_MESH[1]])))]
 
 
 def moe_flash_cases(arch="arctic"):
@@ -1209,6 +1319,22 @@ def whisper_flash_cases():
                  [1, 2, 31, 32, 64, 65, 300, C])))]
 
 
+def whisper_rank_flash_cases():
+    """(name, B, S, T, kwargs) of phase 24 on a rank of WSHARD_TP_MESH at
+    its TP-local heads (H = KV = 8, dh 64, 4 lanes): the encoder's
+    non-causal S = T = 1500, cross-attention's 448 training queries, 16
+    prefill queries and one decode query over the 1500 encoder rows, and
+    the decoder's causal self-attention over 448 and 16 tokens."""
+    B, F, C = WHISPER_TP_LOCAL[0], WHISPER_FRAMES, WHISPER_CONTEXT
+    n = WSHARD_TOKENS
+    return [("whisper rank encoder", B, F, F, dict(causal=False)),
+            ("whisper rank cross train", B, C, F, dict(causal=False)),
+            ("whisper rank cross prefill", B, n, F, dict(causal=False)),
+            ("whisper rank cross decode", B, 1, F, dict(causal=False)),
+            ("whisper rank self train", B, C, C, {}),
+            ("whisper rank self prefill", B, n, n, {})]
+
+
 def phase_kernels():
     import torch
     from repro_torch.kernels import ref
@@ -1241,6 +1367,9 @@ def phase_kernels():
         # phase 22: whisper-medium's encoder, decoder and cross-attention
         cases += [(name, B, S, T, *WHISPER_HEADS, kw)
                   for name, B, S, T, kw in whisper_flash_cases()]
+        # phase 24: a TP rank's (a second call must give the same bits)
+        cases += [(name, B, S, T, *WHISPER_TP_LOCAL[1:], kw)
+                  for name, B, S, T, kw in whisper_rank_flash_cases()]
         for name, B, S, T, H, KV, dh, kw in cases:
             q = torch.randn(B, S, H, dh, generator=g, device="cuda").to(dt)
             k = torch.randn(B, T, KV, dh, generator=g, device="cuda").to(dt)
@@ -1259,6 +1388,9 @@ def phase_kernels():
             if name == "decode":
                 check(bool((out[0] == 0).all()),
                       "a decode row with no admissible key is not zeros")
+            if name.startswith("whisper rank"):
+                check(same_bits(out, flash_attention_cuda(q, k, v, **kw)),
+                      f"flash {name} {dtype}: a second call gave other bits")
             errs["flash_attention"] = max(errs["flash_attention"], err)
         for name, B, S, T, H, KV, dh, kw in lse_flash_cases():
             q = torch.randn(B, S, H, dh, generator=g, device="cuda").to(dt)
@@ -1279,6 +1411,10 @@ def phase_kernels():
             check(bool(torch.equal(lse == float("inf"), empty))
                   and bool(empty.any()), f"flash {name} {dtype}: the rows "
                   "with no admissible key are not the +inf rows")
+            if name.startswith("whisper rank"):
+                check(same_bits((out, lse), flash_attention_cuda(
+                    q, k, v, with_lse=True, **kw)), f"flash {name} {dtype}: "
+                    "a second call gave other bits")
             errs["flash_attention"] = max(errs["flash_attention"], err)
         # serving: prefill and decode rows at d_model and head_dim, and
         # SSM decode rows (8 x 1024: mamba2's ln1; 8 x 2048: its gated norm
@@ -1840,11 +1976,14 @@ def phase_k14(errs):
     plain forward at ``REL_TOL`` (:func:`flash_bwd_check`), at
     ``K14_CASES``: whisper-medium's decoder over its encoder (B 8, S 448,
     T 1500, H = KV = 16, dh 64; 1500 = 23 x 64 + 28 keys, ragged), dh 112
-    and 128 with a GQA group of 4, and S above T; at whisper's shape a
-    second call must give the same bits, and every call counts as a cross
-    launch.  A causal mask at S != T must be refused.  Then the S == T
-    backward at ``WHISPER_SELF_BWD_CASES`` (the shapes of whisper-medium's
-    encoder and decoder self-attention in phase 23), the forward's output
+    and 128 with a GQA group of 4, S above T, and a TP rank's share of
+    whisper's in phase 24 (``WHISPER_TP_K14``: B 4, H = KV = 8); at
+    whisper's two shapes a second call must give the same bits, and every
+    call counts as a cross launch.  A causal mask at S != T must be
+    refused.  Then the S == T backward at ``WHISPER_SELF_BWD_CASES`` and
+    ``WHISPER_TP_SELF_BWD_CASES`` (the shapes of whisper-medium's encoder
+    and decoder self-attention in phase 23, and on a TP rank in phase 24),
+    the forward's output
     against ``flash_attention_ref`` at ``TOL`` beside it, a second call the
     same bits, no call counted as a cross launch."""
     import torch
@@ -1860,7 +1999,9 @@ def phase_k14(errs):
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for i, (B, S, T, H, KV, dh) in enumerate(K14_CASES):
+        for i, case in enumerate(K14_CASES + [WHISPER_TP_K14]):
+            B, S, T, H, KV, dh = case
+            repeat = i == 0 or case == WHISPER_TP_K14
             q, do = rand(dt, B, S, H, dh), rand(dt, B, S, H, dh)
             k, v = rand(dt, B, T, KV, dh), rand(dt, B, T, KV, dh)
             before = flash_attention_bwd_cuda.cross_launches
@@ -1868,7 +2009,7 @@ def phase_k14(errs):
                 q, k, v, do, False, None,
                 f"cross B={B} S={S} T={T} H={H} KV={KV} dh={dh}", errs,
                 key="flash_attention_bwd_cross")
-            if i == 0:
+            if repeat:
                 again = flash_attention_bwd_cuda(q, k, v, out, do, lse,
                                                  causal=False)
                 torch.cuda.synchronize()
@@ -1879,7 +2020,7 @@ def phase_k14(errs):
                       "call gave other bits")
                 del again
             n = flash_attention_bwd_cuda.cross_launches - before
-            check(n == (2 if i == 0 else 1),
+            check(n == (2 if repeat else 1),
                   f"{n} cross launches counted for case {i}")
             del q, do, k, v, out, lse, got
         torch.cuda.empty_cache()
@@ -1895,7 +2036,8 @@ def phase_k14(errs):
     errs.setdefault("flash_attention", 0.0)
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for B, S, H, KV, dh, causal in WHISPER_SELF_BWD_CASES:
+        for B, S, H, KV, dh, causal in (WHISPER_SELF_BWD_CASES
+                                        + WHISPER_TP_SELF_BWD_CASES):
             what = (f"B={B} S=T={S} H={H} KV={KV} dh={dh} "
                     f"{'causal' if causal else 'bidir'}")
             q, do = rand(dt, B, S, H, dh), rand(dt, B, S, H, dh)
@@ -6965,6 +7107,653 @@ def phase_whisper_train():
 
 
 # ---------------------------------------------------------------------------
+# phase 24: sharded whisper-medium, 4 ranks on the card
+# ---------------------------------------------------------------------------
+
+WSHARD_DIR = ROOT / "build" / "whisper_shard"
+
+
+def _wshard_cfg(dtype="bfloat16"):
+    """Phase 24's model: whisper-medium at full width, WSHARD_LAYERS +
+    WSHARD_LAYERS layers; in fp32 (d) the reduced model with the odd
+    vocabulary WSHARD_FP32_VOCAB."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(WHISPER_ARCH)
+    if dtype == "float32":
+        return cfg.reduced(n_layers=WSHARD_FP32_LAYERS).with_(
+            vocab_size=WSHARD_FP32_VOCAB, dtype=torch.float32)
+    return cfg.with_(n_layers=WSHARD_LAYERS, n_enc_layers=WSHARD_LAYERS)
+
+
+def _wshard_batches(cfg):
+    """The train CLI's first WSHARD_STEPS batches of WHISPER_LANES x
+    WHISPER_CONTEXT decoder tokens with their frames, CPU tensors."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    gen = train_cli.batches(cfg, train_cli.parse_args([
+        "--arch", WHISPER_ARCH, "--batch", str(WHISPER_LANES), "--seq",
+        str(WHISPER_CONTEXT)]))
+    return [{k: torch.from_numpy(v) for k, v in next(gen).items()}
+            for _ in range(WSHARD_STEPS)]
+
+
+def _wshard_fp32_batch(cfg):
+    """(d)'s batch: WSHARD_FP32_BATCH x WSHARD_FP32_SEQ tokens over the
+    reduced model's frames, from a seed, CPU tensors."""
+    import torch
+    g = torch.Generator().manual_seed(24)
+    B, S = WSHARD_FP32_BATCH, WSHARD_FP32_SEQ
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g),
+            "labels": torch.randint(0, cfg.vocab_size, (B, S), generator=g),
+            "frames": torch.randn(B, cfg.encoder_seq, cfg.d_model,
+                                  generator=g)}
+
+
+def _wshard_launches(L, E, remat, calls=1):
+    """Flash launches of ``calls`` losses and gradients on one rank: the
+    forward once an attention (twice under remat), the backward once, the
+    decoder's cross-attention's at S != T (K14)."""
+    n = E + 2 * L
+    return {"flash_attention": n * (2 if remat else 1) * calls,
+            "flash_attention_bwd": n * calls,
+            "flash_attention_bwd_cross": L * calls, "rmsnorm": 0,
+            "rmsnorm_bwd": 0}
+
+
+@contextlib.contextmanager
+def bwd_shapes():
+    """Check-only: record (B, S, T, H, dh) of every flash backward launch
+    through the training path's autograd function while the block runs."""
+    from repro_torch.kernels import flash_attention as fa
+
+    seen = []
+    real = fa.flash_attention_bwd_cuda
+
+    def recording(q, k, v, *args, **kw):
+        seen.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                     q.shape[3]))
+        return real(q, k, v, *args, **kw)
+
+    fa.flash_attention_bwd_cuda = recording
+    try:
+        yield seen
+    finally:
+        fa.flash_attention_bwd_cuda = real
+
+
+def _wshard_greedy(step, params, state, first, n):
+    """``n`` greedy steps of ``step`` from token ``first``: the logits (B,
+    n, V) fp32, the tokens fed (B, n), each step's wall ms and gloo bytes
+    sent."""
+    import torch
+    tok, fed, out, ms, sent = first, [], [], [], []
+    for _ in range(n):
+        fed.append(tok)
+        before = _ss_traffic(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = step(params, state, tok)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        sent.append(_ss_traffic(step) - before)
+        out.append(logits.float())
+        tok = logits.argmax(-1).to(torch.int32)
+    return torch.stack(out, 1), torch.stack(fed, 1), ms, sent
+
+
+def wshard_reference(run_dir):
+    """The single process, in this process on the card: (a)'s loss and
+    gradients on ``init_encdec`` seed 0 and the first batch, and
+    WSHARD_STEPS AdamW steps; (c)'s first decode step on the serving
+    frames; (d)'s fp32 loss and greedy decode.  Saved for the ranks."""
+    import torch
+    from repro_torch.models import (encdec_loss, init_encdec,
+                                    init_encdec_decode_state)
+    from repro_torch.optim import AdamWConfig, adamw_init, global_norm
+    from repro_torch.runtime.executor import make_serve_step, make_train_step
+
+    cfg = _wshard_cfg()
+    batches = [{k: v.to("cuda") for k, v in b.items()}
+               for b in _wshard_batches(cfg)]
+    params = init_encdec(cfg, seed=0, device="cuda")
+    leaves = list(params.parameters())
+    counts = _zero_counts()
+    with plain_calls() as plain:
+        loss = encdec_loss(params, batches[0], cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    launches = counts()
+    saved = {"loss": loss.item(), "grad_norm": global_norm(grads).item(),
+             "grads": {n: g.cpu() for (n, _), g in
+                       zip(params.named_parameters(), grads)},
+             "params": sum(p.numel() for p in leaves), "plain": plain,
+             "launches": launches}
+    del loss, grads
+    # the same weights' gradients in fp32: how far bf16 rounding alone
+    # moves each leaf
+    params32 = copy.deepcopy(params).float()
+    loss = encdec_loss(params32, batches[0], cfg.with_(dtype=torch.float32))
+    saved["loss32"] = loss.item()
+    saved["grads32"] = {n: g.cpu() for (n, _), g in zip(
+        params32.named_parameters(),
+        torch.autograd.grad(loss, list(params32.parameters())))}
+    saved["single_vs_fp32"] = {n: _leaf_err(g, saved["grads32"][n])
+                               for n, g in saved["grads"].items()}
+    del loss, params32
+    ocfg = AdamWConfig(lr=WSHARD_LR)
+    opt = adamw_init(leaves, ocfg)
+    step = make_train_step(cfg, ocfg)
+    saved["losses"] = [float(step(params, opt, b)["loss"]) for b in batches]
+    del params, opt, step, batches
+    _free_cuda()
+    # (c): the serving frames and first tokens, and the first decode step
+    g = torch.Generator(device="cuda").manual_seed(11)
+    frames = torch.randn(WHISPER_LANES, WHISPER_FRAMES, cfg.d_model,
+                         generator=g, device="cuda")
+    first = torch.randint(0, cfg.vocab_size, (WHISPER_LANES,), generator=g,
+                          device="cuda", dtype=torch.int32)
+    params = init_encdec(cfg, seed=0, device="cuda")
+    state = init_encdec_decode_state(params, frames, cfg, WHISPER_CONTEXT)
+    saved["first_logits"] = make_serve_step(cfg)(
+        params, state, first)[0].float().cpu()
+    torch.save({"frames": frames.cpu(), "first": first.cpu()},
+               f"{run_dir}/serve_inputs.pt")
+    del params, state
+    _free_cuda()
+    # (d): reduced fp32 with an odd vocabulary
+    cfg32 = _wshard_cfg("float32")
+    b32 = {k: v.to("cuda") for k, v in _wshard_fp32_batch(cfg32).items()}
+    params = init_encdec(cfg32, seed=0, device="cuda")
+    saved["fp32_loss"] = encdec_loss(params, b32, cfg32).item()
+    state = init_encdec_decode_state(params, b32["frames"], cfg32,
+                                     WSHARD_FP32_SEQ)
+    logits, fed, _, _ = _wshard_greedy(make_serve_step(cfg32), params,
+                                       state, b32["tokens"][:, 0],
+                                       WSHARD_FP32_STEPS)
+    saved["fp32_logits"], saved["fp32_tokens"] = logits.cpu(), fed.cpu()
+    del params, state
+    _free_cuda()
+    torch.save(saved, f"{run_dir}/reference.pt")
+    return saved
+
+
+def _wshard_train(rank, cfg, mesh, pol, ocfg, batches, ref, run_dir,
+                  ckpt):
+    """(a) on one mesh: the drawn shards, one sharded loss and gradients
+    (each leaf gathered and, on rank 0, held against the reference's), then
+    WSHARD_STEPS sharded AdamW steps; with ``ckpt`` (b): a sharded save
+    after step 1, a fresh draw (seed 1) restored from it takes step 2."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpointing import (restore_sharded_train_state,
+                                           save_sharded_train_state)
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    params, opt = init_train_state(cfg, mesh=mesh, policy=pol, seed=0,
+                                   opt_cfg=ocfg, device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params_local": sum(p.numel() for p in params.parameters())}
+    with bwd_shapes() as shapes:
+        _, grads, row, ctx = _sharded_call(cfg, mesh, pol, params,
+                                           batches[0])
+    row["bwd_shapes"] = sorted({tuple(s) for s in shapes})
+    errs, errs32 = {}, {}
+    for (n, _), g in zip(params.named_parameters(), grads):
+        full = ctx.gather_tensor(n, g)
+        if rank == 0:
+            errs[n] = _leaf_err(full, ref["grads"][n])
+            errs32[n] = (_leaf_err(full, ref["grads32"][n]),
+                         ref["single_vs_fp32"][n])
+        del full
+    if rank == 0:
+        worst = max(errs, key=errs.get)
+        row.update(n_leaves=len(errs), worst_leaf=worst,
+                   worst_err=errs[worst], embed_err=errs["embed"],
+                   ref_loss32=ref["loss32"],
+                   top=[(n, errs[n], *errs32[n]) for n in sorted(
+                       errs, key=errs.get, reverse=True)[:8]],
+                   worst_vs_fp32=max(e for e, _ in errs32.values()),
+                   single_vs_fp32=max(e for _, e in errs32.values()))
+    row["split_vocab"] = ctx.split_vocab
+    out["call"] = row
+    del grads
+    # the same shards in fp32 (the single process's weights, exactly):
+    # the gate on every leaf
+    cfg32 = cfg.with_(dtype=torch.float32)
+    p32 = copy.deepcopy(params).float()
+    loss32, grads, row32, ctx = _sharded_call(cfg32, mesh, pol, p32,
+                                              batches[0])
+    errs = {}
+    for (n, _), g in zip(p32.named_parameters(), grads):
+        full = ctx.gather_tensor(n, g)
+        if rank == 0:
+            errs[n] = _leaf_err(full, ref["grads32"][n])
+        del full
+    if rank == 0:
+        worst = max(errs, key=errs.get)
+        row32.update(n_leaves=len(errs), worst_leaf=worst,
+                     worst_err=errs[worst])
+    out["call32"] = row32
+    out["parts"] = [row["launches"], row32["launches"]]
+    del grads, p32, loss32
+    step = make_train_step(cfg, ocfg, mesh=mesh, policy=pol)
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    counts = _zero_counts()
+    hist = []
+    with plain_calls() as plain:
+        for i, b in enumerate(batches, 1):
+            sent = step.shard.traffic.bytes_sent
+            t0 = time.perf_counter()
+            m = step(params, opt, b)
+            torch.cuda.synchronize()
+            hist.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "gloo_bytes": step.shard.traffic.bytes_sent
+                         - sent})
+            if ckpt and i == 1:
+                t0 = time.perf_counter()
+                save_sharded_train_state(1, params, opt, step.shard, ckpt)
+                out["save_s"] = time.perf_counter() - t0
+    out.update(steps=hist, launches=counts(), plain=plain,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out["parts"].append(out["launches"])
+    del params, opt
+    if ckpt:
+        _free_cuda()
+        params, opt = init_train_state(cfg, mesh=mesh, policy=pol, seed=1,
+                                       opt_cfg=ocfg, device="cuda")
+        t0 = time.perf_counter()
+        _, _, at = restore_sharded_train_state(params, opt, step.shard, ckpt)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        counts = _zero_counts()
+        resumed = float(step(params, opt, batches[1])["loss"])
+        out["resume"] = {"step": at, "loss": resumed,
+                         "launches": counts()}
+        out["parts"].append(out["resume"]["launches"])
+        del params, opt
+    _free_cuda()
+    return out
+
+
+def _wshard_serve(rank, cfg, mesh, pol, inputs, ref):
+    """(c) under one policy: ``init_encdec_decode_state`` on every lane's
+    frames, WSHARD_TOKENS greedy ``make_serve_step`` steps on a
+    WHISPER_CONTEXT-slot cache, then ``make_prefill_step`` teacher-forced
+    on the tokens fed (the rank's lanes)."""
+    import torch
+    from repro_torch.runtime import (init_serving_params, make_prefill_step,
+                                     make_serve_step)
+    from repro_torch.models import init_encdec_decode_state
+
+    params = init_serving_params(cfg, mesh=mesh, policy=pol, seed=0,
+                                 device="cuda")
+    step = make_serve_step(cfg, mesh=mesh, policy=pol)
+    prefill = make_prefill_step(cfg, mesh=mesh, policy=pol)
+    frames = inputs["frames"].to("cuda")
+    first = inputs["first"].to("cuda")
+    counts = _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        state = init_encdec_decode_state(params, frames, cfg,
+                                         WHISPER_CONTEXT, shard=step.shard)
+        torch.cuda.synchronize()
+        state_ms = (time.perf_counter() - t0) * 1e3
+        n_state = counts()["flash_attention"]
+        logits, fed, ms, sent = _wshard_greedy(step, params, state, first,
+                                               WSHARD_TOKENS)
+        n_decode = counts()["flash_attention"] - n_state
+        lo, hi = prefill.shard.lane_range(WHISPER_LANES)
+        full = prefill(params, {"tokens": fed, "frames": frames}).float()
+        torch.cuda.synchronize()
+    launches = counts()
+    mine = logits[lo:hi]
+    err = (mine - full).abs().amax(-1) / full.abs().amax(-1)
+    want = ref["first_logits"].to("cuda")
+    first_err = ((logits[:, 0] - want).abs().max()
+                 / want.abs().max()).item()
+    lay = state["layout"]
+    row = {"state_ms": state_ms, "step_ms": ms, "gloo_bytes": sent,
+           "launches": launches, "plain": plain, "flash_state": n_state,
+           "flash_decode": n_decode, "lanes": [lo, hi], "kv": lay.kv,
+           "cross_kv_bytes": sum(k.nbytes + v.nbytes
+                                 for k, v in state["cross_kv"]),
+           "self_cache_bytes": sum(c["k"].nbytes + c["v"].nbytes
+                                   for c in state["self_cache"]),
+           "cross_kv_shape": list(state["cross_kv"][0][0].shape),
+           "vs_prefill": err.max().item(), "first_vs_single": first_err,
+           "logits_digest": _ss_digest(logits), "tokens": fed.tolist(),
+           "finite": bool(torch.isfinite(logits).all()
+                          and torch.isfinite(full).all()),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, state, logits, full
+    _free_cuda()
+    return row
+
+
+def _wshard_fp32(cfg, mesh, ref):
+    """(d): the reduced fp32 model's sharded loss on (data 2, model 2)
+    with TP and ZeRO, and its greedy decode with TP, against the single
+    process on the card."""
+    import torch
+    from repro_torch.models import init_encdec_decode_state
+    from repro_torch.runtime import (ShardPolicy, init_serving_params,
+                                     init_train_state, make_serve_step)
+
+    pol = ShardPolicy(tp=True, zero=True, remat_segments=(True,))
+    b = _wshard_fp32_batch(cfg)
+    params, _ = init_train_state(cfg, mesh=mesh, policy=pol, seed=0,
+                                 device="cuda")
+    row = _sharded_call(cfg, mesh, pol, params, b)[2]
+    del params
+    pol = ShardPolicy(tp=True, zero=False)
+    params = init_serving_params(cfg, mesh=mesh, policy=pol, seed=0,
+                                 device="cuda")
+    step = make_serve_step(cfg, mesh=mesh, policy=pol)
+    frames = b["frames"].to("cuda")
+    counts = _zero_counts()
+    state = init_encdec_decode_state(params, frames, cfg, WSHARD_FP32_SEQ,
+                                     shard=step.shard)
+    logits, fed, _, _ = _wshard_greedy(step, params, state,
+                                       b["tokens"][:, 0].to("cuda"),
+                                       WSHARD_FP32_STEPS)
+    want = ref["fp32_logits"].to("cuda")
+    loss = row["loss"]
+    out = {"loss": loss, "loss_rel": abs(loss - ref["fp32_loss"])
+           / abs(ref["fp32_loss"]), "parts": [row["launches"], counts()],
+           "logits_err": ((logits - want).abs().max()
+                          / want.abs().max()).item(),
+           "same_tokens": bool(torch.equal(fed.cpu(),
+                                           ref["fp32_tokens"]))}
+    del params, state
+    _free_cuda()
+    return out
+
+
+def wshard_rank(rank, world, run_dir):
+    """One of WSHARD_RANKS gloo ranks on the card: (a) and (b) on
+    WSHARD_TP_MESH with TP, ZeRO, remat and ``seq_shard``, (a) on
+    WSHARD_ZERO_MESH with ZeRO; (c) on WSHARD_TP_MESH without and with TP;
+    (d).  The kernels' launches are counted from 0 before each part and
+    read after it, and summed.  Saves its results."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import ShardPolicy
+
+    torch.cuda.set_device(0)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous",
+                     timeout_s=WSHARD_TIMEOUT_S)
+    try:
+        cfg = _wshard_cfg()
+        tp_mesh = make_local_mesh(WSHARD_TP_MESH[1])
+        zero_mesh = make_local_mesh(WSHARD_ZERO_MESH[1])
+        ref = torch.load(f"{run_dir}/reference.pt", mmap=True)
+        batches = _wshard_batches(cfg)
+        ocfg = AdamWConfig(lr=WSHARD_LR)
+        out = {"coord": [tp_mesh.get_local_rank("data"),
+                         tp_mesh.get_local_rank("model")]}
+        out["tp"] = _wshard_train(
+            rank, cfg, tp_mesh, ShardPolicy(tp=True, zero=True,
+                                            remat_segments=(True,),
+                                            seq_shard=True),
+            ocfg, batches, ref, run_dir, f"{run_dir}/ckpt")
+        out["zero"] = _wshard_train(
+            rank, cfg, zero_mesh, ShardPolicy(tp=False, zero=True), ocfg,
+            batches, ref, run_dir, None)
+        inputs = torch.load(f"{run_dir}/serve_inputs.pt")
+        for tag, pk in (("serve_rep", dict(tp=False, zero=False)),
+                        ("serve_tp", dict(tp=True, zero=False))):
+            out[tag] = _wshard_serve(rank, cfg, tp_mesh, ShardPolicy(**pk),
+                                     inputs, ref)
+            out[tag]["same_on_ranks"] = _ss_same_on_ranks(
+                (out[tag]["logits_digest"], out[tag]["tokens"]))
+        out["fp32"] = _wshard_fp32(_wshard_cfg("float32"), tp_mesh, ref)
+        parts = (out["tp"]["parts"] + out["zero"]["parts"]
+                 + [out["serve_rep"]["launches"],
+                    out["serve_tp"]["launches"]] + out["fp32"]["parts"])
+        out["launches"] = {k: sum(p[k] for p in parts) for k in parts[0]}
+        pathlib.Path(f"{run_dir}/rank{rank}.json").write_text(
+            json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _wshard_check_train(tag, res, ref, remat, fails):
+    """(a)'s checks on one mesh's rows of every rank; its numeric gates'
+    failures are added to ``fails``."""
+    cfg = _wshard_cfg()
+    E, L = cfg.n_enc_layers, cfg.n_layers
+    rows = [r[tag] for r in res]
+    call = [r["call"] for r in rows]
+    loss = call[0]["loss"]
+    check(all(c["loss"] == loss for c in call), f"({tag}) ranks disagree "
+          "on the loss")
+    check(not any(c["plain"] for c in call) and not any(
+        r["plain"] for r in rows), f"({tag}) plain versions ran")
+    want = _wshard_launches(L, E, remat)
+    for r, c in enumerate(call + [r["call32"] for r in rows]):
+        check(all(c["launches"][k] == v for k, v in want.items()),
+              f"({tag}) rank {r % len(call)}: launches {c['launches']}, "
+              f"not {want}")
+    check(not any(c["split_vocab"] for c in call), f"({tag}) the "
+          f"vocabulary of {cfg.vocab_size} split over model")
+    rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    worst, single = call[0]["worst_vs_fp32"], call[0]["single_vs_fp32"]
+    if worst > WSHARD_BF16_VS_FP32 * single:
+        fails.append(f"({tag}) the bf16 gradient leaves lie up to "
+                     f"{worst:.3e} from fp32, above {WSHARD_BF16_VS_FP32} "
+                     f"times the single process's {single:.3e}")
+    c32 = rows[0]["call32"]
+    check(call[0]["n_leaves"] == c32["n_leaves"] == len(ref["grads"]),
+          f"({tag}) {call[0]['n_leaves']} leaves")
+    if rel > WSHARD_LOSS_RTOL:
+        fails.append(f"({tag}) loss {loss} against the single process's "
+                     f"{ref['loss']} (rel {rel:.3e})")
+    rel32 = abs(c32["loss"] - ref["loss32"]) / abs(ref["loss32"])
+    if (rel32 > WSHARD_FP32_LOSS_RTOL
+            or c32["worst_err"] > WSHARD_FP32_GRAD_TOL):
+        fails.append(f"({tag}) fp32: loss rel {rel32:.3e}, gradient "
+                     f"{c32['worst_leaf']} off by {c32['worst_err']:.3e}")
+    steps = [[h["loss"] for h in r["steps"]] for r in rows]
+    check(all(s == steps[0] for s in steps) and all(
+        math.isfinite(x) for x in steps[0]), f"({tag}) step losses {steps}")
+    want_steps = _wshard_launches(L, E, remat, WSHARD_STEPS)
+    for r, row in enumerate(rows):
+        check(all(row["launches"][k] == v for k, v in want_steps.items()),
+              f"({tag}) steps rank {r}: launches {row['launches']}, not "
+              f"{want_steps}")
+    return rel, steps[0]
+
+
+def _wshard_check_serve(tag, res, ref, fails):
+    """(c)'s checks under one policy; its numeric gates' failures are
+    added to ``fails``."""
+    cfg = _wshard_cfg()
+    E, L = cfg.n_enc_layers, cfg.n_layers
+    rows = [r[tag] for r in res]
+    check(all(r["same_on_ranks"] for r in rows), f"({tag}) the ranks' "
+          "logits or tokens differ")
+    check(all(r["finite"] for r in rows) and not any(
+        r["plain"] for r in rows), f"({tag}) not finite, or plain versions "
+          "ran")
+    for r, row in enumerate(rows):
+        got = (row["flash_state"], row["flash_decode"],
+               row["launches"]["flash_attention"])
+        want = (E, 2 * L * WSHARD_TOKENS, E + 2 * L * WSHARD_TOKENS + E
+                + 2 * L)
+        check(got == want, f"({tag}) rank {r}: flash launches (state, "
+              f"decode, all) {got}, not {want}")
+    first = max(r["first_vs_single"] for r in rows)
+    if first > WSHARD_LOGIT_TOL:
+        fails.append(f"({tag}) the first decode step's logits lie "
+                     f"{first:.3e} from the single process's")
+    vs = max(r["vs_prefill"] for r in rows)
+    if vs > DECODE_VS_PREFILL_TOL:
+        fails.append(f"({tag}) decode against the teacher-forced prefill: "
+                     f"{vs:.3e}")
+    return first, vs
+
+
+def phase_whisper_shard():
+    """Phase 24: whisper-medium at full width, WSHARD_LAYERS +
+    WSHARD_LAYERS layers, bf16, on WSHARD_RANKS gloo ranks sharing the
+    card, against the single process (this process, on the card).  (a)
+    training on (data 2, model 2) with TP, ZeRO, remat and ``seq_shard``,
+    and on (4, 1) with ZeRO: one sharded loss and gradients against the
+    single process's (phase 16's gates), WSHARD_STEPS AdamW steps; the
+    flash forward and backward launches, K14's apart at the TP-local
+    shape; (b) a sharded checkpoint after step 1, restored into a fresh
+    draw, repeats step 2 bit for bit; (c) serving on (2, 2) without and
+    with TP: ``init_encdec_decode_state`` of 8 lanes of 1500 frames,
+    WSHARD_TOKENS greedy steps on a 448-slot cache, the first step
+    against the single process's, decode against the sharded teacher-forced
+    prefill; (d) reduced fp32 with an odd vocabulary: the sharded loss and
+    decode against the single process's.  Returns {path: launches}."""
+    import torch
+
+    t_phase = time.perf_counter()
+    _free_cuda()
+    shutil.rmtree(WSHARD_DIR, ignore_errors=True)
+    WSHARD_DIR.mkdir(parents=True)
+    cfg = _wshard_cfg()
+    E, L = cfg.n_enc_layers, cfg.n_layers
+    log(f"[whisper-shard] {cfg.name} at full width, {E} + {L} of 24 + 24 "
+        f"layers, bf16, {WHISPER_LANES} x {WHISPER_CONTEXT} tokens over "
+        f"{WHISPER_LANES} x {WHISPER_FRAMES} frames, {WSHARD_RANKS} gloo "
+        "ranks on one card")
+    t0 = time.perf_counter()
+    ref = wshard_reference(str(WSHARD_DIR))
+    check(not ref["plain"], f"plain versions ran in the reference: "
+          f"{ref['plain']}")
+    want = _wshard_launches(L, E, False)
+    check(all(ref["launches"][k] == v for k, v in want.items()),
+          f"the reference's launches {ref['launches']}, not {want}")
+    log(f"[whisper-shard] single process: loss {ref['loss']!r}, grad norm "
+        f"{ref['grad_norm']:.6f}, {ref['params'] / 1e6:.1f} M params; "
+        f"{WSHARD_STEPS} steps at lr {WSHARD_LR}: {ref['losses']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    ranks_s = spawn_ranks(wshard_rank, (WSHARD_RANKS, str(WSHARD_DIR)),
+                          WSHARD_RANKS, "sharded whisper ranks",
+                          timeout_s=WSHARD_TIMEOUT_S)
+    res = [json.loads((WSHARD_DIR / f"rank{r}.json").read_text())
+           for r in range(WSHARD_RANKS)]
+    check([r["coord"] for r in res] == [[0, 0], [0, 1], [1, 0], [1, 1]],
+          f"mesh coordinates {[r['coord'] for r in res]}")
+    local = (WHISPER_LANES // WSHARD_TP_MESH[0], WHISPER_CONTEXT,
+             WHISPER_FRAMES, WHISPER_HEADS[0] // WSHARD_TP_MESH[1],
+             WHISPER_HEADS[2])
+    fails = []      # the numeric gates', reported together at the end
+    for tag, remat in (("tp", True), ("zero", False)):
+        rel, losses = _wshard_check_train(tag, res, ref, remat, fails)
+        call0 = res[0][tag]["call"]
+        flash = {k: v for k, v in call0["launches"].items()
+                 if k.startswith("flash_attention")}
+        log(f"[whisper-shard] (a) {tag}: loss {call0['loss']!r} (single "
+            f"process {ref['loss']!r}, rel {rel:.3e}); worst gradient leaf "
+            f"{call0['worst_leaf']} at {call0['worst_err']:.3e} of its "
+            f"largest magnitude, embed {call0['embed_err']:.3e}; grad norm "
+            f"{call0['grad_norm']:.6f} (single process "
+            f"{ref['grad_norm']:.6f}); {WSHARD_STEPS} steps: {losses} "
+            f"(single process {ref['losses']}); flash launches a call "
+            f"{flash}; backward shapes (B, S, T, H, dh) "
+            f"{call0['bwd_shapes']}")
+        log(f"[whisper-shard] (a) {tag}: the bf16 leaves farthest from the "
+            "single process (leaf, from it, from its fp32 gradients, the "
+            f"single process's own bf16 from fp32): {call0['top']}; over "
+            f"every leaf the ranks lie at most {call0['worst_vs_fp32']:.3e} "
+            "from fp32, the single process "
+            f"{call0['single_vs_fp32']:.3e} (gate: "
+            f"{WSHARD_BF16_VS_FP32} times the single process's)")
+        c32 = res[0][tag]["call32"]
+        call_ms = [round(r[tag]["call32"]["ms"], 1) for r in res]
+        log(f"[whisper-shard] (a) {tag} in fp32 (the same weights): loss "
+            f"{c32['loss']!r} (single process {ref['loss32']!r}); worst "
+            f"gradient leaf {c32['worst_leaf']} at {c32['worst_err']:.3e} "
+            f"of its largest magnitude (tol {WSHARD_FP32_GRAD_TOL:.0e}); "
+            f"call ms by rank {call_ms}")
+        for r, row in enumerate(res):
+            t = row[tag]
+            log(f"[whisper-shard] (a) {tag} rank {r} (data "
+                f"{row['coord'][0]}, model {row['coord'][1]}): "
+                f"{t['params_local'] / 1e6:.1f} M params, init "
+                f"{t['init_s']:.1f} s; call {t['call']['ms']:.1f} ms, "
+                f"{t['call']['gloo_bytes']} gloo bytes; step ms "
+                f"{[round(h['ms'], 1) for h in t['steps']]}, gloo bytes "
+                f"sent a step {[h['gloo_bytes'] for h in t['steps']]}; "
+                f"peak {t['peak_gb']:.2f} GB")
+    cross = [tuple(s) for s in res[0]["tp"]["call"]["bwd_shapes"]
+             if s[1] != s[2]]
+    check(cross == [local], f"(a) K14 ran at {cross}, not the TP-local "
+          f"shape {local}")
+    tp = [r["tp"] for r in res]
+    resumed = [t["resume"] for t in tp]
+    check(all(x["step"] == 1 for x in resumed), "(b) restored step "
+          f"{[x['step'] for x in resumed]}")
+    same = all(x["loss"] == t["steps"][1]["loss"]
+               for x, t in zip(resumed, tp))
+    log(f"[whisper-shard] (b) sharded checkpoint after step 1: "
+        f"{_dir_bytes(WSHARD_DIR / 'ckpt') / 1e9:.2f} GB saved in "
+        f"{max(t['save_s'] for t in tp):.2f} s, restored into a fresh draw "
+        f"(seed 1) in {max(t['restore_s'] for t in tp):.2f} s; step 2's "
+        f"loss {resumed[0]['loss']!r} against the unbroken "
+        f"{tp[0]['steps'][1]['loss']!r}: bit for bit {same}")
+    check(same, "(b) the resumed step 2 is not the unbroken run's")
+    for tag in ("serve_rep", "serve_tp"):
+        first, vs = _wshard_check_serve(tag, res, ref, fails)
+        row0 = res[0][tag]
+        log(f"[whisper-shard] (c) {tag}: the first decode step against the "
+            f"single process {first:.3e} of its largest logit (tol "
+            f"{WSHARD_LOGIT_TOL:.0e}); decode against the sharded prefill "
+            f"{vs:.3e} (tol {DECODE_VS_PREFILL_TOL:.0e}); caches split "
+            f"{row0['kv']!r}; the same logits and tokens on every rank")
+        for r, row in enumerate(res):
+            s = row[tag]
+            log(f"[whisper-shard] (c) {tag} rank {r}: lanes {s['lanes']}, "
+                f"state {s['state_ms']:.1f} ms, step ms wall "
+                f"{[round(x, 1) for x in s['step_ms'][1:]]} (mean "
+                f"{sum(s['step_ms'][1:]) / (len(s['step_ms']) - 1):.1f}), "
+                f"gloo bytes a step {s['gloo_bytes'][1]}; cross K/V "
+                f"{s['cross_kv_bytes'] / 1e6:.1f} MB {s['cross_kv_shape']}, "
+                f"self caches {s['self_cache_bytes'] / 1e6:.1f} MB; peak "
+                f"{s['peak_gb']:.2f} GB")
+    fp = [r["fp32"] for r in res]
+    loss_rel = max(x["loss_rel"] for x in fp)
+    err = max(x["logits_err"] for x in fp)
+    log(f"[whisper-shard] (d) reduced fp32 ({WSHARD_FP32_LAYERS} + "
+        f"{WSHARD_FP32_LAYERS} layers, vocab {WSHARD_FP32_VOCAB}): sharded "
+        f"loss rel {loss_rel:.3e} (tol {WSHARD_FP32_LOSS_RTOL:.0e}), decode "
+        f"logits {err:.3e} (tol {WSHARD_FP32_LOGIT_TOL:.0e}), the same "
+        f"tokens {all(x['same_tokens'] for x in fp)}")
+    if not (loss_rel <= WSHARD_FP32_LOSS_RTOL
+            and err <= WSHARD_FP32_LOGIT_TOL
+            and all(x["same_tokens"] for x in fp)):
+        fails.append("(d) the reduced fp32 model's sharded loss or decode "
+                     "is off")
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in res[0]["launches"]}
+    log(f"[whisper-shard] launches over the ranks: {launches}; ranks "
+        f"{ranks_s:.1f} s (4 ranks share one card: not a sharded run's "
+        f"speed); phase 24 in {time.perf_counter() - t_phase:.1f} s")
+    ref_launches = dict(ref["launches"])
+    del ref
+    shutil.rmtree(WSHARD_DIR, ignore_errors=True)
+    check(not fails, "phase 24: " + "; ".join(fails))
+    return {"whisper_shard_reference": ref_launches,
+            "whisper_shard": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: sequence-parallel attention, 4 ranks on the card
 # ---------------------------------------------------------------------------
 
@@ -7193,15 +7982,16 @@ def _flash_timing(B, S, T, q_offset, kv_len, causal=True,
                 + (" lse" if with_lse else ""))
 
 
-def _flash_train_timing(B=DENSE_BATCH, S=DENSE_SEQ, H=32, KV=8, dh=128):
+def _flash_train_timing(B=DENSE_BATCH, S=DENSE_SEQ, H=32, KV=8, dh=128, *,
+                        causal=True):
     """The forward as training launches it under autograd (by default the
-    dense shape, B 2, S 4096, H 32, KV 8, dh 128; bf16, causal, no
-    q_offset or kv_len, writing the row log-sum-exp); its plain version is
-    ``flash_attention_ref`` and
+    dense shape, B 2, S 4096, H 32, KV 8, dh 128; bf16, causal unless
+    ``causal`` is False, no q_offset or kv_len, writing the row
+    log-sum-exp); its plain version is ``flash_attention_ref`` and
     ``flash_attention_lse_ref`` on the same inputs, the library
-    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``.
+    ``F.scaled_dot_product_attention(is_causal=causal, enable_gqa=True)``.
     The bound: q, k, v read and the output and lse written once, or 4 x
-    causal pairs x H x dh operations at 989 TFLOP/s."""
+    admissible pairs x H x dh operations at 989 TFLOP/s."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -7211,18 +8001,21 @@ def _flash_train_timing(B=DENSE_BATCH, S=DENSE_SEQ, H=32, KV=8, dh=128):
     q = torch.randn(B, S, H, dh, generator=g, device="cuda").bfloat16()
     k, v = (torch.randn(B, S, KV, dh, generator=g, device="cuda").bfloat16()
             for _ in range(2))
-    n_ops = 4 * B * S * (S + 1) // 2 * H * dh
+    pairs = S * (S + 1) // 2 if causal else S * S
+    n_ops = 4 * B * pairs * H * dh
     n_bytes = 2 * (2 * B * S * H * dh + 2 * B * S * KV * dh) + 4 * B * S * H
     bound, by = _bound_ms(n_bytes, n_ops, "bfloat16")
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
-    t = _times(lambda: flash_attention_cuda(q, k, v, with_lse=True),
-               lambda: (ref.flash_attention_ref(q, k, v),
-                        ref.flash_attention_lse_ref(q, k, v)),
+    t = _times(lambda: flash_attention_cuda(q, k, v, with_lse=True,
+                                            causal=causal),
+               lambda: (ref.flash_attention_ref(q, k, v, causal=causal),
+                        ref.flash_attention_lse_ref(q, k, v, causal=causal)),
                lambda: F.scaled_dot_product_attention(
-                   qs, ks, vs, is_causal=True, enable_gqa=True),
+                   qs, ks, vs, is_causal=causal, enable_gqa=True),
                iters=10, plain_iters=2)
     return dict(t, bound_ms=bound, bound_by=by, gflop=n_ops / 1e9,
-                shape=f"B={B} S={S} H={H} KV={KV} dh={dh} causal lse bf16")
+                shape=f"B={B} S={S} H={H} KV={KV} dh={dh} "
+                + ("causal" if causal else "non-causal") + " lse bf16")
 
 
 def _flash_bwd_timing(B=DENSE_BATCH, S=DENSE_SEQ, H=32, KV=8, dh=128, *,
@@ -7605,7 +8398,12 @@ def phase_timings():
              "whisper_cross_decode": _flash_timing(
                  WHISPER_LANES, 1, WHISPER_FRAMES, None,
                  [WHISPER_FRAMES] * WHISPER_LANES, causal=False,
-                 heads=WHISPER_HEADS)}),
+                 heads=WHISPER_HEADS),
+             # phase 24: a TP rank's encoder self-attention under autograd
+             # (B 4, S = T 1500, H = KV = 8, dh 64, non-causal, with lse)
+             "whisper_tp_train": _flash_train_timing(
+                 WHISPER_TP_LOCAL[0], WHISPER_FRAMES, *WHISPER_TP_LOCAL[1:],
+                 causal=False)}),
         ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "decode", {
              "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
@@ -7645,7 +8443,11 @@ def phase_timings():
          {"train": _flash_bwd_timing(),
           "zamba2_tp_train": _flash_bwd_timing(
               SSMTP_LOCAL_BATCH, SSMTP_SEQ, *ZAMBA2_TP_HEADS),
-          "kimi_train": _flash_bwd_timing(*KIMI_TRAIN, *KIMI_HEADS)}),
+          "kimi_train": _flash_bwd_timing(*KIMI_TRAIN, *KIMI_HEADS),
+          # phase 24: a TP rank's encoder self-attention
+          "whisper_tp_train": _flash_bwd_timing(
+              WHISPER_TP_LOCAL[0], WHISPER_FRAMES, *WHISPER_TP_LOCAL[1:],
+              causal=False)}),
         # K14: the backward at S != T, phase 23's cross-attention (its
         # launches are also among flash_attention_bwd's)
         ("flash_attention_bwd_cross", "cuda",
@@ -7653,7 +8455,12 @@ def phase_timings():
          "src/repro/kernels/flash_attention.py:143", "whisper_cross_train",
          {"whisper_cross_train": _flash_bwd_timing(
              WHISPER_LANES, WHISPER_CONTEXT, *WHISPER_HEADS,
-             T=WHISPER_FRAMES, causal=False)}),
+             T=WHISPER_FRAMES, causal=False),
+          # phase 24: a TP rank's cross-attention (B 4, S 448, T 1500,
+          # H = KV = 8, dh 64)
+          "whisper_tp_cross_train": _flash_bwd_timing(
+              WHISPER_TP_LOCAL[0], WHISPER_CONTEXT, *WHISPER_TP_LOCAL[1:],
+              T=WHISPER_FRAMES, causal=False)}),
         ("flash_partial", "cuda", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/ring_attention.py:110", "visible", {
              "diagonal": _partial_timing(0),
@@ -7848,6 +8655,8 @@ def main() -> int:
             if not run(2):      # K14 against its plain version first
                 phase_k14(errs)
             launches.update(phase_whisper_train())
+        if begin(24):
+            launches.update(phase_whisper_shard())
         if begin(4):
             phase_cpu_vs_card()
         if begin(5):

@@ -152,7 +152,7 @@ def save_train_state(step: int, params: Model, opt_state: Mapping[str, Any],
                   directory, extra)
 
 
-def save_sharded_train_state(step: int, params: LM,
+def save_sharded_train_state(step: int, params: Model,
                              opt_state: Mapping[str, Any], shard,
                              directory: str | pathlib.Path,
                              extra: Optional[Dict[str, Any]] = None
@@ -240,10 +240,10 @@ def restore_train_state(params_template: Model,
     return params_template, opt_template, step
 
 
-def restore_sharded_train_state(params: LM, opt_state: Dict[str, Any],
+def restore_sharded_train_state(params: Model, opt_state: Dict[str, Any],
                                 shard, directory: str | pathlib.Path,
                                 step: Optional[int] = None
-                                ) -> Tuple[LM, Dict[str, Any], int]:
+                                ) -> Tuple[Model, Dict[str, Any], int]:
     """:func:`restore_train_state` into a sharded run's model and AdamW
     state (this rank's shards under ``shard``, a ``ShardContext``): each
     whole leaf is cut to the rank's shard (``shard.shard_tensor``) and

@@ -2,7 +2,8 @@
 loaded, then training of a dense, MoE, SSM or hybrid model on synthetic or
 byte-level text batches, on one device, sharded over ranks, or through the
 pipeline runtime; or of the encoder-decoder (whisper-medium) on one
-device, its batches carrying the synthetic stream's random frames.
+device or sharded, its batches carrying the synthetic stream's random
+frames.
 
     python -m repro_torch.launch.train --arch mamba2-370m \\
         --steps 10 --batch 8 --seq 2048
@@ -35,11 +36,10 @@ middle strategy (``ShardPolicy.from_strategy``, remat from the first) on
 the driver starts itself; each rank draws its shards of ``init_lm(cfg,
 seed=0)`` and trains on its rows of the same batches.  With one rank the
 model trains on one device and the plan's sharding degrees and micro-batch
-count are printed, not applied.  An encoder-decoder trains on one device
-only: ``--ranks`` above 1 raises NotImplementedError (sharded enc-dec is
-the next item of ``ROADMAP.md`` queue 1), and ``--pipeline`` raises the
-pipeline runtime's ValueError (one homogeneous stack), as the reference
-asserts.
+count are printed, not applied.  An encoder-decoder takes ``--ranks``
+too (each rank draws its shards of ``init_encdec(cfg, seed=0)``; the
+batches carry ``frames``), while ``--pipeline`` raises the pipeline
+runtime's ValueError (one homogeneous stack), as the reference asserts.
 
 ``--pipeline`` executes the plan's searched schedule through the pipeline
 runtime (``runtime/pipeline.py``), scaled down by the JAX driver's rules
@@ -78,8 +78,7 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import build_stacks
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.executor import (abstract_params, init_train_state,
-                                          make_train_step,
-                                          refuse_sharded_encdec)
+                                          make_train_step)
 from repro_torch.runtime.sharding import ShardPolicy
 
 
@@ -422,12 +421,12 @@ def run_sharded(cfg: ModelConfig, args: argparse.Namespace, n_ranks: int
     its shards under the plan's policy (:func:`plan_from_args`,
     :func:`middle_strategy_policy`) on ``make_local_mesh()``; returns rank
     0's history, each step with ``peak_mem_gb_rank<r>`` of every rank on a
-    CUDA device.  Raises NotImplementedError, before the search, for an
-    encoder-decoder or an arch the port does not build, and RuntimeError
-    when a rank fails."""
+    CUDA device.  An encoder-decoder's batches carry ``frames``.  Raises
+    NotImplementedError, before the search, for an arch the port does not
+    build, and RuntimeError when a rank fails."""
     dev = resolve_device(args.device)
-    refuse_sharded_encdec(cfg)
-    build_stacks(cfg)
+    if not cfg.is_encoder_decoder:
+        build_stacks(cfg)
     policy = middle_strategy_policy(plan_from_args(cfg, args))
     n_params = sum(p.numel() for p in abstract_params(cfg).parameters())
     print(f"model: {args.arch} ({n_params / 1e6:.1f}M params), "

@@ -441,25 +441,38 @@ def attention_prefill_paged(p: Attention, x: torch.Tensor, pool: Pool,
 
 def cross_attention(p: Attention, x: torch.Tensor,
                     enc_kv: Tuple[torch.Tensor, torch.Tensor],
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig, *, shard=None) -> torch.Tensor:
     """Decoder cross-attention over precomputed encoder K/V
     (:func:`precompute_cross_kv`), no RoPE and no mask: x (B,S,d) ->
     (B,S,d).  On the card the S queries attend the T encoder keys through
     the flash kernel (non-causal, S != T; S = 1 in decode); on the CPU its
-    plain version, which computes the reference's ``sdpa_ref``."""
+    plain version, which computes the reference's ``sdpa_ref``.
+
+    ``shard`` (``runtime/sharding.py::ShardContext``) runs it
+    tensor-parallel: x enters the TP region, the rank projects its
+    ``n_heads / tp`` query heads over ``enc_kv`` of its ``n_kv_heads / tp``
+    KV heads (:func:`precompute_cross_kv` with the same ``shard``), and
+    ``wo`` is row-parallel, its partial sums added over ``model``."""
     B, S, _ = x.shape
+    if shard is not None:
+        x, cfg = shard.to_tp(x), shard.local_cfg(cfg)
     q = (x @ p.wq).reshape(B, S, cfg.n_heads, cfg.dh)
     k, v = enc_kv
     out = ops.flash_attention(q, k, v, causal=False)
-    return out.reshape(B, S, cfg.q_dim) @ p.wo
+    out = out.reshape(B, S, cfg.q_dim) @ p.wo
+    return out if shard is None else shard.from_tp(out)
 
 
 def precompute_cross_kv(p: Attention, enc_out: torch.Tensor,
-                        cfg: ModelConfig
+                        cfg: ModelConfig, *, shard=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder output's K and V (B, T, KV, dh) for a decoder layer's
-    cross-attention."""
+    cross-attention; with ``shard`` under TP the rank's ``n_kv_heads /
+    tp`` heads, the encoder output (replicated over ``model``) entering
+    the TP region, so its gradient is summed over ``model``."""
     B, T, _ = enc_out.shape
+    if shard is not None:
+        enc_out, cfg = shard.to_tp(enc_out), shard.local_cfg(cfg)
     k = (enc_out @ p.wk).reshape(B, T, cfg.n_kv_heads, cfg.dh)
     v = (enc_out @ p.wv).reshape(B, T, cfg.n_kv_heads, cfg.dh)
     return k, v

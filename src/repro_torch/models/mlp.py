@@ -60,5 +60,13 @@ def init_gelu_mlp(d: int, d_ff: int, dtype: torch.dtype = torch.bfloat16, *,
                    w_proj, torch.zeros(d, dtype=dtype, device=device))
 
 
-def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
-    return gelu(x @ p.w_fc + p.b_fc) @ p.w_proj + p.b_proj
+def gelu_mlp(p: GeluMLP, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """With a sharding context ``shard`` (``runtime/sharding.py``), the
+    Megatron MLP: w_fc column-parallel with the rank's slice of b_fc,
+    w_proj row-parallel, its partial sums added over ``model`` before
+    b_proj is added once."""
+    if shard is None:
+        return gelu(x @ p.w_fc + p.b_fc) @ p.w_proj + p.b_proj
+    x = shard.to_tp(x)
+    h = gelu(x @ p.w_fc + shard.tp_local(p.b_fc))
+    return shard.from_tp(h @ p.w_proj) + p.b_proj

@@ -219,10 +219,10 @@ def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig,
         if params.head is not None:
             return x @ params.head
         return x @ params.embed.T
-    x = shard.to_tp(rms_norm(x, shard.w(params.final_norm), cfg.norm_eps))
+    x = rms_norm(x, shard.w(params.final_norm), cfg.norm_eps)
     if params.head is not None:
-        return x @ shard.w(params.head)
-    return x @ shard.w(params.embed).T
+        return shard.to_tp(x) @ shard.w(params.head)
+    return shard.tied_logits(x, params.embed)
 
 
 def dense_block(p: DenseBlock, x: torch.Tensor, positions: torch.Tensor,
@@ -312,15 +312,15 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     positions = torch.arange(S, device=x.device).expand(B, S)
     win = cfg.sliding_window
     sa = params.shared_attn
-    run_shared = shared_block
+    run_shared, seq = shared_block, False
     if shard is not None:
-        x = shard.seq_slice(x)
-        run_shared = functools.partial(shard.block, shared_block)
+        x, seq = shard.seq_slice(x)
+        run_shared = functools.partial(shard.block, shared_block, seq=seq)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (kind, i, j, shared) in enumerate(_segments(cfg)):
         fn = _BLOCK_APPLY[kind]
         if shard is not None:
-            fn = functools.partial(shard.block, fn)
+            fn = functools.partial(shard.block, fn, seq=seq)
         remat = (bool(remat_segments[min(si, len(remat_segments) - 1)])
                  if remat_segments else False)
         for blk in params.blocks[i:j]:
@@ -337,7 +337,7 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
         if shared and sa is not None:
             x = run_shared(sa, x, positions, cfg, window=win)
     if shard is not None:
-        x = shard.seq_gather(x)
+        x = shard.seq_gather(x, seq)
     return _logits(params, x, cfg, shard), aux
 
 

@@ -23,13 +23,13 @@ expert mesh: their pools serve every lane on every rank, and EP needs the
 lanes split.  The collectives GSPMD inserts in the JAX package run
 explicitly (``runtime/sharding.py``).
 
-An encoder-decoder config (``models/encdec.py``) trains and is served on
-one device: its params come from ``init_encdec``, its training step runs
+An encoder-decoder config (``models/encdec.py``) takes the same steps:
+its params come from ``init_encdec``, its training step runs
 ``encdec_loss`` (the reference's ``loss_fn_for``), its prefill is the
 encoder and the teacher-forced decoder, and its serving step
-``encdec_decode_step`` on the state of ``init_encdec_decode_state``.  With
-a mesh each raises NotImplementedError (sharded enc-dec is the next item
-of ``ROADMAP.md`` queue 1).
+``encdec_decode_step`` on the state of ``init_encdec_decode_state``; with
+a mesh each runs sharded as a decoder-only model's does (``shard=``
+through ``models/encdec.py``).  The paged steps are decoder-only.
 """
 from __future__ import annotations
 
@@ -54,24 +54,6 @@ from repro_torch.runtime.sharding import (ShardContext, ShardPolicy,
                                           abstract_params)
 
 
-def refuse_sharded_encdec(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for an encoder-decoder config, which the
-    port trains and serves on one device only."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name!r} is an encoder-decoder, which the port trains and "
-            "serves on one device only so far: sharded enc-dec (DP, ZeRO-3 "
-            "and TP over gloo ranks) is the next item of ROADMAP.md queue 1")
-
-
-def _one_device_encdec(cfg: ModelConfig, mesh: Optional[DeviceMesh]) -> bool:
-    """True for an encoder-decoder config without a mesh; raises
-    NotImplementedError for one with a mesh."""
-    if mesh is not None:
-        refuse_sharded_encdec(cfg)
-    return cfg.is_encoder_decoder
-
-
 def init_train_state(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
                      policy: Optional[ShardPolicy] = None, seed: int = 0,
                      opt_cfg: Optional[AdamWConfig] = None,
@@ -80,31 +62,38 @@ def init_train_state(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
     """Random weights from ``seed`` on ``device`` and their AdamW state:
     ``init_lm``'s, or for an encoder-decoder config ``init_encdec``'s (its
     default 4096-row decoder position table, as the reference's
-    ``init_train_state``), on one device.
+    ``init_train_state``).
 
     With a ``mesh`` (``("data", "model")`` or ``("data", "expert")``, every
-    rank calling), each rank draws ``init_lm``'s numbers in its order and
-    keeps its shards under ``policy`` (default ``ShardPolicy()``), each
-    full part freed as soon as it is sliced (a MoE layer's experts kept
-    only where they are the rank's): the numbers are the single process's
-    on the same device type.  Raises NotImplementedError for an arch the
-    port does not build, and for an encoder-decoder with a mesh."""
+    rank calling), each rank draws ``init_lm``'s (``init_encdec``'s)
+    numbers in its order and keeps its shards under ``policy`` (default
+    ``ShardPolicy()``), each full part freed as soon as it is sliced (a MoE
+    layer's experts kept only where they are the rank's): the numbers are
+    the single process's on the same device type.  Raises
+    NotImplementedError for an arch the port does not build."""
     dev = resolve_device(device)
-    if _one_device_encdec(cfg, mesh):
-        params = init_encdec(cfg, seed=seed, device=dev)
-    elif mesh is None:
-        params = init_lm(cfg, seed=seed, device=dev)
-    else:
-        ctx = ShardContext(cfg, mesh, policy or ShardPolicy())
-        params = init_lm(cfg, seed=seed, device=dev, shard=ctx.shard_part,
-                         experts=ctx.expert_range())
+    params = _draw(cfg, seed, dev, None if mesh is None else ShardContext(
+        cfg, mesh, policy or ShardPolicy()))
     return params, adamw_init(list(params.parameters()), opt_cfg)
 
 
-def shard_train_state(params: LM, mesh: DeviceMesh, policy: ShardPolicy, *,
-                      cfg: ModelConfig,
+def _draw(cfg: ModelConfig, seed: int, dev: torch.device,
+          ctx: Optional[ShardContext]) -> LM | EncDec:
+    """``init_encdec`` or ``init_lm`` of ``seed``; with ``ctx`` the rank's
+    shards."""
+    if cfg.is_encoder_decoder:
+        return init_encdec(cfg, seed=seed, device=dev,
+                           shard=None if ctx is None else ctx.shard_part)
+    if ctx is None:
+        return init_lm(cfg, seed=seed, device=dev)
+    return init_lm(cfg, seed=seed, device=dev, shard=ctx.shard_part,
+                   experts=ctx.expert_range())
+
+
+def shard_train_state(params: LM | EncDec, mesh: DeviceMesh,
+                      policy: ShardPolicy, *, cfg: ModelConfig,
                       opt_cfg: Optional[AdamWConfig] = None
-                      ) -> Tuple[LM, Dict[str, Any]]:
+                      ) -> Tuple[LM | EncDec, Dict[str, Any]]:
     """:func:`init_train_state`'s sharded state from a full model of
     ``cfg`` (for example one bridged from JAX by
     ``bridge.params_from_jax``): its parameters replaced by this rank's
@@ -113,8 +102,8 @@ def shard_train_state(params: LM, mesh: DeviceMesh, policy: ShardPolicy, *,
     return params, adamw_init(list(params.parameters()), opt_cfg)
 
 
-def gather_params(params: LM, mesh: DeviceMesh, policy: ShardPolicy, *,
-                  cfg: ModelConfig) -> LM:
+def gather_params(params: LM | EncDec, mesh: DeviceMesh,
+                  policy: ShardPolicy, *, cfg: ModelConfig) -> LM | EncDec:
     """A full copy of a sharded model, on every rank (a collective of
     every rank), for checks."""
     ctx = ShardContext(cfg, mesh, policy)
@@ -129,22 +118,33 @@ def make_sharded_loss(cfg: ModelConfig, mesh: DeviceMesh,
                                                List[torch.Tensor]]]:
     """``loss_and_grads(params, batch) -> (loss, grads)`` of a sharded
     model on ``mesh`` under ``policy``, called on every rank with the
-    global batch (int ``tokens``/``labels`` (B, S), on any device), of
-    which each rank takes its batch rows (over ``data``, x ``expert`` on an
-    expert mesh).  ``loss`` is the global
+    global batch (int ``tokens``/``labels`` (B, S), for an encoder-decoder
+    also ``frames`` (B, T_enc, d), on any device), of which each rank
+    takes its batch rows (over ``data``, x ``expert`` on an expert mesh).
+    ``loss`` is the global
     batch's 0-d fp32 loss, the same on every rank; ``grads``, aligned with
     ``params.parameters()``, are the rank's shards of the global gradient.
-    Remat follows ``policy.remat_segments``.  ``loss_and_grads.shard`` is
-    the :class:`ShardContext`.  Raises as ``ShardContext`` does."""
+    Remat follows ``policy.remat_segments`` (an encoder-decoder's both
+    stacks by its first entry, as ``make_train_step``'s).
+    ``loss_and_grads.shard`` is the :class:`ShardContext`.  Raises as
+    ``ShardContext`` does."""
     ctx = ShardContext(cfg, mesh, policy)
     remat = list(policy.remat_segments) if policy.remat_segments else None
+    if cfg.is_encoder_decoder:
+        def loss_fn(params, batch):
+            return encdec_loss(params, batch, cfg,
+                               remat=bool(remat and remat[0]), shard=ctx)
+    else:
+        def loss_fn(params, batch):
+            return lm_loss(params, batch, cfg, remat_segments=remat,
+                           shard=ctx)
 
-    def loss_and_grads(params: LM, batch: Dict[str, torch.Tensor]
+    def loss_and_grads(params: LM | EncDec, batch: Dict[str, torch.Tensor]
                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         named = ctx.bind(params)
         leaves = [p for _, p in named]
         local = ctx.local_batch(batch, leaves[0].device)
-        share = lm_loss(params, local, cfg, remat_segments=remat, shard=ctx)
+        share = loss_fn(params, local)
         grads = torch.autograd.grad(share, leaves, allow_unused=True)
         grads = ctx.reduce_grads(named, grads)
         return ctx.data_sum(share.detach()), grads
@@ -165,7 +165,7 @@ def make_train_step(cfg: ModelConfig,
     for an encoder-decoder config float ``frames`` (B, T_enc, d).
     ``remat_segments`` goes to :func:`lm_loss`; an encoder-decoder runs
     ``encdec_loss`` with ``remat = bool(remat_segments and
-    remat_segments[0])``, the reference's ``loss_fn_for``, on one device.
+    remat_segments[0])``, the reference's ``loss_fn_for``.
 
     With a ``mesh`` the step is the sharded one (:func:`make_sharded_loss`
     under ``policy``, default ``ShardPolicy()``, whose ``remat_segments``
@@ -173,12 +173,11 @@ def make_train_step(cfg: ModelConfig,
     this rank's shards (:func:`init_train_state`), the gradient norm that
     of the whole model (every shard and every replicated leaf counted
     once), and AdamW updates the local shards.  Raises
-    NotImplementedError for an arch the port does not build, and for an
-    encoder-decoder with a mesh."""
+    NotImplementedError for an arch the port does not build."""
     opt_cfg = opt_cfg or AdamWConfig()
     if mesh is not None:
-        refuse_sharded_encdec(cfg)
-        build_stacks(cfg)
+        if not cfg.is_encoder_decoder:
+            build_stacks(cfg)
         if remat_segments is not None:
             raise ValueError("a sharded step takes remat from "
                              "policy.remat_segments")
@@ -212,7 +211,7 @@ def _sharded_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMesh,
     loss_and_grads = make_sharded_loss(cfg, mesh, policy)
     ctx = loss_and_grads.shard
 
-    def step(params: LM, opt_state: Dict[str, Any],
+    def step(params: LM | EncDec, opt_state: Dict[str, Any],
              batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         loss, grads = loss_and_grads(params, batch)
         named = list(params.named_parameters())
@@ -232,6 +231,16 @@ def _sharded_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh: DeviceMesh,
 SERVING_POLICY = ShardPolicy(tp=False, zero=False)
 
 
+def _refuse_paged_encdec(cfg: ModelConfig) -> None:
+    """The paged steps serve decoder-only models, as the reference's."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name!r} is an encoder-decoder: the paged steps serve "
+            "decoder-only models (its cross-attention reads per-lane "
+            "encoder K/V); serve it with make_prefill_step and "
+            "make_serve_step")
+
+
 def _serving_context(cfg: ModelConfig, mesh: DeviceMesh,
                      policy: Optional[ShardPolicy], *,
                      paged: bool = False) -> ShardContext:
@@ -249,27 +258,21 @@ def init_serving_params(cfg: ModelConfig, *,
                         policy: Optional[ShardPolicy] = None, seed: int = 0,
                         device: torch.device = "cuda") -> LM | EncDec:
     """Random weights from ``seed`` on ``device`` for the serving steps
-    (``init_encdec``'s for an encoder-decoder config, on one device).
+    (``init_encdec``'s for an encoder-decoder config).
 
-    With a ``mesh`` each rank draws ``init_lm``'s numbers and keeps its
-    shards under ``policy`` (default ``ShardPolicy(tp=False, zero=False)``,
-    the serving drivers' policy): the rule table's (``param_specs``),
-    except that under TP each Mamba2 ``in_proj`` is the rank's columns
-    (``models/ssm.py::ssm_tp_columns``), taken once here rather than
-    gathered over ``model`` every step."""
-    dev = resolve_device(device)
-    if _one_device_encdec(cfg, mesh):
-        return init_encdec(cfg, seed=seed, device=dev)
-    if mesh is None:
-        return init_lm(cfg, seed=seed, device=dev)
-    ctx = _serving_context(cfg, mesh, policy)
-    return init_lm(cfg, seed=seed, device=dev, shard=ctx.shard_part,
-                   experts=ctx.expert_range())
+    With a ``mesh`` each rank draws ``init_lm``'s (``init_encdec``'s)
+    numbers and keeps its shards under ``policy`` (default
+    ``ShardPolicy(tp=False, zero=False)``, the serving CLIs' policy):
+    the rule table's (``param_specs``), except that under TP each Mamba2
+    ``in_proj`` is the rank's columns (``models/ssm.py::ssm_tp_columns``),
+    taken once here rather than gathered over ``model`` every step."""
+    return _draw(cfg, seed, resolve_device(device), None if mesh is None
+                 else _serving_context(cfg, mesh, policy))
 
 
-def shard_serving_params(params: LM, mesh: DeviceMesh,
+def shard_serving_params(params: LM | EncDec, mesh: DeviceMesh,
                          policy: Optional[ShardPolicy] = None, *,
-                         cfg: ModelConfig) -> LM:
+                         cfg: ModelConfig) -> LM | EncDec:
     """:func:`init_serving_params`'s shards from a full model of ``cfg``
     (for example one bridged from JAX), its parameters replaced in
     place."""
@@ -285,7 +288,7 @@ def make_prefill_step(cfg: ModelConfig, *,
     ``batch["tokens"]`` (B, S), :func:`lm_forward` without the loss, for
     every arch the port builds.  Raises NotImplementedError for another.
     For an encoder-decoder, ``decode_train`` of the tokens against
-    ``encode`` of ``batch["frames"]`` (B, T_enc, d), on one device.
+    ``encode`` of ``batch["frames"]`` (B, T_enc, d).
 
     With a ``mesh`` (``policy`` default ``ShardPolicy(tp=False,
     zero=False)``; params from :func:`init_serving_params`), every rank
@@ -293,15 +296,27 @@ def make_prefill_step(cfg: ModelConfig, *,
     reference's step leaves them sharded: its lanes (rows split over
     ``data``, x ``expert`` on an expert mesh, when they divide,
     ``ShardContext.lane_range``) and under TP
-    its vocabulary columns ``[r V / tp, (r + 1) V / tp)``.
+    its vocabulary columns ``[r V / tp, (r + 1) V / tp)`` (an
+    encoder-decoder's whole rows where its table does not split,
+    ``ShardContext.split_vocab``).
     ``step.shard`` is the :class:`ShardContext`."""
-    if _one_device_encdec(cfg, mesh):
+    if cfg.is_encoder_decoder:
+        ctx = None if mesh is None else _serving_context(cfg, mesh, policy)
+
         @torch.inference_mode()
         def encdec(params: EncDec, batch: Dict[str, torch.Tensor]
                    ) -> torch.Tensor:
-            return decode_train(params, batch["tokens"],
-                                encode(params, batch["frames"], cfg), cfg)
+            tokens, frames = batch["tokens"], batch["frames"]
+            if ctx is not None:
+                ctx.bind(params)
+                lo, hi = ctx.lane_range(tokens.shape[0])
+                tokens, frames = tokens[lo:hi], frames[lo:hi]
+            dev = params.embed.device
+            return decode_train(params, tokens.to(dev),
+                                encode(params, frames, cfg, shard=ctx), cfg,
+                                shard=ctx)
 
+        encdec.shard = ctx
         return encdec
     build_stacks(cfg)
     if mesh is None:
@@ -331,27 +346,32 @@ def make_serve_step(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
     decode step on the KV caches and SSM states of ``init_decode_state``,
     written in place, for dense, MoE, SSM and hybrid decoders; for an
     encoder-decoder, ``encdec_decode_step`` on the state of
-    ``init_encdec_decode_state``, on one device (``step.shard`` None).
-    Raises NotImplementedError for an arch the port does not build.
+    ``init_encdec_decode_state``.  Raises NotImplementedError for an arch
+    the port does not build.
 
     With a ``mesh`` (``policy`` default ``ShardPolicy(tp=False,
     zero=False)``), every rank calls it with the whole ``token``, its
     params from :func:`init_serving_params` and its state from
-    ``init_decode_state(shard=step.shard)``: lanes over ``data`` (x
-    ``expert`` on an expert mesh), each
+    ``init_decode_state(shard=step.shard)`` (an encoder-decoder's from
+    ``init_encdec_decode_state(shard=step.shard)``): lanes over ``data``
+    (x ``expert`` on an expert mesh), each
     cache's context (or KV heads) and each SSM state's heads over
-    ``model`` (``runtime/sharding.py::decode_state_specs``).  The logits
-    are every lane's whole rows, the same on every rank."""
-    if _one_device_encdec(cfg, mesh):
+    ``model`` (``runtime/sharding.py::decode_state_specs``; under TP an
+    encoder-decoder's cross K/V the rank's heads).  The logits are every
+    lane's whole rows, the same on every rank."""
+    if not cfg.is_encoder_decoder:
+        build_stacks(cfg)
+    ctx = None if mesh is None else _serving_context(cfg, mesh, policy)
+    if cfg.is_encoder_decoder:
         def encdec(params: EncDec, state: Dict[str, Any],
                    token: torch.Tensor
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-            return encdec_decode_step(params, state, token, cfg)
+            if ctx is not None:
+                ctx.bind(params)
+            return encdec_decode_step(params, state, token, cfg, shard=ctx)
 
-        encdec.shard = None
+        encdec.shard = ctx
         return encdec
-    build_stacks(cfg)
-    ctx = None if mesh is None else _serving_context(cfg, mesh, policy)
 
     @torch.inference_mode()
     def step(params: LM, state: Dict[str, Any], token: torch.Tensor
@@ -377,6 +397,7 @@ def make_paged_decode_step(cfg: ModelConfig, *,
     under TP, ``paged_state_specs``), params from
     :func:`init_serving_params`; the logits whole, the same on every
     rank."""
+    _refuse_paged_encdec(cfg)
     ctx = (None if mesh is None
            else _serving_context(cfg, mesh, policy, paged=True))
 
@@ -399,6 +420,7 @@ def make_paged_prefill_step(cfg: ModelConfig, *,
     """``(params, pools, tokens (PB,S), page_rows (PB,P), base, prompt_len
     (PB,))`` -> last-prompt-position logits (PB, V); the pools are written
     in place.  ``mesh`` and ``policy`` as :func:`make_paged_decode_step`."""
+    _refuse_paged_encdec(cfg)
     ctx = (None if mesh is None
            else _serving_context(cfg, mesh, policy, paged=True))
 

@@ -34,6 +34,12 @@ if TYPE_CHECKING:
 
 
 def _segment_bounds(cfg: ModelConfig) -> List[int]:
+    """The remat segments' layer counts: :func:`build_stacks`'s, and for
+    an encoder-decoder one of ``n_layers`` (the reference's
+    ``build_stacks`` falls through to one dense stack; its remat flag
+    covers both of the model's stacks)."""
+    if cfg.is_encoder_decoder:
+        return [cfg.n_layers]
     return [n for _, n in build_stacks(cfg)]
 
 

@@ -30,7 +30,10 @@ used and its gradient reduce-scattered in the backward; TP runs
 copy-to-TP-region (whose backward sums over ``model``) before each column
 product and reduce-from-TP-region (whose forward sums over ``model``)
 after each row product; the embedding lookup and the cross entropy are
-vocab-parallel; the other gradients are summed over ``data``.  Attention
+vocab-parallel (an encoder-decoder's tied table that the rule table leaves
+whole over ``model`` is looked up and projected whole on every ``model``
+rank, :attr:`ShardContext.split_vocab`); the other gradients are summed
+over ``data``.  Attention
 runs on the rank's ``n_heads / tp`` query heads and ``n_kv_heads / tp``
 KV heads, split head-aligned, so query head h still reads KV head h // G:
 tp must divide ``n_kv_heads`` (GSPMD would reshard a split head; the rule
@@ -82,6 +85,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.kernels.ring_attention import host_tensor
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.encdec import init_encdec
 from repro_torch.models.ssm import ssm_tp_columns
 from repro_torch.models.transformer import init_lm
 
@@ -155,6 +159,8 @@ _ROW = {"wo", "w_down", "out_proj", "w_proj", "w2"}
 _EMBED = {"embed"}
 _HEAD = {"head"}
 _REPLICATED_HINT = {"router"}
+# the port's block lists that the JAX package stacks on a leading L axis
+_STACKED = ("blocks.", "enc_blocks.", "dec_blocks.")
 
 
 def _rule(name: str, shape: Sequence[int], mesh: MeshLike,
@@ -208,9 +214,10 @@ def leaf_spec(name: str, shape: Sequence[int], mesh: MeshLike,
     its rules read that rank: a block's leaf is judged as the stacked leaf
     would be (a block's 1-D norm is ZeRO-sharded like the stacked (L, d)
     one) and the layer entry dropped, so the table equals the reference's
-    on every leaf."""
+    on every leaf.  The encoder-decoder's ``enc_blocks.N.`` and
+    ``dec_blocks.N.`` are such blocks too."""
     leaf = name.rsplit(".", 1)[-1]
-    if name.startswith("blocks."):
+    if name.startswith(_STACKED):
         return tuple(_rule(leaf, (1, *shape), mesh, pol)[1:])
     return tuple(_rule(leaf, tuple(shape), mesh, pol))
 
@@ -339,11 +346,22 @@ def decode_state_specs(state, mesh: MeshLike, pol: ShardPolicy):
     their context over ``model`` (``pol.shard_cache_seq``, when it
     divides), else their KV heads; SSM states' lanes over the batch axes
     and heads over ``model``; the conv history's lanes only; the index
-    whole.  Not gated on ``pol.tp``.  The reference's
+    whole; an encoder-decoder's ``cross_kv`` (one (k, v) a decoder layer)
+    its lanes only.  Not gated on ``pol.tp``.  The reference's
     ``decode_state_shardings`` on each leaf (a stacked leaf's layer dim
     dropped, which its rule skips by rank); the same tree with a spec for
-    each tensor."""
-    return _map_named(state, lambda n, s: _decode_leaf(n, s, mesh, pol))
+    each tensor.  Under TP the port's ``cross_kv`` holds the rank's KV
+    heads (``models/encdec.py::init_encdec_decode_state``), where this
+    spec, as the reference's, keeps them whole."""
+    out = _map_named(state, lambda n, s: _decode_leaf(n, s, mesh, pol))
+    if isinstance(state, Mapping) and "self_cache" in state:
+        # an encoder-decoder's state: a layer's (B, T, KV, dh) cross K/V
+        # judged as the reference's stacked (L, B, T, KV, dh) leaf
+        n_layers = len(state["cross_kv"])
+        out["cross_kv"] = _map_named(
+            state["cross_kv"], lambda n, s: _decode_leaf(
+                n, (n_layers, *s), mesh, pol)[1:], "cross_kv")
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -618,7 +636,10 @@ class _Apply(nn.Module):
 
 def abstract_params(cfg: ModelConfig) -> nn.Module:
     """The model's parameters on the ``meta`` device: names and shapes,
-    no storage."""
+    no storage (``init_encdec``'s for an encoder-decoder config, its
+    default 4096-row decoder position table, as the reference's)."""
+    if cfg.is_encoder_decoder:
+        return init_encdec(cfg, device="meta")
     return init_lm(cfg, device="meta")
 
 
@@ -639,9 +660,15 @@ class ShardContext:
     (``models/ssm.py::ssm_tp_columns``), which the serving steps read
     without a gather.  Raises ValueError on another mesh or backend and on
     a TP degree that does not split what the model has: the attention heads
-    and d_ff of a dense model, the SSM heads of a Mamba2 block, the shared
-    attention block's heads of the hybrid, the experts and the shared and
-    residual branches' widths of a MoE model, and the vocabulary."""
+    and d_ff of a dense model and of an encoder-decoder, the SSM heads of a
+    Mamba2 block, the shared attention block's heads of the hybrid, the
+    experts and the shared and residual branches' widths of a MoE model,
+    and a decoder-only model's vocabulary.  An encoder-decoder's tied
+    table is split over ``model`` only where the rule table splits it (its
+    vocabulary divides): elsewhere (whisper's 51865) every ``model`` rank
+    looks up and projects onto the whole table, with the plain cross
+    entropy, and its gradient, the same on every ``model`` rank, is not
+    summed over ``model`` (:attr:`split_vocab`)."""
 
     def __init__(self, cfg: ModelConfig, mesh: DeviceMesh,
                  policy: ShardPolicy, *, serving: bool = False):
@@ -687,6 +714,9 @@ class ShardContext:
         self.specs = param_specs(abstract, axes, policy)
         self._shapes = {n: tuple(p.shape)
                         for n, p in abstract.named_parameters()}
+        # the vocabulary split over model (the embedding's rows; an untied
+        # head's columns follow the same rule)
+        self.split_vocab = self.tp > 1 and self.specs["embed"][0] == "model"
         # a serving model holds each Mamba2 in_proj as the rank's columns
         # (models/ssm.py::ssm_tp_columns), taken once when it is placed,
         # where training gathers the rule table's shard every call
@@ -698,7 +728,6 @@ class ShardContext:
                 if n.endswith(".ssm.in_proj"):
                     self._cut[n] = cols
                     self._shapes[n] = (shape[0], sum(b - a for a, b in cols))
-        self._seq = False
         self._zero: Dict[int, int] = {}
         self.traffic = Traffic()
 
@@ -812,11 +841,12 @@ class ShardContext:
         return _GatherOnUse.apply(p, self.data, dim, self.traffic)
 
     def block(self, fn: Callable, blk: nn.Module, x: torch.Tensor,
-              *args, **kwargs) -> torch.Tensor:
+              *args, seq: bool = False, **kwargs) -> torch.Tensor:
         """``fn(blk, x, ...)`` on the block's gathered weights, with the
-        context as ``shard=``; under sequence sharding on the gathered
+        context as ``shard=``; with ``seq`` (x is a token slice, the flag
+        :meth:`seq_slice` returned for the block's stack) on the gathered
         tokens, keeping this rank's slice of the output."""
-        if self._seq:
+        if seq:
             x = _GatherSlices.apply(x, self.model, self.model_rank, 1,
                                     self.traffic)
         gathered = {f"blk.{n}": self.w(p) for n, p in blk.named_parameters()
@@ -827,26 +857,31 @@ class ShardContext:
                                            {**kwargs, "shard": self})
         else:
             y = fn(blk, x, *args, **kwargs, shard=self)
-        if self._seq:
+        if seq:
             y = _KeepSlice.apply(y, self.model, self.model_rank, 1,
                                  self.traffic)
         return y
 
-    def seq_slice(self, x: torch.Tensor) -> torch.Tensor:
-        """The embedded tokens (B, S, d) entering the stack: this rank's
-        token slice under sequence sharding, which is on for the forward
-        when ``policy.seq_shard`` holds, ``model`` has several ranks and
-        splits S (the reference's constraint applies only then)."""
-        self._seq = (self.policy.seq_shard and self.n_model > 1
-                     and x.shape[1] % self.n_model == 0)
-        return _KeepSlice.apply(x, self.model, self.model_rank, 1,
-                                self.traffic) \
-            if self._seq else x
+    def seq_slice(self, x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+        """The embedded tokens (B, S, d) entering a stack, and whether the
+        stack runs on token slices: this rank's slice under sequence
+        sharding, which is on for the forward when ``policy.seq_shard``
+        holds, ``model`` has several ranks and splits S (the reference's
+        constraint applies only then).  The flag goes to each of the
+        stack's :meth:`block` calls and to :meth:`seq_gather`."""
+        seq = (self.policy.seq_shard and self.n_model > 1
+               and x.shape[1] % self.n_model == 0)
+        if seq:
+            x = _KeepSlice.apply(x, self.model, self.model_rank, 1,
+                                 self.traffic)
+        return x, seq
 
-    def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
+    def seq_gather(self, x: torch.Tensor, seq: bool) -> torch.Tensor:
+        """A stack's output whole in the token dim (``seq`` as
+        :meth:`seq_slice` returned it)."""
         return _GatherSlices.apply(x, self.model, self.model_rank, 1,
                                    self.traffic) \
-            if self._seq else x
+            if seq else x
 
     def to_tp(self, x: torch.Tensor) -> torch.Tensor:
         """Copy-to-TP-region: a replicated tensor entering TP-local work
@@ -911,10 +946,11 @@ class ShardContext:
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor
               ) -> torch.Tensor:
-        """The lookup; under TP on the rank's vocabulary rows, the others'
-        rows added over ``model`` (each token's row lives on one rank)."""
+        """The lookup; with the vocabulary split over ``model`` on the
+        rank's rows, the others' rows added over ``model`` (each token's
+        row lives on one rank)."""
         table = self.w(table)
-        if self.tp == 1:
+        if not self.split_vocab:
             return torch.nn.functional.embedding(tokens, table)
         n = table.shape[0]
         local = tokens.long() - self.model_rank * n
@@ -922,14 +958,26 @@ class ShardContext:
         out = torch.nn.functional.embedding(local.clamp(0, n - 1), table)
         return self.from_tp(out * inr[..., None].to(out.dtype))
 
+    def tied_logits(self, x: torch.Tensor, table: torch.Tensor
+                    ) -> torch.Tensor:
+        """``x @ table.T`` for a tied output projection (``table`` (V, d),
+        a ZeRO shard gathered): with the vocabulary split over ``model`` x
+        enters the TP region and the result is the rank's vocabulary
+        columns; else every rank projects onto the whole table."""
+        table = self.w(table)
+        if self.split_vocab:
+            x = self.to_tp(x)
+        return x @ table.T
+
     def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor,
                       ignore_id: int = -100) -> torch.Tensor:
         """This rank's share of the mean token cross entropy: its tokens'
         summed loss over the label count of every batch rank (summed over
         the ``batch`` group, the shares give ``cross_entropy_loss`` of the
-        global batch, and their gradients its gradient).  Under TP
-        ``logits`` are the rank's vocabulary columns."""
-        if self.tp > 1:
+        global batch, and their gradients its gradient).  With the
+        vocabulary split over ``model``, ``logits`` are the rank's
+        vocabulary columns."""
+        if self.split_vocab:
             lo = self.model_rank * logits.shape[-1]
             tok = _VocabParallelCE.apply(logits, labels, lo, self.model,
                                          self.traffic)
@@ -982,10 +1030,11 @@ class ShardContext:
         return all_gather_dim(x, self.batch, 0, self.traffic)
 
     def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
-        """Whole rows of logits from the rank's vocabulary columns under
-        TP (``torch.argmax`` on them breaks ties to the lowest index, as
-        one process does, whatever the TP degree)."""
-        if self.tp == 1:
+        """Whole rows of logits from the rank's vocabulary columns where
+        the vocabulary splits over ``model`` (``torch.argmax`` on them
+        breaks ties to the lowest index, as one process does, whatever the
+        TP degree)."""
+        if not self.split_vocab:
             return logits
         return self.gather_model(logits, -1)
 
@@ -1085,12 +1134,18 @@ class ShardContext:
 
 def _check_tp(cfg: ModelConfig, tp: int) -> None:
     """Head-aligned TP splits what the model has evenly: the attention heads
-    and d_ff of a dense model (of a MoE model's dense blocks), the SSM
-    heads of a Mamba2 block, the shared attention block's heads of the
-    hybrid, a MoE model's experts (the rank runs its own) and its shared
-    expert's and dense residual branch's widths, and the vocabulary."""
+    and d_ff of a dense model (of a MoE model's dense blocks) and of an
+    encoder-decoder, the SSM heads of a Mamba2 block, the shared attention
+    block's heads of the hybrid, a MoE model's experts (the rank runs its
+    own) and its shared expert's and dense residual branch's widths, and a
+    decoder-only model's vocabulary (an encoder-decoder's tied table stays
+    whole where it does not split, as the rule table leaves it)."""
     checks = []
-    if cfg.arch_type in ("ssm", "hybrid"):
+    if cfg.is_encoder_decoder:
+        checks += [("*_blocks.*.attn.wq", "n_heads", cfg.n_heads),
+                   ("*_blocks.*.attn.wk", "n_kv_heads", cfg.n_kv_heads),
+                   ("*_blocks.*.mlp.w_fc", "d_ff", cfg.d_ff)]
+    elif cfg.arch_type in ("ssm", "hybrid"):
         checks.append(("blocks.*.ssm.in_proj", "ssm_heads", cfg.ssm_heads))
         if cfg.arch_type == "hybrid" and cfg.attn_every:
             checks += [("shared_attn.attn.wq", "n_heads", cfg.n_heads),
@@ -1107,7 +1162,8 @@ def _check_tp(cfg: ModelConfig, tp: int) -> None:
                 leaf = branch.replace("_expert_ff", "").replace("_ff", "")
                 checks.append((f"blocks.*.moe.{leaf}.w_up", branch,
                                getattr(cfg, branch)))
-    checks.append(("embed", "vocab_size", cfg.vocab_size))
+    if not cfg.is_encoder_decoder:
+        checks.append(("embed", "vocab_size", cfg.vocab_size))
     for leaf, what, n in checks:
         if n % tp:
             raise ValueError(f"tp {tp} does not split {leaf}: {what} {n} "

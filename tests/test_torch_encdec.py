@@ -14,9 +14,10 @@ arithmetic summed in another order through 2 + 2 layers), and 8 steps of
 ``encdec_decode_step``, once from position 0 and once across the end of
 the 64-row learned position table and of a 16-slot self-attention ring.
 The bridge carries the enc-dec tree bit for bit both ways in bf16.
-Sharded enc-dec (serving and training) and ``serve`` of an enc-dec config
-raise NotImplementedError; what the JAX ``serve`` does with one is shown as
-a fact about the reference.  Training is held against JAX in
+On a one-rank mesh the sharded steps build and run (4 ranks are held in
+``test_torch_encdec_sharding.py``); the paged steps and ``serve`` of an
+enc-dec config raise NotImplementedError; what the JAX ``serve`` does with
+one is shown as a fact about the reference.  Training is held against JAX in
 ``test_torch_encdec_train.py``.
 """
 import dataclasses
@@ -51,8 +52,11 @@ from repro_torch.models.attention import (cross_attention, init_attention,
 from repro_torch.models.layers import gelu, layer_norm
 from repro_torch.models.mlp import GeluMLP, gelu_mlp
 from repro_torch.runtime.executor import (init_serving_params,
-                                          init_train_state, make_prefill_step,
-                                          make_serve_step, make_train_step)
+                                          init_train_state,
+                                          make_paged_decode_step,
+                                          make_paged_prefill_step,
+                                          make_prefill_step, make_serve_step,
+                                          make_train_step)
 
 torch.set_num_threads(1)
 
@@ -338,19 +342,37 @@ def one_rank_mesh(tmp_path):
 
 
 def test_sharded_encdec_raises(one_rank_mesh):
-    """Sharded enc-dec is the next item: every step builder and state
-    initialiser, serving and (since the training slice) training, raises
-    on a mesh naming it."""
+    """No serving or training step, nor state initialiser, raises on a
+    mesh: on a (1, 1) mesh each builds and runs, and gives the one-device
+    results; the paged steps, decoder-only as in the reference, raise
+    naming the enc-dec.  ``tests/test_torch_encdec_sharding.py`` holds 4 ranks
+    against one process."""
     _, cfg_t = _cfgs()
-    for build in (lambda: make_prefill_step(cfg_t, mesh=one_rank_mesh),
-                  lambda: make_serve_step(cfg_t, mesh=one_rank_mesh),
-                  lambda: init_serving_params(cfg_t, mesh=one_rank_mesh,
-                                              device="cpu"),
-                  lambda: make_train_step(cfg_t, mesh=one_rank_mesh),
-                  lambda: init_train_state(cfg_t, mesh=one_rank_mesh,
-                                           device="cpu")):
-        with pytest.raises(NotImplementedError, match="sharded enc-dec"):
-            build()
+    frames = torch.from_numpy(_frames(cfg_t))
+    tokens = torch.from_numpy(_tokens(cfg_t, S=8)).long()
+    batch = {"tokens": tokens, "frames": frames, "labels": tokens}
+    one = init_serving_params(cfg_t, device="cpu")
+    sharded = init_serving_params(cfg_t, mesh=one_rank_mesh, device="cpu")
+    for a, b in zip(one.parameters(), sharded.parameters()):
+        assert torch.equal(a, b)
+    want = make_prefill_step(cfg_t)(one, batch)
+    got = make_prefill_step(cfg_t, mesh=one_rank_mesh)(sharded, batch)
+    assert _rel(got, want) <= MODEL_TOL
+    step = make_serve_step(cfg_t, mesh=one_rank_mesh)
+    state = init_encdec_decode_state(sharded, frames, cfg_t, 16,
+                                     shard=step.shard)
+    want_lg, _ = make_serve_step(cfg_t)(
+        one, init_encdec_decode_state(one, frames, cfg_t, 16), tokens[:, 0])
+    got_lg, state = step(sharded, state, tokens[:, 0])
+    assert _rel(got_lg, want_lg) <= MODEL_TOL and int(state["index"]) == 1
+    params, opt = init_train_state(cfg_t, mesh=one_rank_mesh, device="cpu")
+    ref, ref_opt = init_train_state(cfg_t, device="cpu")
+    m = make_train_step(cfg_t, mesh=one_rank_mesh)(params, opt, batch)
+    m_ref = make_train_step(cfg_t)(ref, ref_opt, batch)
+    assert float(m["loss"]) == pytest.approx(float(m_ref["loss"]), rel=1e-6)
+    for build in (make_paged_decode_step, make_paged_prefill_step):
+        with pytest.raises(NotImplementedError, match="encoder-decoder"):
+            build(cfg_t, mesh=one_rank_mesh)
 
 
 def test_training_and_decoder_only_setup_raise_naming_encdec():

@@ -16,8 +16,8 @@ magnitude (fp32, sums over the model in another order); training losses
 1e-4 relative over three steps of JAX ``make_train_step`` on a one-device
 mesh.  Also here: remat against none, the train CLI at ``--arch
 whisper-medium`` with its ``frames``, checkpoints interchangeable with
-JAX's both ways in bf16, bit for bit, and the refusals that name what
-comes next (sharded enc-dec; the pipeline's one homogeneous stack).
+JAX's both ways in bf16, bit for bit, ``--ranks 2`` taking a step, and the
+pipeline's refusal (one homogeneous stack).
 """
 import jax
 import jax.numpy as jnp
@@ -199,13 +199,22 @@ def test_train_cli_trains_whisper_on_cpu_with_frames(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--ranks", "2"], NotImplementedError, "sharded enc-dec"),
+    (["--ranks", "2", "--batch", "2", "--seq", "8"], None, None),
     (["--pipeline", "--ranks", "2"], ValueError, "one homogeneous stack"),
 ], ids=["ranks", "pipeline"])
 def test_train_cli_refuses_sharded_and_pipelined_whisper(argv, exc, match,
                                                          monkeypatch):
-    """Before any plan is searched or rank spawned (both stubbed to fail
-    the test)."""
+    """``--pipeline`` is refused before any plan is searched or rank
+    spawned (both stubbed to fail the test).  ``--ranks`` is not refused:
+    it spawns its ranks and takes a sharded step on batches with
+    ``frames``."""
+    if exc is None:
+        hist = train_cli.main(["--arch", ARCH, "--reduced", "--device",
+                               "cpu", "--steps", "1", *argv])
+        assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
+        assert hist[0]["gloo_bytes_sent"] > 0
+        return
+
     def never(*a, **k):
         raise AssertionError("reached past the refusal")
 

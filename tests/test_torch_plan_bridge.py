@@ -1,8 +1,9 @@
 """The port's sharding rule table and plan bridge against the JAX
 package's, on the CPU, without ranks.
 
-- Spec tables: each parameter of the full-width qwen3-4b, mamba2-370m and
-  zamba2-1.2b (port: on the ``meta`` device; JAX: ``jax.eval_shape``)
+- Spec tables: each parameter of the full-width qwen3-4b, mamba2-370m,
+  zamba2-1.2b and whisper-medium (port: on the ``meta`` device; JAX:
+  ``jax.eval_shape`` of ``init_lm``, or ``init_encdec``)
   through ``runtime/sharding.py::param_specs`` against JAX
   ``param_shardings`` on an ``AbstractMesh`` of the same axes, each port
   leaf mapped to its JAX path by ``bridge.jax_path`` and a block's leading
@@ -30,6 +31,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs.specs import layerspecs_for as jax_layerspecs
 from repro.core import ParallelPlan as JaxPlan
 from repro.core import Strategy as JaxStrategy
+from repro.models.encdec import init_encdec as jax_init_encdec
 from repro.models.transformer import init_lm as jax_init_lm
 from repro.optim import adamw_init as jax_adamw_init
 from repro.roofline.analysis import modeled_memory as jax_modeled_memory
@@ -51,7 +53,7 @@ from repro_torch.runtime import (ShardPolicy, abstract_params, batch_specs,
 
 torch.set_num_threads(1)
 
-ARCHS = ("qwen3-4b", "mamba2-370m", "zamba2-1.2b")
+ARCHS = ("qwen3-4b", "mamba2-370m", "zamba2-1.2b", "whisper-medium")
 MESHES = {"8x1": ((8, 1), ("data", "model")),
           "4x2": ((4, 2), ("data", "model")),
           "2x4": ((2, 4), ("data", "model")),
@@ -76,8 +78,8 @@ def _key(path):
 @functools.lru_cache(maxsize=None)
 def _jax_abstract(arch):
     cfg = jax_get_config(arch)
-    return jax.eval_shape(lambda k: jax_init_lm(k, cfg),
-                          jax.random.PRNGKey(0))
+    init = jax_init_encdec if cfg.is_encoder_decoder else jax_init_lm
+    return jax.eval_shape(lambda k: init(k, cfg), jax.random.PRNGKey(0))
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,7 +7,11 @@ single-process port, on the CPU.
   full-width qwen3-4b, mamba2-370m and zamba2-1.2b (the port's state on the
   ``meta`` device, JAX's from ``jax.eval_shape``), meshes (1, 1), (2, 2),
   (4, 1) and (1, 4), ``tp`` and ``shard_cache_seq`` on and off, a span
-  that ``model`` divides and one it does not.  The port's state holds one
+  that ``model`` divides and one it does not; and whisper-medium's
+  encoder-decoder state (``init_encdec_decode_state`` at 2 + 2 layers: a
+  layer's cross K/V, self cache and the shared index) at its decoder
+  window and two
+  spans that ``model`` does not divide.  The port's state holds one
   cache an attention call and one SSM state a layer where JAX stacks them
   (``"stacks"``, ``"shared_attn"``): each port leaf is held against its
   JAX leaf with the stacked layer entry dropped.
@@ -51,6 +55,9 @@ from conftest import run_subprocess
 from jax.sharding import AbstractMesh
 
 from repro.configs import get_config as jax_get_config
+from repro.models.encdec import init_encdec as jax_init_encdec
+from repro.models.encdec import \
+    init_encdec_decode_state as jax_init_encdec_state
 from repro.models.transformer import init_decode_state as jax_init_decode
 from repro.models.transformer import init_lm as jax_init_lm
 from repro.models.transformer import init_paged_state as jax_init_paged
@@ -64,7 +71,8 @@ from repro_torch.kernels.ref import flash_attention_lse_ref
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch.mesh import (init_distributed, make_local_mesh,
                                      make_ring_mesh, run_ranks)
-from repro_torch.models import init_decode_state, init_paged_state
+from repro_torch.models import (init_decode_state, init_encdec,
+                                init_encdec_decode_state, init_paged_state)
 from repro_torch.models.attention import attention_decode
 from repro_torch.runtime import (ShardContext, ShardPolicy,
                                  decode_state_specs, make_prefill_step,
@@ -143,6 +151,55 @@ def test_decode_state_specs_equal_jax(arch, mesh, tp, seq, context):
     assert _norm(ps["index"], 0) == _norm(js["index"].spec, 0)
     assert n_leaves == 2 * len(state["caches"]) + 2 * len(
         state.get("ssm_states", ()))
+
+
+# whisper-medium's decoder window splits over any model axis here; 447
+# does not split over 2, 446 not over 4
+ENCDEC_CONTEXTS = (448, 447, 446)
+
+
+@functools.lru_cache(maxsize=None)
+def _encdec_states(context):
+    """(JAX, port) decode states of whisper-medium at full width on 8
+    lanes, 2 + 2 layers (the rule does not read the depth): JAX's from
+    ``jax.eval_shape``, the port's on the ``meta`` device."""
+    jcfg, cfg = (c("whisper-medium").with_(n_layers=2, n_enc_layers=2)
+                 for c in (jax_get_config, get_config))
+    frames = (LANES, jcfg.encoder_seq, jcfg.d_model)
+    js = jax.eval_shape(lambda: jax_init_encdec_state(
+        jax_init_encdec(jax.random.PRNGKey(0), jcfg),
+        jnp.zeros(frames, jcfg.dtype), jcfg, context))
+    ps = init_encdec_decode_state(
+        init_encdec(cfg, device="meta"),
+        torch.empty(frames, dtype=cfg.dtype, device="meta"), cfg, context)
+    return js, ps
+
+
+@pytest.mark.parametrize("context", ENCDEC_CONTEXTS)
+@pytest.mark.parametrize("seq", (True, False), ids=("seq", "heads"))
+@pytest.mark.parametrize("tp", (False, True), ids=("rep", "tp"))
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_encdec_decode_state_specs_equal_jax(mesh, tp, seq, context):
+    """The enc-dec decode state: each layer's cross K/V (lanes over the
+    batch axes, held against JAX's stacked ``cross_kv``), each self cache
+    (context or KV heads over ``model``) and the shared index."""
+    shape = MESHES[mesh]
+    jstate, state = _encdec_states(context)
+    js = decode_state_shardings(
+        jstate, AbstractMesh(shape, NAMES),
+        JaxPolicy(tp=tp, zero=False, shard_cache_seq=seq))
+    ps = decode_state_specs(state, dict(zip(NAMES, shape)),
+                            ShardPolicy(tp=tp, zero=False,
+                                        shard_cache_seq=seq))
+    assert len(ps["cross_kv"]) == len(ps["self_cache"]) == 2
+    for kv in ps["cross_kv"]:
+        assert len(kv) == len(js["cross_kv"]) == 2
+        for got, want in zip(kv, js["cross_kv"]):
+            assert _norm(got, 4) == _want(want, 4, True)
+    for cache in ps["self_cache"]:
+        for k in ("k", "v"):
+            assert _norm(cache[k], 4) == _want(js["self_cache"][k], 4, True)
+    assert _norm(ps["index"], 0) == _norm(js["index"].spec, 0)
 
 
 @pytest.mark.parametrize("tp", (False, True), ids=("rep", "tp"))
