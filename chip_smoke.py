@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the final line is printed):
+Phases (any failure exits non-zero before the final line is printed).
+The ranks and the references "in a process of its own" of phases 8,
+15-18, 20, 24 and 25 run in ``RankPool``'s four processes, kept from one
+batch of ranks to the next within a stretch of phases, as do the ranks of
+``train --ranks`` and ``train --pipeline --ranks``; ``serve --ranks``
+spawns its own:
 
 1. print the card's name and power limit (``nvidia-smi``), turn TF32 off,
    build the kernels from the sources in this checkout (one ``nvcc`` per
@@ -134,7 +139,7 @@ Phases (any failure exits non-zero before the final line is printed):
    the backward kernels, the CPU the plain attention);
 11. the dense-cache engine (``repro_torch.launch.serve.serve``) at
    full-width qwen3-4b (random weights from seed 0; (a) and (b) at
-   ``DENSE_SERVE_LAYERS``, 12 of 36 layers, for the script's time): (a)
+   ``DENSE_SERVE_LAYERS``, 6 of 36 layers, for the script's time): (a)
    ``make_serve_step`` logits at every position of 2 lanes of 256 random
    tokens against ``make_prefill_step`` logits on the same tokens, in bf16
    within ``DECODE_VS_PREFILL_TOL`` of the largest logit, after the same
@@ -159,7 +164,7 @@ Phases (any failure exits non-zero before the final line is printed):
    card against the CPU within 1e-4 of the largest logit;
 12. SSM and hybrid serving at full width (random weights from seed 0, 8
    lanes) for mamba2-370m and zamba2-1.2b, depth cut to
-   ``SSM_SERVE_LAYERS`` (12 of 48 and 12 of 38 layers, 2 calls of
+   ``SSM_SERVE_LAYERS`` (6 of 48 and 12 of 38 layers, 2 calls of
    zamba2's shared attention block a token) for the script's time: (a)
    in fp32, then bf16, each mixer's decode against its prefill on the
    same input (the hidden state the prefill hands that layer, 2 lanes of
@@ -229,7 +234,7 @@ Phases (any failure exits non-zero before the final line is printed):
    schedule's ticks ask and no plain version run; each rank's ticks worked
    and idle, busy and receive-wait ms and peak memory are printed; (c) the
    port's search (``search --devices 4 --max-pp 4 --batch-grid 16``) gives
-   a pp 4 plan, and ``train --pipeline --ranks 4`` trains 3 steps with it
+   a pp 4 plan, and ``train --pipeline --ranks 4`` trains 2 steps with it
    (zb-h1, P 4, m 4, AdamW on each rank's leaves with the global grad
    norm): its first loss must be (b)'s for that schedule, bit for bit; its
    step ms and each rank's peak are printed.  The 4 ranks share one card,
@@ -237,22 +242,22 @@ Phases (any failure exits non-zero before the final line is printed):
 16. the sharded executor at full qwen3-4b width, depth cut to 4 layers:
    (a) in a process of its own, the single-process ``lm_loss`` and its
    gradients (remat on every layer) on ``init_lm`` seed 0 and the train
-   CLI's first batch of 4 x 4096 tokens, then 2 ``make_train_step``
-   steps at phase 9's lr (3 before phase 24 came); (b) 4 gloo ranks
+   CLI's first batch of 4 x 4096 tokens, then 1 ``make_train_step``
+   step at phase 9's lr (3 before phase 24 came, 2 before phase 25); (b) 4 gloo ranks
    sharing the card on a (data 2, model 2) ``make_local_mesh`` with
    ``ShardPolicy(tp=True, zero=True, remat_segments=(True,))``, each
    drawing its shards (``init_train_state(mesh=)``): the sharded loss
    within 2e-3 relative of
    (a)'s and each gathered gradient leaf within 2e-2 of (a)'s leaf's
    largest magnitude, with ``seq_shard`` off and on (on: the same bits as
-   off, or within those gates, which the line says), then 2 sharded steps
+   off, or within those gates, which the line says), then 1 sharded step
    whose losses are printed beside (a)'s and must be finite; the flash
    forward (2L), backward (L) and RMSNorm (8L+1, 4L+1) launched at exact
    counts a rank a call and a step, no plain version run; each rank's call
    and step ms, bytes sent through gloo and peak memory are printed; (c)
    the port's search for 4 cards of the H100 node at this model (a budget
-   of 9 GB a card, batch grid [4]) and ``train --ranks 4 --plan``, 2
-   steps on ``make_local_mesh()`` (data 4, model 1): the policy it prints
+   of 9 GB a card, batch grid [4]) and ``train --ranks 4 --plan``, 1
+   step on ``make_local_mesh()`` (data 4, model 1): the policy it prints
    must be the plan's middle strategy's, its first loss within 2e-3
    relative of (a)'s, the kernels launched at their counts.  The 4 ranks
    share one card: no time there is sharded training's speed;
@@ -260,7 +265,7 @@ Phases (any failure exits non-zero before the final line is printed):
    checkpoints, on 4 gloo ranks sharing the card on a (data 2, model 2)
    mesh with ``ShardPolicy(tp=True, zero=True, remat_segments=(True,))``:
    (a) full-width mamba2-370m, depth cut from 48 to
-   ``SSMTP_MAMBA2_LAYERS`` (2) for the script's time: a
+   ``SSMTP_MAMBA2_LAYERS`` (1) for the script's time: a
    spawned single process saves
    its ``lm_loss`` and gradients (remat on every layer) in fp32, and in
    bf16 its loss and 3 step losses, on the train driver's first batches of
@@ -281,7 +286,7 @@ Phases (any failure exits non-zero before the final line is printed):
    (``restore_sharded_train_state``) and take step 3, whose loss must be
    (a)'s unbroken step 3 bit for bit; ``train --ranks 4 --plan
    --ckpt-dir --ckpt-every 2 --steps 2`` on the port's search for 4 cards
-   at mamba2-370m writes step 2's checkpoint; one spawned process restores
+   at mamba2-370m writes step 2's checkpoint; one process restores
    (a)'s files with ``restore_train_state`` and takes step 3 (within 2e-3
    relative of the ranks'), then restores ``train --ranks``' files; the
    files (2.9 GB each at 24 layers) are deleted; (b) zamba2-1.2b at full width, depth
@@ -295,7 +300,7 @@ Phases (any failure exits non-zero before the final line is printed):
    2) ``make_local_mesh`` with ``ShardPolicy(tp=True, zero=False)``,
    each rank holding its shards (``init_serving_params``), against a
    spawned single process on the same weights (``init_lm`` seed 0): (a)
-   the paged engine at full-width qwen3-4b, ``SS_BF16_LAYERS`` (6 of 36
+   the paged engine at full-width qwen3-4b, ``SS_BF16_LAYERS`` (4 of 36
    layers), bf16, on phase 3's
    geometry (the pools hold 4 of 8 KV heads a rank): the first prefill
    chunk's and a decode step's logits within ``SS_LOGIT_TOL`` of the
@@ -312,7 +317,7 @@ Phases (any failure exits non-zero before the final line is printed):
    wholly in model rank 0's slots; three lanes wrap), ``SS_STEPS`` steps:
    qwen3-4b (and once more with ``shard_cache_seq=False``, KV heads over
    ``model``), mamba2-370m and zamba2-1.2b (the shared block's caches
-   split by context) in bf16 at ``SS_BF16_LAYERS`` (6 of 36, 6 of 48,
+   split by context) in bf16 at ``SS_BF16_LAYERS`` (4 of 36, 4 of 48,
    12 of 38 layers, cut for the script's time), each at
    ``SS_FP32_LAYERS`` (zamba2 ``SS_ZAMBA2_FP32_LAYERS``) in fp32, where
    the logits must lie within ``REL_TOL`` and the greedy tokens and
@@ -400,13 +405,14 @@ Phases (any failure exits non-zero before the final line is printed):
    the same in fp32 at 4 + 4 layers within ``REL_TOL``; the encoder's ms,
    the decode step's wall and busy ms, tok/s, peak memory and the cross
    K/V bytes are printed.
-23. whisper-medium training at full width (24 + 24 layers, bf16, random
-   weights from seed 0): (a) ``repro_torch.launch.train --arch
-   whisper-medium --batch 8 --seq 448`` for 3 steps on the synthetic
+23. whisper-medium training at full width (24 encoder layers, the
+   decoder cut to 12 of 24 for the script's time, bf16, random weights
+   from seed 0): (a) ``repro_torch.launch.train --arch whisper-medium
+   --layers 12 --batch 8 --seq 448`` for 3 steps on the synthetic
    stream's frames (8, 1500, 1024), with the searched plan's remat and
    ``--ckpt-dir --ckpt-every 2``: finite losses; each step the flash
-   backward 72 times (24 encoder, 24 decoder and 24 cross-attention
-   layers), 24 of them at S != T (K14), the forward once an attention
+   backward 48 times (24 encoder, 12 decoder and 12 cross-attention
+   layers), 12 of them at S != T (K14), the forward once an attention
    (twice under remat), no RMSNorm and no plain version; (d) a model and
    AdamW state drawn from seed 1, restored from step 2's checkpoint, take
    step 3: its loss must be (a)'s bit for bit (the files are deleted);
@@ -421,7 +427,7 @@ Phases (any failure exits non-zero before the final line is printed):
    category (gemm, flash forward and backward, elementwise), peak memory,
    the checkpoint's bytes and save and restore seconds.  ``--phases 23``
    runs phase 2's K14 checks first.
-24. sharded whisper-medium: full width, depth cut to 4 + 4 layers, bf16,
+24. sharded whisper-medium: full width, depth cut to 2 + 2 layers, bf16,
    random weights from seed 0, 4 gloo ranks sharing the card, against
    the single process in this process: (a) training on (data 2, model 2)
    with TP, ZeRO, remat and ``seq_shard`` and on (4, 1) with ZeRO, 8 x 448
@@ -448,6 +454,37 @@ Phases (any failure exits non-zero before the final line is printed):
    a rank's half of the self cache with its row log-sum-exp), K14 and
    the S == T backward at a TP rank's heads, in bf16 and fp32, each
    against its plain version and a second call the same bits.
+25. internvl2-26b, the vision-language model (d 6144, 48 query heads over
+   8 KV heads of dh 128, a GQA group of 6, d_ff 16384, an untied head over
+   92553 tokens, 256 vision patches of d_vision 3200 through the 2-layer
+   projector), bf16, random weights from seed 0: (a) at full depth (48
+   layers, 39.84 GB) phase 3's 12 requests through the paged engine
+   twice, text only as the reference serves a VLM (the same tokens and
+   first-step bits, flash once a layer a decode step and a prefill
+   chunk, a decode step's wall and busy ms beside its bound, tok/s, TTFT
+   p50), ``make_prefill_step`` on 8 lanes of 256 random patches and 128
+   tokens (logits (8, 128, 92553), a second call the same bits, other
+   logits than without the patches), decode against prefill over 64
+   tokens at phase 11's gate; (b) ``repro_torch.launch.train --arch
+   internvl2-26b --layers 6 --batch 1 --seq 4096`` (4352 positions) for 3
+   steps with the plan's remat: finite losses, the kernels' launches a
+   step exact, no plain version, the step's wall ms, peak, the busy share
+   and device ms by category of a profiled step, and step 1's loss and
+   gradients twice the same bits; (c) 4 gloo ranks sharing the card at 1
+   layer on (data 2, model 2) with TP, ZeRO-3 and remat, one step of
+   ``make_train_step(mesh=, policy=)`` on 4 lanes of 256 + 1024: the loss
+   within ``SHARD_LOSS_RTOL`` of the single process's, the ranks' worst
+   bf16 gradient leaf within ``WSHARD_BF16_VS_FP32`` times the single
+   process's own distance from fp32, the 92553-row head and table whole on
+   every model rank, a rank's gloo bytes a step and peak; (d) reduced fp32
+   (d 384, d_vision 192, 6 query heads over 1 KV head), card against CPU
+   within ``REL_TOL``: loss, logits and every gradient, the projector's
+   among them.  Phase 2 first holds the flash forward with its row
+   log-sum-exp and the backward at (B 1, S 4352, H 48, KV 8, dh 128,
+   causal), the forward at the paged decode and prefill at H 48 / KV 8,
+   and RMSNorm at 8 x 6144 and 4352 x 6144 (its backward at 4352 x 6144),
+   in bf16 and fp32, each against its plain version and a second call the
+   same bits (``--phases 25`` runs these first); phase 7 times them.
 
 Phase 2 also holds the kernels at phase 17's TP-local shapes against
 their plain versions, and phase 7 times the SSD scan at a rank's mamba2
@@ -479,8 +516,8 @@ shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
-The phases run in the order 1, 2, 7, 3, 19, 20, 21, 22, 23, 24, 4, 5, 14, 6,
-9, 10, 11, 12, 13, 15, 16, 17, 18, 8: phase 7
+The phases run in the order 1, 2, 7, 3, 19, 20, 21, 22, 23, 24, 25, 4, 5, 14,
+6, 9, 10, 11, 12, 13, 15, 16, 17, 18, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
 seconds, and each phase's in run order, are printed before the final
@@ -586,8 +623,9 @@ WITNESS_LR, WITNESS_STEPS = 3e-4, 4
 DENSE_SERVE_LANES, DENSE_SERVE_CONTEXT = 8, 2048
 # (a) and (b)'s depth, cut from 36 for the whole script's time once phase
 # 23 came (at 36 phase 11 took 50.1 and 74.4 s of scripts of 974.5 and
-# 1260.9 s, NVIDIA H100 80GB HBM3, 700 W)
-DENSE_SERVE_LAYERS = 12
+# 1260.9 s, NVIDIA H100 80GB HBM3, 700 W), and from 12 to 6 once phase 25
+# came (the script 1215.1 s, phase 11 32.4 s of it)
+DENSE_SERVE_LAYERS = 6
 DENSE_SERVE_REQUESTS, DENSE_SERVE_NEW = 16, 32
 WRAP_LAYERS = 4
 # decode against prefill, bf16 at DENSE_SERVE_LAYERS: 2 lanes of 256
@@ -611,9 +649,10 @@ ZAMBA2_HEADS = (32, 32, 64)
 # the depth of (a) to (c), cut for the whole script's time once phase 23
 # came: at 48 and 38 layers phase 12 took 77.6 s of the 974.5 s script,
 # at 24 and 19 46.6 s of a 1260.9 s one (NVIDIA H100 80GB HBM3, 700 W);
-# zamba2 at 12 layers makes 2 calls of its shared attention block.  Part
-# (d)'s prefill keeps the full depth
-SSM_SERVE_LAYERS = {"mamba2-370m": 12, "zamba2-1.2b": 12}
+# zamba2 at 12 layers makes 2 calls of its shared attention block; mamba2
+# 12 -> 6 once phase 25 came (the script 1215.1 s, phase 12 24.2 s of
+# it).  Part (d)'s prefill keeps the full depth
+SSM_SERVE_LAYERS = {"mamba2-370m": 6, "zamba2-1.2b": 12}
 # Decode against prefill on these random-weight SSM stacks compounds with
 # depth: a mixer's distance of an ulp or two grows about a hundredfold over
 # 48 layers, in the JAX package as in the port (tools/jax_decode_drift.py
@@ -664,12 +703,16 @@ PIPE_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("zb-h1", 1),
 # package's pipeline tests)
 PIPE_LOSS_RTOL, PIPE_GRAD_TOL = 2e-3, 2e-2
 PIPE_TIMEOUT_S = 900
+# RankPool's processes, and the time a train CLI's ranks may take in them
+POOL_SIZE, POOL_TIMEOUT_S = 4, 900
 # train --pipeline: the plan of search --devices 4 on the H100 node with
 # these flags, PIPE_TRAIN_STEPS steps at phase 9's lr
 PIPE_SEARCH = ["--arch", "qwen3-4b", "--seq", str(PIPE_SEQ), "--cluster",
                PLAN_CLUSTER, "--devices", "4", "--budget", "24", "--max-pp",
                "4", "--schedules", "1f1b,zb-h1", "--batch-grid", "16"]
-PIPE_TRAIN_STEPS = 3
+# 3 until phase 25 came (the whole script 1215.1 s, phase 15 95.7 s of it,
+# NVIDIA H100 80GB HBM3, 700 W)
+PIPE_TRAIN_STEPS = 2
 # phase 16, the sharded executor: qwen3-4b at full width, depth cut from 36
 # to SHARD_LAYERS so that the single-process reference (its fp32 loss over
 # 16384 x 151936 logits beside 25.4 GB of bf16 params and grads and fp32
@@ -682,9 +725,10 @@ PIPE_TRAIN_STEPS = 3
 # depth cannot go lower: at 2 layers no budget makes the CLI's searched
 # plan shard the AdamW state (ZeRO), which (c) checks; so when phase 24
 # came (the script 1226.5 s with it on a slow host, phase 16 150.1 s of
-# it) the steps went from 3 to 2 instead, a step 6.1-8.0 s a rank
+# it) the steps went from 3 to 2 instead, a step 6.1-8.0 s a rank, and
+# to 1 once phase 25 came (the script 1215.1 s, phase 16 113.3 s of it)
 SHARD_LAYERS, SHARD_RANKS, SHARD_BATCH, SHARD_SEQ = 4, 4, 4, 4096
-SHARD_MESH, SHARD_STEPS = (2, 2), 2
+SHARD_MESH, SHARD_STEPS = (2, 2), 1
 # the sharded loss within SHARD_LOSS_RTOL of the single process's, each
 # gathered gradient leaf within SHARD_GRAD_TOL of its largest magnitude
 # (phase 15's gates: the same bf16 arithmetic, TP's partial sums rounded
@@ -715,8 +759,8 @@ SSMTP_ZAMBA2_LAYERS, SSMTP_ZAMBA2_STEPS = 6, 1
 # 1092.3 s, phase 17 277.6 s of it; at 12, with phases 21 and 22, 966.3
 # and 1081.7 s in two runs, phase 17 233.6 and 255.8 s; at 6, with phase
 # 24, 1226.5 s, phase 17 250.4 s on a slow host (NVIDIA H100 80GB HBM3,
-# 700 W); 2 since then
-SSMTP_MAMBA2_LAYERS = 2
+# 700 W); at 2, with phase 25, 1215.1 s, phase 17 227.7 s; 1 since then
+SSMTP_MAMBA2_LAYERS = 1
 # a rank's batch rows and RMSNorm rows, and zamba2's TP-local (H, KV, dh)
 SSMTP_LOCAL_BATCH = SSMTP_BATCH // SSMTP_MESH[0]
 SSMTP_ROWS = SSMTP_LOCAL_BATCH * SSMTP_SEQ
@@ -744,8 +788,9 @@ SS_STEPS = {"bfloat16": 4, "float32": 16}
 # included, ran 1059.1 s, phase 18 197.3 s of it (NVIDIA H100 80GB HBM3,
 # 700 W); qwen3-4b 9 -> 6 and mamba2-370m 12 -> 6 once phase 24 came
 # (zamba2 keeps 12: two calls of its shared block), when the whole script
-# ran 1226.5 s before any cut, phase 18 198.6 s of it, on a slow host
-SS_BF16_LAYERS = {"qwen3-4b": 6, "mamba2-370m": 6, "zamba2-1.2b": 12}
+# ran 1226.5 s before any cut, phase 18 198.6 s of it, on a slow host;
+# 6 -> 4 and 6 -> 4 once phase 25 came (1215.1 s, phase 18 159.5 s)
+SS_BF16_LAYERS = {"qwen3-4b": 4, "mamba2-370m": 4, "zamba2-1.2b": 12}
 # fp32's depth (zamba2 aside: two shared-block calls need 12), 4 until
 # phase 24 came: with phase 24 the script ran 1142.4 s at 4 on a slow host
 # (the fp32 parts of phase 18 took 30.3 s of a rank's 90.7 s in an
@@ -883,6 +928,10 @@ WHISPER_SELF_BWD_CASES = [(WHISPER_LANES, WHISPER_FRAMES, *WHISPER_HEADS,
 # searched plan's remat, saved after step WHISPER_CKPT_AT; reduced fp32
 # card vs CPU through the CLI on WHISPER_CPU_BATCH x WHISPER_CPU_SEQ
 WHISPER_TRAIN_STEPS, WHISPER_CKPT_AT = 3, 2
+# the decoder's depth in phase 23, 24 until phase 25 came: the whole
+# script then ran 1215.1 s, phase 23 86.0 s of it, 49.3 s of which saved
+# and restored its 12.22 GB checkpoint (NVIDIA H100 80GB HBM3, 700 W)
+WHISPER_TRAIN_DEC_LAYERS = 12
 WHISPER_CPU_BATCH, WHISPER_CPU_SEQ = 2, 100
 # phase 24: sharded whisper-medium, WSHARD_RANKS gloo ranks sharing the
 # card, at full width with the depth cut from 24 + 24 to WSHARD_LAYERS +
@@ -899,7 +948,9 @@ WHISPER_CPU_BATCH, WHISPER_CPU_SEQ = 2, 100
 # WSHARD_FP32_LAYERS layers with a vocabulary of WSHARD_FP32_VOCAB, which
 # no model axis splits: WSHARD_FP32_BATCH x WSHARD_FP32_SEQ tokens and
 # WSHARD_FP32_STEPS greedy steps against the single process on the card
-WSHARD_RANKS, WSHARD_LAYERS, WSHARD_STEPS, WSHARD_LR = 4, 4, 2, 3e-4
+# (the depth 4 + 4 until phase 25 came: the whole script then ran
+# 1215.1 s, phase 24 99.1 s of it, NVIDIA H100 80GB HBM3, 700 W)
+WSHARD_RANKS, WSHARD_LAYERS, WSHARD_STEPS, WSHARD_LR = 4, 2, 2, 3e-4
 WSHARD_TP_MESH, WSHARD_ZERO_MESH = (2, 2), (4, 1)
 WSHARD_TOKENS, WSHARD_TIMEOUT_S = 16, 600
 WSHARD_LOSS_RTOL = SHARD_LOSS_RTOL
@@ -938,6 +989,48 @@ WHISPER_TP_SELF_BWD_CASES = [
 # the single process lies 2.63e-2 from fp32, TP's ranks 3.00e-2 and
 # ZeRO's 1.29e-2, NVIDIA H100 80GB HBM3, 700 W)
 WSHARD_BF16_VS_FP32 = 2.0
+# phase 25: internvl2-26b (arXiv:2404.16821) at full width: d 6144, 48
+# query heads over 8 KV heads of dh 128 (a GQA group of 6), d_ff 16384, an
+# untied head over a vocabulary of 92553 (odd: no model axis splits it),
+# 256 vision tokens of d_vision 3200 projected to d by the 2-layer MLP
+# projector.  (a) serving at full depth (48 layers, 19.92 B parameters,
+# 39.84 GB): phase 3's paged engine and requests (text only, as the
+# reference serves a VLM), make_prefill_step on VLM_PREFILL_LANES lanes of
+# 256 patches and VLM_PREFILL_TOKENS tokens, decode against prefill over
+# VLM_DECODE_VS_PREFILL_T tokens at phase 11's gate; (b) training on one
+# card through train --arch internvl2-26b --layers VLM_TRAIN_LAYERS
+# --batch 1 --seq VLM_TRAIN_SEQ (256 + 4096 positions) for
+# VLM_TRAIN_STEPS steps: 1.196 B fixed parameters (the embedding, the
+# head, the projector) and 390.1 M a layer at 16 B a parameter with AdamW,
+# so 6 layers hold 56.6 GB before activations; (c) VLM_SHARD_RANKS gloo
+# ranks sharing the card at full width and VLM_SHARD_LAYERS layer on
+# VLM_SHARD_MESH with TP, ZeRO-3 and remat (at 2 layers the four ranks'
+# AdamW updates, each about 19 GB at its peak beside the whole table's and
+# head's halves and their fp32 state, ran out of the card's memory: NVIDIA
+# H100 80GB HBM3, 700 W), VLM_SHARD_STEPS step of 4
+# lanes of 256 + VLM_SHARD_SEQ, its loss at SHARD_LOSS_RTOL of one
+# process's and its worst bf16 gradient leaf within WSHARD_BF16_VS_FP32
+# times one process's own bf16-to-fp32 distance; (d) the reduced fp32
+# model with d_vision apart from d and a GQA group of 6, on the card
+# against the CPU's plain versions at REL_TOL: loss, logits and the
+# projector's gradients
+VLM_ARCH, VLM_HEADS = "internvl2-26b", (48, 8, 128)
+VLM_VISION = 256
+VLM_PREFILL_LANES, VLM_PREFILL_TOKENS = 8, 128
+VLM_DECODE_VS_PREFILL_T = 64
+# (b)'s steps: 2 while the whole script ran 1077.0-1215.1 s, 3 again
+# once RankPool brought it to 529.9 s (NVIDIA H100 80GB HBM3, 700 W)
+VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS, VLM_TRAIN_SEQ = 6, 3, 4096
+VLM_SHARD_RANKS, VLM_SHARD_LAYERS, VLM_SHARD_MESH = 4, 1, (2, 2)
+VLM_SHARD_LANES, VLM_SHARD_SEQ, VLM_SHARD_STEPS = 4, 1024, 1
+VLM_SHARD_LR, VLM_SHARD_TIMEOUT_S = 3e-5, 600
+VLM_FP32_BATCH, VLM_FP32_SEQ = 2, 64
+# phase 2 holds the kernels at phase 25's shapes: the causal flash forward
+# with its row log-sum-exp and the backward at (B, S, H, KV, dh) of (b)'s
+# step (S = 256 + 4096 positions), and RMSNorm at d 6144 over a decode's
+# 8 rows and (b)'s 4352
+VLM_TRAIN_ATTN = (1, VLM_VISION + VLM_TRAIN_SEQ, *VLM_HEADS)
+VLM_NORM_ROWS = (DECODE_SLOTS, VLM_VISION + VLM_TRAIN_SEQ)
 
 
 def log(msg: str) -> None:
@@ -2066,6 +2159,110 @@ def phase_k14(errs):
         f"shapes held against its plain version in "
         f"{time.perf_counter() - t0:.1f} s; largest |diff| at S != T "
         f"{errs['flash_attention_bwd_cross']:.3e}")
+
+
+def phase_vlm_kernels(errs):
+    """The kernels at internvl2-26b's shapes (phase 25), bf16 and fp32,
+    each against its plain version at phase 2's gates and a second call
+    the same bits: the causal flash forward with its row log-sum-exp and
+    the backward at ``VLM_TRAIN_ATTN`` (B 1, S 4352, H 48, KV 8, dh 128: a
+    GQA group of 6, 64 packed rows holding 10 positions of 6 heads and 4
+    rows of an 11th), also against ``torch.autograd`` of the plain forward
+    (:func:`flash_bwd_check`); the forward at phase 25's paged decode and
+    prefill chunk, the dense engine's decode and a causal prefill of 2 x
+    256 (:func:`moe_flash_cases`); RMSNorm's forward at 8 x 6144 and 4352
+    x 6144 and its backward at 4352 x 6144 (d 6144 runs the looped
+    ``*_wide_kernel``s)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.rmsnorm import (RMSNorm, rmsnorm_bwd_cuda,
+                                             rmsnorm_cuda)
+
+    t0 = time.perf_counter()
+    for key in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                "rmsnorm_bwd"):
+        errs.setdefault(key, 0.0)
+    g = torch.Generator(device="cuda").manual_seed(25)
+
+    def rand(dt, *shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dt)
+
+    H, KV, dh = VLM_HEADS
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for name, B, S, T, kw in moe_flash_cases("internvl2"):
+            q, k, v = rand(dt, B, S, H, dh), rand(dt, B, T, KV, dh), \
+                rand(dt, B, T, KV, dh)
+            out = flash_attention_cuda(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            err = (out.float() - want.float()).abs().max().item()
+            same = same_bits(out, flash_attention_cuda(q, k, v, **kw))
+            log(f"[vlm-kernels] {dtype:8s} H {H} KV {KV} dh {dh} {name:28s} "
+                f"max|diff| {err:.3e} (tol {TOL[dtype]:.0e}); a second call "
+                f"the same bits {same}")
+            check(err <= TOL[dtype], f"flash {name} {dtype}: {err}")
+            check(same, f"flash {name} {dtype}: a second call gave other "
+                  "bits")
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+        B, S = VLM_TRAIN_ATTN[:2]
+        q, do = rand(dt, B, S, H, dh), rand(dt, B, S, H, dh)
+        k, v = rand(dt, B, S, KV, dh), rand(dt, B, S, KV, dh)
+        out, lse, got = flash_bwd_check(
+            q, k, v, do, True, None, f"B={B} S={S} H={H} KV={KV} dh={dh}",
+            errs)
+        err = (out.float() - ref.flash_attention_ref(q, k, v).float()
+               ).abs().max().item()
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        again = flash_attention_bwd_cuda(q, k, v, out, do, lse)
+        same_fwd = same_bits((out, lse), flash_attention_cuda(
+            q, k, v, with_lse=True))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[vlm-kernels] {dtype:8s} B={B} S={S} H={H} KV={KV} dh={dh} "
+            f"causal: forward max|diff| {err:.3e} (tol {TOL[dtype]:.0e}); "
+            f"a second call's out and lse the same bits {same_fwd}, its dq, "
+            f"dk, dv {same}")
+        check(err <= TOL[dtype], f"flash forward at S {S} {dtype}: {err}")
+        check(same_fwd and same, f"flash at S {S} {dtype}: a second call "
+              "gave other bits")
+        del q, do, k, v, out, lse, got, again
+        torch.cuda.empty_cache()
+        d = VLM_HEADS[0] * VLM_HEADS[2]
+        for rows in VLM_NORM_ROWS:
+            x, w = rand(dt, rows, d, scale=3.0), rand(dt, d)
+            check_rmsnorm(x, w, dtype, str((rows, d)), errs)
+            check(same_bits(rmsnorm_cuda(x, w, 1e-6),
+                            rmsnorm_cuda(x, w, 1e-6)),
+                  f"rmsnorm {(rows, d)} {dtype}: a second call gave other "
+                  "bits")
+        x = rand(dt, VLM_NORM_ROWS[1], d, scale=2.0).requires_grad_()
+        w = rand(dt, d).requires_grad_()
+        dy = rand(dt, VLM_NORM_ROWS[1], d)
+        got = torch.autograd.grad(RMSNorm.apply(x, w, 1e-5), (x, w), dy)
+        torch.cuda.synchronize()
+        want = torch.autograd.grad(ref.rmsnorm_ref(x, w, 1e-5), (x, w), dy)
+        e_dx, e_dw = rel_err(got[0], want[0]), rel_err(got[1], want[1])
+        again = rmsnorm_bwd_cuda(dy, x.detach(), w.detach(), 1e-5)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[vlm-kernels] {dtype:8s} rmsnorm backward "
+            f"{(VLM_NORM_ROWS[1], d)}: max|diff|/max|ref| dx {e_dx:.2e}, dw "
+            f"{e_dw:.2e} (tol {REL_TOL[dtype]:.0e}); a second call's dx, dw "
+            f"the same bits {same}")
+        check(max(e_dx, e_dw) <= REL_TOL[dtype],
+              f"rmsnorm_bwd at d {d} {dtype}: dx {e_dx}, dw {e_dw}")
+        check(same, f"rmsnorm_bwd at d {d} {dtype}: a second call gave "
+              "other bits")
+        errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], *(
+            (a.float() - b.float()).abs().max().item()
+            for a, b in zip(got, want)))
+        del x, w, dy, got, want, again
+        torch.cuda.empty_cache()
+    log(f"[vlm-kernels] flash and RMSNorm at internvl2-26b's shapes held "
+        f"against their plain versions in {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3622,17 +3819,136 @@ def phase_plan(dense_losses):
 PIPE_DIR = ROOT / "build" / "pipe"
 
 
-def spawn_ranks(fn, args, nprocs, what, timeout_s=PIPE_TIMEOUT_S):
-    """``launch/mesh.py::run_ranks``: ``fn(rank, *args)`` in ``nprocs``
-    spawned processes, a failed or late rank failing the phase.  Returns
-    the wall seconds."""
-    from repro_torch.launch.mesh import run_ranks
+class RankPool:
+    """POOL_SIZE processes, started with spawn, that run the ranks of the
+    phases between ``open`` and ``close`` in place of fresh processes: on
+    the card's host a process spends seconds importing torch, and the
+    first ``torch.utils.checkpoint`` call of a process seconds more
+    importing ``torch._dynamo`` (``tools/rank_start_probe.py`` times
+    both), once for each rank phase, a dozen times a run.  The processes
+    import both while the script works on (no CUDA before their first
+    task, so they hold no card memory until then) and are killed by
+    ``close``.  Each task runs as in a fresh process: the torch flags a
+    task may set back at their defaults, the peak memory statistics
+    reset, its process group destroyed and its memory freed after it.  A
+    failed, dead or late rank kills the pool and fails the phase."""
 
-    t0 = time.perf_counter()
+    def __init__(self):
+        self.procs, self.tasks, self.results = [], [], None
+
+    def open(self):
+        if self.procs:
+            return
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.results = ctx.Queue()
+        self.tasks = [ctx.SimpleQueue() for _ in range(POOL_SIZE)]
+        self.procs = [ctx.Process(target=_pool_worker, daemon=True,
+                                  args=(i, self.tasks[i], self.results))
+                      for i in range(POOL_SIZE)]
+        for p in self.procs:
+            p.start()
+
+    def close(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+        for p in self.procs:
+            p.join(10)
+        self.procs, self.tasks, self.results = [], [], None
+
+    def run(self, fn, args, nprocs, what, timeout_s):
+        import queue
+        check(nprocs <= len(self.procs), f"{what}: {nprocs} ranks, a pool "
+              f"of {len(self.procs)}")
+        for r in range(nprocs):
+            self.tasks[r].put((fn, r, args))
+        pending, deadline = set(range(nprocs)), time.monotonic() + timeout_s
+        try:
+            while pending:
+                try:
+                    rank, err = self.results.get(timeout=1)
+                except queue.Empty:
+                    dead = [i for i in pending
+                            if not self.procs[i].is_alive()]
+                    check(not dead, f"{what}: rank {dead} died")
+                    check(time.monotonic() < deadline,
+                          f"{what}: ranks {sorted(pending)} still running "
+                          f"after {timeout_s} s")
+                    continue
+                check(err is None, f"{what}: rank {rank} failed:\n{err}")
+                pending.discard(rank)
+        except BaseException:
+            self.close()
+            raise
+
+
+def _pool_worker(idx, tasks, results):
+    """A process of RankPool: the imports, then ``fn(rank, *args)`` for
+    each task until a None; puts ``(rank, None or the traceback)``."""
+    import gc
+    import traceback
+
+    import torch
+    import torch._dynamo  # noqa: F401  (imported by checkpoint's first call)
+    import torch.distributed as dist
+    import repro_torch.runtime  # noqa: F401
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, torch.get_num_threads())
+    while (task := tasks.get()) is not None:
+        fn, rank, args = task
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags[:2]
+        torch.set_num_threads(flags[2])
+        if torch.cuda.is_initialized():
+            torch.cuda.reset_peak_memory_stats()
+        err = None
+        try:
+            fn(rank, *args)
+        except BaseException:
+            err = traceback.format_exc()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        results.put((rank, err))
+
+
+POOL = RankPool()
+
+
+@contextlib.contextmanager
+def pooled_train_ranks():
+    """``train --ranks`` and ``train --pipeline --ranks`` run their ranks
+    in RankPool's processes (``launch/mesh.py::run_ranks`` looked up at
+    the call); ``serve --ranks`` keeps its own, so that the port's spawn
+    of ranks runs on the card too."""
+    from repro_torch.launch import mesh
+
+    real = mesh.run_ranks
+
+    def run_ranks(fn, args, nprocs, *, timeout_s=None):
+        POOL.run(fn, args, nprocs, "train's ranks",
+                 timeout_s or POOL_TIMEOUT_S)
+
+    POOL.open()
+    mesh.run_ranks = run_ranks
     try:
-        run_ranks(fn, args, nprocs, timeout_s=timeout_s)
-    except RuntimeError as e:
-        raise Failed(f"{what}: {e}") from e
+        yield
+    finally:
+        mesh.run_ranks = real
+
+
+def spawn_ranks(fn, args, nprocs, what, timeout_s=PIPE_TIMEOUT_S):
+    """``fn(rank, *args)`` in ``nprocs`` of RankPool's processes (started
+    here if the pool is closed); a failed or late rank fails the phase.
+    Returns the wall seconds."""
+    t0 = time.perf_counter()
+    POOL.open()
+    POOL.run(fn, args, nprocs, what, timeout_s)
     return time.perf_counter() - t0
 
 
@@ -3821,7 +4137,8 @@ def _pipe_train(check_losses):
         train_cli._pipeline_rank = counted_pipeline_rank
         try:
             t0 = time.perf_counter()
-            hist = train_cli.main(argv)
+            with pooled_train_ranks():
+                hist = train_cli.main(argv)
             wall_s = time.perf_counter() - t0
         finally:
             train_cli._pipeline_rank = real
@@ -4171,7 +4488,7 @@ def _shard_train(ref):
         printed = io.StringIO()
         try:
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(printed):
+            with contextlib.redirect_stdout(printed), pooled_train_ranks():
                 hist = train_cli.main(argv)
             wall_s = time.perf_counter() - t0
         finally:
@@ -4815,7 +5132,7 @@ def _ssmtp_train(ref):
         printed = io.StringIO()
         try:
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(printed):
+            with contextlib.redirect_stdout(printed), pooled_train_ranks():
                 hist = train_cli.main(argv)
             wall_s = time.perf_counter() - t0
         finally:
@@ -5754,8 +6071,9 @@ def _moe_decode_bound(cfg, params):
     """The least time of phase 3's decode step (8 lanes at 300 positions)
     on this model: every weight read once (the embedding's 8 rows), the
     K/V read and the new token's written; or its operations: each expert
-    on its whole capacity buffer (8 groups of C = top_k rows), every other
-    weight on 8 rows, QK and PV over 301 keys.  Returns (GB, ms, by)."""
+    on its whole capacity buffer (8 groups of C = top_k rows; a dense
+    model has none), every other weight on 8 rows, QK and PV over 301
+    keys.  Returns (GB, ms, by)."""
     from repro_torch.models.moe import _capacity
     experts = sum(p.numel() for n, p in params.named_parameters()
                   if n.split(".")[-1] in ("w_gate", "w_up", "w_down")
@@ -5766,7 +6084,7 @@ def _moe_decode_bound(cfg, params):
     keys = 301
     kv = cfg.n_layers * DECODE_SLOTS * keys * 2 * cfg.n_kv_heads * cfg.dh
     n_bytes = 2 * (experts + other + kv + DECODE_SLOTS * cfg.d_model)
-    rows = DECODE_SLOTS * _capacity(1, cfg)
+    rows = DECODE_SLOTS * _capacity(1, cfg) if experts else 0
     n_ops = (2 * rows * experts + 2 * DECODE_SLOTS * other
              + 4 * cfg.n_layers * DECODE_SLOTS * keys * cfg.n_heads * cfg.dh)
     return (n_bytes / 1e9, *_bound_ms(n_bytes, n_ops, "bfloat16"))
@@ -5809,7 +6127,7 @@ def _moe_dense_requests(cfg):
 def _first_call(step, rec):
     """``step`` recording, at its first call, the logits it returns, its
     token and length arguments and the top-k experts of every ``_route``
-    call it makes (L layers: (L, lanes, 1, k))."""
+    call it makes (L layers: (L, lanes, 1, k); None for a dense model)."""
     import torch
 
     def first(*args):
@@ -5819,7 +6137,7 @@ def _first_call(step, rec):
             out = step(*args)
         logits = out[0] if isinstance(out, tuple) else out
         rec.update(logits=logits.float().cpu(),
-                   routes=torch.stack(routes).cpu(),
+                   routes=torch.stack(routes).cpu() if routes else None,
                    args=[a.cpu() for a in args[2:]
                          if isinstance(a, torch.Tensor)])
         return out
@@ -5894,9 +6212,10 @@ def _moe_paged(cfg, params, tag="[moe] (a)"):
     for r in reqs:
         check(r.done and len(r.tokens) == r.max_new
               and all(0 <= t < cfg.vocab_size for t in r.tokens),
-              f"moe request {r.rid}: {r.tokens} of {r.max_new}")
+              f"{tag} request {r.rid}: {r.tokens} of {r.max_new}")
     check(summ["completed"] == len(reqs), f"completed {summ['completed']}")
-    check(not plain, f"the MoE paged engine called plain versions: {plain}")
+    check(not plain, f"{tag} the paged engine called plain versions: "
+          f"{plain}")
 
     P = ecfg.pages_per_slot
     rows = torch.arange(DECODE_SLOTS * P, dtype=torch.int32,
@@ -5919,7 +6238,7 @@ def _moe_paged(cfg, params, tag="[moe] (a)"):
         before = (flash_attention_cuda.launches, rmsnorm_cuda.launches)
         out = step()
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), "MoE logits not finite")
+        check(bool(torch.isfinite(out).all()), f"{tag} logits not finite")
         return (flash_attention_cuda.launches - before[0],
                 rmsnorm_cuda.launches - before[1])
 
@@ -5928,8 +6247,8 @@ def _moe_paged(cfg, params, tag="[moe] (a)"):
     for i, name in enumerate(("flash_attention", "rmsnorm")):
         want = per_decode[i] * calls[0] + per_prefill[i] * calls[1]
         check(launches[name] == want and launches[name] > 0,
-              f"the MoE paged run launched {name} {launches[name]} times, "
-              f"not {want}")
+              f"{tag} the paged run launched {name} {launches[name]} "
+              f"times, not {want}")
     check(per_decode[0] == per_prefill[0] == cfg.n_layers,
           f"flash launches a decode step / prefill chunk: {per_decode[0]}, "
           f"{per_prefill[0]}, not {cfg.n_layers}")
@@ -5938,11 +6257,11 @@ def _moe_paged(cfg, params, tag="[moe] (a)"):
     same_bits = torch.equal(first2["logits"], first["logits"])
     log(f"{tag} second run: the same tokens {same_tokens}, the first "
         f"decode step's logits the same bits {same_bits}")
-    check(same_tokens and same_bits, "the MoE serving forward is not "
+    check(same_tokens and same_bits, f"{tag} the serving forward is not "
           "deterministic run to run")
 
     ms = cuda_ms(decode, iters=10)
-    busy, kernels, cats = profile_step("moe paged decode", decode, ms)
+    busy, kernels, cats = profile_step(f"{tag} paged decode", decode, ms)
     prefill_ms = cuda_ms(prefill, iters=5, warmup=1)
     bound_gb, bound, by = _moe_decode_bound(cfg, params)
     result = {
@@ -6940,13 +7259,15 @@ def _whisper_train_cpu_vs_card():
 
 
 def phase_whisper_train():
-    """Phase 23: whisper-medium training at full width (24 + 24 layers,
-    bf16, random weights from seed 0).  (a) ``train --arch whisper-medium
-    --batch 8 --seq 448`` for WHISPER_TRAIN_STEPS steps on the synthetic
+    """Phase 23: whisper-medium training at full width (24 encoder layers
+    and WHISPER_TRAIN_DEC_LAYERS of 24 decoder layers, bf16, random weights
+    from seed 0).  (a) ``train --arch whisper-medium --layers
+    WHISPER_TRAIN_DEC_LAYERS --batch 8 --seq 448`` (``--layers`` sets the
+    decoder's depth) for WHISPER_TRAIN_STEPS steps on the synthetic
     stream's frames (8, 1500, 1024), with the searched plan's remat and a
     checkpoint after step WHISPER_CKPT_AT: finite losses; each step the
-    flash backward once an attention (24 encoder, 24 decoder, 24 cross:
-    72, of them 24 at S != T, K14), the forward once (twice under remat),
+    flash backward once an attention (24 encoder, 12 decoder, 12 cross:
+    48, of them 12 at S != T, K14), the forward once (twice under remat),
     no RMSNorm and no plain version; the step's wall ms, decoder tokens/s,
     peak memory.  (d) a model and AdamW state drawn from seed 1, restored
     from that checkpoint, take step 3: its loss must be (a)'s, bit for
@@ -6967,11 +7288,12 @@ def phase_whisper_train():
 
     t_phase = time.perf_counter()
     _free_cuda()
-    cfg = get_config(WHISPER_ARCH)
+    cfg = get_config(WHISPER_ARCH).with_(n_layers=WHISPER_TRAIN_DEC_LAYERS)
     E, L = cfg.n_enc_layers, cfg.n_layers
     ck = ROOT / "build" / "whisper_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
-    argv = ["--arch", WHISPER_ARCH, "--steps", str(WHISPER_TRAIN_STEPS),
+    argv = ["--arch", WHISPER_ARCH, "--layers", str(L),
+            "--steps", str(WHISPER_TRAIN_STEPS),
             "--batch", str(WHISPER_LANES), "--seq", str(WHISPER_CONTEXT),
             "--log-every", "1", "--ckpt-dir", str(ck), "--ckpt-every",
             str(WHISPER_CKPT_AT)]
@@ -7754,6 +8076,510 @@ def phase_whisper_shard():
 
 
 # ---------------------------------------------------------------------------
+# phase 25: internvl2-26b, the vision-language model, at full width
+# ---------------------------------------------------------------------------
+
+VLM_DIR = ROOT / "build" / "vlm_shard"
+
+
+def _vlm_cfg(layers=None, dtype="bfloat16"):
+    """internvl2-26b at full width, ``layers`` of 48 (all by default)."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH).with_(dtype=getattr(torch, dtype))
+    return cfg if layers is None else cfg.with_(n_layers=layers)
+
+
+def _vlm_launches(L, remat, calls=1):
+    """Launches of ``calls`` losses and gradients of L dense layers on one
+    process or rank: the flash forward once a layer (twice under remat)
+    and its backward once; RMSNorm's forward on ln1 and ln2 of each layer
+    (again under remat) and on the final norm, its backward once each."""
+    k = 2 if remat else 1
+    return {"flash_attention": L * k * calls,
+            "flash_attention_bwd": L * calls,
+            "flash_attention_bwd_cross": 0,
+            "rmsnorm": (2 * L * k + 1) * calls,
+            "rmsnorm_bwd": (2 * L + 1) * calls}
+
+
+def _vlm_serve(cfg, params):
+    """(a) at full depth: phase 3's requests through the paged engine twice
+    (:func:`_moe_paged`: the decode step beside its bound, every weight
+    read once); ``make_prefill_step`` on VLM_PREFILL_LANES lanes of 256
+    random patches and VLM_PREFILL_TOKENS tokens, its logits (8, 128,
+    92553), finite, the same bits on a second call, and not those of the
+    same tokens without patches; the dense-cache decode against the
+    prefill over VLM_DECODE_VS_PREFILL_T tokens at phase 11's gate.
+    Returns the launches of the engine's run and the prefill calls."""
+    import torch
+    from repro_torch.runtime.executor import make_prefill_step
+
+    launches, _ = _moe_paged(cfg, params, "[vlm] (a)")
+    g = torch.Generator(device="cuda").manual_seed(25)
+    B, T = VLM_PREFILL_LANES, VLM_PREFILL_TOKENS
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                         device="cuda", dtype=torch.int32)
+    patches = torch.randn(B, VLM_VISION, cfg.d_vision, generator=g,
+                          device="cuda")
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": toks, "patches": patches}
+    prefill(params, batch)          # warm-up
+    torch.cuda.synchronize()
+    counts = _zero_counts()
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        first = prefill(params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        second = prefill(params, batch)
+        text = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    n = counts()
+    check(not plain, f"[vlm] (a) plain versions ran in the prefill: {plain}")
+    check(tuple(first.shape) == (B, T, cfg.vocab_size)
+          and bool(torch.isfinite(first).all()),
+          f"[vlm] (a) prefill logits {tuple(first.shape)}, or not finite")
+    same = torch.equal(first, second)
+    moved = ((first.float() - text.float()).abs().max()
+             / text.float().abs().max()).item()
+    want = {"flash_attention": 3 * cfg.n_layers,
+            "rmsnorm": 3 * (2 * cfg.n_layers + 1)}
+    log(f"[vlm] (a) make_prefill_step of {B} lanes x ({VLM_VISION} patches "
+        f"+ {T} tokens): logits {tuple(first.shape)}, {ms:.1f} ms wall; a "
+        f"second call the same bits {same}; against the same tokens "
+        f"without patches max |diff| / max |logit| {moved:.3e}; launches "
+        f"of the three calls {n} (flash and RMSNorm {want})")
+    check(same, "[vlm] (a) the prefill with patches gave other bits on a "
+          "second call")
+    check(moved > DECODE_VS_PREFILL_TOL, "[vlm] (a) the patches do not "
+          "move the prefill's logits: the projector is not wired in")
+    check(all(n[k] == v for k, v in want.items()),
+          f"[vlm] (a) the prefill calls launched {n}, not {want}")
+    del first, second, text
+    _decode_vs_prefill(cfg, params, VLM_DECODE_VS_PREFILL_T,
+                       DECODE_VS_PREFILL_TOL, "[vlm] (a)")
+    return {k: launches.get(k, 0) + n[k] for k in n}
+
+
+def _vlm_train():
+    """(b) ``train --arch internvl2-26b --layers VLM_TRAIN_LAYERS --batch 1
+    --seq VLM_TRAIN_SEQ`` for VLM_TRAIN_STEPS steps on the synthetic
+    stream's batches with their patches (1, 256, 3200), the searched
+    plan's remat: finite losses; each step the flash backward once a
+    layer, the forward once (twice under remat), RMSNorm as
+    :func:`_vlm_launches`, no plain version; step ms and peak.  Then on a
+    fresh draw two steps timed and one profiled (the busy share and device
+    ms by category), and step 1's loss and gradients twice from seed 0:
+    the same bits both times, the loss the CLI's.  Returns the CLI's
+    launches."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.executor import init_train_state, make_train_step
+
+    cfg = _vlm_cfg(VLM_TRAIN_LAYERS)
+    L = cfg.n_layers
+    argv = ["--arch", VLM_ARCH, "--layers", str(L), "--batch", "1",
+            "--seq", str(VLM_TRAIN_SEQ), "--steps", str(VLM_TRAIN_STEPS),
+            "--log-every", "1"]
+    n, gb = _param_footprint(cfg)
+    log(f"[vlm] (b) python -m repro_torch.launch.train {' '.join(argv)}: "
+        f"{n / 1e9:.3f} B params, {16 * n / 1e9:.2f} GB with AdamW's fp32 "
+        f"master and moments")
+    counts = _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_train_steps(counts) as seen, plain_calls() as plain:
+        hist = train_cli.main(argv)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = counts()
+    losses = [h["loss"] for h in hist]
+    remat = seen["remat_segments"][0]
+    on = bool(remat and remat[0])
+    check(len(losses) == VLM_TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses), f"(b) losses {losses}")
+    check(not plain, f"(b) plain versions ran on the training path: {plain}")
+    per_step = _vlm_launches(L, on)
+    for i, got in enumerate(seen["launches"], 1):
+        check(all(got[k] == v for k, v in per_step.items()),
+              f"(b) step {i} launched {got}, not {per_step}")
+    del hist
+    _free_cuda()
+    opt_cfg = AdamWConfig(lr=train_cli.parse_args(argv).lr)
+    gen = train_cli.batches(cfg, train_cli.parse_args(argv))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(gen).items()}
+    check(tuple(batch["patches"].shape) == (1, VLM_VISION, cfg.d_vision),
+          f"(b) patches {tuple(batch['patches'].shape)}")
+    params, opt = init_train_state(cfg, seed=0, opt_cfg=opt_cfg,
+                                   device="cuda")
+    step = make_train_step(cfg, opt_cfg, remat_segments=remat)
+    wall_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    busy, kernels, cats = profile_step(
+        "internvl2 train", lambda: step(params, opt, batch),
+        sum(wall_ms) / len(wall_ms), n=1)
+    del params, opt, step
+    _free_cuda()
+    params = init_lm(cfg, seed=0, device="cuda")
+    leaves = list(params.parameters())
+    runs = []
+    for _ in range(2):
+        loss = lm_loss(params, batch, cfg, remat_segments=remat)
+        runs.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+        del loss
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    first = float(runs[0][0])
+    moved = float(runs[0][1][-4].float().abs().max())   # projector.w1
+    log(f"[vlm] (b) step 1 from seed 0 twice: loss and {len(leaves)} "
+        f"gradient leaves bitwise equal {same}; loss {first!r}, the CLI's "
+        f"step 1 {losses[0]!r}; the projector's w1 gradient max |g| "
+        f"{moved:.3e}")
+    check(same, "(b) step 1's loss or gradients differ run to run")
+    check(first == losses[0], "(b) step 1's loss is not the CLI's")
+    check(moved > 0, "(b) the projector has no gradient")
+    del params, leaves, runs, batch
+    _free_cuda()
+    tokens = VLM_TRAIN_SEQ
+    result = {
+        "arch": VLM_ARCH, "layers": L, "params": n,
+        "positions": VLM_VISION + VLM_TRAIN_SEQ, "text_tokens": tokens,
+        "remat_segments": remat, "losses": losses,
+        "step_ms": seen["step_ms"], "text_tok_per_s":
+            tokens * 1e3 / seen["step_ms"][-1],
+        "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_busy_share": busy * len(wall_ms) / sum(wall_ms),
+        "device_ms_by_category": cats, "kernels_per_step": kernels,
+        "peak_mem_gb": peak_gb, "launches_per_step": seen["launches"][0]}
+    log("[vlm] (b) " + json.dumps(result))
+    return launches
+
+
+def _vlm_shard_batch(cfg):
+    """(c)'s batch: the train CLI's first batch of VLM_SHARD_LANES x
+    VLM_SHARD_SEQ tokens with their patches, CPU tensors."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    gen = train_cli.batches(cfg, train_cli.parse_args([
+        "--arch", VLM_ARCH, "--batch", str(VLM_SHARD_LANES), "--seq",
+        str(VLM_SHARD_SEQ)]))
+    return {k: torch.from_numpy(v) for k, v in next(gen).items()}
+
+
+def vlm_shard_reference(run_dir):
+    """The single process, in this process on the card: (c)'s loss and
+    gradients on ``init_lm`` seed 0 under remat, in bf16 and, on the same
+    weights, in fp32; each leaf's bf16-to-fp32 distance and the fp32
+    gradients' largest magnitudes, saved for the ranks with the fp32
+    gradients."""
+    import torch
+    from repro_torch.models import init_lm, lm_loss
+
+    cfg = _vlm_cfg(VLM_SHARD_LAYERS)
+    batch = {k: v.to("cuda") for k, v in _vlm_shard_batch(cfg).items()}
+    params = init_lm(cfg, seed=0, device="cuda")
+    leaves = list(params.parameters())
+    names = [n for n, _ in params.named_parameters()]
+    counts = _zero_counts()
+    with plain_calls() as plain:
+        loss = lm_loss(params, batch, cfg, remat_segments=[True])
+        grads = torch.autograd.grad(loss, leaves)
+    saved = {"loss": loss.item(), "launches": counts(), "plain": plain,
+             "params": sum(p.numel() for p in leaves)}
+    del loss
+    params32 = copy.deepcopy(params).float()
+    del params, leaves
+    loss = lm_loss(params32, batch, cfg.with_(dtype=torch.float32),
+                   remat_segments=[True])
+    grads32 = torch.autograd.grad(loss, list(params32.parameters()))
+    saved["loss32"] = loss.item()
+    saved["single_vs_fp32"] = {n: _leaf_err(g, r) for n, g, r in
+                               zip(names, grads, grads32)}
+    saved["tops"] = {n: r.abs().max().item() for n, r in zip(names, grads32)}
+    saved["grads32"] = {n: r.cpu() for n, r in zip(names, grads32)}
+    del loss, params32, grads, grads32, batch
+    _free_cuda()
+    torch.save(saved, f"{run_dir}/reference.pt")
+    return saved
+
+
+def _shard_diff(g, want):
+    """max |g - want| of a rank's gradient shard (on the card) and the
+    same slice of a whole leaf (on the host), in slices of 2^24."""
+    g, want = g.reshape(-1), want.reshape(-1)
+    diff = 0.0
+    for a in range(0, want.numel(), 1 << 24):
+        w = want[a:a + (1 << 24)].to(g.device).float()
+        diff = max(diff, (g[a:a + (1 << 24)].float() - w).abs().max().item())
+    return diff
+
+
+def vlm_shard_rank(rank, world, run_dir):
+    """One of VLM_SHARD_RANKS gloo ranks on the card: its shards of
+    ``init_lm`` seed 0 on VLM_SHARD_MESH under TP, ZeRO-3 and remat, then
+    VLM_SHARD_STEPS steps of ``make_train_step(mesh=, policy=)`` on (c)'s
+    batch (launches counted from 0 before the steps); the first step's
+    reduced gradient shards (kept check-only) against the same slices of
+    the single process's fp32 gradients.  Saves its results."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import (ShardPolicy, init_train_state,
+                                     make_train_step)
+
+    torch.cuda.set_device(0)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous",
+                     timeout_s=VLM_SHARD_TIMEOUT_S)
+    try:
+        cfg = _vlm_cfg(VLM_SHARD_LAYERS)
+        mesh = make_local_mesh(VLM_SHARD_MESH[1])
+        pol = ShardPolicy(tp=True, zero=True, remat_segments=(True,))
+        ocfg = AdamWConfig(lr=VLM_SHARD_LR)
+        ref = torch.load(f"{run_dir}/reference.pt", mmap=True)
+        batch = _vlm_shard_batch(cfg)
+        t0 = time.perf_counter()
+        params, opt = init_train_state(cfg, mesh=mesh, policy=pol, seed=0,
+                                       opt_cfg=ocfg, device="cuda")
+        torch.cuda.synchronize()
+        out = {"coord": [mesh.get_local_rank("data"),
+                         mesh.get_local_rank("model")],
+               "init_s": time.perf_counter() - t0,
+               "params_local": sum(p.numel() for p in params.parameters())}
+        step = make_train_step(cfg, ocfg, mesh=mesh, policy=pol)
+        ctx, kept = step.shard, []
+        real = ctx.reduce_grads
+
+        def keep(named, grads):     # check-only: the step's gradients
+            reduced = real(named, grads)
+            if not kept:
+                kept.extend(reduced)
+            return reduced
+
+        ctx.reduce_grads = keep
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        counts = _zero_counts()
+        hist = []
+        with plain_calls() as plain:
+            for _ in range(VLM_SHARD_STEPS):
+                sent = ctx.traffic.bytes_sent
+                t0 = time.perf_counter()
+                m = step(params, opt, batch)
+                torch.cuda.synchronize()
+                hist.append({"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "ms": (time.perf_counter() - t0) * 1e3,
+                             "gloo_bytes": ctx.traffic.bytes_sent - sent})
+        out.update(steps=hist, launches=counts(), plain=plain,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+                   tp=ctx.tp, split_vocab=ctx.split_vocab,
+                   head=list(params.head.shape),
+                   w1=list(params.projector.w1.shape))
+        ctx.reduce_grads = real
+        out["diffs"] = {n: _shard_diff(g, ctx.shard_tensor(
+            n, ref["grads32"][n])) for (n, _), g in
+            zip(params.named_parameters(), kept)}
+        del kept, params, opt
+        _free_cuda()
+        pathlib.Path(f"{run_dir}/rank{rank}.json").write_text(
+            json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _vlm_shard():
+    """(c) VLM_SHARD_RANKS gloo ranks sharing the card (:func:`
+    vlm_shard_rank`) against the single process (:func:`
+    vlm_shard_reference`): the loss at SHARD_LOSS_RTOL, the ranks' worst
+    bf16 gradient leaf (its shards against the same slices of the single
+    process's fp32 gradient, over the leaf's largest magnitude) within
+    WSHARD_BF16_VS_FP32 times the single process's own worst bf16 leaf;
+    the whole head and table on every model rank (92553 splits over
+    none), the projector's w1 the rank's columns; exact launch counts; a
+    rank's gloo bytes a step and peak.  Returns the reference's and the
+    ranks' launches."""
+    import torch
+
+    shutil.rmtree(VLM_DIR, ignore_errors=True)
+    VLM_DIR.mkdir(parents=True)
+    cfg = _vlm_cfg(VLM_SHARD_LAYERS)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    ref = vlm_shard_reference(str(VLM_DIR))
+    check(not ref["plain"], f"(c) plain versions ran in the reference: "
+          f"{ref['plain']}")
+    want = _vlm_launches(L, True)
+    check(all(ref["launches"][k] == v for k, v in want.items()),
+          f"(c) the reference's launches {ref['launches']}, not {want}")
+    single = max(ref["single_vs_fp32"].values())
+    free, _ = torch.cuda.mem_get_info()
+    log(f"[vlm] (c) single process: {cfg.name} at {L} layers, "
+        f"{ref['params'] / 1e9:.3f} B params, {VLM_SHARD_LANES} lanes of "
+        f"{VLM_VISION} + {VLM_SHARD_SEQ}: loss {ref['loss']!r} (fp32 on the "
+        f"same weights {ref['loss32']!r}); its bf16 gradient leaves lie up "
+        f"to {single:.3e} from fp32; {time.perf_counter() - t0:.1f} s; the "
+        f"card has {free / 1e9:.2f} GB free for the ranks")
+    ranks_s = spawn_ranks(vlm_shard_rank, (VLM_SHARD_RANKS, str(VLM_DIR)),
+                          VLM_SHARD_RANKS, "sharded internvl2 ranks",
+                          timeout_s=VLM_SHARD_TIMEOUT_S)
+    res = [json.loads((VLM_DIR / f"rank{r}.json").read_text())
+           for r in range(VLM_SHARD_RANKS)]
+    shutil.rmtree(VLM_DIR, ignore_errors=True)
+    check([r["coord"] for r in res] == [[0, 0], [0, 1], [1, 0], [1, 1]],
+          f"(c) mesh coordinates {[r['coord'] for r in res]}")
+    check(not any(r["plain"] for r in res), "(c) plain versions ran")
+    want = _vlm_launches(L, True, VLM_SHARD_STEPS)
+    for r, row in enumerate(res):
+        check(all(row["launches"][k] == v for k, v in want.items()),
+              f"(c) rank {r}: launches {row['launches']}, not {want}")
+    d, dv = cfg.d_model, cfg.d_vision
+    local = (2, [d // VLM_SHARD_MESH[0], cfg.vocab_size],
+             [dv // VLM_SHARD_MESH[0], d // VLM_SHARD_MESH[1]])
+    check(all((r["tp"], r["head"], r["w1"]) == local
+              and not r["split_vocab"] for r in res),
+          f"(c) TP degree, head and w1 shards {[(r['tp'], r['head'], r['w1']) for r in res]}, not {local}, or the vocabulary split")
+    losses = [[h["loss"] for h in r["steps"]] for r in res]
+    check(all(x == losses[0] for x in losses) and all(
+        math.isfinite(x) for x in losses[0]), f"(c) step losses {losses}")
+    rel = abs(losses[0][0] - ref["loss"]) / abs(ref["loss"])
+    errs = {n: max(r["diffs"][n] for r in res) / max(ref["tops"][n], 1e-30)
+            for n in ref["tops"]}
+    worst = max(errs, key=errs.get)
+    top = sorted(errs, key=errs.get, reverse=True)[:6]
+    log(f"[vlm] (c) {VLM_SHARD_RANKS} ranks on (data, model) = "
+        f"{VLM_SHARD_MESH}, TP + ZeRO-3 + remat: step 1's loss "
+        f"{losses[0][0]!r} against the single process's {ref['loss']!r} "
+        f"(rel {rel:.3e}, tol {SHARD_LOSS_RTOL:.0e}); the ranks' worst "
+        f"bf16 gradient leaf {worst} at {errs[worst]:.3e} of its fp32 "
+        f"largest magnitude, the single process's own worst {single:.3e} "
+        f"(gate {WSHARD_BF16_VS_FP32} x); farthest leaves (leaf, ranks, "
+        f"single process): "
+        + ", ".join(f"{n} {errs[n]:.3e} {ref['single_vs_fp32'][n]:.3e}"
+                    for n in top))
+    for r, row in enumerate(res):
+        log(f"[vlm] (c) rank {r} (data {row['coord'][0]}, model "
+            f"{row['coord'][1]}): {row['params_local'] / 1e6:.1f} M params, "
+            f"init {row['init_s']:.1f} s; step ms "
+            f"{[round(h['ms'], 1) for h in row['steps']]}, gloo bytes sent "
+            f"a step {[h['gloo_bytes'] for h in row['steps']]}; peak "
+            f"{row['peak_gb']:.2f} GB ({row['reserved_gb']:.2f} reserved)")
+    log(f"[vlm] (c) ranks {ranks_s:.1f} s (4 ranks share one card: not a "
+        "sharded run's speed)")
+    check(rel <= SHARD_LOSS_RTOL, f"(c) the sharded loss lies {rel:.3e} "
+          "from the single process's")
+    check(errs[worst] <= WSHARD_BF16_VS_FP32 * single,
+          f"(c) the ranks' bf16 gradient leaf {worst} lies {errs[worst]:.3e} "
+          f"from fp32, above {WSHARD_BF16_VS_FP32} x {single:.3e}")
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in res[0]["launches"]}
+    return ref["launches"], launches
+
+
+def _vlm_cpu_vs_card():
+    """(d) reduced fp32 internvl2 with d_vision 192 apart from d 384 and
+    6 query heads over 1 KV head (a GQA group of 6), 2 lanes of 16
+    patches and VLM_FP32_SEQ tokens: the card's loss, logits and every
+    gradient (the projector's among them) against the CPU's plain
+    versions on the same weights, within REL_TOL of each one's largest
+    magnitude; the card's call launches the flash forward and backward
+    and RMSNorm."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm, lm_forward, lm_loss
+
+    cfg = get_config(VLM_ARCH).reduced(d_model=384).with_(
+        n_heads=6, n_kv_heads=1, head_dim=64, d_vision=192,
+        dtype=torch.float32)
+    g = torch.Generator().manual_seed(25)
+    toks = torch.randint(0, cfg.vocab_size, (VLM_FP32_BATCH,
+                                             VLM_FP32_SEQ + 1), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "patches": torch.randn(VLM_FP32_BATCH, cfg.vision_tokens,
+                                    cfg.d_vision, generator=g)}
+    params_cpu = init_lm(cfg, seed=0, device="cpu")
+    out = {}
+    for dev, params in (("cpu", params_cpu),
+                        ("cuda", copy.deepcopy(params_cpu).to("cuda"))):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        counts = _zero_counts()
+        loss = lm_loss(params, b, cfg)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        with torch.no_grad():
+            logits = lm_forward(params, b["tokens"], cfg,
+                                patches=b["patches"])[0]
+        out[dev] = (loss.item(), logits.cpu(), [x.cpu() for x in grads],
+                    counts())
+    names = [n for n, _ in params_cpu.named_parameters()]
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    e_logits = rel_err(out["cuda"][1], out["cpu"][1])
+    e_grads = {n: rel_err(a, b) for n, a, b in
+               zip(names, out["cuda"][2], out["cpu"][2])}
+    worst = max(e_grads, key=e_grads.get)
+    n = out["cuda"][3]
+    log(f"[vlm] (d) reduced fp32 {VLM_ARCH} (d 384, d_vision 192, 6 query "
+        f"heads over 1 KV head, {cfg.n_layers} layers), {VLM_FP32_BATCH} "
+        f"lanes of {cfg.vision_tokens} patches + {VLM_FP32_SEQ} tokens: "
+        f"card against the CPU: loss rel {rel:.3e}, logits {e_logits:.3e}, "
+        f"worst gradient {worst} {e_grads[worst]:.3e}, the projector's "
+        + ", ".join(f"{k} {v:.3e}" for k, v in e_grads.items()
+                    if k.startswith("projector."))
+        + f" (tol {REL_TOL['float32']:.0e}); the card's launches {n}")
+    check(max(rel, e_logits, e_grads[worst]) <= REL_TOL["float32"],
+          "(d) the reduced fp32 VLM differs between the card and the CPU")
+    check(n["flash_attention"] > 0 and n["flash_attention_bwd"] > 0
+          and n["rmsnorm"] > 0 and n["rmsnorm_bwd"] > 0,
+          f"(d) the card's call launched {n}")
+
+
+def phase_vlm():
+    """Phase 25: internvl2-26b at full width, bf16, random weights from
+    seed 0.  (a) serving at full depth (:func:`_vlm_serve`); (b) training
+    on one card at VLM_TRAIN_LAYERS layers through the train CLI
+    (:func:`_vlm_train`); (c) 4 gloo ranks at VLM_SHARD_LAYERS layers on
+    (data 2, model 2) with TP, ZeRO-3 and remat (:func:`_vlm_shard`); (d)
+    reduced fp32, card against CPU (:func:`_vlm_cpu_vs_card`).  Returns
+    {path: launches}."""
+    import torch
+
+    t_phase = time.perf_counter()
+    _free_cuda()
+    cfg = _vlm_cfg()
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.dh) == VLM_HEADS,
+          f"internvl2's heads {(cfg.n_heads, cfg.n_kv_heads, cfg.dh)}")
+    n, gb = _param_footprint(cfg)
+    free, total = torch.cuda.mem_get_info()
+    log(f"[vlm] memory reckoned before the draw: {cfg.n_layers} layers, "
+        f"{n / 1e9:.3f} B params, {gb:.2f} GB in bf16; the card has "
+        f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    check(gb < free / 1e9, f"internvl2 needs {gb:.2f} GB, "
+          f"{free / 1e9:.2f} GB free")
+    params = _moe_init(cfg, "[vlm]")
+    launches = {"vlm_serve": _vlm_serve(cfg, params)}
+    del params
+    _free_cuda()
+    t0 = time.perf_counter()
+    launches["vlm_train"] = _vlm_train()
+    log(f"[vlm] (b) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, launches["vlm_shard"] = _vlm_shard()
+    log(f"[vlm] (c) in {time.perf_counter() - t0:.1f} s")
+    _vlm_cpu_vs_card()
+    log(f"[vlm] phase 25 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 8: sequence-parallel attention, 4 ranks on the card
 # ---------------------------------------------------------------------------
 
@@ -8403,7 +9229,14 @@ def phase_timings():
              # (B 4, S = T 1500, H = KV = 8, dh 64, non-causal, with lse)
              "whisper_tp_train": _flash_train_timing(
                  WHISPER_TP_LOCAL[0], WHISPER_FRAMES, *WHISPER_TP_LOCAL[1:],
-                 causal=False)}),
+                 causal=False),
+             # phase 25: internvl2-26b's paged decode (H 48, KV 8, dh 128)
+             # and its causal training shape under autograd (B 1, S 256 +
+             # 4096)
+             "internvl2_decode": _flash_timing(
+                 DECODE_SLOTS, 1, MAX_CONTEXT, decode_L,
+                 [MAX_CONTEXT] * DECODE_SLOTS, heads=VLM_HEADS),
+             "internvl2_train": _flash_train_timing(*VLM_TRAIN_ATTN)}),
         ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "decode", {
              "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
@@ -8421,7 +9254,10 @@ def phase_timings():
              # phase 19: arctic-480b's rows
              "arctic_decode": _rmsnorm_timing(DECODE_SLOTS, 7168),
              "arctic_prefill": _rmsnorm_timing(
-                 PREFILL_BATCH * PREFILL_CHUNK, 7168)}),
+                 PREFILL_BATCH * PREFILL_CHUNK, 7168),
+             # phase 25: internvl2-26b's decode and training rows
+             "internvl2_decode": _rmsnorm_timing(VLM_NORM_ROWS[0], 6144),
+             "internvl2_train": _rmsnorm_timing(VLM_NORM_ROWS[1], 6144)}),
         ("rmsnorm_bwd", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "train", {
              "train": _rmsnorm_bwd_timing(tokens, 1024),
@@ -8429,7 +9265,10 @@ def phase_timings():
              "dense_k_norm": _rmsnorm_bwd_timing(
                  DENSE_BATCH * DENSE_SEQ * 8, 128),
              "dense_q_norm": _rmsnorm_bwd_timing(
-                 DENSE_BATCH * DENSE_SEQ * 32, 128)}),
+                 DENSE_BATCH * DENSE_SEQ * 32, 128),
+             # phase 25: internvl2-26b's training rows
+             "internvl2_train": _rmsnorm_bwd_timing(VLM_NORM_ROWS[1],
+                                                    6144)}),
         ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd_scan.py:72", "train",
          {"train": ssd_fwd, "zamba2_prefill": zamba2_ssd,
@@ -8447,7 +9286,9 @@ def phase_timings():
           # phase 24: a TP rank's encoder self-attention
           "whisper_tp_train": _flash_bwd_timing(
               WHISPER_TP_LOCAL[0], WHISPER_FRAMES, *WHISPER_TP_LOCAL[1:],
-              causal=False)}),
+              causal=False),
+          # phase 25: internvl2-26b's causal training shape
+          "internvl2_train": _flash_bwd_timing(*VLM_TRAIN_ATTN)}),
         # K14: the backward at S != T, phase 23's cross-attention (its
         # launches are also among flash_attention_bwd's)
         ("flash_attention_bwd_cross", "cuda",
@@ -8636,15 +9477,23 @@ def main() -> int:
             phase_flash_bwd(errs)
             phase_k13(errs)
             phase_k14(errs)
+            phase_vlm_kernels(errs)
         if begin(7):
             timed = phase_timings()
         if begin(3):
             launches["serve"] = phase_serve()
+        # RankPool's processes import while the phases before their ranks
+        # run, and are killed before a phase that wants the whole card
+        if run(20):
+            POOL.open()
         if begin(19):
             moe_launches, moe_ref = phase_moe()
             launches.update(moe_launches)
             if begin(20):
                 launches.update(phase_moe_shard(moe_ref))
+        POOL.close()
+        if run(24):
+            POOL.open()
         if begin(21):
             if not run(2):      # the dh 112 kernels first
                 phase_k13(errs)
@@ -8657,6 +9506,14 @@ def main() -> int:
             launches.update(phase_whisper_train())
         if begin(24):
             launches.update(phase_whisper_shard())
+        POOL.close()
+        if run(25):
+            POOL.open()
+        if begin(25):
+            if not run(2):      # the kernels at internvl2's shapes first
+                phase_vlm_kernels(errs)
+            launches.update(phase_vlm())
+        POOL.close()
         if begin(4):
             phase_cpu_vs_card()
         if begin(5):
@@ -8672,6 +9529,8 @@ def main() -> int:
         if begin(11):
             (launches["dense_serve"], launches["ssm_prefill"],
              dense_decode) = phase_dense_serve()
+        if any(run(n) for n in (15, 16, 17, 18, 8)):
+            POOL.open()
         if begin(12):
             launches.update(phase_ssm_serve())
         if run(9) and begin(13):
@@ -8691,6 +9550,8 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        POOL.close()
     ends = [t for _, t in marks[1:]] + [time.perf_counter()]
     log(f"[done] {'all phases' if only is None else f'phases {sorted(only)}'}"
         f" in {ends[-1] - t_start:.1f} s; seconds by phase, in run order, "

@@ -12,7 +12,9 @@ viewed back as ``torch.bfloat16``.  A MoE model has two segments when its
 first blocks are dense (``stacks[0]`` dense, ``stacks[1]`` MoE, each
 indexed from 0), one otherwise.  The hybrid's ``shared_attn`` (``ln``
 and an attention block) becomes the model's
-:class:`~repro_torch.models.transformer.SharedAttention`.  An
+:class:`~repro_torch.models.transformer.SharedAttention`, and a VLM's
+``projector`` (``w1``, ``b1``, ``w2``, ``b2``) its
+:class:`~repro_torch.models.embedding.Projector`.  An
 encoder-decoder config takes the JAX ``init_encdec`` tree (``enc_pos``,
 the stacked ``enc_blocks`` {``ln1``, ``attn``, ``ln2``, ``mlp``},
 ``enc_ln``, ``embed``, ``dec_pos``, the stacked ``dec_blocks`` {``ln1``,
@@ -39,6 +41,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.embedding import Projector
 from repro_torch.models.encdec import DecBlock, EncBlock, EncDec, LayerNorm
 from repro_torch.models.mlp import GeluMLP, SwiGLU
 from repro_torch.models.moe import MoE
@@ -53,7 +56,8 @@ _MOE_KEYS = {"router", "w_gate", "w_up", "w_down", "shared",
              "dense_residual"}
 _SSM_KEYS = {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w",
              "out_proj"}
-_TOP_KEYS = {"embed", "stacks", "final_norm", "head", "shared_attn"}
+_TOP_KEYS = {"embed", "stacks", "final_norm", "head", "shared_attn",
+             "projector"}
 _ENCDEC_KEYS = {"enc_pos", "enc_blocks", "enc_ln", "embed", "dec_pos",
                 "dec_blocks", "dec_ln"}
 _ENC_KEYS = {"ln1", "attn", "ln2", "mlp"}
@@ -199,9 +203,14 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, *,
         _only_keys(shared, {"ln", "attn"}, "shared_attn")
         shared = SharedAttention(t(shared["ln"]), _attention(
             {k: t(v) for k, v in shared["attn"].items()}))
+    proj = tree.get("projector")
+    if proj is not None:
+        _only_keys(proj, {"w1", "b1", "w2", "b2"}, "projector")
+        proj = Projector(t(proj["w1"]), t(proj["b1"]), t(proj["w2"]),
+                         t(proj["b2"]))
     head = tree.get("head")
     return LM(t(tree["embed"]), blocks, t(tree["final_norm"]),
-              None if head is None else t(head), shared)
+              None if head is None else t(head), shared, proj)
 
 
 # --------------------------------------------------------------------------
@@ -226,7 +235,8 @@ def jax_path(name: str, starts: Sequence[int] = (0,)
     (:func:`segment_starts`): ``blocks.3.attn.wq`` -> (``stacks/0/attn/wq``,
     3); with ``starts`` (0, 1), ``blocks.3.moe.router`` ->
     (``stacks/1/moe/router``, 2); ``shared_attn.ln`` -> (``shared_attn/ln``,
-    None); the encoder-decoder's ``dec_blocks.2.ln_x.w`` ->
+    None); ``projector.w1`` -> (``projector/w1``, None); the
+    encoder-decoder's ``dec_blocks.2.ln_x.w`` ->
     (``dec_blocks/ln_x/w``, 2)."""
     parts = name.split(".")
     if parts[0] in _STACKED:

@@ -10,9 +10,10 @@ array; every layer's leaf is stacked on a leading L axis, as the JAX
 ``<path>@bf16``.  ``opt_state.npz`` holds ``step`` (an int32 scalar) and
 ``master``, ``m`` and ``v``, each laid out like the params.
 
-The port's params are an ``LM`` module of per-block modules (or, for an
+The port's params are an ``LM`` module of per-block modules (a VLM's
+projector at ``projector/w1`` ... as in the JAX tree), or, for an
 encoder-decoder, an ``EncDec``, whose ``enc_blocks`` and ``dec_blocks``
-are stacked as the JAX ``init_encdec`` tree stacks them) and its AdamW
+are stacked as the JAX ``init_encdec`` tree stacks them, and its AdamW
 state holds lists in ``params.parameters()`` order
 (``repro_torch/optim/adamw.py``); ``bridge.py`` maps both to and from the
 JAX paths (``bridge.py::jax_path``).  Restoring writes into the template's

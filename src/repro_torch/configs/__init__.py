@@ -14,8 +14,8 @@ from typing import Dict, List
 
 from repro_torch.models.common import ModelConfig
 
-_ARCH_MODULES = ["arctic_480b", "kimi_k2_1t_a32b", "mamba2_370m", "qwen3_4b",
-                 "whisper_medium", "zamba2_1_2b"]
+_ARCH_MODULES = ["arctic_480b", "internvl2_26b", "kimi_k2_1t_a32b",
+                 "mamba2_370m", "qwen3_4b", "whisper_medium", "zamba2_1_2b"]
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 

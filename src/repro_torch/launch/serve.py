@@ -16,6 +16,12 @@ Two engines behind one CLI, as in the JAX package:
 
     python -m repro_torch.launch.serve --plan plan.json --no-reduced \\
         --requests 8 --batch 8 --max-new 16
+    python -m repro_torch.launch.serve --arch internvl2-26b --no-reduced \\
+        --requests 12 --batch 8 --context 512
+
+A VLM (internvl2-26b) is served text-only by both engines, as the
+reference serves it: its requests carry tokens, and the projector is
+held but idle.
 
 Runs on the CUDA device unless ``--device cpu`` is given.  ``--plan`` sizes
 the paged engine from a searched v3 plan's serving section (``search

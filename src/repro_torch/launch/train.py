@@ -3,7 +3,8 @@ loaded, then training of a dense, MoE, SSM or hybrid model on synthetic or
 byte-level text batches, on one device, sharded over ranks, or through the
 pipeline runtime; or of the encoder-decoder (whisper-medium) on one
 device or sharded, its batches carrying the synthetic stream's random
-frames.
+frames; or of the VLM (internvl2-26b) on one device or sharded, its
+batches carrying the synthetic stream's random vision patches.
 
     python -m repro_torch.launch.train --arch mamba2-370m \\
         --steps 10 --batch 8 --seq 2048
@@ -17,6 +18,8 @@ frames.
         --layers 8 --seq 4096 --batch 4 --steps 3
     python -m repro_torch.launch.train --arch whisper-medium --batch 8 \\
         --seq 448 --steps 3
+    python -m repro_torch.launch.train --arch internvl2-26b --layers 6 \\
+        --batch 1 --seq 4096 --steps 3
 
 Runs on the CUDA device unless ``--device cpu`` is given.  The weights are
 random from seed 0.  As in the JAX driver, the plan comes from ``--plan``
@@ -40,6 +43,9 @@ count are printed, not applied.  An encoder-decoder takes ``--ranks``
 too (each rank draws its shards of ``init_encdec(cfg, seed=0)``; the
 batches carry ``frames``), while ``--pipeline`` raises the pipeline
 runtime's ValueError (one homogeneous stack), as the reference asserts.
+So does a VLM: ``--ranks`` trains it on its rows of the batches with
+their ``patches``, and ``--pipeline`` raises (the pipeline's loss reads
+tokens only).
 
 ``--pipeline`` executes the plan's searched schedule through the pipeline
 runtime (``runtime/pipeline.py``), scaled down by the JAX driver's rules
@@ -154,7 +160,8 @@ def config_from_args(args: argparse.Namespace) -> ModelConfig:
 def batches(cfg: ModelConfig, args: argparse.Namespace):
     """The driver's batches: ``--corpus`` as byte-level text, else the
     synthetic stream of the JAX driver's ``DataConfig``, whose batches for
-    an encoder-decoder also carry ``frames`` (B, encoder_seq, d_model)."""
+    an encoder-decoder also carry ``frames`` (B, encoder_seq, d_model), and
+    for a VLM ``patches`` (B, vision_tokens, d_vision)."""
     dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
                       vocab_size=cfg.vocab_size,
                       vision_tokens=cfg.vision_tokens, d_vision=cfg.d_vision,

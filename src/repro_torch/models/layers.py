@@ -10,14 +10,27 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 
+def randn(*shape: int, scale: float, dtype: torch.dtype,
+          generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    """N(0, scale^2) of ``shape`` in ``dtype``, drawn in fp32 from
+    ``generator``.  On the ``meta`` device only the shape: a draw or an
+    arithmetic op there runs PyTorch's Python references, whose first call
+    imports ``torch._dynamo`` (seconds of every sharded rank's start, where
+    ``abstract_params`` builds the model on meta)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(*shape, dtype=dtype, device="meta")
+    w = torch.randn(*shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
 def init_dense(d_in: int, d_out: int, dtype: torch.dtype = torch.bfloat16, *,
                generator: torch.Generator, device: torch.device,
                scale: Optional[float] = None) -> torch.Tensor:
     """(d_in, d_out) weight, applied as ``x @ w`` (the JAX layout)."""
     s = scale if scale is not None else d_in ** -0.5
-    w = torch.randn(d_in, d_out, generator=generator, device=device,
-                    dtype=torch.float32)
-    return (w * s).to(dtype)
+    return randn(d_in, d_out, scale=s, dtype=dtype, generator=generator,
+                 device=device)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

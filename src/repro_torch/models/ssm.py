@@ -22,7 +22,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 from .common import ModelConfig
-from .layers import init_dense, rms_norm
+from .layers import init_dense, randn, rms_norm
 
 SSMState = Dict[str, torch.Tensor]
 
@@ -53,12 +53,18 @@ def init_ssm(cfg: ModelConfig, *, generator: torch.Generator,
     conv_dim = di + 2 * N
     kw = dict(generator=generator, device=device)
     f32 = dict(dtype=torch.float32, device=device)
-    conv_w = torch.randn(cfg.ssm_conv, conv_dim, generator=generator, **f32)
+    conv_w = randn(cfg.ssm_conv, conv_dim, scale=1.0, dtype=torch.float32,
+                   generator=generator, device=device)
+    if torch.device(device).type == "meta":     # shapes only (layers.randn)
+        conv_w, A_log = conv_w.to(dt), torch.empty(H, **f32)
+    else:
+        conv_w = (conv_w / math.sqrt(cfg.ssm_conv)).to(dt)
+        A_log = torch.log(torch.linspace(1.0, 16.0, H, **f32))
     return SSM(
         in_proj=init_dense(d, 2 * di + 2 * N + H, dt, **kw),
-        conv_w=(conv_w / math.sqrt(cfg.ssm_conv)).to(dt),
+        conv_w=conv_w,
         conv_b=torch.zeros(conv_dim, dtype=dt, device=device),
-        A_log=torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+        A_log=A_log,
         D=torch.ones(H, **f32),
         dt_bias=torch.zeros(H, **f32),
         norm_w=torch.ones(di, dtype=dt, device=device),

@@ -14,13 +14,18 @@ layout (``x @ w``, ``w`` of shape (d_in, d_out)) and names::
                  or SSMBlock: ln1 (d,), ssm (SSM)
     shared_attn  SharedAttention: ln (d,), attn (Attention); hybrid only, one
                  block whose weights every attention call shares
+    projector    Projector: w1 (d_vision, d), b1 (d,), w2 (d, d), b2 (d,);
+                 VLM only, the vision patches' projector
     final_norm   (d,)
     head         (d, V), or None when the embeddings are tied
 
 Parameters are trainable; the serving steps run under
 ``torch.inference_mode()``.  The dense-cache decode (:func:`decode_step`)
 covers dense, MoE, SSM and hybrid decoders; the paged steps cover
-pure-attention decoders (dense and MoE).  A MoE model's blocks are
+pure-attention decoders (dense and MoE).  A VLM is a dense decoder with
+a projector: :func:`lm_forward` prepends its projected vision patches to
+the token embeddings, and the serving steps take tokens only, as the
+reference's.  A MoE model's blocks are
 ``first_k_dense`` dense blocks, then MoE blocks (:func:`build_stacks`);
 its aux loss is summed over the MoE blocks.  Training
 (:func:`lm_forward`, :func:`lm_loss`) covers every arch that
@@ -46,7 +51,8 @@ from .attention import (Attention, Pool, attention, attention_decode,
                         attention_decode_paged, attention_prefill_paged,
                         init_attention, init_kv_cache, init_page_pool)
 from .common import ModelConfig
-from .embedding import embed, init_embedding
+from .embedding import Projector, embed, init_embedding, init_projector, \
+    project
 from .layers import cross_entropy_loss, init_dense, rms_norm
 from .mlp import SwiGLU, init_swiglu, swiglu_mlp
 from .moe import MoE, init_moe, moe_ffn
@@ -97,11 +103,13 @@ class SharedAttention(nn.Module):
 class LM(nn.Module):
     def __init__(self, embed: torch.Tensor, blocks: List[nn.Module],
                  final_norm: torch.Tensor, head: Optional[torch.Tensor],
-                 shared_attn: Optional[SharedAttention] = None):
+                 shared_attn: Optional[SharedAttention] = None,
+                 projector: Optional[Projector] = None):
         super().__init__()
         self.embed = _param(embed)
         self.blocks = nn.ModuleList(blocks)
         self.register_module("shared_attn", shared_attn)
+        self.register_module("projector", projector)
         self.final_norm = _param(final_norm)
         self.register_parameter("head", _param(head))
 
@@ -111,8 +119,9 @@ def build_stacks(cfg: ModelConfig) -> List[Tuple[str, int]]:
     segment of SSM blocks (SSM and hybrid; the hybrid's shared attention
     block is interleaved by the model functions), ``first_k_dense`` dense
     blocks then MoE blocks for a model with experts, else one segment of
-    dense blocks.  Raises NotImplementedError for an arch this module does
-    not build: the encoder-decoder (``models/encdec.py``) and the VLM."""
+    dense blocks (a dense model's, and a VLM's language model).  Raises
+    NotImplementedError for an arch this module does not build: the
+    encoder-decoder (``models/encdec.py``) and an unknown ``arch_type``."""
     if cfg.arch_type in ("ssm", "hybrid"):
         return [("ssm", cfg.n_layers)]
     if cfg.is_encoder_decoder:
@@ -121,11 +130,11 @@ def build_stacks(cfg: ModelConfig) -> List[Tuple[str, int]]:
             "it (init_encdec) and trains it (encdec_loss); runtime/"
             "executor.py's init_train_state and make_train_step train it, "
             "and make_prefill_step and make_serve_step serve it")
-    if cfg.arch_type not in ("dense", "moe"):
+    if cfg.arch_type not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"the port builds dense, MoE, SSM and hybrid decoders and the "
-            f"encoder-decoder so far; {cfg.name!r} has arch_type="
-            f"{cfg.arch_type!r} (ROADMAP.md queue 1, item 5)")
+            f"the port builds dense, MoE, SSM, hybrid and VLM decoders and "
+            f"the encoder-decoder; {cfg.name!r} has arch_type="
+            f"{cfg.arch_type!r}")
     if cfg.n_experts > 1:
         segs = [("dense", cfg.first_k_dense)] if cfg.first_k_dense else []
         return segs + [("moe", cfg.n_layers - cfg.first_k_dense)]
@@ -150,7 +159,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
                           experts=experts)
     return LM(parts["embed"], [parts["blocks"][i]
                                for i in range(cfg.n_layers)],
-              parts["final_norm"], parts["head"], parts["shared_attn"])
+              parts["final_norm"], parts["head"], parts["shared_attn"],
+              parts["projector"])
 
 
 def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
@@ -160,15 +170,16 @@ def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
                   experts: Optional[Tuple[int, int]] = None
                   ) -> Dict[str, Any]:
     """:func:`init_lm`'s draws, in its order (blocks 0..L-1, the shared
-    attention block, the head, the embedding), as {"embed", "blocks" (layer
-    index -> block), "final_norm", "head", "shared_attn"}.  ``keep(part)``,
-    asked for each layer index and for ``"embed"``, ``"head"`` and
-    ``"shared_attn"``, drops a part it refuses as soon as it is drawn (its
-    entry is None, or absent from "blocks"): a pipeline stage holds the
-    same numbers as the whole model without ever holding the whole model.
-    ``shard(name, part)`` replaces each kept part as soon as it is drawn
-    (``blocks.<i>``, ``shared_attn``, ``head``, ``embed``,
-    ``final_norm``): a sharded run keeps its rank's shards of the same
+    attention block, the projector, the head, the embedding), as {"embed",
+    "blocks" (layer index -> block), "final_norm", "head", "shared_attn",
+    "projector"}.  ``keep(part)``, asked for each layer index and for
+    ``"embed"``, ``"head"``, ``"shared_attn"`` and ``"projector"``, drops a
+    part it refuses as soon as it is drawn (its entry is None, or absent
+    from "blocks"): a pipeline stage holds the same numbers as the whole
+    model without ever holding the whole model.  ``shard(name, part)``
+    replaces each kept part as soon as it is drawn (``blocks.<i>``,
+    ``shared_attn``, ``projector``, ``head``, ``embed``, ``final_norm``):
+    a sharded run keeps its rank's shards of the same
     numbers (``runtime/sharding.py::ShardContext.shard_part``).  A MoE
     block draws its experts one at a time (``models/moe.py::init_moe``),
     keeping only experts ``[lo, hi)`` when ``experts`` is ``(lo, hi)``: a
@@ -201,28 +212,35 @@ def init_lm_parts(cfg: ModelConfig, *, seed: int = 0,
     shared = (SharedAttention(ones(), init_attention(cfg, **kw))
               if cfg.arch_type == "hybrid" and cfg.attn_every else None)
     shared = shard("shared_attn", shared) if keep("shared_attn") else None
+    proj = (init_projector(cfg.d_vision, d, dt, **kw)
+            if cfg.arch_type == "vlm" else None)
+    proj = shard("projector", proj) if keep("projector") else None
     head = (None if cfg.tie_embeddings
             else init_dense(d, cfg.vocab_size, dt, **kw))
     head = shard("head", head) if keep("head") else None
     embed = init_embedding(cfg.vocab_size, d, dt, **kw)
     return {"embed": shard("embed", embed) if keep("embed") else None,
             "blocks": blocks, "final_norm": shard("final_norm", ones()),
-            "head": head, "shared_attn": shared}
+            "head": head, "shared_attn": shared, "projector": proj}
 
 
 def _logits(params: LM, x: torch.Tensor, cfg: ModelConfig,
             shard=None) -> torch.Tensor:
     """Final norm and head (``embed.T`` when tied); with a sharding
-    context ``shard``, the rank's vocabulary columns."""
+    context ``shard``, the rank's vocabulary columns where the vocabulary
+    splits over ``model`` (``shard.split_vocab``), else every ``model``
+    rank's projection onto the whole head or table."""
     if shard is None:
         x = rms_norm(x, params.final_norm, cfg.norm_eps)
         if params.head is not None:
             return x @ params.head
         return x @ params.embed.T
     x = rms_norm(x, shard.w(params.final_norm), cfg.norm_eps)
-    if params.head is not None:
-        return shard.to_tp(x) @ shard.w(params.head)
-    return shard.tied_logits(x, params.embed)
+    if params.head is None:
+        return shard.tied_logits(x, params.embed)
+    if shard.split_vocab:
+        x = shard.to_tp(x)
+    return x @ shard.w(params.head)
 
 
 def dense_block(p: DenseBlock, x: torch.Tensor, positions: torch.Tensor,
@@ -289,10 +307,16 @@ def _segments(cfg: ModelConfig) -> List[Tuple[str, int, int, bool]]:
 
 
 def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
+               patches: Optional[torch.Tensor] = None,
                remat_segments: Optional[Sequence[bool]] = None,
                shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) -> logits (B,S,V) and the auxiliary loss: the sum of
     the MoE blocks' load-balance losses (dense and SSM blocks have none).
+    For a VLM, ``patches`` (B, n_vis, d_vision) are cast to the config's
+    dtype, projected (:func:`~repro_torch.models.embedding.project`) and
+    prepended to the token embeddings: the stack runs over the n_vis + S
+    rows at positions 0..n_vis+S-1, and the logits are the text rows'
+    (another arch ignores ``patches``, as the reference does).
 
     Query ``s`` sits at position ``s``; attention takes the config's
     ``sliding_window``.  The hybrid runs SSM segments of ``attn_every``
@@ -304,11 +328,18 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``shard`` (``runtime/sharding.py::ShardContext``) runs the model on a
     rank's shards: each block through ``shard.block`` (its ZeRO weights
     gathered, TP inside, under sequence sharding the stash this rank's
-    token slice), the embedding and the logits vocab-parallel; the logits
-    are then the rank's vocabulary columns, and the aux the rank's share
+    slice of the vision and text rows), the projector tensor-parallel, the
+    embedding and the logits vocab-parallel where the vocabulary splits;
+    the logits are then the rank's vocabulary columns, and the aux the
+    rank's share
     (summed over the batch ranks, the global batch's)."""
     x = embed(params.embed, tokens, shard)
-    B, S = tokens.shape
+    n_vis = 0
+    if cfg.arch_type == "vlm" and patches is not None:
+        n_vis = patches.shape[1]
+        vis = project(params.projector, patches.to(cfg.dtype), shard)
+        x = torch.cat([vis, x], dim=1)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     win = cfg.sliding_window
     sa = params.shared_attn
@@ -338,6 +369,8 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
             x = run_shared(sa, x, positions, cfg, window=win)
     if shard is not None:
         x = shard.seq_gather(x, seq)
+    if n_vis:
+        x = x[:, n_vis:]
     return _logits(params, x, cfg, shard), aux
 
 
@@ -346,11 +379,14 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             shard=None) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (``-100`` ignored), plus the MoE blocks' aux loss
-    weighted by ``router_aux_coef`` (zero without experts).  With a sharding context
+    weighted by ``router_aux_coef`` (zero without experts); a VLM's
+    ``batch["patches"]``, where present, go to :func:`lm_forward` (the
+    labels cover the text only).  With a sharding context
     ``shard``, ``batch`` is the rank's data shard and the result its share:
     summed over ``data`` the shares give the global batch's loss, and
     their gradients its gradient."""
     logits, aux = lm_forward(params, batch["tokens"], cfg,
+                             patches=batch.get("patches"),
                              remat_segments=remat_segments, shard=shard)
     loss = cross_entropy_loss(logits, batch["labels"], shard=shard)
     return loss + cfg.router_aux_coef * aux

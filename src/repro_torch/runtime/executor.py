@@ -30,6 +30,11 @@ encoder and the teacher-forced decoder, and its serving step
 ``encdec_decode_step`` on the state of ``init_encdec_decode_state``; with
 a mesh each runs sharded as a decoder-only model's does (``shard=``
 through ``models/encdec.py``).  The paged steps are decoder-only.
+
+A VLM config (internvl2-26b) takes a decoder-only model's steps: its
+training and prefill batches carry ``patches`` (B, n_vis, d_vision),
+which ``lm_forward`` projects and prepends (on a mesh, each rank's lanes
+of them); its serving steps take tokens only, as the reference's do.
 """
 from __future__ import annotations
 
@@ -119,8 +124,9 @@ def make_sharded_loss(cfg: ModelConfig, mesh: DeviceMesh,
     """``loss_and_grads(params, batch) -> (loss, grads)`` of a sharded
     model on ``mesh`` under ``policy``, called on every rank with the
     global batch (int ``tokens``/``labels`` (B, S), for an encoder-decoder
-    also ``frames`` (B, T_enc, d), on any device), of which each rank
-    takes its batch rows (over ``data``, x ``expert`` on an expert mesh).
+    also ``frames`` (B, T_enc, d), for a VLM ``patches`` (B, n_vis,
+    d_vision), on any device), of which each rank takes its batch rows
+    (over ``data``, x ``expert`` on an expert mesh).
     ``loss`` is the global
     batch's 0-d fp32 loss, the same on every rank; ``grads``, aligned with
     ``params.parameters()``, are the rank's shards of the global gradient.
@@ -161,8 +167,9 @@ def make_train_step(cfg: ModelConfig,
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``(params, opt_state, batch)`` -> ``{"loss", "grad_norm", "lr"}``
     (0-d tensors on the params' device); params and opt_state are updated
-    in place.  ``batch`` holds int ``tokens`` and ``labels`` (B, S), and
-    for an encoder-decoder config float ``frames`` (B, T_enc, d).
+    in place.  ``batch`` holds int ``tokens`` and ``labels`` (B, S), for
+    an encoder-decoder config float ``frames`` (B, T_enc, d), and for a
+    VLM config float ``patches`` (B, n_vis, d_vision) (``lm_loss``).
     ``remat_segments`` goes to :func:`lm_loss`; an encoder-decoder runs
     ``encdec_loss`` with ``remat = bool(remat_segments and
     remat_segments[0])``, the reference's ``loss_fn_for``.
@@ -286,7 +293,9 @@ def make_prefill_step(cfg: ModelConfig, *,
                                     torch.Tensor]:
     """``(params, batch)`` -> logits (B, S, V): the inference forward of
     ``batch["tokens"]`` (B, S), :func:`lm_forward` without the loss, for
-    every arch the port builds.  Raises NotImplementedError for another.
+    every arch the port builds (a VLM's ``batch["patches"]`` (B, n_vis,
+    d_vision), where present, projected and prepended; the logits are the
+    text rows').  Raises NotImplementedError for another arch.
     For an encoder-decoder, ``decode_train`` of the tokens against
     ``encode`` of ``batch["frames"]`` (B, T_enc, d).
 
@@ -322,7 +331,8 @@ def make_prefill_step(cfg: ModelConfig, *,
     if mesh is None:
         @torch.inference_mode()
         def step(params: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-            return lm_forward(params, batch["tokens"], cfg)[0]
+            return lm_forward(params, batch["tokens"], cfg,
+                              patches=batch.get("patches"))[0]
 
         return step
     ctx = _serving_context(cfg, mesh, policy)
@@ -330,10 +340,13 @@ def make_prefill_step(cfg: ModelConfig, *,
     @torch.inference_mode()
     def sharded(params: LM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         ctx.bind(params)
-        tokens = batch["tokens"]
-        lo, hi = ctx.lane_range(tokens.shape[0])
-        return lm_forward(params, tokens[lo:hi].to(params.embed.device), cfg,
-                          shard=ctx)[0]
+        dev = params.embed.device
+        lo, hi = ctx.lane_range(batch["tokens"].shape[0])
+        patches = batch.get("patches")
+        if patches is not None:
+            patches = patches[lo:hi].to(dev)
+        return lm_forward(params, batch["tokens"][lo:hi].to(dev), cfg,
+                          patches=patches, shard=ctx)[0]
 
     sharded.shard = ctx
     return sharded
@@ -344,7 +357,8 @@ def make_serve_step(cfg: ModelConfig, *, mesh: Optional[DeviceMesh] = None,
                     ) -> Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]:
     """``(params, state, token (B,))`` -> ``(logits (B, V), state)``: one
     decode step on the KV caches and SSM states of ``init_decode_state``,
-    written in place, for dense, MoE, SSM and hybrid decoders; for an
+    written in place, for dense, MoE, SSM, hybrid and VLM decoders (a
+    VLM's tokens only, as the reference's); for an
     encoder-decoder, ``encdec_decode_step`` on the state of
     ``init_encdec_decode_state``.  Raises NotImplementedError for an arch
     the port does not build.

@@ -73,12 +73,19 @@ def _check_stack(cfg: ModelConfig) -> str:
     """The one homogeneous stack's kind (a MoE model of MoE blocks only,
     such as arctic-480b, included); raises ValueError otherwise (the
     hybrid, kimi-k2's dense first layer before its MoE blocks, an
-    encoder-decoder's two stacks), as the reference asserts one stack."""
+    encoder-decoder's two stacks), as the reference asserts one stack,
+    and for a VLM, whose patches the pipeline's loss would not read (the
+    reference's pipeline trains it text-only, its projector idle)."""
     if cfg.is_encoder_decoder:
         raise ValueError(
             f"pipeline runtime requires one homogeneous stack; "
             f"{cfg.name!r} is an encoder-decoder, with an encoder and a "
             f"decoder stack (run it unpipelined)")
+    if cfg.arch_type == "vlm":
+        raise ValueError(
+            f"the pipeline runtime trains on tokens only; {cfg.name!r} is a "
+            f"VLM, whose batches carry patches for its projector (run it "
+            f"unpipelined: runtime/executor.py's make_train_step)")
     stacks = build_stacks(cfg)
     if cfg.arch_type == "hybrid" or len(stacks) != 1:
         raise ValueError(
@@ -157,12 +164,15 @@ def stage_split_params(params: LM, n_stages: int,
     of global virtual stage ``v·P + i``, the interleaved round-robin
     placement of the JAX package's ``stage_split_params``; with V = 1 this
     is the plain contiguous split.  Raises ValueError for a model with a
-    shared attention block or blocks of two kinds (kimi-k2's dense first
-    layer before its MoE blocks), or when ``P·V`` does not divide the
-    layers."""
+    shared attention block, a VLM's projector or blocks of two kinds
+    (kimi-k2's dense first layer before its MoE blocks), or when ``P·V``
+    does not divide the layers."""
     if params.shared_attn is not None:
         raise ValueError("pipeline runtime requires one homogeneous stack; "
                          "the model has a shared attention block")
+    if params.projector is not None:
+        raise ValueError("the pipeline runtime trains on tokens only; the "
+                         "model has a VLM's projector")
     kinds = sorted({type(b).__name__ for b in params.blocks})
     if len(kinds) > 1:
         raise ValueError("pipeline runtime requires one homogeneous stack; "

@@ -30,14 +30,16 @@ used and its gradient reduce-scattered in the backward; TP runs
 copy-to-TP-region (whose backward sums over ``model``) before each column
 product and reduce-from-TP-region (whose forward sums over ``model``)
 after each row product; the embedding lookup and the cross entropy are
-vocab-parallel (an encoder-decoder's tied table that the rule table leaves
-whole over ``model`` is looked up and projected whole on every ``model``
-rank, :attr:`ShardContext.split_vocab`); the other gradients are summed
-over ``data``.  Attention
+vocab-parallel where the vocabulary splits over ``model`` (a table and an
+untied head that the rule table leaves whole over ``model`` are looked up
+and projected whole on every ``model`` rank,
+:attr:`ShardContext.split_vocab`); the other gradients are summed over
+``data``.  Attention
 runs on the rank's ``n_heads / tp`` query heads and ``n_kv_heads / tp``
 KV heads, split head-aligned, so query head h still reads KV head h // G:
 tp must divide ``n_kv_heads`` (GSPMD would reshard a split head; the rule
-table itself only checks divisibility, as the reference's does).  A Mamba2
+table itself only checks divisibility, as the reference's does).  A VLM's
+projector is a Megatron MLP: w1 column-parallel, w2 row-parallel.  A Mamba2
 block runs on the rank's ``ssm_heads / tp`` heads: its ``in_proj`` is
 stored as the contiguous column shard the rule table names, which cuts
 across the packed ``[z | x | B | C | dt]`` columns, so the block gathers
@@ -636,8 +638,9 @@ class _Apply(nn.Module):
 
 def abstract_params(cfg: ModelConfig) -> nn.Module:
     """The model's parameters on the ``meta`` device: names and shapes,
-    no storage (``init_encdec``'s for an encoder-decoder config, its
-    default 4096-row decoder position table, as the reference's)."""
+    no storage (``init_lm``'s, a VLM's projector included;
+    ``init_encdec``'s for an encoder-decoder config, its default 4096-row
+    decoder position table, as the reference's)."""
     if cfg.is_encoder_decoder:
         return init_encdec(cfg, device="meta")
     return init_lm(cfg, device="meta")
@@ -660,15 +663,16 @@ class ShardContext:
     (``models/ssm.py::ssm_tp_columns``), which the serving steps read
     without a gather.  Raises ValueError on another mesh or backend and on
     a TP degree that does not split what the model has: the attention heads
-    and d_ff of a dense model and of an encoder-decoder, the SSM heads of a
-    Mamba2 block, the shared attention block's heads of the hybrid, the
-    experts and the shared and residual branches' widths of a MoE model,
-    and a decoder-only model's vocabulary.  An encoder-decoder's tied
-    table is split over ``model`` only where the rule table splits it (its
-    vocabulary divides): elsewhere (whisper's 51865) every ``model`` rank
-    looks up and projects onto the whole table, with the plain cross
-    entropy, and its gradient, the same on every ``model`` rank, is not
-    summed over ``model`` (:attr:`split_vocab`)."""
+    and d_ff of a dense model (a VLM's, and its projector's width d) and
+    of an encoder-decoder, the SSM heads of a Mamba2 block, the shared
+    attention block's heads of the hybrid, the experts and the shared and
+    residual branches' widths of a MoE model.  The embedding table and an
+    untied head are split over ``model`` only where the rule table splits
+    them (the vocabulary divides): elsewhere (internvl2's 92553, whisper's
+    51865) every ``model`` rank looks up and projects onto the whole table
+    or head, with the plain cross entropy, and their gradients, the same
+    on every ``model`` rank, are not summed over ``model``
+    (:attr:`split_vocab`)."""
 
     def __init__(self, cfg: ModelConfig, mesh: DeviceMesh,
                  policy: ShardPolicy, *, serving: bool = False):
@@ -715,7 +719,7 @@ class ShardContext:
         self._shapes = {n: tuple(p.shape)
                         for n, p in abstract.named_parameters()}
         # the vocabulary split over model (the embedding's rows; an untied
-        # head's columns follow the same rule)
+        # head's columns follow the same rule), else whole on every rank
         self.split_vocab = self.tp > 1 and self.specs["embed"][0] == "model"
         # a serving model holds each Mamba2 in_proj as the rank's columns
         # (models/ssm.py::ssm_tp_columns), taken once when it is placed,
@@ -1134,12 +1138,13 @@ class ShardContext:
 
 def _check_tp(cfg: ModelConfig, tp: int) -> None:
     """Head-aligned TP splits what the model has evenly: the attention heads
-    and d_ff of a dense model (of a MoE model's dense blocks) and of an
-    encoder-decoder, the SSM heads of a Mamba2 block, the shared attention
-    block's heads of the hybrid, a MoE model's experts (the rank runs its
-    own) and its shared expert's and dense residual branch's widths, and a
-    decoder-only model's vocabulary (an encoder-decoder's tied table stays
-    whole where it does not split, as the rule table leaves it)."""
+    and d_ff of a dense model (of a MoE model's dense blocks, of a VLM)
+    and of an encoder-decoder, a VLM projector's width, the SSM heads of a
+    Mamba2 block, the shared attention block's heads of the hybrid, a MoE
+    model's experts (the rank runs its own) and its shared expert's and
+    dense residual branch's widths.  The vocabulary need not split: the
+    table and an untied head stay whole where it does not, as the rule
+    table leaves them."""
     checks = []
     if cfg.is_encoder_decoder:
         checks += [("*_blocks.*.attn.wq", "n_heads", cfg.n_heads),
@@ -1162,8 +1167,8 @@ def _check_tp(cfg: ModelConfig, tp: int) -> None:
                 leaf = branch.replace("_expert_ff", "").replace("_ff", "")
                 checks.append((f"blocks.*.moe.{leaf}.w_up", branch,
                                getattr(cfg, branch)))
-    if not cfg.is_encoder_decoder:
-        checks.append(("embed", "vocab_size", cfg.vocab_size))
+    if cfg.arch_type == "vlm":
+        checks.append(("projector.w1", "d_model", cfg.d_model))
     for leaf, what, n in checks:
         if n % tp:
             raise ValueError(f"tp {tp} does not split {leaf}: {what} {n} "

@@ -241,15 +241,29 @@ def test_train_needs_a_card_unless_told_cpu():
 @pytest.mark.parametrize("arch", ["qwen3-4b"])
 def test_training_an_attention_arch_raises_naming_the_kernel(arch):
     """Dense attention archs train now (``test_torch_dense_train.py``), and
-    their MoE variants (below); an arch whose layers the port does not
-    build yet still raises, naming what it lacks: a VLM (the hybrid
-    trains: ``test_torch_hybrid.py``)."""
+    their MoE variants (below) and the hybrid (``test_torch_hybrid.py``);
+    the VLM variant, which raised before the VLM slice, trains too
+    (``test_torch_vlm.py``): ``make_train_step`` and ``init_train_state``
+    accept it, the model holds a projector of w1 (d_vision, d), b1 (d,),
+    w2 (d, d), b2 (d,), and a step on a batch with patches moves it."""
     base = get_config(arch).reduced().with_(dtype=torch.float32)
-    for cfg, what in ((base.with_(arch_type="vlm"), "'vlm'"),):
-        for build in (lambda: make_train_step(cfg),
-                      lambda: init_train_state(cfg, device="cpu")):
-            with pytest.raises(NotImplementedError, match=what):
-                build()
+    cfg = base.with_(arch_type="vlm", vision_tokens=4, d_vision=96)
+    step = make_train_step(cfg)
+    params, opt = init_train_state(cfg, device="cpu")
+    d = cfg.d_model
+    assert {n: tuple(p.shape) for n, p in params.named_parameters()
+            if n.startswith("projector.")} == {
+        "projector.w1": (96, d), "projector.b1": (d,),
+        "projector.w2": (d, d), "projector.b2": (d,)}
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "patches": torch.from_numpy(rng.standard_normal(
+                 (2, 4, 96)).astype(np.float32))}
+    w1 = params.projector.w1.detach().clone()
+    metrics = step(params, opt, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert not torch.equal(params.projector.w1.detach(), w1)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b"])
