@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero before the final line is printed).
 The ranks and the references "in a process of its own" of phases 8,
-15-18, 20, 24 and 25 run in ``RankPool``'s four processes, kept from one
+15-18, 20, 24, 25 and 26 run in ``RankPool``'s four processes, kept from one
 batch of ranks to the next within a stretch of phases, as do the ranks of
 ``train --ranks`` and ``train --pipeline --ranks``; ``serve --ranks``
 spawns its own:
@@ -485,6 +485,45 @@ spawns its own:
    and RMSNorm at 8 x 6144 and 4352 x 6144 (its backward at 4352 x 6144),
    in bf16 and fp32, each against its plain version and a second call the
    same bits (``--phases 25`` runs these first); phase 7 times them.
+26. the Qwen2/Qwen3 dense family (dh 128, 8 KV heads; untied heads over
+   151936 or 152064 tokens), bf16, random weights from seed 0 with the
+   QKV biases of qwen2.5-14b and qwen2-72b drawn after from a seeded
+   normal of std 0.5 (the init's zeros would hide the add): the memory
+   reckoned from the shapes and printed beside the card's free memory
+   before each draw; (a) qwen3-8b (32 query heads, the QK-norm) at full
+   depth, 36 layers, 16.38 GB, and (b) qwen2.5-14b (40 query heads: a GQA
+   group of 5) at full depth, 48 layers, 29.54 GB, each with phase 3's 12
+   requests through the paged engine twice (every request complete,
+   flash and RMSNorm at the counted launches, no plain version, the same
+   tokens and first-step bits, a decode step's wall and busy ms beside its
+   bound: every weight read once); (b) also 10 requests through the
+   dense-cache engine on 8 lanes of 2048, decode against the
+   teacher-forced prefill over 64 tokens at phase 11's gate, and the
+   prefill's logits with the biases zeroed more than that gate from the
+   biased ones; (c) qwen2-72b (64 query heads, a group of 8) at full width
+   and 40 of 80 layers (75.2 GB; 80 are 145.4), paged; (d)
+   ``repro_torch.launch.train --arch qwen2.5-14b --layers 6 --batch 1
+   --seq 4096 --lr 3e-6`` for 3 steps with the plan's remat (none for
+   this model), the biases drawn after
+   its ``init_train_state``: finite losses that fall, every bias leaf
+   moved by each step, exact launches, no plain version, step ms, peak,
+   busy share; a witness of 3 steps at lr 3e-5, where the loss rose,
+   through the kernels and through the plain attention autodiffed by
+   torch; step 1 twice the same bits; the checkpoint round trip of
+   the biased model through the same CLI on the reduced bf16 config (at
+   full width the table and head alone are 25 GB of files): the restored
+   biases and the resumed step's loss bit for bit; (e) 4 gloo ranks at 1
+   layer on (data 2, model 2) with TP, ZeRO-3 and remat against one
+   process at phase 25 (c)'s gates, the bias leaves' distances printed;
+   (f) reduced fp32 at a GQA group of 5 with biases (d 640, 10 heads over
+   2 of dh 64), card against CPU within ``REL_TOL``: loss, logits, every
+   gradient, 16 greedy decode steps' logits and the same tokens.  Phase
+   2 first holds the flash forward with its row log-sum-exp and the
+   backward at (B 1, S 4096, H 40, KV 8, dh 128, causal), the forward at
+   the paged decode and prefill at H 40 / KV 8, and RMSNorm at 8 x 5120,
+   4096 x 5120 and 8 x 8192 (its backward at 4096 x 5120), in bf16 and
+   fp32, each against its plain version and a second call the same bits
+   (``--phases 26`` runs these first); phase 7 times them.
 
 Phase 2 also holds the kernels at phase 17's TP-local shapes against
 their plain versions, and phase 7 times the SSD scan at a rank's mamba2
@@ -516,8 +555,8 @@ shape as training launches them (causal, the forward writing its row
 log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
-The phases run in the order 1, 2, 7, 3, 19, 20, 21, 22, 23, 24, 25, 4, 5, 14,
-6, 9, 10, 11, 12, 13, 15, 16, 17, 18, 8: phase 7
+The phases run in the order 1, 2, 7, 3, 19, 20, 21, 22, 23, 24, 25, 26, 4, 5,
+14, 6, 9, 10, 11, 12, 13, 15, 16, 17, 18, 8: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
 seconds, and each phase's in run order, are printed before the final
@@ -1031,6 +1070,57 @@ VLM_FP32_BATCH, VLM_FP32_SEQ = 2, 64
 # 8 rows and (b)'s 4352
 VLM_TRAIN_ATTN = (1, VLM_VISION + VLM_TRAIN_SEQ, *VLM_HEADS)
 VLM_NORM_ROWS = (DECODE_SLOTS, VLM_VISION + VLM_TRAIN_SEQ)
+# phase 26: the Qwen2/Qwen3 dense family at full width, bf16, random
+# weights from seed 0, the QKV biases of qwen2.5-14b and qwen2-72b then
+# drawn from a seeded normal of std QWEN_BIAS_STD (the init's zeros would
+# hide a wrong add or slice).  bf16 weights reckoned from the shapes:
+# qwen3-8b 16.38 GB at 36 layers, qwen2.5-14b 29.54 GB at 48, qwen2-72b
+# 1.755 GB a layer beside 4.98 GB of table and head, 145.4 GB at 80: it
+# is served at QWEN72_LAYERS (75.2 GB), the deepest cut that leaves the
+# paged pools and activations QWEN72_HEADROOM_GB of the card's free
+# memory.  (a) qwen3-8b and (b) qwen2.5-14b at full depth through the
+# paged engine, (b) also the dense-cache engine and decode against the
+# teacher-forced prefill over QWEN_DECODE_VS_PREFILL_T tokens; (c)
+# qwen2-72b paged; (d) train --arch qwen2.5-14b --layers QWEN_TRAIN_LAYERS
+# --batch 1 --seq QWEN_TRAIN_SEQ --lr QWEN_TRAIN_LR with the plan's remat
+# (none: the plan keeps every activation): 0.778 B of table
+# and 0.778 B of head beside 0.275 B a layer, 16 B a parameter with
+# AdamW, so 6 layers hold 51.3 GB before activations; its checkpoint
+# round trip runs on the reduced bf16 model through the same CLI
+# (QWEN_CKPT_ARGV), since at full width the table and head alone come to
+# 25 GB of files (phase 14 saved and restored about 0.6 GB/s: NVIDIA H100
+# 80GB HBM3, 700 W); (e) QWEN_SHARD_RANKS gloo ranks at QWEN_SHARD_LAYERS
+# layer on QWEN_SHARD_MESH with TP, ZeRO-3 and remat against one process
+# at phase 25 (c)'s gates; (f) reduced fp32 at a GQA group of 5, card
+# against CPU
+QWEN3_8B, QWEN2_5_14B, QWEN2_72B = "qwen3-8b", "qwen2.5-14b", "qwen2-72b"
+QWEN_HEADS = {QWEN3_8B: (32, 8, 128), QWEN2_5_14B: (40, 8, 128),
+              QWEN2_72B: (64, 8, 128)}
+QWEN_BIAS_STD, QWEN_BIAS_SEED = 0.5, 26
+QWEN72_LAYERS, QWEN72_HEADROOM_GB = 40, 4.0
+QWEN_DECODE_VS_PREFILL_T = 64
+QWEN_TRAIN_LAYERS, QWEN_TRAIN_STEPS, QWEN_TRAIN_SEQ = 6, 3, 4096
+# (d)'s lr, a tenth of phase 9's: from these random weights at 6 layers
+# the CLI's losses went 12.45, 26.21, 14.86 at its default 3e-4 and
+# 12.45, 17.04, 14.63 at phase 9's 3e-5 (NVIDIA H100 80GB HBM3, 700 W;
+# qwen2.5-14b has no QK-norm, and AdamW's first step moves every weight
+# by lr whatever its gradient, with no warmup here nor in the JAX
+# executor); (d)'s witness repeats 3e-5 through the flash kernels and
+# through the plain attention autodiffed by torch
+QWEN_TRAIN_LR, QWEN_WITNESS_LR = 3e-6, 3e-5
+QWEN_CKPT_AT = 2
+QWEN_CKPT_ARGV = ["--arch", QWEN2_5_14B, "--reduced", "--steps", "3",
+                  "--batch", "2", "--seq", "256", "--log-every", "1"]
+QWEN_SHARD_RANKS, QWEN_SHARD_LAYERS, QWEN_SHARD_MESH = 4, 1, (2, 2)
+QWEN_SHARD_LANES, QWEN_SHARD_SEQ, QWEN_SHARD_STEPS = 4, 1024, 1
+QWEN_SHARD_LR, QWEN_SHARD_TIMEOUT_S = 3e-5, 600
+QWEN_FP32_BATCH, QWEN_FP32_SEQ, QWEN_FP32_DECODE = 2, 64, 16
+# phase 2 holds the kernels at qwen2.5-14b's training attention (G = 5)
+# and serving shapes, and RMSNorm at the family's new widths
+QWEN_TRAIN_ATTN = (1, QWEN_TRAIN_SEQ, *QWEN_HEADS[QWEN2_5_14B])
+QWEN_NORM_FWD = [(DECODE_SLOTS, 5120), (QWEN_TRAIN_SEQ, 5120),
+                 (DECODE_SLOTS, 8192)]
+QWEN_NORM_BWD = (QWEN_TRAIN_SEQ, 5120)
 
 
 def log(msg: str) -> None:
@@ -2161,18 +2251,16 @@ def phase_k14(errs):
         f"{errs['flash_attention_bwd_cross']:.3e}")
 
 
-def phase_vlm_kernels(errs):
-    """The kernels at internvl2-26b's shapes (phase 25), bf16 and fp32,
-    each against its plain version at phase 2's gates and a second call
-    the same bits: the causal flash forward with its row log-sum-exp and
-    the backward at ``VLM_TRAIN_ATTN`` (B 1, S 4352, H 48, KV 8, dh 128: a
-    GQA group of 6, 64 packed rows holding 10 positions of 6 heads and 4
-    rows of an 11th), also against ``torch.autograd`` of the plain forward
-    (:func:`flash_bwd_check`); the forward at phase 25's paged decode and
-    prefill chunk, the dense engine's decode and a causal prefill of 2 x
-    256 (:func:`moe_flash_cases`); RMSNorm's forward at 8 x 6144 and 4352
-    x 6144 and its backward at 4352 x 6144 (d 6144 runs the looped
-    ``*_wide_kernel``s)."""
+def _model_kernels(tag, arch, heads, train_bs, norm_fwd, norm_bwd, errs):
+    """The kernels at one model's shapes, bf16 and fp32, each against its
+    plain version at phase 2's gates and a second call the same bits: the
+    causal flash forward with its row log-sum-exp and the backward at
+    (``train_bs``, ``heads``), also against ``torch.autograd`` of the
+    plain forward (:func:`flash_bwd_check`); the forward at the paged
+    decode and prefill chunk, the dense engine's decode and a causal
+    prefill of 2 x 256 (:func:`moe_flash_cases`, named for ``arch``);
+    RMSNorm's forward at each (rows, d) of ``norm_fwd`` and its backward
+    at ``norm_bwd`` (d above 4096 runs the looped ``*_wide_kernel``s)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
@@ -2190,10 +2278,10 @@ def phase_vlm_kernels(errs):
         return (torch.randn(shape, generator=g, device="cuda")
                 * scale).to(dt)
 
-    H, KV, dh = VLM_HEADS
+    H, KV, dh = heads
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for name, B, S, T, kw in moe_flash_cases("internvl2"):
+        for name, B, S, T, kw in moe_flash_cases(arch):
             q, k, v = rand(dt, B, S, H, dh), rand(dt, B, T, KV, dh), \
                 rand(dt, B, T, KV, dh)
             out = flash_attention_cuda(q, k, v, **kw)
@@ -2201,14 +2289,14 @@ def phase_vlm_kernels(errs):
             want = ref.flash_attention_ref(q, k, v, **kw)
             err = (out.float() - want.float()).abs().max().item()
             same = same_bits(out, flash_attention_cuda(q, k, v, **kw))
-            log(f"[vlm-kernels] {dtype:8s} H {H} KV {KV} dh {dh} {name:28s} "
+            log(f"{tag} {dtype:8s} H {H} KV {KV} dh {dh} {name:28s} "
                 f"max|diff| {err:.3e} (tol {TOL[dtype]:.0e}); a second call "
                 f"the same bits {same}")
             check(err <= TOL[dtype], f"flash {name} {dtype}: {err}")
             check(same, f"flash {name} {dtype}: a second call gave other "
                   "bits")
             errs["flash_attention"] = max(errs["flash_attention"], err)
-        B, S = VLM_TRAIN_ATTN[:2]
+        B, S = train_bs
         q, do = rand(dt, B, S, H, dh), rand(dt, B, S, H, dh)
         k, v = rand(dt, B, S, KV, dh), rand(dt, B, S, KV, dh)
         out, lse, got = flash_bwd_check(
@@ -2222,7 +2310,7 @@ def phase_vlm_kernels(errs):
             q, k, v, with_lse=True))
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"[vlm-kernels] {dtype:8s} B={B} S={S} H={H} KV={KV} dh={dh} "
+        log(f"{tag} {dtype:8s} B={B} S={S} H={H} KV={KV} dh={dh} "
             f"causal: forward max|diff| {err:.3e} (tol {TOL[dtype]:.0e}); "
             f"a second call's out and lse the same bits {same_fwd}, its dq, "
             f"dk, dv {same}")
@@ -2231,27 +2319,27 @@ def phase_vlm_kernels(errs):
               "gave other bits")
         del q, do, k, v, out, lse, got, again
         torch.cuda.empty_cache()
-        d = VLM_HEADS[0] * VLM_HEADS[2]
-        for rows in VLM_NORM_ROWS:
+        for rows, d in norm_fwd:
             x, w = rand(dt, rows, d, scale=3.0), rand(dt, d)
             check_rmsnorm(x, w, dtype, str((rows, d)), errs)
             check(same_bits(rmsnorm_cuda(x, w, 1e-6),
                             rmsnorm_cuda(x, w, 1e-6)),
                   f"rmsnorm {(rows, d)} {dtype}: a second call gave other "
                   "bits")
-        x = rand(dt, VLM_NORM_ROWS[1], d, scale=2.0).requires_grad_()
+        rows, d = norm_bwd
+        x = rand(dt, rows, d, scale=2.0).requires_grad_()
         w = rand(dt, d).requires_grad_()
-        dy = rand(dt, VLM_NORM_ROWS[1], d)
+        dy = rand(dt, rows, d)
         got = torch.autograd.grad(RMSNorm.apply(x, w, 1e-5), (x, w), dy)
         torch.cuda.synchronize()
         want = torch.autograd.grad(ref.rmsnorm_ref(x, w, 1e-5), (x, w), dy)
         e_dx, e_dw = rel_err(got[0], want[0]), rel_err(got[1], want[1])
         again = rmsnorm_bwd_cuda(dy, x.detach(), w.detach(), 1e-5)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"[vlm-kernels] {dtype:8s} rmsnorm backward "
-            f"{(VLM_NORM_ROWS[1], d)}: max|diff|/max|ref| dx {e_dx:.2e}, dw "
-            f"{e_dw:.2e} (tol {REL_TOL[dtype]:.0e}); a second call's dx, dw "
-            f"the same bits {same}")
+        log(f"{tag} {dtype:8s} rmsnorm backward {(rows, d)}: "
+            f"max|diff|/max|ref| dx {e_dx:.2e}, dw {e_dw:.2e} (tol "
+            f"{REL_TOL[dtype]:.0e}); a second call's dx, dw the same bits "
+            f"{same}")
         check(max(e_dx, e_dw) <= REL_TOL[dtype],
               f"rmsnorm_bwd at d {d} {dtype}: dx {e_dx}, dw {e_dw}")
         check(same, f"rmsnorm_bwd at d {d} {dtype}: a second call gave "
@@ -2261,8 +2349,33 @@ def phase_vlm_kernels(errs):
             for a, b in zip(got, want)))
         del x, w, dy, got, want, again
         torch.cuda.empty_cache()
-    log(f"[vlm-kernels] flash and RMSNorm at internvl2-26b's shapes held "
-        f"against their plain versions in {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} flash and RMSNorm at {arch}'s shapes held against their "
+        f"plain versions in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_vlm_kernels(errs):
+    """The kernels at internvl2-26b's shapes (phase 25): flash at
+    ``VLM_TRAIN_ATTN`` (B 1, S 4352, H 48, KV 8, dh 128: a GQA group of
+    6, 64 packed rows holding 10 positions of 6 heads and 4 rows of an
+    11th) and its serving shapes; RMSNorm's forward at 8 x 6144 and 4352 x
+    6144 and its backward at 4352 x 6144 (:func:`_model_kernels`)."""
+    d = VLM_HEADS[0] * VLM_HEADS[2]
+    _model_kernels("[vlm-kernels]", "internvl2", VLM_HEADS,
+                   VLM_TRAIN_ATTN[:2], [(r, d) for r in VLM_NORM_ROWS],
+                   (VLM_NORM_ROWS[1], d), errs)
+
+
+def phase_qwen2_kernels(errs):
+    """The kernels at qwen2.5-14b's shapes (phase 26): flash at
+    ``QWEN_TRAIN_ATTN`` (B 1, S 4096, H 40, KV 8, dh 128: a GQA group of
+    5, so a position's five heads straddle two CTAs' 64 packed rows) and
+    its serving shapes; RMSNorm's forward at ``QWEN_NORM_FWD`` (qwen2.5-14b's
+    d 5120 on a decode's 8 rows and a training step's 4096, qwen2-72b's
+    8192 on 8 rows) and its backward at ``QWEN_NORM_BWD`` (4096 x 5120)
+    (:func:`_model_kernels`)."""
+    _model_kernels("[qwen2-kernels]", "qwen2.5-14b",
+                   QWEN_HEADS[QWEN2_5_14B], QWEN_TRAIN_ATTN[:2],
+                   QWEN_NORM_FWD, QWEN_NORM_BWD, errs)
 
 
 # ---------------------------------------------------------------------------
@@ -2836,8 +2949,9 @@ def plain_attention():
         ops.flash_attention = saved
 
 
-def _dense_lr_witness(cfg, batches):
-    """Losses of ``len(batches)`` steps at WITNESS_LR from the same weights
+def _dense_lr_witness(cfg, batches, lr=WITNESS_LR):
+    """Losses of ``len(batches)`` steps at ``lr`` from the same weights (and
+    drawn QKV biases where the config has them, :func:`_qwen_set_biases`)
     at ``cfg``'s depth with remat, through the flash kernels and through
     the plain attention: whether the loss rises there with the kernels'
     gradients and with torch's alike."""
@@ -2848,10 +2962,12 @@ def _dense_lr_witness(cfg, batches):
     from repro_torch.runtime.executor import init_train_state, make_train_step
 
     out = {}
-    opt_cfg = AdamWConfig(lr=WITNESS_LR)
+    opt_cfg = AdamWConfig(lr=lr)
     for name in ("kernels", "plain"):
         params, opt = init_train_state(cfg, seed=0, opt_cfg=opt_cfg,
                                        device="cuda")
+        if cfg.qkv_bias:
+            _qwen_set_biases(params, cfg, opt)
         step = make_train_step(cfg, opt_cfg, remat_segments=[True])
         with (plain_attention() if name == "plain"
               else contextlib.nullcontext()):
@@ -6356,7 +6472,7 @@ def _moe_drops(cfg, params, toks):
     return drops
 
 
-def _moe_dense_serve(cfg, params):
+def _moe_dense_serve(cfg, params, tag="[moe] (b)"):
     """(b) serve on MOE_DENSE_LANES lanes of a DENSE_SERVE_CONTEXT-token
     cache: every request completes, the flash forward launches once a layer
     a step, no plain version runs.  Returns the launches and the first
@@ -6377,13 +6493,14 @@ def _moe_dense_serve(cfg, params):
     for r in reqs:
         check(r.done and len(r.generated) == MOE_DENSE_NEW
               and all(0 <= t < cfg.vocab_size for t in r.generated),
-              f"moe dense request {r.rid}: {r.generated}")
-    check(not plain, f"the MoE dense engine called plain versions: {plain}")
+              f"{tag} dense request {r.rid}: {r.generated}")
+    check(not plain, f"{tag} the dense engine called plain versions: "
+          f"{plain}")
     n = steps["n"]
     check(launches["flash_attention"] == cfg.n_layers * n,
           f"{launches['flash_attention']} flash launches in {n} steps")
     new = sum(len(r.generated) for r in reqs)
-    log(f"[moe] (b) serve: {len(reqs)} requests on {MOE_DENSE_LANES} lanes "
+    log(f"{tag} serve: {len(reqs)} requests on {MOE_DENSE_LANES} lanes "
         f"of {DENSE_SERVE_CONTEXT}, {new} tokens in {wall:.2f} s "
         f"({new / wall:.1f} tok/s, {n} steps, {1e3 * wall / n:.2f} ms a "
         f"step); launches {launches}")
@@ -8082,19 +8199,20 @@ def phase_whisper_shard():
 VLM_DIR = ROOT / "build" / "vlm_shard"
 
 
-def _vlm_cfg(layers=None, dtype="bfloat16"):
-    """internvl2-26b at full width, ``layers`` of 48 (all by default)."""
+def _arch_cfg(arch, layers=None, dtype="bfloat16"):
+    """``arch`` at full width, ``layers`` of its depth (all by default)."""
     import torch
     from repro_torch.configs import get_config
-    cfg = get_config(VLM_ARCH).with_(dtype=getattr(torch, dtype))
+    cfg = get_config(arch).with_(dtype=getattr(torch, dtype))
     return cfg if layers is None else cfg.with_(n_layers=layers)
 
 
-def _vlm_launches(L, remat, calls=1):
-    """Launches of ``calls`` losses and gradients of L dense layers on one
-    process or rank: the flash forward once a layer (twice under remat)
-    and its backward once; RMSNorm's forward on ln1 and ln2 of each layer
-    (again under remat) and on the final norm, its backward once each."""
+def _dense_launches(L, remat, calls=1):
+    """Launches of ``calls`` losses and gradients of L dense layers without
+    QK-norm (internvl2-26b, qwen2.5-14b) on one process or rank: the flash
+    forward once a layer (twice under remat) and its backward once;
+    RMSNorm's forward on ln1 and ln2 of each layer (again under remat) and
+    on the final norm, its backward once each."""
     k = 2 if remat else 1
     return {"flash_attention": L * k * calls,
             "flash_attention_bwd": L * calls,
@@ -8179,7 +8297,7 @@ def _vlm_train():
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.executor import init_train_state, make_train_step
 
-    cfg = _vlm_cfg(VLM_TRAIN_LAYERS)
+    cfg = _arch_cfg(VLM_ARCH, VLM_TRAIN_LAYERS)
     L = cfg.n_layers
     argv = ["--arch", VLM_ARCH, "--layers", str(L), "--batch", "1",
             "--seq", str(VLM_TRAIN_SEQ), "--steps", str(VLM_TRAIN_STEPS),
@@ -8200,7 +8318,7 @@ def _vlm_train():
     check(len(losses) == VLM_TRAIN_STEPS and all(
         math.isfinite(x) for x in losses), f"(b) losses {losses}")
     check(not plain, f"(b) plain versions ran on the training path: {plain}")
-    per_step = _vlm_launches(L, on)
+    per_step = _dense_launches(L, on)
     for i, got in enumerate(seen["launches"], 1):
         check(all(got[k] == v for k, v in per_step.items()),
               f"(b) step {i} launched {got}, not {per_step}")
@@ -8261,29 +8379,52 @@ def _vlm_train():
     return launches
 
 
-def _vlm_shard_batch(cfg):
-    """(c)'s batch: the train CLI's first batch of VLM_SHARD_LANES x
-    VLM_SHARD_SEQ tokens with their patches, CPU tensors."""
+@dataclasses.dataclass(frozen=True)
+class LMShardCase:
+    """A sharded decoder-only training run against one process (phases 25
+    (c) and 26 (e)): ``cfg`` at full width on ``ranks`` gloo ranks of a
+    (data, model) ``mesh`` with TP, ZeRO-3 and remat, ``steps`` steps at
+    ``lr`` on the train CLI's first batch of ``lanes`` x ``seq``; the
+    ranks report the local shapes of the leaves named in ``watch``."""
+    tag: str
+    cfg: object
+    run_dir: str
+    watch: tuple
+    ranks: int
+    mesh: tuple
+    lanes: int
+    seq: int
+    steps: int
+    lr: float
+    timeout_s: int
+
+
+def _lm_shard_batch(case):
+    """The train CLI's first batch of ``case.lanes`` x ``case.seq`` tokens
+    (with the VLM's patches), CPU tensors."""
     import torch
     from repro_torch.launch import train as train_cli
-    gen = train_cli.batches(cfg, train_cli.parse_args([
-        "--arch", VLM_ARCH, "--batch", str(VLM_SHARD_LANES), "--seq",
-        str(VLM_SHARD_SEQ)]))
+    gen = train_cli.batches(case.cfg, train_cli.parse_args([
+        "--arch", case.cfg.name, "--batch", str(case.lanes), "--seq",
+        str(case.seq)]))
     return {k: torch.from_numpy(v) for k, v in next(gen).items()}
 
 
-def vlm_shard_reference(run_dir):
-    """The single process, in this process on the card: (c)'s loss and
-    gradients on ``init_lm`` seed 0 under remat, in bf16 and, on the same
-    weights, in fp32; each leaf's bf16-to-fp32 distance and the fp32
-    gradients' largest magnitudes, saved for the ranks with the fp32
-    gradients."""
+def lm_shard_reference(case):
+    """The single process, in this process on the card: the case's loss
+    and gradients on ``init_lm`` seed 0 (with the drawn QKV biases where
+    the config has them, :func:`_qwen_set_biases`) under remat, in bf16
+    and, on the same weights, in fp32; each leaf's bf16-to-fp32 distance
+    and the fp32 gradients' largest magnitudes, saved for the ranks with
+    the fp32 gradients."""
     import torch
     from repro_torch.models import init_lm, lm_loss
 
-    cfg = _vlm_cfg(VLM_SHARD_LAYERS)
-    batch = {k: v.to("cuda") for k, v in _vlm_shard_batch(cfg).items()}
+    cfg = case.cfg
+    batch = {k: v.to("cuda") for k, v in _lm_shard_batch(case).items()}
     params = init_lm(cfg, seed=0, device="cuda")
+    if cfg.qkv_bias:
+        _qwen_set_biases(params, cfg)
     leaves = list(params.parameters())
     names = [n for n, _ in params.named_parameters()]
     counts = _zero_counts()
@@ -8305,7 +8446,7 @@ def vlm_shard_reference(run_dir):
     saved["grads32"] = {n: r.cpu() for n, r in zip(names, grads32)}
     del loss, params32, grads, grads32, batch
     _free_cuda()
-    torch.save(saved, f"{run_dir}/reference.pt")
+    torch.save(saved, f"{case.run_dir}/reference.pt")
     return saved
 
 
@@ -8320,13 +8461,14 @@ def _shard_diff(g, want):
     return diff
 
 
-def vlm_shard_rank(rank, world, run_dir):
-    """One of VLM_SHARD_RANKS gloo ranks on the card: its shards of
-    ``init_lm`` seed 0 on VLM_SHARD_MESH under TP, ZeRO-3 and remat, then
-    VLM_SHARD_STEPS steps of ``make_train_step(mesh=, policy=)`` on (c)'s
-    batch (launches counted from 0 before the steps); the first step's
-    reduced gradient shards (kept check-only) against the same slices of
-    the single process's fp32 gradients.  Saves its results."""
+def lm_shard_rank(rank, world, case):
+    """One gloo rank on the card: its shards of ``init_lm`` seed 0 on the
+    case's mesh under TP, ZeRO-3 and remat (the rank's slices of the drawn
+    biases set in them and in AdamW's master where the config has
+    biases), then the case's steps of ``make_train_step(mesh=, policy=)``
+    (launches counted from 0 before the steps); the first step's reduced
+    gradient shards (kept check-only) against the same slices of the
+    single process's fp32 gradients.  Saves its results."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_distributed, make_local_mesh
@@ -8336,25 +8478,27 @@ def vlm_shard_rank(rank, world, run_dir):
 
     torch.cuda.set_device(0)
     init_distributed(rank, world, backend="gloo",
-                     init_method=f"file://{run_dir}/rendezvous",
-                     timeout_s=VLM_SHARD_TIMEOUT_S)
+                     init_method=f"file://{case.run_dir}/rendezvous",
+                     timeout_s=case.timeout_s)
     try:
-        cfg = _vlm_cfg(VLM_SHARD_LAYERS)
-        mesh = make_local_mesh(VLM_SHARD_MESH[1])
+        cfg = case.cfg
+        mesh = make_local_mesh(case.mesh[1])
         pol = ShardPolicy(tp=True, zero=True, remat_segments=(True,))
-        ocfg = AdamWConfig(lr=VLM_SHARD_LR)
-        ref = torch.load(f"{run_dir}/reference.pt", mmap=True)
-        batch = _vlm_shard_batch(cfg)
+        ocfg = AdamWConfig(lr=case.lr)
+        ref = torch.load(f"{case.run_dir}/reference.pt", mmap=True)
+        batch = _lm_shard_batch(case)
         t0 = time.perf_counter()
         params, opt = init_train_state(cfg, mesh=mesh, policy=pol, seed=0,
                                        opt_cfg=ocfg, device="cuda")
+        step = make_train_step(cfg, ocfg, mesh=mesh, policy=pol)
+        ctx, kept = step.shard, []
+        if cfg.qkv_bias:
+            _qwen_set_biases(params, cfg, opt, shard=ctx)
         torch.cuda.synchronize()
         out = {"coord": [mesh.get_local_rank("data"),
                          mesh.get_local_rank("model")],
                "init_s": time.perf_counter() - t0,
                "params_local": sum(p.numel() for p in params.parameters())}
-        step = make_train_step(cfg, ocfg, mesh=mesh, policy=pol)
-        ctx, kept = step.shard, []
         real = ctx.reduce_grads
 
         def keep(named, grads):     # check-only: the step's gradients
@@ -8370,7 +8514,7 @@ def vlm_shard_rank(rank, world, run_dir):
         counts = _zero_counts()
         hist = []
         with plain_calls() as plain:
-            for _ in range(VLM_SHARD_STEPS):
+            for _ in range(case.steps):
                 sent = ctx.traffic.bytes_sent
                 t0 = time.perf_counter()
                 m = step(params, opt, batch)
@@ -8383,107 +8527,129 @@ def vlm_shard_rank(rank, world, run_dir):
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                    reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
                    tp=ctx.tp, split_vocab=ctx.split_vocab,
-                   head=list(params.head.shape),
-                   w1=list(params.projector.w1.shape))
+                   shapes={n: list(params.get_parameter(n).shape)
+                           for n in case.watch})
         ctx.reduce_grads = real
         out["diffs"] = {n: _shard_diff(g, ctx.shard_tensor(
             n, ref["grads32"][n])) for (n, _), g in
             zip(params.named_parameters(), kept)}
         del kept, params, opt
         _free_cuda()
-        pathlib.Path(f"{run_dir}/rank{rank}.json").write_text(
+        pathlib.Path(f"{case.run_dir}/rank{rank}.json").write_text(
             json.dumps(out))
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def _vlm_shard():
-    """(c) VLM_SHARD_RANKS gloo ranks sharing the card (:func:`
-    vlm_shard_rank`) against the single process (:func:`
-    vlm_shard_reference`): the loss at SHARD_LOSS_RTOL, the ranks' worst
-    bf16 gradient leaf (its shards against the same slices of the single
-    process's fp32 gradient, over the leaf's largest magnitude) within
-    WSHARD_BF16_VS_FP32 times the single process's own worst bf16 leaf;
-    the whole head and table on every model rank (92553 splits over
-    none), the projector's w1 the rank's columns; exact launch counts; a
-    rank's gloo bytes a step and peak.  Returns the reference's and the
-    ranks' launches."""
+def _lm_shard(case, show=()):
+    """The case's ranks sharing the card (:func:`lm_shard_rank`) against
+    the single process (:func:`lm_shard_reference`): the loss at
+    SHARD_LOSS_RTOL, the ranks' worst bf16 gradient leaf (its shards
+    against the same slices of the single process's fp32 gradient, over
+    the leaf's largest magnitude) within WSHARD_BF16_VS_FP32 times the
+    single process's own worst bf16 leaf, the leaves named in ``show``
+    printed beside the farthest; exact launch counts (:func:`
+    _dense_launches`); a rank's gloo bytes a step and peak.  Returns the
+    reference's and the ranks' launches and the ranks' results."""
     import torch
 
-    shutil.rmtree(VLM_DIR, ignore_errors=True)
-    VLM_DIR.mkdir(parents=True)
-    cfg = _vlm_cfg(VLM_SHARD_LAYERS)
+    tag, cfg, run_dir = case.tag, case.cfg, pathlib.Path(case.run_dir)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
     L = cfg.n_layers
     t0 = time.perf_counter()
-    ref = vlm_shard_reference(str(VLM_DIR))
-    check(not ref["plain"], f"(c) plain versions ran in the reference: "
+    ref = lm_shard_reference(case)
+    check(not ref["plain"], f"{tag} plain versions ran in the reference: "
           f"{ref['plain']}")
-    want = _vlm_launches(L, True)
+    want = _dense_launches(L, True)
     check(all(ref["launches"][k] == v for k, v in want.items()),
-          f"(c) the reference's launches {ref['launches']}, not {want}")
+          f"{tag} the reference's launches {ref['launches']}, not {want}")
     single = max(ref["single_vs_fp32"].values())
     free, _ = torch.cuda.mem_get_info()
-    log(f"[vlm] (c) single process: {cfg.name} at {L} layers, "
-        f"{ref['params'] / 1e9:.3f} B params, {VLM_SHARD_LANES} lanes of "
-        f"{VLM_VISION} + {VLM_SHARD_SEQ}: loss {ref['loss']!r} (fp32 on the "
-        f"same weights {ref['loss32']!r}); its bf16 gradient leaves lie up "
-        f"to {single:.3e} from fp32; {time.perf_counter() - t0:.1f} s; the "
-        f"card has {free / 1e9:.2f} GB free for the ranks")
-    ranks_s = spawn_ranks(vlm_shard_rank, (VLM_SHARD_RANKS, str(VLM_DIR)),
-                          VLM_SHARD_RANKS, "sharded internvl2 ranks",
-                          timeout_s=VLM_SHARD_TIMEOUT_S)
-    res = [json.loads((VLM_DIR / f"rank{r}.json").read_text())
-           for r in range(VLM_SHARD_RANKS)]
-    shutil.rmtree(VLM_DIR, ignore_errors=True)
-    check([r["coord"] for r in res] == [[0, 0], [0, 1], [1, 0], [1, 1]],
-          f"(c) mesh coordinates {[r['coord'] for r in res]}")
-    check(not any(r["plain"] for r in res), "(c) plain versions ran")
-    want = _vlm_launches(L, True, VLM_SHARD_STEPS)
+    log(f"{tag} single process: {cfg.name} at {L} layer(s), "
+        f"{ref['params'] / 1e9:.3f} B params, {case.lanes} lanes of "
+        f"{case.seq} tokens: loss {ref['loss']!r} (fp32 on the same "
+        f"weights {ref['loss32']!r}); its bf16 gradient leaves lie up to "
+        f"{single:.3e} from fp32; {time.perf_counter() - t0:.1f} s; the card "
+        f"has {free / 1e9:.2f} GB free for the ranks")
+    ranks_s = spawn_ranks(lm_shard_rank, (case.ranks, case),
+                          case.ranks, f"sharded {cfg.name} ranks",
+                          timeout_s=case.timeout_s)
+    res = [json.loads((run_dir / f"rank{r}.json").read_text())
+           for r in range(case.ranks)]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    coords = [[d, m] for d in range(case.mesh[0])
+              for m in range(case.mesh[1])]
+    check([r["coord"] for r in res] == coords,
+          f"{tag} mesh coordinates {[r['coord'] for r in res]}")
+    check(not any(r["plain"] for r in res), f"{tag} plain versions ran")
+    want = _dense_launches(L, True, case.steps)
     for r, row in enumerate(res):
         check(all(row["launches"][k] == v for k, v in want.items()),
-              f"(c) rank {r}: launches {row['launches']}, not {want}")
-    d, dv = cfg.d_model, cfg.d_vision
-    local = (2, [d // VLM_SHARD_MESH[0], cfg.vocab_size],
-             [dv // VLM_SHARD_MESH[0], d // VLM_SHARD_MESH[1]])
-    check(all((r["tp"], r["head"], r["w1"]) == local
-              and not r["split_vocab"] for r in res),
-          f"(c) TP degree, head and w1 shards {[(r['tp'], r['head'], r['w1']) for r in res]}, not {local}, or the vocabulary split")
+              f"{tag} rank {r}: launches {row['launches']}, not {want}")
     losses = [[h["loss"] for h in r["steps"]] for r in res]
     check(all(x == losses[0] for x in losses) and all(
-        math.isfinite(x) for x in losses[0]), f"(c) step losses {losses}")
+        math.isfinite(x) for x in losses[0]), f"{tag} step losses {losses}")
     rel = abs(losses[0][0] - ref["loss"]) / abs(ref["loss"])
     errs = {n: max(r["diffs"][n] for r in res) / max(ref["tops"][n], 1e-30)
             for n in ref["tops"]}
     worst = max(errs, key=errs.get)
     top = sorted(errs, key=errs.get, reverse=True)[:6]
-    log(f"[vlm] (c) {VLM_SHARD_RANKS} ranks on (data, model) = "
-        f"{VLM_SHARD_MESH}, TP + ZeRO-3 + remat: step 1's loss "
-        f"{losses[0][0]!r} against the single process's {ref['loss']!r} "
-        f"(rel {rel:.3e}, tol {SHARD_LOSS_RTOL:.0e}); the ranks' worst "
-        f"bf16 gradient leaf {worst} at {errs[worst]:.3e} of its fp32 "
-        f"largest magnitude, the single process's own worst {single:.3e} "
-        f"(gate {WSHARD_BF16_VS_FP32} x); farthest leaves (leaf, ranks, "
-        f"single process): "
-        + ", ".join(f"{n} {errs[n]:.3e} {ref['single_vs_fp32'][n]:.3e}"
-                    for n in top))
+
+    def pairs(names):
+        return ", ".join(f"{n} {errs[n]:.3e} {ref['single_vs_fp32'][n]:.3e}"
+                         for n in names)
+
+    log(f"{tag} {case.ranks} ranks on (data, model) = {case.mesh}, TP + "
+        f"ZeRO-3 + remat: step 1's loss {losses[0][0]!r} against the single "
+        f"process's {ref['loss']!r} (rel {rel:.3e}, tol "
+        f"{SHARD_LOSS_RTOL:.0e}); the ranks' worst bf16 gradient leaf "
+        f"{worst} at {errs[worst]:.3e} of its fp32 largest magnitude, the "
+        f"single process's own worst {single:.3e} (gate "
+        f"{WSHARD_BF16_VS_FP32} x); (leaf, ranks, single process): "
+        + (f"{pairs(show)}; farthest: " if show else "farthest: ")
+        + pairs(top))
     for r, row in enumerate(res):
-        log(f"[vlm] (c) rank {r} (data {row['coord'][0]}, model "
+        log(f"{tag} rank {r} (data {row['coord'][0]}, model "
             f"{row['coord'][1]}): {row['params_local'] / 1e6:.1f} M params, "
             f"init {row['init_s']:.1f} s; step ms "
             f"{[round(h['ms'], 1) for h in row['steps']]}, gloo bytes sent "
             f"a step {[h['gloo_bytes'] for h in row['steps']]}; peak "
             f"{row['peak_gb']:.2f} GB ({row['reserved_gb']:.2f} reserved)")
-    log(f"[vlm] (c) ranks {ranks_s:.1f} s (4 ranks share one card: not a "
-        "sharded run's speed)")
-    check(rel <= SHARD_LOSS_RTOL, f"(c) the sharded loss lies {rel:.3e} "
+    log(f"{tag} ranks {ranks_s:.1f} s ({case.ranks} ranks share one card: "
+        "not a sharded run's speed)")
+    check(rel <= SHARD_LOSS_RTOL, f"{tag} the sharded loss lies {rel:.3e} "
           "from the single process's")
     check(errs[worst] <= WSHARD_BF16_VS_FP32 * single,
-          f"(c) the ranks' bf16 gradient leaf {worst} lies {errs[worst]:.3e} "
-          f"from fp32, above {WSHARD_BF16_VS_FP32} x {single:.3e}")
+          f"{tag} the ranks' bf16 gradient leaf {worst} lies "
+          f"{errs[worst]:.3e} from fp32, above {WSHARD_BF16_VS_FP32} x "
+          f"{single:.3e}")
     launches = {k: sum(r["launches"][k] for r in res)
                 for k in res[0]["launches"]}
-    return ref["launches"], launches
+    return ref["launches"], launches, res
+
+
+def _vlm_shard():
+    """(c) VLM_SHARD_RANKS gloo ranks at VLM_SHARD_LAYERS layer on
+    VLM_SHARD_MESH against one process (:func:`_lm_shard`): the whole head
+    and table on every model rank (92553 splits over none), the
+    projector's w1 the rank's columns.  Returns the ranks' launches."""
+    cfg = _arch_cfg(VLM_ARCH, VLM_SHARD_LAYERS)
+    case = LMShardCase("[vlm] (c)", cfg, str(VLM_DIR),
+                       ("head", "projector.w1"), VLM_SHARD_RANKS,
+                       VLM_SHARD_MESH, VLM_SHARD_LANES, VLM_SHARD_SEQ,
+                       VLM_SHARD_STEPS, VLM_SHARD_LR, VLM_SHARD_TIMEOUT_S)
+    _, launches, res = _lm_shard(case)
+    d, dv = cfg.d_model, cfg.d_vision
+    local = (2, {"head": [d // VLM_SHARD_MESH[0], cfg.vocab_size],
+                 "projector.w1": [dv // VLM_SHARD_MESH[0],
+                                  d // VLM_SHARD_MESH[1]]})
+    got = [(r["tp"], r["shapes"]) for r in res]
+    check(all(g == local for g in got) and not any(
+        r["split_vocab"] for r in res), f"(c) TP degree, head and w1 shards "
+          f"{got}, not {local}, or the vocabulary split")
+    return launches
 
 
 def _vlm_cpu_vs_card():
@@ -8554,7 +8720,7 @@ def phase_vlm():
 
     t_phase = time.perf_counter()
     _free_cuda()
-    cfg = _vlm_cfg()
+    cfg = _arch_cfg(VLM_ARCH)
     check((cfg.n_heads, cfg.n_kv_heads, cfg.dh) == VLM_HEADS,
           f"internvl2's heads {(cfg.n_heads, cfg.n_kv_heads, cfg.dh)}")
     n, gb = _param_footprint(cfg)
@@ -8572,10 +8738,495 @@ def phase_vlm():
     launches["vlm_train"] = _vlm_train()
     log(f"[vlm] (b) in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    _, launches["vlm_shard"] = _vlm_shard()
+    launches["vlm_shard"] = _vlm_shard()
     log(f"[vlm] (c) in {time.perf_counter() - t0:.1f} s")
     _vlm_cpu_vs_card()
     log(f"[vlm] phase 25 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the Qwen2/Qwen3 dense family at full width
+# ---------------------------------------------------------------------------
+
+QWEN_DIR = ROOT / "build" / "qwen_shard"
+QWEN_CKPT_DIR = ROOT / "build" / "qwen_ckpt"
+BIAS_LEAVES = ("bq", "bk", "bv")
+
+
+def _bias_names(params):
+    return [n for n, _ in params.named_parameters()
+            if n.rsplit(".", 1)[-1] in BIAS_LEAVES]
+
+
+def _qwen_set_biases(params, cfg, opt=None, shard=None):
+    """Check-only: fill each bq, bk and bv of ``params`` with a draw of
+    std QWEN_BIAS_STD, leaf by leaf in the parameters' order from a CPU
+    generator seeded with QWEN_BIAS_SEED (the same numbers in every
+    process, whatever the depth before it), and AdamW's fp32 master copy
+    in ``opt``; with a sharding context ``shard`` a rank keeps its slice
+    of each whole draw.  Returns the names of the leaves set."""
+    import torch
+    g = torch.Generator().manual_seed(QWEN_BIAS_SEED)
+    names = []
+    with torch.no_grad():
+        for i, (name, p) in enumerate(params.named_parameters()):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf not in BIAS_LEAVES:
+                continue
+            whole = QWEN_BIAS_STD * torch.randn(
+                cfg.q_dim if leaf == "bq" else cfg.kv_dim, generator=g)
+            part = whole if shard is None else shard.shard_tensor(name, whole)
+            p.copy_(part.to(p.device, p.dtype))
+            if opt is not None:
+                opt["master"][i].copy_(p.float())
+            names.append(name)
+    return names
+
+
+def _bias_snapshot(params, opt):
+    """AdamW's fp32 master copies of the bias leaves (the bf16 leaves are
+    their roundings: at lr 3e-6 a step moves a bias of std 0.5 by less
+    than half a bf16 ulp, 2^-10 to 2^-9 there, and may leave the whole
+    bf16 leaf as it was)."""
+    return {n: m.detach().cpu().clone() for (n, _), m in
+            zip(params.named_parameters(), opt["master"])
+            if n.rsplit(".", 1)[-1] in BIAS_LEAVES}
+
+
+@contextlib.contextmanager
+def biased_train_state(snapshots):
+    """Check-only: ``launch/train.py``'s ``init_train_state`` followed by
+    :func:`_qwen_set_biases` (the biases and AdamW's master copy), and a
+    snapshot of the bias leaves' master copies (:func:`_bias_snapshot`)
+    appended to ``snapshots`` after the draw and after each step, while
+    the block runs."""
+    from repro_torch.launch import train as train_cli
+
+    real_init, real_make = train_cli.init_train_state, \
+        train_cli.make_train_step
+
+    def init(cfg, *args, **kwargs):
+        params, opt = real_init(cfg, *args, **kwargs)
+        _qwen_set_biases(params, cfg, opt)
+        snapshots.append(_bias_snapshot(params, opt))
+        return params, opt
+
+    def make(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def stepped(params, opt, batch):
+            out = step(params, opt, batch)
+            snapshots.append(_bias_snapshot(params, opt))
+            return out
+        return stepped
+
+    train_cli.init_train_state, train_cli.make_train_step = init, make
+    try:
+        yield snapshots
+    finally:
+        train_cli.init_train_state, train_cli.make_train_step = \
+            real_init, real_make
+
+
+def _moved_each_step(snapshots, tag):
+    """Every bias leaf's master copy changes from each snapshot to the
+    next."""
+    import torch
+    still = [(i, n) for i, (a, b) in enumerate(zip(snapshots, snapshots[1:]))
+             for n in a if torch.equal(a[n], b[n])]
+    check(len(snapshots) > 1 and not still,
+          f"{tag} bias leaves that a step left as they were: {still[:6]}")
+
+
+def _qwen_draw(arch, tag, layers=None):
+    """The memory reckoned from the shapes and printed beside the card's
+    free memory before the draw; ``init_lm`` seed 0 on the card, then the
+    biases (:func:`_qwen_set_biases`).  Returns (cfg, params)."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = _arch_cfg(arch, layers)
+    check((cfg.n_heads, cfg.n_kv_heads, cfg.dh) == QWEN_HEADS[arch],
+          f"{arch}'s heads {(cfg.n_heads, cfg.n_kv_heads, cfg.dh)}")
+    n, gb = _param_footprint(cfg)
+    layer = _param_footprint(cfg.with_(n_layers=cfg.n_layers + 1))[1] - gb
+    fixed = gb - layer * cfg.n_layers
+    # the table, drawn last, passes through an fp32 copy (layers.randn)
+    draw = 4 * cfg.vocab_size * cfg.d_model / 1e9
+    spare = max(QWEN72_HEADROOM_GB, draw)
+    free, total = torch.cuda.mem_get_info()
+    deepest = int((free / 1e9 - spare - fixed) // layer)
+    log(f"{tag} memory reckoned before the draw: {cfg.n_layers} of "
+        f"{get_config(arch).n_layers} layers, {n / 1e9:.3f} B params, "
+        f"{gb:.2f} GB in bf16 ({layer:.3f} GB a layer beside {fixed:.2f} GB "
+        f"of table, head and final norm); the card has {free / 1e9:.2f} of "
+        f"{total / 1e9:.2f} GB free, so the deepest cut that leaves "
+        f"{spare:.2f} GB (the table's fp32 draw {draw:.2f} GB, then pools "
+        f"and activations at least {QWEN72_HEADROOM_GB:g}) is {deepest} "
+        f"layers")
+    check(cfg.n_layers <= deepest, f"{arch} at {cfg.n_layers} layers needs "
+          f"{gb:.2f} GB, {free / 1e9:.2f} GB free")
+    params = _moe_init(cfg, tag)
+    if cfg.qkv_bias:
+        names = _qwen_set_biases(params, cfg)
+        check(len(names) == 3 * cfg.n_layers, f"{tag} {len(names)} bias "
+              f"leaves in {cfg.n_layers} layers")
+        log(f"{tag} {len(names)} QKV bias leaves drawn with std "
+            f"{QWEN_BIAS_STD} from seed {QWEN_BIAS_SEED}")
+    return cfg, params
+
+
+def _qwen_biases_seen(cfg, params, tag):
+    """``make_prefill_step`` on 2 x 64 random tokens with the drawn biases
+    and with them zeroed (they are put back after): the logits must move
+    by more than DECODE_VS_PREFILL_TOL of the largest, or the paths above
+    proved nothing of the add."""
+    import torch
+    from repro_torch.runtime.executor import make_prefill_step
+
+    g = torch.Generator(device="cuda").manual_seed(26)
+    toks = torch.randint(0, cfg.vocab_size, (DECODE_VS_PREFILL_LANES,
+                                             QWEN_DECODE_VS_PREFILL_T),
+                         generator=g, device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg)
+    biased = prefill(params, {"tokens": toks}).float()
+    kept = {n: params.get_parameter(n).detach().clone()
+            for n in _bias_names(params)}
+    with torch.no_grad():
+        for n in kept:
+            params.get_parameter(n).zero_()
+        plain = prefill(params, {"tokens": toks}).float()
+        for n, t in kept.items():
+            params.get_parameter(n).copy_(t)
+    moved = ((biased - plain).abs().max() / biased.abs().max()).item()
+    log(f"{tag} the prefill's logits with the biases zeroed lie {moved:.3e} "
+        f"of the largest from the biased ones (must exceed "
+        f"{DECODE_VS_PREFILL_TOL:.0e})")
+    check(bool(torch.isfinite(biased).all()), f"{tag} prefill not finite")
+    check(moved > DECODE_VS_PREFILL_TOL, f"{tag} the biases do not move "
+          "the logits")
+
+
+def _qwen_train():
+    """(d) ``train --arch qwen2.5-14b --layers QWEN_TRAIN_LAYERS --batch 1
+    --seq QWEN_TRAIN_SEQ --lr QWEN_TRAIN_LR`` for QWEN_TRAIN_STEPS steps
+    with the searched plan's remat, the biases drawn after
+    ``init_train_state``
+    (:func:`biased_train_state`): finite losses that fall, every bias
+    leaf's master copy changed by each step, the kernels' launches a step exact
+    (:func:`_dense_launches`), no plain version, step ms and peak.  Then
+    on a fresh draw with the same biases two steps timed and one profiled
+    (the busy share and device ms by category); the lr witness at
+    QWEN_WITNESS_LR (:func:`_dense_lr_witness`); and step 1's loss and gradients twice:
+    the same bits both times, the loss the CLI's.  Returns the CLI's
+    launches."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.executor import init_train_state, make_train_step
+
+    cfg = _arch_cfg(QWEN2_5_14B, QWEN_TRAIN_LAYERS)
+    L = cfg.n_layers
+    argv = ["--arch", QWEN2_5_14B, "--layers", str(L), "--batch", "1",
+            "--seq", str(QWEN_TRAIN_SEQ), "--steps", str(QWEN_TRAIN_STEPS),
+            "--lr", str(QWEN_TRAIN_LR), "--log-every", "1"]
+    n, _ = _param_footprint(cfg)
+    free, _ = torch.cuda.mem_get_info()
+    log(f"[qwen2] (d) python -m repro_torch.launch.train {' '.join(argv)}: "
+        f"{n / 1e9:.3f} B params, {16 * n / 1e9:.2f} GB with AdamW's fp32 "
+        f"master and moments; the card has {free / 1e9:.2f} GB free")
+    counts = _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    snaps = []
+    with recorded_train_steps(counts) as seen, biased_train_state(snaps), \
+            plain_calls() as plain:
+        hist = train_cli.main(argv)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = counts()
+    losses = [h["loss"] for h in hist]
+    remat = seen["remat_segments"][0]
+    on = bool(remat and remat[0])
+    log(f"[qwen2] (d) losses {losses}, remat {remat}")
+    check(len(losses) == QWEN_TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses), f"(d) losses {losses}")
+    check(losses[-1] < losses[0], f"(d) the losses do not fall: {losses}")
+    check(not plain, f"(d) plain versions ran on the training path: {plain}")
+    _moved_each_step(snaps, "(d)")
+    per_step = _dense_launches(L, on)
+    for i, got in enumerate(seen["launches"], 1):
+        check(all(got[k] == v for k, v in per_step.items()),
+              f"(d) step {i} launched {got}, not {per_step}")
+    del hist
+    _free_cuda()
+    opt_cfg = AdamWConfig(lr=train_cli.parse_args(argv).lr)
+    gen = train_cli.batches(cfg, train_cli.parse_args(argv))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(gen).items()}
+    params, opt = init_train_state(cfg, seed=0, opt_cfg=opt_cfg,
+                                   device="cuda")
+    _qwen_set_biases(params, cfg, opt)
+    step = make_train_step(cfg, opt_cfg, remat_segments=remat)
+    wall_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    busy, kernels, cats = profile_step(
+        "qwen2.5-14b train", lambda: step(params, opt, batch),
+        sum(wall_ms) / len(wall_ms), n=1)
+    del params, opt, step
+    _free_cuda()
+    batches = [batch] + [{k: torch.from_numpy(v).to("cuda") for k, v in
+                          next(gen).items()}
+                         for _ in range(QWEN_TRAIN_STEPS - 1)]
+    witness = _dense_lr_witness(cfg, batches, QWEN_WITNESS_LR)
+    check(all(math.isfinite(x) for v in witness.values() for x in v),
+          f"(d) lr witness losses not finite: {witness}")
+    first_rel = abs(witness["kernels"][0] - witness["plain"][0]) / abs(
+        witness["plain"][0])
+    log(f"[qwen2] (d) lr witness, {L} layers, remat, lr "
+        f"{QWEN_WITNESS_LR:g}, {QWEN_TRAIN_STEPS} steps from the same "
+        f"weights and biases: losses through the flash kernels "
+        f"{witness['kernels']}, through the plain attention autodiffed by "
+        f"torch {witness['plain']}; step 1 rel {first_rel:.2e} (tol "
+        f"{TOL['bfloat16']:.0e})")
+    check(first_rel <= TOL["bfloat16"], "(d) the witness's first losses "
+          "differ between the kernels and the plain attention")
+    del batches
+    params = init_lm(cfg, seed=0, device="cuda")
+    _qwen_set_biases(params, cfg)
+    leaves = list(params.parameters())
+    runs = []
+    for _ in range(2):
+        loss = lm_loss(params, batch, cfg, remat_segments=remat)
+        runs.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+        del loss
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    first = float(runs[0][0])
+    names = [nm for nm, _ in params.named_parameters()]
+    bias_g = max(float(g.float().abs().max()) for nm, g in
+                 zip(names, runs[0][1]) if nm.rsplit(".", 1)[-1] in
+                 BIAS_LEAVES)
+    log(f"[qwen2] (d) step 1 from seed 0 twice: loss and {len(leaves)} "
+        f"gradient leaves bitwise equal {same}; loss {first!r}, the CLI's "
+        f"step 1 {losses[0]!r}; the bias gradients' max |g| {bias_g:.3e}")
+    check(same, "(d) step 1's loss or gradients differ run to run")
+    check(first == losses[0], "(d) step 1's loss is not the CLI's")
+    check(bias_g > 0, "(d) the biases have no gradient")
+    del params, leaves, runs, batch
+    _free_cuda()
+    result = {
+        "arch": QWEN2_5_14B, "layers": L, "params": n,
+        "tokens": QWEN_TRAIN_SEQ, "remat_segments": remat, "losses": losses,
+        "step_ms": seen["step_ms"],
+        "tok_per_s": QWEN_TRAIN_SEQ * 1e3 / seen["step_ms"][-1],
+        "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_busy_share": busy * len(wall_ms) / sum(wall_ms),
+        "device_ms_by_category": cats, "kernels_per_step": kernels,
+        "peak_mem_gb": peak_gb, "launches_per_step": seen["launches"][0]}
+    log("[qwen2] (d) " + json.dumps(result))
+    return launches
+
+
+def _qwen_ckpt():
+    """(d) the checkpoint round trip of the biased model through the train
+    CLI, on the reduced bf16 qwen2.5-14b (QWEN_CKPT_ARGV) with
+    ``--ckpt-dir --ckpt-every QWEN_CKPT_AT``: a fresh draw (seed 1)
+    restores the files, its bias leaves the saved step's bit for bit, and
+    takes the next step: its loss is the unbroken run's, bit for bit (the
+    biases' master copies compared); the files are deleted."""
+    import torch
+    from repro_torch.checkpointing import restore_train_state
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.executor import init_train_state, make_train_step
+
+    ck = QWEN_CKPT_DIR
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = [*QWEN_CKPT_ARGV, "--ckpt-dir", str(ck), "--ckpt-every",
+            str(QWEN_CKPT_AT)]
+    snaps = []
+    with recorded_train_steps() as seen, biased_train_state(snaps), \
+            plain_calls() as plain:
+        hist = train_cli.main(argv)
+    losses = [h["loss"] for h in hist]
+    check(not plain, f"(d) plain versions ran: {plain}")
+    check(all(math.isfinite(x) for x in losses), f"(d) losses {losses}")
+    _moved_each_step(snaps, "(d) reduced")
+    args = train_cli.parse_args(argv)
+    cfg = train_cli.config_from_args(args)
+    opt_cfg = AdamWConfig(lr=args.lr)
+    params, opt = init_train_state(cfg, seed=1, opt_cfg=opt_cfg,
+                                   device="cuda")
+    _, _, at = restore_train_state(params, opt, ck)
+    n_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    shutil.rmtree(ck, ignore_errors=True)
+    check(at == QWEN_CKPT_AT and opt["step"] == QWEN_CKPT_AT,
+          f"(d) restored step {at}, AdamW step {opt['step']}")
+    back = _bias_snapshot(params, opt)
+    same_bias = all(torch.equal(back[n], snaps[at][n]) for n in back)
+    gen = train_cli.batches(cfg, args)
+    batches = [next(gen) for _ in range(at + 1)]
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in batches[at].items()}
+    step = make_train_step(cfg, opt_cfg,
+                           remat_segments=seen["remat_segments"][0])
+    resumed = float(step(params, opt, batch)["loss"])
+    log(f"[qwen2] (d) reduced {cfg.name} (d {cfg.d_model}, {cfg.n_heads} "
+        f"heads over {cfg.n_kv_heads}, {cfg.n_layers} layers): saved after "
+        f"step {at} ({n_bytes / 1e6:.1f} MB), restored into a fresh draw: "
+        f"the {len(back)} bias leaves the saved ones bit for bit "
+        f"{same_bias}; step {at + 1}'s loss {resumed!r} against the "
+        f"unbroken run's {losses[at]!r}")
+    check(same_bias, "(d) the restored biases are not the saved ones")
+    check(resumed == losses[at], "(d) the resumed step's loss is not the "
+          "unbroken run's")
+    del params, opt, step
+    _free_cuda()
+
+
+def _qwen_shard():
+    """(e) QWEN_SHARD_RANKS gloo ranks at QWEN_SHARD_LAYERS layer on
+    QWEN_SHARD_MESH against one process (:func:`_lm_shard`), the drawn
+    biases in both, the bias leaves printed (a rank's bias gradient is its
+    heads' slice summed over ``model``, then cut over ``data``): the
+    vocabulary split over ``model`` (152064 / 2), each bias's ZeRO half on
+    every rank.  Returns the ranks' launches."""
+    cfg = _arch_cfg(QWEN2_5_14B, QWEN_SHARD_LAYERS)
+    case = LMShardCase("[qwen2] (e)", cfg, str(QWEN_DIR),
+                       ("head", "blocks.0.attn.bq"), QWEN_SHARD_RANKS,
+                       QWEN_SHARD_MESH, QWEN_SHARD_LANES, QWEN_SHARD_SEQ,
+                       QWEN_SHARD_STEPS, QWEN_SHARD_LR, QWEN_SHARD_TIMEOUT_S)
+    biases = [f"blocks.{i}.attn.{b}" for i in range(cfg.n_layers)
+              for b in BIAS_LEAVES]
+    _, launches, res = _lm_shard(case, show=biases)
+    (data, model), d = QWEN_SHARD_MESH, cfg.d_model
+    local = (model, {"head": [d // data, cfg.vocab_size // model],
+                     "blocks.0.attn.bq": [cfg.q_dim // data]})
+    got = [(r["tp"], r["shapes"]) for r in res]
+    check(all(g == local for g in got) and all(
+        r["split_vocab"] for r in res), f"(e) TP degree, head and bq shards "
+          f"{got}, not {local}, or the vocabulary whole")
+    return launches
+
+
+def _qwen_cpu_vs_card():
+    """(f) reduced fp32 qwen2.5-14b at d 640 with 10 query heads over 2 KV
+    heads of dh 64 (a GQA group of 5; dh 64 as the card's kernels take 64,
+    112 or 128) and the drawn biases, 2 lanes of QWEN_FP32_SEQ tokens: the
+    card's loss, logits and every gradient (the biases' among them)
+    against the CPU's plain versions on the same weights, within REL_TOL
+    of each one's largest magnitude; QWEN_FP32_DECODE greedy
+    ``make_serve_step`` steps from each lane's first token: the same
+    tokens, the logits within REL_TOL; the card's calls launch the flash
+    forward and backward and RMSNorm."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (init_decode_state, init_lm, lm_forward,
+                                    lm_loss)
+    from repro_torch.runtime.executor import make_serve_step
+
+    cfg = get_config(QWEN2_5_14B).reduced(d_model=640).with_(
+        n_heads=10, n_kv_heads=2, head_dim=64, dtype=torch.float32)
+    g = torch.Generator().manual_seed(26)
+    toks = torch.randint(0, cfg.vocab_size, (QWEN_FP32_BATCH,
+                                             QWEN_FP32_SEQ + 1), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params_cpu = init_lm(cfg, seed=0, device="cpu")
+    _qwen_set_biases(params_cpu, cfg)
+    out = {}
+    for dev, params in (("cpu", params_cpu),
+                        ("cuda", copy.deepcopy(params_cpu).to("cuda"))):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        counts = _zero_counts()
+        loss = lm_loss(params, b, cfg)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        with torch.no_grad():
+            logits = lm_forward(params, b["tokens"], cfg)[0]
+            step = make_serve_step(cfg)
+            state = init_decode_state(cfg, QWEN_FP32_BATCH, QWEN_FP32_DECODE,
+                                      device=dev)
+            tok, dec, picked = b["tokens"][:, 0], [], []
+            for _ in range(QWEN_FP32_DECODE):
+                lg, state = step(params, state, tok)
+                tok = lg.argmax(-1)
+                dec.append(lg.cpu())
+                picked.append(tok.cpu())
+        out[dev] = (loss.item(), logits.cpu(), [x.cpu() for x in grads],
+                    torch.stack(dec), torch.stack(picked), counts())
+    names = [n for n, _ in params_cpu.named_parameters()]
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    e_logits = rel_err(out["cuda"][1], out["cpu"][1])
+    e_grads = {n: rel_err(a, b) for n, a, b in
+               zip(names, out["cuda"][2], out["cpu"][2])}
+    worst = max(e_grads, key=e_grads.get)
+    e_dec = rel_err(out["cuda"][3], out["cpu"][3])
+    same = torch.equal(out["cuda"][4], out["cpu"][4])
+    n = out["cuda"][5]
+    log(f"[qwen2] (f) reduced fp32 {QWEN2_5_14B} (d 640, 10 query heads "
+        f"over 2 KV heads of dh 64, {cfg.n_layers} layers, biases of std "
+        f"{QWEN_BIAS_STD}), {QWEN_FP32_BATCH} lanes of {QWEN_FP32_SEQ} "
+        f"tokens: card against the CPU: loss rel {rel:.3e}, logits "
+        f"{e_logits:.3e}, worst gradient {worst} {e_grads[worst]:.3e}, the "
+        "biases' " + ", ".join(f"{k} {v:.3e}" for k, v in e_grads.items()
+                               if k.rsplit(".", 1)[-1] in BIAS_LEAVES)
+        + f"; {QWEN_FP32_DECODE} greedy decode steps: logits {e_dec:.3e}, "
+        f"the same tokens {same} (tol {REL_TOL['float32']:.0e}); the card's "
+        f"launches {n}")
+    check(max(rel, e_logits, e_grads[worst], e_dec) <= REL_TOL["float32"],
+          "(f) the reduced fp32 model differs between the card and the CPU")
+    check(same, "(f) the card's greedy tokens are not the CPU's")
+    check(n["flash_attention"] > 0 and n["flash_attention_bwd"] > 0
+          and n["rmsnorm"] > 0 and n["rmsnorm_bwd"] > 0,
+          f"(f) the card's calls launched {n}")
+
+
+def phase_qwen2():
+    """Phase 26: the Qwen2/Qwen3 dense family at full width, bf16, random
+    weights from seed 0, the QKV biases drawn after (:func:`_qwen_draw`).
+    (a) qwen3-8b at 36 layers and (b) qwen2.5-14b at 48 through the paged
+    engine twice (:func:`_moe_paged`: every request complete, flash and
+    RMSNorm at the counted launches, no plain version, the same tokens and
+    first-step bits, a decode step's wall and busy ms beside its bound);
+    (b) also the dense-cache engine (:func:`_moe_dense_serve`), decode
+    against the teacher-forced prefill at phase 11's gate and the biases
+    seen in the logits (:func:`_qwen_biases_seen`); (c) qwen2-72b at
+    QWEN72_LAYERS of 80 layers, paged; (d) training (:func:`_qwen_train`)
+    and the checkpoint round trip (:func:`_qwen_ckpt`); (e) 4 gloo ranks
+    (:func:`_qwen_shard`); (f) reduced fp32 card against CPU
+    (:func:`_qwen_cpu_vs_card`).  Returns {path: launches}."""
+    t_phase = time.perf_counter()
+    _free_cuda()
+    launches = {}
+    for arch, path, tag, layers in (
+            (QWEN3_8B, "qwen3_8b_serve", "[qwen2] (a)", None),
+            (QWEN2_5_14B, "qwen2_5_14b_serve", "[qwen2] (b)", None),
+            (QWEN2_72B, "qwen2_72b_serve", "[qwen2] (c)", QWEN72_LAYERS)):
+        t0 = time.perf_counter()
+        cfg, params = _qwen_draw(arch, tag, layers)
+        launches[path], _ = _moe_paged(cfg, params, tag)
+        if arch == QWEN2_5_14B:
+            launches["qwen2_5_14b_dense_serve"], _ = _moe_dense_serve(
+                cfg, params, tag)
+            _decode_vs_prefill(cfg, params, QWEN_DECODE_VS_PREFILL_T,
+                               DECODE_VS_PREFILL_TOL, tag)
+            _qwen_biases_seen(cfg, params, tag)
+        del params
+        _free_cuda()
+        log(f"{tag} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["qwen2_5_14b_train"] = _qwen_train()
+    _qwen_ckpt()
+    log(f"[qwen2] (d) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["qwen2_5_14b_shard"] = _qwen_shard()
+    log(f"[qwen2] (e) in {time.perf_counter() - t0:.1f} s")
+    _qwen_cpu_vs_card()
+    log(f"[qwen2] phase 26 in {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -9236,7 +9887,13 @@ def phase_timings():
              "internvl2_decode": _flash_timing(
                  DECODE_SLOTS, 1, MAX_CONTEXT, decode_L,
                  [MAX_CONTEXT] * DECODE_SLOTS, heads=VLM_HEADS),
-             "internvl2_train": _flash_train_timing(*VLM_TRAIN_ATTN)}),
+             "internvl2_train": _flash_train_timing(*VLM_TRAIN_ATTN),
+             # phase 26: qwen2.5-14b's paged decode (H 40, KV 8, dh 128: a
+             # GQA group of 5) and its causal training shape (B 1, S 4096)
+             "qwen2_5_14b_decode": _flash_timing(
+                 DECODE_SLOTS, 1, MAX_CONTEXT, decode_L,
+                 [MAX_CONTEXT] * DECODE_SLOTS, heads=QWEN_HEADS[QWEN2_5_14B]),
+             "qwen2_5_14b_train": _flash_train_timing(*QWEN_TRAIN_ATTN)}),
         ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "decode", {
              "decode": _rmsnorm_timing(DECODE_SLOTS, 2560),
@@ -9257,7 +9914,11 @@ def phase_timings():
                  PREFILL_BATCH * PREFILL_CHUNK, 7168),
              # phase 25: internvl2-26b's decode and training rows
              "internvl2_decode": _rmsnorm_timing(VLM_NORM_ROWS[0], 6144),
-             "internvl2_train": _rmsnorm_timing(VLM_NORM_ROWS[1], 6144)}),
+             "internvl2_train": _rmsnorm_timing(VLM_NORM_ROWS[1], 6144),
+             # phase 26: qwen2.5-14b's decode and training rows (d 5120),
+             # qwen2-72b's decode rows (d 8192)
+             **{f"qwen2_{rows}x{d}": _rmsnorm_timing(rows, d)
+                for rows, d in QWEN_NORM_FWD}}),
         ("rmsnorm_bwd", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:33", "train", {
              "train": _rmsnorm_bwd_timing(tokens, 1024),
@@ -9268,7 +9929,9 @@ def phase_timings():
                  DENSE_BATCH * DENSE_SEQ * 32, 128),
              # phase 25: internvl2-26b's training rows
              "internvl2_train": _rmsnorm_bwd_timing(VLM_NORM_ROWS[1],
-                                                    6144)}),
+                                                    6144),
+             # phase 26: qwen2.5-14b's training rows
+             "qwen2_5_14b_train": _rmsnorm_bwd_timing(*QWEN_NORM_BWD)}),
         ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd_scan.py:72", "train",
          {"train": ssd_fwd, "zamba2_prefill": zamba2_ssd,
@@ -9288,7 +9951,9 @@ def phase_timings():
               WHISPER_TP_LOCAL[0], WHISPER_FRAMES, *WHISPER_TP_LOCAL[1:],
               causal=False),
           # phase 25: internvl2-26b's causal training shape
-          "internvl2_train": _flash_bwd_timing(*VLM_TRAIN_ATTN)}),
+          "internvl2_train": _flash_bwd_timing(*VLM_TRAIN_ATTN),
+          # phase 26: qwen2.5-14b's causal training shape (G = 5)
+          "qwen2_5_14b_train": _flash_bwd_timing(*QWEN_TRAIN_ATTN)}),
         # K14: the backward at S != T, phase 23's cross-attention (its
         # launches are also among flash_attention_bwd's)
         ("flash_attention_bwd_cross", "cuda",
@@ -9478,6 +10143,7 @@ def main() -> int:
             phase_k13(errs)
             phase_k14(errs)
             phase_vlm_kernels(errs)
+            phase_qwen2_kernels(errs)
         if begin(7):
             timed = phase_timings()
         if begin(3):
@@ -9513,6 +10179,13 @@ def main() -> int:
             if not run(2):      # the kernels at internvl2's shapes first
                 phase_vlm_kernels(errs)
             launches.update(phase_vlm())
+        POOL.close()
+        if run(26):
+            POOL.open()
+        if begin(26):
+            if not run(2):      # the kernels at qwen2.5-14b's shapes first
+                phase_qwen2_kernels(errs)
+            launches.update(phase_qwen2())
         POOL.close()
         if begin(4):
             phase_cpu_vs_card()

@@ -2,10 +2,9 @@
 
 Each arch lives in ``configs/<id>.py`` and registers itself here;
 ``get_config(name)`` is the lookup used by the launcher (``--arch <id>``).
-Only the archs the port serves or trains so far are registered; the others
-follow in ``ROADMAP.md`` order.  ``paper_models`` adds the paper's evaluation
-models as search workloads and registers the runnable ``gpt3-15b`` config,
-as the reference does.
+Every arch of the reference is registered.  ``paper_models`` adds the
+paper's evaluation models as search workloads and registers the runnable
+``gpt3-15b`` config, as the reference does.
 """
 from __future__ import annotations
 
@@ -15,7 +14,8 @@ from typing import Dict, List
 from repro_torch.models.common import ModelConfig
 
 _ARCH_MODULES = ["arctic_480b", "internvl2_26b", "kimi_k2_1t_a32b",
-                 "mamba2_370m", "qwen3_4b", "whisper_medium", "zamba2_1_2b"]
+                 "mamba2_370m", "qwen2_5_14b", "qwen2_72b", "qwen3_4b",
+                 "qwen3_8b", "whisper_medium", "zamba2_1_2b"]
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
