@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero before the final line is printed).
 The ranks and the references "in a process of its own" of phases 8,
-15-18, 20, 24, 25 and 26 run in ``RankPool``'s four processes, kept from one
+15-18, 20, 24, 25, 26 and 27 run in ``RankPool``'s four processes, kept from one
 batch of ranks to the next within a stretch of phases, as do the ranks of
 ``train --ranks`` and ``train --pipeline --ranks``; ``serve --ranks``
 spawns its own:
@@ -524,6 +524,18 @@ spawns its own:
    4096 x 5120 and 8 x 8192 (its backward at 4096 x 5120), in bf16 and
    fp32, each against its plain version and a second call the same bits
    (``--phases 26`` runs these first); phase 7 times them.
+27. the dry run (``launch/dryrun.py``, ``meta`` tensors on the host's
+   CPU, its jobs dealt over ``RankPool``'s four processes): (a) one row
+   for each of the 10 archs on the 256-card production mesh at the shape
+   its family stresses, with its bottleneck, three terms and
+   ``modeled_fits_80g``; (b) the dry run of phase 16's step (qwen3-4b at 4
+   layers, 4 x 4096, (data 2, model 2), TP + ZeRO-3 + remat) on the mapping
+   ``{"data": 2, "model": 2}``: its bytes a rank, in all and by opcode,
+   must equal to the byte what each of phase 16's ranks sent in its step
+   (with ``--phases 27`` the phase runs that 4-rank step itself); (c) its
+   argument bytes must equal each rank's parameters, AdamW state and batch
+   rows; (d) the dry run of phase 9's step on ``{"data": 1, "model": 1}``
+   beside phase 9's measured step time and peak, as ratios, printed only.
 
 Phase 2 also holds the kernels at phase 17's TP-local shapes against
 their plain versions, and phase 7 times the SSD scan at a rank's mamba2
@@ -556,7 +568,7 @@ log-sum-exp) beside their plain versions and
 ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and its
 autograd backward (the library yardsticks, never on the port's path).
 The phases run in the order 1, 2, 7, 3, 19, 20, 21, 22, 23, 24, 25, 26, 4, 5,
-14, 6, 9, 10, 11, 12, 13, 15, 16, 17, 18, 8: phase 7
+14, 6, 9, 10, 11, 12, 13, 15, 16, 17, 18, 8, 27: phase 7
 is the first to profile (``phase_timings`` says why), and its ``kernels``
 line, which reads every path's launches, is printed at the end; the total
 seconds, and each phase's in run order, are printed before the final
@@ -3074,6 +3086,8 @@ def phase_dense_train():
             model_flop / (mean_ms / 1e3) / 989e12,
     }
     log("[dense] " + json.dumps(result))
+    MEASURED["dense_train"] = {"step_ms": mean_ms, "busy_ms": busy_ms,
+                               "peak_bytes": peak_gb * 1e9}
     log("[profile] dense train step: top device kernels: " + "; ".join(
         f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
         for e in top))
@@ -4034,6 +4048,8 @@ def _pool_worker(idx, tasks, results):
 
 
 POOL = RankPool()
+# what phases 9 and 16 measured, for phase 27's dry run beside them
+MEASURED = {}
 
 
 @contextlib.contextmanager
@@ -4399,6 +4415,16 @@ def _shard_batches(cfg):
             for _ in range(SHARD_STEPS)]
 
 
+def _held_bytes(params, opt, local):
+    """Bytes of a rank's parameters, AdamW state (master and moments) and
+    rows of the batch: what the dry run calls its argument bytes."""
+    def n(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    return {"param_bytes": n(params.parameters()),
+            "optimizer_bytes": n([*opt["master"], *opt["m"], *opt["v"]]),
+            "input_bytes": n(local.values())}
+
+
 def _shard_launches(L, calls=1):
     """Launches of ``calls`` losses and gradients with remat on every
     layer, on one rank or the single process: per layer the flash forward
@@ -4534,6 +4560,7 @@ def shard_rank(rank, world, run_dir):
         with plain_calls() as plain:
             for b in batches:
                 sent = step.shard.traffic.bytes_sent
+                per_op = dict(step.shard.traffic.per_op)
                 t0 = time.perf_counter()
                 m = step(params, opt, b)
                 torch.cuda.synchronize()
@@ -4541,9 +4568,14 @@ def shard_rank(rank, world, run_dir):
                              "grad_norm": float(m["grad_norm"]),
                              "ms": (time.perf_counter() - t0) * 1e3,
                              "gloo_bytes": step.shard.traffic.bytes_sent
-                             - sent})
+                             - sent,
+                             "gloo_per_op": {
+                                 k: v - per_op[k] for k, v in
+                                 step.shard.traffic.per_op.items()}})
         out.update(steps=hist, launches=counts(), plain=plain,
-                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   held=_held_bytes(params, opt, step.shard.local_batch(
+                       batches[0], torch.device("cuda"))))
         pathlib.Path(f"{run_dir}/rank{rank}.json").write_text(
             json.dumps(out))
         dist.barrier()
@@ -4735,6 +4767,9 @@ def phase_shard():
         "one card: not sharded training's speed)")
     launches = {k: sum(r["launches"][k] for r in res)
                 for k in res[0]["launches"]}
+    # phase 27 holds the dry run of this step against these ranks
+    MEASURED["shard"] = [dict(r["held"], bytes_sent=r["steps"][0][
+        "gloo_bytes"], per_op=r["steps"][0]["gloo_per_op"]) for r in res]
     train_launches = _shard_train(ref)
     ref_launches = dict(ref["launches"])
     del ref
@@ -5835,9 +5870,9 @@ def counted_serve_rank(rank, world, run_dir, cfg, args, reqs):
     sent = {"n": 0}
     real = sharding.Traffic.add
 
-    def add(self, n):
+    def add(self, n, op):
         sent["n"] += n
-        real(self, n)
+        real(self, n, op)
 
     sharding.Traffic.add = add
     counts = _zero_counts()
@@ -10094,6 +10129,210 @@ def compare_flash_bwd(parent: str) -> int:
     return 1 if differ else 0
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the dry run beside the card's own ranks
+# ---------------------------------------------------------------------------
+
+DRY_DIR = ROOT / "build" / "dry"
+DRY_TIMEOUT_S = 300
+# (a) one row for each arch on the 256-card production mesh, at the shape
+# its family stresses; the jobs are dealt by hand over the pool's four
+# processes, the two 61- and 80-layer training rows alone, so that the
+# phase takes about as long as its longest row: (b)'s dry run of phase
+# 16's step ("shard") and (d)'s of phase 9's ("dense") ride along
+DRY_JOBS = [
+    [("row", "kimi-k2-1t-a32b", "train_4k")],
+    [("row", "qwen2-72b", "train_4k")],
+    [("row", "qwen3-4b", "train_4k"), ("dense",),
+     ("row", "whisper-medium", "prefill_32k")],
+    [("shard",), ("row", "arctic-480b", "prefill_32k"),
+     ("row", "internvl2-26b", "decode_32k"),
+     ("row", "qwen2.5-14b", "prefill_32k"), ("row", "qwen3-8b", "decode_32k"),
+     ("row", "zamba2-1.2b", "long_500k"),
+     ("row", "mamba2-370m", "long_500k")],
+]
+
+
+def _dry_policy():
+    from repro_torch.runtime import ShardPolicy
+    return ShardPolicy(tp=True, zero=True, remat_segments=(True,))
+
+
+def dry_rank(rank, run_dir):
+    """Phase 27: this pool process's share of DRY_JOBS, on the host's CPU
+    (``meta`` tensors: no card, no process group); saves the results."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import InputShape
+
+    out = []
+    for job in DRY_JOBS[rank]:
+        t0 = time.perf_counter()
+        if job[0] == "row":
+            res = dryrun.run_one(job[1], job[2], verbose=False)
+        elif job[0] == "shard":
+            c = dryrun.dry_step(
+                _shard_cfg(), InputShape("shard", SHARD_SEQ, SHARD_BATCH,
+                                         "train"),
+                {"data": SHARD_MESH[0], "model": SHARD_MESH[1]},
+                policy=_dry_policy())
+            res = {"bytes_sent": c.traffic.bytes_sent,
+                   "per_op": c.traffic.per_op, "param_bytes": c.param_bytes,
+                   "optimizer_bytes": c.optimizer_bytes,
+                   "input_bytes": c.input_bytes,
+                   "argument_bytes": c.argument_bytes}
+        else:
+            res = dryrun.dry_row(
+                get_config("qwen3-4b").with_(n_layers=DENSE_LAYERS),
+                InputShape("dense_train", DENSE_SEQ, DENSE_BATCH, "train"),
+                {"data": 1, "model": 1}, arch="qwen3-4b",
+                policy=_dry_policy())
+        out.append({"job": job, "s": time.perf_counter() - t0,
+                    "result": res})
+    pathlib.Path(f"{run_dir}/dry{rank}.json").write_text(json.dumps(out))
+
+
+def dry_shard_rank(rank, world, run_dir):
+    """Phase 27 without phase 16 (``--phases 27``): one of phase 16's
+    ranks on the card, its one step, the bytes it sent and holds."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    torch.cuda.set_device(0)
+    init_distributed(rank, world, backend="gloo",
+                     init_method=f"file://{run_dir}/rendezvous",
+                     timeout_s=SHARD_TIMEOUT_S)
+    try:
+        cfg, pol = _shard_cfg(), _dry_policy()
+        mesh = make_local_mesh(SHARD_MESH[1])
+        params, opt = init_train_state(cfg, mesh=mesh, policy=pol, seed=0,
+                                       device="cuda")
+        step = make_train_step(cfg, mesh=mesh, policy=pol)
+        batch = _shard_batches(cfg)[0]
+        counts = _zero_counts()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        t = step.shard.traffic
+        res = dict(_held_bytes(params, opt, step.shard.local_batch(
+            batch, torch.device("cuda"))), bytes_sent=t.bytes_sent,
+            per_op=dict(t.per_op), launches=counts())
+        pathlib.Path(f"{run_dir}/shard{rank}.json").write_text(
+            json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dry_run():
+    """Phase 27: (a) the dry run's production rows, (b) and (c) its bytes
+    against phase 16's ranks, to the byte, (d) its one-card row beside
+    phase 9's measured step, printed only."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(DRY_DIR, ignore_errors=True)
+    DRY_DIR.mkdir(parents=True)
+    spawn_ranks(dry_rank, (str(DRY_DIR),), len(DRY_JOBS), "dry-run jobs",
+                timeout_s=DRY_TIMEOUT_S)
+    done = {}
+    for r in range(len(DRY_JOBS)):
+        for item in json.loads((DRY_DIR / f"dry{r}.json").read_text()):
+            done[tuple(item["job"])] = item
+    jobs_s = time.perf_counter() - t_phase
+    log(f"[dry] {len(done)} dry runs on the host's CPU in {jobs_s:.1f} s "
+        "(4 processes); seconds by job " + json.dumps(
+            {" ".join(k): round(v["s"], 1) for k, v in done.items()}))
+
+    # (a) the production rows
+    for job in (j for group in DRY_JOBS for j in group if j[0] == "row"):
+        row = done[job]["result"]
+        terms = (row["t_compute_s"], row["t_memory_s"],
+                 row["t_collective_s"])
+        check(all(math.isfinite(t) and t >= 0 for t in terms)
+              and row["hlo_flops"] > 0 and row["collective_bytes"] > 0,
+              f"(a) {job}: {row}")
+        check(row["bottleneck"] in ("compute", "memory", "collective"),
+              f"(a) {job}: bottleneck {row['bottleneck']}")
+        log(f"[dry] (a) {row['arch']} {row['shape']} on {row['mesh']} "
+            f"({row['chips']} cards): bottleneck {row['bottleneck']}; "
+            f"t_compute {row['t_compute_s']:.6f} s, t_memory "
+            f"{row['t_memory_s']:.6f} s (modeled; unfused "
+            f"{row['t_memory_unfused_s']:.6f}), t_collective "
+            f"{row['t_collective_s']:.6f} s; modeled_fits_80g "
+            f"{row['modeled_fits_80g']} (resident "
+            f"{row['modeled_resident_bytes_per_device'] / 1e9:.2f} GB); "
+            f"useful {row['useful_flops_ratio']:.3f}; per-opcode bytes a "
+            f"card {row['per_op_collectives']}; argument "
+            f"{row['memory']['argument_bytes'] / 1e9:.3f} GB, temp "
+            f"{row['memory']['temp_bytes'] / 1e9:.3f} GB a card")
+
+    # (b), (c): phase 16's ranks, or this phase's own run of that step
+    dry = done[("shard",)]["result"]
+    ranks = MEASURED.get("shard")
+    source = "phase 16's ranks"
+    if ranks is None:
+        shard_dir = DRY_DIR / "shard"
+        shard_dir.mkdir()
+        spawn_ranks(dry_shard_rank, (SHARD_RANKS, str(shard_dir)),
+                    SHARD_RANKS, "phase 16's step", timeout_s=SHARD_TIMEOUT_S)
+        ranks = [json.loads((shard_dir / f"shard{r}.json").read_text())
+                 for r in range(SHARD_RANKS)]
+        want = _shard_launches(SHARD_LAYERS)
+        for r, res in enumerate(ranks):
+            check(all(res["launches"][k] == v for k, v in want.items()),
+                  f"(b) rank {r}: launches {res['launches']}, not {want}")
+        source = "phase 27's own run of phase 16's step"
+    for r, res in enumerate(ranks):
+        check(res["bytes_sent"] == dry["bytes_sent"]
+              and res["per_op"] == dry["per_op"],
+              f"(b) rank {r} sent {res['bytes_sent']} {res['per_op']}; the "
+              f"dry run {dry['bytes_sent']} {dry['per_op']}")
+        held = {k: res[k] for k in ("param_bytes", "optimizer_bytes",
+                                    "input_bytes")}
+        check(held == {k: dry[k] for k in held} and sum(held.values())
+              == dry["argument_bytes"], f"(c) rank {r} holds {held}; the "
+              f"dry run {dry}")
+    log(f"[dry] (b) qwen3-4b at {SHARD_LAYERS} layers, {SHARD_BATCH} x "
+        f"{SHARD_SEQ}, (data {SHARD_MESH[0]}, model {SHARD_MESH[1]}), TP + "
+        f"ZeRO-3 + remat, one step: the dry run's {dry['bytes_sent']} bytes "
+        f"a rank ({dry['per_op']}) equal, to the byte, what each of "
+        f"{source} sent: {[r['bytes_sent'] for r in ranks]}")
+    log(f"[dry] (c) argument bytes a rank: the dry run's "
+        f"{dry['argument_bytes']} (params {dry['param_bytes']}, AdamW "
+        f"{dry['optimizer_bytes']}, batch rows {dry['input_bytes']}) equal "
+        f"each rank's")
+
+    # (d) one card: the dry run beside phase 9's measured step
+    row = done[("dense",)]["result"]
+    meas = MEASURED.get("dense_train")
+    resident = row["modeled_resident_bytes_per_device"]
+    tracked = row["memory"]["argument_bytes"] + row["memory"]["temp_bytes"]
+    line = (f"[dry] (d) qwen3-4b, {DENSE_LAYERS} layers, {DENSE_BATCH} x "
+            f"{DENSE_SEQ}, remat, one card: t_compute "
+            f"{row['t_compute_s'] * 1e3:.2f} ms ({row['hlo_flops'] / 1e12:.3f}"
+            f" TFLOP: aten {row['aten_flops'] / 1e12:.3f}, kernels "
+            f"{row['kernel_flops'] / 1e12:.3f}), t_memory modeled "
+            f"{row['t_memory_s'] * 1e3:.2f} ms (unfused "
+            f"{row['t_memory_unfused_s'] * 1e3:.2f} ms), modeled resident "
+            f"{resident / 1e9:.2f} GB, argument "
+            f"{row['memory']['argument_bytes'] / 1e9:.2f} GB + temp "
+            f"{row['memory']['temp_bytes'] / 1e9:.2f} GB")
+    if meas is None:
+        log(line + "; phase 9 did not run: nothing measured beside it")
+    else:
+        step_s = meas["step_ms"] / 1e3
+        log(line + f"; phase 9 measured a step of {meas['step_ms']:.2f} ms "
+            f"({meas['busy_ms']:.2f} ms busy) and a peak of "
+            f"{meas['peak_bytes'] / 1e9:.2f} GB: t_compute / step "
+            f"{row['t_compute_s'] / step_s:.4f}, t_memory / step "
+            f"{row['t_memory_s'] / step_s:.4f} (unfused "
+            f"{row['t_memory_unfused_s'] / step_s:.4f}), modeled resident "
+            f"/ peak {resident / meas['peak_bytes']:.4f}, (argument + temp) "
+            f"/ peak {tracked / meas['peak_bytes']:.4f} (printed only: the "
+            "memory model is analytic)")
+    shutil.rmtree(DRY_DIR, ignore_errors=True)
+    log(f"[dry] phase 27 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -10202,7 +10441,7 @@ def main() -> int:
         if begin(11):
             (launches["dense_serve"], launches["ssm_prefill"],
              dense_decode) = phase_dense_serve()
-        if any(run(n) for n in (15, 16, 17, 18, 8)):
+        if any(run(n) for n in (15, 16, 17, 18, 8, 27)):
             POOL.open()
         if begin(12):
             launches.update(phase_ssm_serve())
@@ -10218,6 +10457,8 @@ def main() -> int:
             launches.update(phase_serve_shard())
         if begin(8):
             launches["sp"] = phase_sp()
+        if begin(27):
+            phase_dry_run()
         if only is None:
             kernels = kernel_entries(timed, errs, launches, dense_decode)
     except Failed as e:

@@ -8,13 +8,14 @@ into the default group; a mesh is then a ``DeviceMesh`` over that group:
 pipeline runtime, ``("data", "model")`` and ``("data", "expert")`` for the
 sharded executor.
 Nothing here reads a cluster's environment: the address, world size and rank
-are passed in.
+are passed in.  :func:`make_production_mesh` is a mapping, not a mesh: the
+dry run's cluster, which no process joins.
 """
 from __future__ import annotations
 
 import datetime
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -81,6 +82,23 @@ def join_rank(rank: int, world: int, run_dir: str,
                      init_method=f"file://{run_dir}/rendezvous",
                      timeout_s=RANK_TIMEOUT_S)
     return resolve_device(dev.type)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """The production cluster as a mapping of axis name to size, for the dry
+    run (``launch/dryrun.py``, ``runtime/dry.py::DryMesh``): 256 H100s as
+    ``{"data": 32, "model": 8}`` (``core/hardware.py::h100_cluster(256)``,
+    nodes of 8 cards on NVLink), or two such pods, 512 cards, as ``{"pod":
+    2, "data": 32, "model": 8}``.
+
+    A deliberate difference: the reference's 16 x 16 TPU torus
+    (``repro/launch/mesh.py``) puts 16 ranks on ``model``.  The port's
+    head-aligned TP refuses that for every arch with 8 KV heads
+    (``runtime/sharding.py::_check_tp``), and TP 16 would leave the NVLink
+    island of 8.  The card counts, 256 and 512, are the reference's."""
+    if multi_pod:
+        return {"pod": 2, "data": 32, "model": 8}
+    return {"data": 32, "model": 8}
 
 
 def make_ring_mesh(n_seq: int = 0, n_data: int = 1, *,

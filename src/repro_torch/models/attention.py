@@ -157,8 +157,9 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     (B,S,d).
 
     ``impl`` is one of ``ATTN_IMPLS``.  ``"auto"`` is ``"flash"`` on a CUDA
-    tensor; on a CPU tensor it is the JAX rule, ``"chunked"`` for S >= 1024
-    and ``"ref"`` below.  ``"chunked"`` and ``"ref"`` are plain versions and
+    tensor and on a ``meta`` one (the dry run's stand-in for the card); on
+    a CPU tensor it is the JAX rule, ``"chunked"`` for S >= 1024 and
+    ``"ref"`` below.  ``"chunked"`` and ``"ref"`` are plain versions and
     take only CPU tensors; ``"flash"`` and ``"ring"`` dispatch by device
     (``kernels/ops.py``).
 
@@ -180,9 +181,9 @@ def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
         x, cfg = shard.to_tp(x), shard.local_cfg(cfg)
     q, k, v = _project_qkv(p, x, cfg, positions, shard)
     if impl == "auto":
-        impl = ("flash" if x.is_cuda else
+        impl = ("flash" if x.is_cuda or x.is_meta else
                 "chunked" if S >= 1024 else "ref")
-    if impl in ("chunked", "ref") and x.is_cuda:
+    if impl in ("chunked", "ref") and (x.is_cuda or x.is_meta):
         raise ValueError(f"impl={impl!r} is a plain version for CPU tensors; "
                          "on the card use 'flash' or 'ring'")
     if impl == "ring":

@@ -132,3 +132,23 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One of the dry run's input shapes (``repro/models/common.py``'s):
+    ``seq_len`` tokens for each of ``global_batch`` sequences, in ``mode``
+    ``"train"``, ``"prefill"`` or ``"decode"`` (a decode shape's
+    ``seq_len`` is its KV context)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                    # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

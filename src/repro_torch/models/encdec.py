@@ -229,8 +229,13 @@ def _dec_block(p: DecBlock, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _dec_pos(params: EncDec, positions: torch.Tensor) -> torch.Tensor:
-    """Rows of the learned table at ``positions`` modulo its length."""
-    return params.dec_pos[positions % params.dec_pos.shape[0]]
+    """Rows of the learned table at ``positions`` modulo its length, by a
+    gather (a 0-d index tensor used as a subscript would be read on the
+    host)."""
+    table = params.dec_pos
+    idx = (positions % table.shape[0]).reshape(-1)
+    return table.index_select(0, idx).reshape(*positions.shape,
+                                              table.shape[1])
 
 
 def _logits(params: EncDec, x: torch.Tensor, cfg: ModelConfig,

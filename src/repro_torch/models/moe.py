@@ -217,9 +217,12 @@ def _ranks(se: torch.Tensor, E: int, T: int, k: int) -> torch.Tensor:
     """Each sorted pair's rank within its expert in its group: se (G, T·k)
     sorted expert ids -> (G, T·k)."""
     G = se.shape[0]
-    gi = torch.arange(G, device=se.device)[:, None]
-    counts = torch.bincount((se + gi * E).reshape(-1),
-                            minlength=G * E).reshape(G, E)
+    if se.device.type == "meta":    # no ids to count: the counts' shape
+        counts = se.new_empty((G, E))
+    else:
+        gi = torch.arange(G, device=se.device)[:, None]
+        counts = torch.bincount((se + gi * E).reshape(-1),
+                                minlength=G * E).reshape(G, E)
     starts = counts.cumsum(1) - counts
     return torch.arange(T * k, device=se.device) - starts.gather(1, se)
 

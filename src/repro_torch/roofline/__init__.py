@@ -1,9 +1,12 @@
-"""Analytic roofline terms of the port (``repro/roofline/`` counterpart):
-the memory model the plan bridge reads and the model-FLOP count.  The
-reference's HLO parsing and ``roofline_report`` are JAX-specific and not
-ported (``ROADMAP.md`` queue 1)."""
-from .analysis import (HBM_BW, PEAK_FLOPS, MemoryModel, model_flops,
-                       modeled_memory)
+"""Roofline terms of the port (``repro/roofline/`` counterpart): the
+three-term report of a dry run (``roofline_report``, fed the dry mesh's
+per-opcode collective bytes where the reference parses HLO text), the
+memory model the plan bridge and the dry run read, and the model-FLOP
+count."""
+from .analysis import (HBM_BW, LINK_BW, PEAK_FLOPS, MemoryModel,
+                       RooflineReport, model_flops, modeled_memory,
+                       roofline_report)
 
-__all__ = ["HBM_BW", "MemoryModel", "PEAK_FLOPS", "model_flops",
-           "modeled_memory"]
+__all__ = ["HBM_BW", "LINK_BW", "MemoryModel", "PEAK_FLOPS",
+           "RooflineReport", "model_flops", "modeled_memory",
+           "roofline_report"]

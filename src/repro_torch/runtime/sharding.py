@@ -86,6 +86,7 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.kernels.ring_attention import host_tensor
+from repro_torch.runtime.dry import DryMesh, is_dry
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.encdec import init_encdec
 from repro_torch.models.ssm import ssm_tp_columns
@@ -386,21 +387,44 @@ class DecodeLayout:
 # host collectives over gloo
 # --------------------------------------------------------------------------
 
+# the reference's HLO opcodes of collectives (``repro/roofline/``)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
 class Traffic:
-    """Bytes this rank sent through gloo; ``a2a_bytes`` counts those of
-    the MoE all-to-alls apart (they are in ``bytes_sent`` too)."""
+    """Bytes this rank sent through gloo (a dry group's: would send), in
+    all (``bytes_sent``) and by collective under the reference's opcode
+    names (``per_op``).  The port's :func:`all_reduce` is a reduce-scatter
+    plus an all-gather; both halves count under ``"all-reduce"``, as one
+    HLO all-reduce would, and so does :func:`all_reduce_max`'s gather.
+    ``a2a_bytes`` counts the MoE all-to-alls apart (they are in
+    ``bytes_sent`` too); nothing here sends a ``"collective-permute"``."""
 
     def __init__(self):
         self.bytes_sent = 0
         self.a2a_bytes = 0
+        self.per_op = dict.fromkeys(COLLECTIVES, 0)
 
-    def add(self, n: int) -> None:
+    def add(self, n: int, op: str) -> None:
         self.bytes_sent += n
+        self.per_op[op] += n
+        if op == "all-to-all":
+            self.a2a_bytes += n
+
+
+def group_size(group) -> int:
+    """The ranks of a process group or of a dry group
+    (``runtime/dry.py``)."""
+    return group.size if is_dry(group) else dist.get_world_size(group)
 
 
 def check_gloo(group: dist.ProcessGroup, what: str) -> None:
-    """Raise unless ``group`` is a gloo group: ``what`` (the pipeline's
-    hand-offs, the sharded executor's collectives) carries host tensors."""
+    """Raise unless ``group`` is a gloo group (or a dry one): ``what`` (the
+    pipeline's hand-offs, the sharded executor's collectives) carries host
+    tensors."""
+    if is_dry(group):
+        return
     backend = dist.get_backend(group)
     if backend != "gloo":
         raise ValueError(f"{what} carries host tensors over gloo; the "
@@ -411,38 +435,55 @@ def _pinned(shape, dtype, cuda: bool) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, pin_memory=cuda)
 
 
+def _charge(traffic: Optional[Traffic], n: int, op: str) -> None:
+    if traffic is not None:
+        traffic.add(n, op)
+
+
 def all_gather_dim(x: torch.Tensor, group: dist.ProcessGroup, dim: int,
-                   traffic: Optional[Traffic] = None) -> torch.Tensor:
+                   traffic: Optional[Traffic] = None, *,
+                   op: str = "all-gather") -> torch.Tensor:
     """The group's tensors concatenated along ``dim`` in rank order; the
-    bytes this rank sends are added to ``traffic``."""
-    n = dist.get_world_size(group)
+    bytes this rank sends are added to ``traffic`` under ``op``.  On a dry
+    group, an empty tensor of the result's shape."""
+    n = group_size(group)
     if n == 1:
         return x
+    if is_dry(group):
+        _charge(traffic, (n - 1) * x.numel() * x.element_size(), op)
+        shape = list(x.shape)
+        shape[dim] *= n
+        return x.new_empty(shape)
     h = host_tensor(x.detach().movedim(dim, 0).contiguous())
     out = _pinned((n * h.shape[0], *h.shape[1:]), h.dtype, x.is_cuda)
     dist.all_gather_into_tensor(out, h, group=group)
-    if traffic is not None:
-        traffic.add((n - 1) * h.numel() * h.element_size())
+    _charge(traffic, (n - 1) * h.numel() * h.element_size(), op)
     return out.to(x.device).movedim(0, dim).contiguous()
 
 
 def reduce_scatter_dim(x: torch.Tensor, group: dist.ProcessGroup, dim: int,
-                       traffic: Optional[Traffic] = None) -> torch.Tensor:
+                       traffic: Optional[Traffic] = None, *,
+                       op: str = "reduce-scatter") -> torch.Tensor:
     """This rank's slice along ``dim`` of the group's sum: chunk ``j`` of
     every rank goes to rank ``j`` (``all_to_all``), which adds them in
     fp32 (float64 in float64) in rank order on ``x``'s device and rounds
-    once to its dtype."""
-    n = dist.get_world_size(group)
+    once to its dtype.  On a dry group, an empty tensor of the slice's
+    shape."""
+    n = group_size(group)
     if n == 1:
         return x
-    h = host_tensor(x.detach().movedim(dim, 0).contiguous())
-    if h.shape[0] % n:
+    if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"over {n} ranks")
+    if is_dry(group):
+        _charge(traffic, (n - 1) * x.numel() // n * x.element_size(), op)
+        shape = list(x.shape)
+        shape[dim] //= n
+        return x.new_empty(shape)
+    h = host_tensor(x.detach().movedim(dim, 0).contiguous())
     recv = _pinned(h.shape, h.dtype, x.is_cuda)
     dist.all_to_all_single(recv, h, group=group)
-    if traffic is not None:
-        traffic.add((n - 1) * h.numel() // n * h.element_size())
+    _charge(traffic, (n - 1) * h.numel() // n * h.element_size(), op)
     parts = recv.to(x.device).reshape(n, h.shape[0] // n, *h.shape[1:])
     acc = parts[0].to(torch.promote_types(x.dtype, torch.float32))
     for j in range(1, n):
@@ -455,19 +496,19 @@ def all_to_all_dim0(x: torch.Tensor, group: dist.ProcessGroup,
     """Chunk ``j`` of ``x`` along dim 0 sent to rank ``j`` of ``group``;
     the chunks received, in rank order along dim 0 (the tiled
     ``all_to_all`` of the reference's ``_moe_ep``)."""
-    n = dist.get_world_size(group)
+    n = group_size(group)
     if n == 1:
         return x
-    h = host_tensor(x.detach().contiguous())
-    if h.shape[0] % n:
+    if x.shape[0] % n:
         raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over "
                          f"{n} ranks")
+    _charge(traffic, (n - 1) * x.numel() // n * x.element_size(),
+            "all-to-all")
+    if is_dry(group):
+        return x.new_empty(x.shape)
+    h = host_tensor(x.detach().contiguous())
     recv = _pinned(h.shape, h.dtype, x.is_cuda)
     dist.all_to_all_single(recv, h, group=group)
-    if traffic is not None:
-        sent = (n - 1) * h.numel() // n * h.element_size()
-        traffic.add(sent)
-        traffic.a2a_bytes += sent
     return recv.to(x.device)
 
 
@@ -475,23 +516,25 @@ def all_reduce(x: torch.Tensor, group: dist.ProcessGroup,
                traffic: Optional[Traffic] = None) -> torch.Tensor:
     """The group's sum, the same bits on every rank (a reduce-scatter of
     the flattened tensor, padded to the group, then an all-gather)."""
-    n = dist.get_world_size(group)
+    n = group_size(group)
     if n == 1:
         return x
     flat = x.reshape(-1)
     pad = (-flat.numel()) % n
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    full = all_gather_dim(reduce_scatter_dim(flat, group, 0, traffic),
-                          group, 0, traffic)
+    full = all_gather_dim(reduce_scatter_dim(flat, group, 0, traffic,
+                                             op="all-reduce"),
+                          group, 0, traffic, op="all-reduce")
     return full[:x.numel()].reshape(x.shape)
 
 
 def all_reduce_max(x: torch.Tensor, group: dist.ProcessGroup,
                    traffic: Optional[Traffic] = None) -> torch.Tensor:
-    if dist.get_world_size(group) == 1:
+    if group_size(group) == 1:
         return x
-    return all_gather_dim(x[None], group, 0, traffic).amax(0)
+    return all_gather_dim(x[None], group, 0, traffic,
+                          op="all-reduce").amax(0)
 
 
 # --------------------------------------------------------------------------
@@ -580,7 +623,7 @@ class _KeepSlice(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, rank, dim, traffic):
         ctx.group, ctx.dim, ctx.traffic = group, dim, traffic
-        n = x.shape[dim] // dist.get_world_size(group)
+        n = x.shape[dim] // group_size(group)
         return x.narrow(dim, rank * n, n).contiguous()
 
     @staticmethod
@@ -652,7 +695,10 @@ class ShardContext:
 
     The mesh must be a ``("data", "model")`` ``DeviceMesh`` (for example
     ``launch/mesh.py::make_local_mesh``) or a ``("data", "expert")`` one
-    (``make_expert_mesh``) over the whole default group, with gloo groups.
+    (``make_expert_mesh``) over the whole default group, with gloo groups,
+    or a ``runtime/dry.py::DryMesh``: rank 0 of a mesh given as a mapping,
+    whose collectives move nothing and count what they would send (the
+    dry run's; its rule table drawn on ``DryMesh.spec_axes``).
     TP is on when ``policy.tp`` and the ``model`` axis has more than one
     rank; ``policy.seq_shard`` shards the residual stream's tokens over
     ``model``.  The mesh decides the policy's ``expert_axis`` and
@@ -674,16 +720,19 @@ class ShardContext:
     on every ``model`` rank, are not summed over ``model``
     (:attr:`split_vocab`)."""
 
-    def __init__(self, cfg: ModelConfig, mesh: DeviceMesh,
+    def __init__(self, cfg: ModelConfig, mesh: Union[DeviceMesh, DryMesh],
                  policy: ShardPolicy, *, serving: bool = False):
         names = tuple(mesh.mesh_dim_names or ())
         if names not in (("data", "model"), ("data", "expert")):
             raise ValueError(f"the sharded executor runs on a ('data', "
                              f"'model') or ('data', 'expert') mesh; got "
                              f"{mesh.mesh_dim_names}")
-        if mesh.size() != dist.get_world_size():
+        dry = isinstance(mesh, DryMesh)
+        if not dry and mesh.size() != dist.get_world_size():
             raise ValueError(f"a mesh of {mesh.size()} ranks in a world of "
                              f"{dist.get_world_size()}")
+        # every rank's group: the world, or the dry mesh's
+        self.world = mesh.world if dry else dist.group.WORLD
         axes = mesh_axes(mesh)
         # the mesh's second axis: "model" (TP) or "expert" (EP)
         self.axis = names[1]
@@ -693,7 +742,7 @@ class ShardContext:
         self.cfg, self.mesh, self.policy = cfg, mesh, policy
         self.data = mesh.get_group("data")
         self.axis_group = mesh.get_group(self.axis)
-        for g in (self.data, self.axis_group, dist.group.WORLD):
+        for g in (self.data, self.axis_group, self.world):
             check_gloo(g, "the sharded executor")
         self.n_data, self.n_axis = axes["data"], axes[self.axis]
         self.data_rank = mesh.get_local_rank("data")
@@ -707,7 +756,7 @@ class ShardContext:
         self.expert_rank = 0 if model else self.axis_rank
         # the batch rows split over data, and over expert too on an expert
         # mesh (rank r at (r // n_expert, r % n_expert) holds share r)
-        self.batch = self.data if model else dist.group.WORLD
+        self.batch = self.data if model else self.world
         self.n_batch = self.n_data * self.n_expert
         self.batch_rank = self.data_rank * self.n_expert + self.expert_rank
         self.rows = 0           # the global batch of the current forward
@@ -715,7 +764,8 @@ class ShardContext:
         if self.tp > 1:
             _check_tp(cfg, self.tp)
         abstract = abstract_params(cfg)
-        self.specs = param_specs(abstract, axes, policy)
+        self.specs = param_specs(abstract, mesh.spec_axes if dry else axes,
+                                 policy)
         self._shapes = {n: tuple(p.shape)
                         for n, p in abstract.named_parameters()}
         # the vocabulary split over model (the embedding's rows; an untied
@@ -849,7 +899,9 @@ class ShardContext:
         """``fn(blk, x, ...)`` on the block's gathered weights, with the
         context as ``shard=``; with ``seq`` (x is a token slice, the flag
         :meth:`seq_slice` returned for the block's stack) on the gathered
-        tokens, keeping this rank's slice of the output."""
+        tokens, keeping this rank's slice of the output (of its first
+        element where ``fn`` returns a tuple: a MoE block's ``(x,
+        aux)``)."""
         if seq:
             x = _GatherSlices.apply(x, self.model, self.model_rank, 1,
                                     self.traffic)
@@ -862,6 +914,9 @@ class ShardContext:
         else:
             y = fn(blk, x, *args, **kwargs, shard=self)
         if seq:
+            if isinstance(y, tuple):
+                return (_KeepSlice.apply(y[0], self.model, self.model_rank,
+                                         1, self.traffic), *y[1:])
             y = _KeepSlice.apply(y, self.model, self.model_rank, 1,
                                  self.traffic)
         return y
@@ -1071,7 +1126,10 @@ class ShardContext:
 
     def host_value(self, x: float) -> float:
         """Rank 0's ``x`` on every rank: a host decision (the serving
-        engine's clock) that every rank must take alike."""
+        engine's clock) that every rank must take alike (on a dry mesh,
+        rank 0's own)."""
+        if is_dry(self.world):
+            return x
         t = torch.tensor([x], dtype=torch.float64)
         dist.broadcast(t, src=0)
         return float(t.item())
@@ -1125,7 +1183,7 @@ class ShardContext:
                        for a in ((e,) if isinstance(e, str) else e)}
             if all(coord[a] == 0 for a in coord if a not in sharded):
                 sq = sq + g.float().square().sum()
-        return torch.sqrt(all_reduce(sq, dist.group.WORLD, self.traffic))
+        return torch.sqrt(all_reduce(sq, self.world, self.traffic))
 
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the ``batch`` group (the shares of a loss)."""

@@ -3,8 +3,10 @@ anything of ``repro``, nor ``triton`` (every kernel is CUDA C++), not even
 through its copies of the NumPy search engine and plan layer (``core``,
 ``analysis``, ``launch.search``, ``serving.slo_search``) nor through the
 checkpoint store, the profiler and the pipeline runtime, nor through the
-sharded executor, the plan bridge and the memory model, and keeps the JAX
-package's source linter green."""
+sharded executor, the plan bridge and the memory model, nor through the
+dry-run tools (the dry run, hillclimb, the lint CLI and its ``python -m
+repro_torch.analysis`` entry), and keeps the JAX package's source linter
+green."""
 import ast
 import os
 import pathlib
@@ -38,7 +40,11 @@ def test_import_loads_no_jax_triton_or_repro():
             "repro_torch.checkpointing.store, repro_torch.core.profiler, "
             "repro_torch.runtime.pipeline, repro_torch.runtime.sharding, "
             "repro_torch.runtime.plan_bridge, repro_torch.roofline, "
-            "repro_torch.roofline.analysis, repro_torch.runtime; "
+            "repro_torch.roofline.analysis, repro_torch.runtime, "
+            "repro_torch.launch.dryrun, repro_torch.launch.hillclimb, "
+            "repro_torch.launch.lint, repro_torch.launch.inputs, "
+            "repro_torch.analysis.__main__, repro_torch.runtime.dry, "
+            "repro_torch.kernels.meta; "
             "print(sorted({m.split('.')[0] for m in sys.modules} "
             "& {'jax', 'jaxlib', 'triton', 'repro'}))")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
