@@ -23,9 +23,12 @@ spawns its own:
    backward (``ssd_bwd_chunk_state_kernel``, ``ssd_bwd_chunk_grad_kernel``)
    contain HMMA, and the three ``ssd_fwd_`` and three ``ssd_bwd_`` kernels
    of the bf16 forward and backward spill nothing; print the CTAs per SM
-   those six kernels reach; fail if any RMSNorm kernel spills, and print
-   the RMSNorm backward's warps a CTA and CTAs per SM at the training
-   widths; a fourth ``nvcc`` builds the SSD scan without the bf16
+   those six kernels reach; fail if an RMSNorm kernel is missing or
+   spills, and print the RMSNorm backward's warps a CTA and CTAs per SM at
+   the training widths, and the registers of the cta bodies (a row across
+   a CTA, past d 2560) with their warps a CTA and CTAs per SM, forward and
+   backward, bf16 and fp32, at d 4096-8192 (fail if either does not take
+   those widths); a fourth ``nvcc`` builds the SSD scan without the bf16
    backward's dB/dC stores, which phase 7 times; print the flash
    backward's kernels (``flash_bwd_``: D, dK/dV and dQ, fp32 and bf16, dh
    64, 112 and 128) with their registers, spills and HGMMA count, fail if
@@ -48,8 +51,11 @@ spawns its own:
    bf16 panel visit splits P into two bf16 terms: the plain arithmetic's
    acc error at the visible visit with P rounded to bf16 and with P split;
    RMSNorm also on a bf16 view at storage offset 1 (the kernels' unaligned
-   body), and its backward twice at 16384 x 2048, where dw must be the same
-   bits both times, as must the SSD backward's gradients at the training
+   body; also at d 6144), with w in fp32 beside bf16 x (d 6144), at odd d
+   (3001), at d 12288 (the cta bodies' shared memory past 48 KB) and past
+   the cta bodies (bf16 16392, fp32 8200: the looped kernels), both ways,
+   its backward also at qwen2-72b's 4096 x 8192, and twice at 16384 x 2048,
+   where dw must be the same bits both times, as must the SSD backward's gradients at the training
    shape, and at the QK-norm rows of the dense training shape (d
    128, 65536 and 262144 rows); the flash backward against its plain
    version and against ``torch.autograd`` of the plain forward, with the
@@ -577,6 +583,20 @@ lines.
 ``python3 chip_smoke.py --phases 2,19`` runs phase 1 and the listed
 phases in the order above (a phase that needs an earlier one's results
 runs only with it) and prints no ``kernels`` line.
+
+``python3 chip_smoke.py --compare-rmsnorm PARENT_DIR [--steps]`` runs none
+of the phases: it times RMSNorm's forward and backward (``_rmsnorm_timing``,
+``_rmsnorm_bwd_timing``) at the wide rows (``NORM_CMP_FWD``,
+``NORM_CMP_BWD``) and at two register-body shapes, in the checkout at
+PARENT_DIR and in this one, in turn parent, this, this, parent, each in its
+own process after that tree's build, and prints a JSON line per run; each
+run keeps its outputs on seeded inputs, and it exits 1 unless a tree's two
+runs give the same bits, the register bodies' outputs are the parent's
+bits and the wide rows' agree with the parent's within the tolerance of
+``_norm_close``.  ``--steps`` then runs phases 25 and 26 in the parent and
+in this tree with RMSNorm's device time sorted into forward and backward,
+and prints both directions' ms in the profiled decode and training steps
+of internvl2-26b and qwen2.5-14b.
 
 ``python3 chip_smoke.py --compare-flash-bwd PARENT_DIR`` runs none of
 the phases: it times the bf16 flash backward at the dense training shape
@@ -1133,6 +1153,8 @@ QWEN_TRAIN_ATTN = (1, QWEN_TRAIN_SEQ, *QWEN_HEADS[QWEN2_5_14B])
 QWEN_NORM_FWD = [(DECODE_SLOTS, 5120), (QWEN_TRAIN_SEQ, 5120),
                  (DECODE_SLOTS, 8192)]
 QWEN_NORM_BWD = (QWEN_TRAIN_SEQ, 5120)
+# qwen2-72b's d 8192 over a training step's 4096 rows (phases 2 and 7)
+QWEN72_NORM_BWD = (QWEN_TRAIN_SEQ, 8192)
 
 
 def log(msg: str) -> None:
@@ -1261,8 +1283,13 @@ SSD_BWD_KERNELS = ("ssd_bwd_chunk_state_kernel", "ssd_bwd_state_pass_kernel",
 # the RMSNorm kernels of csrc/rmsnorm.cu; phase 5 sorts their time into
 # forward and backward by the prefixes rmsnorm_fwd and rmsnorm_bwd
 RMSNORM_KERNELS = ("rmsnorm_fwd_kernel", "rmsnorm_fwd_row_kernel",
-                   "rmsnorm_fwd_wide_kernel", "rmsnorm_bwd_kernel",
+                   "rmsnorm_fwd_cta_kernel", "rmsnorm_fwd_wide_kernel",
+                   "rmsnorm_bwd_kernel", "rmsnorm_bwd_cta_kernel",
                    "rmsnorm_bwd_wide_kernel", "rmsnorm_bwd_dw_sum_kernel")
+# the widths past the register bodies (2560) that the models run: qwen3-8b
+# and zamba2's gated norm, qwen2.5-14b, internvl2-26b, arctic-480b and
+# kimi-k2, qwen2-72b; phase 1 prints the cta bodies' geometry at each
+WIDE_NORM_D = (4096, 5120, 6144, 7168, 8192)
 # the flash backward's three kernels by name prefix, in launch order
 FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 # the head dims csrc/flash_attention.cu instantiates, in the order of
@@ -1363,15 +1390,34 @@ def phase_build():
                     log(f"[build]   ptxas: {line.strip()}")
         elif name == "rmsnorm":
             spilled = {k: v[1] for k, v in report.items() if v[1] != (0, 0)}
-            check(len(report) >= len(RMSNORM_KERNELS) and not spilled,
-                  f"RMSNorm kernels missing or spilling: {spilled}")
+            missing = [k for k in RMSNORM_KERNELS
+                       if not any(n.split("<")[0] == k for n in report)]
+            check(not missing and not spilled,
+                  f"RMSNorm kernels missing {missing} or spilling: {spilled}")
             for d in (1024, 2048):
-                warps, per_sm, sms = rmsnorm._bwd_config(0, d, 1)
+                warps, per_sm, sms, _ = rmsnorm._bwd_config(0, d, 1)
                 n = rmsnorm.bwd_grid(TRAIN_BATCH * TRAIN_SEQ, warps, per_sm,
                                      sms)
                 log(f"[build]   RMSNorm backward, bf16 d {d}: {warps} warps "
                     f"a CTA, {per_sm} CTAs per SM, {n} CTAs (partials rows) "
                     f"at {TRAIN_BATCH * TRAIN_SEQ} rows")
+            # the cta bodies past d 2560: a row across a CTA
+            regs = {k: v[0] for k, v in report.items() if "_cta_kernel" in k}
+            log(f"[build]   RMSNorm cta bodies' registers: {regs}")
+            for dtype, code in (("bf16", 1), ("fp32", 0)):
+                for d in WIDE_NORM_D:
+                    f_threads, f_per_sm = rmsnorm._fwd_config(0, d, code)
+                    rows, per_sm, sms, threads = rmsnorm._bwd_config(0, d,
+                                                                     code)
+                    check(f_threads > 0 and rows == 1,
+                          f"RMSNorm at {dtype} d {d} does not take the cta "
+                          f"bodies: forward {f_threads} threads, backward "
+                          f"{rows} rows a CTA")
+                    log(f"[build]   RMSNorm {dtype} d {d}: forward "
+                        f"{f_threads // 32} warps a CTA, {f_per_sm} CTAs "
+                        f"per SM; backward {threads // 32} warps a CTA, "
+                        f"{per_sm} CTAs per SM ({per_sm * sms} partials "
+                        f"rows)")
         else:
             # the bf16 forward and backward: products on mma.sync, no
             # spills
@@ -1638,7 +1684,29 @@ def phase_kernels():
     # the unaligned body: rows of a bf16 view at storage offset 1
     x, w = unaligned_rows(g, 777, 2560, 3.0)
     check_rmsnorm(x, w, "bfloat16", "(777, 2560) at offset 1", errs)
+    rmsnorm_edges(g, errs)
     return errs
+
+
+def rmsnorm_edges(g, errs):
+    """The forward past the register bodies where the cta body does not
+    take the rows, which run the looped kernel: rows at storage offset 1
+    and w in fp32 beside bf16 x at d 6144; odd d (3001); d past the cta
+    body (bf16 16392, fp32 8200).  And the cta body at bf16 d 12288."""
+    import torch
+
+    x, w = unaligned_rows(g, 77, 6144, 3.0)
+    check_rmsnorm(x, w, "bfloat16", "(77, 6144) at offset 1", errs)
+    x = (torch.randn(33, 6144, generator=g, device="cuda") * 3).bfloat16()
+    check_rmsnorm(x, torch.randn(6144, generator=g, device="cuda"),
+                  "bfloat16", "(33, 6144) w fp32", errs)
+    for dtype, shape in (("bfloat16", (65, 3001)), ("float32", (65, 3001)),
+                         ("bfloat16", (5, 12288)), ("bfloat16", (9, 16392)),
+                         ("float32", (9, 8200))):
+        dt = getattr(torch, dtype)
+        x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dt)
+        w = torch.randn(shape[-1], generator=g, device="cuda").to(dt)
+        check_rmsnorm(x, w, dtype, str(shape), errs)
 
 
 def unaligned_rows(g, rows, d, scale):
@@ -1901,8 +1969,9 @@ def ssd_cases():
 def phase_train_kernels(errs):
     """The training path's kernels against torch.autograd of their plain
     versions: the SSD scan forward and backward (at the training shape also
-    bitwise-stable across two calls), the RMSNorm backward (also on an
-    unaligned view, and dw bitwise-stable across two calls)."""
+    bitwise-stable across two calls), the RMSNorm backward (also on
+    unaligned views, with w in fp32, past d 2560 in the cta body and past
+    it in the looped kernel, and dw bitwise-stable across two calls)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_bwd_cuda
@@ -1976,15 +2045,30 @@ def phase_train_kernels(errs):
                          ("bfloat16", (qk_rows, 128)),
                          ("bfloat16", (4 * qk_rows, 128)),
                          ("bfloat16", (3, 5, 2560)),
-                         ("float32", (777, 2048)), ("float32", (5, 100))):
+                         ("float32", (777, 2048)), ("float32", (5, 100)),
+                         # past the register bodies: the cta body at
+                         # qwen2-72b's width, at odd d (its scalar body)
+                         # and at the edge of its shared memory; the
+                         # looped kernel past it
+                         ("bfloat16", QWEN72_NORM_BWD),
+                         ("bfloat16", (65, 3001)), ("bfloat16", (5, 12288)),
+                         ("float32", (300, 8192)), ("bfloat16", (9, 16392)),
+                         ("float32", (9, 8200))):
         dt = getattr(torch, dtype)
         x = (torch.randn(shape, generator=g, device="cuda") * 2).to(dt)
         cases.append((dtype, str(shape), x,
                       torch.randn(shape[-1], generator=g,
                                   device="cuda").to(dt)))
-    # the unaligned body: rows of a bf16 view at storage offset 1
+    # the unaligned body: rows of a bf16 view at storage offset 1, and the
+    # cta body's at d 6144; w in fp32 beside bf16 x
     cases.append(("bfloat16", "(777, 2560) at offset 1",
                   *unaligned_rows(g, 777, 2560, 2.0)))
+    cases.append(("bfloat16", "(77, 6144) at offset 1",
+                  *unaligned_rows(g, 77, 6144, 2.0)))
+    cases.append(("bfloat16", "(33, 6144) w fp32",
+                  (torch.randn(33, 6144, generator=g, device="cuda")
+                   * 2).bfloat16(),
+                  torch.randn(6144, generator=g, device="cuda")))
     for dtype, what, x, w in cases:
         dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
         x.requires_grad_()
@@ -2272,7 +2356,8 @@ def _model_kernels(tag, arch, heads, train_bs, norm_fwd, norm_bwd, errs):
     decode and prefill chunk, the dense engine's decode and a causal
     prefill of 2 x 256 (:func:`moe_flash_cases`, named for ``arch``);
     RMSNorm's forward at each (rows, d) of ``norm_fwd`` and its backward
-    at ``norm_bwd`` (d above 4096 runs the looped ``*_wide_kernel``s)."""
+    at ``norm_bwd`` (d past 2560 runs the cta bodies, a row across a
+    CTA)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
@@ -2501,7 +2586,7 @@ def phase_serve():
 # name fragments of the kernels of each category of device time
 KERNEL_CATEGORIES = {
     "flash_fwd": ("flash_fwd_",), "flash_bwd": ("flash_bwd_",),
-    "rmsnorm": ("rmsnorm_",),
+    "rmsnorm_fwd": ("rmsnorm_fwd",), "rmsnorm_bwd": ("rmsnorm_bwd",),
     "gemm": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
     "elementwise": ("elementwise",), "reduce": ("reduce",)}
 
@@ -9965,8 +10050,10 @@ def phase_timings():
              # phase 25: internvl2-26b's training rows
              "internvl2_train": _rmsnorm_bwd_timing(VLM_NORM_ROWS[1],
                                                     6144),
-             # phase 26: qwen2.5-14b's training rows
-             "qwen2_5_14b_train": _rmsnorm_bwd_timing(*QWEN_NORM_BWD)}),
+             # phase 26: qwen2.5-14b's training rows; qwen2-72b's width
+             # over as many
+             "qwen2_5_14b_train": _rmsnorm_bwd_timing(*QWEN_NORM_BWD),
+             "qwen2_72b_train": _rmsnorm_bwd_timing(*QWEN72_NORM_BWD)}),
         ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd_scan.py:72", "train",
          {"train": ssd_fwd, "zamba2_prefill": zamba2_ssd,
@@ -10127,6 +10214,175 @@ def compare_flash_bwd(parent: str) -> int:
         f"the same bits in every run of both trees: {not differ}"
         + (f"; they differ at {differ}" if differ else ""))
     return 1 if differ else 0
+
+
+# the shapes compare_rmsnorm times and checks (rows, d), bf16: the wide
+# rows of the models (decode's 8, arctic-480b's prefill chunk, the
+# training steps of qwen2.5-14b, internvl2-26b and qwen2-72b's width), and
+# the register bodies' decode and training shapes, which must not change
+NORM_CMP_FWD = [(DECODE_SLOTS, d) for d in WIDE_NORM_D] + [
+    (PREFILL_BATCH * PREFILL_CHUNK, 7168), QWEN_NORM_FWD[1],
+    (VLM_NORM_ROWS[1], 6144), (DECODE_SLOTS, 2560),
+    (TRAIN_BATCH * TRAIN_SEQ, 1024)]
+NORM_CMP_BWD = [QWEN_NORM_BWD, (VLM_NORM_ROWS[1], 6144), QWEN72_NORM_BWD,
+                (TRAIN_BATCH * TRAIN_SEQ, 1024)]
+NORM_CMP_DIR = ROOT / "build" / "compare_rmsnorm"
+# the profiled steps of phases 25 and 26 whose RMSNorm device ms
+# compare_rmsnorm --steps reads
+NORM_CMP_STEPS = ("[vlm] (a) paged decode", "internvl2 train",
+                  "[qwen2] (b) paged decode", "qwen2.5-14b train")
+
+# run in each tree by compare_rmsnorm, through the wrappers' interface,
+# which the parent shares: each output of the forward and the backward on
+# seeded bf16 inputs at each shape, as the sha256 of its bytes, and every
+# 64th row of y and dx with all of dw, saved to ``path`` for the tolerance
+# between trees
+_NORM_OUT_CODE = """
+def _norm_outputs(fwd, bwd, path):
+    import hashlib
+    import torch
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
+    digests, kept = {}, {}
+    cases = [("fwd", r, d) for r, d in fwd] + [("bwd", r, d) for r, d in bwd]
+    for i, (kind, rows, d) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        x = (torch.randn(rows, d, generator=g, device="cuda") * 2).bfloat16()
+        w = torch.randn(d, generator=g, device="cuda").bfloat16()
+        if kind == "fwd":
+            outs = (rmsnorm_cuda(x, w, 1e-6),)
+        else:
+            dy = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
+            outs = rmsnorm_bwd_cuda(dy, x, w, 1e-5)
+        key = f"{kind} {rows}x{d}"
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        digests[key] = h.hexdigest()
+        kept[key] = [(t[::64] if t.dim() == 2 else t).float().cpu()
+                     for t in outs]
+    torch.save(kept, path)
+    return digests
+"""
+
+
+def _norm_tree_run(tree, path):
+    """One run of compare_rmsnorm in ``tree``: the build, the phase-7
+    timings of both directions at NORM_CMP_FWD and NORM_CMP_BWD, then the
+    outputs (``_NORM_OUT_CODE``).  Returns the RESULT dict, or None."""
+    code = ("import json, sys; sys.path[:0] = ['.', 'src']; "
+            "import chip_smoke as cs; cs.phase_build(); "
+            + _NORM_OUT_CODE + "\n"
+            f"fwd, bwd = {NORM_CMP_FWD!r}, {NORM_CMP_BWD!r}\n"
+            "t = {f'fwd {r}x{d}': cs._rmsnorm_timing(r, d) for r, d in fwd}\n"
+            "t.update({f'bwd {r}x{d}': cs._rmsnorm_bwd_timing(r, d) "
+            "for r, d in bwd})\n"
+            f"dig = _norm_outputs(fwd, bwd, {str(path)!r})\n"
+            "print('RESULT ' + json.dumps({'ms': {k: v['ms'] for k, v in "
+            "t.items()}, 'library_ms': {k: v['library_ms'] for k, v in "
+            "t.items()}, 'bound_ms': {k: v['bound_ms'] for k, v in "
+            "t.items()}, 'digests': dig}))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                         capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("RESULT ")]
+    if res.returncode != 0 or not lines:
+        print(f"chip_smoke: {tree} failed:\n{res.stdout[-3000:]}\n"
+              f"{res.stderr[-3000:]}", file=sys.stderr)
+        return None
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+def _norm_close(a, b) -> bool:
+    """Two trees' outputs of one case agree: y within two bf16 ulps of each
+    other, elementwise (each is within one of rmsnorm_ref); dx and dw
+    within REL_TOL of the larger magnitude (fp32 sums in another order)."""
+    import torch
+    if len(a) == 1:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            b[0].abs().clamp_min(1e-30))) - 7)
+        return bool(((a[0] - b[0]).abs() <= 2 * ulp).all())
+    return all(rel_err(x, y) <= REL_TOL["bfloat16"] for x, y in zip(a, b))
+
+
+def _norm_steps(tree, name):
+    """Phases 25 and 26 in ``tree`` with RMSNorm's device time sorted into
+    forward and backward (KERNEL_CATEGORIES as here): {step: (busy ms,
+    forward ms, backward ms)} of NORM_CMP_STEPS, or None."""
+    code = ("import sys; sys.path[:0] = ['.']; import chip_smoke as cs; "
+            f"cs.KERNEL_CATEGORIES = {KERNEL_CATEGORIES!r}; "
+            "sys.argv = ['chip_smoke.py', '--phases', '25,26']; "
+            "sys.exit(cs.main())")
+    res = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                         capture_output=True, text=True, timeout=1500)
+    NORM_CMP_DIR.mkdir(parents=True, exist_ok=True)
+    (NORM_CMP_DIR / f"steps_{name}.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        print(f"chip_smoke: phases 25, 26 failed in {tree}:\n"
+              f"{res.stderr[-3000:]}", file=sys.stderr)
+        return None
+    out = {}
+    for ln in res.stdout.splitlines():
+        m = re.match(r"\[profile\] (.*?) step: device busy ([\d.]+) ms.*?"
+                     r"rmsnorm_fwd ([\d.]+), rmsnorm_bwd ([\d.]+)", ln)
+        if m and m.group(1) in NORM_CMP_STEPS:
+            out[m.group(1)] = tuple(float(m.group(i)) for i in (2, 3, 4))
+    return out
+
+
+def compare_rmsnorm(parent: str, steps: bool) -> int:
+    """RMSNorm's kernels of the parent checkout at ``parent`` and of this
+    one at NORM_CMP_FWD and NORM_CMP_BWD, timed by ``_rmsnorm_timing`` and
+    ``_rmsnorm_bwd_timing`` in turn parent, this, this, parent, each in a
+    process of its own that first builds that tree's kernels
+    (``phase_build``).  One JSON line a run.  Each run also keeps its
+    outputs on seeded inputs (``_NORM_OUT_CODE``): a tree's two runs must
+    give the same bits; the two trees' must agree within
+    :func:`_norm_close` (the wide rows sum in another order) and, at the
+    register bodies' shapes (d <= 2560), be the same bits.  With ``steps``,
+    phases 25 and 26 then run in the parent and in this tree, and their
+    profiled steps' RMSNorm forward and backward device ms are printed.
+    Returns 1 if a run fails or a check does not hold."""
+    import torch
+
+    NORM_CMP_DIR.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for i, (name, tree) in enumerate((("parent", parent), ("this", str(ROOT)),
+                                      ("this", str(ROOT)),
+                                      ("parent", parent))):
+        path = NORM_CMP_DIR / f"run{i}.pt"
+        out = _norm_tree_run(tree, path)
+        if out is None:
+            return 1
+        runs.append((name, out.pop("digests"), torch.load(path)))
+        log(json.dumps({"tree": name, "path": tree, **out}))
+    ok = True
+    for a, b in ((0, 3), (1, 2)):
+        differ = [k for k in runs[a][1] if runs[a][1][k] != runs[b][1][k]]
+        log(f"[compare-rmsnorm] {runs[a][0]}: its two runs the same bits: "
+            f"{not differ}" + (f"; they differ at {differ}" if differ else ""))
+        ok = ok and not differ
+    for key in runs[0][1]:
+        d = int(key.split("x")[1])
+        if d <= 2560:
+            same = runs[0][1][key] == runs[1][1][key]
+            log(f"[compare-rmsnorm] {key} (a register body): this tree's "
+                f"bits the parent's: {same}")
+            ok = ok and same
+        else:
+            close = _norm_close(runs[1][2][key], runs[0][2][key])
+            log(f"[compare-rmsnorm] {key}: this tree within the tolerance "
+                f"of the parent: {close}")
+            ok = ok and close
+    if steps:
+        for name, tree in (("parent", parent), ("this", str(ROOT))):
+            found = _norm_steps(tree, name)
+            if found is None:
+                return 1
+            log(json.dumps({"tree": name, "steps": {
+                k: dict(zip(("busy_ms", "rmsnorm_fwd_ms", "rmsnorm_bwd_ms"),
+                            v)) for k, v in found.items()}}))
+            ok = ok and len(found) == len(NORM_CMP_STEPS)
+    return 0 if ok else 1
 
 
 # ---------------------------------------------------------------------------
@@ -10350,6 +10606,9 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     if sys.argv[1:2] == ["--compare-flash-bwd"] and len(sys.argv) == 3:
         return compare_flash_bwd(sys.argv[2])
+    if sys.argv[1:2] == ["--compare-rmsnorm"] and len(sys.argv) in (3, 4) \
+            and sys.argv[3:] in ([], ["--steps"]):
+        return compare_rmsnorm(sys.argv[2], sys.argv[3:] == ["--steps"])
     only = None
     if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
         only = {1, *(int(n) for n in sys.argv[2].split(","))}

@@ -13,40 +13,61 @@
 // What bounds it on the H100: memory.  Each element is read once and
 // written once (the backward reads x and dy and writes dx) with about 4
 // (forward) or 10 (backward) operations, far below the card's ~295
-// operations a byte.  At the training shapes the bound is 0.02-0.06 ms.  At
-// the decode shape (8 rows of 2560, 41 KB) it is below a microsecond, so the
-// launch and one round trip to memory set the device time, and what the
-// host spends on each call matters more than either.
+// operations a byte.  At the training shapes the bound is 0.02-0.06 ms: the
+// backward at 4352 x 6144 (internvl2-26b) must move 160 MB, 0.048 ms at
+// 3.35 TB/s.  At the decode shapes (8 rows of 2560-8192, 41-131 KB) it is
+// below a microsecond, so the launch and one round trip to memory set the
+// device time, and what the host spends on each call matters more than
+// either.
 //
 // What the design does about it:
-// - Forward, few rows (the serving shapes: up to 16 rows an SM, d > 256):
-//   a CTA a row, a 16-byte vector a thread (two past 4 rows an SM), so a
-//   row's loads spread over up to ten warps and each thread's sums are a
-//   few terms long; the warps' sums meet once in shared memory.
-// - Forward, many rows: a row lives in a group's registers.  A group of
-//   LANES lanes (32, or 16 at d <= 128, two rows a warp) holds a row as
-//   16-byte vectors, E elements a lane, E a template parameter, so d 2560 is
-//   10 vectors a lane with no padding to a power of two.  Each group loads
-//   R rows before it reduces any.  Sums are warp shuffles.  w is loaded once
-//   per warp into registers, beside the first rows.
-// - Backward: a persistent grid (CTAs per SM from the occupancy API, times
-//   the SMs) whose warps take rows in a grid-wide stride.  Each lane copies
-//   its 16-byte vectors of x and dy with cp.async into its warp's ring of S
-//   rows in shared memory, S - 1 rows ahead of the row it reduces (S 4 for
-//   rows up to 2 KB, else 2): at bf16 d 1024 and 2048, 8 warps an SM keep
-//   96 and 64 KB of rows in flight beside the ones they reduce.  A lane
-//   reads back only the vectors it copied, so the ring needs no
-//   barrier.  dw for the lane's columns stays in fp32 registers across the
-//   warp's rows.  At the end the warps of a CTA add theirs in warp order
-//   through shared memory into one fp32 partials row per CTA, and a second
-//   kernel sums the partials column by column in a fixed order.  No
-//   atomics: dw is the same bits on every run.
-// - Rows whose base or pitch is not 16-byte aligned (a view at an odd
-//   storage offset, bf16 d 100) take a scalar body: inside the same kernel
-//   in the backward, in the looped forward kernel below.
-// - d beyond the register bodies (2560), in the forward a w dtype other
-//   than x's or unaligned rows, runs looped kernels (*_wide_kernel) that
-//   read a row twice.
+// - Forward, few rows (the serving shapes: up to 16 rows an SM), 256 < d
+//   <= 2560: a CTA a row, a 16-byte vector a thread (two past 4 rows an
+//   SM), so a row's loads spread over up to ten warps and each thread's
+//   sums are a few terms long; the warps' sums meet once in shared memory.
+// - Forward, many rows, d <= 2560: a row lives in a group's registers.  A
+//   group of LANES lanes (32, or 16 at d <= 128, two rows a warp) holds a
+//   row as 16-byte vectors, E elements a lane, E a template parameter, so
+//   d 2560 is 10 vectors a lane with no padding to a power of two.  Each
+//   group loads R rows before it reduces any.  Sums are warp shuffles.  w
+//   is loaded once per warp into registers, beside the first rows.
+// - Backward, d <= 2560: a persistent grid (CTAs per SM from the occupancy
+//   API, times the SMs) whose warps take rows in a grid-wide stride.  Each
+//   lane copies its 16-byte vectors of x and dy with cp.async into its
+//   warp's ring of S rows in shared memory, S - 1 rows ahead of the row it
+//   reduces (S 4 for rows up to 2 KB, else 2): at bf16 d 1024 and 2048, 8
+//   warps an SM keep 96 and 64 KB of rows in flight beside the ones they
+//   reduce.  A lane reads back only the vectors it copied, so the ring
+//   needs no barrier.  dw for the lane's columns stays in fp32 registers
+//   across the warp's rows.  At the end the warps of a CTA add theirs in
+//   warp order through shared memory into one fp32 partials row per CTA,
+//   and a second kernel sums the partials column by column in a fixed
+//   order.  No atomics: dw is the same bits on every run.
+// - Wide rows (d > 2560; qwen3-8b to qwen2-72b run 4096-8192) in both
+//   directions: a row across a CTA (*_cta_kernel).  A warp a row would
+//   walk 96-128 vectors a lane in turn; the looped kernels that did so read
+//   each row twice, and the backward's CTAs of one warp (32 an SM, 4224 in
+//   all) each kept an fp32 partials row in device memory, read and written
+//   for every row: 104 MB at 4352 x 6144, 415 MB of traffic beside the 160
+//   the work needs.  Here thread t holds the 16-byte vectors t + k T (k <
+//   CTA_NV, T threads) of the row in registers, so a row is read once; the
+//   sums go by warp shuffles, then through shared memory in warp order, and
+//   every thread reads the same total.  The grid is persistent (CTAs an SM
+//   from the occupancy API): CTA b takes rows b, b + G, ..., and issues the
+//   next row's loads into a second set of registers before it reduces the
+//   current one, so a row per CTA is always in flight.  The forward keeps
+//   w's vectors in registers across its rows; at few rows (decode) its grid
+//   is a CTA a row.  The backward keeps w in
+//   fp32 in shared memory (converted once) and dw for its columns in fp32
+//   registers, and writes one partials row a CTA at the end: 264 rows (6.5
+//   MB) at d 6144, summed by the same fixed-order second kernel.  Up to
+//   CTA_MAX_THREADS threads: bf16 d 16384, fp32 8192.
+// - What the register bodies do not take runs looped kernels
+//   (*_wide_kernel) that read a row twice: in the forward a w dtype other
+//   than x's, rows whose base or pitch is not 16-byte aligned (a view at an
+//   odd storage offset, bf16 d 100) and d past the cta body; in the
+//   backward d past the cta body.  The backward's register and cta bodies
+//   take unaligned rows in a scalar body of their own.
 // - Every kernel is launched with programmatic dependent launch, so its
 //   launch overlaps the end of the kernel before it (wait_prior_grid).
 #include <cuda_bf16.h>
@@ -63,6 +84,8 @@ constexpr int MAX_E = 80;         // elements a lane of the register bodies
 constexpr int SMEM_CAP = 232448;  // shared memory a CTA can use (227 KB)
 constexpr int SUM_SPLIT = 32;     // warps a column block of the dw sum
 constexpr int ROW_MAX_THREADS = 1024;
+constexpr int CTA_NV = 4;             // 16-byte vectors a thread, cta bodies
+constexpr int CTA_MAX_THREADS = 512;
 
 // 16 bytes of T as fp32, and back (bf16: round to nearest even)
 template <typename T>
@@ -206,6 +229,58 @@ __host__ __device__ __forceinline__ size_t w_bytes(int d) {
   return ((size_t)d * 4 + 15) / 16 * 16;
 }
 
+// threads of a cta body's CTA for d: CTA_NV vectors (or in the scalar body
+// CTA_NV x N columns) a thread, in whole warps
+template <typename T>
+__host__ __device__ constexpr int cta_threads(int d) {
+  return (d + 32 * CTA_NV * Vec<T>::N - 1) / (32 * CTA_NV * Vec<T>::N) * 32;
+}
+
+// whether a cta body takes d (past the register bodies, within
+// CTA_MAX_THREADS threads: bf16 d 16384, fp32 8192)
+template <typename T>
+bool cta_takes(int d) {
+  return d > 32 * MAX_E && cta_threads<T>(d) <= CTA_MAX_THREADS;
+}
+
+// v[0..K) summed over the CTA in place: each warp's sums by shuffles, then
+// the warps' in warp order through red (K x 32 floats), so that every
+// thread holds the same totals.  Every thread must call it; red must not be
+// written again until every thread has read it (the callers alternate two
+// buffers: the barrier of the call between lies in between).
+template <int K>
+__device__ __forceinline__ void cta_sum(float* v, float* red) {
+  const int warp = threadIdx.x / 32, warps = blockDim.x / 32;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    v[i] = group_sum<32>(v[i]);
+    if (threadIdx.x % 32 == 0) red[32 * i + warp] = v[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float t = 0.f;
+    for (int k = 0; k < warps; ++k) t += red[32 * i + k];
+    v[i] = t;
+  }
+}
+
+// this thread's NV vectors of a row (v = threadIdx.x + k blockDim.x), zeros
+// past nvec or where the row is not `valid`; STREAM: loaded as data read
+// once (ld.global.cs, evicted from the caches first)
+template <int NV, bool STREAM = false>
+__device__ __forceinline__ void load_vecs(const void* row, int nvec,
+                                          bool valid, uint4* out) {
+  const uint4* p = static_cast<const uint4*>(row);
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int v = threadIdx.x + k * blockDim.x;
+    out[k] = !(valid && v < nvec) ? make_uint4(0u, 0u, 0u, 0u)
+             : STREAM             ? __ldcs(p + v)
+                                  : p[v];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
@@ -343,6 +418,63 @@ __global__ void __launch_bounds__(ROW_MAX_THREADS)
       for (int e = 0; e < N; ++e) f[e] = f[e] * rstd * g[e];
       yr[v] = Vt::pack(f);
     }
+  }
+}
+
+// d > 32 * MAX_E, w in x's dtype, aligned: a row across the CTA, thread t
+// holding the vectors t + k blockDim.x (k < NV) of the row and of w in
+// registers.  CTA b takes rows b, b + gridDim.x, ... (gridDim.x <= n_rows)
+// and loads the next one before it reduces the current one.
+template <typename T, int NV>
+__global__ void __launch_bounds__(CTA_MAX_THREADS)
+    rmsnorm_fwd_cta_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                           T* __restrict__ y, int n_rows, int d, float inv_d,
+                           float eps) {
+  using Vt = Vec<T>;
+  constexpr int N = Vt::N;
+  __shared__ float red[2][32];
+  const int nvec = d / N;
+  release_next_grid();
+  wait_prior_grid();
+  uint4 xv[NV], wv[NV];
+  load_vecs<NV>(x + (long long)blockIdx.x * d, nvec, true, xv);
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int v = threadIdx.x + k * blockDim.x;
+    wv[k] = v < nvec ? __ldg(reinterpret_cast<const uint4*>(w) + v)
+                     : make_uint4(0u, 0u, 0u, 0u);
+  }
+  int buf = 0;
+  for (long long row = blockIdx.x; row < n_rows; row += gridDim.x) {
+    const long long next = row + gridDim.x;
+    uint4 xn[NV];
+    load_vecs<NV>(x + next * d, nvec, next < n_rows, xn);
+    float acc[N] = {};
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      float f[N];
+      Vt::unpack(xv[k], f);
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[e] = fmaf(f[e], f[e], acc[e]);
+    }
+    float ss = tree_sum<N>(acc);
+    cta_sum<1>(&ss, red[buf]);
+    const float rstd = rsqrtf(ss * inv_d + eps);
+    uint4* yr = reinterpret_cast<uint4*>(y + row * d);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int v = threadIdx.x + k * blockDim.x;
+      if (v < nvec) {
+        float f[N], g[N];
+        Vt::unpack(xv[k], f);
+        Vt::unpack(wv[k], g);
+#pragma unroll
+        for (int e = 0; e < N; ++e) f[e] = f[e] * rstd * g[e];
+        yr[v] = Vt::pack(f);
+      }
+      xv[k] = xn[k];
+    }
+    buf ^= 1;
   }
 }
 
@@ -562,8 +694,148 @@ __global__ void __launch_bounds__(BWD_MAX_WARPS * 32)
   release_next_grid();  // the column sum, which waits for all of this grid
 }
 
-// any d: CTAs of one warp, a row at a time, read twice; the CTA's dw is
-// summed in place in its partials row (row blockIdx.x), in row order
+// d > 32 * MAX_E, up to blockDim.x x NV x N: a row across the CTA.  CTA b
+// takes rows b, b + gridDim.x, ... in turn and writes row b of the
+// (gridDim.x, d) fp32 partials: its dw, summed over its rows in row order.
+// Shared memory: w in fp32.
+// aligned: thread t owns the vectors t + k blockDim.x (k < NV) of x, dy and
+// dx, holds them in registers, and loads the next row's before it reduces
+// the current one.  x and dy are loaded, and dx stored, with the streaming
+// hint (.cs), which made the training shapes faster on the H100; the decode
+// forward, whose rows the next kernel reads from L2, was slower with it, so
+// the forward has none.  Else the scalar body, thread t owning columns t + k
+// blockDim.x (k < NV N), read straight from device memory.
+template <typename T, int NV>
+__global__ void __launch_bounds__(CTA_MAX_THREADS)
+    rmsnorm_bwd_cta_kernel(const T* __restrict__ x,
+                           const void* __restrict__ w, int w_bf16,
+                           const T* __restrict__ dy, T* __restrict__ dx,
+                           float* __restrict__ part, int n_rows, int d,
+                           float eps, int aligned) {
+  using V = Vec<T>;
+  constexpr int N = V::N, E = NV * N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2][2 * 32];
+  float* ws = reinterpret_cast<float*>(smem);
+  const int bd = blockDim.x;
+  wait_prior_grid();
+  for (int j = threadIdx.x; j < d; j += bd) ws[j] = w_at(w, w_bf16, j);
+  __syncthreads();
+
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  int buf = 0;
+  if (aligned) {
+    const int nvec = d / N;
+    uint4 xv[NV], gv[NV];
+    const long long first = blockIdx.x;
+    load_vecs<NV, true>(x + first * d, nvec, first < n_rows, xv);
+    load_vecs<NV, true>(dy + first * d, nvec, first < n_rows, gv);
+    for (long long row = first; row < n_rows; row += gridDim.x) {
+      const long long next = row + gridDim.x;
+      uint4 xn[NV], gn[NV];
+      load_vecs<NV, true>(x + next * d, nvec, next < n_rows, xn);
+      load_vecs<NV, true>(dy + next * d, nvec, next < n_rows, gn);
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int v = threadIdx.x + k * bd;
+        if (v < nvec) {
+          float f[N], g[N], wr[N];
+          V::unpack(xv[k], f);
+          V::unpack(gv[k], g);
+          load_f32<N>(ws + v * N, wr);
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            s[0] = fmaf(f[e], f[e], s[0]);
+            s[1] = fmaf(f[e], wr[e] * g[e], s[1]);
+          }
+        }
+      }
+      cta_sum<2>(s, red[buf]);
+      const float rstd = rsqrtf(s[0] / d + eps);
+      const float c = rstd * (s[1] / d);
+      uint4* dxr = reinterpret_cast<uint4*>(dx + row * d);
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int v = threadIdx.x + k * bd;
+        if (v < nvec) {
+          float f[N], g[N], wr[N], o[N];
+          V::unpack(xv[k], f);
+          V::unpack(gv[k], g);
+          load_f32<N>(ws + v * N, wr);
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            const float xh = f[e] * rstd;
+            o[e] = (wr[e] * g[e] - xh * c) * rstd;
+            acc[k * N + e] = fmaf(g[e], xh, acc[k * N + e]);
+          }
+          __stcs(dxr + v, V::pack(o));
+        }
+        xv[k] = xn[k];
+        gv[k] = gn[k];
+      }
+      buf ^= 1;
+    }
+  } else {
+    for (long long row = blockIdx.x; row < n_rows; row += gridDim.x) {
+      const T* xr = x + row * d;
+      const T* gr = dy + row * d;
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const int j = threadIdx.x + k * bd;
+        if (j < d) {
+          const float f = to_f(xr[j]), g = to_f(gr[j]);
+          s[0] = fmaf(f, f, s[0]);
+          s[1] = fmaf(f, ws[j] * g, s[1]);
+        }
+      }
+      cta_sum<2>(s, red[buf]);
+      const float rstd = rsqrtf(s[0] / d + eps);
+      const float c = rstd * (s[1] / d);
+      T* dxr = dx + row * d;
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const int j = threadIdx.x + k * bd;
+        if (j < d) {
+          const float g = to_f(gr[j]), xh = to_f(xr[j]) * rstd;
+          dxr[j] = of_f<T>((ws[j] * g - xh * c) * rstd);
+          acc[k] = fmaf(g, xh, acc[k]);
+        }
+      }
+      buf ^= 1;
+    }
+  }
+
+  // the CTA's partials row: each thread writes its own columns
+  float* p = part + (size_t)blockIdx.x * d;
+  if (aligned) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int v = threadIdx.x + k * bd;
+      if (v < d / N) {
+#pragma unroll
+        for (int e = 0; e < N; e += 4)
+          *reinterpret_cast<float4*>(p + v * N + e) =
+              make_float4(acc[k * N + e], acc[k * N + e + 1],
+                          acc[k * N + e + 2], acc[k * N + e + 3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int j = threadIdx.x + k * bd;
+      if (j < d) p[j] = acc[k];
+    }
+  }
+  release_next_grid();  // the column sum, which waits for all of this grid
+}
+
+// d past the cta body: CTAs of one warp, a row at a time, read twice; the
+// CTA's dw is summed in place in its partials row (row blockIdx.x), in row
+// order
 template <typename T>
 __global__ void __launch_bounds__(32)
     rmsnorm_bwd_wide_kernel(const T* __restrict__ x,
@@ -762,6 +1034,37 @@ cudaError_t fwd_dispatch(const void* x, const void* w, void* y, int n_rows,
   return fwd_warps<T, 32, MAX_E, 1>(x, w, y, n_rows, d, eps, s);
 }
 
+// CTAs an SM of the forward's cta body at `threads` threads (occupancy
+// API), kept by device and threads: the decode step calls the forward
+// 2L + 1 times
+template <typename T>
+int fwd_cta_per_sm(int device, int threads) {
+  static int known[64][CTA_MAX_THREADS / 32 + 1];
+  int* k = device >= 0 && device < 64 ? &known[device][threads / 32]
+                                       : nullptr;
+  if (k && *k > 0) return *k;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, rmsnorm_fwd_cta_kernel<T, CTA_NV>, threads, 0) != cudaSuccess ||
+      n < 1)
+    n = 1;
+  if (k) *k = n;
+  return n;
+}
+
+// w in x's dtype, cta_takes<T>(d), x, w and y aligned: the persistent cta
+// body, a CTA a row at once, as many CTAs as the rows or as the card holds
+// (at few rows it was also faster than the row kernel on the H100)
+template <typename T>
+cudaError_t fwd_cta(const void* x, const void* w, void* y, int n_rows, int d,
+                    float eps, int device, int sms, cudaStream_t s) {
+  const int threads = cta_threads<T>(d);
+  const long long cap = (long long)fwd_cta_per_sm<T>(device, threads) * sms;
+  return launch(rmsnorm_fwd_cta_kernel<T, CTA_NV>,
+                (int)(n_rows < cap ? n_rows : cap), threads, 0, s, x, w, y,
+                n_rows, d, 1.f / d, eps);
+}
+
 template <typename T>
 cudaError_t fwd_wide(const void* x, const void* w, int w_bf16, void* y,
                      int n_rows, int d, float eps, int aligned,
@@ -778,11 +1081,14 @@ template <typename T>
 using BwdKernel = void (*)(const T*, const void*, int, const T*, T*, float*,
                            int, int, float, int);
 
-// the backward kernel for (d, T), its warps a CTA and dynamic shared memory
+// the backward kernel for (d, T), its threads a CTA, the rows a CTA takes
+// at once (its warps in the register body, one row in the cta and looped
+// bodies) and its dynamic shared memory
 template <typename T>
 struct BwdPlan {
   BwdKernel<T> kernel;
-  int warps;
+  int threads;
+  int rows;
   size_t smem;
 };
 
@@ -793,12 +1099,16 @@ BwdPlan<T> bwd_plan_e(int d) {
   const size_t ring = (size_t)stages<T, E>() * 2 * d * sizeof(T);
   size_t warps = (SMEM_CAP - w_bytes(d)) / ring;
   if (warps > BWD_MAX_WARPS) warps = BWD_MAX_WARPS;
-  return {rmsnorm_bwd_kernel<T, E>, (int)warps, w_bytes(d) + warps * ring};
+  return {rmsnorm_bwd_kernel<T, E>, (int)warps * 32, (int)warps,
+          w_bytes(d) + warps * ring};
 }
 
 template <typename T>
 BwdPlan<T> bwd_plan(int d) {
-  if (d > 32 * MAX_E) return {rmsnorm_bwd_wide_kernel<T>, 1, 0};
+  if (cta_takes<T>(d))
+    return {rmsnorm_bwd_cta_kernel<T, CTA_NV>, cta_threads<T>(d), 1,
+            w_bytes(d)};
+  if (d > 32 * MAX_E) return {rmsnorm_bwd_wide_kernel<T>, 32, 1, 0};
   return d <= 256    ? bwd_plan_e<T, 8>(d)
          : d <= 512  ? bwd_plan_e<T, 16>(d)
          : d <= 1024 ? bwd_plan_e<T, 32>(d)
@@ -806,23 +1116,26 @@ BwdPlan<T> bwd_plan(int d) {
                      : bwd_plan_e<T, MAX_E>(d);
 }
 
+// past 48 KB a CTA's shared memory must be allowed; the cta body has 512
+// bytes of static shared memory beside p.smem
 template <typename T>
 cudaError_t allow_smem(const BwdPlan<T>& p) {
-  if (p.smem <= 48 * 1024) return cudaSuccess;
+  if (p.smem <= 47 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(reinterpret_cast<const void*>(p.kernel),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)p.smem);
 }
 
-// out[0] warps a CTA, out[1] CTAs an SM
+// out[0] rows a CTA takes at once, out[1] CTAs an SM, out[3] threads a CTA
 template <typename T>
 cudaError_t bwd_config(int d, int* out) {
   const BwdPlan<T> p = bwd_plan<T>(d);
-  out[0] = p.warps;
+  out[0] = p.rows;
+  out[3] = p.threads;
   cudaError_t err = allow_smem(p);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 1, p.kernel,
-                                                        p.warps * 32, p.smem);
+                                                        p.threads, p.smem);
   return err;
 }
 
@@ -836,7 +1149,7 @@ cudaError_t bwd_launch(const void* x, const void* w, int w_bf16,
                       aligned16(dx);
   cudaError_t err = allow_smem(p);
   if (err == cudaSuccess)
-    err = launch(p.kernel, n_ctas, p.warps * 32, p.smem, s, x, w, w_bf16, dy,
+    err = launch(p.kernel, n_ctas, p.threads, p.smem, s, x, w, w_bf16, dy,
                  dx, part, n_rows, d, eps, aligned);
   if (err == cudaSuccess)
     err = launch(rmsnorm_bwd_dw_sum_kernel, (d + 31) / 32, SUM_SPLIT * 32, 0,
@@ -863,11 +1176,18 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y, int n_rows,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = x_dtype ? 8 : 4;
   const int aligned = d % vec == 0 && aligned16(x) && aligned16(y);
-  if (x_dtype == w_dtype && d <= 32 * MAX_E && aligned && aligned16(w)) {
+  if (x_dtype == w_dtype && aligned && aligned16(w)) {
     const int sms = sm_count(device);
-    return (int)(x_dtype ? fwd_dispatch<bf16>(x, w, y, n_rows, d, eps, sms, s)
-                         : fwd_dispatch<float>(x, w, y, n_rows, d, eps, sms,
-                                               s));
+    if (d <= 32 * MAX_E)
+      return (int)(x_dtype
+                       ? fwd_dispatch<bf16>(x, w, y, n_rows, d, eps, sms, s)
+                       : fwd_dispatch<float>(x, w, y, n_rows, d, eps, sms,
+                                             s));
+    if (x_dtype ? cta_takes<bf16>(d) : cta_takes<float>(d))
+      return (int)(x_dtype ? fwd_cta<bf16>(x, w, y, n_rows, d, eps, device,
+                                           sms, s)
+                           : fwd_cta<float>(x, w, y, n_rows, d, eps, device,
+                                            sms, s));
   }
   return (int)(x_dtype ? fwd_wide<bf16>(x, w, w_dtype, y, n_rows, d, eps,
                                         aligned, s)
@@ -875,9 +1195,26 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y, int n_rows,
                                          aligned, s));
 }
 
-// The backward's geometry for (d, x_dtype) on `device`: out[0] warps a
-// CTA, out[1] CTAs an SM (occupancy API), out[2] SMs.  The caller sizes the
-// persistent grid and the (CTAs, d) fp32 partials buffer from them.
+// The forward's geometry past d 2560 for (d, x_dtype) on `device`, for
+// aligned rows with w in x's dtype: out[0] threads a CTA of the cta body,
+// out[1] its CTAs an SM (occupancy API); both 0 where the cta body does not
+// take d (d <= 2560 or past CTA_MAX_THREADS threads).
+extern "C" int rmsnorm_fwd_config(int d, int x_dtype, int device, int* out) {
+  if (d <= 0 || !dtypes_ok(x_dtype, 0)) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  out[0] = out[1] = 0;
+  if (!(x_dtype ? cta_takes<bf16>(d) : cta_takes<float>(d))) return 0;
+  const int threads = x_dtype ? cta_threads<bf16>(d) : cta_threads<float>(d);
+  out[0] = threads;
+  out[1] = x_dtype ? fwd_cta_per_sm<bf16>(device, threads)
+                   : fwd_cta_per_sm<float>(device, threads);
+  return 0;
+}
+
+// The backward's geometry for (d, x_dtype) on `device`: out[0] rows a CTA
+// takes at once, out[1] CTAs an SM (occupancy API), out[2] SMs, out[3]
+// threads a CTA.  The caller sizes the persistent grid and the (CTAs, d)
+// fp32 partials buffer from out[0..2].
 extern "C" int rmsnorm_bwd_config(int d, int x_dtype, int device, int* out) {
   if (d <= 0 || !dtypes_ok(x_dtype, 0)) return (int)cudaErrorInvalidValue;
   DeviceScope scope(device);

@@ -10,8 +10,9 @@ mean(xhat*w*dy))`` and ``dw = sum over rows of dy*xhat``, in fp32, with
 ``xhat = x*rstd`` and rstd recomputed from x.  x and w are each float32 or
 bfloat16; dx takes x's dtype and dw w's.
 
-The backward runs on a persistent grid whose size :func:`bwd_grid` gives;
-each CTA writes one row of an fp32 partials buffer and a second kernel sums
+The backward runs on a persistent grid whose size :func:`bwd_grid` gives:
+up to 2560 columns a warp takes a row, past that a row lies across a CTA.
+Each CTA writes one row of an fp32 partials buffer and a second kernel sums
 the rows in a fixed order, so dw is the same on every run.  The CUDA source
 says what bounds each kernel on the H100 and how the design answers that.
 
@@ -35,7 +36,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # rmsnorm_fwd(x, w, y, n_rows, d, x_dtype, w_dtype, eps, device, stream)
 FWD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# rmsnorm_bwd_config(d, x_dtype, device, out)
+# rmsnorm_fwd_config and rmsnorm_bwd_config(d, x_dtype, device, out)
 CONFIG_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
 # rmsnorm_bwd(x, w, dy, dx, part, dw, n_rows, d, x_dtype, w_dtype, eps,
 #             n_ctas, device, stream)
@@ -48,6 +49,7 @@ BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rmsnorm")
     for fn, argtypes in ((lib.rmsnorm_fwd, FWD_ARGTYPES),
+                         (lib.rmsnorm_fwd_config, CONFIG_ARGTYPES),
                          (lib.rmsnorm_bwd_config, CONFIG_ARGTYPES),
                          (lib.rmsnorm_bwd, BWD_ARGTYPES)):
         fn.argtypes = argtypes
@@ -124,24 +126,42 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor,
 rmsnorm_cuda.launches = 0
 
 
-def bwd_grid(n_rows: int, warps: int, ctas_per_sm: int, n_sms: int) -> int:
+def bwd_grid(n_rows: int, rows_per_cta: int, ctas_per_sm: int,
+             n_sms: int) -> int:
     """CTAs of the backward's persistent grid, and rows of its (CTAs, d)
-    fp32 partials buffer: as many as the card holds at once, but none whose
-    warps would all be idle.  Warp k of CTA b takes row ``b * warps + k``
-    and every ``CTAs * warps``-th row after it; CTA b writes partials row
-    b."""
-    return min(ctas_per_sm * n_sms, -(-n_rows // warps))
+    fp32 partials buffer: as many as the card holds at once, but none that
+    would take no row.  A CTA takes ``rows_per_cta`` rows at once: up to d
+    2560 its warps (warp k of CTA b takes row ``b * warps + k`` and every
+    ``CTAs * warps``-th row after it), past that 1 (CTA b takes rows b,
+    b + CTAs, ...: a row lies across its threads).  CTA b writes partials
+    row b."""
+    return min(ctas_per_sm * n_sms, -(-n_rows // rows_per_cta))
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_config(device: int, d: int, x_dtype: int) -> Tuple[int, int, int]:
-    """(warps a CTA, CTAs an SM, SMs) of the backward kernel for d."""
-    out = (ctypes.c_int * 3)()
+def _fwd_config(device: int, d: int, x_dtype: int) -> Tuple[int, int]:
+    """(threads a CTA, CTAs an SM) of the forward's cta body for d past
+    2560, for aligned rows with w in x's dtype; (0, 0) where it does not
+    take d.  The forward finds these itself; this reports them."""
+    out = (ctypes.c_int * 2)()
+    err = _lib().rmsnorm_fwd_config(d, x_dtype, device, out)
+    if err:
+        raise RuntimeError(f"rmsnorm forward configuration failed: CUDA "
+                           f"error {err}")
+    return out[0], out[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_config(device: int, d: int,
+                x_dtype: int) -> Tuple[int, int, int, int]:
+    """(rows a CTA takes at once, CTAs an SM, SMs, threads a CTA) of the
+    backward kernel for d."""
+    out = (ctypes.c_int * 4)()
     err = _lib().rmsnorm_bwd_config(d, x_dtype, device, out)
     if err:
         raise RuntimeError(f"rmsnorm backward configuration failed: CUDA "
                            f"error {err}")
-    return out[0], out[1], out[2]
+    return out[0], out[1], out[2], out[3]
 
 
 def rmsnorm_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
@@ -160,7 +180,7 @@ def rmsnorm_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     n_rows = x2.shape[0]
     dw = torch.empty(d, dtype=w.dtype, device=w.device)
     n_ctas = bwd_grid(n_rows, *_bwd_config(x.get_device(), d,
-                                           _DTYPES[x.dtype]))
+                                           _DTYPES[x.dtype])[:3])
     part = torch.empty(n_ctas, d, dtype=torch.float32, device=x.device)
     err = _lib().rmsnorm_bwd(
         x2.data_ptr(), w.contiguous().data_ptr(), dy2.data_ptr(),

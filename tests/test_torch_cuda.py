@@ -191,7 +191,9 @@ def test_attention_decode_on_card_matches_cpu(cuda_device, monkeypatch,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(5, 2560), (3, 7, 128), (1, 100)])
+@pytest.mark.parametrize("shape", [(5, 2560), (3, 7, 128), (1, 100),
+                                   (8, 4096), (8, 5120), (8, 6144),
+                                   (8, 7168), (8, 8192), (512, 7168)])
 def test_rmsnorm_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
@@ -349,7 +351,7 @@ def test_ssd_scan_bf16_chunk_parallel_forward_on_card(cuda_device, B, S, H,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(5, 2560), (3, 7, 128), (1, 100),
-                                   (700, 1024), (33, 2048)])
+                                   (700, 1024), (33, 2048), (4352, 6144)])
 def test_rmsnorm_backward_kernel_matches_plain_on_card(cuda_device, dtype,
                                                        shape):
     g = torch.Generator(device=cuda_device).manual_seed(1)
@@ -392,9 +394,12 @@ def _rmsnorm_both_ways(x, w, dy):
 @pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (4099, 2048)),
                                          (torch.bfloat16, (16384, 1024)),
                                          (torch.float32, (1000, 1024)),
-                                         (torch.bfloat16, (300, 4096))],
+                                         (torch.bfloat16, (300, 4096)),
+                                         (torch.bfloat16, (4096, 5120)),
+                                         (torch.bfloat16, (4352, 6144))],
                          ids=["bf16-2048", "bf16-1024", "fp32-1024",
-                              "bf16-4096-wide"])
+                              "bf16-4096-wide", "bf16-5120-wide",
+                              "bf16-6144-wide"])
 def test_rmsnorm_backward_dw_is_bitwise_stable_on_card(cuda_device, dtype,
                                                        shape):
     """A fixed partition of the rows and fixed-order sums: two calls give
@@ -412,8 +417,10 @@ def test_rmsnorm_backward_dw_is_bitwise_stable_on_card(cuda_device, dtype,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 2560),
                                      (torch.bfloat16, 128),
-                                     (torch.float32, 1024)],
-                         ids=["bf16-2560", "bf16-128", "fp32-1024"])
+                                     (torch.float32, 1024),
+                                     (torch.bfloat16, 6144)],
+                         ids=["bf16-2560", "bf16-128", "fp32-1024",
+                              "bf16-6144"])
 def test_rmsnorm_unaligned_base_on_card(cuda_device, dtype, d):
     """Rows of a view at storage offset 1 (base and rows off the 16-byte
     grid) take the kernels' scalar body, both ways."""
@@ -452,13 +459,21 @@ def test_rmsnorm_zero_rows_on_card(cuda_device, shape):
     (torch.bfloat16, torch.bfloat16, (5, 100)),
     (torch.float32, torch.float32, (33, 5000)),
     (torch.bfloat16, torch.float32, (65, 2560)),
-    (torch.float32, torch.bfloat16, (9, 1024))],
+    (torch.float32, torch.bfloat16, (9, 1024)),
+    (torch.bfloat16, torch.bfloat16, (9, 8192)),
+    (torch.bfloat16, torch.bfloat16, (65, 3001)),
+    (torch.bfloat16, torch.float32, (33, 6144)),
+    (torch.bfloat16, torch.bfloat16, (5, 12288)),
+    (torch.bfloat16, torch.bfloat16, (9, 16392)),
+    (torch.float32, torch.float32, (9, 8200))],
     ids=["bf16-4096", "bf16-777", "bf16-100", "fp32-5000", "bf16-w-fp32",
-         "fp32-w-bf16"])
+         "fp32-w-bf16", "bf16-8192", "bf16-3001", "bf16-6144-w-fp32",
+         "bf16-12288", "bf16-16392", "fp32-8200"])
 def test_rmsnorm_wide_odd_and_mixed_on_card(cuda_device, xdt, wdt, shape):
-    """d past the register bodies (the looped kernels), odd d (the scalar
-    body) and w in another dtype than x, both ways; dx in x's dtype and dw
-    in w's."""
+    """d past the register bodies (the cta bodies; at 12288 their shared
+    memory passes 48 KB; past bf16 16384 and fp32 8192 the looped
+    kernels), odd d (the scalar bodies) and w in another dtype than x, both
+    ways; dx in x's dtype and dw in w's."""
     g = torch.Generator(device=cuda_device).manual_seed(4)
     x = (torch.randn(shape, generator=g, device=cuda_device) * 2).to(xdt)
     w = torch.randn(shape[-1], generator=g, device=cuda_device).to(wdt)
